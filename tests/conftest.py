@@ -27,3 +27,8 @@ def run_with_devices(script: str, n_devices: int, timeout: int = 600) -> str:
 @pytest.fixture
 def subrun():
   return run_with_devices
+
+
+def pytest_configure(config):
+  config.addinivalue_line(
+      "markers", "cuda: needs a CUDA device (skips where there is none)")
