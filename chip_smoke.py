@@ -5,19 +5,35 @@
 
 From the root of a checkout, with nothing built: it builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc``; checks their edge cases (ragged
-sizes, nothing feasible, exact ties) against the plain PyTorch versions;
-drives the coreset path end to end through the entry points a user calls
-(``repro_torch.data.selection`` and the ``repro_torch.launch.select`` CLI)
-at the CLI's default size and at full size (n = 262144 embeddings of width
-64, k = kappa = 64, m = 16 stacked shards), counting each kernel's
-launches and checking the selections; holds every kernel against its plain
-version at the shapes that path launches; and profiles the path.
+sizes, nothing feasible, exact ties, a shared candidate block, a selection
+buffer past the shared-memory cross tile) against the plain PyTorch
+versions; and drives two paths end to end through the entry points a user
+calls, counting each kernel's launches around each path:
+
+  * the coreset path (facility location: ``repro_torch.data.selection`` and
+    the ``repro_torch.launch.select`` CLI) at the CLI's default size and at
+    full size (n = 262144 embeddings of width 64, k = kappa = 64, m = 16
+    stacked shards);
+  * the GP active-set path (information gain, Sec. 6.2 of the paper:
+    ``greedi_reference``, the generic ``greedi_sharded`` and
+    ``centralized_greedy``) at the data size of the paper's Yahoo! Webscope
+    experiment (45,811,883 unit rows of width 6, m = 32, k = kappa = k_max
+    = 128, rbf h = 0.75, sigma = 1) and at the Fig. 6 settings (n = 65536
+    rows of width 22, m = 10, k = 50, k_max = 80), where the kernels are
+    held against the plain versions end to end.
+
+It holds every kernel against its plain version at the shapes those paths
+launch, and profiles both paths.  The generic engine also runs facility
+location once, through the CLI's ``--no-fast``.
 
 Output: one line per phase; the card's name and power limit
 (``nvidia-smi``); a ``{"kernels": [...]}`` JSON line with each kernel's
-launches on the full-size main path, its error against the plain version,
-its time, the plain version's time, the least time the card could take
-(``bound_ms``), and the time of one PyTorch library call computing the same
+launches on its main path (``MAIN_PATH``: one full-size run, its counts set
+to 0 just before it) beside its launches on every path of that phase, its
+error against the plain version, its time, the plain version's time, the
+least time the card could take (``bound_ms``; for the info-gain kernels
+also ``bound_live_ms``, the work of an exact kernel that skips linv's
+zeros), and the time of one PyTorch library call computing the same
 function where there is one; and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch ends the run with a non-zero exit and no
 result line.  It refuses to run without CUDA, and outside a checkout.
@@ -47,15 +63,32 @@ PEAK_FLOPS_S = {"f32": 67e12, "bf16": 989e12}
 TOL = {"f32": 2e-5, "bf16": 3e-2}
 TOL_LONG_SUM = 1e-4   # f32 gain sums over more than 16k eval rows
 
+TOL_DPP = 2e-5        # DPP conds: absolute, times k_vv (cancellation)
+TOL_GAP = 1e-4        # a top-2 gap below this is a near-tie
+
 REPLACES = {
     "pairwise": "src/repro/kernels/pairwise.py:33",
     "facility_select": "src/repro/kernels/select_top1.py:105",
     "facility_gain": "src/repro/kernels/facility_gain.py:55",
+    "info_gain_cond": "src/repro/kernels/info_gain.py:51",
+    "info_select": "src/repro/kernels/select_top1.py:255",
 }
+# the path whose launch count each kernel reports in the kernels line (one
+# run, its counts set to 0 just before it); every path's count rides along
+MAIN_PATH = {
+    "pairwise": "fast",                        # coreset, e2e full-size
+    "facility_select": "reference",
+    "facility_gain": "reference_two_pass",
+    "info_gain_cond": "generic",               # GP, e2e gp full-size
+    "info_select": "generic",
+}
+GP_KERNELS = ("info_gain_cond", "info_select")
 SOURCES = {
     "pairwise": "src/repro_torch/kernels/csrc/pairwise.cu",
     "facility_select": "src/repro_torch/kernels/csrc/facility.cu",
     "facility_gain": "src/repro_torch/kernels/csrc/facility.cu",
+    "info_gain_cond": "src/repro_torch/kernels/csrc/info_gain.cu",
+    "info_select": "src/repro_torch/kernels/csrc/info_gain.cu",
 }
 
 
@@ -68,6 +101,20 @@ class Sizes:
   n_cli: int = 65536     # the CLI's default size
   m_cli: int = 8
   plain_chunk: int = 4   # partitions per plain-version call at full size
+  # GP active-set path: the Yahoo! Webscope data size of Sec. 6.2
+  gp_n: int = 45811883
+  gp_d: int = 6
+  gp_m: int = 32
+  gp_k: int = 128        # k_final = kappa = k_max
+  gp_h: float = 0.75
+  gp_sigma: float = 1.0
+  gp_count: int = 64     # selection count of the kernel phase's state
+  # ... and the settings of benchmarks/fig6_active_set.py at a larger n
+  f6_n: int = 65536
+  f6_d: int = 22
+  f6_m: int = 10
+  f6_k: int = 50
+  f6_k_max: int = 80
 
 
 class SmokeFailure(Exception):
@@ -425,13 +472,17 @@ def agree(feats, a, b, what):
 def e2e_cli_size(sz: Sizes):
   """(a) the CLI's default size: reference and stacked fast path, each with
   backend "auto" (the kernels) and "ref" (the plain versions on the card),
-  all four selections agreeing; the coverage ratio."""
+  and the generic engine through the CLI (``--no-fast``), all five
+  selections agreeing; the coverage ratio."""
+  import numpy as np
   import torch
 
   from repro_torch.data.pipeline import EmbeddedCorpus
   from repro_torch.data.selection import (coverage_ratio,
                                           greedi_select_indices,
                                           greedi_select_indices_sharded)
+  from repro_torch.kernels import ops
+  from repro_torch.launch import select as cli
   feats = EmbeddedCorpus(n_docs=sz.n_cli, feat_dim=sz.d, seed=0).features()
   sels, walls, peaks = {}, {}, {}
   for path in ("reference", "fast"):
@@ -463,6 +514,25 @@ def e2e_cli_size(sz: Sizes):
       "reference vs fast": agree(feats, sels[("reference", "auto")],
                                  sels[("fast", "auto")], "ref/fast"),
   }
+  # the generic engine through the CLI (--no-fast), same seed and partition
+  (REPO / "build").mkdir(exist_ok=True)
+  ops.reset_launch_counts()
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    path = os.path.join(tmp, "sel.npy")
+    sync()
+    t0 = time.perf_counter()
+    cli.main(["--n", str(sz.n_cli), "--d", str(sz.d), "--k", str(sz.k),
+              "--mesh", str(sz.m_cli), "--no-fast", "--no-coverage", "--out",
+              path])
+    sync()
+    walls[("generic", "auto")] = time.perf_counter() - t0
+    sels[("generic", "auto")] = np.load(path)
+  generic_launches = ops.launch_counts()
+  for name in ("facility_select", "facility_gain"):
+    check(generic_launches[name] > 0, f"the generic engine did not launch "
+          f"{name}")
+  verdicts["generic vs fast"] = agree(feats, sels[("generic", "auto")],
+                                      sels[("fast", "auto")], "generic/fast")
   sync()
   t0 = time.perf_counter()
   cov = coverage_ratio(feats, sels[("fast", "auto")], sz.k)
@@ -472,13 +542,15 @@ def e2e_cli_size(sz: Sizes):
   emit("e2e cli-size", n=sz.n_cli, d=sz.d, k=sz.k, m=sz.m_cli,
        wall_s={f"{p}/{b}": w for (p, b), w in walls.items()},
        peak_gib={f"{p}/{b}": v for (p, b), v in peaks.items()},
-       agreement=verdicts, coverage=cov, coverage_wall_s=t_cov)
+       agreement=verdicts, generic_launches=generic_launches, coverage=cov,
+       coverage_wall_s=t_cov)
 
 
 def e2e_full(sz: Sizes):
   """(b) the main path at full size, launch counts read around it: the
   reference protocol (fused select step, and the two-pass gains step) and
-  the stacked fast engine through the CLI.  Returns the launch counts."""
+  the stacked fast engine through the CLI, each with the launch counts set
+  to 0 before it and read after it.  Returns the counts by path."""
   import numpy as np
   import torch
 
@@ -489,10 +561,10 @@ def e2e_full(sz: Sizes):
   feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
   sync()
   torch.cuda.empty_cache()
-  out = {}
-  ops.reset_launch_counts()
+  out, counts = {}, {}
   for name, use_select in (("reference", True), ("reference_two_pass",
                                                  False)):
+    ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.perf_counter()
@@ -502,6 +574,8 @@ def e2e_full(sz: Sizes):
     sync()
     out[name] = dict(sel=sel, wall_s=time.perf_counter() - t0,
                      peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    counts[name] = ops.launch_counts()
+  ops.reset_launch_counts()
   torch.cuda.reset_peak_memory_stats()
   (REPO / "build").mkdir(exist_ok=True)
   with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
@@ -513,13 +587,14 @@ def e2e_full(sz: Sizes):
     sync()
     out["fast"] = dict(sel=np.load(path), wall_s=time.perf_counter() - t0,
                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-  counts = ops.launch_counts()
+  counts["fast"] = ops.launch_counts()
   for name, r in out.items():
     sel = r["sel"]
     check(len(sel) == sz.k and len(set(sel.tolist())) == sz.k and
           sel.min() >= 0 and sel.max() < sz.n, f"{name}: bad selection")
-  for name, c in counts.items():
-    check(c > 0, f"kernel {name} was not launched on the main path")
+  for name in ("pairwise", "facility_select", "facility_gain"):
+    check(counts[MAIN_PATH[name]][name] > 0, f"kernel {name} was not "
+          f"launched on the coreset {MAIN_PATH[name]} path")
   value = value_of(feats, out["fast"]["sel"])
   check(0.0 < value < float("inf"), f"f(coreset) = {value!r}")
   verdicts = {
@@ -537,15 +612,38 @@ def e2e_full(sz: Sizes):
   return counts
 
 
-def profile_phase(sz: Sizes):
-  """Where the full-size time goes: each path once under torch.profiler
-  (CPU and CUDA activity); device time by kernel name, summed over the
-  run, and the device busy share (kernel time over the profiled wall
-  time, which the profiler itself lengthens, so the share is a lower
-  bound).  Runs after the main path's launch counts were read."""
+def profiled(label: str, run) -> None:
+  """Run ``run`` once under torch.profiler (CPU and CUDA activity) and
+  report device time by kernel name, summed over the run, and the device
+  busy share (kernel time over the profiled wall time, which the profiler
+  itself lengthens, so the share is a lower bound)."""
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
+  torch.cuda.empty_cache()
+  sync()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    run()
+    sync()
+    wall = time.perf_counter() - t0
+  kern = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA]
+  busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+  top = sorted(kern, key=lambda e: e.self_device_time_total,
+               reverse=True)[:6]
+  emit(label, wall_s=wall,
+       device_ms=busy_ms if kern else "not measured",
+       busy_share=busy_ms / 1e3 / wall if kern else "not measured",
+       top=[dict(kernel=e.key[:70], calls=e.count,
+                 ms=e.self_device_time_total / 1e3) for e in top])
+
+
+def profile_phase(sz: Sizes):
+  """Where the full-size coreset time goes: each path once under
+  ``profiled``.  Runs after the main path's launch counts were read."""
+  import torch
 
   from repro_torch.data.pipeline import EmbeddedCorpus
   from repro_torch.data.selection import (greedi_select_indices,
@@ -560,24 +658,488 @@ def profile_phase(sz: Sizes):
           k_final=sz.k),
   }
   for name, run in paths.items():
-    torch.cuda.empty_cache()
+    profiled(f"profile {name}", run)
+
+
+# ---------------------------------------------------------------------------
+# the GP active-set path: information gain through the info-gain kernels
+# ---------------------------------------------------------------------------
+
+
+def parkinsons_like(n, d, seed):
+  """Rows of width d, correlated and centered, normalized to unit norm the
+  way benchmarks/common.py ``parkinsons_like`` normalizes them (Sec. 6.2),
+  drawn on the card from a seeded generator."""
+  import torch
+  g = torch.Generator(device=DEVICE).manual_seed(seed)
+  f = torch.randn((n, d), generator=g, device=DEVICE)
+  corr = torch.randn((d, d), generator=g, device=DEVICE) * 0.4 + torch.eye(
+      d, device=DEVICE)
+  f = f @ corr
+  f -= f.mean(dim=0)
+  return f / torch.linalg.norm(f, dim=1, keepdim=True)
+
+
+def ig_operands(g, P, k_max, count, nc, d, kernel, td, ridge=1.0,
+                h=0.75, shared=False):
+  """Selections of ``count`` unit rows, the masked inverse Cholesky factor
+  of K_SS + ridge I (float64, then float32, as the objective feeds the
+  kernels) and unit candidates; P = None for unbatched operands."""
+  import torch
+  lead = () if P is None else (P,)
+  sel = unit_rows(g, *lead, k_max, d)
+  live = torch.arange(k_max, device=DEVICE) < count
+  sel = torch.where(live[:, None], sel, 0.0)
+  s = sel.double()
+  if kernel == "rbf":
+    d2 = ((s * s).sum(-1, keepdim=True) - 2 * s @ s.mT
+          + (s * s).sum(-1)[..., None, :])
+    kss = torch.exp(-d2.clamp_min(0) / (h * h))
+  else:
+    kss = s @ s.mT
+  both = live[:, None] & live[None, :]
+  eye = torch.eye(k_max, device=DEVICE, dtype=torch.float64)
+  kss = torch.where(both, kss + ridge * eye, eye)
+  linv = torch.linalg.solve_triangular(torch.linalg.cholesky(kss),
+                                       eye.expand_as(kss), upper=False)
+  linv = torch.where(live, linv, 0.0).float().contiguous()
+  cand = unit_rows(g, *(() if shared else lead), nc, d)
+  return sel.to(td).contiguous(), linv, cand.to(td)
+
+
+def ig_compare(label, got, best, idx, want, ok, dtype, abs_tol=None):
+  """The info-gain kernels' outputs (cond ``got``, top-1 ``best``/``idx``)
+  against the plain conds ``want`` of the same inputs: conds within the
+  tolerance (relative, or ``abs_tol`` absolute), the top-1 index equal or a
+  near-tie at a feasible candidate, the best cond within the tolerance.
+  Returns (cond abs error, cond rel error, best abs error, near-ties)."""
+  from repro_torch.kernels import ref
+  ea, er = errors(got, want)
+  if abs_tol is not None:
+    check(ea <= abs_tol, f"{label}: cond error {ea:.3e} > {abs_tol:.1e}")
+  else:
+    check(er <= TOL[dtype], f"{label}: cond error {er:.3e} > {TOL[dtype]}")
+  wb, wi = ref.masked_top1(want, ok, floor=0.0)
+  same = idx == wi
+  picked = want.gather(-1, idx.unsqueeze(-1))[..., 0]
+  gap = (wb - picked).abs() / wb.abs().clamp_min(1e-30)
+  okp = ok.gather(-1, idx.unsqueeze(-1))[..., 0]
+  tie = (~same) & (gap <= TOL[dtype]) & okp
+  check(bool((same | tie).all()), f"{label}: index {idx.tolist()} vs "
+        f"{wi.tolist()} beyond a near-tie")
+  eb, _ = errors(best, wb)
+  check(eb <= TOL[dtype] * max(float(wb.abs().max()), 1.0),
+        f"{label}: best error {eb:.3e}")
+  return ea, er, eb, int(tie.sum())
+
+
+def ig_check(label, sel, linv, cand, ok, kernel, dtype, ridge=1.0,
+             h=0.75):
+  """Both info-gain kernels against the plain version on one operand set
+  (``ig_compare``; a DPP ridge holds conds to TOL_DPP times k_vv,
+  absolute).  Returns (max abs error, near-ties)."""
+  from repro_torch.kernels import ops, ref
+  kw = dict(kernel=kernel, h=h, ridge=ridge)
+  got = ops.info_gain_cond(sel, linv, cand, **kw)
+  best, idx = ops.info_select(sel, linv, cand, ok, **kw)
+  sync()
+  want = ref.info_gain_cond_ref(sel, linv, cand, **kw)
+  abs_tol = None
+  if ridge < 1e-3:  # DPP: cond is a difference of nearly equal numbers
+    c = cand.float()
+    kvv = 1.0 if kernel == "rbf" else float((c * c).sum(-1).max())
+    abs_tol = TOL_DPP * kvv
+  ea, _, _, ties = ig_compare(label, got, best, idx, want, ok, dtype,
+                              abs_tol)
+  return ea, ties
+
+
+def ig_edge_phase():
+  """The info-gain kernels against their plain versions at the edges:
+  ragged nc, k_max of 1, 7, 80, 128 and 400 (past the 384 rows the
+  shared-memory cross tile holds), counts 0 / partial / k_max, linear and
+  rbf, f32 and bf16, a DPP ridge, a zero candidate row, nothing feasible,
+  identical rows, and a shared candidate block equal to per-partition
+  calls."""
+  import torch
+
+  from repro_torch.kernels import ops
+  g = torch.Generator(device=DEVICE).manual_seed(12)
+  worst = 0.0
+  n_cases = 0
+  for k_max in (1, 7, 80, 128, 400):
+    for count in sorted({0, k_max // 2, k_max}):
+      for kernel in ("linear", "rbf"):
+        for dtype, td in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+          sel, linv, cand = ig_operands(g, 3, k_max, count, 1037, 22, kernel,
+                                        td)
+          cand[1, 5] = 0.0  # a zero candidate row
+          ok = torch.rand(3, 1037, generator=g, device=DEVICE) > 0.3
+          ea, _ = ig_check(f"edge k={k_max} count={count} {kernel} {dtype}",
+                           sel, linv, cand, ok, kernel, dtype)
+          worst = max(worst, ea)
+          n_cases += 1
+  # a DPP ridge: cond = k_vv + 1e-6 - |L^-1 k|^2 cancels
+  sel, linv, cand = ig_operands(g, 2, 64, 40, 700, 6, "rbf", torch.float32,
+                                ridge=1e-6, h=0.3)
+  ig_check("edge dpp", sel, linv, cand,
+           torch.ones(2, 700, dtype=torch.bool, device=DEVICE), "rbf", "f32",
+           ridge=1e-6, h=0.3)
+  # nothing feasible -> (0.0, 0)
+  none = torch.zeros(2, 700, dtype=torch.bool, device=DEVICE)
+  best, idx = ops.info_select(sel, linv, cand, none, h=0.3, ridge=1e-6)
+  sync()
+  check(bool((best == 0.0).all()) and bool((idx == 0).all()),
+        f"info_select nothing feasible: {best.tolist()} {idx.tolist()}")
+  # exact ties: with nothing selected every rbf cond is 1 + ridge, so the
+  # lowest feasible index wins; identical rows tie exactly in the kernel
+  for kernel in ("linear", "rbf"):
+    sel, linv, cand = ig_operands(g, 2, 128, 0, 3000, 6, kernel,
+                                  torch.float32)
+    cand *= torch.rand(2, 3000, 1, generator=g, device=DEVICE) + 0.5
+    ok = torch.ones(2, 3000, dtype=torch.bool, device=DEVICE)
+    ok[:, :3] = False
+    top = (cand * cand).sum(-1).argmax(dim=1)
+    for p in range(2):  # the longest row again at a lower and higher index
+      j = int(top[p])
+      cand[p, (j + 1711) % 3000] = cand[p, j]
+      cand[p, (j + 977) % 3000] = cand[p, j]
+    best, idx = ops.info_select(sel, linv, cand, ok, kernel=kernel)
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      t0 = time.perf_counter()
-      run()
-      sync()
-      wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    top = sorted(kern, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:6]
-    emit(f"profile {name}", wall_s=wall,
-         device_ms=busy_ms if kern else "not measured",
-         busy_share=busy_ms / 1e3 / wall if kern else "not measured",
-         top=[dict(kernel=e.key[:70], calls=e.count,
-                   ms=e.self_device_time_total / 1e3) for e in top])
+    for p in range(2):
+      j = int(top[p])
+      want = (3 if kernel == "rbf" else
+              min({j, (j + 1711) % 3000, (j + 977) % 3000} - {0, 1, 2}))
+      check(int(idx[p]) == want, f"ties {kernel}: index {int(idx[p])}, "
+            f"want {want}")
+  # a stride-0 shared candidate block equals per-partition calls
+  sel, linv, cand = ig_operands(g, 4, 128, 64, 2000, 6, "rbf", torch.float32,
+                                shared=True)
+  ok = torch.rand(4, 2000, generator=g, device=DEVICE) > 0.1
+  cond = ops.info_gain_cond(sel, linv, cand)
+  best, idx = ops.info_select(sel, linv, cand, ok)
+  for p in range(4):
+    c1 = ops.info_gain_cond(sel[p], linv[p], cand)
+    b1, i1 = ops.info_select(sel[p], linv[p], cand, ok[p])
+    check(torch.equal(cond[p], c1) and int(idx[p]) == int(i1) and
+          float(best[p]) == float(b1), f"shared block, partition {p}")
+  sync()
+  emit("kernel info edges", cases=n_cases, k_max=[1, 7, 80, 128, 400],
+       max_abs_err=worst, dpp_ridge=1e-6, nothing_feasible="(0.0, 0)",
+       ties="lowest index", shared_block="equal to per-partition calls",
+       result="pass")
+
+
+def ig_bound(P, nc, k, d, kernel, esz, shared, select, count=None):
+  """The least time of one info-gain call: every input read once, the
+  output written once; the dense work the TPU kernel does per candidate
+  (the (k x d) cross column, the (k x k) product with linv, the sum of
+  squares; for rbf the norms and the exp epilogue).  With ``count`` the
+  work an exact kernel needs that skips the dead selection rows and the
+  zeros of linv: ``count`` live rows and the count (count + 1) / 2 entries
+  of linv's live lower triangle.  P = None: unbatched operands."""
+  n_p = 1 if P is None else P
+  c = k if count is None else count
+  lin = k * k if count is None else c * (c + 1) // 2
+  moved = (n_p * c * d * esz + n_p * lin * 4
+           + (1 if shared else n_p) * nc * d * esz)
+  moved += n_p * nc + n_p * 8 if select else n_p * nc * 4
+  per = 2.0 * c * d + 2.0 * lin + 2.0 * c + 3.0
+  if kernel == "rbf":
+    per += 6.0 * c + 2.0 * d
+  return bound_ms(moved, n_p * nc * per, "f32")
+
+
+# the info-gain kernel phase's cases: label, batched over the partitions,
+# candidates (as a function of the sizes), shared candidate block, and the
+# GP paths that launch each kernel at that shape
+IG_CASES = (
+    ("round1", True, lambda sz: -(-sz.gp_n // sz.gp_m), False,
+     {"info_gain_cond": [], "info_select": ["reference", "generic"]}),
+    ("round2 generic", True, lambda sz: sz.gp_m * sz.gp_k, True,
+     {"info_gain_cond": ["generic"], "info_select": []}),
+    ("round2 reference", False, lambda sz: sz.gp_m * sz.gp_k, False,
+     {"info_gain_cond": [], "info_select": ["reference"]}),
+    ("centralized", False, lambda sz: sz.gp_n, False,
+     {"info_gain_cond": [], "info_select": ["centralized"]}),
+)
+
+
+def ig_kernel_phase(sz: Sizes, path_counts: dict):
+  """Both info-gain kernels against their plain versions at each shape the
+  GP path gives them (``IG_CASES``): round 1 (P = 32 partitions of
+  1,431,622 candidates, k_max = 128, d = 6), the generic engine's round 2
+  (P = 32 states over one shared block of 32 x 128 merged candidates), the
+  reference's round 2 (one state over those 4096 candidates) and the
+  centralized greedy (one state over all 45,811,883 rows), with a real
+  selection of ``gp_count`` rows.  The plain version runs a few partitions,
+  or one partition's worth of candidates, at a time: one unchunked round-1
+  temporary is (32, 128, 1.43 M) floats, 23 GiB.  Each row carries the
+  launches of every path that gives the kernel that shape
+  (``path_counts``: the e2e phase's counts by path)."""
+  import torch
+
+  from repro_torch.core import objectives as O
+  from repro_torch.kernels import ops, ref
+  g = torch.Generator(device=DEVICE).manual_seed(5)
+  P, k, d = sz.gp_m, sz.gp_k, sz.gp_d
+  nl = -(-sz.gp_n // P)
+  obj = O.InformationGain(k_max=k, kernel="rbf",
+                          kernel_kwargs=(("h", sz.gp_h),), sigma=sz.gp_sigma)
+  st = obj.init_d(d, device=DEVICE, batch=(P,))
+  for _ in range(sz.gp_count):  # a real incremental Cholesky
+    st = obj.update(st, unit_rows(g, P, d))
+  sel_b, linv_b = st.sel_feats, O._masked_linv(st.chol, st.count)
+  ridge = sz.gp_sigma ** 2
+  rows = {}
+  for label, batched, nc_of, shared, on_paths in IG_CASES:
+    nc = nc_of(sz)
+    sel, linv = (sel_b, linv_b) if batched else (sel_b[0], linv_b[0])
+    lead = (P,) if batched else ()
+    cand = unit_rows(g, *(() if shared else lead), nc, d)
+    ok = torch.rand(*lead, nc, generator=g, device=DEVICE) > 0.01
+
+    def plain():
+      if batched:
+        return torch.cat([
+            ref.info_gain_cond_ref(sel[c0:c0 + sz.plain_chunk],
+                                   linv[c0:c0 + sz.plain_chunk],
+                                   cand if shared else
+                                   cand[c0:c0 + sz.plain_chunk], ridge=ridge)
+            for c0 in range(0, P, sz.plain_chunk)])
+      return torch.cat([ref.info_gain_cond_ref(sel, linv, cand[c0:c0 + nl],
+                                               ridge=ridge)
+                        for c0 in range(0, nc, nl)])
+
+    cond = ops.info_gain_cond(sel, linv, cand, ridge=ridge)
+    best, idx = ops.info_select(sel, linv, cand, ok, ridge=ridge)
+    sync()
+    c_abs, c_rel, b_abs, near = ig_compare(f"info kernels {label}", cond,
+                                           best, idx, plain(), ok, "f32")
+    cond_ms = time_ms(lambda: ops.info_gain_cond(sel, linv, cand,
+                                                 ridge=ridge))
+    sel_ms = time_ms(lambda: ops.info_select(sel, linv, cand, ok,
+                                             ridge=ridge))
+    pc_ms = time_ms(plain, reps=1)
+    ps_ms = time_ms(lambda: ref.masked_top1(plain(), ok, floor=0.0), reps=1)
+    n_p = P if batched else None
+    common = dict(shape=[n_p, k, nc, d], kernel="rbf", dtype="f32",
+                  count=sz.gp_count, shared_candidates=shared,
+                  tol=TOL["f32"], library_ms=None)
+    for name, err, ms, p_ms, select in (
+        ("info_gain_cond", dict(max_abs_err=c_abs, max_rel_err=c_rel),
+         cond_ms, pc_ms, False),
+        ("info_select", dict(max_abs_err=b_abs, near_ties=near), sel_ms,
+         ps_ms, True)):
+      dense = ig_bound(n_p, nc, k, d, "rbf", 4, shared, select)
+      live = ig_bound(n_p, nc, k, d, "rbf", 4, shared, select,
+                      count=sz.gp_count)
+      rows[(name, label)] = dict(
+          common, **err, kernel_ms=ms, plain_ms=p_ms, bound_ms=dense[0],
+          bound_by=dense[1], bound_live_ms=live[0], bound_live_by=live[1],
+          on_paths=on_paths[name],
+          launches={p: path_counts[p][name] for p in on_paths[name]})
+      emit(f"kernel {name} {label}", **rows[(name, label)])
+    del cand, ok, cond
+    torch.cuda.empty_cache()
+  return rows
+
+
+def ig_value(obj, feats, ids):
+  """f(S) of the rows ``ids`` under the information gain."""
+  import torch
+
+  from repro_torch.core import greedi as GD
+  sf = feats[torch.as_tensor(ids, device=feats.device)]
+  st = GD.set_value_feats(obj, obj.init_d(feats.shape[1], device=DEVICE), sf,
+                          torch.ones(sf.shape[:1], dtype=torch.bool,
+                                     device=DEVICE))
+  return float(obj.value(st))
+
+
+def ig_agree(obj, feats, a, b, what):
+  """Equal selections, or the near-tie rule: where the greedy orders first
+  differ both picks' gains after the common prefix agree within TOL_GAP,
+  and the two f(S) agree within 1e-5 relative."""
+  import numpy as np
+  import torch
+
+  from repro_torch.core import greedi as GD
+  if np.array_equal(a, b):
+    return "equal"
+  n = min(len(a), len(b))
+  t = int(np.flatnonzero(a[:n] != b[:n])[0]) if (a[:n] != b[:n]).any() else n
+  va, vb = ig_value(obj, feats, a), ig_value(obj, feats, b)
+  rel = abs(va - vb) / max(abs(va), 1e-30)
+  gap = 0.0
+  if t < n:
+    prefix = feats[torch.as_tensor(a[:t], device=DEVICE)]
+    st = GD.set_value_feats(obj, obj.init_d(feats.shape[1], device=DEVICE),
+                            prefix, torch.ones((t,), dtype=torch.bool,
+                                               device=DEVICE))
+    pair = feats[torch.as_tensor([a[t], b[t]], device=DEVICE)]
+    gg = obj.gains(st, pair)
+    gap = float((gg[0] - gg[1]).abs() / gg.abs().max())
+  check(gap <= TOL_GAP and rel <= 1e-5, f"{what}: selections differ at "
+        f"step {t} (gain gap {gap:.3e}, f(S) {va!r} vs {vb!r})")
+  return f"near-tie at step {t} (gain gap {gap:.2e}, f rel {rel:.2e})"
+
+
+def e2e_gp_full(sz: Sizes):
+  """The GP active-set path at the Yahoo! Webscope data size: the
+  reference protocol with the fused step, the generic sharded engine on
+  the same partition, and the centralized greedy, each with the launch
+  counts set to 0 before it and read after it.  Every path's f(S) is
+  replayed from its ids.  Returns the counts by path."""
+  import numpy as np
+  import torch
+
+  from repro_torch.core import bounds
+  from repro_torch.core import greedi as GD
+  from repro_torch.core import objectives as O
+  from repro_torch.core.partition import partition_gids, random_partition
+  from repro_torch.kernels import ops
+  t0 = time.perf_counter()
+  feats = parkinsons_like(sz.gp_n, sz.gp_d, seed=0)
+  sync()
+  t_data = time.perf_counter() - t0
+  m, k, d = sz.gp_m, sz.gp_k, sz.gp_d
+  obj = O.InformationGain(k_max=k, kernel="rbf",
+                          kernel_kwargs=(("h", sz.gp_h),), sigma=sz.gp_sigma)
+
+  def init(ef, em):
+    return obj.init_d(d, device=ef.device)
+
+  def gen():  # the partition of 45.8 M rows is drawn on the card
+    return torch.Generator(device=DEVICE).manual_seed(0)
+
+  def reference():
+    return GD.greedi_reference(gen(), feats, m=m, kappa=k, k_final=k,
+                               objective=obj, init_for=init)
+
+  def generic():
+    parts, _, perm = random_partition(GD.greedi_keys(gen())[0], feats, m)
+    npp = parts.shape[1]
+    return GD.greedi_sharded(parts.reshape(m * npp, d), m=m, kappa=k,
+                             k_final=k, objective=obj,
+                             gids=partition_gids(perm))
+
+  def central():
+    return GD.centralized_greedy(feats, k, objective=obj, init_for=init)
+
+  out, counts = {}, {}
+  for name, run in (("reference", reference), ("generic", generic),
+                    ("centralized", central)):
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = run()
+    sync()
+    wall = time.perf_counter() - t0
+    counts[name] = ops.launch_counts()
+    if name == "centralized":
+      r, v = res
+      ids = r.idx.cpu().numpy()
+      value = float(v)
+    else:
+      ids = res.sel_gids.cpu().numpy()
+      value = float(res.value)
+    out[name] = dict(ids=ids, value=value, wall_s=wall,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+  for name, r in out.items():
+    ids = r["ids"]
+    check(len(ids) == k and len(set(ids.tolist())) == k and ids.min() >= 0
+          and ids.max() < sz.gp_n, f"gp {name}: not k unique in-range ids")
+    check(np.isfinite(r["value"]) and r["value"] > 0.0,
+          f"gp {name}: f(S) = {r['value']!r}")
+  for kname in ("info_select", "info_gain_cond"):
+    check(counts[MAIN_PATH[kname]][kname] > 0, f"kernel {kname} was not "
+          f"launched on the GP {MAIN_PATH[kname]} path")
+  check(counts["reference"]["info_select"] > 0 and
+        counts["centralized"]["info_select"] > 0,
+        "the reference or centralized greedy did not launch info_select")
+  # each path's f(S) agrees with a replay of its ids; the centralized value
+  # is the ratio's denominator
+  for name in ("reference", "generic", "centralized"):
+    rv = ig_value(obj, feats, out[name]["ids"])
+    check(abs(rv - out[name]["value"]) <= 1e-5 * out[name]["value"],
+          f"gp {name}: reported f(S) {out[name]['value']!r}, replay {rv!r}")
+  verdict = ig_agree(obj, feats, out["reference"]["ids"],
+                     out["generic"]["ids"], "gp reference/generic")
+  v_c = out["centralized"]["value"]
+  floor = bounds.thm4_bound(m, k, k)
+  ratios = {name: out[name]["value"] / v_c
+            for name in ("reference", "generic")}
+  for name, ratio in ratios.items():
+    check(ratio >= floor, f"gp {name}: ratio {ratio} below the Thm-4 "
+          f"floor {floor}")
+  emit("e2e gp full-size", n=sz.gp_n, d=d, m=m, k=k, kappa=k, k_max=k,
+       h=sz.gp_h, sigma=sz.gp_sigma, rows_per_partition=-(-sz.gp_n // m),
+       holes=m * -(-sz.gp_n // m) - sz.gp_n, data_s=t_data,
+       wall_s={n_: r["wall_s"] for n_, r in out.items()},
+       peak_gib={n_: r["peak_gib"] for n_, r in out.items()},
+       launches=counts, value={n_: r["value"] for n_, r in out.items()},
+       ratio_to_centralized=ratios, thm4_floor=floor,
+       agreement={"reference vs generic": verdict})
+  return counts
+
+
+def e2e_gp_fig6(sz: Sizes):
+  """The Fig. 6 settings at n = 65536: greedi_reference with the kernels
+  (backend "auto") and with the plain versions on the card ("ref"), equal
+  selections or a near-tie; the ratio to the centralized greedy."""
+  import torch
+
+  from repro_torch.core import greedi as GD
+  from repro_torch.core import objectives as O
+  feats = parkinsons_like(sz.f6_n, sz.f6_d, seed=1)
+  obj = O.InformationGain(k_max=sz.f6_k_max, kernel="rbf",
+                          kernel_kwargs=(("h", 0.75),), sigma=1.0)
+
+  def init(ef, em):
+    return obj.init_d(sz.f6_d, device=ef.device)
+
+  sels, walls, values = {}, {}, {}
+  for backend in ("auto", "ref"):
+    sync()
+    t0 = time.perf_counter()
+    rng = torch.Generator(device=DEVICE).manual_seed(3)
+    r = GD.greedi_reference(rng, feats, m=sz.f6_m, kappa=sz.f6_k,
+                            k_final=sz.f6_k, objective=obj, init_for=init,
+                            backend=backend)
+    sync()
+    walls[backend] = time.perf_counter() - t0
+    sels[backend] = r.sel_gids[r.sel_valid].cpu().numpy()
+    values[backend] = float(r.value)
+    check(len(set(sels[backend].tolist())) == sz.f6_k,
+          f"fig6 {backend}: not k unique ids")
+  verdict = ig_agree(obj, feats, sels["auto"], sels["ref"], "fig6 auto/ref")
+  _, v_c = GD.centralized_greedy(feats, sz.f6_k, objective=obj,
+                                 init_for=init)
+  ratio = values["auto"] / float(v_c)
+  check(0.5 < ratio <= 1.0 + 1e-5, f"fig6 ratio {ratio}")
+  emit("e2e gp fig6", n=sz.f6_n, d=sz.f6_d, m=sz.f6_m, k=sz.f6_k,
+       k_max=sz.f6_k_max, holes=sz.f6_m * -(-sz.f6_n // sz.f6_m) - sz.f6_n,
+       wall_s=walls, value=values, ratio_to_centralized=ratio,
+       agreement={"auto vs ref": verdict})
+
+
+def profile_gp(sz: Sizes):
+  """Where the GP reference path's time goes at full size: device time by
+  kernel name and the busy share, as ``profile_phase`` reports them."""
+  import torch
+
+  from repro_torch.core import greedi as GD
+  from repro_torch.core import objectives as O
+  feats = parkinsons_like(sz.gp_n, sz.gp_d, seed=0)
+  obj = O.InformationGain(k_max=sz.gp_k, kernel="rbf",
+                          kernel_kwargs=(("h", sz.gp_h),), sigma=sz.gp_sigma)
+  profiled("profile gp reference", lambda: GD.greedi_reference(
+      torch.Generator(device=DEVICE).manual_seed(0), feats, m=sz.gp_m,
+      kappa=sz.gp_k, k_final=sz.gp_k, objective=obj,
+      init_for=lambda ef, em: obj.init_d(sz.gp_d, device=ef.device)))
 
 
 # ---------------------------------------------------------------------------
@@ -619,29 +1181,47 @@ def main() -> int:
     print(f"[smoke] ptxas {line}", flush=True)
 
   edge_phase()
+  ig_edge_phase()
   e2e_cli_size(sz)
   torch.cuda.empty_cache()
-  counts = e2e_full(sz)
+  fl_counts = e2e_full(sz)
   torch.cuda.empty_cache()
-  rows = kernel_phases(sz, counts)
+  gp_counts = e2e_gp_full(sz)
+  torch.cuda.empty_cache()
+  # kernel -> {path: launches} over the paths of its e2e phase
+  by_path = {name: {p: c[name] for p, c in (
+      gp_counts if name in GP_KERNELS else fl_counts).items()}
+             for name in MAIN_PATH}
+  launches = {name: by_path[name][path] for name, path in MAIN_PATH.items()}
+  e2e_gp_fig6(sz)
+  torch.cuda.empty_cache()
+  rows = kernel_phases(sz, launches)
+  torch.cuda.empty_cache()
+  rows.update(ig_kernel_phase(sz, gp_counts))
   torch.cuda.empty_cache()
   profile_phase(sz)
+  profile_gp(sz)
 
   main_shape = {"pairwise": ("pairwise", "s11", "linear", "f32"),
                 "facility_select": ("facility_select", "round1", "linear",
                                     "f32"),
                 "facility_gain": ("facility_gain", "round1", "linear",
-                                  "f32")}
+                                  "f32"),
+                "info_gain_cond": ("info_gain_cond", "round2 generic"),
+                "info_select": ("info_select", "round1")}
   kernels = []
   for name, key in main_shape.items():
     r = rows[key]
     kernels.append(dict(
         name=name, route="cuda", source=SOURCES[name],
-        replaces=REPLACES[name], launches=counts[name],
+        replaces=REPLACES[name], launches=launches[name],
+        launches_path=MAIN_PATH[name], launches_by_path=by_path[name],
         max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
-        shape=r["shape"]))
+        shape=r["shape"],
+        **({"bound_live_ms": r["bound_live_ms"]} if "bound_live_ms" in r
+           else {})))
   print(gpu, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)
   print(json.dumps({"ok": True, "device": {

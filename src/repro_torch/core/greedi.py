@@ -1,10 +1,16 @@
 """GreeDi, the paper's two-round distributed protocol (the port of
-``src/repro/core/greedi.py``: the reference path, the centralized baseline
-and the cached-similarity fast engine with the flat merge).
+``src/repro/core/greedi.py``: the reference path, the centralized baseline,
+the naive baselines of Sec. 6, the generic sharded engine and the
+cached-similarity fast engine, both with the flat merge).
 
   * ``greedi_reference``    -- one process, the m partitions as a leading
     tensor axis (the reference vmaps over them).  Global and local
     (decomposable, Sec. 4.5) evaluation, and the Thm-10 subset U.
+  * ``greedi_sharded``      -- the generic engine for any objective with
+    ``init``/``partial_stats``/``update``/``value`` (facility location,
+    information gain) over m stacked logical shards: round 1 is the greedy
+    loop on every shard at once, round 2 the distributed greedy whose
+    per-step gains are the shards' weighted partial sums.
   * ``greedi_sharded_fast`` -- the production selection path for facility
     location, with m *stacked* logical shards on one card: what the
     reference runs under ``shard_map`` over m devices runs here with the
@@ -24,9 +30,14 @@ Randomness: the protocol's generators come from ``greedi_keys``; every
 entry point also takes an explicit ``perm`` (and ``u_idx`` for the Thm-10
 subset), so a caller can inject the partition another implementation drew.
 
-Not ported yet (ROADMAP.md): the liveness collective, the accumulation-tree
-merge, lazy round 1, the generic ``greedi_sharded`` and
-``greedi_hierarchical``, and the ``torch.distributed`` collective backend.
+Liveness: the sharded engines take per-machine heartbeat ages and a
+deadline; with the shards stacked on one card the liveness collective is
+the vector ``age <= deadline``, ANDed with ``straggler_keep`` and returned
+as ``GreediResult.alive``.
+
+Not ported yet (ROADMAP.md): the accumulation-tree merge, lazy round 1
+with warm bounds, ``greedi_hierarchical``, and the ``torch.distributed``
+collective backend (liveness across processes with it).
 """
 from __future__ import annotations
 
@@ -38,6 +49,8 @@ from repro_torch.core.greedy import greedy, where_state, with_backend
 from repro_torch.core.objectives import _kernel_h, masked_top1
 from repro_torch.core.partition import random_partition, shard_live_counts
 from repro_torch.kernels import dispatch
+
+_LATER = "is not ported yet (ROADMAP.md, modules to port, item 5)"
 
 # ---------------------------------------------------------------------------
 # shared helpers
@@ -76,6 +89,50 @@ def _first_argmax(v: torch.Tensor) -> torch.Tensor:
 def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
   """x[i] for a 0-d device index, without a host sync."""
   return x.index_select(0, i.reshape(1))[0]
+
+
+def _repeat_state(state, reps: int):
+  """Each partition's state ``reps`` times in a row: a leading axis of P
+  becomes P * reps, entry s * reps + i holding partition s's state."""
+  if isinstance(state, torch.Tensor):
+    return state.repeat_interleave(reps, dim=0)
+  return type(state)(*(_repeat_state(x, reps) for x in state))
+
+
+def _prep_liveness(liveness_age, liveness_deadline, m: int, device):
+  """The liveness inputs as ((m,) float32 ages, () float32 deadline).
+
+  ``liveness_age=None`` means no detection: ages 0 against an infinite
+  deadline, so every machine passes and ``straggler_keep`` alone decides.
+  """
+  if liveness_age is None:
+    return (torch.zeros((m,), dtype=torch.float32, device=device),
+            torch.tensor(float("inf"), device=device))
+  age = torch.as_tensor(liveness_age, device=device).to(torch.float32)
+  if age.shape != (m,):
+    raise ValueError(f"liveness_age of shape {tuple(age.shape)}, "
+                     f"expected ({m},)")
+  deadline = float("inf") if liveness_deadline is None else liveness_deadline
+  return age, torch.as_tensor(deadline, device=device).to(torch.float32)
+
+
+def _liveness_collective(age: torch.Tensor,
+                         deadline: torch.Tensor) -> torch.Tensor:
+  """The deadline-based liveness collective, stacked form: every shard
+  contributes the bit "my last heartbeat landed within the deadline", and
+  the gathered (m,) vector IS the straggler mask.  With the m shards
+  stacked on one card the gather is the vector itself."""
+  return age <= deadline
+
+
+def _alive(straggler_keep, liveness_age, liveness_deadline, m: int,
+           device) -> torch.Tensor:
+  """``straggler_keep`` ANDed with the liveness collective: (m,) bool."""
+  keep = (torch.ones((m,), dtype=torch.bool, device=device)
+          if straggler_keep is None
+          else torch.as_tensor(straggler_keep, device=device).to(torch.bool))
+  age, deadline = _prep_liveness(liveness_age, liveness_deadline, m, device)
+  return keep & _liveness_collective(age, deadline)
 
 
 def greedi_keys(rng: torch.Generator):
@@ -128,6 +185,36 @@ class _Engine(NamedTuple):
   cgids: torch.Tensor   # (nc,) int64 global ids of the candidates
 
 
+def _objective_engine(objective, local_feats: torch.Tensor,
+                      cands: torch.Tensor, cmask: torch.Tensor,
+                      cgids: torch.Tensor,
+                      eval_mask: torch.Tensor | None = None) -> _Engine:
+  """Engine over a generic objective exposing partial_stats/update/value,
+  the m shards stacked: ``local_feats`` (m, nl, d) binds each shard's
+  evaluation rows and ``eval_mask`` (m, nl) marks the live ones (holes
+  carry 0), so the partial value is each shard's mean times its live
+  count and hole rows move nothing."""
+  m = local_feats.shape[0]
+  if eval_mask is None:
+    eval_mask = local_feats.new_ones(local_feats.shape[:-1])
+  # count in f32: a low-precision mask dtype would round counts past 256
+  n_live = torch.sum(eval_mask.to(torch.float32), dim=-1)     # (m,)
+
+  def partial_gains(state):
+    return objective.partial_stats(state, cands)[0]
+
+  def apply_update(state, j, feat, take):
+    del j
+    return where_state(take, objective.update(state, feat.expand(m, -1)),
+                       state)
+
+  def partial_value(state):
+    return objective.value(state) * n_live
+
+  return _Engine(objective.init(local_feats, eval_mask), partial_gains,
+                 apply_update, partial_value, cands, cmask, cgids)
+
+
 def _dist_greedy_core(engine: _Engine, steps: int, weight: torch.Tensor,
                       denom: torch.Tensor, feat_dtype):
   """Distributed greedy over the engine's candidate block, m shards
@@ -170,7 +257,9 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
                      m: int, kappa: int, k_final: int, objective, init_for,
                      local_eval: bool = False,
                      final_subset: int | None = None,
-                     mode: str = "standard", backend: str | None = None,
+                     mode: str = "standard",
+                     stop_nonpositive: bool = False,
+                     backend: str | None = None,
                      use_select: bool = True,
                      perm: torch.Tensor | None = None,
                      u_idx: torch.Tensor | None = None) -> GreediResult:
@@ -180,13 +269,17 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
     rng: generator for the partition (and U); may be None when ``perm``
       (and ``u_idx`` with ``final_subset``) are given.
     init_for: callable (eval_feats, eval_mask) -> objective state; it
-      receives (m, npp, d) / (m, npp) blocks under ``local_eval``.
+      receives (m, npp, d) / (m, npp) blocks under ``local_eval``.  For
+      set-only objectives (information gain, DPP) it may ignore its inputs
+      and return an unbatched state: every partition gets its own copy.
     local_eval: round-1 machines evaluate f on their local partition only
       (the decomposable mode of Sec. 4.5).
     final_subset: if given, round 2 and the final comparison evaluate f on
       a random subset U of this size (Thm 10); else on the full ground set.
     backend: optional gain-oracle backend override for both rounds.
     use_select: fused select step (True) or gains + masked_top1 (False).
+    stop_nonpositive: greedy steps whose best gain is <= 0 are no-ops
+      (non-monotone objectives).
     perm: explicit (m, ceil(n/m)) partition with -1 padding, replacing the
       draw from ``rng``.
     u_idx: explicit (final_subset,) indices of U.
@@ -201,9 +294,9 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
   if local_eval:
     st0 = init_for(parts, pmask.to(parts.dtype))
   else:
-    st0 = objective.broadcast(
-        init_for(feats, feats.new_ones((n,))), m)
-  r1 = greedy(objective, st0, parts, kappa, cand_mask=pmask, mode=mode,
+    st0 = init_for(feats, feats.new_ones((n,)))
+  r1 = greedy(objective, objective.broadcast(st0, m), parts, kappa,
+              cand_mask=pmask, mode=mode, stop_nonpositive=stop_nonpositive,
               use_select=use_select)
   valid1 = r1.idx >= 0
   gid1 = torch.gather(perm, 1, r1.idx.clamp_min(0))
@@ -230,7 +323,7 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
   bmask = valid1.reshape(m * kappa)
   bgids = gid1.reshape(m * kappa)
   r2 = greedy(objective, st_final0, B, k_final, cand_mask=bmask, mode=mode,
-              use_select=use_select)
+              stop_nonpositive=stop_nonpositive, use_select=use_select)
   r2_gids = torch.where(r2.idx >= 0, bgids[r2.idx.clamp_min(0)], -1)
   v_merged = objective.value(r2.state)
   v_best_single = _pick(stage1_vals, best_i)
@@ -251,13 +344,194 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
 
 
 def centralized_greedy(feats: torch.Tensor, k: int, *, objective, init_for,
-                       mode: str = "standard", backend: str | None = None,
-                       use_select: bool = True):
+                       mode: str = "standard", stop_nonpositive: bool = False,
+                       backend: str | None = None, use_select: bool = True):
   """Plain greedy over the whole ground set -> (GreedyResult, f(S))."""
   objective = with_backend(objective, backend)
   st0 = init_for(feats, feats.new_ones(feats.shape[:1]))
-  r = greedy(objective, st0, feats, k, mode=mode, use_select=use_select)
+  r = greedy(objective, st0, feats, k, mode=mode,
+             stop_nonpositive=stop_nonpositive, use_select=use_select)
   return r, objective.value(r.state)
+
+
+# ---------------------------------------------------------------------------
+# naive baselines of Sec. 6
+# ---------------------------------------------------------------------------
+
+
+def baselines(rng: torch.Generator | None, feats: torch.Tensor, *, m: int,
+              k: int, objective, init_for, stop_nonpositive: bool = False,
+              backend: str | None = None, perm: torch.Tensor | None = None,
+              rr_idx: torch.Tensor | None = None,
+              rand_idx: torch.Tensor | None = None) -> dict:
+  """random/random, random/greedy, greedy/merge, greedy/max (paper Sec. 6).
+
+  The draws are explicit arguments, so a caller can inject another
+  implementation's: ``perm`` the (m, npp) partition, ``rr_idx`` the (k,)
+  random/random picks, ``rand_idx`` the (m, min(k, npp)) per-machine
+  random picks of random/greedy.  What is not given is drawn from the
+  generators ``greedi_keys`` splits off ``rng``.
+  """
+  objective = with_backend(objective, backend)
+  n, d = feats.shape
+  dev = feats.device
+  need = perm is None or rr_idx is None or rand_idx is None
+  r_part, r_a, r_b, _ = greedi_keys(rng) if need else (None,) * 4
+  parts, pmask, _ = random_partition(r_part, feats, m, perm=perm)
+  npp = parts.shape[1]
+  ones = torch.ones((n,), dtype=feats.dtype, device=dev)
+  st_full0 = init_for(feats, ones)
+  out = {}
+
+  # -- random/random: k random out of (m x k random) == k random overall
+  if rr_idx is None:
+    rr_idx = torch.randperm(n, generator=r_a, device=r_a.device)[:k]
+  rr_idx = torch.as_tensor(rr_idx, device=dev).to(torch.int64)
+  st = set_value_feats(objective, st_full0, feats[rr_idx],
+                       torch.ones((k,), dtype=torch.bool, device=dev))
+  out["random/random"] = objective.value(st)
+
+  # -- random/greedy: k random per machine, then greedy over the mk pool
+  if rand_idx is None:
+    pr = torch.rand((m, npp), generator=r_b, device=r_b.device).to(dev)
+    pr = pr - torch.where(pmask, 0.0, 1e9)
+    rand_idx = torch.topk(pr, min(k, npp), dim=1).indices
+  rand_idx = torch.as_tensor(rand_idx, device=dev).to(torch.int64)
+  pool = torch.gather(parts, 1, rand_idx[..., None].expand(-1, -1, d))
+  pool_mask = torch.gather(pmask, 1, rand_idx)
+  r = greedy(objective, st_full0, pool.reshape(-1, d), k,
+             cand_mask=pool_mask.reshape(-1),
+             stop_nonpositive=stop_nonpositive)
+  out["random/greedy"] = objective.value(r.state)
+
+  # -- greedy/merge: ceil(k/m) greedy per machine, merged as-is
+  kpm = -(-k // m)
+  r1 = greedy(objective, objective.broadcast(init_for(feats, ones), m),
+              parts, kpm, cand_mask=pmask, stop_nonpositive=stop_nonpositive)
+  merged = r1.feats.reshape(m * kpm, d)[:k]
+  mvalid = (r1.idx >= 0).reshape(m * kpm)[:k]
+  out["greedy/merge"] = objective.value(
+      set_value_feats(objective, st_full0, merged, mvalid))
+
+  # -- greedy/max: greedy k per machine, report the best single solution
+  rk = greedy(objective, objective.broadcast(init_for(feats, ones), m),
+              parts, k, cand_mask=pmask, stop_nonpositive=stop_nonpositive)
+  vals = objective.value(set_value_feats(
+      objective, objective.broadcast(st_full0, m), rk.feats, rk.idx >= 0))
+  out["greedy/max"] = torch.max(vals)
+  return out
+
+
+# ---------------------------------------------------------------------------
+# the generic engine, m stacked shards
+# ---------------------------------------------------------------------------
+
+
+def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
+                   objective, straggler_keep: torch.Tensor | None = None,
+                   u_subset_eval: bool = False, backend: str | None = None,
+                   gids: torch.Tensor | None = None, mode: str = "standard",
+                   warm_bounds: torch.Tensor | None = None,
+                   liveness_age: torch.Tensor | None = None,
+                   liveness_deadline: float | None = None,
+                   merge: str = "flat",
+                   tree_branch: int | None = None) -> GreediResult:
+  """GreeDi over m stacked logical shards for any objective exposing
+  init/partial_stats/update/value (the reference's ``greedi_sharded`` with
+  the flat merge); round-2 gains are the shards' weighted partial sums.
+
+  Args:
+    feats: (m * npp, d) shard-contiguous ground set (shard b owns rows
+      b*npp .. (b+1)*npp - 1); rows with ``gids = -1`` are holes, never
+      candidates and never evaluation mass.
+    objective: facility location or information gain.
+    straggler_keep: optional (m,) bool; False machines are dropped at the
+      merge and carry no evaluation weight.
+    u_subset_eval: Thm-10 mode -- round 2 and A_max evaluate on ONE
+      machine's partition, held by the first alive shard.
+    backend: optional gain-oracle backend override for both rounds.
+    gids: optional (m * npp,) global ids of the rows (default arange).
+    liveness_age, liveness_deadline: optional (m,) heartbeat ages and
+      their deadline; the liveness collective turns them into the
+      straggler mask (ANDed with ``straggler_keep``), returned as
+      ``GreediResult.alive``.
+    mode, warm_bounds, merge, tree_branch: only "standard", None, "flat"
+      and None are ported.
+
+  A_max replays every machine's block on every shard's evaluation rows at
+  once (m * m states in one batch), then sums the shards' partial values.
+  """
+  if mode != "standard" or warm_bounds is not None:
+    raise NotImplementedError(
+        f"greedi_sharded mode {mode!r} / warm_bounds: lazy round 1 {_LATER}")
+  if merge != "flat" or tree_branch is not None:
+    raise NotImplementedError(
+        f"greedi_sharded merge {merge!r}: the accumulation-tree merge "
+        f"{_LATER}")
+  objective = with_backend(objective, backend)
+  n, d = feats.shape
+  if n % m:
+    raise ValueError(f"{n} rows do not split into {m} equal shards")
+  nl = n // m
+  dev = feats.device
+  keep = _alive(straggler_keep, liveness_age, liveness_deadline, m, dev)
+  if gids is None:
+    gids = torch.arange(n, device=dev)
+  local = feats.reshape(m, nl, d)
+  local_gids = torch.as_tensor(gids, device=dev).to(torch.int64).reshape(
+      m, nl)
+  local_valid = local_gids >= 0                       # pad-and-mask holes
+  evalw = local_valid.to(feats.dtype)
+  n_live = shard_live_counts(local_valid, m)
+
+  # ---- round 1: the local greedy of every shard, one batch ---------------
+  r1 = greedy(objective, objective.init(local, evalw), local, kappa,
+              cand_mask=local_valid)
+  took = r1.idx >= 0
+  valid = took & keep[:, None]
+  gsel = torch.where(took, torch.gather(local_gids, 1, r1.idx.clamp_min(0)),
+                     -1)
+
+  # ---- merge: the candidate blocks of every shard (the all_gather) -------
+  Bflat = r1.feats.reshape(m * kappa, d)
+  Bmask = valid.reshape(m * kappa)
+  Bgflat = gsel.reshape(m * kappa)
+  # evaluation weight of each shard: the full set, or the Thm-10 U subset
+  # held by the first ALIVE shard; zero for dead machines
+  u_holder = _first_argmax(keep.to(torch.float32))
+  w = keep.to(torch.float32)
+  if u_subset_eval:
+    w = w * (torch.arange(m, device=dev) == u_holder).to(torch.float32)
+  denom = torch.clamp_min(torch.sum(n_live * w), 1.0)
+
+  # ---- A_max: machine i's block replayed on shard s's rows, all (s, i) ---
+  st_all = _repeat_state(objective.init(local, evalw), m)     # (m*m, ...)
+  blocks = r1.feats.repeat(m, 1, 1)                           # entry s*m+i
+  bvalid = valid.repeat(m, 1)
+  part_vals = objective.value(set_value_feats(objective, st_all, blocks,
+                                              bvalid)).reshape(m, m)
+  stage1_vals = torch.sum(part_vals * (n_live * w)[:, None], dim=0) / denom
+  stage1_vals = torch.where(keep, stage1_vals, -torch.inf)
+  best_i = _first_argmax(stage1_vals)
+
+  # ---- round 2: the distributed greedy over the merged block -------------
+  engine = _objective_engine(objective, local, Bflat, Bmask, Bgflat,
+                             eval_mask=evalw)
+  merged_feats, merged_valid, merged_gids, v_merged = _dist_greedy_core(
+      engine, k_final, w, denom, feats.dtype)
+
+  v_best_single = _pick(stage1_vals, best_i)
+  use_merged = v_merged >= v_best_single
+  return GreediResult(
+      torch.where(use_merged, merged_feats,
+                  _take_k(_pick(r1.feats, best_i), k_final, 0.0)),
+      torch.where(use_merged, merged_valid,
+                  _take_k(_pick(valid, best_i), k_final, False)),
+      torch.maximum(v_merged, v_best_single), v_merged, v_best_single,
+      stage1_vals,
+      torch.where(use_merged, merged_gids,
+                  _take_k(_pick(gsel, best_i), k_final, -1)),
+      keep, r1.rescans)
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +571,10 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
                         backend: str | None = None,
                         gids: torch.Tensor | None = None,
                         mode: str = "standard",
-                        merge: str = "flat") -> GreediResult:
+                        merge: str = "flat",
+                        liveness_age: torch.Tensor | None = None,
+                        liveness_deadline: float | None = None
+                        ) -> GreediResult:
   """Cached-similarity GreeDi for facility location over m stacked shards
   (the reference's ``greedi_sharded_fast`` with the flat merge).
 
@@ -320,15 +597,15 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
     backend: ``pairwise`` backend override ("cuda" | "ref" | "auto").
     gids: optional (m * npp,) global ids of the rows (default arange); -1
       marks a hole.
+    liveness_age, liveness_deadline: as in ``greedi_sharded``.
   """
   if mode != "standard":
     raise NotImplementedError(
-        f"greedi_sharded_fast mode {mode!r}: lazy round 1 is not ported yet "
-        "(ROADMAP.md, modules to port, item 5)")
+        f"greedi_sharded_fast mode {mode!r}: lazy round 1 {_LATER}")
   if merge != "flat":
     raise NotImplementedError(
         f"greedi_sharded_fast merge {merge!r}: the accumulation-tree merge "
-        "is not ported yet (ROADMAP.md, modules to port, item 5)")
+        f"{_LATER}")
   if kernel not in dispatch.FUSED_SIMS:
     raise ValueError(f"greedi_sharded_fast caches similarities through the "
                      f"'pairwise' oracle and supports {dispatch.FUSED_SIMS}, "
@@ -340,9 +617,7 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
     raise ValueError(f"{n} rows do not split into {m} equal shards")
   nl = n // m
   dev = feats.device
-  if straggler_keep is None:
-    straggler_keep = torch.ones((m,), dtype=torch.bool, device=dev)
-  keep = torch.as_tensor(straggler_keep, device=dev).to(torch.bool)
+  keep = _alive(straggler_keep, liveness_age, liveness_deadline, m, dev)
   if gids is None:
     gids = torch.arange(n, device=dev)
   local = feats.reshape(m, nl, d)

@@ -51,17 +51,15 @@ class GreedyResult(NamedTuple):
 
 
 def where_state(take: torch.Tensor, new, old):
-  """Field by field ``torch.where(take, new, old)`` over a state NamedTuple
-  (``take`` has the state's leading partition shape).  Fields the update
-  returned unchanged are kept as they are."""
-  fields = []
-  for a, b in zip(new, old):
-    if a is b:
-      fields.append(b)
-    else:
-      t = take.reshape(take.shape + (1,) * (b.dim() - take.dim()))
-      fields.append(torch.where(t, a, b))
-  return type(old)(*fields)
+  """Field by field ``torch.where(take, new, old)`` over a state NamedTuple,
+  nested states included (``take`` has the state's leading partition shape,
+  or none).  Fields the update returned unchanged are kept as they are."""
+  if new is old:
+    return old
+  if isinstance(old, tuple):
+    return type(old)(*(where_state(take, a, b) for a, b in zip(new, old)))
+  t = take.reshape(take.shape + (1,) * (old.dim() - take.dim()))
+  return torch.where(t, new, old)
 
 
 def _rows(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -75,7 +73,7 @@ def _rows(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
            cand_mask: torch.Tensor | None = None, constraint=None,
            meta: dict | None = None, mode: str = "standard",
-           backend: str | None = None,
+           stop_nonpositive: bool = False, backend: str | None = None,
            use_select: bool = True) -> GreedyResult:
   """Select up to ``k_steps`` items from ``cand_feats`` maximizing
   ``objective``.
@@ -91,6 +89,9 @@ def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
       cardinality k_steps).
     meta: per-item attribute tensors for the constraint.
     mode: only "standard" is ported.
+    stop_nonpositive: treat steps whose best gain is <= 0 as no-ops
+      (required for non-monotone objectives such as the DPP log-det;
+      harmless for monotone ones).
     backend: optional gain-oracle backend override ("cuda" | "ref" |
       "auto") applied to the objective for this run.
     use_select: route each step through the objective's fused ``select``
@@ -102,6 +103,10 @@ def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
         "stochastic, random and cost_benefit come later (ROADMAP.md, "
         "modules to port, items 2 and 5)")
   objective = with_backend(objective, backend)
+  k_max = getattr(objective, "k_max", None)
+  if k_max is not None and k_steps > k_max:
+    raise ValueError(f"greedy: {k_steps} steps exceed the objective's "
+                     f"k_max = {k_max} selection buffer")
   n, d = cand_feats.shape[-2:]
   batch = cand_feats.shape[:-2]
   dev = cand_feats.device
@@ -127,6 +132,8 @@ def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
       _, chosen = masked_top1(g, feasible)
       chosen_gain = torch.gather(g, -1, chosen.unsqueeze(-1)).squeeze(-1)
     take = feasible.any(dim=-1)
+    if stop_nonpositive:
+      take = take & (chosen_gain > 0.0)
 
     feat = _rows(cand_feats, chosen)
     state = where_state(take, objective.update(state, feat), state)

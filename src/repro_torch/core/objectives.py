@@ -1,5 +1,6 @@
-"""Facility location as a fixed-shape state machine (the port of the
-``FacilityLocation`` part of ``src/repro/core/objectives.py``).
+"""Submodular objectives as fixed-shape state machines (the port of the
+``FacilityLocation``, ``InformationGain`` and ``LogDetDPP`` parts of
+``src/repro/core/objectives.py``).
 
 The interface is the reference's:
 
@@ -10,7 +11,7 @@ The interface is the reference's:
     value = obj.value(state)                     # f(S)
 
 A ``jax.vmap`` over GreeDi's partitions becomes a leading partition axis
-written out: ``cov``/``value`` may carry one (P, ...) axis, and the
+written out: every state field may carry one (P, ...) axis, and the
 evaluation features/mask either carry it too or are shared by every
 partition.  Gains and select route through kernels/dispatch.py by the
 ``backend`` field ("cuda" | "ref" | "auto").
@@ -31,6 +32,29 @@ from repro_torch.kernels.ref import NEG, masked_top1  # noqa: F401
 def _kernel_h(kernel_kwargs: tuple) -> float:
   """Bandwidth for the fused oracles (ignored by the linear kernel)."""
   return float(dict(kernel_kwargs).get("h", 0.75))
+
+
+# ---------------------------------------------------------------------------
+# Similarity kernels (the reference's formulas, with optional leading axes)
+# ---------------------------------------------------------------------------
+
+
+def linear_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  """Dot-product similarity: (..., n, d) x (..., m, d) -> (..., n, m)."""
+  return x @ y.transpose(-1, -2)
+
+
+def rbf_kernel(x: torch.Tensor, y: torch.Tensor,
+               h: float = 0.75) -> torch.Tensor:
+  """Squared-exponential kernel exp(-|x - y|^2 / h^2) (paper Sec. 3.4.1)."""
+  x2 = torch.sum(x * x, dim=-1, keepdim=True)
+  y2 = torch.sum(y * y, dim=-1, keepdim=True)
+  d2 = torch.clamp_min(x2 - 2.0 * (x @ y.transpose(-1, -2))
+                       + y2.transpose(-1, -2), 0.0)
+  return torch.exp(-d2 / (h * h))
+
+
+KERNELS = {"linear": linear_kernel, "rbf": rbf_kernel}
 
 
 def _sim_column(eval_feats: torch.Tensor, feat: torch.Tensor, kernel: str,
@@ -132,3 +156,219 @@ class FacilityLocation:
     part = fn(state.eval_feats, cand_feats, state.cov, state.eval_mask,
               kernel=self.kernel, h=self.h)
     return part, torch.sum(state.eval_mask, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Information gain for GP active-set selection (Sec. 3.4.1) and the DPP
+# log-det, on one incremental Cholesky
+# ---------------------------------------------------------------------------
+
+
+class IGState(NamedTuple):
+  sel_feats: torch.Tensor  # ((P,) k_max, d) selected features, zero-padded
+  count: torch.Tensor      # ((P,)) int64 number selected
+  chol: torch.Tensor       # ((P,) k_max, k_max) Cholesky of K_SS + ridge I,
+  #                          identity-padded
+  value: torch.Tensor      # ((P,)) f(S)
+
+
+class IGShardState(NamedTuple):
+  """``IGState`` plus the shard's live evaluation-row count.
+
+  Information gain is evaluation-set independent, so the sharded protocol
+  needs nothing from the local partition but its live mass: weighting the
+  (identical-on-every-shard) gains by it makes the engine's weighted mean
+  reproduce them exactly (core/greedi.py ``_objective_engine``)."""
+  inner: IGState
+  n_live: torch.Tensor     # ((P,)) float32 live evaluation rows
+
+
+def _masked_linv(chol: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+  """inv(L) with the columns of not-yet-selected rows zeroed, batched over
+  any leading axes: linv @ k(S, cand) then equals L^-1 applied to the
+  live-row-masked cross kernel, which the info-gain kernels consume (the
+  identity padding of ``chol`` keeps the inverse defined for any count)."""
+  k_max = chol.shape[-1]
+  eye = torch.eye(k_max, dtype=chol.dtype, device=chol.device)
+  linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+                                       upper=False)
+  live = torch.arange(k_max, device=chol.device) < count.unsqueeze(-1)
+  return torch.where(live.unsqueeze(-2), linv, 0.0)
+
+
+class _IncrementalCholesky:
+  """The oracle both objectives share: an incremental Cholesky of
+  M = K_SS + ridge I in a fixed (k_max, k_max) buffer and the conditional
+  variance cond(v) = k(v, v) + ridge - |L^-1 k(S, v)|^2 of every candidate
+  through the ``info_gain_cond`` kernels.  Subclasses set ``_ridge`` and
+  map cond to a gain with ``_log_gain``, which is strictly increasing, so
+  the cond-space top-1 of the fused select IS the gain top-1."""
+
+  @property
+  def h(self) -> float:
+    return _kernel_h(self.kernel_kwargs)
+
+  def _check_kernel(self):
+    if self.kernel not in dispatch.FUSED_SIMS:
+      raise NotImplementedError(
+          f"{type(self).__name__} kernel {self.kernel!r}: the port "
+          f"implements {dispatch.FUSED_SIMS} (ROADMAP.md)")
+
+  def _k(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return KERNELS[self.kernel](x, y, **dict(self.kernel_kwargs))
+
+  # f depends only on the selected set; buffers are sized by the feature
+  # width, so init takes ``d`` instead of evaluation features.
+  def init_d(self, d: int, dtype=torch.float32, device=None,
+             batch: tuple = ()) -> IGState:
+    """The empty selection, with leading partition axes ``batch``."""
+    eye = torch.eye(self.k_max, dtype=dtype, device=device)
+    return IGState(
+        torch.zeros((*batch, self.k_max, d), dtype=dtype, device=device),
+        torch.zeros(batch, dtype=torch.int64, device=device),
+        eye.expand(*batch, -1, -1).clone(),
+        torch.zeros(batch, dtype=dtype, device=device))
+
+  @staticmethod
+  def _state(state) -> IGState:
+    return state.inner if isinstance(state, IGShardState) else state
+
+  def broadcast(self, state, n_part: int):
+    """The same state for each of ``n_part`` partitions (every field gets a
+    leading axis; a state that already has it is copied as it is)."""
+    if isinstance(state, IGShardState):
+      return IGShardState(self.broadcast(state.inner, n_part),
+                          state.n_live.expand(n_part).clone())
+    return IGState(state.sel_feats.expand(n_part, -1, -1).clone(),
+                   state.count.expand(n_part).clone(),
+                   state.chol.expand(n_part, -1, -1).clone(),
+                   state.value.expand(n_part).clone())
+
+  def _oracle(self, state: IGState):
+    return state.sel_feats, _masked_linv(state.chol, state.count)
+
+  def gains(self, state, cand_feats: torch.Tensor) -> torch.Tensor:
+    sel, linv = self._oracle(self._state(state))
+    fn = dispatch.resolve("info_gain_cond", self.backend)
+    cond = fn(sel, linv, cand_feats, kernel=self.kernel, h=self.h,
+              ridge=self._ridge)
+    return self._log_gain(cond)
+
+  def select(self, state, cand_feats: torch.Tensor, feasible: torch.Tensor):
+    """Fused select step: (best gain, int64 candidate index)."""
+    sel, linv = self._oracle(self._state(state))
+    fn = dispatch.resolve_select("info_gain_cond", self.backend)
+    cond, idx = fn(sel, linv, cand_feats, feasible, kernel=self.kernel,
+                   h=self.h, ridge=self._ridge)
+    return self._log_gain(torch.clamp_min(cond, 1e-12)), idx
+
+  def update(self, state, feat: torch.Tensor):
+    """S <- S + {feat}; feat is ((P,) d).  Writes row ``count`` of the
+    Cholesky as [c_0 .. c_{count-1}, diag, 0 ...] with k(v, v) computed by
+    the kernel's formula (for rbf it need not round to exactly 1), as the
+    reference does.  At count == k_max the write lands on the last row and
+    the diagonal entry is dropped, as ``dynamic_update_slice`` and an
+    out-of-range ``.at[].set`` do there; the greedy loops refuse more
+    steps than k_max, so that state is never kept."""
+    if isinstance(state, IGShardState):
+      return IGShardState(self.update(state.inner, feat), state.n_live)
+    k_max = self.k_max
+    ar = torch.arange(k_max, device=feat.device)
+    i = state.count
+    live = ar < i.unsqueeze(-1)                              # ((P,) k_max)
+    f1 = feat.unsqueeze(-2).to(state.sel_feats.dtype)        # ((P,) 1, d)
+    k_sc = torch.where(live, self._k(state.sel_feats, f1)[..., 0], 0.0)
+    c = torch.linalg.solve_triangular(state.chol, k_sc.unsqueeze(-1),
+                                      upper=False)[..., 0]
+    k_vv = self._k(f1, f1)[..., 0, 0]
+    diag = torch.sqrt(torch.clamp_min(
+        k_vv + self._ridge - torch.sum(c * c, dim=-1), 1e-12))
+    row = torch.where(live, c, 0.0)
+    row = torch.where(ar == i.unsqueeze(-1), diag.unsqueeze(-1), row)
+    at = i.clamp_max(k_max - 1)[..., None, None]
+    chol = state.chol.scatter(-2, at.expand(*i.shape, 1, k_max),
+                              row.unsqueeze(-2))
+    d = f1.shape[-1]
+    sel = state.sel_feats.scatter(-2, at.expand(*i.shape, 1, d), f1)
+    gain = self._log_gain(torch.clamp_min(diag * diag, 1e-12))
+    return IGState(sel, i + 1, chol, state.value + gain)
+
+  def value(self, state) -> torch.Tensor:
+    return self._state(state).value
+
+
+@dataclasses.dataclass(frozen=True)
+class InformationGain(_IncrementalCholesky):
+  """f(S) = 0.5 logdet(I + sigma^-2 K_SS); monotone submodular.
+
+  Marginal gain of v: 0.5 log(cond(v) / sigma^2), cond through the
+  ``info_gain_cond`` kernels with ridge = sigma^2; the fused select returns
+  only the winning (cond, index) pair.
+  """
+  monotone = True
+
+  k_max: int
+  kernel: str = "rbf"
+  kernel_kwargs: tuple = (("h", 0.75),)
+  sigma: float = 1.0
+  backend: str = "auto"
+
+  def __post_init__(self):
+    self._check_kernel()
+
+  @property
+  def _ridge(self) -> float:
+    return self.sigma ** 2
+
+  def _log_gain(self, cond: torch.Tensor) -> torch.Tensor:
+    return 0.5 * torch.log(cond / self._ridge)
+
+  def init(self, eval_feats: torch.Tensor,
+           eval_mask: torch.Tensor | None = None) -> IGShardState:
+    """Sharded-protocol surface (core/greedi.py): f ignores the evaluation
+    set, so only its live mass is recorded (see ``IGShardState``); a
+    (P, ne, d) evaluation block gives a state per partition."""
+    batch, (ne, d) = eval_feats.shape[:-2], eval_feats.shape[-2:]
+    if eval_mask is None:
+      n_live = torch.full(batch, float(ne), dtype=torch.float32,
+                          device=eval_feats.device)
+    else:
+      n_live = torch.sum(eval_mask.to(torch.float32), dim=-1)
+    return IGShardState(self.init_d(d, device=eval_feats.device,
+                                    batch=batch), n_live)
+
+  def partial_stats(self, state, cand_feats: torch.Tensor):
+    """(live-count-weighted gains ((P,) nc), live count ((P,))): every
+    shard computes the same gains from the shared candidate block, so the
+    weighted sum over shards over the weighted count reproduces them for
+    any liveness weighting."""
+    n_live = (state.n_live if isinstance(state, IGShardState)
+              else torch.ones((), dtype=torch.float32,
+                              device=cand_feats.device))
+    return self.gains(state, cand_feats) * n_live.unsqueeze(-1), n_live
+
+
+@dataclasses.dataclass(frozen=True)
+class LogDetDPP(_IncrementalCholesky):
+  """f(S) = logdet(K_S) on the same incremental Cholesky, ridge = jitter.
+
+  Non-monotone once conditional variances drop below 1: run its greedy
+  with ``stop_nonpositive=True``.
+  """
+  monotone = False
+
+  k_max: int
+  kernel: str = "rbf"
+  kernel_kwargs: tuple = (("h", 0.75),)
+  jitter: float = 1e-6
+  backend: str = "auto"
+
+  def __post_init__(self):
+    self._check_kernel()
+
+  @property
+  def _ridge(self) -> float:
+    return self.jitter
+
+  def _log_gain(self, cond: torch.Tensor) -> torch.Tensor:
+    return torch.log(cond)

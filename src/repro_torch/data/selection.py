@@ -4,11 +4,11 @@ port of ``src/repro/data/selection.py``).
 ``greedi_select_indices`` runs the reference protocol (partitions as a
 leading axis); ``greedi_select_indices_sharded`` lays the randomly
 partitioned ground set out shard-contiguously and runs the cached-similarity
-fast engine over m stacked logical shards on one card, threading the
-partition permutation through as ``gids`` so the returned ids refer to the
-original document order.  Given the same partition both paths select the
-same coreset.  Both take the generator that ``greedi_keys`` splits, or an
-explicit ``perm``.
+fast engine (or, with ``fast=False``, the generic engine) over m stacked
+logical shards on one card, threading the partition permutation through as
+``gids`` so the returned ids refer to the original document order.  Given
+the same partition both paths select the same coreset.  Both take the
+generator that ``greedi_keys`` splits, or an explicit ``perm``.
 """
 from __future__ import annotations
 
@@ -48,23 +48,31 @@ def greedi_select_indices_sharded(rng: torch.Generator | None,
                                   backend: str | None = None,
                                   mode: str = "standard",
                                   merge: str = "flat",
-                                  perm: torch.Tensor | None = None
-                                  ) -> np.ndarray:
+                                  perm: torch.Tensor | None = None,
+                                  fast: bool = True) -> np.ndarray:
   """GreeDi over m stacked logical shards returning global indices.
 
   The ground set is randomly partitioned with the same generator schedule
   as ``greedi_reference`` (``greedi_keys``), each shard receives one
   partition laid out contiguously, and the permutation rides along as the
   ``gids`` input.  A non-divisible n is padded with hole rows (gids = -1).
+  ``fast=False`` runs facility location through the generic engine
+  ``greedi_sharded`` instead of the cached-similarity one (same
+  selection).
   """
   r_part = GD.greedi_keys(rng)[0] if perm is None else None
   parts, _, perm = random_partition(r_part, feats, m, perm=perm)
   npp, d = parts.shape[1:]
-  r = GD.greedi_sharded_fast(
-      parts.reshape(m * npp, d), m=m, kappa=kappa, k_final=k_final,
-      kernel=kernel, kernel_kwargs=kernel_kwargs,
-      straggler_keep=straggler_keep, backend=backend,
-      gids=partition_gids(perm), mode=mode, merge=merge)
+  common = dict(m=m, kappa=kappa, k_final=k_final,
+                straggler_keep=straggler_keep, backend=backend,
+                gids=partition_gids(perm), mode=mode, merge=merge)
+  if fast:
+    r = GD.greedi_sharded_fast(parts.reshape(m * npp, d), kernel=kernel,
+                               kernel_kwargs=kernel_kwargs, **common)
+  else:
+    obj = O.FacilityLocation(kernel=kernel, kernel_kwargs=kernel_kwargs)
+    r = GD.greedi_sharded(parts.reshape(m * npp, d), objective=obj,
+                          **common)
   sel = r.sel_gids.cpu().numpy()
   return sel[sel >= 0]
 

@@ -2,17 +2,21 @@
 
 The system has no weights; what crosses over is data: the ground set's
 features, the partition permutation the reference drew (``random_partition``
-returns it as an (m, ceil(n/m)) int32 array with -1 padding), and global
-document ids.  These helpers take the reference's numpy arrays to tensors
-on a given device, and a port result back to numpy with the reference's
-dtypes (int32 ids), so one test can run both sides on the same data and
-the same partition.  Nothing here imports JAX: callers pass
-``np.asarray(jax_array)``.
+returns it as an (m, ceil(n/m)) int32 array with -1 padding), global
+document ids, and objective states the reference built part way through a
+greedy run (``ig_state``/``ig_shard_state``).  These helpers take the
+reference's numpy arrays to tensors on a given device, and a port result
+back to numpy with the reference's dtypes (int32 ids), so one test can run
+both sides on the same data, the same partition and the same state.
+Nothing here imports JAX: callers pass ``np.asarray(jax_array)`` (or a
+state NamedTuple whose leaves are numpy arrays).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.objectives import IGShardState, IGState
 
 
 def features(x, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -40,3 +44,23 @@ def to_numpy(result):
   if isinstance(result, tuple):
     return type(result)(*(to_numpy(x) for x in result))
   return result
+
+
+def ig_state(state, device="cpu") -> IGState:
+  """A reference ``IGState`` (sel_feats, count, chol, value as numpy
+  arrays, optionally with a leading partition axis) as the port's; the
+  int32 count becomes int64."""
+  return IGState(features(state.sel_feats, device),
+                 torch.as_tensor(np.asarray(state.count).astype(np.int64),
+                                 device=device),
+                 features(state.chol, device),
+                 torch.as_tensor(np.array(state.value, np.float32),
+                                 device=device))
+
+
+def ig_shard_state(state, device="cpu") -> IGShardState:
+  """A reference ``IGShardState`` (inner ``IGState``, n_live) as the
+  port's."""
+  return IGShardState(ig_state(state.inner, device),
+                      torch.as_tensor(np.array(state.n_live, np.float32),
+                                      device=device))

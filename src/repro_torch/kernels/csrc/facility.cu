@@ -157,26 +157,6 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// Stage 2 of the select with one chunk: top-1 of each partition's tiles.
-__global__ void __launch_bounds__(NT)
-    facility_fold_tiles(const float* __restrict__ tile_best,
-                        const int* __restrict__ tile_idx,
-                        float* __restrict__ best, int* __restrict__ idx,
-                        int64_t n_tiles) {
-  __shared__ float wv[NT / 32];
-  __shared__ int wi[NT / 32];
-  const int64_t p = blockIdx.y;
-  float v = -CUDART_INF_F;
-  int vi = 0x7fffffff;
-  for (int64_t t = threadIdx.x; t < n_tiles; t += NT)
-    take_better(v, vi, tile_best[p * n_tiles + t], tile_idx[p * n_tiles + t]);
-  block_top1(v, vi, wv, wi);
-  if (threadIdx.x == 0) {
-    best[p] = v;
-    idx[p] = vi;
-  }
-}
-
 struct Args {
   const void* ev;
   const void* cd;
@@ -267,7 +247,7 @@ extern "C" int sm90_facility_select(
                      static_cast<int*>(tile_idx), s);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    facility_fold_tiles<<<grid2, NT, 0, s>>>(
+    fold_tiles<<<grid2, NT, 0, s>>>(
         static_cast<const float*>(tile_best),
         static_cast<const int*>(tile_idx), static_cast<float*>(best),
         static_cast<int*>(idx), cdiv(nc, BN));

@@ -1,7 +1,7 @@
-// Shared FP32 tile product for the similarity kernels (pairwise.cu and
-// facility.cu): a 128 x 128 output tile per block of 256 threads, the d axis
-// staged through shared memory in chunks of 16, an 8 x 8 register micro-tile
-// per thread, FFMA only (no tensor cores, no TF32).
+// Shared FP32 tile product for the similarity kernels (pairwise.cu,
+// facility.cu and info_gain.cu): a 128 x 128 output tile per block of 256
+// threads, the d axis staged through shared memory in chunks of 16, an 8 x 8
+// register micro-tile per thread, FFMA only (no tensor cores, no TF32).
 //
 // Thread (ty, tx) = (tid / 16, tid % 16) owns tile rows
 // {ty*4 .. ty*4+3, 64+ty*4 .. 64+ty*4+3} and the same pattern of columns in
@@ -148,6 +148,26 @@ __device__ __forceinline__ void block_top1(float& v, int& i, float* sv,
   if (threadIdx.x == 0) {
     for (int w = 1; w < static_cast<int>(blockDim.x) / 32; ++w)
       take_better(v, i, sv[w], si[w]);
+  }
+}
+
+// Stage 2 of every fused select: the top-1 of each partition's per-tile
+// (value, index) pairs, one block per partition (blockIdx.y).
+__global__ void __launch_bounds__(NT)
+    fold_tiles(const float* __restrict__ tile_best,
+               const int* __restrict__ tile_idx, float* __restrict__ best,
+               int* __restrict__ idx, int64_t n_tiles) {
+  __shared__ float wv[NT / 32];
+  __shared__ int wi[NT / 32];
+  const int64_t p = blockIdx.y;
+  float v = -CUDART_INF_F;
+  int vi = 0x7fffffff;
+  for (int64_t t = threadIdx.x; t < n_tiles; t += NT)
+    take_better(v, vi, tile_best[p * n_tiles + t], tile_idx[p * n_tiles + t]);
+  block_top1(v, vi, wv, wi);
+  if (threadIdx.x == 0) {
+    best[p] = v;
+    idx[p] = vi;
   }
 }
 

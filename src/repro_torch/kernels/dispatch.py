@@ -17,7 +17,8 @@ Objectives carry a ``backend`` field ("cuda" | "ref" | "auto") and
 eagerly, so there is no trace-time resolution to cache.  The families are
 
   * gain oracles (``register``/``resolve``): the full (nc,) gains vector
-    (``facility_gain``), and ``pairwise``, the materialized similarity
+    (``facility_gain``), the information-gain conditional variances
+    (``info_gain_cond``), and ``pairwise``, the materialized similarity
     blocks the fast GreeDi engine caches;
   * select oracles (``register_select``/``resolve_select``): the fused
     top-1 reductions returning (best gain, index) directly, registered under

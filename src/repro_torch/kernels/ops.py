@@ -13,24 +13,31 @@ import functools
 
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import facility_gain as _fg
+from repro_torch.kernels import info_gain as _ig
 from repro_torch.kernels import pairwise as _pw
 from repro_torch.kernels import select_top1 as _st
 
 facility_gain = _fg.facility_gain
 facility_select = _st.facility_select
+info_gain_cond = _ig.info_gain_cond
+info_select = _st.info_select
 pairwise = _pw.pairwise
 
-_COUNTED = {"pairwise": _pw, "facility_gain": _fg, "facility_select": _st}
+# kernel name -> (wrapper module, its counter attribute)
+_COUNTED = {"pairwise": (_pw, "launches"), "facility_gain": (_fg, "launches"),
+            "facility_select": (_st, "launches"),
+            "info_gain_cond": (_ig, "launches"),
+            "info_select": (_st, "info_launches")}
 
 
 def launch_counts() -> dict[str, int]:
   """Kernel launches through each wrapper since the last reset."""
-  return {name: mod.launches for name, mod in _COUNTED.items()}
+  return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-  for mod in _COUNTED.values():
-    mod.launches = 0
+  for mod, attr in _COUNTED.values():
+    setattr(mod, attr, 0)
 
 
 def _cuda_only(fn):
@@ -53,3 +60,7 @@ dispatch.register("pairwise", cuda=_cuda_only(pairwise),
                   ref=ref.pairwise_ref, auto=pairwise)
 dispatch.register_select("facility_gain", cuda=_cuda_only(facility_select),
                          ref=ref.facility_select_ref, auto=facility_select)
+dispatch.register("info_gain_cond", cuda=_cuda_only(info_gain_cond),
+                  ref=ref.info_gain_cond_ref, auto=info_gain_cond)
+dispatch.register_select("info_gain_cond", cuda=_cuda_only(info_select),
+                         ref=ref.info_select_ref, auto=info_select)

@@ -65,6 +65,29 @@ def facility_gain_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   return (eval_mask.float().unsqueeze(-2) @ inc).squeeze(-2)
 
 
+def info_gain_cond_ref(sel_feats: torch.Tensor, linv: torch.Tensor,
+                       cand_feats: torch.Tensor, *, kernel: str = "rbf",
+                       h: float = 0.75, ridge: float = 1.0) -> torch.Tensor:
+  """Posterior conditional variance of each candidate given the selected
+  set, (..., nc) float32:
+
+    cond[j] = k(v_j, v_j) + ridge - || linv @ k(S, v_j) ||^2, clamped at 1e-12
+
+  with k(v, v) = 1 for rbf and |v|^2 for linear.  ``linv`` is inv(L) for
+  L = chol(K_SS + ridge I) with the columns past the live selection count
+  zeroed, so padded selection rows contribute nothing.
+  """
+  sel = sel_feats.float()
+  cd = cand_feats.float()
+  c = linv.float() @ _sim(sel, cd, kernel, h)           # (..., k, nc)
+  if kernel == "rbf":
+    k_vv = torch.ones(cd.shape[:-1], dtype=torch.float32, device=cd.device)
+  else:
+    k_vv = torch.sum(cd * cd, dim=-1)
+  cond = k_vv + ridge - torch.sum(c * c, dim=-2)
+  return torch.clamp_min(cond, 1e-12)
+
+
 def facility_select_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
                         cov: torch.Tensor, eval_mask: torch.Tensor,
                         cand_ok: torch.Tensor, *, kernel: str = "linear",
@@ -72,3 +95,15 @@ def facility_select_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   gains = facility_gain_ref(eval_feats, cand_feats, cov, eval_mask,
                             kernel=kernel, h=h)
   return masked_top1(gains, cand_ok)
+
+
+def info_select_ref(sel_feats: torch.Tensor, linv: torch.Tensor,
+                    cand_feats: torch.Tensor, cand_ok: torch.Tensor, *,
+                    kernel: str = "rbf", h: float = 0.75, ridge: float = 1.0):
+  """Top-1 over the conditional variances -> (best cond float32, int64
+  index).  cond >= 1e-12, so the 0.0 floor of infeasible candidates keeps
+  any feasible one ahead; nothing feasible gives (0.0, 0).  The caller maps
+  the winning cond through its log, which preserves the order."""
+  cond = info_gain_cond_ref(sel_feats, linv, cand_feats, kernel=kernel, h=h,
+                            ridge=ridge)
+  return masked_top1(cond, cand_ok, floor=0.0)

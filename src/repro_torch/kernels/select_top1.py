@@ -1,5 +1,6 @@
-"""Fused facility-location select step: the port of the TPU kernel
-``src/repro/kernels/select_top1.py`` ``facility_select_pallas``.
+"""Fused greedy select steps: the ports of the TPU kernels
+``src/repro/kernels/select_top1.py`` ``facility_select_pallas`` and
+``info_select_pallas``.
 
 The greedy step only needs the masked top-1 of the facility gains, so the
 kernel returns (best gain, index) per partition: candidates with ``ok`` false
@@ -9,17 +10,25 @@ feasible candidate the answer is (NEG, 0).  The CUDA kernel is
 deterministic second stage in place of the TPU's sequential running best;
 see the header there).  Its plain version is ``ref.facility_select_ref``.
 
-The other select kernels of the TPU module (saturated coverage, information
-gain, graph cut) belong to objectives that are not ported yet.
+``info_select`` is the information-gain / DPP step: the top-1
+conditional variance, infeasible candidates at 0.0, (0.0, 0) when nothing
+is feasible; the caller maps the winning cond through its log.  Its kernel
+is the select entry of ``csrc/info_gain.cu`` and its plain version
+``ref.info_select_ref``.
+
+The other select kernels of the TPU module (saturated coverage, graph cut)
+belong to objectives that are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import info_gain as _ig
 from repro_torch.kernels.facility_gain import operands
 
-launches = 0  # launches of csrc/facility.cu's select through this wrapper
+launches = 0       # launches of csrc/facility.cu's select through this wrapper
+info_launches = 0  # launches of csrc/info_gain.cu's select
 
 
 def facility_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
@@ -66,6 +75,45 @@ def facility_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
              int(kernel == "rbf"), float(h * h), build.stream_of(o.ev))
   build.check(err, "sm90_facility_select")
   launches += 1
+  idx = idx.to(torch.int64)
+  if o.batch is None:
+    return best[0], idx[0]
+  return best, idx
+
+
+def info_select(sel_feats: torch.Tensor, linv: torch.Tensor,
+                cand_feats: torch.Tensor, cand_ok: torch.Tensor, *,
+                kernel: str = "rbf", h: float = 0.75, ridge: float = 1.0):
+  """Fused top-1 conditional variance -> (best cond float32, int64 index),
+  each () or (P,) when an operand carries a partition axis.
+
+  Tensors on the CPU take the plain version; CUDA tensors launch the
+  kernel or raise.
+  """
+  if not (sel_feats.is_cuda or cand_feats.is_cuda):
+    return ref.info_select_ref(sel_feats, linv, cand_feats, cand_ok,
+                               kernel=kernel, h=h, ridge=ridge)
+  global info_launches
+  build.check_kernel("info_select", kernel)
+  o = _ig.operands("info_select", sel_feats, linv, cand_feats, cand_ok)
+  dev = o.sel.device
+  n_tiles = -(-o.nc // build.TILE)
+  tile_best = torch.empty((o.n_part, n_tiles), dtype=torch.float32,
+                          device=dev)
+  tile_idx = torch.empty((o.n_part, n_tiles), dtype=torch.int32, device=dev)
+  best = torch.empty((o.n_part,), dtype=torch.float32, device=dev)
+  idx = torch.empty((o.n_part,), dtype=torch.int32, device=dev)
+  with torch.cuda.device(dev):
+    fn = build.entry("sm90_info_select")
+    err = fn(o.sel.data_ptr(), o.linv.data_ptr(), o.cd.data_ptr(),
+             o.ok.data_ptr(), build.ptr(o.scratch), tile_best.data_ptr(),
+             tile_idx.data_ptr(), best.data_ptr(), idx.data_ptr(), o.n_part,
+             o.k, o.nc, o.d, *_ig.strides(o), build.batch_stride(o.ok, 1),
+             int(o.sel.dtype == torch.bfloat16),
+             int(kernel == "rbf"), float(h * h), float(ridge),
+             build.stream_of(o.sel))
+  build.check(err, "sm90_info_select")
+  info_launches += 1
   idx = idx.to(torch.int64)
   if o.batch is None:
     return best[0], idx[0]

@@ -3,9 +3,10 @@ one-shot modes of ``src/repro/launch/select.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.select --mesh 16 --n 262144
 
-With ``--mesh N`` the cached-similarity fast engine runs over N stacked
-logical shards on the one card (``greedi_select_indices_sharded``); without
-it the reference protocol runs over ``--m`` partitions.  Both return global
+With ``--mesh N`` the cached-similarity fast engine (or, with
+``--no-fast``, the generic objective engine) runs over N stacked logical
+shards on the one card (``greedi_select_indices_sharded``); without it the
+reference protocol runs over ``--m`` partitions.  Both return global
 document indices, honor ``--out`` (npy, written before the coverage
 baseline), and report coverage against the centralized greedy when n is
 small enough for its O(k n^2) work to be cheap (force with ``--coverage``,
@@ -46,7 +47,10 @@ def main(argv=None) -> None:
   ap.add_argument("--m", type=int, default=8,
                   help="logical partitions (reference path)")
   ap.add_argument("--mesh", type=int, default=0,
-                  help="stacked logical shards for the fast engine")
+                  help="stacked logical shards for the sharded path")
+  ap.add_argument("--no-fast", action="store_true",
+                  help="sharded path: use the generic objective engine "
+                  "instead of the cached-similarity fast engine")
   ap.add_argument("--kernel", default="linear", choices=["linear", "rbf"])
   ap.add_argument("--backend", default=None, choices=["cuda", "ref", "auto"],
                   help="gain-oracle backend override (kernels/dispatch.py)")
@@ -86,8 +90,9 @@ def main(argv=None) -> None:
   if args.mesh:
     sel = greedi_select_indices_sharded(
         rng, feats, m=args.mesh, kappa=kappa, k_final=args.k,
-        kernel=args.kernel, backend=args.backend)
-    mode_fields = dict(mode="sharded", m=args.mesh, engine="fast",
+        kernel=args.kernel, backend=args.backend, fast=not args.no_fast)
+    mode_fields = dict(mode="sharded", m=args.mesh,
+                       engine="generic" if args.no_fast else "fast",
                        merge="flat")
   else:
     sel = greedi_select_indices(rng, feats, m=args.m, kappa=kappa,

@@ -8,7 +8,8 @@ they run on a GPU machine that has only PyTorch:
 
 Tolerances: f32 within 2e-5 relative to the largest magnitude (1e-4 for
 gain sums over more than 16k eval rows, summed in another order), bf16
-within 3e-2; top-1 indices equal.
+within 3e-2; top-1 indices equal.  The info-gain conds are held the same
+way, the selection built from a real Cholesky factor (float64 on the CPU).
 """
 import numpy as np
 import pytest
@@ -71,9 +72,66 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda_device):
   ops.pairwise(x, x[0], kernel="linear")
   ops.facility_gain(x, x, torch.zeros(4, 50, device=cuda_device),
                     torch.ones(50, device=cuda_device))
+  sel, linv = x[:, :6].contiguous(), torch.zeros(4, 6, 6, device=cuda_device)
+  ops.info_gain_cond(sel, linv, x[0])
+  ops.info_select(sel, linv, x[0], torch.ones(50, dtype=torch.bool,
+                                              device=cuda_device))
   assert ops.launch_counts() == {"pairwise": 1, "facility_gain": 1,
-                                 "facility_select": 0}
+                                 "facility_select": 0, "info_gain_cond": 1,
+                                 "info_select": 1}
+  with pytest.raises(TypeError, match="linv must be float32"):
+    ops.info_gain_cond(sel, linv.double(), x[0])
   with pytest.raises(TypeError, match="float32 or bfloat16"):
     ops.pairwise(x.half(), x.half())
   with pytest.raises(ValueError, match="contiguous"):
     ops.pairwise(x.transpose(1, 2), x)
+
+
+def _ig_operands(r, P, k, count, nc, d, kernel, td, dev):
+  """Selections, masked inverse Cholesky factors of K_SS + I and
+  candidates; P = None for unbatched operands."""
+  lead = () if P is None else (P,)
+  sel = np.zeros((*lead, k, d))
+  sel[..., :count, :] = r.normal(size=(*lead, count, d)) / np.sqrt(d)
+  cand = r.normal(size=(*lead, nc, d)) / np.sqrt(d)
+  s = torch.tensor(sel)
+  if kernel == "rbf":
+    d2 = (s * s).sum(-1, keepdim=True) - 2 * s @ s.mT + (s * s).sum(-1)[
+        ..., None, :]
+    kss = torch.exp(-d2.clamp_min(0) / 0.5625)
+  else:
+    kss = s @ s.mT
+  live = torch.arange(k) < count
+  kss = torch.where(live[:, None] & live[None, :], kss, 0.0) + torch.eye(k)
+  linv = torch.where(live, torch.linalg.inv(torch.linalg.cholesky(kss)), 0.0)
+  return (torch.tensor(sel, device=dev).to(td), linv.float().to(dev),
+          torch.tensor(cand, device=dev).to(td))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["linear", "rbf"])
+def test_cuda_info_kernels_match_plain(cuda_device, kernel, dtype):
+  """info_gain_cond and info_select against their plain versions: k_max of
+  1, 80, 128 and one past the shared-memory cross tile (400), ragged nc,
+  partial and full counts, a shared candidate block."""
+  td, tol = DTYPES[dtype]
+  r = np.random.default_rng(7)
+  for (P, k, count, nc, d, shared) in [(None, 1, 1, 70, 17, False),
+                                       (3, 80, 40, 1037, 22, False),
+                                       (2, 128, 128, 300, 6, True),
+                                       (2, 400, 250, 150, 6, False)]:
+    sel, linv, cand = _ig_operands(r, P, k, count, nc, d, kernel, td,
+                                   cuda_device)
+    if shared:
+      cand = cand[0]
+    ok = torch.tensor(r.uniform(size=(nc,) if P is None else (P, nc)) > 0.3,
+                      device=cuda_device)
+    got = ops.info_gain_cond(sel, linv, cand, kernel=kernel)
+    best, idx = ops.info_select(sel, linv, cand, ok, kernel=kernel)
+    torch.cuda.synchronize()
+    want = ref.info_gain_cond_ref(sel, linv, cand, kernel=kernel)
+    wb, wi = ref.masked_top1(want, ok, floor=0.0)
+    _close(got, want, tol)
+    assert torch.equal(idx.cpu(), wi.cpu()), (P, k, idx, wi)
+    _close(best, wb, tol)

@@ -233,3 +233,21 @@ def test_cli_writes_a_valid_coreset(tmp_path):
     done = [ln for ln in p.stdout.splitlines()
             if ln.startswith("[select] done")]
     assert len(done) == 1 and "coverage=" in done[0], p.stdout
+
+
+def test_cli_no_fast_selects_what_the_fast_engine_selects(tmp_path, capsys):
+  """``--mesh 4 --no-fast`` runs facility location through the generic
+  engine and writes the coreset the fast engine writes (same partition)."""
+  from repro_torch.launch import select as cli
+  sels = {}
+  for flags in ([], ["--no-fast"]):
+    out = tmp_path / f"sel{len(flags)}.npy"
+    cli.main(["--device", "cpu", "--n", "1024", "--d", "16", "--k", "8",
+              "--mesh", "4", "--no-coverage", *flags, "--out", str(out)])
+    sels[bool(flags)] = np.load(out)
+  done = [ln for ln in capsys.readouterr().out.splitlines()
+          if ln.startswith("[select] done")]
+  assert ["engine=fast" in done[0], "engine=generic" in done[1]] == [True,
+                                                                      True]
+  np.testing.assert_array_equal(sels[True], sels[False])
+  assert len(set(sels[True].tolist())) == 8

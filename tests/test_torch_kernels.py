@@ -183,8 +183,8 @@ def test_batched_partitions_match_per_partition_reference(kernel):
 def test_registry_backends():
   """The registry carries the reference's names; "cuda" on CPU tensors
   raises instead of falling back; "ref" and "auto" run the plain version."""
-  assert dispatch.names() == ("facility_gain", "pairwise")
-  assert dispatch.select_names() == ("facility_gain",)
+  assert dispatch.names() == ("facility_gain", "info_gain_cond", "pairwise")
+  assert dispatch.select_names() == ("facility_gain", "info_gain_cond")
   x = torch.randn(20, 8)
   y = torch.randn(10, 8)
   cov = torch.zeros(20)
@@ -198,15 +198,29 @@ def test_registry_backends():
                                dispatch.resolve(name, "auto")(*args))
   with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
     dispatch.resolve_select("facility_gain", "cuda")(x, y, cov, mask, ok)
+  sel, linv = torch.randn(4, 8), torch.tril(torch.randn(4, 4))
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve("info_gain_cond", "cuda")(sel, linv, y)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve_select("info_gain_cond", "cuda")(sel, linv, y, ok)
+  torch.testing.assert_close(
+      dispatch.resolve("info_gain_cond", "ref")(sel, linv, y),
+      dispatch.resolve("info_gain_cond", "auto")(sel, linv, y))
+  for a, b in zip(dispatch.resolve_select("info_gain_cond", "ref")(
+      sel, linv, y, ok), dispatch.resolve_select("info_gain_cond", "auto")(
+          sel, linv, y, ok)):
+    torch.testing.assert_close(a, b)
   with pytest.raises(ValueError, match="not in"):
     dispatch.resolve("pairwise", "pallas")
   assert ops.launch_counts() == {"pairwise": 0, "facility_gain": 0,
-                                 "facility_select": 0}
+                                 "facility_select": 0, "info_gain_cond": 0,
+                                 "info_select": 0}
 
 
 def test_port_imports_neither_jax_nor_reference():
-  """In a fresh interpreter, importing every module of the port loads no
-  JAX and no module of the reference package."""
+  """In a fresh interpreter, importing every module of the port (and the
+  port's example, examples/active_set_gp_torch.py) loads no JAX and no
+  module of the reference package."""
   code = r"""
 import importlib, pkgutil, sys
 import repro_torch
@@ -224,4 +238,15 @@ print("BAD", bad)
                        capture_output=True, text=True, timeout=300)
   assert out.returncode == 0, out.stderr
   assert "BAD []" in out.stdout, out.stdout
-  assert int(out.stdout.split("LOADED")[1].split()[0]) >= 15, out.stdout
+  assert int(out.stdout.split("LOADED")[1].split()[0]) >= 18, out.stdout
+  # the port's example, imported without running it
+  example = os.path.join(REPO, "examples", "active_set_gp_torch.py")
+  with_example = code.replace(
+      "import repro_torch\n",
+      "import repro_torch, runpy\n"
+      f"runpy.run_path({example!r}, run_name='example')\n")
+  assert with_example != code
+  out = subprocess.run([sys.executable, "-c", with_example], env=env,
+                       capture_output=True, text=True, timeout=300)
+  assert out.returncode == 0, out.stderr
+  assert "BAD []" in out.stdout, out.stdout
