@@ -20,10 +20,18 @@ calls, counting each kernel's launches around each path:
     experiment (45,811,883 unit rows of width 6, m = 32, k = kappa = k_max
     = 128, rbf h = 0.75, sigma = 1) and at the Fig. 6 settings (n = 65536
     rows of width 22, m = 10, k = 50, k_max = 80), where the kernels are
-    held against the plain versions end to end.
+    held against the plain versions end to end;
+  * saturated coverage (Lin & Bilmes) through ``greedi_reference`` (the
+    fused ``coverage_select`` steps) at full size, and at the CLI's size
+    beside the centralized greedy and the plain versions;
+  * the selection service (``repro_torch.service``) at full size: a
+    store growing from capacity 65536 while 75 % of the corpus is
+    ingested, three epochs around the last 25 %, warm-started and cold, for
+    saturated coverage and facility location (the ``coverage_gain`` lazy
+    rescans), and the CLI's service mode once.
 
 It holds every kernel against its plain version at the shapes those paths
-launch, and profiles both paths.  The generic engine also runs facility
+launch, and profiles the paths.  The generic engine also runs facility
 location once, through the CLI's ``--no-fast``.
 
 Output: one line per phase; the card's name and power limit
@@ -72,6 +80,8 @@ REPLACES = {
     "facility_gain": "src/repro/kernels/facility_gain.py:55",
     "info_gain_cond": "src/repro/kernels/info_gain.py:51",
     "info_select": "src/repro/kernels/select_top1.py:255",
+    "coverage_gain": "src/repro/kernels/coverage_gain.py:53",
+    "coverage_select": "src/repro/kernels/select_top1.py:186",
 }
 # the path whose launch count each kernel reports in the kernels line (one
 # run, its counts set to 0 just before it); every path's count rides along
@@ -81,14 +91,19 @@ MAIN_PATH = {
     "facility_gain": "reference_two_pass",
     "info_gain_cond": "generic",               # GP, e2e gp full-size
     "info_select": "generic",
+    "coverage_gain": "service_satcov_warm",    # e2e service
+    "coverage_select": "satcov_reference",     # e2e satcov, full size
 }
 GP_KERNELS = ("info_gain_cond", "info_select")
+COV_KERNELS = ("coverage_gain", "coverage_select")
 SOURCES = {
     "pairwise": "src/repro_torch/kernels/csrc/pairwise.cu",
     "facility_select": "src/repro_torch/kernels/csrc/facility.cu",
     "facility_gain": "src/repro_torch/kernels/csrc/facility.cu",
     "info_gain_cond": "src/repro_torch/kernels/csrc/info_gain.cu",
     "info_select": "src/repro_torch/kernels/csrc/info_gain.cu",
+    "coverage_gain": "src/repro_torch/kernels/csrc/facility.cu",
+    "coverage_select": "src/repro_torch/kernels/csrc/facility.cu",
 }
 
 
@@ -115,6 +130,12 @@ class Sizes:
   f6_m: int = 10
   f6_k: int = 50
   f6_k_max: int = 80
+  # saturated coverage (Lin & Bilmes) and the selection service, at the
+  # coreset path's full size
+  cov_alpha: float = 0.25
+  svc_cap0: int = 65536  # the store grows twice while ingesting 75 %
+  append_block: int = 1024
+  append_frac: float = 0.25
 
 
 class SmokeFailure(Exception):
@@ -945,38 +966,43 @@ def ig_kernel_phase(sz: Sizes, path_counts: dict):
   return rows
 
 
-def ig_value(obj, feats, ids):
-  """f(S) of the rows ``ids`` under the information gain."""
+def replay_value(obj, feats, ids, st0=None):
+  """f(S) of the rows ``ids``, replayed from ``st0`` (by default the
+  information gain's empty selection)."""
   import torch
 
   from repro_torch.core import greedi as GD
+  if st0 is None:
+    st0 = obj.init_d(feats.shape[1], device=DEVICE)
   sf = feats[torch.as_tensor(ids, device=feats.device)]
-  st = GD.set_value_feats(obj, obj.init_d(feats.shape[1], device=DEVICE), sf,
-                          torch.ones(sf.shape[:1], dtype=torch.bool,
-                                     device=DEVICE))
+  st = GD.set_value_feats(obj, st0, sf, torch.ones(
+      sf.shape[:1], dtype=torch.bool, device=DEVICE))
   return float(obj.value(st))
 
 
-def ig_agree(obj, feats, a, b, what):
+def replay_agree(obj, feats, a, b, what, st0=None):
   """Equal selections, or the near-tie rule: where the greedy orders first
   differ both picks' gains after the common prefix agree within TOL_GAP,
-  and the two f(S) agree within 1e-5 relative."""
+  and the two f(S) agree within 1e-5 relative (replayed from ``st0`` as in
+  ``replay_value``)."""
   import numpy as np
   import torch
 
   from repro_torch.core import greedi as GD
   if np.array_equal(a, b):
     return "equal"
+  if st0 is None:
+    st0 = obj.init_d(feats.shape[1], device=DEVICE)
   n = min(len(a), len(b))
   t = int(np.flatnonzero(a[:n] != b[:n])[0]) if (a[:n] != b[:n]).any() else n
-  va, vb = ig_value(obj, feats, a), ig_value(obj, feats, b)
+  va = replay_value(obj, feats, a, st0)
+  vb = replay_value(obj, feats, b, st0)
   rel = abs(va - vb) / max(abs(va), 1e-30)
   gap = 0.0
   if t < n:
     prefix = feats[torch.as_tensor(a[:t], device=DEVICE)]
-    st = GD.set_value_feats(obj, obj.init_d(feats.shape[1], device=DEVICE),
-                            prefix, torch.ones((t,), dtype=torch.bool,
-                                               device=DEVICE))
+    st = GD.set_value_feats(obj, st0, prefix, torch.ones(
+        (t,), dtype=torch.bool, device=DEVICE))
     pair = feats[torch.as_tensor([a[t], b[t]], device=DEVICE)]
     gg = obj.gains(st, pair)
     gap = float((gg[0] - gg[1]).abs() / gg.abs().max())
@@ -1063,11 +1089,11 @@ def e2e_gp_full(sz: Sizes):
   # each path's f(S) agrees with a replay of its ids; the centralized value
   # is the ratio's denominator
   for name in ("reference", "generic", "centralized"):
-    rv = ig_value(obj, feats, out[name]["ids"])
+    rv = replay_value(obj, feats, out[name]["ids"])
     check(abs(rv - out[name]["value"]) <= 1e-5 * out[name]["value"],
           f"gp {name}: reported f(S) {out[name]['value']!r}, replay {rv!r}")
-  verdict = ig_agree(obj, feats, out["reference"]["ids"],
-                     out["generic"]["ids"], "gp reference/generic")
+  verdict = replay_agree(obj, feats, out["reference"]["ids"],
+                         out["generic"]["ids"], "gp reference/generic")
   v_c = out["centralized"]["value"]
   floor = bounds.thm4_bound(m, k, k)
   ratios = {name: out[name]["value"] / v_c
@@ -1115,7 +1141,8 @@ def e2e_gp_fig6(sz: Sizes):
     values[backend] = float(r.value)
     check(len(set(sels[backend].tolist())) == sz.f6_k,
           f"fig6 {backend}: not k unique ids")
-  verdict = ig_agree(obj, feats, sels["auto"], sels["ref"], "fig6 auto/ref")
+  verdict = replay_agree(obj, feats, sels["auto"], sels["ref"],
+                         "fig6 auto/ref")
   _, v_c = GD.centralized_greedy(feats, sz.f6_k, objective=obj,
                                  init_for=init)
   ratio = values["auto"] / float(v_c)
@@ -1140,6 +1167,528 @@ def profile_gp(sz: Sizes):
       torch.Generator(device=DEVICE).manual_seed(0), feats, m=sz.gp_m,
       kappa=sz.gp_k, k_final=sz.gp_k, objective=obj,
       init_for=lambda ef, em: obj.init_d(sz.gp_d, device=ef.device)))
+
+
+# ---------------------------------------------------------------------------
+# saturated coverage: kernels 4-5, the reference protocol and the service
+# ---------------------------------------------------------------------------
+
+
+def abs_rows(g, *shape, dtype=None):
+  """Nonnegative unit rows (coverage mass): ``unit_rows`` folded into the
+  positive orthant, as the CLI's saturated-coverage mode does."""
+  x = unit_rows(g, *shape).abs()
+  return x if dtype is None else x.to(dtype)
+
+
+def cov_state(g, lead, ne, nc, d, dtype, shared_ev=False,
+              shared_cands=False, shared_cap=False, alpha=0.25):
+  """A greedy-like saturated-coverage state: eval rows, candidates, caps
+  at alpha times a total of the scale abs unit rows give (mean relu
+  similarity near 2/pi), a cover from 0 to past the cap (some rows
+  saturated), a mask with a few dead rows, ok with a few selected
+  candidates.  ``lead`` is () or (P,); a shared operand has no P axis."""
+  import torch
+  ev = abs_rows(g, *(() if shared_ev else lead), ne, d, dtype=dtype)
+  cd = abs_rows(g, *(() if shared_cands else lead), nc, d, dtype=dtype)
+  cap = alpha * 0.64 * ne * (0.8 + 0.4 * torch.rand(
+      *(() if shared_cap else lead), ne, generator=g, device=DEVICE))
+  cover = cap * 1.2 * torch.rand(*lead, ne, generator=g, device=DEVICE)
+  mask = (torch.rand(*lead, ne, generator=g, device=DEVICE) > 0.05).float()
+  ok = torch.rand(*lead, nc, generator=g, device=DEVICE) > 0.02
+  return ev, cd, cover, cap, mask, ok
+
+
+def cov_plain(ev, cd, cover, cap, mask, kernel, chunk):
+  """The plain coverage gains of the kernel's output shape, a few
+  partitions (batched operands) or candidates (unbatched) at a time."""
+  import torch
+
+  from repro_torch.kernels import ref
+  batched = any(t.dim() == r + 1 for t, r in ((ev, 2), (cd, 2), (cover, 1),
+                                               (cap, 1), (mask, 1)))
+  if not batched:
+    step = max(1, (1 << 29) // ev.shape[0])   # 2 GiB of (ne, step) floats
+    return torch.cat([ref.coverage_gain_ref(ev, cd[c0:c0 + step], cover,
+                                            cap, mask, kernel=kernel)
+                      for c0 in range(0, cd.shape[0], step)])
+  P = max(t.shape[0] for t, r in ((ev, 2), (cd, 2), (cover, 1), (cap, 1),
+                                  (mask, 1)) if t.dim() == r + 1)
+
+  def take(t, rank, s):
+    return t[s] if t.dim() == rank + 1 else t
+
+  out = []
+  for p0 in range(0, P, chunk):
+    s = slice(p0, p0 + chunk)
+    out.append(ref.coverage_gain_ref(take(ev, 2, s), take(cd, 2, s),
+                                     take(cover, 1, s), take(cap, 1, s),
+                                     take(mask, 1, s), kernel=kernel))
+  return torch.cat(out)
+
+
+def cov_bound(P, ne, nc, d, esz, shared_ev, shared_cd, shared_cap, kernel,
+              select):
+  """The least time of one coverage call: every input read once, the
+  output written once, 2 d + 5 operations per (eval, candidate) pair (the
+  product, then relu, add, min, subtract, masked accumulate); rbf adds the
+  norms and its 6-operation epilogue.  P = None: unbatched."""
+  n_p = 1 if P is None else P
+  moved = ((1 if shared_ev else n_p) * ne * d * esz
+           + (1 if shared_cd else n_p) * nc * d * esz
+           + (2 * n_p + (1 if shared_cap else n_p)) * ne * 4)
+  moved += n_p * nc + n_p * 8 if select else n_p * nc * 4
+  flops = (2.0 * d + 5.0) * n_p * ne * nc
+  if kernel == "rbf":
+    flops += 6.0 * n_p * ne * nc + 2.0 * n_p * (ne + nc) * d
+  return bound_ms(moved, flops, "f32" if esz == 4 else "bf16")
+
+
+# the coverage kernel phase's cases: label, partitions (None = unbatched),
+# eval rows, candidates, shared eval block / candidates / cap, the
+# variants run, and the paths that launch each kernel at that shape
+COV_CASES = (
+    ("round1", 16, 16384, 16384, False, False, False,
+     (("linear", "f32"), ("linear", "bf16"), ("rbf", "f32")),
+     {"coverage_gain": ["service_satcov_warm", "service_satcov_cold",
+                        "service_satcov_standard"],
+      "coverage_select": ["satcov_reference", "service_satcov_standard"]}),
+    ("round2 service", 16, 16384, 1024, False, True, False,
+     (("linear", "f32"),),
+     {"coverage_gain": ["service_satcov_warm", "service_satcov_cold",
+                        "service_satcov_standard"],
+      "coverage_select": []}),
+    ("lazy rescan", 16, 16384, 256, False, False, False,
+     (("linear", "f32"),),
+     {"coverage_gain": ["service_satcov_warm", "service_satcov_cold"],
+      "coverage_select": []}),
+    ("total pass", None, 262144, 16384, False, False, False,
+     (("linear", "f32"),),
+     {"coverage_gain": ["satcov_reference"], "coverage_select": []}),
+    ("round2 reference", None, 262144, 1024, False, False, False,
+     (("linear", "f32"),),
+     {"coverage_gain": [], "coverage_select": ["satcov_reference"]}),
+    ("centralized cli", None, 65536, 65536, False, False, False,
+     (("linear", "f32"),),
+     {"coverage_gain": [], "coverage_select": ["satcov_centralized"]}),
+    ("batched queries", 64, 8192, 8192, True, True, True,
+     (("linear", "f32"),),
+     {"coverage_gain": [], "coverage_select": []}),
+)
+
+
+def cov_kernel_phase(sz, path_counts: dict):
+  """coverage_gain and coverage_select against their plain versions at
+  every shape the satcov paths launch (``COV_CASES``): round 1 at full size
+  (P = 16 partitions of 16384 rows, also bf16 and rbf), the service's
+  round 2 (16 eval partitions over one shared block of m kappa = 1024
+  candidates), a lazy rescan (16 gathered tiles of ``lazy_tile``), one
+  chunk of the ``total`` pass over all 262144 rows (``SaturatedCoverage``
+  at init, the reference's final evaluation), the reference's round 2
+  (all 262144 rows over the 1024), the centralized
+  greedy at the CLI size (65536 x 65536, the plain side in candidate
+  chunks), and the batched query form (64 per-query covers, masks and oks
+  over one shared block and cap).  Each row carries the launches of the
+  paths that give the kernel that shape (``path_counts``)."""
+  import torch
+
+  from repro_torch.kernels import autotune, ops, ref
+  g = torch.Generator(device=DEVICE).manual_seed(21)
+  check(autotune.lazy_tile(sz.n // sz.m, sz.d) == 256,
+        "the lazy rescan case assumes a 256-row rescore tile")
+  rows = {}
+  for (label, P, ne, nc, sh_ev, sh_cd, sh_cap, variants,
+       on_paths) in COV_CASES:
+    lead = () if P is None else (P,)
+    for kernel, dtype in variants:
+      td = torch.float32 if dtype == "f32" else torch.bfloat16
+      ev, cd, cover, cap, mask, ok = cov_state(
+          g, lead, ne, nc, sz.d, td, shared_ev=sh_ev, shared_cands=sh_cd,
+          shared_cap=sh_cap)
+      kw = dict(kernel=kernel)
+      gains = ops.coverage_gain(ev, cd, cover, cap, mask, **kw)
+      best, idx = ops.coverage_select(ev, cd, cover, cap, mask, ok, **kw)
+      sync()
+      want = cov_plain(ev, cd, cover, cap, mask, kernel, sz.plain_chunk)
+      tol = (TOL[dtype] if ne <= 16384 or dtype != "f32" else TOL_LONG_SUM)
+      g_abs, g_rel = errors(gains, want)
+      check(g_rel <= tol, f"coverage_gain {label} {kernel} {dtype}: "
+            f"relative error {g_rel:.3e} > {tol:.0e}")
+      wb, wi = ref.masked_top1(want, ok)
+      same = idx == wi
+      picked = want.gather(-1, idx.unsqueeze(-1))[..., 0]
+      gap = (wb - picked).abs() / wb.abs().clamp_min(1e-30)
+      okp = ok.gather(-1, idx.unsqueeze(-1))[..., 0]
+      tie = (~same) & (gap <= tol) & okp
+      check(bool((same | tie).all()), f"coverage_select {label} {kernel} "
+            f"{dtype}: index differs beyond a near-tie")
+      b_abs, b_rel = errors(best, wb)
+      check(b_rel <= tol, f"coverage_select {label}: best error "
+            f"{b_rel:.3e}")
+      gain_ms = time_ms(lambda: ops.coverage_gain(ev, cd, cover, cap, mask,
+                                                  **kw))
+      sel_ms = time_ms(lambda: ops.coverage_select(ev, cd, cover, cap, mask,
+                                                   ok, **kw))
+      pg_ms = time_ms(lambda: cov_plain(ev, cd, cover, cap, mask, kernel,
+                                        sz.plain_chunk), reps=1)
+      ps_ms = time_ms(lambda: ref.masked_top1(cov_plain(
+          ev, cd, cover, cap, mask, kernel, sz.plain_chunk), ok), reps=1)
+      esz = cd.element_size()
+      from repro_torch.kernels import build
+      from repro_torch.kernels.facility_gain import eval_chunks
+      n_p = 1 if P is None else P
+      chunks = eval_chunks(-(-nc // build.TILE) * n_p, ne, cd.device)
+      common = dict(shape=[P, ne, nc, sz.d], kernel=kernel, dtype=dtype,
+                    shared=dict(eval=sh_ev, candidates=sh_cd, cap=sh_cap),
+                    tol=tol, eval_chunks=chunks, library_ms=None)
+      for name, err, ms, p_ms, select in (
+          ("coverage_gain", dict(max_abs_err=g_abs, max_rel_err=g_rel),
+           gain_ms, pg_ms, False),
+          ("coverage_select", dict(max_abs_err=b_abs, max_rel_err=b_rel,
+                                   idx_equal=int(same.sum()),
+                                   near_ties=int(tie.sum())),
+           sel_ms, ps_ms, True)):
+        bms, by = cov_bound(P, ne, nc, sz.d, esz, sh_ev, sh_cd, sh_cap,
+                            kernel, select)
+        rows[(name, label, kernel, dtype)] = dict(
+            common, **err, kernel_ms=ms, plain_ms=p_ms, bound_ms=bms,
+            bound_by=by, on_paths=on_paths[name],
+            launches={p: path_counts[p][name] for p in on_paths[name]})
+        emit(f"kernel {name} {label}", **rows[(name, label, kernel, dtype)])
+      del ev, cd, cover, cap, mask, ok, want, gains
+      torch.cuda.empty_cache()
+  # facility location at the service's lazy-rescan shape as well
+  st = fl_state(g, sz.m, sz.n // sz.m, 256, sz.d, torch.float32)
+  fl_counts = {"facility_gain": path_counts["service_facility_warm"][
+      "facility_gain"], "facility_select": 0}
+  facility_phase("lazy rescan", *st, "linear", "f32", sz.plain_chunk,
+                 fl_counts)
+  return rows
+
+
+def cov_edge_phase():
+  """The coverage kernels at the edges, against the plain versions: ragged
+  ne and nc, linear and rbf, f32 and bf16, rows with cover >= cap (which
+  add 0), nothing feasible, exact ties, and cap = +inf with cover = 0,
+  which is the facility gain at cov = 0."""
+  import torch
+
+  from repro_torch.kernels import ops, ref
+  g = torch.Generator(device=DEVICE).manual_seed(13)
+  worst = 0.0
+  for kernel in ("linear", "rbf"):
+    for dtype, td in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+      ev, cd, cover, cap, mask, ok = cov_state(g, (3,), 1000, 1037, 40, td)
+      sat = torch.rand(3, 1000, generator=g, device=DEVICE) > 0.7
+      cover = torch.where(sat, cap * 1.5, cover)
+      gains = ops.coverage_gain(ev, cd, cover, cap, mask, kernel=kernel)
+      best, idx = ops.coverage_select(ev, cd, cover, cap, mask, ok,
+                                      kernel=kernel)
+      want = ref.coverage_gain_ref(ev, cd, cover, cap, mask, kernel=kernel)
+      wb, wi = ref.masked_top1(want, ok)
+      # saturated rows add nothing: the same gains with them masked out
+      unsat = ops.coverage_gain(ev, cd, cover, cap,
+                                torch.where(sat, 0.0, mask), kernel=kernel)
+      sync()
+      ea, er = errors(gains, want)
+      _, eu = errors(gains, unsat)
+      worst = max(worst, ea)
+      check(er <= TOL[dtype] and eu <= TOL[dtype] and torch.equal(idx, wi),
+            f"coverage ragged {kernel} {dtype}: err {er:.3e}, saturated "
+            f"{eu:.3e}, idx {idx.tolist()} vs {wi.tolist()}")
+      none = torch.zeros_like(ok)
+      best, idx = ops.coverage_select(ev, cd, cover, cap, mask, none,
+                                      kernel=kernel)
+      sync()
+      check(bool((best == ref.NEG).all()) and bool((idx == 0).all()),
+            f"coverage all-infeasible {kernel}: {best.tolist()}")
+      # cap = +inf, cover = 0: relu(sim) summed, the facility gain at 0
+      zero = torch.zeros_like(cover)
+      inf = torch.full_like(cap, float("inf"))
+      a = ops.coverage_gain(ev, cd, zero, inf, mask, kernel=kernel)
+      b = ops.facility_gain(ev, cd, zero, mask, kernel=kernel)
+      sync()
+      check(torch.equal(a, b), f"coverage cap=inf vs facility {kernel} "
+            f"{dtype}: {errors(a, b)}")
+    # exact ties: +-10 sign rows, the best candidate again twice
+    signs = torch.where(torch.rand(2, 300, 8, generator=g, device=DEVICE)
+                        > 0.5, 10.0, -10.0)
+    e_t = signs[:, torch.randint(0, 300, (700,), generator=g,
+                                 device=DEVICE)]
+    cand = signs.clone()
+    zero = torch.zeros(2, 700, device=DEVICE)
+    big = torch.full((2, 700), 1e4, device=DEVICE)
+    ones = torch.ones(2, 700, device=DEVICE)
+    top = ref.coverage_gain_ref(e_t, cand, zero, big, ones,
+                                kernel=kernel).argmax(dim=1)
+    for p in range(2):
+      j = int(top[p])
+      cand[p, (j + 211) % 300] = cand[p, j]
+      cand[p, (j + 97) % 300] = cand[p, j]
+    allok = torch.ones(2, 300, dtype=torch.bool, device=DEVICE)
+    best, idx = ops.coverage_select(e_t, cand, zero, big, ones, allok,
+                                    kernel=kernel)
+    wb, wi = ref.coverage_select_ref(e_t, cand, zero, big, ones, allok,
+                                     kernel=kernel)
+    sync()
+    check(torch.equal(idx, wi) and torch.equal(best, wb),
+          f"coverage ties {kernel}: {idx.tolist()} vs {wi.tolist()}")
+  emit("kernel coverage edges", ragged=[3, 1000, 1037, 40],
+       max_abs_err=worst, saturated_rows="add 0",
+       all_infeasible="(NEG, 0)", ties="lowest index",
+       cap_inf_cover_0="equals facility_gain at cov 0", result="pass")
+
+
+def e2e_satcov(sz):
+  """Saturated coverage through the reference protocol (the fused
+  ``coverage_select`` steps): at full size (the kernels line's main path),
+  and at the CLI size with the centralized greedy (the ratio against the
+  Thm-4 floor) and with backend "ref" (the plain versions on the card, the
+  same ids or a near-tie).  Local evaluation in round 1, as the CLI's
+  reference path; each path's f(S) is replayed from its ids.  Returns the
+  launch counts by path."""
+  import dataclasses
+
+  import numpy as np
+  import torch
+
+  from repro_torch.core import bounds
+  from repro_torch.core import greedi as GD
+  from repro_torch.core import objectives as O
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.kernels import ops
+  obj = O.SaturatedCoverage(alpha=sz.cov_alpha)
+  counts, out = {}, {}
+
+  def run(name, fn, feats):
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    counts[name] = ops.launch_counts()
+    if isinstance(res, GD.GreediResult):
+      ids, value = res.sel_gids.cpu().numpy(), float(res.value)
+    else:   # centralized: (GreedyResult, f(S))
+      ids, value = res[0].idx.cpu().numpy(), float(res[1])
+    check(len(ids) == sz.k and len(set(ids.tolist())) == sz.k and
+          ids.min() >= 0 and ids.max() < feats.shape[0],
+          f"satcov {name}: not k unique in-range ids")
+    replay = replay_value(obj, feats, ids, obj.init(feats))
+    check(abs(replay - value) <= 1e-5 * abs(value), f"satcov {name}: "
+          f"reported f(S) {value!r}, replay {replay!r}")
+    out[name] = dict(ids=ids, value=value, wall_s=wall,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+  def reference(feats, m, o=obj):
+    return lambda: GD.greedi_reference(
+        torch.Generator().manual_seed(0), feats, m=m, kappa=sz.k,
+        k_final=sz.k, objective=o, init_for=o.init, local_eval=True)
+
+  full = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features().abs()
+  run("satcov_reference", reference(full, sz.m), full)
+  check(counts["satcov_reference"]["coverage_select"] > 0,
+        "coverage_select was not launched on the satcov reference path")
+  del full
+  cli = EmbeddedCorpus(n_docs=sz.n_cli, feat_dim=sz.d,
+                       seed=0).features().abs()
+  run("satcov_reference_cli", reference(cli, sz.m_cli), cli)
+  plain = dataclasses.replace(obj, backend="ref")
+  run("satcov_reference_cli_ref", reference(cli, sz.m_cli, plain), cli)
+  run("satcov_centralized", lambda: GD.centralized_greedy(
+      cli, sz.k, objective=obj, init_for=obj.init), cli)
+  check(counts["satcov_reference_cli_ref"]["coverage_select"] == 0,
+        "the plain backend launched a coverage kernel")
+  verdict = replay_agree(obj, cli, out["satcov_reference_cli"]["ids"],
+                         out["satcov_reference_cli_ref"]["ids"],
+                         "satcov cli auto/ref", obj.init(cli))
+  floor = bounds.thm4_bound(sz.m_cli, sz.k, sz.k)
+  ratio = out["satcov_reference_cli"]["value"] / out[
+      "satcov_centralized"]["value"]
+  check(ratio >= floor, f"satcov ratio {ratio} below the Thm-4 floor "
+        f"{floor}")
+  emit("e2e satcov", n=sz.n, n_cli=sz.n_cli, d=sz.d, k=sz.k, kappa=sz.k,
+       m=sz.m, m_cli=sz.m_cli, alpha=sz.cov_alpha,
+       wall_s={k: v["wall_s"] for k, v in out.items()},
+       peak_gib={k: v["peak_gib"] for k, v in out.items()},
+       value={k: v["value"] for k, v in out.items()},
+       launches=counts, ratio_to_centralized=ratio, thm4_floor=floor,
+       agreement={"cli auto vs ref": verdict})
+  return {k: v for k, v in counts.items()
+          if k in ("satcov_reference", "satcov_centralized")}
+
+
+def sharded_value(obj, store, perm, m, ids):
+  """f(S) as a service epoch computes it: the block partitioned by the
+  epoch's ``perm``, every shard's evaluation (its own saturation levels
+  under saturated coverage), the shards' means weighted by their live
+  rows."""
+  import torch
+
+  from repro_torch.core import greedi as GD
+  from repro_torch.core.partition import partition_gids, repartition
+  parts, _, p = repartition(None, store.feats, m, perm=perm)
+  valid = (partition_gids(p, store.gids) >= 0).reshape(m, -1)
+  st = obj.init(parts, valid.float())
+  # auto gids are the block rows they were appended to
+  sf = store.feats[torch.as_tensor(ids, device=DEVICE)]
+  st = GD.set_value_feats(obj, st, sf.expand(m, -1, -1),
+                          torch.ones((m, len(ids)), dtype=torch.bool,
+                                     device=DEVICE))
+  n_live = valid.sum(dim=1).float()
+  return float((obj.value(st) * n_live).sum() / n_live.sum())
+
+
+def e2e_service(sz):
+  """The selection service at full size: 262,144 EmbeddedCorpus rows of
+  width 64 (abs'd for saturated coverage), m = 16 stacked shards, k = kappa
+  = 64, append_block = 1024, the store starting at capacity 65536 (so it
+  grows twice during ingest).  Append 75 %, epoch 0, append the rest,
+  epochs 1-2; for saturated coverage and facility location, each warm and
+  cold on the same partitions (the service's own generator, one seed),
+  and saturated coverage once more with a standard round 1 (the fused
+  ``coverage_select`` step).  Per epoch: warm == cold == standard ids (or
+  f(S) within 1e-5), f(S) replayed from the ids, warm reported only with
+  a populated table.  Then the CLI once in service mode.  Returns the
+  launch counts by path."""
+  import numpy as np
+  import torch
+
+  from repro_torch.core import greedy as GR
+  from repro_torch.core import objectives as O
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.kernels import ops
+  from repro_torch.launch import select as cli
+  from repro_torch.service import SelectionService
+  base = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+  n0 = sz.n - int(sz.n * sz.append_frac)
+  counts, report, sels = {}, {}, {}
+  runs = (("satcov", True, "lazy"), ("satcov", False, "lazy"),
+          ("satcov", False, "standard"), ("facility", True, "lazy"),
+          ("facility", False, "lazy"))
+  for name, warm, mode in runs:
+    feats = base.abs() if name == "satcov" else base
+    obj = (O.SaturatedCoverage(alpha=sz.cov_alpha) if name == "satcov"
+           else O.FacilityLocation())
+    path = f"service_{name}_" + (mode if mode == "standard" else
+                                  "warm" if warm else "cold")
+    torch.cuda.empty_cache()
+    svc = SelectionService(m=sz.m, d=sz.d, kappa=sz.k, k_final=sz.k,
+                           capacity=sz.svc_cap0,
+                           append_block=sz.append_block, warm_start=warm,
+                           mode=mode, objective=obj, seed=0)
+    check(not svc.store.bounds_populated, "a new store reports bounds")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    GR.lazy_syncs = 0
+    acc = {}
+
+    def bank():
+      # the path's launches so far; the replays between epochs (which
+      # launch kernels of their own) are not the path's
+      for kname, c in ops.launch_counts().items():
+        acc[kname] = acc.get(kname, 0) + c
+      ops.reset_launch_counts()
+
+    ingest, epochs = [], []
+    for part in (feats[:n0], feats[n0:]):
+      sync()
+      t0 = time.perf_counter()
+      svc.append(part)
+      sync()
+      ingest.append(part.shape[0] / (time.perf_counter() - t0))
+      for _ in range(1 if not epochs else 2):
+        e = svc.epoch()
+        bank()
+        t = e.stats.epoch
+        ids = e.sel_gids
+        check(len(ids) == sz.k and len(set(ids.tolist())) == sz.k and
+              ids.min() >= 0 and ids.max() < svc.n_docs,
+              f"{path} epoch {t}: ids")
+        check(e.stats.warm == (warm and mode == "lazy"),
+              f"{path} epoch {t}: warm reported {e.stats.warm}")
+        replay = sharded_value(obj, svc.store, svc.epoch_perm(t), sz.m,
+                               ids)
+        ops.reset_launch_counts()
+        check(abs(replay - e.stats.value) <= 1e-5 * abs(e.stats.value),
+              f"{path} epoch {t}: f(S) {e.stats.value!r}, replay "
+              f"{replay!r}")
+        epochs.append(e)
+    counts[path] = acc
+    syncs = GR.lazy_syncs
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(svc.growths == 2 and svc.capacity == sz.n,
+          f"{path}: growths {svc.growths}, capacity {svc.capacity}")
+    sels[path] = [e.sel_gids for e in epochs]
+    report[path] = dict(
+        ingest_rows_per_s=ingest, epoch_wall_s=[e.stats.wall_s
+                                                for e in epochs],
+        rescans=[int(e.stats.rescans.sum()) for e in epochs],
+        rescan_syncs=syncs, value=[e.stats.value for e in epochs],
+        warm=[e.stats.warm for e in epochs], peak_gib=peak,
+        growths=svc.growths, launches=counts[path])
+    del svc
+  agreement = {}
+  for p1, p2 in (("satcov_warm", "satcov_cold"),
+                 ("satcov_warm", "satcov_standard"),
+                 ("facility_warm", "facility_cold")):
+    verdicts = []
+    for t, (a, b) in enumerate(zip(sels[f"service_{p1}"],
+                                   sels[f"service_{p2}"])):
+      if np.array_equal(a, b):
+        verdicts.append("equal")
+      else:
+        va = report[f"service_{p1}"]["value"][t]
+        vb = report[f"service_{p2}"]["value"][t]
+        rel = abs(va - vb) / max(abs(va), 1e-30)
+        check(rel <= 1e-5, f"service {p1}/{p2} epoch {t}: selections "
+              f"differ, f(S) {va!r} vs {vb!r}")
+        verdicts.append(f"near-tie (f rel {rel:.2e})")
+    agreement[f"{p1} vs {p2}"] = verdicts
+  check(counts["service_satcov_warm"]["coverage_gain"] > 0,
+        "coverage_gain was not launched on the service path")
+  emit("e2e service", n=sz.n, d=sz.d, m=sz.m, k=sz.k, kappa=sz.k,
+       append_block=sz.append_block, capacity0=sz.svc_cap0,
+       append_frac=sz.append_frac, paths=report, agreement=agreement)
+  # the CLI's service mode once
+  ops.reset_launch_counts()
+  (REPO / "build").mkdir(exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    out = os.path.join(tmp, "sel.npy")
+    sync()
+    t0 = time.perf_counter()
+    cli.main(["--mesh", str(sz.m), "--n", str(sz.n), "--d", str(sz.d),
+              "--k", str(sz.k), "--epochs", "3", "--append-frac",
+              str(sz.append_frac), "--objective", "saturated_coverage",
+              "--no-coverage", "--out", out])
+    sync()
+    wall = time.perf_counter() - t0
+    sel = np.load(out)
+  counts["service_cli"] = ops.launch_counts()
+  check(len(sel) == sz.k and len(set(sel.tolist())) == sz.k,
+        "service CLI: not k unique ids")
+  check(counts["service_cli"]["coverage_gain"] > 0,
+        "the service CLI did not launch coverage_gain")
+  emit("e2e service cli", wall_s=wall, launches=counts["service_cli"])
+  return counts
+
+
+def profile_service(sz):
+  """Where a warm saturated-coverage service epoch's time goes at full
+  size: the table built by an ingest of the whole corpus, then one epoch
+  under ``profiled``."""
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.service import SelectionService
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features().abs()
+  svc = SelectionService(m=sz.m, d=sz.d, kappa=sz.k, k_final=sz.k,
+                         capacity=sz.n, append_block=sz.append_block,
+                         objective="saturated_coverage", seed=0)
+  svc.append(feats)
+  svc.epoch()  # warm-up
+  profiled("profile service satcov epoch", svc.epoch)
 
 
 # ---------------------------------------------------------------------------
@@ -1182,15 +1731,21 @@ def main() -> int:
 
   edge_phase()
   ig_edge_phase()
+  cov_edge_phase()
   e2e_cli_size(sz)
   torch.cuda.empty_cache()
   fl_counts = e2e_full(sz)
   torch.cuda.empty_cache()
   gp_counts = e2e_gp_full(sz)
   torch.cuda.empty_cache()
+  cov_counts = e2e_satcov(sz)
+  torch.cuda.empty_cache()
+  cov_counts.update(e2e_service(sz))
+  torch.cuda.empty_cache()
   # kernel -> {path: launches} over the paths of its e2e phase
   by_path = {name: {p: c[name] for p, c in (
-      gp_counts if name in GP_KERNELS else fl_counts).items()}
+      gp_counts if name in GP_KERNELS else
+      cov_counts if name in COV_KERNELS else fl_counts).items()}
              for name in MAIN_PATH}
   launches = {name: by_path[name][path] for name, path in MAIN_PATH.items()}
   e2e_gp_fig6(sz)
@@ -1199,8 +1754,11 @@ def main() -> int:
   torch.cuda.empty_cache()
   rows.update(ig_kernel_phase(sz, gp_counts))
   torch.cuda.empty_cache()
+  rows.update(cov_kernel_phase(sz, cov_counts))
+  torch.cuda.empty_cache()
   profile_phase(sz)
   profile_gp(sz)
+  profile_service(sz)
 
   main_shape = {"pairwise": ("pairwise", "s11", "linear", "f32"),
                 "facility_select": ("facility_select", "round1", "linear",
@@ -1208,7 +1766,11 @@ def main() -> int:
                 "facility_gain": ("facility_gain", "round1", "linear",
                                   "f32"),
                 "info_gain_cond": ("info_gain_cond", "round2 generic"),
-                "info_select": ("info_select", "round1")}
+                "info_select": ("info_select", "round1"),
+                "coverage_gain": ("coverage_gain", "round1", "linear",
+                                  "f32"),
+                "coverage_select": ("coverage_select", "round1", "linear",
+                                    "f32")}
   kernels = []
   for name, key in main_shape.items():
     r = rows[key]

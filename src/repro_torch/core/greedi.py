@@ -35,9 +35,15 @@ deadline; with the shards stacked on one card the liveness collective is
 the vector ``age <= deadline``, ANDed with ``straggler_keep`` and returned
 as ``GreediResult.alive``.
 
-Not ported yet (ROADMAP.md): the accumulation-tree merge, lazy round 1
-with warm bounds, ``greedi_hierarchical``, and the ``torch.distributed``
-collective backend (liveness across processes with it).
+Round 1 of ``greedi_reference``, ``centralized_greedy`` and the generic
+``greedi_sharded`` runs in ``mode="standard"`` or ``"lazy"``; the generic
+engine's lazy round 1 also takes ``warm_bounds``, the selection service's
+carried table (service/service.py).
+
+Not ported yet (ROADMAP.md): the accumulation-tree merge, the fast
+engine's lazy round 1, ``greedi_hierarchical``, and the
+``torch.distributed`` collective backend (liveness across processes with
+it).
 """
 from __future__ import annotations
 
@@ -188,12 +194,14 @@ class _Engine(NamedTuple):
 def _objective_engine(objective, local_feats: torch.Tensor,
                       cands: torch.Tensor, cmask: torch.Tensor,
                       cgids: torch.Tensor,
-                      eval_mask: torch.Tensor | None = None) -> _Engine:
+                      eval_mask: torch.Tensor | None = None,
+                      state0=None) -> _Engine:
   """Engine over a generic objective exposing partial_stats/update/value,
   the m shards stacked: ``local_feats`` (m, nl, d) binds each shard's
   evaluation rows and ``eval_mask`` (m, nl) marks the live ones (holes
   carry 0), so the partial value is each shard's mean times its live
-  count and hole rows move nothing."""
+  count and hole rows move nothing.  ``state0`` is
+  ``objective.init(local_feats, eval_mask)`` when the caller has it."""
   m = local_feats.shape[0]
   if eval_mask is None:
     eval_mask = local_feats.new_ones(local_feats.shape[:-1])
@@ -211,8 +219,10 @@ def _objective_engine(objective, local_feats: torch.Tensor,
   def partial_value(state):
     return objective.value(state) * n_live
 
-  return _Engine(objective.init(local_feats, eval_mask), partial_gains,
-                 apply_update, partial_value, cands, cmask, cgids)
+  if state0 is None:
+    state0 = objective.init(local_feats, eval_mask)
+  return _Engine(state0, partial_gains, apply_update, partial_value, cands,
+                 cmask, cgids)
 
 
 def _dist_greedy_core(engine: _Engine, steps: int, weight: torch.Tensor,
@@ -451,19 +461,25 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
       machine's partition, held by the first alive shard.
     backend: optional gain-oracle backend override for both rounds.
     gids: optional (m * npp,) global ids of the rows (default arange).
+    mode: round-1 greedy mode, "standard" (the fused select step) or
+      "lazy" (tile-bound lazy rescans; the same selection).  Round 2 is
+      the distributed greedy either way.
+    warm_bounds: optional (m * npp,) upper bounds on each row's empty-set
+      gain under its shard's local evaluation, for the lazy round 1
+      (mode="lazy"; standard ignores them): step 0 skips its full pass.
+      The selection service's warm start (its validity lives with the
+      objective's bound maintainer, core/objectives.py).
     liveness_age, liveness_deadline: optional (m,) heartbeat ages and
       their deadline; the liveness collective turns them into the
       straggler mask (ANDed with ``straggler_keep``), returned as
       ``GreediResult.alive``.
-    mode, warm_bounds, merge, tree_branch: only "standard", None, "flat"
-      and None are ported.
+    merge, tree_branch: only "flat" and None are ported.
 
   A_max replays every machine's block on every shard's evaluation rows at
   once (m * m states in one batch), then sums the shards' partial values.
+  The shards' initial state is built once and serves round 1, A_max and
+  round 2 (saturated coverage's ``init`` is a full pass over the shard).
   """
-  if mode != "standard" or warm_bounds is not None:
-    raise NotImplementedError(
-        f"greedi_sharded mode {mode!r} / warm_bounds: lazy round 1 {_LATER}")
   if merge != "flat" or tree_branch is not None:
     raise NotImplementedError(
         f"greedi_sharded merge {merge!r}: the accumulation-tree merge "
@@ -485,8 +501,11 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
   n_live = shard_live_counts(local_valid, m)
 
   # ---- round 1: the local greedy of every shard, one batch ---------------
-  r1 = greedy(objective, objective.init(local, evalw), local, kappa,
-              cand_mask=local_valid)
+  st0 = objective.init(local, evalw)
+  wb = (None if warm_bounds is None else torch.as_tensor(
+      warm_bounds, device=dev).to(torch.float32).reshape(m, nl))
+  r1 = greedy(objective, st0, local, kappa, cand_mask=local_valid,
+              mode=mode, warm_bounds=wb)
   took = r1.idx >= 0
   valid = took & keep[:, None]
   gsel = torch.where(took, torch.gather(local_gids, 1, r1.idx.clamp_min(0)),
@@ -505,7 +524,7 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
   denom = torch.clamp_min(torch.sum(n_live * w), 1.0)
 
   # ---- A_max: machine i's block replayed on shard s's rows, all (s, i) ---
-  st_all = _repeat_state(objective.init(local, evalw), m)     # (m*m, ...)
+  st_all = _repeat_state(st0, m)                              # (m*m, ...)
   blocks = r1.feats.repeat(m, 1, 1)                           # entry s*m+i
   bvalid = valid.repeat(m, 1)
   part_vals = objective.value(set_value_feats(objective, st_all, blocks,
@@ -516,7 +535,7 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
 
   # ---- round 2: the distributed greedy over the merged block -------------
   engine = _objective_engine(objective, local, Bflat, Bmask, Bgflat,
-                             eval_mask=evalw)
+                             eval_mask=evalw, state0=st0)
   merged_feats, merged_valid, merged_gids, v_merged = _dist_greedy_core(
       engine, k_final, w, denom, feats.dtype)
 

@@ -1,18 +1,26 @@
-"""The standard greedy loop (the port of ``greedy`` in
-``src/repro/core/greedy.py``, ``mode="standard"``).
+"""The greedy loops (the port of ``greedy`` in ``src/repro/core/greedy.py``,
+modes ``standard`` and ``lazy``).
 
-Each step recomputes every candidate's marginal gain.  Through the
-objective's fused ``select`` oracle the step is ONE kernel launch that
-returns only (best gain, index); ``use_select=False`` takes the two-pass
-path instead: the full gains vector from the ``gains`` oracle, then
-``masked_top1``.  Both pick the lowest index among equal gains.
+* ``standard`` recomputes every candidate's marginal gain each step.
+  Through the objective's fused ``select`` oracle the step is ONE kernel
+  launch that returns only (best gain, index); ``use_select=False`` takes
+  the two-pass path instead: the full gains vector from the ``gains``
+  oracle, then ``masked_top1``.  Both pick the lowest index among equal
+  gains.  The step loop makes no host sync (no ``.item()``, no ``.cpu()``,
+  no Python branch on a device value): a step that finds nothing feasible
+  is a no-op chosen by ``torch.where``, like the reference's masked
+  ``fori_loop`` body.
+* ``lazy`` is Minoux's lazy greedy at tile granularity (``_greedy_lazy``):
+  stale gains are upper bounds by submodularity, each step sorts the
+  candidates by bound and refreshes bound-sorted tiles until the next
+  tile's head bound cannot beat the running best.  Exactly ``standard``'s
+  selection (up to f32 near-ties, whose gains the two modes sum in
+  different orders); objectives that declare ``monotone = False`` or
+  ``supports_lazy = False`` fall back to ``standard``.
 
 ``jax.vmap`` over GreeDi's partitions becomes a leading partition axis: with
 ``cand_feats`` of shape (P, n, d) and a state carrying a (P, ...) axis, one
-launch per step serves every partition.  The step loop makes no host sync
-(no ``.item()``, no ``.cpu()``, no Python branch on a device value): a step
-that finds nothing feasible is a no-op chosen by ``torch.where``, exactly
-like the reference's masked ``fori_loop`` body.
+launch per step (per rescan, in lazy mode) serves every partition.
 
 The values trajectory is f(S_0) + cumsum(realized gains), computed once
 after the loop (no-op steps record gain 0).
@@ -25,7 +33,12 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core import constraints as C
-from repro_torch.core.objectives import masked_top1
+from repro_torch.core.objectives import NEG, masked_top1
+from repro_torch.kernels import autotune
+
+# host syncs of the lazy rescan loops since the last reset: one per rescan
+# iteration (all partitions together), the loop's only device-to-host reads
+lazy_syncs = 0
 
 
 def with_backend(objective, backend: str | None):
@@ -47,7 +60,9 @@ class GreedyResult(NamedTuple):
   gains: torch.Tensor   # ((P,) k) realized marginal gains
   state: Any            # final objective state
   values: torch.Tensor  # ((P,) k) f(S_t) trajectory
-  rescans: torch.Tensor  # ((P,)) int32 lazy-mode rescans: 0 in this mode
+  rescans: torch.Tensor  # ((P,)) int32 tiles rescanned by mode="lazy" over
+  #                        all steps (0 in standard mode, where every step
+  #                        scans all n); pruning = rescans / (steps * tiles)
 
 
 def where_state(take: torch.Tensor, new, old):
@@ -70,11 +85,59 @@ def _rows(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
   return torch.gather(x, -2, g).squeeze(-2)
 
 
+class _Trace(NamedTuple):
+  """The loop's carried selection: the objective and constraint states,
+  the selected mask, and the per-step outputs collected so far."""
+  state: Any
+  cstate: torch.Tensor
+  selected: torch.Tensor
+  idx: list
+  feats: list
+  gains: list
+
+
+def _apply(objective, tr: _Trace, cand_feats, meta, constraint, chosen,
+           chosen_gain, feasible, stop_nonpositive) -> _Trace:
+  """Take candidate ``chosen`` (an index per partition) when anything is
+  feasible (and, with ``stop_nonpositive``, its gain is positive); a step
+  that takes nothing is a no-op recorded as (-1, zeros, 0)."""
+  take = feasible.any(dim=-1)
+  if stop_nonpositive:
+    take = take & (chosen_gain > 0.0)
+  feat = _rows(cand_feats, chosen)
+  state = where_state(take, objective.update(tr.state, feat), tr.state)
+  cstate = torch.where(take, constraint.update(
+      tr.cstate, C.slice_meta(meta, chosen)), tr.cstate)
+  hit = torch.gather(tr.selected, -1, chosen.unsqueeze(-1)) | take.unsqueeze(
+      -1)
+  selected = tr.selected.scatter(-1, chosen.unsqueeze(-1), hit)
+  return _Trace(state, cstate, selected,
+                tr.idx + [torch.where(take, chosen, -1)],
+                tr.feats + [torch.where(take.unsqueeze(-1), feat, 0.0)],
+                tr.gains + [torch.where(take, chosen_gain, 0.0)])
+
+
+def _result(objective, state0, tr: _Trace, k_steps, batch, d, dtype, dev,
+            rescans) -> GreedyResult:
+  if k_steps == 0:
+    idx = torch.zeros((*batch, 0), dtype=torch.int64, device=dev)
+    feats = torch.zeros((*batch, 0, d), dtype=dtype, device=dev)
+    gains = torch.zeros((*batch, 0), dtype=torch.float32, device=dev)
+  else:
+    idx = torch.stack(tr.idx, dim=-1)
+    feats = torch.stack(tr.feats, dim=-2).to(dtype)
+    gains = torch.stack(tr.gains, dim=-1)
+  values = objective.value(state0).float().unsqueeze(-1) + torch.cumsum(
+      gains, dim=-1)
+  return GreedyResult(idx, feats, gains, tr.state, values, rescans)
+
+
 def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
            cand_mask: torch.Tensor | None = None, constraint=None,
            meta: dict | None = None, mode: str = "standard",
            stop_nonpositive: bool = False, backend: str | None = None,
-           use_select: bool = True) -> GreedyResult:
+           use_select: bool = True, lazy_tile: int | None = None,
+           warm_bounds: torch.Tensor | None = None) -> GreedyResult:
   """Select up to ``k_steps`` items from ``cand_feats`` maximizing
   ``objective``.
 
@@ -88,21 +151,34 @@ def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
     constraint: hereditary system from core/constraints.py (None = plain
       cardinality k_steps).
     meta: per-item attribute tensors for the constraint.
-    mode: only "standard" is ported.
+    mode: "standard" or "lazy" (the tile-bound lazy greedy; monotone
+      objectives only, others fall back to "standard").  The stochastic,
+      random and cost-benefit modes are not ported.
     stop_nonpositive: treat steps whose best gain is <= 0 as no-ops
       (required for non-monotone objectives such as the DPP log-det;
       harmless for monotone ones).
     backend: optional gain-oracle backend override ("cuda" | "ref" |
       "auto") applied to the objective for this run.
-    use_select: route each step through the objective's fused ``select``
-      oracle; False takes the two-pass gains + ``masked_top1`` path.
+    use_select: route standard steps through the objective's fused
+      ``select`` oracle; False takes the two-pass gains + ``masked_top1``
+      path.  Lazy rescans always use the gains oracle (the refreshed tile's
+      gains are the new bounds).
+    lazy_tile: rescore tile of mode="lazy" (default ``autotune.lazy_tile``).
+    warm_bounds: optional ((P,) n) upper bounds on every candidate's
+      empty-set gain (the selection service's carried table); mode="lazy"
+      then seeds its bounds from them and skips the step-0 full pass.  The
+      selection is the cold run's as long as they really are upper bounds.
+      Ignored by mode="standard".
   """
-  if mode != "standard":
+  if mode not in ("standard", "lazy"):
     raise NotImplementedError(
-        f"greedy mode {mode!r}: the port runs mode='standard'; lazy, "
+        f"greedy mode {mode!r}: the port runs 'standard' and 'lazy'; "
         "stochastic, random and cost_benefit come later (ROADMAP.md, "
         "modules to port, items 2 and 5)")
   objective = with_backend(objective, backend)
+  if mode == "lazy" and not (getattr(objective, "monotone", True)
+                             and getattr(objective, "supports_lazy", True)):
+    mode = "standard"  # the lazy bounds hold only for monotone f
   k_max = getattr(objective, "k_max", None)
   if k_max is not None and k_steps > k_max:
     raise ValueError(f"greedy: {k_steps} steps exceed the objective's "
@@ -116,45 +192,133 @@ def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
     meta = C.default_meta(n, device=dev)
   if constraint is None:
     constraint = C.Cardinality(k_steps)
+  if mode == "lazy":
+    return _greedy_lazy(objective, state0, cand_feats, k_steps,
+                        cand_mask=cand_mask, constraint=constraint,
+                        meta=meta, stop_nonpositive=stop_nonpositive,
+                        tile=lazy_tile, warm_bounds=warm_bounds)
   select_path = use_select and hasattr(objective, "select")
 
-  state = state0
-  selected = torch.zeros((*batch, n), dtype=torch.bool, device=dev)
-  cstate = constraint.init(dev).expand(batch).clone()
-  idx, feats, gains = [], [], []
+  tr = _Trace(state0, constraint.init(dev).expand(batch).clone(),
+              torch.zeros((*batch, n), dtype=torch.bool, device=dev),
+              [], [], [])
   for _ in range(k_steps):
-    feasible = (~selected) & cand_mask & constraint.mask(cstate, meta)
+    feasible = (~tr.selected) & cand_mask & constraint.mask(tr.cstate, meta)
     if select_path:
-      chosen_gain, chosen = objective.select(state, cand_feats, feasible)
+      chosen_gain, chosen = objective.select(tr.state, cand_feats, feasible)
       chosen_gain = chosen_gain.float()
     else:
-      g = objective.gains(state, cand_feats).float()
+      g = objective.gains(tr.state, cand_feats).float()
       _, chosen = masked_top1(g, feasible)
       chosen_gain = torch.gather(g, -1, chosen.unsqueeze(-1)).squeeze(-1)
-    take = feasible.any(dim=-1)
-    if stop_nonpositive:
-      take = take & (chosen_gain > 0.0)
+    tr = _apply(objective, tr, cand_feats, meta, constraint, chosen,
+                chosen_gain, feasible, stop_nonpositive)
+  return _result(objective, state0, tr, k_steps, batch, d, cand_feats.dtype,
+                 dev, torch.zeros(batch, dtype=torch.int32, device=dev))
 
-    feat = _rows(cand_feats, chosen)
-    state = where_state(take, objective.update(state, feat), state)
-    cstate = torch.where(take, constraint.update(
-        cstate, C.slice_meta(meta, chosen)), cstate)
-    hit = torch.gather(selected, -1, chosen.unsqueeze(-1)) | take.unsqueeze(-1)
-    selected = selected.scatter(-1, chosen.unsqueeze(-1), hit)
-    idx.append(torch.where(take, chosen, -1))
-    feats.append(torch.where(take.unsqueeze(-1), feat, 0.0))
-    gains.append(torch.where(take, chosen_gain, 0.0))
 
+def _pad_last(x: torch.Tensor, n: int, value, dim: int = -1) -> torch.Tensor:
+  """``x`` padded with ``value`` to length n along ``dim``."""
+  pad = n - x.shape[dim]
+  if pad == 0:
+    return x
+  shape = list(x.shape)
+  shape[dim] = pad
+  return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                  device=x.device)], dim=dim)
+
+
+def _greedy_lazy(objective, state0, cand_feats: torch.Tensor, k_steps: int,
+                 *, cand_mask, constraint, meta, stop_nonpositive: bool,
+                 tile: int | None,
+                 warm_bounds: torch.Tensor | None) -> GreedyResult:
+  """Tile-bound lazy greedy (mode="lazy"; the port of ``_greedy_lazy`` in
+  src/repro/core/greedy.py): exact, but rescans few tiles.
+
+  ``stale[i]`` holds the last gain computed for candidate i, an upper bound
+  on its current gain by submodularity.  Cold, step 0 is one full gains
+  pass that selects and seeds ``stale``; with ``warm_bounds`` ``stale`` is
+  seeded from them (padding and holes enter at NEG) and step 0 is a rescan
+  like every later step.  A step sorts the feasible candidates by bound
+  (descending, stable: equal bounds keep candidate order) and rescans
+  tiles of that order: gather the tile's rows, refresh their gains in one
+  ``gains`` call, and go on while the next tile's head bound is >= the
+  running best; score ties go to the lowest candidate index, so the pick
+  is ``standard``'s.
+
+  The reference runs one ``while_loop`` per partition.  Here the P
+  partitions rescan together: each gathers its own bound-sorted tile into
+  one batched (P, tile, d) ``gains`` call, each stops on its own head test
+  (a stopped partition's tile is still scored but changes nothing), and
+  the loop ends when no partition goes on -- one host sync per rescan
+  iteration (``lazy_syncs``).  ``rescans`` counts each partition's own
+  tiles, as the reference's does.
+  """
+  global lazy_syncs
+  n, d = cand_feats.shape[-2:]
+  batch = cand_feats.shape[:-2]
+  dev = cand_feats.device
+  if tile is None:
+    tile = autotune.lazy_tile(n, d)
+  tile = max(min(tile, autotune.floor_pow2(n, cap=tile)), 1)
+  npad = -(-n // tile) * tile
+  nt = npad // tile
+  cand_pad = _pad_last(cand_feats, npad, 0.0, dim=-2)
+  mask_pad = _pad_last(cand_mask, npad, False)
+  meta_pad = {k: _pad_last(v, npad, 0) for k, v in meta.items()}
+  int_max = torch.iinfo(torch.int64).max
+  rescans = torch.zeros(batch, dtype=torch.int32, device=dev)
+  tr = _Trace(state0, constraint.init(dev).expand(batch).clone(),
+              torch.zeros((*batch, npad), dtype=torch.bool, device=dev),
+              [], [], [])
   if k_steps == 0:
-    idx = torch.zeros((*batch, 0), dtype=torch.int64, device=dev)
-    feats = cand_feats.new_zeros((*batch, 0, d))
-    gains = torch.zeros((*batch, 0), dtype=torch.float32, device=dev)
-  else:
-    idx = torch.stack(idx, dim=-1)
-    feats = torch.stack(feats, dim=-2).to(cand_feats.dtype)
-    gains = torch.stack(gains, dim=-1)
-  values = objective.value(state0).float().unsqueeze(-1) + torch.cumsum(
-      gains, dim=-1)
-  return GreedyResult(idx, feats, gains, state, values,
-                      torch.zeros(batch, dtype=torch.int32, device=dev))
+    return _result(objective, state0, tr, 0, batch, d, cand_feats.dtype,
+                   dev, rescans)
 
+  if warm_bounds is None:
+    # step 0: one full pass selects AND seeds the bounds (not a rescan)
+    feasible = mask_pad & constraint.mask(tr.cstate, meta_pad)
+    stale = _pad_last(objective.gains(state0, cand_feats).float(), npad, NEG)
+    best, bidx = masked_top1(stale, feasible)
+    tr = _apply(objective, tr, cand_pad, meta_pad, constraint, bidx, best,
+                feasible, stop_nonpositive)
+    t_start = 1
+  else:
+    stale = _pad_last(warm_bounds.to(device=dev, dtype=torch.float32), npad,
+                      NEG)
+    t_start = 0
+
+  ar = torch.arange(tile, device=dev)
+  for _ in range(t_start, k_steps):
+    feasible = (~tr.selected) & mask_pad & constraint.mask(tr.cstate,
+                                                           meta_pad)
+    pri = torch.where(feasible, stale, NEG)
+    sorted_pri, order = torch.sort(pri, dim=-1, descending=True, stable=True)
+    p = torch.zeros(batch, dtype=torch.int64, device=dev)
+    best = torch.full(batch, -torch.inf, dtype=torch.float32, device=dev)
+    bidx = torch.full(batch, int_max, dtype=torch.int64, device=dev)
+    while True:
+      head = torch.gather(sorted_pri, -1,
+                          (p * tile).clamp_max(npad - 1).unsqueeze(-1))[..., 0]
+      go = (p < nt) & (head >= best)
+      lazy_syncs += 1
+      if not bool(go.any()):
+        break
+      pos = (p.clamp_max(nt - 1) * tile).unsqueeze(-1) + ar
+      ids = torch.gather(order, -1, pos)                       # ((P,) tile)
+      rows = torch.gather(cand_pad, -2,
+                          ids.unsqueeze(-1).expand(*ids.shape, d))
+      g = objective.gains(tr.state, rows).float()
+      stale = torch.where(go.unsqueeze(-1), stale.scatter(-1, ids, g), stale)
+      gm = torch.where(torch.gather(feasible, -1, ids), g, NEG)
+      tb = gm.max(dim=-1).values
+      gi = torch.where(gm == tb.unsqueeze(-1), ids, int_max).min(dim=-1).values
+      better = go & ((tb > best) | ((tb == best) & (gi < bidx)))
+      best = torch.where(better, tb, best)
+      bidx = torch.where(better, gi, bidx)
+      p = p + go
+      rescans = rescans + go.to(torch.int32)
+    tr = _apply(objective, tr, cand_pad, meta_pad, constraint,
+                bidx.clamp(0, npad - 1), best, feasible, stop_nonpositive)
+  return _result(objective, state0, tr, k_steps, batch, d, cand_feats.dtype,
+                 dev, rescans)

@@ -1,6 +1,7 @@
 """Submodular objectives as fixed-shape state machines (the port of the
-``FacilityLocation``, ``InformationGain`` and ``LogDetDPP`` parts of
-``src/repro/core/objectives.py``).
+``FacilityLocation``, ``SaturatedCoverage``, ``InformationGain`` and
+``LogDetDPP`` parts of ``src/repro/core/objectives.py``, and of its
+warm-start bound maintainers).
 
 The interface is the reference's:
 
@@ -19,7 +20,7 @@ partition.  Gains and select route through kernels/dispatch.py by the
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -88,6 +89,8 @@ class FacilityLocation:
   eval rows, with a linear or rbf similarity (``kernel_kwargs=(("h", h),)``).
   Monotone, nonnegative, decomposable (Sec. 4.5 of the paper).
   """
+  monotone = True  # marginal gains are >= 0 and diminishing (lazy-exact)
+
   kernel: str = "linear"
   kernel_kwargs: tuple = ()
   baseline: float = 0.0
@@ -156,6 +159,134 @@ class FacilityLocation:
     part = fn(state.eval_feats, cand_feats, state.cov, state.eval_mask,
               kernel=self.kernel, h=self.h)
     return part, torch.sum(state.eval_mask, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Saturated coverage (Lin & Bilmes 2011)
+# ---------------------------------------------------------------------------
+
+# Candidate rows per call of the ``total`` pass (C_i(V) of every eval row):
+# a plain version on the card holds (P, ne, chunk) floats, not (P, ne, ne).
+_TOTAL_CHUNK = 16384
+
+
+class SatCovState(NamedTuple):
+  cover: torch.Tensor       # ((P,) n_eval) accumulated similarity mass
+  cap: torch.Tensor         # ((P,) n_eval) saturation alpha * C_i(V), fixed
+  #                           at init; shared when 1-D under a batched cover
+  eval_feats: torch.Tensor  # ((P,) n_eval, d), shared when 2-D
+  eval_mask: torch.Tensor   # ((P,) n_eval) 1.0 for live eval rows
+  value: torch.Tensor       # ((P,)) f(S)
+
+
+@dataclasses.dataclass(frozen=True)
+class SaturatedCoverage:
+  """Lin & Bilmes' document-summarization objective,
+
+      f(S) = mean_i min(C_i(S), alpha C_i(V)),  C_i(S) = sum_{j in S} s_ij,
+
+  over the live eval rows, s = relu(sim) with a linear or rbf similarity.
+  Monotone submodular; the saturation rewards covering every document a
+  little instead of a few a lot.  ``total`` (C_i(V)) may be passed to
+  ``init`` (each machine may use its own partition's levels, Sec. 4.5);
+  otherwise it is computed once from the eval set and carried in the state
+  as ``cap``.  Gains go through the ``coverage_gain`` kernels, the select
+  step through their fused top-1.
+  """
+  monotone = True
+
+  kernel: str = "linear"
+  kernel_kwargs: tuple = ()
+  alpha: float = 0.25
+  backend: str = "auto"
+
+  def __post_init__(self):
+    if self.kernel not in dispatch.FUSED_SIMS:
+      raise NotImplementedError(
+          f"SaturatedCoverage kernel {self.kernel!r}: the port implements "
+          f"{dispatch.FUSED_SIMS} (ROADMAP.md)")
+
+  @property
+  def h(self) -> float:
+    return _kernel_h(self.kernel_kwargs)
+
+  def total(self, eval_feats: torch.Tensor,
+            eval_mask: torch.Tensor) -> torch.Tensor:
+    """C_i(V) = sum_j mask_j relu(sim(e_i, e_j)) for every eval row, without
+    the (ne, ne) similarity block: the coverage gain of each eval row taken
+    as a candidate, from cover 0 under an infinite cap, is
+    sum_j mask_j relu(sim(e_j, e_i)), which the symmetry of sim makes
+    C_i(V).  Candidate rows go ``_TOTAL_CHUNK`` at a time."""
+    fn = dispatch.resolve("coverage_gain", self.backend)
+    lead = eval_feats.shape[:-1]
+    zero = torch.zeros(lead, dtype=torch.float32, device=eval_feats.device)
+    inf = torch.full(lead, float("inf"), dtype=torch.float32,
+                     device=eval_feats.device)
+    ne = eval_feats.shape[-2]
+    return torch.cat([
+        fn(eval_feats, eval_feats[..., c0:c0 + _TOTAL_CHUNK, :].contiguous(),
+           zero, inf, eval_mask, kernel=self.kernel, h=self.h)
+        for c0 in range(0, ne, _TOTAL_CHUNK)], dim=-1)
+
+  def init(self, eval_feats: torch.Tensor,
+           eval_mask: torch.Tensor | None = None,
+           total: torch.Tensor | None = None) -> SatCovState:
+    lead = eval_feats.shape[:-1]
+    dev = eval_feats.device
+    if eval_mask is None:
+      eval_mask = torch.ones(lead, dtype=eval_feats.dtype, device=dev)
+    if total is None:
+      total = self.total(eval_feats, eval_mask)
+    cover = torch.zeros(lead, dtype=torch.float32, device=dev)
+    value = torch.zeros(lead[:-1], dtype=torch.float32, device=dev)
+    return SatCovState(cover, self.alpha * total.float(), eval_feats,
+                       eval_mask, value)
+
+  def broadcast(self, state: SatCovState, n_part: int) -> SatCovState:
+    """The same state for each of ``n_part`` partitions: cover and value get
+    a leading axis, the evaluation set and the cap stay shared (stride 0
+    in the kernels)."""
+    return SatCovState(state.cover.expand(n_part, -1).clone(), state.cap,
+                       state.eval_feats, state.eval_mask,
+                       state.value.expand(n_part).clone())
+
+  def _denom(self, state: SatCovState) -> torch.Tensor:
+    return torch.clamp_min(torch.sum(state.eval_mask.float(), dim=-1), 1.0)
+
+  def _partial(self, state: SatCovState, cand_feats: torch.Tensor):
+    fn = dispatch.resolve("coverage_gain", self.backend)
+    return fn(state.eval_feats, cand_feats, state.cover, state.cap,
+              state.eval_mask, kernel=self.kernel, h=self.h)
+
+  def gains(self, state: SatCovState, cand_feats: torch.Tensor):
+    return self._partial(state, cand_feats) / self._denom(state).unsqueeze(-1)
+
+  def select(self, state: SatCovState, cand_feats: torch.Tensor,
+             feasible: torch.Tensor):
+    """Fused select step: (best normalized gain, int64 candidate index)."""
+    fn = dispatch.resolve_select("coverage_gain", self.backend)
+    best, idx = fn(state.eval_feats, cand_feats, state.cover, state.cap,
+                   state.eval_mask, feasible, kernel=self.kernel, h=self.h)
+    return best / self._denom(state), idx
+
+  def update(self, state: SatCovState, feat: torch.Tensor) -> SatCovState:
+    sim = torch.clamp_min(_sim_column(state.eval_feats, feat, self.kernel,
+                                      self.h), 0.0)
+    new_cover = state.cover + sim
+    inc = (torch.minimum(new_cover, state.cap)
+           - torch.minimum(state.cover, state.cap))
+    gain = torch.sum(inc * state.eval_mask, dim=-1) / self._denom(state)
+    return SatCovState(new_cover, state.cap, state.eval_feats,
+                       state.eval_mask, state.value + gain)
+
+  def value(self, state: SatCovState) -> torch.Tensor:
+    return state.value
+
+  def partial_stats(self, state: SatCovState, cand_feats: torch.Tensor):
+    """(sum-of-gains ((P,) nc), live count ((P,))): summing both over shards
+    reproduces the global objective (the round-2 engine's contract)."""
+    return (self._partial(state, cand_feats),
+            torch.sum(state.eval_mask.float(), dim=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -372,3 +503,134 @@ class LogDetDPP(_IncrementalCholesky):
 
   def _log_gain(self, cond: torch.Tensor) -> torch.Tensor:
     return torch.log(cond)
+
+
+# ---------------------------------------------------------------------------
+# Warm-start bound maintainers (the selection service's cross-epoch tables)
+# ---------------------------------------------------------------------------
+#
+# The selection service (repro_torch/service/) carries, per document, an
+# upper bound on its empty-set marginal gain across epochs, so round 1's
+# lazy greedy can skip its step-0 full pass (``greedy(warm_bounds=...)``).
+# A maintainer packages the objective-specific math:
+#
+#   * ``append_update`` -- one (new rows x block) pass giving the mass the
+#     new documents add to every older document's bound and the new
+#     documents' own bounds (the store places and reduces them);
+#   * ``epoch_bounds``  -- carried table entries -> per-item empty-set gain
+#     bounds under a shard evaluating ``n_live`` live rows.
+#
+# Maintainers are registered per objective type; each one's ``supports``
+# gates on the instance's configuration, and an objective that fails it
+# gets none: the service then runs cold, which is always exact.
+
+
+@dataclasses.dataclass(frozen=True)
+class SumFormBoundMaintainer:
+  """Sum-form singleton-gain bounds: ``table[i] = sum_e relu(sim(e, i))``.
+
+  Valid for facility location with a non-negative baseline (doc i's
+  empty-set gain under an evaluation set P is
+  ``(1/|P|) sum_{e in P} relu(sim(e, i) - baseline) <= table[i] / |P|``)
+  and for saturated coverage (its per-point contribution
+  ``min(relu(sim), cap_e)`` is at most relu(sim) whatever the partition):
+  one maintainer, two objectives.  (The reference's standing sieves ride
+  the same sums; the port's store has no sieve yet, ROADMAP.md.)
+  """
+  oracle: str = "bound_update"
+  sums_global: bool = False
+
+  def supports(self, objective: Any) -> bool:
+    """The similarity must be one the ``bound_update`` pass implements,
+    and a facility-location baseline must not be negative (relu(sim - b)
+    would exceed relu(sim))."""
+    if getattr(objective, "kernel", None) not in dispatch.FUSED_SIMS:
+      return False
+    if float(getattr(objective, "baseline", 0.0)) < 0.0:
+      return False
+    return True
+
+  def append_update(self, new_rows: torch.Tensor, block_feats: torch.Tensor,
+                    new_valid: torch.Tensor, block_valid: torch.Tensor, *,
+                    kernel: str, h: float, backend: str | None = None):
+    """(add ((m,) nb_block), sums ((m,) nb_new)): the mass the new rows
+    credit to each block column, and each new row's bound over the block
+    (per shard when the block is (m, npp, d); the caller sums the shards)."""
+    fn = dispatch.resolve(self.oracle, backend or "auto")
+    return fn(new_rows, block_feats, new_valid, block_valid, kernel=kernel,
+              h=h)
+
+  def epoch_bounds(self, table: torch.Tensor,
+                   n_live: torch.Tensor) -> torch.Tensor:
+    """Sum-form entries -> mean-form empty-set bounds for a shard whose
+    evaluation set has ``n_live`` live rows."""
+    return table / torch.clamp_min(n_live, 1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class InfoGainPriorBoundMaintainer:
+  """The exact empty-set gain of information gain,
+  ``0.5 log(1 + k(v, v) / sigma^2)``: independent of the evaluation set,
+  the partition and every other document.  Appends set the new rows'
+  bounds and move nobody else's (``add == 0``); ``epoch_bounds`` is the
+  identity.  ``sums_global``: each new row's bound is complete as
+  computed, so the store must not sum it over shards."""
+  sigma: float = 1.0
+  sums_global: bool = True
+
+  def supports(self, objective: Any) -> bool:
+    # k(v, v) from the row alone: 1 for rbf, |v|^2 for linear
+    return getattr(objective, "kernel", None) in ("rbf", "linear")
+
+  def for_objective(self, objective: Any) -> "InfoGainPriorBoundMaintainer":
+    """Bind the objective's noise level (``bound_maintainer_for`` hook)."""
+    return dataclasses.replace(self, sigma=float(objective.sigma))
+
+  def append_update(self, new_rows: torch.Tensor, block_feats: torch.Tensor,
+                    new_valid: torch.Tensor, block_valid: torch.Tensor, *,
+                    kernel: str, h: float, backend: str | None = None):
+    del block_valid, h, backend  # a prior bound: no cross terms
+    if kernel == "rbf":
+      k_vv = torch.ones(new_rows.shape[:1], dtype=torch.float32,
+                        device=new_rows.device)
+    else:
+      k_vv = torch.sum(new_rows.float() ** 2, dim=-1)
+    sums = 0.5 * torch.log1p(k_vv / self.sigma ** 2) * new_valid.float()
+    add = torch.zeros(block_feats.shape[:-1], dtype=torch.float32,
+                      device=block_feats.device)
+    return add, sums
+
+  def epoch_bounds(self, table: torch.Tensor,
+                   n_live: torch.Tensor) -> torch.Tensor:
+    del n_live  # a per-item prior: already mean-form
+    return table
+
+
+_BOUND_MAINTAINERS: dict[type, Any] = {}
+
+
+def register_bound_maintainer(obj_type: type, maintainer: Any) -> None:
+  """Register (or replace) the warm-start bound maintainer of an objective
+  type."""
+  _BOUND_MAINTAINERS[obj_type] = maintainer
+
+
+def bound_maintainer_for(objective: Any) -> Any | None:
+  """The registered maintainer for ``objective``, or None when its type or
+  its configuration (the maintainer's ``supports``) admits no maintained
+  warm start: None means "run cold", which is always exact."""
+  maintainer = _BOUND_MAINTAINERS.get(type(objective))
+  if maintainer is None:
+    return None
+  supports = getattr(maintainer, "supports", None)
+  if supports is not None and not supports(objective):
+    return None
+  bind = getattr(maintainer, "for_objective", None)
+  if bind is not None:
+    maintainer = bind(objective)
+  return maintainer
+
+
+register_bound_maintainer(FacilityLocation, SumFormBoundMaintainer())
+register_bound_maintainer(SaturatedCoverage, SumFormBoundMaintainer())
+register_bound_maintainer(InformationGain, InfoGainPriorBoundMaintainer())

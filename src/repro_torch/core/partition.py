@@ -39,6 +39,15 @@ def random_partition(rng: torch.Generator | None, feats: torch.Tensor,
   return parts, mask, perm
 
 
+def repartition(rng: torch.Generator | None, feats: torch.Tensor, m_new: int,
+                *, perm: torch.Tensor | None = None):
+  """Elastic re-partition: the number of logical partitions is decoupled
+  from the hardware, so re-partitioning between GreeDi runs (the selection
+  service does it every epoch) is a fresh ``random_partition`` -- the
+  guarantees only need uniformity.  ``perm`` replaces the draw, as there."""
+  return random_partition(rng, feats, m_new, perm=perm)
+
+
 def partition_gids(perm: torch.Tensor,
                    gids: torch.Tensor | None = None) -> torch.Tensor:
   """Global ids of the shard-contiguous layout a partition perm induces.

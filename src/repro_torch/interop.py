@@ -3,8 +3,9 @@
 The system has no weights; what crosses over is data: the ground set's
 features, the partition permutation the reference drew (``random_partition``
 returns it as an (m, ceil(n/m)) int32 array with -1 padding), global
-document ids, and objective states the reference built part way through a
-greedy run (``ig_state``/``ig_shard_state``).  These helpers take the
+document ids, objective states the reference built part way through a
+greedy run (``ig_state``/``ig_shard_state``/``satcov_state``), and the
+selection service's host bound table (``bound_table``).  These helpers take the
 reference's numpy arrays to tensors on a given device, and a port result
 back to numpy with the reference's dtypes (int32 ids), so one test can run
 both sides on the same data, the same partition and the same state.
@@ -16,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.objectives import IGShardState, IGState
+from repro_torch.core.objectives import IGShardState, IGState, SatCovState
 
 
 def features(x, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -64,3 +65,21 @@ def ig_shard_state(state, device="cpu") -> IGShardState:
   return IGShardState(ig_state(state.inner, device),
                       torch.as_tensor(np.array(state.n_live, np.float32),
                                       device=device))
+
+
+def satcov_state(state, device="cpu") -> SatCovState:
+  """A reference ``SatCovState`` (cover, cap, eval_feats, eval_mask, value
+  as numpy arrays, optionally with a leading partition axis) as the
+  port's."""
+  return SatCovState(features(state.cover, device),
+                     features(state.cap, device),
+                     features(state.eval_feats, device),
+                     features(state.eval_mask, device),
+                     torch.as_tensor(np.array(state.value, np.float32),
+                                     device=device))
+
+
+def bound_table(ubound, device="cpu") -> torch.Tensor:
+  """The reference store's host ``ubound`` (float64, the sum of its
+  double-float pair) as the port's float64 table on ``device``."""
+  return torch.as_tensor(np.asarray(ubound, np.float64), device=device)

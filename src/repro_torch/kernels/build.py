@@ -48,6 +48,13 @@ ENTRIES = {
                              [P, P, P, P, P, P, P, P, P, P, I64, I64, I64,
                               I64, I64, I64, I64, I64, I64, I64, I64, I64,
                               F32, P]),
+    "sm90_coverage_gain": ("facility",
+                           [P, P, P, P, P, P, P, I64, I64, I64, I64, I64,
+                            I64, I64, I64, I64, I64, I64, I64, F32, P]),
+    "sm90_coverage_select": ("facility",
+                             [P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64,
+                              I64, I64, I64, I64, I64, I64, I64, I64, I64,
+                              I64, F32, P]),
     "sm90_info_scratch_floats": ("info_gain",
                                  [I64, I64, I64, ctypes.POINTER(I64)]),
     "sm90_info_gain_cond": ("info_gain",

@@ -42,7 +42,7 @@ def eval_chunks(n_blocks: int, ne: int, device: torch.device) -> int:
 
 
 class FLOperands(NamedTuple):
-  """Checked kernel operands of the facility kernels."""
+  """Checked kernel operands of the facility and coverage kernels."""
   ev: torch.Tensor
   cd: torch.Tensor
   cov: torch.Tensor
@@ -54,15 +54,18 @@ class FLOperands(NamedTuple):
   nc: int
   d: int
   chunks: int
+  cap: torch.Tensor | None = None  # saturated coverage only
 
 
 def operands(name: str, eval_feats, cand_feats, cov, eval_mask,
-             cand_ok=None) -> FLOperands:
-  """Validate the facility kernels' operands and settle the batch layout.
+             cand_ok=None, cap=None) -> FLOperands:
+  """Validate the facility (or, with ``cap``, the saturated-coverage)
+  kernels' operands and settle the batch layout.
 
   eval_feats (ne, d) | (P, ne, d); cand_feats (nc, d) | (P, nc, d);
-  cov, eval_mask (ne,) | (P, ne); cand_ok (nc,) | (P, nc).  Unbatched
-  operands are shared by every partition (batch stride 0).
+  cov (the coverage's cover), cap, eval_mask (ne,) | (P, ne); cand_ok
+  (nc,) | (P, nc).  Unbatched operands are shared by every partition
+  (batch stride 0).
   """
   build.check_feats(name, eval_feats, cand_feats)
   dev = eval_feats.device
@@ -76,6 +79,8 @@ def operands(name: str, eval_feats, cand_feats, cov, eval_mask,
   pairs = [(eval_feats, 2), (cand_feats, 2), (cov, 1), (eval_mask, 1)]
   if cand_ok is not None:
     pairs.append((cand_ok, 1))
+  if cap is not None:
+    pairs.append((cap, 1))
   for t, rank in pairs[2:]:
     if t.dim() not in (rank, rank + 1):
       raise ValueError(f"{name}: vector operand of shape {tuple(t.shape)}")
@@ -87,7 +92,8 @@ def operands(name: str, eval_feats, cand_feats, cov, eval_mask,
   ok = None if cand_ok is None else build.vec(name, cand_ok, nc, dev)
   return FLOperands(eval_feats, cand_feats, build.vec(name, cov, ne, dev),
                     build.vec(name, eval_mask, ne, dev), ok, batch, n_part,
-                    ne, nc, d, eval_chunks(n_blocks, ne, dev))
+                    ne, nc, d, eval_chunks(n_blocks, ne, dev),
+                    None if cap is None else build.vec(name, cap, ne, dev))
 
 
 def facility_gain(eval_feats: torch.Tensor, cand_feats: torch.Tensor,

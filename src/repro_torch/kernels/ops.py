@@ -11,12 +11,17 @@ from __future__ import annotations
 
 import functools
 
+import torch
+
+from repro_torch.kernels import coverage_gain as _cg
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import facility_gain as _fg
 from repro_torch.kernels import info_gain as _ig
 from repro_torch.kernels import pairwise as _pw
 from repro_torch.kernels import select_top1 as _st
 
+coverage_gain = _cg.coverage_gain
+coverage_select = _st.coverage_select
 facility_gain = _fg.facility_gain
 facility_select = _st.facility_select
 info_gain_cond = _ig.info_gain_cond
@@ -26,6 +31,8 @@ pairwise = _pw.pairwise
 # kernel name -> (wrapper module, its counter attribute)
 _COUNTED = {"pairwise": (_pw, "launches"), "facility_gain": (_fg, "launches"),
             "facility_select": (_st, "launches"),
+            "coverage_gain": (_cg, "launches"),
+            "coverage_select": (_st, "coverage_launches"),
             "info_gain_cond": (_ig, "launches"),
             "info_select": (_st, "info_launches")}
 
@@ -54,6 +61,44 @@ def _cuda_only(fn):
   return wrapped
 
 
+def _bound_update(sim):
+  """``bound_update`` over the similarity implementation ``sim``."""
+
+  def bound_update(new_rows: torch.Tensor, block_feats: torch.Tensor,
+                   new_valid: torch.Tensor, block_valid: torch.Tensor, *,
+                   kernel: str = "linear", h: float = 0.75):
+    """The append-time warm-bound pass of the selection service (the port
+    of ``src/repro/kernels/ops.py`` ``bound_update``): one (nb_new x
+    nb_block) similarity sweep serving both sides of a corpus append,
+
+        add[j]  = sum_i relu(sim(new_i, block_j)) -- mass credited to doc j
+        sums[i] = sum_j relu(sim(new_i, block_j)) -- new doc i's own bound,
+                                                     over this block
+
+    with invalid rows and columns (chunk padding, holes) contributing
+    nothing.  ``block_feats`` may be the (m, npp, d) stacked shards: the
+    new rows are shared and the result is per shard, ``add`` (m, npp) and
+    ``sums`` (m, nb_new), the shape of the reference's shard-local sums
+    before their psum.  A plain wrapper over the ``pairwise`` kernel (the
+    (nb_new, nb_block) block is a temporary; fusing relu and the sums into
+    the kernel's epilogue is later work, ROADMAP.md).
+    """
+    s = sim(new_rows, block_feats, kernel=kernel, h=h)
+    s.clamp_min_(0.0)
+    s.mul_(new_valid.to(s.dtype).unsqueeze(-1))
+    s.mul_(block_valid.to(s.dtype).unsqueeze(-2))
+    return s.sum(dim=-2), s.sum(dim=-1)
+
+  return bound_update
+
+
+bound_update = _bound_update(pairwise)
+dispatch.register("bound_update", cuda=_bound_update(_cuda_only(pairwise)),
+                  ref=_bound_update(ref.pairwise_ref), auto=bound_update)
+dispatch.register("coverage_gain", cuda=_cuda_only(coverage_gain),
+                  ref=ref.coverage_gain_ref, auto=coverage_gain)
+dispatch.register_select("coverage_gain", cuda=_cuda_only(coverage_select),
+                         ref=ref.coverage_select_ref, auto=coverage_select)
 dispatch.register("facility_gain", cuda=_cuda_only(facility_gain),
                   ref=ref.facility_gain_ref, auto=facility_gain)
 dispatch.register("pairwise", cuda=_cuda_only(pairwise),

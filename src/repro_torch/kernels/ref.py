@@ -65,6 +65,25 @@ def facility_gain_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   return (eval_mask.float().unsqueeze(-2) @ inc).squeeze(-2)
 
 
+def coverage_gain_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
+                      cover: torch.Tensor, cap: torch.Tensor,
+                      eval_mask: torch.Tensor, *, kernel: str = "linear",
+                      h: float = 0.75) -> torch.Tensor:
+  """Unnormalized saturated-coverage gains (Lin & Bilmes), (..., nc)
+  float32:
+
+    gain[j] = sum_i mask_i * [min(cover_i + s_ij, cap_i) - min(cover_i, cap_i)]
+
+  with s_ij = max(sim(e_i, c_j), 0).
+  """
+  sim = torch.clamp_min(_sim(eval_feats.float(), cand_feats.float(), kernel,
+                             h), 0.0)
+  cover = cover.float().unsqueeze(-1)
+  cap = cap.float().unsqueeze(-1)
+  inc = torch.minimum(cover + sim, cap) - torch.minimum(cover, cap)
+  return (eval_mask.float().unsqueeze(-2) @ inc).squeeze(-2)
+
+
 def info_gain_cond_ref(sel_feats: torch.Tensor, linv: torch.Tensor,
                        cand_feats: torch.Tensor, *, kernel: str = "rbf",
                        h: float = 0.75, ridge: float = 1.0) -> torch.Tensor:
@@ -93,6 +112,15 @@ def facility_select_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
                         cand_ok: torch.Tensor, *, kernel: str = "linear",
                         h: float = 0.75):
   gains = facility_gain_ref(eval_feats, cand_feats, cov, eval_mask,
+                            kernel=kernel, h=h)
+  return masked_top1(gains, cand_ok)
+
+
+def coverage_select_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
+                        cover: torch.Tensor, cap: torch.Tensor,
+                        eval_mask: torch.Tensor, cand_ok: torch.Tensor, *,
+                        kernel: str = "linear", h: float = 0.75):
+  gains = coverage_gain_ref(eval_feats, cand_feats, cover, cap, eval_mask,
                             kernel=kernel, h=h)
   return masked_top1(gains, cand_ok)
 

@@ -1,6 +1,6 @@
 """Fused greedy select steps: the ports of the TPU kernels
-``src/repro/kernels/select_top1.py`` ``facility_select_pallas`` and
-``info_select_pallas``.
+``src/repro/kernels/select_top1.py`` ``facility_select_pallas``,
+``coverage_select_pallas`` and ``info_select_pallas``.
 
 The greedy step only needs the masked top-1 of the facility gains, so the
 kernel returns (best gain, index) per partition: candidates with ``ok`` false
@@ -10,14 +10,22 @@ feasible candidate the answer is (NEG, 0).  The CUDA kernel is
 deterministic second stage in place of the TPU's sequential running best;
 see the header there).  Its plain version is ``ref.facility_select_ref``.
 
+``coverage_select`` is the same step for saturated coverage: the fused
+top-1 of ``coverage_gain`` with the same floor, tie and empty rules, its
+kernel the coverage epilogue of ``csrc/facility.cu`` and its plain version
+``ref.coverage_select_ref``.  Each operand carries the partition axis or is
+shared (stride 0), so the same call serves the reference's
+``coverage_select_batched``: B per-query covers, masks and oks over one
+shared block and cap.
+
 ``info_select`` is the information-gain / DPP step: the top-1
 conditional variance, infeasible candidates at 0.0, (0.0, 0) when nothing
 is feasible; the caller maps the winning cond through its log.  Its kernel
 is the select entry of ``csrc/info_gain.cu`` and its plain version
 ``ref.info_select_ref``.
 
-The other select kernels of the TPU module (saturated coverage, graph cut)
-belong to objectives that are not ported yet.
+The graph-cut select kernel of the TPU module belongs to an objective that
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,8 +35,36 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels import info_gain as _ig
 from repro_torch.kernels.facility_gain import operands
 
-launches = 0       # launches of csrc/facility.cu's select through this wrapper
-info_launches = 0  # launches of csrc/info_gain.cu's select
+launches = 0           # launches of csrc/facility.cu's facility select
+coverage_launches = 0  # launches of csrc/facility.cu's coverage select
+info_launches = 0      # launches of csrc/info_gain.cu's select
+
+
+def _top1_scratch(o):
+  """(part, tile_best, tile_idx, best, idx) of a facility-family select:
+  per-tile top-1s with one eval chunk, the chunk partials otherwise."""
+  dev = o.ev.device
+  if o.chunks == 1:
+    n_tiles = -(-o.nc // build.TILE)
+    part = None
+    tile_best = torch.empty((o.n_part, n_tiles), dtype=torch.float32,
+                            device=dev)
+    tile_idx = torch.empty((o.n_part, n_tiles), dtype=torch.int32,
+                           device=dev)
+  else:
+    part = torch.empty((o.chunks, o.n_part, o.nc), dtype=torch.float32,
+                       device=dev)
+    tile_best = tile_idx = None
+  best = torch.empty((o.n_part,), dtype=torch.float32, device=dev)
+  idx = torch.empty((o.n_part,), dtype=torch.int32, device=dev)
+  return part, tile_best, tile_idx, best, idx
+
+
+def _top1_result(o, best, idx):
+  idx = idx.to(torch.int64)
+  if o.batch is None:
+    return best[0], idx[0]
+  return best, idx
 
 
 def facility_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
@@ -49,19 +85,7 @@ def facility_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   o = operands("facility_select", eval_feats, cand_feats, cov, eval_mask,
                cand_ok)
   dev = o.ev.device
-  n_tiles = -(-o.nc // build.TILE)
-  if o.chunks == 1:
-    part = None
-    tile_best = torch.empty((o.n_part, n_tiles), dtype=torch.float32,
-                            device=dev)
-    tile_idx = torch.empty((o.n_part, n_tiles), dtype=torch.int32,
-                           device=dev)
-  else:
-    part = torch.empty((o.chunks, o.n_part, o.nc), dtype=torch.float32,
-                       device=dev)
-    tile_best = tile_idx = None
-  best = torch.empty((o.n_part,), dtype=torch.float32, device=dev)
-  idx = torch.empty((o.n_part,), dtype=torch.int32, device=dev)
+  part, tile_best, tile_idx, best, idx = _top1_scratch(o)
   with torch.cuda.device(dev):
     fn = build.entry("sm90_facility_select")
     err = fn(o.ev.data_ptr(), o.cd.data_ptr(), o.cov.data_ptr(),
@@ -75,10 +99,41 @@ def facility_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
              int(kernel == "rbf"), float(h * h), build.stream_of(o.ev))
   build.check(err, "sm90_facility_select")
   launches += 1
-  idx = idx.to(torch.int64)
-  if o.batch is None:
-    return best[0], idx[0]
-  return best, idx
+  return _top1_result(o, best, idx)
+
+
+def coverage_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
+                    cover: torch.Tensor, cap: torch.Tensor,
+                    eval_mask: torch.Tensor, cand_ok: torch.Tensor, *,
+                    kernel: str = "linear", h: float = 0.75):
+  """Fused top-1 saturated-coverage gain -> (best float32, int64 index),
+  each () or (P,) when an operand carries a partition (or query) axis.
+
+  Tensors on the CPU take the plain version; CUDA tensors launch the
+  kernel or raise.
+  """
+  if not (eval_feats.is_cuda or cand_feats.is_cuda):
+    return ref.coverage_select_ref(eval_feats, cand_feats, cover, cap,
+                                   eval_mask, cand_ok, kernel=kernel, h=h)
+  global coverage_launches
+  build.check_kernel("coverage_select", kernel)
+  o = operands("coverage_select", eval_feats, cand_feats, cover, eval_mask,
+               cand_ok, cap=cap)
+  part, tile_best, tile_idx, best, idx = _top1_scratch(o)
+  with torch.cuda.device(o.ev.device):
+    fn = build.entry("sm90_coverage_select")
+    err = fn(o.ev.data_ptr(), o.cd.data_ptr(), o.cov.data_ptr(),
+             o.cap.data_ptr(), o.mask.data_ptr(), o.ok.data_ptr(),
+             build.ptr(part), build.ptr(tile_best), build.ptr(tile_idx),
+             best.data_ptr(), idx.data_ptr(), o.n_part, o.ne, o.nc, o.d,
+             build.batch_stride(o.ev, 2), build.batch_stride(o.cd, 2),
+             build.batch_stride(o.cov, 1), build.batch_stride(o.cap, 1),
+             build.batch_stride(o.mask, 1), build.batch_stride(o.ok, 1),
+             o.chunks, int(o.ev.dtype == torch.bfloat16),
+             int(kernel == "rbf"), float(h * h), build.stream_of(o.ev))
+  build.check(err, "sm90_coverage_select")
+  coverage_launches += 1
+  return _top1_result(o, best, idx)
 
 
 def info_select(sel_feats: torch.Tensor, linv: torch.Tensor,
@@ -114,7 +169,4 @@ def info_select(sel_feats: torch.Tensor, linv: torch.Tensor,
              build.stream_of(o.sel))
   build.check(err, "sm90_info_select")
   info_launches += 1
-  idx = idx.to(torch.int64)
-  if o.batch is None:
-    return best[0], idx[0]
-  return best, idx
+  return _top1_result(o, best, idx)

@@ -1,20 +1,31 @@
 """GreeDi coreset selection from the command line (the port of the
-one-shot modes of ``src/repro/launch/select.py``).
+one-shot and service modes of ``src/repro/launch/select.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.select --mesh 16 --n 262144
+    PYTHONPATH=src python -m repro_torch.launch.select --mesh 16 --n 262144 \
+        --epochs 3 --append-frac 0.25 --objective saturated_coverage
 
 With ``--mesh N`` the cached-similarity fast engine (or, with
 ``--no-fast``, the generic objective engine) runs over N stacked logical
 shards on the one card (``greedi_select_indices_sharded``); without it the
-reference protocol runs over ``--m`` partitions.  Both return global
-document indices, honor ``--out`` (npy, written before the coverage
-baseline), and report coverage against the centralized greedy when n is
-small enough for its O(k n^2) work to be cheap (force with ``--coverage``,
-skip with ``--no-coverage``).  The run ends with one ``[select] done`` line.
+reference protocol runs over ``--m`` partitions.  With ``--mesh N --epochs
+E`` the selection service runs instead (``service.SelectionService``):
+the corpus less its last ``--append-frac`` is appended, E epochs run, and
+the held-back rows are appended after the first; each epoch prints one
+``[select] epoch`` line (with the round-1 lazy rescans per shard summed),
+the append one ``[select] append`` line.  ``--objective
+saturated_coverage`` selects over the absolute values of the features
+(nonnegative coverage mass, as the reference does); ``--cold`` turns the
+warm-started bounds off, ``--deadline`` sets the liveness deadline.  Every
+mode returns global document indices, honors ``--out`` (npy, written
+before the coverage baseline), and reports coverage against the
+centralized greedy when n is small enough for its O(k n^2) work to be
+cheap (force with ``--coverage``, skip with ``--no-coverage``).  The run
+ends with one ``[select] done`` line.
 
 ``--device`` defaults to ``cuda`` and fails when CUDA is missing; ``cpu``
-runs the kernels' plain versions.  The service, observability and
-tree-merge flags of the reference CLI are not ported yet (ROADMAP.md).
+runs the kernels' plain versions.  The query, observability and tree-merge
+flags of the reference CLI are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -38,6 +49,42 @@ def stats_line(event: str, **fields) -> str:
   return " ".join([event] + [f"{k}={_compact(v)}" for k, v in fields.items()])
 
 
+def _service(args, feats, kappa, dev, sync):
+  """The service mode: append, run the epochs, append the held-back rows
+  after the first; returns (last epoch's ids, the features selected
+  over)."""
+  from repro_torch.service import SelectionService
+  svc = SelectionService(m=args.mesh, d=args.d, kappa=kappa, k_final=args.k,
+                         capacity=args.n, kernel=args.kernel,
+                         backend=args.backend, warm_start=not args.cold,
+                         deadline=args.deadline, objective=args.objective,
+                         device=dev)
+  if args.objective == "saturated_coverage":
+    feats = feats.abs()  # nonnegative coverage mass (Lin & Bilmes)
+  n0 = args.n - int(args.n * args.append_frac)
+  svc.append(feats[:n0])
+  res = None
+  for e in range(args.epochs):
+    svc.board.beat()  # every stacked shard is alive by construction
+    res = svc.epoch()
+    s = res.stats
+    print("[select] " + stats_line(
+        "epoch", epoch=s.epoch, docs=len(res.sel_gids), live=s.n_live,
+        cap=s.capacity, f=s.value, alive=int(s.alive.sum()),
+        shards=len(s.alive), warm=s.warm, wall_s=s.wall_s,
+        rescans=int(s.rescans.sum())))
+    if e == 0 and n0 < args.n:
+      sync()
+      t0 = time.perf_counter()
+      svc.append(feats[n0:])
+      sync()
+      wall = time.perf_counter() - t0
+      print("[select] " + stats_line(
+          "append", docs=args.n - n0, wall_s=wall,
+          rows_per_s=(args.n - n0) / max(wall, 1e-9), growths=svc.growths))
+  return res.sel_gids, feats
+
+
 def main(argv=None) -> None:
   ap = argparse.ArgumentParser()
   ap.add_argument("--n", type=int, default=65536)
@@ -51,6 +98,21 @@ def main(argv=None) -> None:
   ap.add_argument("--no-fast", action="store_true",
                   help="sharded path: use the generic objective engine "
                   "instead of the cached-similarity fast engine")
+  ap.add_argument("--epochs", type=int, default=0,
+                  help="run the multi-epoch SelectionService for this many "
+                  "epochs (mesh mode only)")
+  ap.add_argument("--objective", default="facility",
+                  choices=["facility", "saturated_coverage", "info_gain"],
+                  help="service mode: selection objective; warm starts "
+                  "engage for any objective with a registered bound "
+                  "maintainer (core/objectives.py)")
+  ap.add_argument("--append-frac", type=float, default=0.0,
+                  help="service mode: fraction of the corpus appended only "
+                  "after the first epoch (streaming ingest)")
+  ap.add_argument("--cold", action="store_true",
+                  help="service mode: disable warm-started lazy bounds")
+  ap.add_argument("--deadline", type=float, default=None,
+                  help="service mode: straggler liveness deadline (seconds)")
   ap.add_argument("--kernel", default="linear", choices=["linear", "rbf"])
   ap.add_argument("--backend", default=None, choices=["cuda", "ref", "auto"],
                   help="gain-oracle backend override (kernels/dispatch.py)")
@@ -87,7 +149,11 @@ def main(argv=None) -> None:
 
   sync()
   t0 = time.perf_counter()
-  if args.mesh:
+  if args.mesh and args.epochs:
+    sel, feats = _service(args, feats, kappa, dev, sync)
+    mode_fields = dict(mode="service", m=args.mesh, epochs=args.epochs,
+                       objective=args.objective, merge="flat")
+  elif args.mesh:
     sel = greedi_select_indices_sharded(
         rng, feats, m=args.mesh, kappa=kappa, k_final=args.k,
         kernel=args.kernel, backend=args.backend, fast=not args.no_fast)

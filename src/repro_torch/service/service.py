@@ -1,0 +1,266 @@
+"""Multi-epoch GreeDi over a growing corpus: the epoch path of the
+selection service (the port of ``src/repro/service/service.py``).
+
+``CorpusStore`` (service/store.py) owns the data plane: the pad-and-mask
+block on the device and the objective's warm-bound table, updated on every
+append.  ``SelectionService`` owns the m shards, the heartbeat board and
+the epoch schedule.  Each epoch draws a fresh uniform partition of the
+block (``core/partition.repartition``) and runs the generic
+``greedi_sharded`` with ``mode="lazy"`` over the m shards stacked on the
+card.  With a maintained table round 1 is WARM-STARTED: the table divided
+by each shard's live count bounds every document's empty-set gain under
+any partition (``BoundMaintainer.epoch_bounds``), so the lazy step 0 skips
+its full pass and selects what a cold run selects -- for every objective
+with a registered maintainer (facility location, saturated coverage,
+information gain).  Objectives without one run cold lazy, which is always
+exact.
+
+Floating point: the carried bounds are upper bounds mathematically, but the
+table and a fresh gains pass sum in different orders, so an un-inflated
+bound could undershoot by a few ulps and stop a rescan one tile early.
+Every epoch therefore inflates the bounds by ``_BOUND_SLACK_REL`` and
+``_BOUND_SLACK_ABS`` (the reference's constants): slack costs some
+pruning, never correctness.
+
+Straggler detection is a protocol output: the ``HeartbeatBoard`` ages and
+the deadline go into the liveness collective, and the mask comes back as
+``EpochStats.alive``.
+
+Randomness: the reference draws epoch t's partition inside its jit from
+``fold_in(PRNGKey(seed), t)``.  ``epoch(perm=...)`` takes that
+permutation explicitly (the tests pass the reference's); without one it is
+drawn from a device generator seeded from ``seed`` and the epoch index, so
+a restarted service that replays the same appends repeats its epochs.
+
+No counterpart here (ROADMAP.md): the reference's ``retrace_count`` (there
+is no compiled epoch function to retrace), its obs metric feeds, the
+standing sieves, ``query``/``query_batch`` and the tree merge.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Iterator, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import greedi as GD
+from repro_torch.core import objectives as O
+from repro_torch.core.objectives import NEG
+from repro_torch.core.partition import (partition_gids, repartition,
+                                        shard_live_counts)
+from repro_torch.service.heartbeat import HeartbeatBoard
+from repro_torch.service.store import CorpusStore
+
+# relative / absolute inflation of the carried bounds each epoch (the
+# reference's service/service.py constants)
+_BOUND_SLACK_REL = 1e-3
+_BOUND_SLACK_ABS = 1e-6
+
+# named service objectives; "info_gain" is built with the service's step
+# budget as k_max (its state is a fixed-size Cholesky factor)
+_OBJECTIVES = {
+    "facility": O.FacilityLocation,
+    "saturated_coverage": O.SaturatedCoverage,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochStats:
+  """Per-epoch stats streamed to the trainer alongside the ids."""
+  epoch: int            # epoch index (monotone over the service lifetime)
+  n_live: int           # live documents at selection time
+  capacity: int         # current pad-and-mask block capacity
+  value: float          # f(selection) over the alive data
+  alive: np.ndarray     # (m,) protocol-derived liveness mask
+  warm: bool            # whether warm bounds with signal were in effect
+  wall_s: float         # wall clock of the epoch (device-synced)
+  rescans: np.ndarray   # (m,) round-1 lazy tiles rescanned per shard
+
+
+class EpochResult(NamedTuple):
+  sel_gids: np.ndarray  # selected document ids, filtered (no -1 no-ops)
+  stats: EpochStats
+  raw: Any              # the full GreediResult (tensors on the device)
+
+
+class SelectionService:
+  """Multi-epoch GreeDi over a device-resident growing ground set, m
+  stacked shards on one device.
+
+  Args:
+    m: GreeDi machines (stacked logical shards).
+    d: feature dimension of the corpus embeddings.
+    kappa: per-machine round-1 proposals.
+    k_final: coreset size per epoch.
+    capacity: initial block capacity (rounded up to a multiple of m);
+      doubles on overflow.
+    kernel / kernel_kwargs / backend: similarity kernel and gain-oracle
+      backend.  A passed objective instance's own kernel and backend win
+      (the backend when ``backend`` is None), so the bound pass and the
+      epochs run the same configuration.
+    objective: "facility" (default), "saturated_coverage", "info_gain", or
+      an objective instance with the sharded-protocol surface.
+    mode: round-1 greedy mode; "lazy" (default) enables the warm start,
+      "standard" runs the fused select step.
+    warm_start: keep the bound table and thread it into round 1 (lazy mode
+      and an objective with a maintainer only; selections are the same
+      either way).
+    deadline: liveness deadline in seconds; None disables detection.
+    seed: seed of the per-epoch partitions drawn when ``epoch`` is given
+      no ``perm``.
+    append_block: rows per append chunk of the store.
+    device: ``cuda`` by default (raises when CUDA is missing unless ``cpu``
+      is asked for).
+  """
+
+  def __init__(self, *, m: int, d: int, kappa: int, k_final: int,
+               capacity: int = 4096, kernel: str = "linear",
+               kernel_kwargs: tuple = (), backend: str | None = None,
+               mode: str = "lazy", warm_start: bool = True,
+               deadline: float | None = None, seed: int = 0,
+               append_block: int = 1024, feat_dtype=torch.float32,
+               objective: str | Any = "facility", device="cuda"):
+    self._m = m
+    self._d = d
+    self._kappa = kappa
+    self._k_final = k_final
+    self._mode = mode
+    self._deadline = deadline
+    self._seed = seed
+    if isinstance(objective, str):
+      if objective == "info_gain":
+        # one state serves round 1 (kappa steps), round 2 (k_final) and the
+        # A_max replay (kappa)
+        objective = O.InformationGain(k_max=max(kappa, k_final),
+                                      kernel=kernel,
+                                      kernel_kwargs=kernel_kwargs)
+      elif objective in _OBJECTIVES:
+        objective = _OBJECTIVES[objective](kernel=kernel,
+                                           kernel_kwargs=kernel_kwargs)
+      else:
+        raise ValueError(f"objective {objective!r} not in "
+                         f"{sorted(_OBJECTIVES) + ['info_gain']} "
+                         "(or pass an instance)")
+    self._objective = objective
+    kernel = getattr(objective, "kernel", kernel)
+    kernel_kwargs = getattr(objective, "kernel_kwargs", kernel_kwargs)
+    if backend is None:
+      backend = getattr(objective, "backend", None)
+    self._backend = backend
+    self._maintainer = (O.bound_maintainer_for(objective)
+                        if warm_start and mode == "lazy" else None)
+    self._warm = self._maintainer is not None
+    self._epoch_idx = 0
+    self.store = CorpusStore(
+        m=m, d=d, capacity=capacity, append_block=append_block,
+        kernel=kernel, kernel_kwargs=kernel_kwargs, backend=backend,
+        maintainer=self._maintainer, feat_dtype=feat_dtype, device=device)
+    self.board = HeartbeatBoard(m)
+
+  # ---- public surface ------------------------------------------------------
+
+  @property
+  def n_docs(self) -> int:
+    return self.store.n_docs
+
+  @property
+  def capacity(self) -> int:
+    return self.store.capacity
+
+  @property
+  def growths(self) -> int:
+    return self.store.growths
+
+  @property
+  def warm(self) -> bool:
+    """Whether warm bounds are configured (lazy mode and a maintainer)."""
+    return self._warm
+
+  @property
+  def objective(self):
+    return self._objective
+
+  def append(self, feats, gids=None) -> None:
+    """Grow the ground set through the store: the new rows land in the
+    resident block and, with a maintainer, one bound pass per chunk keeps
+    the table valid.  Duplicate explicit gids raise ``ValueError`` before
+    anything is written."""
+    self.store.append(feats, gids)
+
+  def epoch_perm(self, epoch: int | None = None) -> torch.Tensor:
+    """The (capacity,) partition permutation this service draws for epoch
+    ``epoch`` (default: the next one) when ``epoch`` gets no ``perm``."""
+    t = self._epoch_idx if epoch is None else epoch
+    dev = self.store.device
+    g = torch.Generator(device=dev).manual_seed(
+        (self._seed * 1_000_003 + t) % (2**63))
+    return torch.randperm(self.store.capacity, generator=g, device=dev)
+
+  def _epoch(self, perm: torch.Tensor, ages: torch.Tensor,
+             deadline: float):
+    """Re-partition the block, derive the warm bounds, run GreeDi."""
+    st = self.store
+    m, cap, d = self._m, st.capacity, self._d
+    npp = cap // m
+    # cap is a multiple of m: the perm has no padding of its own, and the
+    # only holes are the block's gid = -1 rows
+    parts, _, perm = repartition(None, st.feats, m, perm=perm)
+    feats_sh = parts.reshape(cap, d)
+    gids_sh = partition_gids(perm, st.gids)
+    wb = None
+    if self._warm:
+      valid_sh = gids_sh >= 0
+      nv = shard_live_counts(valid_sh, m).to(torch.float64)
+      wb = torch.where(valid_sh, st.table[perm.reshape(cap).clamp_min(0)],
+                       NEG)
+      # sum-form table -> per-shard mean-form empty-set bounds, inflated by
+      # the slack that covers f32 summation-order noise
+      wb = self._maintainer.epoch_bounds(wb, nv.repeat_interleave(npp))
+      wb = (wb * (1.0 + _BOUND_SLACK_REL) + _BOUND_SLACK_ABS).to(
+          torch.float32)
+    return GD.greedi_sharded(
+        feats_sh, m=m, kappa=self._kappa, k_final=self._k_final,
+        objective=self._objective, backend=self._backend, gids=gids_sh,
+        mode=self._mode, warm_bounds=wb, liveness_age=ages,
+        liveness_deadline=deadline)
+
+  def epoch(self, perm: torch.Tensor | None = None) -> EpochResult:
+    """Run one selection epoch: re-partition, select, return ids + stats.
+
+    ``perm`` is the epoch's (capacity,) or (m, capacity/m) permutation of
+    the block rows; by default ``epoch_perm()``.
+    """
+    st = self.store
+    dev = st.device
+    if perm is None:
+      perm = self.epoch_perm()
+    perm = torch.as_tensor(perm, device=dev).to(torch.int64)
+    ages = torch.as_tensor(self.board.ages(), dtype=torch.float32,
+                           device=dev)
+    deadline = float("inf") if self._deadline is None else self._deadline
+    # "warm" means bounds with signal were threaded: a configured-warm
+    # service whose table is still all zeros ran this epoch effectively cold
+    warm_eff = self._warm and st.bounds_populated
+    if dev.type == "cuda":
+      torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    r = self._epoch(perm, ages, deadline)
+    if dev.type == "cuda":
+      torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    sv = r.sel_valid.cpu().numpy()
+    sel = r.sel_gids.cpu().numpy()[sv]
+    sel = sel[sel >= 0]
+    stats = EpochStats(epoch=self._epoch_idx, n_live=st.n_docs,
+                       capacity=st.capacity, value=float(r.value),
+                       alive=r.alive.cpu().numpy(), warm=warm_eff,
+                       wall_s=wall, rescans=r.r1_rescans.cpu().numpy())
+    self._epoch_idx += 1
+    return EpochResult(sel, stats, r)
+
+  def selections(self, n_epochs: int) -> Iterator[np.ndarray]:
+    """Yield ``sel_gids`` for ``n_epochs`` epochs."""
+    for _ in range(n_epochs):
+      yield self.epoch().sel_gids

@@ -9,7 +9,9 @@ they run on a GPU machine that has only PyTorch:
 Tolerances: f32 within 2e-5 relative to the largest magnitude (1e-4 for
 gain sums over more than 16k eval rows, summed in another order), bf16
 within 3e-2; top-1 indices equal.  The info-gain conds are held the same
-way, the selection built from a real Cholesky factor (float64 on the CPU).
+way, the selection built from a real Cholesky factor (float64 on the CPU),
+and so are the saturated-coverage gains; one small selection-service run
+holds a warm-started epoch against a cold one on the card.
 """
 import numpy as np
 import pytest
@@ -76,8 +78,12 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda_device):
   ops.info_gain_cond(sel, linv, x[0])
   ops.info_select(sel, linv, x[0], torch.ones(50, dtype=torch.bool,
                                               device=cuda_device))
+  cap = torch.ones(4, 50, device=cuda_device)
+  ops.coverage_gain(x, x, torch.zeros(50, device=cuda_device), cap,
+                    torch.ones(50, device=cuda_device))
   assert ops.launch_counts() == {"pairwise": 1, "facility_gain": 1,
-                                 "facility_select": 0, "info_gain_cond": 1,
+                                 "facility_select": 0, "coverage_gain": 1,
+                                 "coverage_select": 0, "info_gain_cond": 1,
                                  "info_select": 1}
   with pytest.raises(TypeError, match="linv must be float32"):
     ops.info_gain_cond(sel, linv.double(), x[0])
@@ -135,3 +141,99 @@ def test_cuda_info_kernels_match_plain(cuda_device, kernel, dtype):
     _close(got, want, tol)
     assert torch.equal(idx.cpu(), wi.cpu()), (P, k, idx, wi)
     _close(best, wb, tol)
+
+
+def _cov_operands(r, lead, ne, nc, d, td, dev):
+  ev = torch.tensor(r.normal(size=(*lead, ne, d)), device=dev).to(td)
+  cd = torch.tensor(r.normal(size=(*lead, nc, d)), device=dev).to(td)
+  cap = np.abs(r.normal(size=(*lead, ne))) * d
+  cover = cap * r.uniform(0.0, 1.3, size=cap.shape)  # some rows saturated
+  mask = torch.tensor(r.uniform(size=(*lead, ne)) > 0.1, device=dev).float()
+  ok = torch.tensor(r.uniform(size=(*lead, nc)) > 0.3, device=dev)
+  return (ev, cd, torch.tensor(cover, device=dev).float(),
+          torch.tensor(cap, device=dev).float(), mask, ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["linear", "rbf"])
+def test_cuda_coverage_kernels_match_plain(cuda_device, kernel, dtype):
+  """coverage_gain and coverage_select against their plain versions:
+  ragged shapes, a partition axis, one long eval axis (the chunked stage
+  2), a shared cap, the batched query form (per-query cover, mask and ok
+  over one shared block), nothing feasible and exact ties."""
+  td, tol = DTYPES[dtype]
+  r = np.random.default_rng(8)
+  dev = cuda_device
+  for (P, ne, nc, d) in [(None, 100, 70, 17), (3, 300, 257, 64),
+                         (1, 20000, 300, 64)]:
+    lead = () if P is None else (P,)
+    ev, cd, cover, cap, mask, ok = _cov_operands(r, lead, ne, nc, d, td, dev)
+    g = ops.coverage_gain(ev, cd, cover, cap, mask, kernel=kernel)
+    b, i = ops.coverage_select(ev, cd, cover, cap, mask, ok, kernel=kernel)
+    torch.cuda.synchronize()
+    gw = ref.coverage_gain_ref(ev, cd, cover, cap, mask, kernel=kernel)
+    bw, iw = ref.masked_top1(gw, ok)
+    long_tol = tol if ne <= 16384 else max(tol, 1e-4)
+    _close(g, gw, long_tol)
+    assert torch.equal(i.cpu(), iw.cpu())
+    _close(b, bw, long_tol)
+  # shared cap and block, per-query state: the batched query form
+  ev, cd, _, cap, _, _ = _cov_operands(r, (), 500, 300, 32, td, dev)
+  cover = cap * torch.rand(16, 500, device=dev)
+  mask = (torch.rand(16, 500, device=dev) > 0.1).float()
+  ok = torch.rand(16, 300, device=dev) > 0.3
+  b, i = ops.coverage_select(ev, cd, cover, cap, mask, ok, kernel=kernel)
+  bw, iw = ref.coverage_select_ref(ev, cd, cover, cap, mask, ok,
+                                   kernel=kernel)
+  assert torch.equal(i, iw)
+  _close(b, bw, tol)
+  # nothing feasible
+  b, i = ops.coverage_select(ev, cd, cover, cap, mask, torch.zeros_like(ok),
+                             kernel=kernel)
+  assert bool((b == ref.NEG).all()) and bool((i == 0).all())
+  # exact ties: +-10 sign rows, the best candidate duplicated twice
+  signs = torch.where(torch.rand(300, 8, device=dev) > 0.5, 10.0, -10.0)
+  e_t = signs[torch.randint(0, 300, (700,), device=dev)]
+  zero = torch.zeros(700, device=dev)
+  big = torch.full((700,), 1e4, device=dev)
+  ones = torch.ones(700, device=dev)
+  j = int(ref.coverage_gain_ref(e_t, signs, zero, big, ones,
+                                kernel=kernel).argmax())
+  signs[(j + 211) % 300] = signs[j]
+  signs[(j + 97) % 300] = signs[j]
+  allok = torch.ones(300, dtype=torch.bool, device=dev)
+  b, i = ops.coverage_select(e_t.to(td), signs.to(td), zero, big, ones,
+                             allok, kernel=kernel)
+  bw, iw = ref.coverage_select_ref(e_t.to(td), signs.to(td), zero, big, ones,
+                                   allok, kernel=kernel)
+  assert int(i) == int(iw) and float(b) == float(bw)
+
+
+@pytest.mark.cuda
+def test_cuda_service_warm_epoch_equals_cold(cuda_device):
+  """A small selection service on the card: two appends with a growth,
+  three epochs, saturated coverage and facility location, warm-started
+  epochs select what cold ones select; the coverage kernels ran."""
+  from repro_torch.service import SelectionService
+  r = np.random.default_rng(9)
+  x = np.abs(r.normal(size=(3000, 32))).astype(np.float32)
+  x /= np.linalg.norm(x, axis=1, keepdims=True)
+  for objective in ("saturated_coverage", "facility"):
+    sels = {}
+    for warm in (True, False):
+      svc = SelectionService(m=4, d=32, kappa=8, k_final=8, capacity=1024,
+                             append_block=256, warm_start=warm, seed=1,
+                             objective=objective, device=cuda_device)
+      ops.reset_launch_counts()
+      out = []
+      for part in (x[:2000], x[2000:]):
+        svc.append(part)
+        out.append(svc.epoch())
+      out.append(svc.epoch())
+      assert svc.growths == 2
+      assert [o.stats.warm for o in out] == [warm] * 3
+      sels[warm] = [o.sel_gids.tolist() for o in out]
+      if objective == "saturated_coverage":
+        assert ops.launch_counts()["coverage_gain"] > 0
+    assert sels[True] == sels[False]

@@ -301,8 +301,11 @@ def test_generic_sharded_stragglers_and_liveness():
       c.sel_gids.tolist())
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     TG.greedi_sharded(feats_sh, merge="tree", **common)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    TG.greedi_sharded(feats_sh, mode="lazy", **common)
+  # the lazy round 1 (ported since) selects what the standard one does
+  lazy = TG.greedi_sharded(feats_sh, straggler_keep=keep, mode="lazy",
+                           **common)
+  np.testing.assert_array_equal(lazy.sel_gids.numpy(), a.sel_gids.numpy())
+  assert (lazy.r1_rescans > 0).all() and not a.r1_rescans.any()
 
 
 @pytest.mark.parametrize("keep", [None, [True] * 3 + [False] + [True] * 4])

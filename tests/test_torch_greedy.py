@@ -133,7 +133,8 @@ def test_greedy_runs_out_of_candidates_and_caps_at_cardinality():
 def test_greedy_other_modes_raise():
   f = torch.tensor(_feats(20, seed=5))
   to = TO.FacilityLocation()
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    TG.greedy(to, to.init(f), f, 3, mode="lazy")
+  for mode in ("stochastic", "random", "cost_benefit"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+      TG.greedy(to, to.init(f), f, 3, mode=mode)
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     TO.FacilityLocation(kernel="neg_sq_dist")

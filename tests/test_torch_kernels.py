@@ -183,8 +183,10 @@ def test_batched_partitions_match_per_partition_reference(kernel):
 def test_registry_backends():
   """The registry carries the reference's names; "cuda" on CPU tensors
   raises instead of falling back; "ref" and "auto" run the plain version."""
-  assert dispatch.names() == ("facility_gain", "info_gain_cond", "pairwise")
-  assert dispatch.select_names() == ("facility_gain", "info_gain_cond")
+  assert dispatch.names() == ("bound_update", "coverage_gain", "facility_gain",
+                              "info_gain_cond", "pairwise")
+  assert dispatch.select_names() == ("coverage_gain", "facility_gain",
+                                     "info_gain_cond")
   x = torch.randn(20, 8)
   y = torch.randn(10, 8)
   cov = torch.zeros(20)
@@ -210,17 +212,62 @@ def test_registry_backends():
       sel, linv, y, ok), dispatch.resolve_select("info_gain_cond", "auto")(
           sel, linv, y, ok)):
     torch.testing.assert_close(a, b)
+  cap = torch.full((20,), 2.0)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve("coverage_gain", "cuda")(x, y, cov, cap, mask)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve_select("coverage_gain", "cuda")(x, y, cov, cap, mask, ok)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve("bound_update", "cuda")(x, y, mask, ok.float())
+  torch.testing.assert_close(
+      dispatch.resolve("coverage_gain", "ref")(x, y, cov, cap, mask),
+      dispatch.resolve("coverage_gain", "auto")(x, y, cov, cap, mask))
+  for a, b in zip(dispatch.resolve_select("coverage_gain", "ref")(
+      x, y, cov, cap, mask, ok), dispatch.resolve_select(
+          "coverage_gain", "auto")(x, y, cov, cap, mask, ok)):
+    torch.testing.assert_close(a, b)
+  for a, b in zip(dispatch.resolve("bound_update", "ref")(
+      x, y, mask, ok.float()), dispatch.resolve("bound_update", "auto")(
+          x, y, mask, ok.float())):
+    torch.testing.assert_close(a, b)
   with pytest.raises(ValueError, match="not in"):
     dispatch.resolve("pairwise", "pallas")
   assert ops.launch_counts() == {"pairwise": 0, "facility_gain": 0,
-                                 "facility_select": 0, "info_gain_cond": 0,
+                                 "facility_select": 0, "coverage_gain": 0,
+                                 "coverage_select": 0, "info_gain_cond": 0,
                                  "info_select": 0}
 
 
+@pytest.mark.parametrize("kernel", ["linear", "rbf"])
+def test_bound_update_matches_reference(kernel):
+  """The append-time bound pass against the reference's ``bound_update``
+  (padding rows and hole columns masked), and its stacked-shard form
+  against the reference per shard."""
+  r = np.random.default_rng(9)
+  new = r.normal(size=(40, 12)).astype(np.float32)
+  block = r.normal(size=(4, 30, 12)).astype(np.float32)
+  nv = (r.uniform(size=40) > 0.2).astype(np.float32)
+  bv = (r.uniform(size=(4, 30)) > 0.3).astype(np.float32)
+  t = torch.tensor
+  add, sums = ops.bound_update(t(new), t(block), t(nv), t(bv), kernel=kernel)
+  for s in range(4):
+    ja, js = jops.bound_update(new, block[s], nv, bv[s], kernel=kernel)
+    _close(add[s].numpy(), ja, 2e-5)
+    _close(sums[s].numpy(), js, 2e-5)
+  ja, js = jops.bound_update(new, block.reshape(-1, 12), nv, bv.reshape(-1),
+                             kernel=kernel)
+  a1, s1 = ops.bound_update(t(new), t(block.reshape(-1, 12)), t(nv),
+                            t(bv.reshape(-1)), kernel=kernel)
+  _close(a1.numpy(), ja, 2e-5)
+  _close(s1.numpy(), js, 2e-5)
+  _close(sums.sum(0).numpy(), js, 2e-5)
+
+
 def test_port_imports_neither_jax_nor_reference():
-  """In a fresh interpreter, importing every module of the port (and the
-  port's example, examples/active_set_gp_torch.py) loads no JAX and no
-  module of the reference package."""
+  """In a fresh interpreter, importing every module of the port (the
+  selection service's among them) and the port's example,
+  examples/active_set_gp_torch.py, loads no JAX and no module of the
+  reference package."""
   code = r"""
 import importlib, pkgutil, sys
 import repro_torch
@@ -232,13 +279,17 @@ bad = sorted(m for m in sys.modules
              or m.startswith("benchmarks."))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
 print("BAD", bad)
+for name in ("repro_torch.service.service", "repro_torch.service.store",
+             "repro_torch.service.heartbeat", "repro_torch.kernels.autotune",
+             "repro_torch.kernels.coverage_gain"):
+  assert name in sys.modules, name
 """
   env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
   out = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=300)
   assert out.returncode == 0, out.stderr
   assert "BAD []" in out.stdout, out.stdout
-  assert int(out.stdout.split("LOADED")[1].split()[0]) >= 18, out.stdout
+  assert int(out.stdout.split("LOADED")[1].split()[0]) >= 29, out.stdout
   # the port's example, imported without running it
   example = os.path.join(REPO, "examples", "active_set_gp_torch.py")
   with_example = code.replace(
