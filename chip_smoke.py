@@ -28,7 +28,14 @@ calls, counting each kernel's launches around each path:
     store growing from capacity 65536 while 75 % of the corpus is
     ingested, three epochs around the last 25 %, warm-started and cold, for
     saturated coverage and facility location (the ``coverage_gain`` lazy
-    rescans), and the CLI's service mode once.
+    rescans), and the CLI's service mode once;
+  * the graph-cut path of Sec. 5 / 6.3 (non-monotone max-cut, RandomGreedy
+    through ``greedi_reference`` with local evaluation, Alg. 3 under a
+    partition matroid as ``examples/maxcut_constrained_torch.py`` runs it,
+    and ``centralized_greedy`` with the fused node-space select) at the
+    Fig. 9 settings on the paper's 1,899-node graph, kernels against the
+    plain versions under the same draws, and at n = 36692 nodes and
+    183,831 edges (the SNAP email-Enron graph's counts, drawn on the card).
 
 It holds every kernel against its plain version at the shapes those paths
 launch, and profiles the paths.  The generic engine also runs facility
@@ -82,6 +89,8 @@ REPLACES = {
     "info_select": "src/repro/kernels/select_top1.py:255",
     "coverage_gain": "src/repro/kernels/coverage_gain.py:53",
     "coverage_select": "src/repro/kernels/select_top1.py:186",
+    "graph_cut_gain": "src/repro/kernels/graph_cut_gain.py:36",
+    "graph_cut_select": "src/repro/kernels/select_top1.py:323",
 }
 # the path whose launch count each kernel reports in the kernels line (one
 # run, its counts set to 0 just before it); every path's count rides along
@@ -93,9 +102,12 @@ MAIN_PATH = {
     "info_select": "generic",
     "coverage_gain": "service_satcov_warm",    # e2e service
     "coverage_select": "satcov_reference",     # e2e satcov, full size
+    "graph_cut_gain": "cut_greedi",            # e2e cut, full size
+    "graph_cut_select": "cut_node_order",
 }
 GP_KERNELS = ("info_gain_cond", "info_select")
 COV_KERNELS = ("coverage_gain", "coverage_select")
+CUT_KERNELS = ("graph_cut_gain", "graph_cut_select")
 SOURCES = {
     "pairwise": "src/repro_torch/kernels/csrc/pairwise.cu",
     "facility_select": "src/repro_torch/kernels/csrc/facility.cu",
@@ -104,6 +116,8 @@ SOURCES = {
     "info_select": "src/repro_torch/kernels/csrc/info_gain.cu",
     "coverage_gain": "src/repro_torch/kernels/csrc/facility.cu",
     "coverage_select": "src/repro_torch/kernels/csrc/facility.cu",
+    "graph_cut_gain": "src/repro_torch/kernels/csrc/graph_cut.cu",
+    "graph_cut_select": "src/repro_torch/kernels/csrc/graph_cut.cu",
 }
 
 
@@ -136,6 +150,18 @@ class Sizes:
   svc_cap0: int = 65536  # the store grows twice while ingesting 75 %
   append_block: int = 1024
   append_frac: float = 0.25
+  # graph cut (Sec. 6.3): the Fig. 9 settings on the paper's 1,899-node
+  # graph, and a graph of the SNAP email-Enron graph's node and edge counts
+  cut_paper_n: int = 1899
+  cut_paper_m: int = 10
+  cut_paper_k: int = 20   # k = kappa
+  cut_paper_seeds: int = 2
+  cut_n: int = 36692
+  cut_edges: int = 183831
+  cut_m: int = 16
+  cut_k: int = 64         # k = kappa
+  cut_comm: int = 32      # Alg. 3: partition-matroid communities ...
+  cut_cap: int = 2        # ... with this cap each (rho = 64)
 
 
 class SmokeFailure(Exception):
@@ -1692,6 +1718,521 @@ def profile_service(sz):
 
 
 # ---------------------------------------------------------------------------
+# graph cut (Sec. 5 / 6.3): kernels 8-9, GreeDi with RandomGreedy, Alg. 3
+# ---------------------------------------------------------------------------
+
+
+def cut_tol_ok(got, want, w, cols):
+  """Gains within rtol 1e-5 plus 1e-5 of each row's absolute sum
+  sum_u |W_vu c_u| (the f32 sum's own scale; bf16 W is exact in f32, so
+  one tolerance serves both).  Returns (ok, max abs error, max error over
+  its tolerance)."""
+  scale = cols.abs() @ w.float().abs().T
+  err = (got.float() - want.float()).abs()
+  tol = 1e-5 * want.float().abs() + 1e-5 * scale
+  return (bool((err <= tol).all()), float(err.max()),
+          float((err / tol.clamp_min(1e-30)).max()))
+
+
+def cut_weights_small(g, n, dtype):
+  """A ragged test graph on the card: exponential weights on 5 % of the
+  pairs, symmetric, zero diagonal."""
+  import torch
+  w = torch.rand(n, n, generator=g, device=DEVICE)
+  e = -torch.log(torch.rand(n, n, generator=g, device=DEVICE))
+  w = torch.where(w < 0.05, e, 0.0)
+  w = 0.5 * (w + w.T)
+  w.fill_diagonal_(0.0)
+  return w.to(dtype).contiguous()
+
+
+def cut_edge_phase():
+  """Both graph-cut kernels against the plain versions at the edges:
+  ragged n (narrow loads) and n % 8 == 0 (16-byte loads), P = 1, 10, 16
+  and 37 (more than one pass of 16) with partition indicators, f32 and
+  bf16 W, nothing feasible, and exact ties (binary weights, the empty
+  selection: every gain is a degree)."""
+  import torch
+
+  from repro_torch.kernels import ops, ref
+  g = torch.Generator(device=DEVICE).manual_seed(14)
+  worst = 0.0
+  for n in (100, 513, 1899, 4096):
+    for dtype in (torch.float32, torch.bfloat16):
+      w = cut_weights_small(g, n, dtype)
+      for P in (None, 1, 10, 16, 37):
+        lead = () if P is None else (P,)
+        x = (torch.rand(*lead, n, generator=g, device=DEVICE) < 0.3).float()
+        ind = None if P is None else (torch.rand(
+            P, n, generator=g, device=DEVICE) < 0.5).float()
+        ok = torch.rand(*lead, n, generator=g, device=DEVICE) < 0.7
+        got = ops.graph_cut_gain(w, x, ind)
+        best, idx = ops.graph_cut_select(w, x, ok, ind)
+        want = ref.graph_cut_gain_ref(w, x, ind)
+        wb, wi = ref.masked_top1(want, ok)
+        sync()
+        good, _, rel = cut_tol_ok(got, want, w, ref.graph_cut_cols(x, ind))
+        worst = max(worst, rel)
+        check(good, f"graph_cut_gain edge n={n} {dtype} P={P}: error "
+              f"{rel:.3f} of its tolerance")
+        check(torch.equal(idx, wi), f"graph_cut_select edge n={n} {dtype} "
+              f"P={P}: {idx.tolist()} vs {wi.tolist()}")
+        none = torch.zeros_like(ok)
+        best, idx = ops.graph_cut_select(w, x, none, ind)
+        sync()
+        check(bool((best == ref.NEG).all()) and bool((idx == 0).all()),
+              f"graph_cut_select all-infeasible n={n}: {best.tolist()}")
+  # exact ties: a ring with binary weights, every degree (the gain at the
+  # empty selection) 2; each row's answer is its first feasible node
+  n = 1000
+  ring = torch.zeros(n, n, device=DEVICE)
+  i = torch.arange(n, device=DEVICE)
+  ring[i, (i + 1) % n] = 1.0
+  ring[(i + 1) % n, i] = 1.0
+  zeros = torch.zeros(4, n, device=DEVICE)
+  ok = torch.rand(4, n, generator=g, device=DEVICE) < 0.1
+  first = torch.where(ok, i, n).min(dim=1).values
+  for dtype in (torch.float32, torch.bfloat16):
+    best, idx = ops.graph_cut_select(ring.to(dtype), zeros, ok)
+    wb, wi = ref.graph_cut_select_ref(ring.to(dtype), zeros, ok)
+    sync()
+    check(torch.equal(idx, wi) and torch.equal(idx, first) and
+          bool((best == 2.0).all()), f"graph_cut_select ties: "
+          f"{idx.tolist()} vs {wi.tolist()}")
+  emit("kernel graph cut edges", n=[100, 513, 1899, 4096],
+       P=[None, 1, 10, 16, 37], dtypes=["f32", "bf16"],
+       worst_err_over_tol=worst, all_infeasible="(NEG, 0)",
+       ties="lowest index (a ring: every gain 2)", result="pass")
+
+
+def cut_value(w, nodes):
+  """f(S) = sum_{i in S, j not in S} w_ij of the node set ``nodes``,
+  replayed on the whole graph independently of ``GraphCut``: one
+  PyTorch GEMV, the sum in float64."""
+  import torch
+  x = torch.zeros(w.shape[0], dtype=torch.float32, device=w.device)
+  x[torch.as_tensor(nodes, device=w.device).long()] = 1.0
+  return float((x.double() * torch.mv(w.float(), 1.0 - x).double()).sum())
+
+
+def cut_min_gap(w, cand_nodes, cand_ok, idx, kk, ind=None):
+  """The smallest relative gap between adjacent distinct entries of a
+  RandomGreedy run's ranked top-kk lists, replayed in float64 on the host
+  (the near-tie test: below TOL_GAP two summation orders may swap a rank).
+  ``idx`` are the run's candidate rows (-1 = no-op)."""
+  import numpy as np
+  w64 = w.double().cpu().numpy()
+  x = np.zeros(w64.shape[0])
+  sel = np.zeros(len(cand_nodes), bool)
+  gap = np.inf
+  for i in idx:
+    c = 1.0 - 2.0 * x
+    if ind is not None:
+      c = c * ind
+    gains = np.where(cand_nodes >= 0,
+                     (w64 @ c)[np.maximum(cand_nodes, 0)], 0.0)
+    top = np.sort(gains[cand_ok & ~sel])[::-1][:kk]
+    for a, b in zip(top[:-1], top[1:]):
+      if a != b:
+        gap = min(gap, (a - b) / max(abs(a), abs(b), 1e-30))
+    if i >= 0:
+      x[cand_nodes[i]] = 1.0
+      sel[i] = True
+  return float(gap)
+
+
+def cut_objective(w):
+  """GraphCut over W (made symmetric with a zero diagonal in place) and
+  the init_for callables of the Fig. 9 protocol: round 1 on each
+  partition's induced subgraph (the node indicator of its one-hot rows),
+  the final evaluation on the whole graph."""
+  from repro_torch.core import objectives as O
+  obj = O.GraphCut()
+  obj.init_w(w)
+
+  def init_local(ef, em):
+    return obj.init_induced(w, (em.unsqueeze(-2) @ ef).squeeze(-2))
+
+  def init_global(ef, em):
+    return obj.init_induced(w)
+
+  return obj, init_local, init_global
+
+
+def e2e_cut_paper(sz):
+  """The Fig. 9 settings: the 1,899-node Facebook-like graph of Sec. 6.3
+  (``social_graph``, the reference's generator), m = 10, k = kappa = 20,
+  local evaluation, RandomGreedy with stop_nonpositive, 2 seeds.  Each
+  seed's draws are drawn once and given to the kernels (backend "auto")
+  and to the plain versions on the card ("ref"): both rounds pick the same
+  ids, or the float64 replay finds a near-tie in a ranked list.  GreeDi /
+  centralized against the Thm-12 floor; every f(S) replayed on the whole
+  graph.  W is 14.4 MB here, so the launches are host-bound."""
+  import numpy as np
+  import torch
+
+  from repro_torch.core import bounds
+  from repro_torch.core import greedi as GD
+  from repro_torch.core.greedy import draw_table, greedy
+  from repro_torch.core.partition import random_partition
+  from repro_torch.data.graphs import social_graph
+  from repro_torch.kernels import ops
+  n, m, k = sz.cut_paper_n, sz.cut_paper_m, sz.cut_paper_k
+  t0 = time.perf_counter()
+  w = torch.as_tensor(social_graph(n, seed=0), device=DEVICE)
+  t_graph = time.perf_counter() - t0
+  obj, init_local, init_global = cut_objective(w)
+  eye = torch.eye(n, device=DEVICE)
+  npp = -(-n // m)
+  rows, counts = [], {}
+  gen = torch.Generator(device=DEVICE)
+  rc, v_c = GD.centralized_greedy(eye, k, objective=obj,
+                                  init_for=init_global, mode="random",
+                                  rng=gen.manual_seed(7),
+                                  stop_nonpositive=True)
+  c_ids = rc.idx[rc.idx >= 0].cpu().numpy()
+  v_c = float(v_c)
+  check(abs(cut_value(w, c_ids) - v_c) <= 1e-5 * v_c,
+        f"cut paper centralized: f(S) {v_c} vs replay")
+  floor = bounds.thm12_bound(m, k, bounds.random_greedy_bound())
+  for seed in range(sz.cut_paper_seeds):
+    perm = random_partition(gen.manual_seed(100 + seed), eye, m)[2]
+    parts, pmask, _ = random_partition(None, eye, m, perm=perm)
+    t1 = draw_table("random", gen.manual_seed(200 + seed), (m,), k, npp,
+                    device=DEVICE)
+    t2 = draw_table("random", gen.manual_seed(300 + seed), (), k, m * k,
+                    device=DEVICE)
+    # both rounds, kernels against the plain versions, the same draws
+    r1, r2, gids = {}, {}, {}
+    for backend in ("auto", "ref"):
+      st = init_local(parts, pmask.float())
+      r1[backend] = greedy(obj, st, parts, k, cand_mask=pmask, mode="random",
+                           draws=t1, stop_nonpositive=True, backend=backend)
+      gids[backend] = torch.where(r1[backend].idx >= 0, torch.gather(
+          perm, 1, r1[backend].idx.clamp_min(0)), -1).reshape(-1)
+      b = gids[backend]
+      r2[backend] = greedy(obj, init_global(None, None),
+                           eye[b.clamp_min(0)], k, cand_mask=b >= 0,
+                           mode="random", draws=t2, stop_nonpositive=True,
+                           backend=backend)
+    same1 = torch.equal(r1["auto"].idx, r1["ref"].idx)
+    same2 = same1 and torch.equal(r2["auto"].idx, r2["ref"].idx)
+    pm = perm.cpu().numpy()
+    gap1 = min(cut_min_gap(w, pm[i], pm[i] >= 0,
+                           r1["ref"].idx[i].cpu().numpy(), min(k, npp),
+                           ind=np.isin(np.arange(n), pm[i]).astype(float))
+               for i in range(m))
+    bn = gids["ref"].cpu().numpy()
+    gap2 = cut_min_gap(w, bn, bn >= 0, r2["ref"].idx.cpu().numpy(), k)
+    check(same1 or gap1 < TOL_GAP, f"cut paper seed {seed}: round 1 differs "
+          f"without a near-tie (gap {gap1:.2e})")
+    check(same2 or not same1 or gap2 < TOL_GAP, f"cut paper seed {seed}: "
+          f"round 2 differs without a near-tie (gap {gap2:.2e})")
+    # the protocol end to end, same partition and draws, kernels and plain
+    res = {}
+    for backend in ("auto", "ref"):
+      ops.reset_launch_counts()
+      sync()
+      t0 = time.perf_counter()
+      res[backend] = GD.greedi_reference(
+          None, eye, m=m, kappa=k, k_final=k, objective=obj,
+          init_for=init_local, local_eval=True, mode="random",
+          stop_nonpositive=True, backend=backend, perm=perm, r1_draws=t1,
+          r2_draws=t2)
+      sync()
+      wall = time.perf_counter() - t0
+      counts[f"paper_seed{seed}_{backend}"] = ops.launch_counts()
+      r = res[backend]
+      ids = r.sel_gids[r.sel_valid].cpu().numpy()
+      check(len(set(ids.tolist())) == len(ids) and len(ids) > 0,
+            f"cut paper {backend}: bad ids")
+      check(abs(cut_value(w, ids) - float(r.value)) <= 1e-5 * float(r.value),
+            f"cut paper {backend}: f(S) {float(r.value)} vs replay")
+      rows.append(dict(seed=seed, backend=backend, wall_s=wall,
+                       value=float(r.value), ratio=float(r.value) / v_c,
+                       same_ids_as_plain_rounds=[same1, same2],
+                       min_ranked_gap=[gap1, gap2]))
+    a, b = res["auto"], res["ref"]
+    check(not same2 or torch.equal(a.sel_gids, b.sel_gids),
+          f"cut paper seed {seed}: protocol ids differ, rounds equal")
+    check(float(a.value) / v_c >= floor, f"cut paper seed {seed}: ratio "
+          f"{float(a.value) / v_c} below the Thm-12 floor {floor}")
+  check(counts["paper_seed0_auto"]["graph_cut_gain"] > 0 and
+        counts["paper_seed0_ref"]["graph_cut_gain"] == 0,
+        "the paper-size kernels ran on the wrong backend")
+  emit("e2e cut paper", n=n, edges=int((w > 0).sum()) // 2, m=m, k=k,
+       kappa=k, seeds=sz.cut_paper_seeds, graph_s=t_graph, v_centralized=v_c,
+       runs=rows, thm12_floor=floor,
+       mean_ratio=float(np.mean([r_["ratio"] for r_ in rows
+                                 if r_["backend"] == "auto"])),
+       launches=counts)
+  return counts["paper_seed0_auto"]
+
+
+def e2e_cut_full(sz):
+  """The graph-cut path at a real social graph's size: n = 36692 nodes and
+  183,831 edges (the node and edge counts of the SNAP email-Enron graph),
+  a Chung-Lu graph with power-law degrees drawn on the card, exponential
+  weights; W and the one-hot candidate block 5.39 GB each in f32; m = 16
+  ragged partitions of 2,294 rows with 12 holes; k = kappa = 64.  Paths:
+  ``greedi_reference`` (local evaluation, RandomGreedy: kernel 8's main
+  path), Alg. 3 under a partition matroid of 32 communities with cap 2
+  (the example's flow: the matroid caps hold), ``centralized_greedy`` in
+  mode "random", and ``centralized_greedy`` with
+  ``GraphCut(assume_node_order=True)`` in mode "standard" (kernel 9's main
+  path), which must pick what kernel 8 + masked_top1 pick.  Each path's
+  launch counts are set to 0 before it and read after it, with its wall
+  time and peak memory; every f(S) is replayed on the whole graph.  No
+  (m, n, n) tensor exists: one W serves every partition."""
+  import runpy
+
+  import torch
+
+  from repro_torch.core import bounds
+  from repro_torch.core import constraints as C
+  from repro_torch.core import greedi as GD
+  from repro_torch.core import objectives as O
+  from repro_torch.data.graphs import chung_lu_graph
+  from repro_torch.kernels import ops
+  n, m, k = sz.cut_n, sz.cut_m, sz.cut_k
+  sync()
+  t0 = time.perf_counter()
+  w = chung_lu_graph(n, sz.cut_edges, seed=0, device=DEVICE)
+  obj, init_local, init_global = cut_objective(w)
+  eye = torch.eye(n, device=DEVICE)
+  sync()
+  t_setup = time.perf_counter() - t0
+  deg = (w > 0).sum(1)
+  alg3 = runpy.run_path(str(REPO / "examples" / "maxcut_constrained_torch.py"),
+                        run_name="smoke")["alg3"]
+  comm = torch.arange(n, device=DEVICE) % sz.cut_comm
+  matroid = C.PartitionMatroid(num_parts=sz.cut_comm,
+                               caps=(sz.cut_cap,) * sz.cut_comm)
+  fused = O.GraphCut(assume_node_order=True)
+
+  def gen(s):
+    return torch.Generator(device=DEVICE).manual_seed(s)
+
+  paths = {
+      "cut_greedi": lambda: GD.greedi_reference(
+          gen(0), eye, m=m, kappa=k, k_final=k, objective=obj,
+          init_for=init_local, local_eval=True, mode="random",
+          stop_nonpositive=True),
+      "cut_alg3": lambda: alg3(w, comm, matroid, m,
+                               sz.cut_cap * sz.cut_comm, seed=0, obj=obj),
+      "cut_centralized": lambda: GD.centralized_greedy(
+          eye, k, objective=obj, init_for=init_global, mode="random",
+          rng=gen(1), stop_nonpositive=True),
+      "cut_node_order": lambda: GD.centralized_greedy(
+          eye, k, objective=fused, init_for=init_global,
+          stop_nonpositive=True),
+      "cut_two_pass": lambda: GD.centralized_greedy(
+          eye, k, objective=fused, init_for=init_global,
+          stop_nonpositive=True, use_select=False),
+  }
+  out, counts = {}, {}
+  for name, run in paths.items():
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = run()
+    sync()
+    wall = time.perf_counter() - t0
+    counts[name] = ops.launch_counts()
+    if name == "cut_greedi":
+      ids, value = res.sel_gids[res.sel_valid], float(res.value)
+      extra = dict(v_merged=float(res.value_merged),
+                   v_best_single=float(res.value_best_single))
+    elif name == "cut_alg3":
+      ids, value = res["ids"], res["v_greedi"]
+      extra = dict(v_centralized_matroid=res["v_centralized"],
+                   ratio=res["ratio"], thm12_floor=res["thm12_floor"])
+      per_comm = torch.bincount(comm[ids], minlength=sz.cut_comm)
+      check(bool((per_comm <= sz.cut_cap).all()),
+            f"alg3: a community holds {int(per_comm.max())} seeds")
+      check(res["ratio"] >= res["thm12_floor"], f"alg3: ratio "
+            f"{res['ratio']} below the Thm-12 floor {res['thm12_floor']}")
+      cids = res["centralized_ids"].cpu().numpy()
+      check(abs(cut_value(w, cids) - res["v_centralized"])
+            <= 1e-5 * res["v_centralized"], "alg3: centralized f(S) replay")
+      per_c = torch.bincount(comm[res["centralized_ids"]],
+                             minlength=sz.cut_comm)
+      check(bool((per_c <= sz.cut_cap).all()), "alg3 centralized: caps")
+      extra["seeds_per_community_max"] = int(per_comm.max())
+    else:
+      r, v = res
+      ids, value = r.idx[r.idx >= 0], float(v)
+      extra = {}
+    ids = ids.cpu().numpy()
+    check(len(ids) > 0 and len(set(ids.tolist())) == len(ids)
+          and ids.min() >= 0 and ids.max() < n, f"{name}: bad ids")
+    replay = cut_value(w, ids)
+    check(abs(replay - value) <= 1e-5 * abs(value), f"{name}: reported "
+          f"f(S) {value!r}, replay {replay!r}")
+    out[name] = dict(ids=ids, value=value, wall_s=wall,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     selected=len(ids), **extra)
+  check(counts["cut_greedi"]["graph_cut_gain"] > 0,
+        "graph_cut_gain was not launched on the GreeDi path")
+  check(counts["cut_node_order"]["graph_cut_select"] == k,
+        "graph_cut_select did not run every step of the node-order path")
+  check(counts["cut_two_pass"]["graph_cut_select"] == 0,
+        "the two-pass path launched the select kernel")
+  agree = np_equal(out["cut_node_order"]["ids"], out["cut_two_pass"]["ids"])
+  check(agree, "assume_node_order picked other nodes than kernel 8 + "
+        "masked_top1")
+  v_c = out["cut_centralized"]["value"]
+  floor = bounds.thm12_bound(m, k, bounds.random_greedy_bound())
+  ratio = out["cut_greedi"]["value"] / v_c
+  check(ratio >= floor, f"cut greedi: ratio {ratio} below the Thm-12 floor "
+        f"{floor}")
+  emit("e2e cut full-size", n=n, edges=int(deg.sum()) // 2,
+       max_degree=int(deg.max()), mean_degree=float(deg.float().mean()),
+       m=m, k=k, kappa=k, rows_per_partition=-(-n // m),
+       holes=m * -(-n // m) - n, w_gb=n * n * 4 / 1e9, setup_s=t_setup,
+       communities=sz.cut_comm, cap=sz.cut_cap,
+       wall_s={p: r["wall_s"] for p, r in out.items()},
+       peak_gib={p: r["peak_gib"] for p, r in out.items()},
+       value={p: r["value"] for p, r in out.items()},
+       selected={p: r["selected"] for p, r in out.items()},
+       extra={p: {k_: v for k_, v in r.items() if k_ not in (
+           "ids", "value", "wall_s", "peak_gib", "selected")}
+              for p, r in out.items()},
+       ratio_to_centralized=ratio, thm12_floor=floor,
+       node_order_equals_two_pass=agree, launches=counts)
+  del w, eye
+  return counts
+
+
+def np_equal(a, b):
+  import numpy as np
+  return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
+# the graph-cut kernel phase's cases: label, n, P (None = unbatched),
+# partition indicators, W dtype, and the paths that launch the kernels at
+# that shape
+CUT_CASES = (
+    ("round1 local", "full", 16, True, "f32",
+     ["cut_greedi", "cut_alg3"]),
+    ("replay", "full", 16, False, "f32", ["cut_greedi", "cut_alg3"]),
+    ("unbatched", "full", None, False, "f32",
+     ["cut_greedi", "cut_alg3", "cut_centralized", "cut_node_order",
+      "cut_two_pass"]),
+    ("unbatched bf16", "full", None, False, "bf16", []),
+    ("round1 local bf16", "full", 16, True, "bf16", []),
+    ("paper round1 local", "paper", 10, True, "f32", ["paper"]),
+    ("paper unbatched", "paper", None, False, "f32", ["paper"]),
+)
+
+
+def cut_kernel_phase(sz, path_counts: dict):
+  """graph_cut_gain and graph_cut_select against their plain versions at
+  every shape the graph-cut paths launch (``CUT_CASES``), with each one's
+  time beside its bound, the plain version's time and, for the gains,
+  ``library_ms``: one cuBLAS product of W with the same column vectors
+  (``torch.mv`` / ``torch.mm``), which the port never calls.  Greedy-like
+  states: about 0.2 % of the nodes selected, a few infeasible."""
+  import torch
+
+  from repro_torch.data.graphs import chung_lu_graph, social_graph
+  from repro_torch.kernels import ops, ref
+  g = torch.Generator(device=DEVICE).manual_seed(15)
+  rows = {}
+  graphs = {}
+  for label, size, P, with_ind, dtype, on_paths in CUT_CASES:
+    if size not in graphs:
+      graphs.clear()
+      torch.cuda.empty_cache()
+      if size == "full":
+        w32 = chung_lu_graph(sz.cut_n, sz.cut_edges, seed=0, device=DEVICE)
+      else:
+        w32 = torch.as_tensor(social_graph(sz.cut_paper_n, seed=0),
+                              device=DEVICE)
+      graphs[size] = {"f32": w32}
+    if dtype not in graphs[size]:
+      graphs[size][dtype] = graphs[size]["f32"].to(torch.bfloat16)
+    w = graphs[size][dtype]
+    n = w.shape[0]
+    lead = () if P is None else (P,)
+    x = (torch.rand(*lead, n, generator=g, device=DEVICE) < 0.002).float()
+    ind = None
+    if with_ind:
+      part = torch.randint(0, P, (n,), generator=g, device=DEVICE)
+      ind = (part == torch.arange(P, device=DEVICE)[:, None]).float()
+      x = x * ind
+    ok = (torch.rand(*lead, n, generator=g, device=DEVICE) < 0.98) & (x == 0)
+    got = ops.graph_cut_gain(w, x, ind)
+    best, idx = ops.graph_cut_select(w, x, ok, ind)
+    want = ref.graph_cut_gain_ref(w, x, ind)
+    wb, wi = ref.masked_top1(want, ok)
+    sync()
+    cols = ref.graph_cut_cols(x, ind)
+    good, g_abs, g_rel = cut_tol_ok(got, want, w, cols)
+    check(good, f"graph_cut_gain {label}: error {g_rel:.3f} of its "
+          f"tolerance")
+    same = idx == wi
+    picked = want.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+    gap = (wb - picked).abs() / wb.abs().clamp_min(1e-30)
+    okp = ok.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+    tie = (~same) & (gap <= TOL_GAP) & okp
+    check(bool((same | tie).all()), f"graph_cut_select {label}: index "
+          f"differs beyond a near-tie")
+    b_abs = float((best - wb).abs().max())
+    k_ms = time_ms(lambda: ops.graph_cut_gain(w, x, ind), reps=5)
+    s_ms = time_ms(lambda: ops.graph_cut_select(w, x, ok, ind), reps=5)
+    p_ms = time_ms(lambda: ref.graph_cut_gain_ref(w, x, ind), reps=3)
+    ps_ms = time_ms(lambda: ref.graph_cut_select_ref(w, x, ok, ind), reps=3)
+    lib_ms = None
+    if dtype == "f32":  # a bf16 product would return bf16
+      if P is None:
+        lib_ms = time_ms(lambda: torch.mv(w, cols), reps=5)
+      else:
+        lib_ms = time_ms(lambda: torch.mm(cols, w.T), reps=5)
+    esz = w.element_size()
+    n_p = 1 if P is None else P
+    vec_bytes = n_p * n * 4 * (2 if with_ind else 1)   # x (and ind)
+    flops = 2.0 * n * n * n_p
+    gb = bound_ms(n * n * esz + vec_bytes + n_p * n * 4, flops, dtype)
+    sb = bound_ms(n * n * esz + vec_bytes + n_p * n + n_p * 8, flops, dtype)
+    common = dict(shape=[P, n], ind=with_ind, dtype=dtype, on_paths=on_paths)
+    rows[("graph_cut_gain", label)] = dict(
+        common, max_abs_err=g_abs, err_over_tol=g_rel, kernel_ms=k_ms,
+        plain_ms=p_ms, library_ms=lib_ms, bound_ms=gb[0], bound_by=gb[1])
+    rows[("graph_cut_select", label)] = dict(
+        common, max_abs_err=b_abs, idx_equal=int(same.sum()),
+        near_ties=int(tie.sum()), kernel_ms=s_ms, plain_ms=ps_ms,
+        library_ms=None, bound_ms=sb[0], bound_by=sb[1])
+    for name in ("graph_cut_gain", "graph_cut_select"):
+      r_ = rows[(name, label)]
+      r_["launches"] = {p: c.get(name, 0) for p, c in
+                        ((p, path_counts.get(p, {})) for p in on_paths)}
+      emit(f"kernel {name} {label}", **r_)
+    del x, ok, got, want, cols
+  graphs.clear()
+  torch.cuda.empty_cache()
+  return rows
+
+
+def profile_cut(sz):
+  """Where the full-size GreeDi graph-cut path's time goes: device time by
+  kernel name and the busy share, as ``profile_phase`` reports them."""
+  import torch
+
+  from repro_torch.core import greedi as GD
+  from repro_torch.data.graphs import chung_lu_graph
+  w = chung_lu_graph(sz.cut_n, sz.cut_edges, seed=0, device=DEVICE)
+  obj, init_local, _ = cut_objective(w)
+  eye = torch.eye(sz.cut_n, device=DEVICE)
+  profiled("profile cut greedi", lambda: GD.greedi_reference(
+      torch.Generator(device=DEVICE).manual_seed(0), eye, m=sz.cut_m,
+      kappa=sz.cut_k, k_final=sz.cut_k, objective=obj, init_for=init_local,
+      local_eval=True, mode="random", stop_nonpositive=True))
+
+
+# ---------------------------------------------------------------------------
 
 
 def gpu_line() -> str:
@@ -1732,6 +2273,7 @@ def main() -> int:
   edge_phase()
   ig_edge_phase()
   cov_edge_phase()
+  cut_edge_phase()
   e2e_cli_size(sz)
   torch.cuda.empty_cache()
   fl_counts = e2e_full(sz)
@@ -1742,10 +2284,15 @@ def main() -> int:
   torch.cuda.empty_cache()
   cov_counts.update(e2e_service(sz))
   torch.cuda.empty_cache()
+  cut_counts = {"paper": e2e_cut_paper(sz)}
+  torch.cuda.empty_cache()
+  cut_counts.update(e2e_cut_full(sz))
+  torch.cuda.empty_cache()
   # kernel -> {path: launches} over the paths of its e2e phase
   by_path = {name: {p: c[name] for p, c in (
       gp_counts if name in GP_KERNELS else
-      cov_counts if name in COV_KERNELS else fl_counts).items()}
+      cov_counts if name in COV_KERNELS else
+      cut_counts if name in CUT_KERNELS else fl_counts).items()}
              for name in MAIN_PATH}
   launches = {name: by_path[name][path] for name, path in MAIN_PATH.items()}
   e2e_gp_fig6(sz)
@@ -1756,9 +2303,12 @@ def main() -> int:
   torch.cuda.empty_cache()
   rows.update(cov_kernel_phase(sz, cov_counts))
   torch.cuda.empty_cache()
+  rows.update(cut_kernel_phase(sz, cut_counts))
+  torch.cuda.empty_cache()
   profile_phase(sz)
   profile_gp(sz)
   profile_service(sz)
+  profile_cut(sz)
 
   main_shape = {"pairwise": ("pairwise", "s11", "linear", "f32"),
                 "facility_select": ("facility_select", "round1", "linear",
@@ -1770,7 +2320,9 @@ def main() -> int:
                 "coverage_gain": ("coverage_gain", "round1", "linear",
                                   "f32"),
                 "coverage_select": ("coverage_select", "round1", "linear",
-                                    "f32")}
+                                    "f32"),
+                "graph_cut_gain": ("graph_cut_gain", "round1 local"),
+                "graph_cut_select": ("graph_cut_select", "unbatched")}
   kernels = []
   for name, key in main_shape.items():
     r = rows[key]

@@ -2,8 +2,9 @@
 
 The JAX package ``repro`` is the reference; this package runs the same
 protocol on one NVIDIA H100 with hand-written CUDA kernels for the
-similarity blocks and the facility-location greedy step
-(``repro_torch.kernels``).  It imports ``torch`` and never ``jax`` or
+similarity blocks and the greedy steps of its objectives (facility
+location, saturated coverage, information gain, graph cut;
+``repro_torch.kernels``).  It imports ``torch`` and never ``jax`` or
 ``repro``: what it needs from the reference it keeps as its own copy.
 
 Functions run where their tensors lie.  Entry points that create tensors

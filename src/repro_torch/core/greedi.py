@@ -35,10 +35,13 @@ deadline; with the shards stacked on one card the liveness collective is
 the vector ``age <= deadline``, ANDed with ``straggler_keep`` and returned
 as ``GreediResult.alive``.
 
-Round 1 of ``greedi_reference``, ``centralized_greedy`` and the generic
-``greedi_sharded`` runs in ``mode="standard"`` or ``"lazy"``; the generic
-engine's lazy round 1 also takes ``warm_bounds``, the selection service's
-carried table (service/service.py).
+``greedi_reference`` and ``centralized_greedy`` run every greedy mode:
+"standard", "lazy", and the random modes of Sec. 5 ("random", RandomGreedy
+for non-monotone objectives such as the graph cut; "stochastic"), whose
+draws come as explicit tables or from the generators ``greedi_keys``
+returns.  The generic ``greedi_sharded`` runs round 1 in "standard" or
+"lazy"; its lazy round 1 also takes ``warm_bounds``, the selection
+service's carried table (service/service.py).
 
 Not ported yet (ROADMAP.md): the accumulation-tree merge, the fast
 engine's lazy round 1, ``greedi_hierarchical``, and the
@@ -51,7 +54,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.greedy import greedy, where_state, with_backend
+from repro_torch.core.greedy import (draw_table, greedy, where_state,
+                                     with_backend)
 from repro_torch.core.objectives import _kernel_h, masked_top1
 from repro_torch.core.partition import random_partition, shard_live_counts
 from repro_torch.kernels import dispatch
@@ -263,21 +267,34 @@ def _dist_greedy_core(engine: _Engine, steps: int, weight: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _round_draws(mode, draws, rng, batch, k_steps, n, sample_frac, device):
+  """A round's draw table: the given one, or the port's own from ``rng``
+  (None for the modes that draw nothing)."""
+  if mode not in ("random", "stochastic") or draws is not None:
+    return draws
+  return draw_table(mode, rng, batch, k_steps, n, sample_frac=sample_frac,
+                    device=device)
+
+
 def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
                      m: int, kappa: int, k_final: int, objective, init_for,
                      local_eval: bool = False,
                      final_subset: int | None = None,
                      mode: str = "standard",
+                     sample_frac: float | None = None,
                      stop_nonpositive: bool = False,
                      backend: str | None = None,
                      use_select: bool = True,
                      perm: torch.Tensor | None = None,
-                     u_idx: torch.Tensor | None = None) -> GreediResult:
+                     u_idx: torch.Tensor | None = None,
+                     r1_draws: torch.Tensor | None = None,
+                     r2_draws: torch.Tensor | None = None) -> GreediResult:
   """Algorithm 2 (GreeDi) on one device.
 
   Args:
-    rng: generator for the partition (and U); may be None when ``perm``
-      (and ``u_idx`` with ``final_subset``) are given.
+    rng: generator for the partition (and U, and the draws of the random
+      modes); may be None when ``perm`` (``u_idx`` with ``final_subset``,
+      the draw tables with mode "random" or "stochastic") are given.
     init_for: callable (eval_feats, eval_mask) -> objective state; it
       receives (m, npp, d) / (m, npp) blocks under ``local_eval``.  For
       set-only objectives (information gain, DPP) it may ignore its inputs
@@ -286,6 +303,8 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
       (the decomposable mode of Sec. 4.5).
     final_subset: if given, round 2 and the final comparison evaluate f on
       a random subset U of this size (Thm 10); else on the full ground set.
+    mode: the greedy mode of both rounds ("standard", "lazy", "random",
+      "stochastic"; ``sample_frac`` with "stochastic").
     backend: optional gain-oracle backend override for both rounds.
     use_select: fused select step (True) or gains + masked_top1 (False).
     stop_nonpositive: greedy steps whose best gain is <= 0 are no-ops
@@ -293,11 +312,19 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
     perm: explicit (m, ceil(n/m)) partition with -1 padding, replacing the
       draw from ``rng``.
     u_idx: explicit (final_subset,) indices of U.
+    r1_draws: round 1's draw table, one per partition ((m, kappa, ...), see
+      ``greedy.draw_table``); by default drawn from the round-1 generator
+      of ``greedi_keys``.
+    r2_draws: round 2's table ((k_final, ...)); by default drawn from the
+      round-2 generator.
   """
   objective = with_backend(objective, backend)
   n, d = feats.shape
-  need_keys = perm is None or (final_subset is not None and u_idx is None)
-  r_part, _, _, r_u = greedi_keys(rng) if need_keys else (None,) * 4
+  npp = -(-n // m)
+  drawn = mode in ("random", "stochastic")
+  need_keys = (perm is None or (final_subset is not None and u_idx is None)
+               or (drawn and (r1_draws is None or r2_draws is None)))
+  r_part, r_sel, r_r2, r_u = greedi_keys(rng) if need_keys else (None,) * 4
   parts, pmask, perm = random_partition(r_part, feats, m, perm=perm)
 
   # ---- round 1: one greedy per machine, all machines in one batch -------
@@ -307,7 +334,9 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
     st0 = init_for(feats, feats.new_ones((n,)))
   r1 = greedy(objective, objective.broadcast(st0, m), parts, kappa,
               cand_mask=pmask, mode=mode, stop_nonpositive=stop_nonpositive,
-              use_select=use_select)
+              use_select=use_select,
+              draws=_round_draws(mode, r1_draws, r_sel, (m,), kappa, npp,
+                                 sample_frac, feats.device))
   valid1 = r1.idx >= 0
   gid1 = torch.gather(perm, 1, r1.idx.clamp_min(0))
   gid1 = torch.where(valid1, gid1, -1)                      # (m, kappa)
@@ -333,7 +362,9 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
   bmask = valid1.reshape(m * kappa)
   bgids = gid1.reshape(m * kappa)
   r2 = greedy(objective, st_final0, B, k_final, cand_mask=bmask, mode=mode,
-              stop_nonpositive=stop_nonpositive, use_select=use_select)
+              stop_nonpositive=stop_nonpositive, use_select=use_select,
+              draws=_round_draws(mode, r2_draws, r_r2, (), k_final,
+                                 m * kappa, sample_frac, feats.device))
   r2_gids = torch.where(r2.idx >= 0, bgids[r2.idx.clamp_min(0)], -1)
   v_merged = objective.value(r2.state)
   v_best_single = _pick(stage1_vals, best_i)
@@ -355,11 +386,16 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
 
 def centralized_greedy(feats: torch.Tensor, k: int, *, objective, init_for,
                        mode: str = "standard", stop_nonpositive: bool = False,
-                       backend: str | None = None, use_select: bool = True):
-  """Plain greedy over the whole ground set -> (GreedyResult, f(S))."""
+                       backend: str | None = None, use_select: bool = True,
+                       rng: torch.Generator | None = None,
+                       sample_frac: float | None = None,
+                       draws: torch.Tensor | None = None):
+  """Plain greedy over the whole ground set -> (GreedyResult, f(S)).  The
+  random modes take ``draws`` or draw from ``rng``, as ``greedy`` does."""
   objective = with_backend(objective, backend)
   st0 = init_for(feats, feats.new_ones(feats.shape[:1]))
-  r = greedy(objective, st0, feats, k, mode=mode,
+  r = greedy(objective, st0, feats, k, mode=mode, rng=rng,
+             sample_frac=sample_frac, draws=draws,
              stop_nonpositive=stop_nonpositive, use_select=use_select)
   return r, objective.value(r.state)
 

@@ -1,15 +1,12 @@
-"""The greedy loops (the port of ``greedy`` in ``src/repro/core/greedy.py``,
-modes ``standard`` and ``lazy``).
+"""The greedy loops (the port of ``greedy``, ``best_of_knapsack`` and
+``greedy_over_partitions`` in ``src/repro/core/greedy.py``).
 
 * ``standard`` recomputes every candidate's marginal gain each step.
   Through the objective's fused ``select`` oracle the step is ONE kernel
   launch that returns only (best gain, index); ``use_select=False`` takes
   the two-pass path instead: the full gains vector from the ``gains``
   oracle, then ``masked_top1``.  Both pick the lowest index among equal
-  gains.  The step loop makes no host sync (no ``.item()``, no ``.cpu()``,
-  no Python branch on a device value): a step that finds nothing feasible
-  is a no-op chosen by ``torch.where``, like the reference's masked
-  ``fori_loop`` body.
+  gains.
 * ``lazy`` is Minoux's lazy greedy at tile granularity (``_greedy_lazy``):
   stale gains are upper bounds by submodularity, each step sorts the
   candidates by bound and refreshes bound-sorted tiles until the next
@@ -17,6 +14,22 @@ modes ``standard`` and ``lazy``).
   selection (up to f32 near-ties, whose gains the two modes sum in
   different orders); objectives that declare ``monotone = False`` or
   ``supports_lazy = False`` fall back to ``standard``.
+* ``random`` is RandomGreedy (Buchbinder et al. 2014) for non-monotone f:
+  each step picks uniformly among the top min(k, n) feasible gains.
+* ``stochastic`` is "lazier than lazy" (Mirzasoleiman et al. 2015): each
+  step scores only a random subset, each item kept with ``sample_frac``.
+* ``cost_benefit`` is the knapsack greedy by gain / cost (Sec. 5.2);
+  ``best_of_knapsack`` takes the better of it and ``standard``.
+
+Randomness comes from explicit draw tables (``draws``), as the partition
+comes from an explicit ``perm``: the reference's ``jax.random`` bits cannot
+be reproduced, so a test builds the table from the reference's own key
+chain, and the port's own path fills it from a ``torch.Generator`` before
+the loop (``draw_table``).  The step loop makes no host sync (no
+``.item()``, no ``.cpu()``, no Python branch on a device value, no
+``torch.randint`` with a device bound): a step that finds nothing feasible
+is a no-op chosen by ``torch.where``, like the reference's masked
+``fori_loop`` body.
 
 ``jax.vmap`` over GreeDi's partitions becomes a leading partition axis: with
 ``cand_feats`` of shape (P, n, d) and a state carrying a (P, ...) axis, one
@@ -35,6 +48,8 @@ import torch
 from repro_torch.core import constraints as C
 from repro_torch.core.objectives import NEG, masked_top1
 from repro_torch.kernels import autotune
+
+MODES = ("standard", "lazy", "random", "stochastic", "cost_benefit")
 
 # host syncs of the lazy rescan loops since the last reset: one per rescan
 # iteration (all partitions together), the loop's only device-to-host reads
@@ -72,7 +87,8 @@ def where_state(take: torch.Tensor, new, old):
   if new is old:
     return old
   if isinstance(old, tuple):
-    return type(old)(*(where_state(take, a, b) for a, b in zip(new, old)))
+    fields = [where_state(take, a, b) for a, b in zip(new, old)]
+    return type(old)(*fields) if hasattr(old, "_fields") else tuple(fields)
   t = take.reshape(take.shape + (1,) * (old.dim() - take.dim()))
   return torch.where(t, new, old)
 
@@ -106,7 +122,7 @@ def _apply(objective, tr: _Trace, cand_feats, meta, constraint, chosen,
     take = take & (chosen_gain > 0.0)
   feat = _rows(cand_feats, chosen)
   state = where_state(take, objective.update(tr.state, feat), tr.state)
-  cstate = torch.where(take, constraint.update(
+  cstate = where_state(take, constraint.update(
       tr.cstate, C.slice_meta(meta, chosen)), tr.cstate)
   hit = torch.gather(tr.selected, -1, chosen.unsqueeze(-1)) | take.unsqueeze(
       -1)
@@ -132,9 +148,52 @@ def _result(objective, state0, tr: _Trace, k_steps, batch, d, dtype, dev,
   return GreedyResult(idx, feats, gains, tr.state, values, rescans)
 
 
+def draw_table(mode: str, rng: torch.Generator | None, batch: tuple,
+               k_steps: int, n: int, *, sample_frac: float | None = None,
+               device=None) -> torch.Tensor | None:
+  """The port's own draws for ``mode``, made before the loop.
+
+  * ``random``: a ((P,) k, kk) int64 table of ranks, kk = min(k, n); step t
+    picks rank ``table[t, v - 1]`` among its v feasible top entries, with
+    ``table[t, v - 1] = floor(u_t * v)`` for one uniform u_t per step.
+  * ``stochastic``: a ((P,) k, n) bool keep table, each entry True with
+    probability ``sample_frac``.
+  * any other mode: None.
+
+  ``rng`` None means a generator seeded 0 on ``device`` (the reference
+  defaults to ``PRNGKey(0)``).
+  """
+  if mode not in ("random", "stochastic"):
+    return None
+  if rng is None:
+    rng = torch.Generator(device=device).manual_seed(0)
+  if mode == "random":
+    kk = min(k_steps, n)
+    u = torch.rand((*batch, k_steps, 1), generator=rng,
+                   device=rng.device).to(device)
+    v = torch.arange(1, kk + 1, device=device)
+    return torch.minimum(torch.floor(u * v).to(torch.int64), v - 1)
+  if sample_frac is None:
+    raise ValueError("stochastic mode needs sample_frac")
+  keep = torch.rand((*batch, k_steps, n), generator=rng, device=rng.device)
+  return (keep < sample_frac).to(device)
+
+
+def _check_draws(mode, draws, batch, k_steps, n) -> torch.Tensor:
+  want = ((*batch, k_steps, min(k_steps, n)) if mode == "random"
+          else (*batch, k_steps, n))
+  if tuple(draws.shape) != want:
+    raise ValueError(f"greedy mode {mode!r}: draws of shape "
+                     f"{tuple(draws.shape)}, expected {want}")
+  return draws
+
+
 def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
            cand_mask: torch.Tensor | None = None, constraint=None,
            meta: dict | None = None, mode: str = "standard",
+           rng: torch.Generator | None = None,
+           sample_frac: float | None = None,
+           draws: torch.Tensor | None = None,
            stop_nonpositive: bool = False, backend: str | None = None,
            use_select: bool = True, lazy_tile: int | None = None,
            warm_bounds: torch.Tensor | None = None) -> GreedyResult:
@@ -150,13 +209,19 @@ def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
     cand_mask: ((P,) n) bool, False rows are never selectable (padding).
     constraint: hereditary system from core/constraints.py (None = plain
       cardinality k_steps).
-    meta: per-item attribute tensors for the constraint.
-    mode: "standard" or "lazy" (the tile-bound lazy greedy; monotone
-      objectives only, others fall back to "standard").  The stochastic,
-      random and cost-benefit modes are not ported.
+    meta: per-item attribute tensors for the constraint (and ``cost`` for
+      mode="cost_benefit").
+    mode: "standard" | "lazy" | "random" | "stochastic" | "cost_benefit".
+      "lazy" is the tile-bound lazy greedy (monotone objectives only,
+      others fall back to "standard").
+    rng: generator of the port's own draws (``draw_table``) when
+      ``draws`` is not given.
+    sample_frac: stochastic mode's per-step inclusion probability; the
+      canonical choice is (1/k) ln(1/eps).
+    draws: explicit draw table of mode "random" (((P,) k, min(k, n)) int
+      ranks) or "stochastic" (((P,) k, n) bool keeps); see ``draw_table``.
     stop_nonpositive: treat steps whose best gain is <= 0 as no-ops
-      (required for non-monotone objectives such as the DPP log-det;
-      harmless for monotone ones).
+      (required for non-monotone objectives; harmless for monotone ones).
     backend: optional gain-oracle backend override ("cuda" | "ref" |
       "auto") applied to the objective for this run.
     use_select: route standard steps through the objective's fused
@@ -168,13 +233,10 @@ def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
       empty-set gain (the selection service's carried table); mode="lazy"
       then seeds its bounds from them and skips the step-0 full pass.  The
       selection is the cold run's as long as they really are upper bounds.
-      Ignored by mode="standard".
+      Ignored by every other mode.
   """
-  if mode not in ("standard", "lazy"):
-    raise NotImplementedError(
-        f"greedy mode {mode!r}: the port runs 'standard' and 'lazy'; "
-        "stochastic, random and cost_benefit come later (ROADMAP.md, "
-        "modules to port, items 2 and 5)")
+  if mode not in MODES:
+    raise ValueError(f"greedy mode {mode!r} not in {MODES}")
   objective = with_backend(objective, backend)
   if mode == "lazy" and not (getattr(objective, "monotone", True)
                              and getattr(objective, "supports_lazy", True)):
@@ -192,29 +254,93 @@ def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
     meta = C.default_meta(n, device=dev)
   if constraint is None:
     constraint = C.Cardinality(k_steps)
+  if mode == "cost_benefit" and "cost" not in meta:
+    raise ValueError("cost_benefit mode needs meta['cost']")
   if mode == "lazy":
     return _greedy_lazy(objective, state0, cand_feats, k_steps,
                         cand_mask=cand_mask, constraint=constraint,
                         meta=meta, stop_nonpositive=stop_nonpositive,
                         tile=lazy_tile, warm_bounds=warm_bounds)
-  select_path = use_select and hasattr(objective, "select")
+  if draws is None:
+    draws = draw_table(mode, rng, tuple(batch), k_steps, n,
+                       sample_frac=sample_frac, device=dev)
+  elif mode in ("random", "stochastic"):
+    draws = torch.as_tensor(draws, device=dev)
+    draws = _check_draws(mode, draws.to(torch.int64 if mode == "random"
+                                        else torch.bool), batch, k_steps, n)
+  select_path = (mode == "standard" and use_select
+                 and hasattr(objective, "select"))
+  kk = min(k_steps, n)
 
-  tr = _Trace(state0, constraint.init(dev).expand(batch).clone(),
+  tr = _Trace(state0, C.init_batched(constraint, tuple(batch), dev),
               torch.zeros((*batch, n), dtype=torch.bool, device=dev),
               [], [], [])
-  for _ in range(k_steps):
+  for t in range(k_steps):
     feasible = (~tr.selected) & cand_mask & constraint.mask(tr.cstate, meta)
     if select_path:
       chosen_gain, chosen = objective.select(tr.state, cand_feats, feasible)
       chosen_gain = chosen_gain.float()
     else:
       g = objective.gains(tr.state, cand_feats).float()
-      _, chosen = masked_top1(g, feasible)
+      score = (g / torch.clamp_min(meta["cost"].to(torch.float32), 1e-12)
+               if mode == "cost_benefit" else g)
+      if mode == "stochastic":
+        keep = draws[..., t, :]
+        # never mask out everything: fall back to the full set when the
+        # sample misses every feasible item (the reference's rule)
+        hit = (keep & feasible).any(dim=-1, keepdim=True)
+        feasible = feasible & (keep | ~hit)
+      if mode == "random":
+        masked = torch.where(feasible, score, NEG)
+        # the top kk, lower index first among equal values (lax.top_k's
+        # order; torch.topk promises none for ties)
+        top_vals, top_idx = torch.sort(masked, dim=-1, descending=True,
+                                       stable=True)
+        top_vals, top_idx = top_vals[..., :kk], top_idx[..., :kk]
+        num_valid = torch.clamp_min((top_vals > NEG / 2).sum(dim=-1), 1)
+        rank = torch.gather(draws[..., t, :], -1,
+                            (num_valid - 1).unsqueeze(-1))
+        chosen = torch.gather(top_idx, -1, rank).squeeze(-1)
+      else:
+        _, chosen = masked_top1(score, feasible)
       chosen_gain = torch.gather(g, -1, chosen.unsqueeze(-1)).squeeze(-1)
     tr = _apply(objective, tr, cand_feats, meta, constraint, chosen,
                 chosen_gain, feasible, stop_nonpositive)
   return _result(objective, state0, tr, k_steps, batch, d, cand_feats.dtype,
                  dev, torch.zeros(batch, dtype=torch.int32, device=dev))
+
+
+def best_of_knapsack(objective, state0, cand_feats: torch.Tensor,
+                     k_steps: int, *, meta: dict, budget: float,
+                     cand_mask: torch.Tensor | None = None,
+                     backend: str | None = None) -> GreedyResult:
+  """max(plain greedy, cost-benefit greedy) under a knapsack: the
+  (1 - 1/sqrt(e))-approximation of Krause & Guestrin (2005b) (Sec. 5.2).
+  Per partition when the candidates carry a partition axis; ties go to the
+  plain greedy, as in the reference."""
+  kn = C.Knapsack(budget)
+  a = greedy(objective, state0, cand_feats, k_steps, cand_mask=cand_mask,
+             constraint=kn, meta=meta, mode="standard", backend=backend)
+  b = greedy(objective, state0, cand_feats, k_steps, cand_mask=cand_mask,
+             constraint=kn, meta=meta, mode="cost_benefit", backend=backend)
+  obj = with_backend(objective, backend)
+  pick_a = obj.value(a.state) >= obj.value(b.state)
+  return GreedyResult(*(where_state(pick_a, x, y) for x, y in zip(a, b)))
+
+
+def greedy_over_partitions(objective_init, objective,
+                           feats_parts: torch.Tensor, k_steps: int, **kw):
+  """The greedy loop over an (m, n/m, d) partition stack, all partitions in
+  one batched run (the reference vmaps over them).
+
+  Single-device form of GreeDi round 1 (tests and the paper-figure runs).
+  ``objective_init`` maps the whole stack to the initial state with a
+  leading partition axis (binding local evaluation for the decomposable
+  mode); ``kw`` goes to ``greedy`` (draw tables then carry the partition
+  axis too).
+  """
+  return greedy(objective, objective_init(feats_parts), feats_parts,
+                k_steps, **kw)
 
 
 def _pad_last(x: torch.Tensor, n: int, value, dim: int = -1) -> torch.Tensor:
@@ -268,7 +394,7 @@ def _greedy_lazy(objective, state0, cand_feats: torch.Tensor, k_steps: int,
   meta_pad = {k: _pad_last(v, npad, 0) for k, v in meta.items()}
   int_max = torch.iinfo(torch.int64).max
   rescans = torch.zeros(batch, dtype=torch.int32, device=dev)
-  tr = _Trace(state0, constraint.init(dev).expand(batch).clone(),
+  tr = _Trace(state0, C.init_batched(constraint, tuple(batch), dev),
               torch.zeros((*batch, npad), dtype=torch.bool, device=dev),
               [], [], [])
   if k_steps == 0:

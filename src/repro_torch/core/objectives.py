@@ -1,7 +1,7 @@
 """Submodular objectives as fixed-shape state machines (the port of the
-``FacilityLocation``, ``SaturatedCoverage``, ``InformationGain`` and
-``LogDetDPP`` parts of ``src/repro/core/objectives.py``, and of its
-warm-start bound maintainers).
+``FacilityLocation``, ``SaturatedCoverage``, ``InformationGain``,
+``LogDetDPP`` and ``GraphCut`` parts of ``src/repro/core/objectives.py``,
+and of its warm-start bound maintainers).
 
 The interface is the reference's:
 
@@ -503,6 +503,134 @@ class LogDetDPP(_IncrementalCholesky):
 
   def _log_gain(self, cond: torch.Tensor) -> torch.Tensor:
     return torch.log(cond)
+
+
+# ---------------------------------------------------------------------------
+# Graph cut (Sec. 6.3; non-monotone) -- index-based, explicit weight matrix
+# ---------------------------------------------------------------------------
+
+_SYM_BLOCK = 4096  # rows and columns of W per block of the in-place pass
+
+
+def symmetrize_(w: torch.Tensor) -> torch.Tensor:
+  """W <- 0.5 (W + W^T) with a zero diagonal, IN PLACE, block by block
+  (the temporaries are 4096 x 4096, not another n x n copy: W is 5.39 GB
+  at n = 36692).  Every entry is the reference's 0.5 * (w_ij + w_ji) to the
+  bit."""
+  n = w.shape[0]
+  for i0 in range(0, n, _SYM_BLOCK):
+    i1 = min(i0 + _SYM_BLOCK, n)
+    for j0 in range(i0, n, _SYM_BLOCK):
+      j1 = min(j0 + _SYM_BLOCK, n)
+      t = 0.5 * (w[i0:i1, j0:j1] + w[j0:j1, i0:i1].T)
+      w[i0:i1, j0:j1].copy_(t)
+      w[j0:j1, i0:i1].copy_(t.T)
+  w.diagonal().zero_()
+  return w
+
+
+class CutState(NamedTuple):
+  w: torch.Tensor                  # (n, n) symmetric weights, shared
+  in_s: torch.Tensor               # ((P,) n) float32 indicator of S
+  value: torch.Tensor              # ((P,)) float32 f(S)
+  ind: torch.Tensor | None = None  # ((P,) n) node indicator of the induced
+  #                                  subgraph each partition evaluates on
+  #                                  (local evaluation); None: the graph
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphCut:
+  """f(S) = sum_{i in S, j not in S} w_ij on an explicit graph.
+
+  Candidates are node indices encoded as one-hot rows, so the generic
+  greedy loop (which traffics in "feature" rows) applies unchanged: the
+  "feature" of node v is e_v.  The per-node gain sweep deg - 2 W x ==
+  W (1 - 2x) runs through the ``graph_cut_gain`` kernel, one pass over W
+  for every partition of a step; ``gains`` maps it onto the candidate rows
+  with one product over the one-hot block, and ``update`` recomputes the
+  chosen node's gain with one more pass (as the reference does).
+
+  Local evaluation (the decomposable mode of Sec. 4.5, Fig. 9: each
+  machine cuts its partition's induced subgraph) keeps ONE shared W and a
+  per-partition node indicator ``ind``: the kernel's column vector is
+  ind * (1 - 2x), whose products on every node of the partition are those
+  of the reference's masked copy W * ind ind^T.  No (m, n, n) block exists.
+
+  ``assume_node_order=True`` routes the select step through the fused
+  node-space top-1 kernel (``graph_cut_select``) and maps the winning node
+  back to its first feasible candidate row.  It is opt-in because node-space
+  tie-breaking matches the candidate-space argmax only when candidates are
+  laid out in node order (``eye(n)``, the centralized greedy): for permuted
+  one-hot layouts and exactly tied gains (integer or binary weights) the
+  two orders pick different rows.  The default select reduces in candidate
+  space and is exact for any layout.
+  """
+  monotone = False  # cut gains go negative: greedy(mode="lazy") falls back
+
+  backend: str = "auto"
+  assume_node_order: bool = False
+
+  def init_w(self, w: torch.Tensor) -> CutState:
+    """Symmetrize W and zero its diagonal, IN PLACE (the reference returns a
+    new matrix; at n = 36692 a second copy would be another 5.39 GB), and
+    return the empty-set state over the whole graph.  Idempotent, so
+    calling it again on the prepared W changes nothing."""
+    return self.init_induced(symmetrize_(w))
+
+  def init_induced(self, w: torch.Tensor,
+                   ind: torch.Tensor | None = None) -> CutState:
+    """The empty-set state over a W that ``init_w`` prepared (W is not
+    touched): the whole graph, or with ``ind`` ((P,) n) the subgraph each
+    partition's nodes induce."""
+    n = w.shape[-1]
+    lead = () if ind is None else tuple(ind.shape[:-1])
+    return CutState(
+        w, torch.zeros((*lead, n), dtype=torch.float32, device=w.device),
+        torch.zeros(lead, dtype=torch.float32, device=w.device),
+        None if ind is None else ind.to(torch.float32))
+
+  def broadcast(self, state: CutState, n_part: int) -> CutState:
+    """The same state for each of ``n_part`` partitions; W stays shared."""
+    return CutState(state.w, state.in_s.expand(n_part, -1).clone(),
+                    state.value.expand(n_part).clone(),
+                    None if state.ind is None
+                    else state.ind.expand(n_part, -1))
+
+  def node_gains(self, state: CutState) -> torch.Tensor:
+    """((P,) n) float32 gain of every node: one pass over W."""
+    fn = dispatch.resolve("graph_cut_gain", self.backend)
+    return fn(state.w, state.in_s, state.ind)
+
+  def gains(self, state: CutState, cand_feats: torch.Tensor) -> torch.Tensor:
+    # cand_feats ((P,) nc, n) one-hot rows (zero rows for holes)
+    node_gain = self.node_gains(state)
+    return (cand_feats.to(torch.float32)
+            @ node_gain.unsqueeze(-1)).squeeze(-1)
+
+  def select(self, state: CutState, cand_feats: torch.Tensor,
+             feasible: torch.Tensor):
+    if not self.assume_node_order:
+      return masked_top1(self.gains(state, cand_feats), feasible)
+    fn = dispatch.resolve_select("graph_cut_gain", self.backend)
+    cf = cand_feats.to(torch.float32)
+    # candidate feasibility projected onto the nodes (one-hot rows)
+    node_ok = (feasible.to(torch.float32).unsqueeze(-2) @ cf).squeeze(-2) > 0
+    best, node = fn(state.w, state.in_s, node_ok, state.ind)
+    # winning node -> its first feasible candidate row
+    col = torch.gather(cf, -1, node.reshape(*node.shape, 1, 1).expand(
+        *cf.shape[:-1], 1)).squeeze(-1)
+    hit = feasible & (col > 0)
+    return best, masked_top1(hit.to(torch.float32),
+                             torch.ones_like(hit))[1]
+
+  def update(self, state: CutState, feat: torch.Tensor) -> CutState:
+    f = feat.to(torch.float32)
+    gain = torch.sum(f * self.node_gains(state), dim=-1)
+    return CutState(state.w, torch.maximum(state.in_s, f),
+                    state.value + gain, state.ind)
+
+  def value(self, state: CutState) -> torch.Tensor:
+    return state.value
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,10 @@ The system has no weights; what crosses over is data: the ground set's
 features, the partition permutation the reference drew (``random_partition``
 returns it as an (m, ceil(n/m)) int32 array with -1 padding), global
 document ids, objective states the reference built part way through a
-greedy run (``ig_state``/``ig_shard_state``/``satcov_state``), and the
-selection service's host bound table (``bound_table``).  These helpers take the
+greedy run (``ig_state``/``ig_shard_state``/``satcov_state``/``cut_state``),
+the draw tables of the random greedy modes built from the reference's key
+chain (``rank_table``/``keep_table``), and the selection service's host
+bound table (``bound_table``).  These helpers take the
 reference's numpy arrays to tensors on a given device, and a port result
 back to numpy with the reference's dtypes (int32 ids), so one test can run
 both sides on the same data, the same partition and the same state.
@@ -17,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.objectives import IGShardState, IGState, SatCovState
+from repro_torch.core.objectives import (CutState, IGShardState, IGState,
+                                        SatCovState)
 
 
 def features(x, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -77,6 +80,29 @@ def satcov_state(state, device="cpu") -> SatCovState:
                      features(state.eval_mask, device),
                      torch.as_tensor(np.array(state.value, np.float32),
                                      device=device))
+
+
+def cut_state(state, device="cpu") -> CutState:
+  """A reference ``CutState`` (w, in_s, value as numpy arrays) as the
+  port's, over the whole graph (``ind`` None); the indicator and the value
+  become float32."""
+  return CutState(features(np.asarray(state.w, np.float32), device),
+                  torch.as_tensor(np.array(state.in_s, np.float32),
+                                  device=device),
+                  torch.as_tensor(np.array(state.value, np.float32),
+                                  device=device))
+
+
+def rank_table(t, device="cpu") -> torch.Tensor:
+  """A ((P,) k, kk) table of RandomGreedy ranks (``greedy(draws=...)`` in
+  mode "random") as int64."""
+  return torch.as_tensor(np.asarray(t).astype(np.int64), device=device)
+
+
+def keep_table(t, device="cpu") -> torch.Tensor:
+  """A ((P,) k, n) table of stochastic-greedy samples (mode "stochastic")
+  as bool."""
+  return torch.as_tensor(np.asarray(t).astype(bool), device=device)
 
 
 def bound_table(ubound, device="cpu") -> torch.Tensor:

@@ -63,6 +63,12 @@ ENTRIES = {
     "sm90_info_select": ("info_gain",
                          [P, P, P, P, P, P, P, P, P, I64, I64, I64, I64,
                           I64, I64, I64, I64, I64, I64, F32, F32, P]),
+    "sm90_graph_cut_gain": ("graph_cut",
+                            [P, P, P, I64, I64, I64, I64, I64, I64, P]),
+    "sm90_graph_cut_tiles": ("graph_cut", [I64, I64]),
+    "sm90_graph_cut_select": ("graph_cut",
+                              [P, P, P, P, P, P, P, I64, I64, I64, I64, I64,
+                               I64, I64, P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -22,7 +22,11 @@ eagerly, so there is no trace-time resolution to cache.  The families are
     blocks the fast GreeDi engine caches;
   * select oracles (``register_select``/``resolve_select``): the fused
     top-1 reductions returning (best gain, index) directly, registered under
-    the name of their gain counterpart.
+    the name of their gain counterpart;
+  * query-batched select oracles (``register_select_batched``/
+    ``resolve_select_batched``): the reference's ``*_select_batched``, B
+    per-query states over one shared corpus-side operand in one launch
+    (``graph_cut_gain``: B selection vectors over one W).
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ class Oracle(NamedTuple):
 
 _REGISTRY: dict[str, Oracle] = {}
 _SELECT: dict[str, Oracle] = {}
+_SELECT_BATCHED: dict[str, Oracle] = {}
 
 
 def register(name: str, *, cuda: Callable, ref: Callable,
@@ -55,6 +60,12 @@ def register_select(name: str, *, cuda: Callable, ref: Callable,
                     auto: Callable) -> None:
   """Register (or replace) a fused top-1 select oracle."""
   _SELECT[name] = Oracle(name, cuda, ref, auto)
+
+
+def register_select_batched(name: str, *, cuda: Callable, ref: Callable,
+                            auto: Callable) -> None:
+  """Register (or replace) a query-batched fused top-1 select oracle."""
+  _SELECT_BATCHED[name] = Oracle(name, cuda, ref, auto)
 
 
 def _ensure_registered() -> None:
@@ -74,6 +85,11 @@ def select_names() -> tuple[str, ...]:
   return tuple(sorted(_SELECT))
 
 
+def select_batched_names() -> tuple[str, ...]:
+  _ensure_registered()
+  return tuple(sorted(_SELECT_BATCHED))
+
+
 def get(name: str) -> Oracle:
   _ensure_registered()
   if name not in _REGISTRY:
@@ -86,6 +102,14 @@ def get_select(name: str) -> Oracle:
   if name not in _SELECT:
     raise KeyError(f"no select oracle {name!r}; registered: {sorted(_SELECT)}")
   return _SELECT[name]
+
+
+def get_select_batched(name: str) -> Oracle:
+  _ensure_registered()
+  if name not in _SELECT_BATCHED:
+    raise KeyError(f"no batched select oracle {name!r}; registered: "
+                   f"{sorted(_SELECT_BATCHED)}")
+  return _SELECT_BATCHED[name]
 
 
 def _pick(oracle: Oracle, backend: str) -> Callable:
@@ -102,3 +126,8 @@ def resolve(name: str, backend: str = "auto") -> Callable:
 def resolve_select(name: str, backend: str = "auto") -> Callable:
   """Map (select-oracle name, backend) to the implementation to call."""
   return _pick(get_select(name), backend)
+
+
+def resolve_select_batched(name: str, backend: str = "auto") -> Callable:
+  """Map (batched select-oracle name, backend) to the implementation."""
+  return _pick(get_select_batched(name), backend)

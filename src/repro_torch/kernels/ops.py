@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import coverage_gain as _cg
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import facility_gain as _fg
+from repro_torch.kernels import graph_cut_gain as _gc
 from repro_torch.kernels import info_gain as _ig
 from repro_torch.kernels import pairwise as _pw
 from repro_torch.kernels import select_top1 as _st
@@ -24,6 +25,9 @@ coverage_gain = _cg.coverage_gain
 coverage_select = _st.coverage_select
 facility_gain = _fg.facility_gain
 facility_select = _st.facility_select
+graph_cut_gain = _gc.graph_cut_gain
+graph_cut_select = _st.graph_cut_select
+graph_cut_select_batched = _st.graph_cut_select_batched
 info_gain_cond = _ig.info_gain_cond
 info_select = _st.info_select
 pairwise = _pw.pairwise
@@ -34,7 +38,9 @@ _COUNTED = {"pairwise": (_pw, "launches"), "facility_gain": (_fg, "launches"),
             "coverage_gain": (_cg, "launches"),
             "coverage_select": (_st, "coverage_launches"),
             "info_gain_cond": (_ig, "launches"),
-            "info_select": (_st, "info_launches")}
+            "info_select": (_st, "info_launches"),
+            "graph_cut_gain": (_gc, "launches"),
+            "graph_cut_select": (_st, "graph_cut_launches")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -109,3 +115,10 @@ dispatch.register("info_gain_cond", cuda=_cuda_only(info_gain_cond),
                   ref=ref.info_gain_cond_ref, auto=info_gain_cond)
 dispatch.register_select("info_gain_cond", cuda=_cuda_only(info_select),
                          ref=ref.info_select_ref, auto=info_select)
+dispatch.register("graph_cut_gain", cuda=_cuda_only(graph_cut_gain),
+                  ref=ref.graph_cut_gain_ref, auto=graph_cut_gain)
+dispatch.register_select("graph_cut_gain", cuda=_cuda_only(graph_cut_select),
+                         ref=ref.graph_cut_select_ref, auto=graph_cut_select)
+dispatch.register_select_batched(
+    "graph_cut_gain", cuda=_cuda_only(graph_cut_select_batched),
+    ref=ref.graph_cut_select_ref, auto=graph_cut_select_batched)

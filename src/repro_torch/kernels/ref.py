@@ -107,6 +107,27 @@ def info_gain_cond_ref(sel_feats: torch.Tensor, linv: torch.Tensor,
   return torch.clamp_min(cond, 1e-12)
 
 
+def graph_cut_cols(in_s: torch.Tensor,
+                   ind: torch.Tensor | None = None) -> torch.Tensor:
+  """The column vectors of the graph-cut product, c = ind * (1 - 2x),
+  (..., n) float32.  ``in_s`` is the indicator x of S; ``ind`` the node
+  indicator of a partition's induced subgraph (None: the whole graph)."""
+  c = 1.0 - 2.0 * in_s.float()
+  return c if ind is None else c * ind.float()
+
+
+def graph_cut_gain_ref(w: torch.Tensor, in_s: torch.Tensor,
+                       ind: torch.Tensor | None = None) -> torch.Tensor:
+  """Per-node cut gains deg_v - 2 (W x)_v == (W (1 - 2x))_v, (..., n)
+  float32, one row per selection vector over the shared (n, n) W.
+
+  With ``ind`` the column vector is ind * (1 - 2x): on every node of the
+  partition this is the gain in the subgraph the partition induces,
+  (W * ind ind^T)(1 - 2x), without the masked copy of W.
+  """
+  return graph_cut_cols(in_s, ind) @ w.float().T
+
+
 def facility_select_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
                         cov: torch.Tensor, eval_mask: torch.Tensor,
                         cand_ok: torch.Tensor, *, kernel: str = "linear",
@@ -135,3 +156,11 @@ def info_select_ref(sel_feats: torch.Tensor, linv: torch.Tensor,
   cond = info_gain_cond_ref(sel_feats, linv, cand_feats, kernel=kernel, h=h,
                             ridge=ridge)
   return masked_top1(cond, cand_ok, floor=0.0)
+
+
+def graph_cut_select_ref(w: torch.Tensor, in_s: torch.Tensor,
+                         node_ok: torch.Tensor,
+                         ind: torch.Tensor | None = None):
+  """Top-1 node cut gain over ``node_ok`` -> (best float32, int64 node),
+  (NEG, 0) when no node is feasible."""
+  return masked_top1(graph_cut_gain_ref(w, in_s, ind), node_ok)

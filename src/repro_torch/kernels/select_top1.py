@@ -24,20 +24,28 @@ is feasible; the caller maps the winning cond through its log.  Its kernel
 is the select entry of ``csrc/info_gain.cu`` and its plain version
 ``ref.info_select_ref``.
 
-The graph-cut select kernel of the TPU module belongs to an objective that
-is not ported yet.
+``graph_cut_select`` is the graph-cut step in node space: the top-1 of the
+node cut gains over ``node_ok`` with the facility rules (NEG floor, lowest
+node on ties, (NEG, 0) when nothing is feasible).  Its kernel is the select
+entry of ``csrc/graph_cut.cu`` (the gains pass with a per-block top-1 and a
+deterministic fold) and its plain version ``ref.graph_cut_select_ref``.
+``graph_cut_select_batched`` is the reference's query-batched form: B
+selection vectors and oks over one shared W, one launch that reads W once
+for all of them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import graph_cut_gain as _gc
 from repro_torch.kernels import info_gain as _ig
 from repro_torch.kernels.facility_gain import operands
 
 launches = 0           # launches of csrc/facility.cu's facility select
 coverage_launches = 0  # launches of csrc/facility.cu's coverage select
 info_launches = 0      # launches of csrc/info_gain.cu's select
+graph_cut_launches = 0  # launches of csrc/graph_cut.cu's select
 
 
 def _top1_scratch(o):
@@ -170,3 +178,50 @@ def info_select(sel_feats: torch.Tensor, linv: torch.Tensor,
   build.check(err, "sm90_info_select")
   info_launches += 1
   return _top1_result(o, best, idx)
+
+
+def graph_cut_select(w: torch.Tensor, in_s: torch.Tensor,
+                     node_ok: torch.Tensor,
+                     ind: torch.Tensor | None = None):
+  """Fused top-1 node cut gain -> (best float32, int64 node), each () or
+  (P,) when ``in_s``, ``node_ok`` or ``ind`` carries a leading axis of P
+  selection vectors over the shared W.
+
+  Tensors on the CPU take the plain version; CUDA tensors launch the
+  kernel or raise.
+  """
+  if not w.is_cuda:
+    return ref.graph_cut_select_ref(w, in_s, node_ok, ind)
+  global graph_cut_launches
+  o = _gc.operands("graph_cut_select", w, in_s, node_ok=node_ok, ind=ind)
+  dev = w.device
+  n_tiles = _gc.tiles(o)
+  tile_best = torch.empty((o.n_part, n_tiles), dtype=torch.float32,
+                          device=dev)
+  tile_idx = torch.empty((o.n_part, n_tiles), dtype=torch.int32, device=dev)
+  best = torch.empty((o.n_part,), dtype=torch.float32, device=dev)
+  idx = torch.empty((o.n_part,), dtype=torch.int32, device=dev)
+  with torch.cuda.device(dev):
+    fn = build.entry("sm90_graph_cut_select")
+    err = fn(w.data_ptr(), o.c.data_ptr(), o.ok.data_ptr(),
+             tile_best.data_ptr(), tile_idx.data_ptr(), best.data_ptr(),
+             idx.data_ptr(), o.n, o.n_part, o.ldc,
+             build.batch_stride(o.ok, 1), int(w.dtype == torch.bfloat16),
+             o.vec, o.pb, build.stream_of(w))
+  build.check(err, "sm90_graph_cut_select")
+  graph_cut_launches += 1
+  idx = idx.to(torch.int64)
+  if o.batch is None:
+    return best[0], idx[0]
+  return best, idx
+
+
+def graph_cut_select_batched(w: torch.Tensor, in_s: torch.Tensor,
+                             node_ok: torch.Tensor):
+  """The reference's query-batched select: ``in_s`` and ``node_ok`` (B, n)
+  per query, W shared -> ((B,) best, (B,) node), one launch."""
+  if in_s.dim() != 2 or node_ok.dim() != 2:
+    raise ValueError("graph_cut_select_batched: in_s and node_ok must be "
+                     f"(B, n), got {tuple(in_s.shape)} and "
+                     f"{tuple(node_ok.shape)}")
+  return graph_cut_select(w, in_s, node_ok)

@@ -84,7 +84,8 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda_device):
   assert ops.launch_counts() == {"pairwise": 1, "facility_gain": 1,
                                  "facility_select": 0, "coverage_gain": 1,
                                  "coverage_select": 0, "info_gain_cond": 1,
-                                 "info_select": 1}
+                                 "info_select": 1, "graph_cut_gain": 0,
+                                 "graph_cut_select": 0}
   with pytest.raises(TypeError, match="linv must be float32"):
     ops.info_gain_cond(sel, linv.double(), x[0])
   with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -237,3 +238,84 @@ def test_cuda_service_warm_epoch_equals_cold(cuda_device):
       if objective == "saturated_coverage":
         assert ops.launch_counts()["coverage_gain"] > 0
     assert sels[True] == sels[False]
+
+
+def _cut_weights(r, n, dev, td):
+  """Sparse exponential weights, symmetric, zero diagonal."""
+  w = r.exponential(size=(n, n)) * (r.uniform(size=(n, n)) < 0.05)
+  w = 0.5 * (w + w.T)
+  np.fill_diagonal(w, 0.0)
+  return torch.tensor(w, device=dev).float().to(td).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_graph_cut_kernels_match_plain(cuda_device, dtype):
+  """graph_cut_gain and graph_cut_select against their plain versions at
+  ragged n (narrow loads), n % 8 == 0 (16-byte loads), P in {1, 16} and
+  beyond one pass of 16, with partition indicators; gains within rtol 1e-5
+  plus 1e-5 of each row's absolute sum (bf16 W is exact in f32, so one
+  tolerance serves both), indices equal; nothing feasible gives (NEG, 0)
+  and exact ties (binary weights) the lowest node."""
+  td, _ = DTYPES[dtype]
+  r = np.random.default_rng(12)
+  dev = cuda_device
+  for n in (100, 513, 1899, 2048):
+    w = _cut_weights(r, n, dev, td)
+    for P in (None, 1, 16, 37):
+      lead = () if P is None else (P,)
+      x = torch.tensor(r.uniform(size=(*lead, n)) < 0.3, device=dev).float()
+      ind = None
+      if P is not None:
+        ind = torch.tensor(r.uniform(size=(P, n)) < 0.5, device=dev).float()
+      ok = torch.tensor(r.uniform(size=(*lead, n)) < 0.7, device=dev)
+      g = ops.graph_cut_gain(w, x, ind)
+      b, i = ops.graph_cut_select(w, x, ok, ind)
+      torch.cuda.synchronize()
+      gw = ref.graph_cut_gain_ref(w, x, ind)
+      bw, iw = ref.masked_top1(gw, ok)
+      scale = ref.graph_cut_cols(x, ind).abs() @ w.float().abs().T
+      assert bool(((g - gw).abs() <= 1e-5 * gw.abs() + 1e-5 * scale).all())
+      assert torch.equal(i, iw)
+      assert bool(((b - bw).abs() <= 1e-5 * bw.abs() + 1e-5 * scale.max())
+                  .all())
+      b, i = ops.graph_cut_select(w, x, torch.zeros_like(ok), ind)
+      assert bool((b == ref.NEG).all()) and bool((i == 0).all())
+  binary = (torch.rand(700, 700, device=dev) < 0.02).float()
+  binary = torch.maximum(binary, binary.T).fill_diagonal_(0.0).to(td)
+  zeros = torch.zeros(4, 700, device=dev)
+  allok = torch.ones(4, 700, dtype=torch.bool, device=dev)
+  b, i = ops.graph_cut_select(binary, zeros, allok)
+  bw, iw = ref.graph_cut_select_ref(binary, zeros, allok)
+  assert torch.equal(i, iw) and torch.equal(b, bw)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_cut_counts_and_checks(cuda_device):
+  """Each graph-cut wrapper counts its launches (a greedy step over
+  GraphCut launches the gains kernel twice: the gains and the update's
+  recompute; assume_node_order launches the select kernel), and the
+  wrappers refuse what the kernel does not take."""
+  from repro_torch.core import objectives as O
+  from repro_torch.core.greedy import greedy
+  r = np.random.default_rng(3)
+  n = 300
+  w = _cut_weights(r, n, cuda_device, torch.float32)
+  eye = torch.eye(n, device=cuda_device)
+  obj = O.GraphCut()
+  ops.reset_launch_counts()
+  a = greedy(obj, obj.init_w(w), eye, 5, use_select=False)
+  counts = ops.launch_counts()
+  assert counts["graph_cut_gain"] == 10 and counts["graph_cut_select"] == 0
+  fused = O.GraphCut(assume_node_order=True)
+  ops.reset_launch_counts()
+  b = greedy(fused, fused.init_induced(w), eye, 5)
+  counts = ops.launch_counts()
+  assert counts["graph_cut_select"] == 5 and counts["graph_cut_gain"] == 5
+  assert torch.equal(a.idx, b.idx)
+  with pytest.raises(TypeError, match="float32 or bfloat16"):
+    ops.graph_cut_gain(w.double(), torch.zeros(n, device=cuda_device))
+  with pytest.raises(ValueError, match="contiguous"):
+    ops.graph_cut_gain(w.T, torch.zeros(n, device=cuda_device))
+  with pytest.raises(ValueError, match="length"):
+    ops.graph_cut_gain(w, torch.zeros(n + 1, device=cuda_device))

@@ -131,10 +131,16 @@ def test_greedy_runs_out_of_candidates_and_caps_at_cardinality():
 
 
 def test_greedy_other_modes_raise():
+  """The random modes are ported (tests/test_torch_constraints.py); what
+  raises now is a mode that does not exist, and a mode without the inputs
+  it needs (a sample fraction, item costs)."""
   f = torch.tensor(_feats(20, seed=5))
   to = TO.FacilityLocation()
-  for mode in ("stochastic", "random", "cost_benefit"):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-      TG.greedy(to, to.init(f), f, 3, mode=mode)
+  with pytest.raises(ValueError, match="not in"):
+    TG.greedy(to, to.init(f), f, 3, mode="sieve")
+  with pytest.raises(ValueError, match="sample_frac"):
+    TG.greedy(to, to.init(f), f, 3, mode="stochastic")
+  with pytest.raises(ValueError, match="cost"):
+    TG.greedy(to, to.init(f), f, 3, mode="cost_benefit")
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     TO.FacilityLocation(kernel="neg_sq_dist")

@@ -184,9 +184,21 @@ def test_registry_backends():
   """The registry carries the reference's names; "cuda" on CPU tensors
   raises instead of falling back; "ref" and "auto" run the plain version."""
   assert dispatch.names() == ("bound_update", "coverage_gain", "facility_gain",
-                              "info_gain_cond", "pairwise")
+                              "graph_cut_gain", "info_gain_cond", "pairwise")
   assert dispatch.select_names() == ("coverage_gain", "facility_gain",
-                                     "info_gain_cond")
+                                     "graph_cut_gain", "info_gain_cond")
+  assert dispatch.select_batched_names() == ("graph_cut_gain",)
+  w = torch.rand(12, 12)
+  xs = torch.zeros(3, 12)
+  oks = torch.ones(3, 12, dtype=torch.bool)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve("graph_cut_gain", "cuda")(w, xs)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve_select_batched("graph_cut_gain", "cuda")(w, xs, oks)
+  for a, b in zip(dispatch.resolve_select_batched("graph_cut_gain", "ref")(
+      w, xs, oks), dispatch.resolve_select_batched("graph_cut_gain",
+                                                   "auto")(w, xs, oks)):
+    torch.testing.assert_close(a, b)
   x = torch.randn(20, 8)
   y = torch.randn(10, 8)
   cov = torch.zeros(20)
@@ -235,7 +247,8 @@ def test_registry_backends():
   assert ops.launch_counts() == {"pairwise": 0, "facility_gain": 0,
                                  "facility_select": 0, "coverage_gain": 0,
                                  "coverage_select": 0, "info_gain_cond": 0,
-                                 "info_select": 0}
+                                 "info_select": 0, "graph_cut_gain": 0,
+                                 "graph_cut_select": 0}
 
 
 @pytest.mark.parametrize("kernel", ["linear", "rbf"])
@@ -265,8 +278,9 @@ def test_bound_update_matches_reference(kernel):
 
 def test_port_imports_neither_jax_nor_reference():
   """In a fresh interpreter, importing every module of the port (the
-  selection service's among them) and the port's example,
-  examples/active_set_gp_torch.py, loads no JAX and no module of the
+  selection service's and the graph-cut path's among them) and the port's
+  examples, examples/active_set_gp_torch.py and
+  examples/maxcut_constrained_torch.py, loads no JAX and no module of the
   reference package."""
   code = r"""
 import importlib, pkgutil, sys
@@ -281,7 +295,8 @@ print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
 print("BAD", bad)
 for name in ("repro_torch.service.service", "repro_torch.service.store",
              "repro_torch.service.heartbeat", "repro_torch.kernels.autotune",
-             "repro_torch.kernels.coverage_gain"):
+             "repro_torch.kernels.coverage_gain",
+             "repro_torch.kernels.graph_cut_gain", "repro_torch.data.graphs"):
   assert name in sys.modules, name
 """
   env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -289,15 +304,16 @@ for name in ("repro_torch.service.service", "repro_torch.service.store",
                        capture_output=True, text=True, timeout=300)
   assert out.returncode == 0, out.stderr
   assert "BAD []" in out.stdout, out.stdout
-  assert int(out.stdout.split("LOADED")[1].split()[0]) >= 29, out.stdout
-  # the port's example, imported without running it
-  example = os.path.join(REPO, "examples", "active_set_gp_torch.py")
-  with_example = code.replace(
-      "import repro_torch\n",
-      "import repro_torch, runpy\n"
-      f"runpy.run_path({example!r}, run_name='example')\n")
-  assert with_example != code
-  out = subprocess.run([sys.executable, "-c", with_example], env=env,
-                       capture_output=True, text=True, timeout=300)
-  assert out.returncode == 0, out.stderr
-  assert "BAD []" in out.stdout, out.stdout
+  assert int(out.stdout.split("LOADED")[1].split()[0]) >= 31, out.stdout
+  # the port's examples, imported without running them
+  for name in ("active_set_gp_torch.py", "maxcut_constrained_torch.py"):
+    example = os.path.join(REPO, "examples", name)
+    with_example = code.replace(
+        "import repro_torch\n",
+        "import repro_torch, runpy\n"
+        f"runpy.run_path({example!r}, run_name='example')\n")
+    assert with_example != code
+    out = subprocess.run([sys.executable, "-c", with_example], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
