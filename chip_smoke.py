@@ -7,7 +7,7 @@ From the root of a checkout, with nothing built: it builds the CUDA kernels
 from ``src/repro_torch/kernels/csrc``; checks their edge cases (ragged
 sizes, nothing feasible, exact ties, a shared candidate block, a selection
 buffer past the shared-memory cross tile) against the plain PyTorch
-versions; and drives two paths end to end through the entry points a user
+versions; and drives its paths end to end through the entry points a user
 calls, counting each kernel's launches around each path:
 
   * the coreset path (facility location: ``repro_torch.data.selection`` and
@@ -35,11 +35,21 @@ calls, counting each kernel's launches around each path:
     and ``centralized_greedy`` with the fused node-space select) at the
     Fig. 9 settings on the paper's 1,899-node graph, kernels against the
     plain versions under the same draws, and at n = 36692 nodes and
-    183,831 edges (the SNAP email-Enron graph's counts, drawn on the card).
+    183,831 edges (the SNAP email-Enron graph's counts, drawn on the card);
+  * the LM serving path (``repro_torch.serve.generate`` over
+    ``repro_torch.models.Model``) on qwen3-4b at its published width and
+    depth (36 layers, d 2560, 32 query / 8 KV heads, d_ff 9728, vocab
+    151936; 4.41 B random parameters from a seed): a float32 prefill with
+    the flash-attention kernel against the plain version, then bf16
+    serving of 8 prompts of 2048 tokens (64 new each) and one of 6000 (16
+    new), greedy, with and without the kernel, and decode against teacher
+    forcing.
 
 It holds every kernel against its plain version at the shapes those paths
-launch, and profiles the paths.  The generic engine also runs facility
-location once, through the CLI's ``--no-fast``.
+launch (the flash kernel also at its edges: ragged lengths, every head
+width, MHA and GQA, strided inputs, a grid past 65535 rows), and profiles
+the paths.  The generic engine also runs facility location once, through
+the CLI's ``--no-fast``.
 
 Output: one line per phase; the card's name and power limit
 (``nvidia-smi``); a ``{"kernels": [...]}`` JSON line with each kernel's
@@ -48,8 +58,10 @@ to 0 just before it) beside its launches on every path of that phase, its
 error against the plain version, its time, the plain version's time, the
 least time the card could take (``bound_ms``; for the info-gain kernels
 also ``bound_live_ms``, the work of an exact kernel that skips linv's
-zeros), and the time of one PyTorch library call computing the same
-function where there is one; and, last, ``{"ok": true, "device": {...}}``.
+zeros; for flash attention also ``bound_ffma_ms``, its operations at the
+FP32 FFMA rate the kernel uses), and the time of one PyTorch library call
+computing the same function where there is one; the run's total seconds;
+and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch ends the run with a non-zero exit and no
 result line.  It refuses to run without CUDA, and outside a checkout.
 Timing: CUDA events around repeated launches after a warm-up; whole-path
@@ -80,6 +92,17 @@ TOL_LONG_SUM = 1e-4   # f32 gain sums over more than 16k eval rows
 
 TOL_DPP = 2e-5        # DPP conds: absolute, times k_vv (cancellation)
 TOL_GAP = 1e-4        # a top-2 gap below this is a near-tie
+# LM serving: last-token logits of the f32 model, kernel against the plain
+# version, relative to the largest |logit| (f32 sums in another order)
+TOL_SERVE_F32 = 1e-4
+# bf16 logits (kernel vs plain, decode vs teacher forcing), relative to the
+# largest |logit|: the bf16 rule of tests/test_kernels.py
+TOL_SERVE_BF16 = 3e-2
+# a bf16 top-2 logit gap below this is a near-tie: 8 ulps of a bf16 logit
+# in [4, 8), where the largest logits of the random model lie.  The argmax
+# is stable where the gap exceeds twice the largest logit difference of the
+# two runs, which the phase checks is below TOL_SERVE_GAP / 2
+TOL_SERVE_GAP = 0.25
 
 REPLACES = {
     "pairwise": "src/repro/kernels/pairwise.py:33",
@@ -91,6 +114,7 @@ REPLACES = {
     "coverage_select": "src/repro/kernels/select_top1.py:186",
     "graph_cut_gain": "src/repro/kernels/graph_cut_gain.py:36",
     "graph_cut_select": "src/repro/kernels/select_top1.py:323",
+    "flash_attention": "src/repro/kernels/flash_attention.py:78",
 }
 # the path whose launch count each kernel reports in the kernels line (one
 # run, its counts set to 0 just before it); every path's count rides along
@@ -104,10 +128,12 @@ MAIN_PATH = {
     "coverage_select": "satcov_reference",     # e2e satcov, full size
     "graph_cut_gain": "cut_greedi",            # e2e cut, full size
     "graph_cut_select": "cut_node_order",
+    "flash_attention": "serve",                # e2e serve, set 1
 }
 GP_KERNELS = ("info_gain_cond", "info_select")
 COV_KERNELS = ("coverage_gain", "coverage_select")
 CUT_KERNELS = ("graph_cut_gain", "graph_cut_select")
+SERVE_KERNELS = ("flash_attention",)
 SOURCES = {
     "pairwise": "src/repro_torch/kernels/csrc/pairwise.cu",
     "facility_select": "src/repro_torch/kernels/csrc/facility.cu",
@@ -118,6 +144,7 @@ SOURCES = {
     "coverage_select": "src/repro_torch/kernels/csrc/facility.cu",
     "graph_cut_gain": "src/repro_torch/kernels/csrc/graph_cut.cu",
     "graph_cut_select": "src/repro_torch/kernels/csrc/graph_cut.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 
 
@@ -162,6 +189,15 @@ class Sizes:
   cut_k: int = 64         # k = kappa
   cut_comm: int = 32      # Alg. 3: partition-matroid communities ...
   cut_cap: int = 2        # ... with this cap each (rho = 64)
+  # LM serving: qwen3-4b at its published width and depth, random weights
+  serve_arch: str = "qwen3-4b"
+  serve_seed: int = 0
+  serve_f32_batch: int = 2     # (a): the float32 model's prefill
+  serve_f32_prompt: int = 2048
+  # (batch, prompt, new tokens): chat-sized requests; one long document
+  # whose length is not a multiple of 128
+  serve_sets: tuple = ((8, 2048, 64), (1, 6000, 16))
+  serve_tf_steps: int = 4      # (d): decode steps held to teacher forcing
 
 
 class SmokeFailure(Exception):
@@ -659,11 +695,14 @@ def e2e_full(sz: Sizes):
   return counts
 
 
-def profiled(label: str, run) -> None:
+def profiled(label: str, run, groups: dict | None = None) -> None:
   """Run ``run`` once under torch.profiler (CPU and CUDA activity) and
-  report device time by kernel name, summed over the run, and the device
-  busy share (kernel time over the profiled wall time, which the profiler
-  itself lengthens, so the share is a lower bound)."""
+  report device time by kernel name, summed over the run, the number of
+  kernel launches, and the device busy share (kernel time over the
+  profiled wall time, which the profiler itself lengthens, so the share is
+  a lower bound).  ``groups`` (name ->
+  substrings of kernel names) adds the device time of each group and of
+  the rest."""
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
@@ -680,9 +719,19 @@ def profiled(label: str, run) -> None:
   busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
   top = sorted(kern, key=lambda e: e.self_device_time_total,
                reverse=True)[:6]
+  by_group = None
+  if groups and kern:
+    by_group = dict.fromkeys([*groups, "rest"], 0.0)
+    for e in kern:
+      name = e.key.lower()
+      hit = next((gname for gname, keys in groups.items()
+                  if any(key in name for key in keys)), "rest")
+      by_group[hit] += e.self_device_time_total / 1e3
   emit(label, wall_s=wall,
        device_ms=busy_ms if kern else "not measured",
        busy_share=busy_ms / 1e3 / wall if kern else "not measured",
+       kernel_launches=sum(e.count for e in kern),
+       **({"by_group_ms": by_group} if groups else {}),
        top=[dict(kernel=e.key[:70], calls=e.count,
                  ms=e.self_device_time_total / 1e3) for e in top])
 
@@ -2233,6 +2282,392 @@ def profile_cut(sz):
 
 
 # ---------------------------------------------------------------------------
+# the LM serving path: qwen3-4b at full width through generate, with the
+# flash-attention kernel in every prefill layer
+# ---------------------------------------------------------------------------
+
+
+def flash_bound(b, h, hkv, length, dh, causal, dtype):
+  """(bound_ms, bound_by, bound_ffma_ms) of one attention call: 4 B H dh
+  live_pairs operations (the pairs under the mask, not the tiles visited)
+  against q, k, v and o moved once, at the peak rate of the input type
+  (bf16 tensor cores, or FP32); and the same operations at the FP32 FFMA
+  rate this first kernel uses."""
+  pairs = length * (length + 1) // 2 if causal else length * length
+  flops = 4.0 * b * h * dh * pairs
+  esz = 2 if dtype == "bf16" else 4
+  moved = (2 * b * h + 2 * b * hkv) * length * dh * esz
+  t, by = bound_ms(moved, flops, dtype)
+  return t, by, flops / PEAK_FLOPS_S["f32"] * 1e3
+
+
+def sdpa_operands(q, k, v):
+  """The library yardstick's operands (PyTorch's fused attention, never
+  called by the port): (k, v, keyword arguments, description), with
+  enable_gqa where the installed torch has it (2.5 on), else K/V repeated
+  to the query heads here, outside the timed call."""
+  import torch
+  if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+    return (k, v, {"is_causal": True, "enable_gqa": True},
+            "scaled_dot_product_attention(is_causal=True, enable_gqa=True)")
+  group = q.shape[1] // k.shape[1]
+  return (k.repeat_interleave(group, 1), v.repeat_interleave(group, 1),
+          {"is_causal": True}, "scaled_dot_product_attention(is_causal="
+          "True) on K/V repeated beforehand (this torch has no enable_gqa)")
+
+
+def qkv_on_card(g, b, h, hkv, length, dh, dtype, strided=False):
+  """Random q (B, H, L, dh) and k, v (B, Hkv, L, dh) on the card; with
+  ``strided`` each is the (B, L, heads, dh) layout transposed, as the
+  model's projections hand them over (the kernel takes strides)."""
+  import torch
+
+  def one(heads):
+    if strided:
+      x = torch.randn(b, length, heads, dh, generator=g, device=DEVICE)
+      return x.to(dtype).transpose(1, 2)
+    return torch.randn(b, heads, length, dh, generator=g,
+                       device=DEVICE).to(dtype)
+  return one(h), one(hkv), one(hkv)
+
+
+def flash_edge_phase():
+  """The flash-attention kernel against ``mha_ref`` at the edges: L in
+  {1, 63, 127, 200, 2049} (one row, ragged, below a tile, one past one),
+  dh in {32, 64, 128}, group 1 (MHA), 4 and 8 (GQA), f32 and bf16, causal
+  and not; transposed (strided) inputs, a non-default scale, B H past the
+  65535 rows of a grid; the cuda backend refusing CPU tensors and an
+  unsupported dh raising.  Tolerance 1e-4 in f32, 3e-2 in bf16 (rtol and
+  atol, tests/test_kernels.py)."""
+  import torch
+
+  from repro_torch.kernels import ops, ref
+  g = torch.Generator(device=DEVICE).manual_seed(16)
+  worst = {"f32": 0.0, "bf16": 0.0}
+  n = 0
+  cases = [(1, 2 * grp, 2, length, dh, dt, causal, length == 200, None)
+           for length in (1, 63, 127, 200, 2049) for dh in (32, 64, 128)
+           for grp in (1, 4, 8) for dt in ("f32", "bf16")
+           for causal in (True, False)]
+  cases += [(2, 8, 2, 200, 64, "f32", True, False, 0.3),
+            (2, 8, 2, 200, 64, "bf16", False, True, 0.3),
+            (257, 256, 32, 9, 32, "f32", True, False, None)]   # B H = 65792
+  for b, h, hkv, length, dh, dt, causal, strided, scale in cases:
+    td = torch.float32 if dt == "f32" else torch.bfloat16
+    q, k, v = qkv_on_card(g, b, h, hkv, length, dh, td, strided)
+    got = ops.flash_attention(q, k, v, causal=causal, scale=scale)
+    want = ref.mha_ref(q, k, v, causal=causal, scale=scale)
+    sync()
+    tol = 1e-4 if dt == "f32" else 3e-2
+    err = (got.float() - want.float()).abs()
+    bad = err > tol + tol * want.float().abs()
+    check(got.dtype == td and got.shape == q.shape and not bool(bad.any()),
+          f"flash_attention edge B={b} H={h} Hkv={hkv} L={length} dh={dh} "
+          f"{dt} causal={causal} strided={strided} scale={scale}: max "
+          f"error {float(err.max())}")
+    worst[dt] = max(worst[dt], float(err.max()))
+    n += 1
+  q, k, v = qkv_on_card(g, 1, 4, 2, 16, 32, torch.float32)
+  raised = []
+  for what, call in (
+      ("cpu tensors", lambda: ops.flash_attention(
+          q.cpu(), k.cpu(), v.cpu(), backend="cuda")),
+      ("dh 48", lambda: ops.flash_attention(q[..., :24].repeat(1, 1, 1, 2),
+                                            k[..., :24].repeat(1, 1, 1, 2),
+                                            v[..., :24].repeat(1, 1, 1, 2)))):
+    try:
+      call()
+    except ValueError as e:
+      raised.append(f"{what}: {e}")
+    else:
+      raise SmokeFailure(f"flash_attention accepted {what}")
+  emit("flash edge", cases=n, lengths=[1, 63, 127, 200, 2049],
+       head_dims=[32, 64, 128], groups=[1, 4, 8], max_abs_err=worst,
+       tol={"f32": 1e-4, "bf16": 3e-2}, raised=raised, result="pass")
+
+
+FLASH_CASES = (   # label, its e2e path, (B, H, Hkv, L, dh), dtype; causal
+    ("serve", "serve", (8, 32, 8, 2048, 128), "bf16"),    # set 1's prefill
+    ("long", "serve_long", (1, 32, 8, 6000, 128), "bf16"),  # set 2's
+    ("serve f32", None, (8, 32, 8, 2048, 128), "f32"),    # FFMA either way
+)
+
+
+def flash_kernel_phase(path_counts: dict):
+  """The kernel at the serving shapes of set 1 and set 2 (bf16, causal, v
+  the projections' transposed view), and at set 1's in float32: its time
+  beside the plain version's, SDPA's (``library_ms``), ``bound_ms`` (bf16
+  tensor cores) and ``bound_ffma_ms`` (FP32 FFMA), and its error against
+  the plain version (3e-2 in bf16, 1e-4 in f32, rtol and atol)."""
+  import torch
+
+  from repro_torch.kernels import ops, ref
+  g = torch.Generator(device=DEVICE).manual_seed(17)
+  rows = {}
+  for label, path, (b, h, hkv, length, dh), dtype in FLASH_CASES:
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    tol = 3e-2 if dtype == "bf16" else 1e-4
+    q, k, _ = qkv_on_card(g, b, h, hkv, length, dh, td)
+    _, _, v = qkv_on_card(g, b, h, hkv, length, dh, td, True)
+    got = ops.flash_attention(q, k, v)
+    want = ref.mha_ref(q, k, v)
+    sync()
+    err = float((got.float() - want.float()).abs().max())
+    bad = (got.float() - want.float()).abs() > tol * (
+        1 + want.float().abs())
+    check(not bool(bad.any()), f"flash_attention {label}: error {err}")
+    del got, want
+    k_ms = time_ms(lambda: ops.flash_attention(q, k, v))
+    p_ms = time_ms(lambda: ref.mha_ref(q, k, v), reps=1)
+    lk, lv, kw, lib_call = sdpa_operands(q, k, v)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, lk, lv, **kw))
+    del lk, lv
+    bnd, by, ffma = flash_bound(b, h, hkv, length, dh, True, dtype)
+    rows[("flash_attention", label)] = dict(
+        shape=[b, h, hkv, length, dh], dtype=dtype, causal=True,
+        max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+        library_call=lib_call, bound_ms=bnd, bound_by=by, bound_ffma_ms=ffma,
+        ffma_share=ffma / k_ms, on_paths=[path] if path else [],
+        launches={path: path_counts.get(path, {}).get("flash_attention", 0)}
+        if path else {})
+    emit(f"kernel flash_attention {label}", **rows[("flash_attention",
+                                                     label)])
+    del q, k, v
+    torch.cuda.empty_cache()
+  return rows
+
+
+def serve_models(sz):
+  """qwen3-4b at full width: the float32 model, its weights drawn once
+  from a seeded generator on the card, and a bfloat16 copy of the same
+  weights (norm gains stay float32, as in the reference)."""
+  import dataclasses as dc
+
+  import torch
+
+  from repro_torch.configs import get_config
+  from repro_torch.models import Model
+  cfg = get_config(sz.serve_arch)
+  g = torch.Generator(device=DEVICE).manual_seed(sz.serve_seed)
+  m32 = Model(dc.replace(cfg, dtype="float32"), device=DEVICE, generator=g)
+  m16 = Model(cfg, device=DEVICE,
+              generator=torch.Generator(device=DEVICE).manual_seed(0))
+  with torch.no_grad():
+    for (n16, p16), (n32, p32) in zip(m16.named_parameters(),
+                                      m32.named_parameters()):
+      check(n16 == n32 and p16.shape == p32.shape, f"{n16} vs {n32}")
+      p16.copy_(p32)
+  return m32, m16
+
+
+def greedy_trace(model, batch, steps):
+  """The greedy loop of ``generate`` through its own serve fns (the same
+  cache length, so the same launches), keeping every step's logits
+  (float32, on the card) beside the tokens."""
+  import torch
+
+  from repro_torch.serve import make_serve_fns
+  tokens = batch["tokens"]
+  b, s = tokens.shape
+  prefill_fn, decode_fn = make_serve_fns(model)
+  caches = model.init_cache(b, s + steps)
+  logits, caches = prefill_fn(batch, caches)
+  toks, all_logits = [], []
+  for t in range(steps):
+    all_logits.append(logits.float())
+    tok = torch.argmax(logits, dim=-1)
+    toks.append(tok)
+    if t + 1 < steps:
+      logits, caches = decode_fn(tok[:, None], s + t, caches)
+  return torch.stack(toks, 1), torch.stack(all_logits, 1)
+
+
+def top2_gap(logits):
+  top = logits.float().topk(2, dim=-1).values
+  return top[..., 0] - top[..., 1]
+
+
+def e2e_serve(sz):
+  """The serving path at full width (qwen3-4b: 36 layers, d 2560, 32 / 8
+  heads, d_ff 9728, vocab 151936), through ``generate``:
+
+  (a) f32 agreement: the float32 model's prefill (batch 2 x 2048) with the
+      kernel and with the plain version, last-token logits within
+      ``TOL_SERVE_F32`` of their scale;
+  (b) bf16 serving of set 1 (batch 8 x 2048 -> 64 tokens) and set 2 (batch
+      1 x 6000 -> 16 tokens), greedy: time to first token (``generate``
+      with one step), decode ms a token, tokens/s, peak memory, and the
+      flash launches counted around the timed run (36 a prefill);
+  (c) the same sets with ``backend="ref"``, through ``generate``'s own
+      serve fns (``greedy_trace``, which must reproduce the kernel run's
+      tokens exactly): logits within ``TOL_SERVE_BF16`` of their scale at
+      every step whose token history the two runs share, and every row's
+      greedy tokens equal to the kernel run's up to the first step whose
+      top-2 gap in the plain run is below ``TOL_SERVE_GAP`` (a bf16
+      near-tie; the rule of ROADMAP.md section 3), valid after it;
+  (d) decode logits against a teacher-forcing ``apply_train`` at the same
+      positions (the first ``serve_tf_steps`` decode steps of set 1),
+      within ``TOL_SERVE_BF16`` of their scale.
+  Returns the launch counts by path."""
+  import torch
+
+  from repro_torch.kernels import ops
+  from repro_torch.serve import generate
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  m32, m16 = serve_models(sz)
+  sync()
+  init_s = time.perf_counter() - t0
+  cfg = m16.cfg
+  n_layers = cfg.n_layers
+  g = torch.Generator(device=DEVICE).manual_seed(sz.serve_seed + 1)
+  counts = {}
+
+  # (a) float32: kernel against the plain version
+  toks = torch.randint(0, cfg.vocab, (sz.serve_f32_batch,
+                                      sz.serve_f32_prompt), generator=g,
+                       device=DEVICE)
+  last = {}
+  for backend in ("auto", "ref"):
+    m32.backend = backend
+    ops.reset_launch_counts()
+    last[backend], _ = m32.prefill({"tokens": toks}, m32.init_cache(
+        *toks.shape))
+    sync()
+    launched = ops.launch_counts()["flash_attention"]
+    check(launched == (n_layers if backend == "auto" else 0),
+          f"f32 prefill backend {backend}: {launched} flash launches")
+  scale = float(last["ref"].abs().max())
+  f32_err = float((last["auto"] - last["ref"]).abs().max())
+  check(torch.isfinite(last["auto"]).all() and
+        f32_err <= TOL_SERVE_F32 * scale,
+        f"f32 prefill: kernel vs plain {f32_err} at logit scale {scale}")
+  emit("e2e serve f32", arch=cfg.name, batch=sz.serve_f32_batch,
+       prompt=sz.serve_f32_prompt, init_s=init_s,
+       params=sum(p.numel() for p in m16.parameters()),
+       max_abs_err=f32_err, logit_scale=scale, err_over_scale=f32_err / scale,
+       tol=TOL_SERVE_F32)
+  del m32, last
+  torch.cuda.empty_cache()
+
+  # (b) - (d) bfloat16
+  sets = {}
+  for name, (bsz, plen, steps) in zip(("set1", "set2"), sz.serve_sets):
+    prompt = torch.randint(0, cfg.vocab, (bsz, plen), generator=g,
+                           device=DEVICE)
+    batch = {"tokens": prompt}
+    path = "serve" if name == "set1" else "serve_long"
+    m16.backend = "auto"
+    generate(m16, batch, steps=1)                 # warm-up (cuBLAS plans)
+    sync()
+    t0 = time.perf_counter()
+    first = generate(m16, batch, steps=1)
+    sync()
+    ttft = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    out = generate(m16, batch, steps=steps)
+    sync()
+    wall = time.perf_counter() - t0
+    counts[path] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(counts[path]["flash_attention"] == n_layers,
+          f"{name}: {counts[path]['flash_attention']} flash launches in one "
+          f"generate, expected {n_layers} (one a prefill layer)")
+    check(out.shape == (bsz, steps) and int(out.min()) >= 0 and
+          int(out.max()) < cfg.vocab and torch.equal(out[:, :1], first),
+          f"{name}: bad tokens")
+    # (c) the plain version through the same serve fns
+    k_toks, k_logits = greedy_trace(m16, batch, steps)
+    check(torch.equal(k_toks, out), f"{name}: generate and its serve fns "
+          "disagree on the kernel path")
+    m16.backend = "ref"
+    r_toks, r_logits = greedy_trace(m16, batch, steps)
+    m16.backend = "auto"
+    sync()
+    r_scale = float(r_logits[:, 0].abs().max())
+    same = k_toks == r_toks
+    history = torch.cat([torch.ones_like(same[:, :1]),
+                         same[:, :-1].int().cumprod(1).bool()], dim=1)
+    diff = (k_logits - r_logits).abs().amax(-1)      # (bsz, steps)
+    shared_err = float(diff[history].max())
+    check(shared_err <= TOL_SERVE_BF16 * r_scale and
+          shared_err <= TOL_SERVE_GAP / 2, f"{name}: logits kernel vs plain "
+          f"{shared_err} at scale {r_scale} over shared histories")
+    gaps = top2_gap(r_logits)                        # (bsz, steps)
+    near = gaps < TOL_SERVE_GAP
+    first_tie = torch.where(near.any(1), near.float().argmax(1),
+                            torch.full((bsz,), steps, device=DEVICE))
+    upto = torch.arange(steps, device=DEVICE)[None, :] < first_tie[:, None]
+    check(bool((same | ~upto).all()), f"{name}: greedy tokens differ "
+          "before the first near-tie")
+    sets[name] = dict(
+        batch=bsz, prompt=plen, new_tokens=steps, ttft_s=ttft,
+        decode_ms_per_token=(wall - ttft) / (steps - 1) * 1e3,
+        tokens_per_s=bsz * steps / wall, wall_s=wall, peak_gib=peak,
+        flash_launches=counts[path]["flash_attention"],
+        prefill_max_abs_err=float(diff[:, 0].max()), logit_scale=r_scale,
+        shared_history_steps=int(history.sum()),
+        shared_history_max_abs_err=shared_err,
+        steps_before_near_tie=first_tie.tolist(),
+        tokens_equal=int(same.sum()), tokens_total=out.numel())
+    if name == "set1":
+      # (d) teacher forcing over the prompt and the first decoded tokens
+      tf = sz.serve_tf_steps
+      full = torch.cat([prompt, k_toks[:, :tf]], dim=1)
+      train = m16.apply_train({"tokens": full})[:, plen - 1:]
+      tf_err = float((train.float() - k_logits[:, :tf + 1]).abs().max())
+      tf_scale = float(train.float().abs().max())
+      check(tf_err <= TOL_SERVE_BF16 * tf_scale, f"teacher forcing: decode "
+            f"logits {tf_err} from apply_train at scale {tf_scale}")
+      sets[name].update(teacher_forcing_max_abs_err=tf_err,
+                        teacher_forcing_positions=train.shape[1])
+      del train, full
+    del k_logits, r_logits
+    torch.cuda.empty_cache()
+  emit("e2e serve", arch=cfg.name, dtype="bf16", sets=sets,
+       tol=dict(bf16=TOL_SERVE_BF16, gap=TOL_SERVE_GAP))
+  del m16
+  torch.cuda.empty_cache()
+  return counts
+
+
+def profile_serve(sz):
+  """Where one set-1 prefill's time goes, and three of its decode steps':
+  device time of the flash kernel, the cuBLAS GEMMs and the rest, and the
+  busy share."""
+  import torch
+
+  from repro_torch.configs import get_config
+  from repro_torch.models import Model
+  cfg = get_config(sz.serve_arch)
+  model = Model(cfg, device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(0))
+  bsz, plen, _ = sz.serve_sets[0]
+  g = torch.Generator(device=DEVICE).manual_seed(sz.serve_seed + 1)
+  batch = {"tokens": torch.randint(0, cfg.vocab, (bsz, plen), generator=g,
+                                   device=DEVICE)}
+  groups = {"flash_attention": ("flash_fwd",),
+            "gemm": ("gemm", "cutlass", "xmma", "nvjet", "cublas")}
+  model.prefill(batch, model.init_cache(bsz, plen))     # warm-up
+  profiled("profile serve prefill",
+           lambda: model.prefill(batch, model.init_cache(bsz, plen)),
+           groups=groups)
+  caches = model.init_cache(bsz, plen + 4)
+  logits, caches = model.prefill(batch, caches)
+  tok = logits.argmax(-1)[:, None]
+  model.decode_step(tok, plen, caches)                  # warm-up
+  profiled("profile serve decode (3 steps)", lambda: [
+      model.decode_step(tok, plen + 1 + i, caches) for i in range(3)],
+           groups=groups)
+  del model, caches
+  torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def gpu_line() -> str:
@@ -2253,6 +2688,7 @@ def main() -> int:
     print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from "
           "the root of a checkout", file=sys.stderr)
     return 2
+  t_start = time.perf_counter()
   sys.path.insert(0, str(SRC))
   from repro_torch import no_tf32
   from repro_torch.kernels import build
@@ -2274,6 +2710,7 @@ def main() -> int:
   ig_edge_phase()
   cov_edge_phase()
   cut_edge_phase()
+  flash_edge_phase()
   e2e_cli_size(sz)
   torch.cuda.empty_cache()
   fl_counts = e2e_full(sz)
@@ -2288,11 +2725,13 @@ def main() -> int:
   torch.cuda.empty_cache()
   cut_counts.update(e2e_cut_full(sz))
   torch.cuda.empty_cache()
+  serve_counts = e2e_serve(sz)
   # kernel -> {path: launches} over the paths of its e2e phase
   by_path = {name: {p: c[name] for p, c in (
       gp_counts if name in GP_KERNELS else
       cov_counts if name in COV_KERNELS else
-      cut_counts if name in CUT_KERNELS else fl_counts).items()}
+      cut_counts if name in CUT_KERNELS else
+      serve_counts if name in SERVE_KERNELS else fl_counts).items()}
              for name in MAIN_PATH}
   launches = {name: by_path[name][path] for name, path in MAIN_PATH.items()}
   e2e_gp_fig6(sz)
@@ -2305,10 +2744,12 @@ def main() -> int:
   torch.cuda.empty_cache()
   rows.update(cut_kernel_phase(sz, cut_counts))
   torch.cuda.empty_cache()
+  rows.update(flash_kernel_phase(serve_counts))
   profile_phase(sz)
   profile_gp(sz)
   profile_service(sz)
   profile_cut(sz)
+  profile_serve(sz)
 
   main_shape = {"pairwise": ("pairwise", "s11", "linear", "f32"),
                 "facility_select": ("facility_select", "round1", "linear",
@@ -2322,7 +2763,8 @@ def main() -> int:
                 "coverage_select": ("coverage_select", "round1", "linear",
                                     "f32"),
                 "graph_cut_gain": ("graph_cut_gain", "round1 local"),
-                "graph_cut_select": ("graph_cut_select", "unbatched")}
+                "graph_cut_select": ("graph_cut_select", "unbatched"),
+                "flash_attention": ("flash_attention", "serve")}
   kernels = []
   for name, key in main_shape.items():
     r = rows[key]
@@ -2334,8 +2776,9 @@ def main() -> int:
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=r["shape"],
-        **({"bound_live_ms": r["bound_live_ms"]} if "bound_live_ms" in r
-           else {})))
+        **{extra: r[extra] for extra in ("bound_live_ms", "bound_ffma_ms")
+           if extra in r}))
+  emit("total", seconds=time.perf_counter() - t_start)
   print(gpu, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)
   print(json.dumps({"ok": True, "device": {

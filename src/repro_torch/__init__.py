@@ -4,13 +4,16 @@ The JAX package ``repro`` is the reference; this package runs the same
 protocol on one NVIDIA H100 with hand-written CUDA kernels for the
 similarity blocks and the greedy steps of its objectives (facility
 location, saturated coverage, information gain, graph cut;
-``repro_torch.kernels``).  It imports ``torch`` and never ``jax`` or
-``repro``: what it needs from the reference it keeps as its own copy.
+``repro_torch.kernels``), and the LM substrate's serving path
+(``repro_torch.models``, ``repro_torch.serve``) with a flash-attention
+kernel.  It imports ``torch`` and never ``jax`` or ``repro``: what it needs
+from the reference it keeps as its own copy.
 
 Functions run where their tensors lie.  Entry points that create tensors
-(``data.pipeline.EmbeddedCorpus``, ``launch.select``) default to ``cuda`` and
-raise when CUDA is missing unless the caller asks for ``cpu``, which runs the
-kernels' plain PyTorch versions (that is how the tests run).
+(``data.pipeline.EmbeddedCorpus``, ``launch.select``, ``models.Model``)
+default to ``cuda`` and raise when CUDA is missing unless the caller asks
+for ``cpu``, which runs the kernels' plain PyTorch versions (that is how the
+tests run).
 """
 from __future__ import annotations
 

@@ -1,0 +1,9 @@
+"""deepseek-67b [dense]: 95L d=8192 64H (GQA kv=8) d_ff=22016 vocab=102400,
+llama-style architecture.  [arXiv:2401.02954; hf]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-67b", family="dense", n_layers=95, d_model=8192,
+    n_heads=64, n_kv_heads=8, d_ff=22016, vocab=102400, head_dim=128,
+    rope_theta=1e4, pattern=("attn",),
+)

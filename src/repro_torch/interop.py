@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.objectives import (CutState, IGShardState, IGState,
                                         SatCovState)
+from repro_torch.models.registry import Model
 
 
 def features(x, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -109,3 +110,64 @@ def bound_table(ubound, device="cpu") -> torch.Tensor:
   """The reference store's host ``ubound`` (float64, the sum of its
   double-float pair) as the port's float64 table on ``device``."""
   return torch.as_tensor(np.asarray(ubound, np.float64), device=device)
+
+
+def tensor(a) -> torch.Tensor:
+  """A numpy array (or array-like) as a CPU tensor of the same dtype.  A
+  bfloat16 array (``ml_dtypes``, what ``np.asarray`` gives for a JAX bf16
+  array, and which ``torch.as_tensor`` refuses) crosses as its uint16 bits
+  and is re-viewed as ``torch.bfloat16``: bit-exact, no float32 detour."""
+  a = np.array(a)
+  if a.dtype.name == "bfloat16":
+    return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+  return torch.from_numpy(a)
+
+
+@torch.no_grad()
+def lm_params(model: Model, params: dict) -> Model:
+  """Fill ``model`` with the reference's ``Model.init`` pytree (leaves as
+  numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``).
+
+  Each stacked ``periods/b{j}/...`` leaf is split per layer (period t, block
+  j is layer t * len(pattern) + j) and ``rem/r{j}`` maps to the layers after
+  the periods.  Shapes and dtypes must match the model's: nothing is cast.
+  Every parameter of the model must be filled.  Returns ``model``.
+  """
+  cfg = model.cfg
+  width = len(cfg.pattern)
+  filled = set()
+
+  def put(prefix: str, module, name: str, leaf) -> None:
+    dst = getattr(module, name)
+    src = tensor(leaf)
+    if src.shape != dst.shape or src.dtype != dst.dtype:
+      raise ValueError(f"{prefix}{name}: reference {tuple(src.shape)} "
+                       f"{src.dtype}, port {tuple(dst.shape)} {dst.dtype}")
+    dst.copy_(src)
+    filled.add(prefix + name)
+
+  def walk(prefix: str, module, tree: dict, index=None) -> None:
+    for name, leaf in tree.items():
+      if isinstance(leaf, dict):
+        walk(f"{prefix}{name}.", getattr(module, name), leaf, index)
+      else:
+        put(prefix, module, name, leaf if index is None else leaf[index])
+
+  for name in ("embed", "ln_f", "head"):
+    if name in params:
+      put("", model, name, params[name])
+  periods, rem = params.get("periods") or {}, params.get("rem") or {}
+  for t in range(cfg.n_periods):
+    for j in range(width):
+      if f"b{j}" in periods:
+        i = t * width + j
+        walk(f"layers.{i}.", model.layers[i], periods[f"b{j}"], t)
+  for j in range(cfg.n_remainder):
+    if f"r{j}" in rem:
+      i = cfg.n_periods * width + j
+      walk(f"layers.{i}.", model.layers[i], rem[f"r{j}"])
+  missing = sorted(set(model.state_dict()) - filled)
+  if missing:
+    raise ValueError(f"parameters the reference pytree did not fill: "
+                     f"{missing}")
+  return model

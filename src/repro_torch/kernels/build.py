@@ -69,6 +69,10 @@ ENTRIES = {
     "sm90_graph_cut_select": ("graph_cut",
                               [P, P, P, P, P, P, P, I64, I64, I64, I64, I64,
                                I64, I64, P]),
+    "sm90_flash_attention": ("flash_attention",
+                             [P, P, P, P, I64, I64, I64, I64, I64, I64, I64,
+                              I64, I64, I64, I64, I64, I64, I64, I64, I64,
+                              F32, P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

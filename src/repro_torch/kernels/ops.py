@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import coverage_gain as _cg
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import facility_gain as _fg
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import graph_cut_gain as _gc
 from repro_torch.kernels import info_gain as _ig
 from repro_torch.kernels import pairwise as _pw
@@ -40,7 +41,8 @@ _COUNTED = {"pairwise": (_pw, "launches"), "facility_gain": (_fg, "launches"),
             "info_gain_cond": (_ig, "launches"),
             "info_select": (_st, "info_launches"),
             "graph_cut_gain": (_gc, "launches"),
-            "graph_cut_select": (_st, "graph_cut_launches")}
+            "graph_cut_select": (_st, "graph_cut_launches"),
+            "flash_attention": (_fa, "launches")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -98,6 +100,18 @@ def _bound_update(sim):
   return bound_update
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    backend: str = "auto") -> torch.Tensor:
+  """GQA attention (B, H, L, dh) against (B, Hkv, L, dh) (the port of
+  ``src/repro/kernels/ops.py`` ``flash_attention``): ``backend`` "cuda"
+  launches ``csrc/flash_attention.cu`` and raises on CPU tensors, "ref"
+  runs ``ref.mha_ref``, "auto" picks by the tensors' device.  No padding:
+  the kernel masks ragged lengths itself."""
+  return dispatch.resolve("flash_attention", backend)(q, k, v, causal=causal,
+                                                      scale=scale)
+
+
 bound_update = _bound_update(pairwise)
 dispatch.register("bound_update", cuda=_bound_update(_cuda_only(pairwise)),
                   ref=_bound_update(ref.pairwise_ref), auto=bound_update)
@@ -119,6 +133,8 @@ dispatch.register("graph_cut_gain", cuda=_cuda_only(graph_cut_gain),
                   ref=ref.graph_cut_gain_ref, auto=graph_cut_gain)
 dispatch.register_select("graph_cut_gain", cuda=_cuda_only(graph_cut_select),
                          ref=ref.graph_cut_select_ref, auto=graph_cut_select)
+dispatch.register("flash_attention", cuda=_cuda_only(_fa.flash_attention),
+                  ref=ref.mha_ref, auto=_fa.flash_attention)
 dispatch.register_select_batched(
     "graph_cut_gain", cuda=_cuda_only(graph_cut_select_batched),
     ref=ref.graph_cut_select_ref, auto=graph_cut_select_batched)

@@ -164,3 +164,29 @@ def graph_cut_select_ref(w: torch.Tensor, in_s: torch.Tensor,
   """Top-1 node cut gain over ``node_ok`` -> (best float32, int64 node),
   (NEG, 0) when no node is feasible."""
   return masked_top1(graph_cut_gain_ref(w, in_s, ind), node_ok)
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, scale: float | None = None) -> torch.Tensor:
+  """Reference GQA attention. q: (B, H, Lq, dh); k, v: (B, Hkv, Lk, dh).
+
+  KV heads repeated to H, float32 logits times ``scale`` (default
+  dh ** -0.5), a -1e30 causal mask with the (Lk - Lq) offset, softmax, and
+  the output cast back to ``q.dtype``: the plain version of the
+  flash-attention kernel.
+  """
+  b, hq, lq, dh = q.shape
+  hkv, lk = k.shape[1], k.shape[2]
+  group = hq // hkv
+  if scale is None:
+    scale = dh ** -0.5
+  kr = k.repeat_interleave(group, dim=1)
+  vr = v.repeat_interleave(group, dim=1)
+  logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+  if causal:
+    mask = (torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+            >= torch.arange(lk, device=q.device)[None, :])
+    logits = torch.where(mask, logits, NEG)
+  p = torch.softmax(logits, dim=-1)
+  out = torch.einsum("bhqk,bhkd->bhqd", p, vr.float())
+  return out.to(q.dtype)

@@ -1,0 +1,64 @@
+"""Shared primitive layers: norms, rope, initializers, the SwiGLU MLP (the
+port of ``src/repro/models/layers.py``).
+
+Matmul weights are stored (in_dim, out_dim), the reference's layout, so
+``x @ w`` is the same product and carrying weights across is a copy.  Every
+cast sits where the reference has it: bf16 parity depends on it.
+``gelu_mlp``, ``causal_conv1d`` and ``softmax_xent`` come with the families
+and the training path that use them (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def dense_init(shape, dtype, *, generator: torch.Generator, device,
+               scale: float | None = None) -> torch.Tensor:
+  """Normal(0, 1) * fan_in ** -0.5 (or ``scale``), drawn in float32 and
+  cast to ``dtype``."""
+  if scale is None:
+    scale = shape[0] ** -0.5
+  return (torch.randn(shape, generator=generator, device=device)
+          * scale).to(dtype)
+
+
+def embed_init(shape, dtype, *, generator: torch.Generator,
+               device) -> torch.Tensor:
+  return (torch.randn(shape, generator=generator, device=device)
+          * 0.02).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+  """x * rsqrt(mean(x^2) + eps) * (1 + gamma), in float32, cast back."""
+  dt = x.dtype
+  x = x.float()
+  var = torch.mean(x * x, dim=-1, keepdim=True)
+  return ((x * torch.rsqrt(var + eps)) * (1.0 + gamma.float())).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+  return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                       device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+  """x: (..., L, dh); positions: (L,) or broadcastable to x[..., :, 0].
+  Rotates the two halves of dh (not interleaved pairs)."""
+  dh = x.shape[-1]
+  freqs = rope_freqs(dh, theta, device=x.device)            # (dh/2,)
+  angles = positions[..., :, None].float() * freqs          # (L, dh/2)
+  cos, sin = torch.cos(angles), torch.sin(angles)
+  x1, x2 = x.float().chunk(2, dim=-1)
+  out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+  return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+  """(silu(x @ w_gate) * (x @ w_up)) @ w_down, the SiLU in float32 and cast
+  to x's dtype before the product with the up projection."""
+  g = x @ w_gate
+  u = x @ w_up
+  return (torch.nn.functional.silu(g.float()).to(x.dtype) * u) @ w_down

@@ -1,0 +1,61 @@
+"""Serving: the prefill and decode steps and a batched generation loop (the
+port of ``src/repro/serve/serve_step.py``).
+
+PyTorch runs eagerly, so nothing is compiled per call: the reference's jit
+cache (``_SERVE_FN_CACHE``) has no counterpart, and ``make_serve_fns``
+returns the model's own steps.  Every prefill launches the flash-attention
+kernel once per layer (``backend`` "auto" on the card).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.registry import Model
+
+
+def make_serve_fns(model: Model):
+  """Returns (prefill_fn, decode_fn): ``prefill_fn(batch, caches)`` and
+  ``decode_fn(token, pos, caches)``, each returning (logits, caches)."""
+
+  def prefill_fn(batch, caches):
+    return model.prefill(batch, caches)
+
+  def decode_fn(token, pos, caches):
+    return model.decode_step(token, pos, caches)
+
+  return prefill_fn, decode_fn
+
+
+@torch.no_grad()
+def generate(model: Model, batch: dict, *, steps: int,
+             max_len: int | None = None, temperature: float = 0.0,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+  """Greedy / temperature sampling: prompt ``batch["tokens"]`` (B, S) ->
+  (B, steps) generated ids (int64), on the model's device.
+
+  Greedy picks the argmax, ties to the lowest index as ``jnp.argmax`` does.
+  Temperature sampling draws Gumbel noise from ``generator`` (on the
+  model's device; seed 0 when None): it cannot reproduce ``jax.random``'s
+  draws.  The reference also runs a decode step after the last token and
+  drops its logits; the port skips it.
+  """
+  tokens = batch["tokens"]
+  b, s = tokens.shape
+  max_len = max_len or (s + steps)
+  caches = model.init_cache(b, max_len)
+  prefill_fn, decode_fn = make_serve_fns(model)
+  logits, caches = prefill_fn(batch, caches)
+  if temperature > 0.0 and generator is None:
+    generator = torch.Generator(device=model.device).manual_seed(0)
+  out = []
+  for t in range(steps):
+    if temperature > 0.0:
+      u = torch.rand(logits.shape, generator=generator, device=logits.device)
+      gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+      tok = torch.argmax(logits.float() / temperature + gumbel, dim=-1)
+    else:
+      tok = torch.argmax(logits, dim=-1)
+    out.append(tok)
+    if t + 1 < steps:
+      logits, caches = decode_fn(tok[:, None], s + t, caches)
+  return torch.stack(out, dim=1)

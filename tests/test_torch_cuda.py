@@ -85,7 +85,7 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda_device):
                                  "facility_select": 0, "coverage_gain": 1,
                                  "coverage_select": 0, "info_gain_cond": 1,
                                  "info_select": 1, "graph_cut_gain": 0,
-                                 "graph_cut_select": 0}
+                                 "graph_cut_select": 0, "flash_attention": 0}
   with pytest.raises(TypeError, match="linv must be float32"):
     ops.info_gain_cond(sel, linv.double(), x[0])
   with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -319,3 +319,34 @@ def test_cuda_graph_cut_counts_and_checks(cuda_device):
     ops.graph_cut_gain(w.T, torch.zeros(n, device=cuda_device))
   with pytest.raises(ValueError, match="length"):
     ops.graph_cut_gain(w, torch.zeros(n + 1, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_matches_plain(cuda_device, causal, dtype):
+  """The flash-attention kernel against ``mha_ref`` (1e-4 in f32, 3e-2 in
+  bf16, the rule of tests/test_kernels.py) at ragged lengths, GQA and MHA,
+  every head width it takes, a strided v; one launch per call."""
+  td = DTYPES[dtype][0]
+  tol = 1e-4 if dtype == "f32" else 3e-2
+  r = np.random.default_rng(7)
+  cases = [(2, 4, 2, 200, 64), (1, 8, 1, 63, 32), (1, 4, 4, 129, 128),
+           (3, 8, 2, 1, 128)]
+  ops.reset_launch_counts()
+  for b, h, hkv, length, dh in cases:
+    q = torch.tensor(r.normal(size=(b, h, length, dh)), device=cuda_device)
+    k = torch.tensor(r.normal(size=(b, hkv, length, dh)), device=cuda_device)
+    v = torch.tensor(r.normal(size=(b, length, hkv, dh)), device=cuda_device)
+    q, k, v = q.to(td), k.to(td), v.to(td).transpose(1, 2)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.mha_ref(q, k, v, causal=causal)
+    assert got.dtype == td and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+  assert ops.launch_counts()["flash_attention"] == len(cases)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), backend="cuda")
+  bad = torch.zeros(1, 2, 16, 48, device=cuda_device, dtype=td)
+  with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
+    ops.flash_attention(bad, bad, bad)

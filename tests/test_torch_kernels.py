@@ -184,7 +184,8 @@ def test_registry_backends():
   """The registry carries the reference's names; "cuda" on CPU tensors
   raises instead of falling back; "ref" and "auto" run the plain version."""
   assert dispatch.names() == ("bound_update", "coverage_gain", "facility_gain",
-                              "graph_cut_gain", "info_gain_cond", "pairwise")
+                              "flash_attention", "graph_cut_gain",
+                              "info_gain_cond", "pairwise")
   assert dispatch.select_names() == ("coverage_gain", "facility_gain",
                                      "graph_cut_gain", "info_gain_cond")
   assert dispatch.select_batched_names() == ("graph_cut_gain",)
@@ -242,13 +243,19 @@ def test_registry_backends():
       x, y, mask, ok.float()), dispatch.resolve("bound_update", "auto")(
           x, y, mask, ok.float())):
     torch.testing.assert_close(a, b)
+  q, kv = torch.randn(1, 4, 9, 32), torch.randn(1, 2, 9, 32)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve("flash_attention", "cuda")(q, kv, kv)
+  torch.testing.assert_close(
+      dispatch.resolve("flash_attention", "ref")(q, kv, kv, causal=False),
+      dispatch.resolve("flash_attention", "auto")(q, kv, kv, causal=False))
   with pytest.raises(ValueError, match="not in"):
     dispatch.resolve("pairwise", "pallas")
   assert ops.launch_counts() == {"pairwise": 0, "facility_gain": 0,
                                  "facility_select": 0, "coverage_gain": 0,
                                  "coverage_select": 0, "info_gain_cond": 0,
                                  "info_select": 0, "graph_cut_gain": 0,
-                                 "graph_cut_select": 0}
+                                 "graph_cut_select": 0, "flash_attention": 0}
 
 
 @pytest.mark.parametrize("kernel", ["linear", "rbf"])
@@ -278,7 +285,8 @@ def test_bound_update_matches_reference(kernel):
 
 def test_port_imports_neither_jax_nor_reference():
   """In a fresh interpreter, importing every module of the port (the
-  selection service's and the graph-cut path's among them) and the port's
+  selection service's, the graph-cut path's and the LM serving path's
+  among them) and the port's
   examples, examples/active_set_gp_torch.py and
   examples/maxcut_constrained_torch.py, loads no JAX and no module of the
   reference package."""
@@ -296,7 +304,10 @@ print("BAD", bad)
 for name in ("repro_torch.service.service", "repro_torch.service.store",
              "repro_torch.service.heartbeat", "repro_torch.kernels.autotune",
              "repro_torch.kernels.coverage_gain",
-             "repro_torch.kernels.graph_cut_gain", "repro_torch.data.graphs"):
+             "repro_torch.kernels.graph_cut_gain", "repro_torch.data.graphs",
+             "repro_torch.kernels.flash_attention", "repro_torch.configs",
+             "repro_torch.configs.qwen3_4b", "repro_torch.models.registry",
+             "repro_torch.models.transformer", "repro_torch.serve.serve_step"):
   assert name in sys.modules, name
 """
   env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -304,7 +315,7 @@ for name in ("repro_torch.service.service", "repro_torch.service.store",
                        capture_output=True, text=True, timeout=300)
   assert out.returncode == 0, out.stderr
   assert "BAD []" in out.stdout, out.stdout
-  assert int(out.stdout.split("LOADED")[1].split()[0]) >= 31, out.stdout
+  assert int(out.stdout.split("LOADED")[1].split()[0]) >= 45, out.stdout
   # the port's examples, imported without running them
   for name in ("active_set_gp_torch.py", "maxcut_constrained_torch.py"):
     example = os.path.join(REPO, "examples", name)
