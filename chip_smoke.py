@@ -47,9 +47,11 @@ calls, counting each kernel's launches around each path:
 
 It holds every kernel against its plain version at the shapes those paths
 launch (the flash kernel also at its edges: ragged lengths, every head
-width, MHA and GQA, strided inputs, a grid past 65535 rows), and profiles
-the paths.  The generic engine also runs facility location once, through
-the CLI's ``--no-fast``.
+width, MHA and GQA, strided inputs, a grid past 65535 rows; bf16 on the
+tensor-core kernel, f32 on the FFMA kernel), counts the CUDA kernels of a
+graph-cut call with the profiler (one a call), and profiles the paths.
+The generic engine also runs facility location once, through the CLI's
+``--no-fast``.
 
 Output: one line per phase; the card's name and power limit
 (``nvidia-smi``); a ``{"kernels": [...]}`` JSON line with each kernel's
@@ -58,10 +60,10 @@ to 0 just before it) beside its launches on every path of that phase, its
 error against the plain version, its time, the plain version's time, the
 least time the card could take (``bound_ms``; for the info-gain kernels
 also ``bound_live_ms``, the work of an exact kernel that skips linv's
-zeros; for flash attention also ``bound_ffma_ms``, its operations at the
-FP32 FFMA rate the kernel uses), and the time of one PyTorch library call
-computing the same function where there is one; the run's total seconds;
-and, last, ``{"ok": true, "device": {...}}``.
+zeros; for flash attention also its TFLOP/s and share of the bound), and
+the time of one PyTorch library call computing the same function where
+there is one; the run's total seconds; and, last, ``{"ok": true,
+"device": {...}}``.
 Any failed check, build or launch ends the run with a non-zero exit and no
 result line.  It refuses to run without CUDA, and outside a checkout.
 Timing: CUDA events around repeated launches after a warm-up; whole-path
@@ -144,7 +146,9 @@ SOURCES = {
     "coverage_select": "src/repro_torch/kernels/csrc/facility.cu",
     "graph_cut_gain": "src/repro_torch/kernels/csrc/graph_cut.cu",
     "graph_cut_select": "src/repro_torch/kernels/csrc/graph_cut.cu",
-    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    # the main path (bf16 serving) runs the tensor-core kernel; float32
+    # operands take csrc/flash_attention.cu (its row in flash_kernel_phase)
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
 }
 
 
@@ -734,6 +738,24 @@ def profiled(label: str, run, groups: dict | None = None) -> None:
        **({"by_group_ms": by_group} if groups else {}),
        top=[dict(kernel=e.key[:70], calls=e.count,
                  ms=e.self_device_time_total / 1e3) for e in top])
+
+
+def kernels_per_call(fn, calls: int = 3):
+  """(CUDA kernels a call of ``fn`` runs, their names), counted by
+  torch.profiler over ``calls`` calls after a warm-up call."""
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  sync()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               acc_events=True) as prof:
+    for _ in range(calls):
+      fn()
+    sync()
+  kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+  return (sum(e.count for e in kern) / calls,
+          sorted({e.key.split("(")[0][-60:] for e in kern}))
 
 
 def profile_phase(sz: Sizes):
@@ -2179,11 +2201,13 @@ CUT_CASES = (
 
 def cut_kernel_phase(sz, path_counts: dict):
   """graph_cut_gain and graph_cut_select against their plain versions at
-  every shape the graph-cut paths launch (``CUT_CASES``), with each one's
-  time beside its bound, the plain version's time and, for the gains,
-  ``library_ms``: one cuBLAS product of W with the same column vectors
-  (``torch.mv`` / ``torch.mm``), which the port never calls.  Greedy-like
-  states: about 0.2 % of the nodes selected, a few infeasible."""
+  every shape the graph-cut paths launch (``CUT_CASES``: P = 1, 10 and 16,
+  n = 1899 and 36692), each call one CUDA kernel (a torch.profiler count),
+  with each one's time beside its bound, the plain version's time and, for
+  the gains, ``library_ms``: one cuBLAS product of W with the same column
+  vectors (``torch.mv`` / ``torch.mm``), which the port never calls.
+  Greedy-like states: about 0.2 % of the nodes selected, a few
+  infeasible."""
   import torch
 
   from repro_torch.data.graphs import chung_lu_graph, social_graph
@@ -2230,16 +2254,25 @@ def cut_kernel_phase(sz, path_counts: dict):
     check(bool((same | tie).all()), f"graph_cut_select {label}: index "
           f"differs beyond a near-tie")
     b_abs = float((best - wb).abs().max())
-    k_ms = time_ms(lambda: ops.graph_cut_gain(w, x, ind), reps=5)
-    s_ms = time_ms(lambda: ops.graph_cut_select(w, x, ok, ind), reps=5)
-    p_ms = time_ms(lambda: ref.graph_cut_gain_ref(w, x, ind), reps=3)
-    ps_ms = time_ms(lambda: ref.graph_cut_select_ref(w, x, ok, ind), reps=3)
+    per_call = {}
+    for name, call in (
+        ("graph_cut_gain", lambda: ops.graph_cut_gain(w, x, ind)),
+        ("graph_cut_select", lambda: ops.graph_cut_select(w, x, ok, ind))):
+      per_call[name] = kernels_per_call(call)
+      check(per_call[name][0] == 1, f"{name} {label}: "
+            f"{per_call[name][0]} CUDA kernels a call "
+            f"({per_call[name][1]}), expected 1")
+    # 20 launches a timing: a paper-size call is tens of microseconds
+    k_ms = time_ms(lambda: ops.graph_cut_gain(w, x, ind), reps=20)
+    s_ms = time_ms(lambda: ops.graph_cut_select(w, x, ok, ind), reps=20)
+    p_ms = time_ms(lambda: ref.graph_cut_gain_ref(w, x, ind), reps=5)
+    ps_ms = time_ms(lambda: ref.graph_cut_select_ref(w, x, ok, ind), reps=5)
     lib_ms = None
     if dtype == "f32":  # a bf16 product would return bf16
       if P is None:
-        lib_ms = time_ms(lambda: torch.mv(w, cols), reps=5)
+        lib_ms = time_ms(lambda: torch.mv(w, cols), reps=20)
       else:
-        lib_ms = time_ms(lambda: torch.mm(cols, w.T), reps=5)
+        lib_ms = time_ms(lambda: torch.mm(cols, w.T), reps=20)
     esz = w.element_size()
     n_p = 1 if P is None else P
     vec_bytes = n_p * n * 4 * (2 if with_ind else 1)   # x (and ind)
@@ -2256,6 +2289,8 @@ def cut_kernel_phase(sz, path_counts: dict):
         library_ms=None, bound_ms=sb[0], bound_by=sb[1])
     for name in ("graph_cut_gain", "graph_cut_select"):
       r_ = rows[(name, label)]
+      r_["cuda_kernels_per_call"] = per_call[name][0]
+      r_["kernel_names"] = per_call[name][1]
       r_["launches"] = {p: c.get(name, 0) for p, c in
                         ((p, path_counts.get(p, {})) for p in on_paths)}
       emit(f"kernel {name} {label}", **r_)
@@ -2288,17 +2323,16 @@ def profile_cut(sz):
 
 
 def flash_bound(b, h, hkv, length, dh, causal, dtype):
-  """(bound_ms, bound_by, bound_ffma_ms) of one attention call: 4 B H dh
+  """(bound_ms, bound_by, flops) of one attention call: 4 B H dh
   live_pairs operations (the pairs under the mask, not the tiles visited)
   against q, k, v and o moved once, at the peak rate of the input type
-  (bf16 tensor cores, or FP32); and the same operations at the FP32 FFMA
-  rate this first kernel uses."""
+  (bf16 tensor cores, or FP32 FFMA, which the float32 kernel uses)."""
   pairs = length * (length + 1) // 2 if causal else length * length
   flops = 4.0 * b * h * dh * pairs
   esz = 2 if dtype == "bf16" else 4
   moved = (2 * b * h + 2 * b * hkv) * length * dh * esz
   t, by = bound_ms(moved, flops, dtype)
-  return t, by, flops / PEAK_FLOPS_S["f32"] * 1e3
+  return t, by, flops
 
 
 def sdpa_operands(q, k, v):
@@ -2332,15 +2366,19 @@ def qkv_on_card(g, b, h, hkv, length, dh, dtype, strided=False):
 
 
 def flash_edge_phase():
-  """The flash-attention kernel against ``mha_ref`` at the edges: L in
+  """The flash-attention kernels against ``mha_ref`` at the edges: L in
   {1, 63, 127, 200, 2049} (one row, ragged, below a tile, one past one),
-  dh in {32, 64, 128}, group 1 (MHA), 4 and 8 (GQA), f32 and bf16, causal
+  dh in {32, 64, 128}, group 1 (MHA), 4 and 8 (GQA), f32 (the FFMA kernel)
+  and bf16 (the tensor-core kernel: every bf16 case must launch it), causal
   and not; transposed (strided) inputs, a non-default scale, B H past the
-  65535 rows of a grid; the cuda backend refusing CPU tensors and an
-  unsupported dh raising.  Tolerance 1e-4 in f32, 3e-2 in bf16 (rtol and
-  atol, tests/test_kernels.py)."""
+  65535 rows of a grid in both dtypes; two launches on the same bf16 inputs
+  giving identical bytes; the cuda backend refusing CPU tensors, an
+  unsupported dh and a bf16 stride aligned to 4 but not 8 elements (the
+  tensor maps need 16 bytes) raising.  Tolerance 1e-4 in f32, 3e-2 in bf16
+  (rtol and atol, tests/test_kernels.py)."""
   import torch
 
+  from repro_torch.kernels import flash_attention as fa
   from repro_torch.kernels import ops, ref
   g = torch.Generator(device=DEVICE).manual_seed(16)
   worst = {"f32": 0.0, "bf16": 0.0}
@@ -2351,7 +2389,9 @@ def flash_edge_phase():
            for causal in (True, False)]
   cases += [(2, 8, 2, 200, 64, "f32", True, False, 0.3),
             (2, 8, 2, 200, 64, "bf16", False, True, 0.3),
-            (257, 256, 32, 9, 32, "f32", True, False, None)]   # B H = 65792
+            (257, 256, 32, 9, 32, "f32", True, False, None),   # B H = 65792
+            (257, 256, 32, 9, 32, "bf16", True, False, None)]
+  ops.reset_launch_counts()
   for b, h, hkv, length, dh, dt, causal, strided, scale in cases:
     td = torch.float32 if dt == "f32" else torch.bfloat16
     q, k, v = qkv_on_card(g, b, h, hkv, length, dh, td, strided)
@@ -2367,23 +2407,39 @@ def flash_edge_phase():
           f"error {float(err.max())}")
     worst[dt] = max(worst[dt], float(err.max()))
     n += 1
+  n_bf16 = sum(c[5] == "bf16" for c in cases)
+  check(fa.tc_launches == n_bf16 and fa.launches == n,
+        f"flash edge: {fa.tc_launches} tensor-core launches of {fa.launches}"
+        f", expected {n_bf16} of {n}")
+  q, k, v = qkv_on_card(g, 2, 8, 2, 300, 128, torch.bfloat16, True)
+  first = ops.flash_attention(q, k, v)
+  again = ops.flash_attention(q, k, v)
+  sync()
+  check(torch.equal(first.view(torch.int16), again.view(torch.int16)),
+        "flash_attention bf16: two launches on the same inputs differ")
   q, k, v = qkv_on_card(g, 1, 4, 2, 16, 32, torch.float32)
+  # bf16 rows of 36 elements: strides multiples of 4, not of 8
+  wide = torch.zeros(1, 4, 16, 36, dtype=torch.bfloat16, device=DEVICE)
   raised = []
   for what, call in (
       ("cpu tensors", lambda: ops.flash_attention(
           q.cpu(), k.cpu(), v.cpu(), backend="cuda")),
       ("dh 48", lambda: ops.flash_attention(q[..., :24].repeat(1, 1, 1, 2),
                                             k[..., :24].repeat(1, 1, 1, 2),
-                                            v[..., :24].repeat(1, 1, 1, 2)))):
+                                            v[..., :24].repeat(1, 1, 1, 2))),
+      ("bf16 stride of 36 elements", lambda: ops.flash_attention(
+          wide[..., :32], wide[:, :2, :, :32], wide[:, :2, :, :32]))):
     try:
       call()
     except ValueError as e:
       raised.append(f"{what}: {e}")
     else:
       raise SmokeFailure(f"flash_attention accepted {what}")
-  emit("flash edge", cases=n, lengths=[1, 63, 127, 200, 2049],
-       head_dims=[32, 64, 128], groups=[1, 4, 8], max_abs_err=worst,
-       tol={"f32": 1e-4, "bf16": 3e-2}, raised=raised, result="pass")
+  emit("flash edge", cases=n, bf16_cases_on_tensor_cores=n_bf16,
+       lengths=[1, 63, 127, 200, 2049], head_dims=[32, 64, 128],
+       groups=[1, 4, 8], max_abs_err=worst,
+       tol={"f32": 1e-4, "bf16": 3e-2}, repeat="identical bytes",
+       raised=raised, result="pass")
 
 
 FLASH_CASES = (   # label, its e2e path, (B, H, Hkv, L, dh), dtype; causal
@@ -2394,13 +2450,15 @@ FLASH_CASES = (   # label, its e2e path, (B, H, Hkv, L, dh), dtype; causal
 
 
 def flash_kernel_phase(path_counts: dict):
-  """The kernel at the serving shapes of set 1 and set 2 (bf16, causal, v
-  the projections' transposed view), and at set 1's in float32: its time
-  beside the plain version's, SDPA's (``library_ms``), ``bound_ms`` (bf16
-  tensor cores) and ``bound_ffma_ms`` (FP32 FFMA), and its error against
-  the plain version (3e-2 in bf16, 1e-4 in f32, rtol and atol)."""
+  """The kernels at the serving shapes of set 1 and set 2 (bf16, causal, v
+  the projections' transposed view: the tensor-core kernel), and at set 1's
+  in float32 (the FFMA kernel): time beside the plain version's, SDPA's
+  (``library_ms``) and ``bound_ms`` (bf16 tensor cores, or FP32 FFMA),
+  with the achieved TFLOP/s and the share of the bound, and the error
+  against the plain version (3e-2 in bf16, 1e-4 in f32, rtol and atol)."""
   import torch
 
+  from repro_torch.kernels import flash_attention as fa
   from repro_torch.kernels import ops, ref
   g = torch.Generator(device=DEVICE).manual_seed(17)
   rows = {}
@@ -2409,7 +2467,10 @@ def flash_kernel_phase(path_counts: dict):
     tol = 3e-2 if dtype == "bf16" else 1e-4
     q, k, _ = qkv_on_card(g, b, h, hkv, length, dh, td)
     _, _, v = qkv_on_card(g, b, h, hkv, length, dh, td, True)
+    tc0 = fa.tc_launches
     got = ops.flash_attention(q, k, v)
+    check(fa.tc_launches - tc0 == (dtype == "bf16"),
+          f"flash_attention {label}: {dtype} did not take its kernel")
     want = ref.mha_ref(q, k, v)
     sync()
     err = float((got.float() - want.float()).abs().max())
@@ -2417,18 +2478,23 @@ def flash_kernel_phase(path_counts: dict):
         1 + want.float().abs())
     check(not bool(bad.any()), f"flash_attention {label}: error {err}")
     del got, want
-    k_ms = time_ms(lambda: ops.flash_attention(q, k, v))
+    k_ms = time_ms(lambda: ops.flash_attention(q, k, v), reps=10)
     p_ms = time_ms(lambda: ref.mha_ref(q, k, v), reps=1)
     lk, lv, kw, lib_call = sdpa_operands(q, k, v)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, lk, lv, **kw))
+        q, lk, lv, **kw), reps=10)
     del lk, lv
-    bnd, by, ffma = flash_bound(b, h, hkv, length, dh, True, dtype)
+    bnd, by, flops = flash_bound(b, h, hkv, length, dh, True, dtype)
     rows[("flash_attention", label)] = dict(
         shape=[b, h, hkv, length, dh], dtype=dtype, causal=True,
-        max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-        library_call=lib_call, bound_ms=bnd, bound_by=by, bound_ffma_ms=ffma,
-        ffma_share=ffma / k_ms, on_paths=[path] if path else [],
+        kernel="flash_fwd_tc (wgmma, TMA)" if dtype == "bf16"
+        else "flash_fwd (FP32 FFMA)",
+        source=SOURCES["flash_attention"] if dtype == "bf16"
+        else "src/repro_torch/kernels/csrc/flash_attention.cu",
+        max_abs_err=err, tol=tol, kernel_ms=k_ms, plain_ms=p_ms,
+        library_ms=lib_ms, library_call=lib_call, bound_ms=bnd, bound_by=by,
+        tflops=flops / k_ms / 1e9, bound_share=bnd / k_ms,
+        over_library=k_ms / lib_ms, on_paths=[path] if path else [],
         launches={path: path_counts.get(path, {}).get("flash_attention", 0)}
         if path else {})
     emit(f"kernel flash_attention {label}", **rows[("flash_attention",
@@ -2498,7 +2564,8 @@ def e2e_serve(sz):
   (b) bf16 serving of set 1 (batch 8 x 2048 -> 64 tokens) and set 2 (batch
       1 x 6000 -> 16 tokens), greedy: time to first token (``generate``
       with one step), decode ms a token, tokens/s, peak memory, and the
-      flash launches counted around the timed run (36 a prefill);
+      flash launches counted around the timed run (36 a prefill, every one
+      of the tensor-core kernel, by its own counter);
   (c) the same sets with ``backend="ref"``, through ``generate``'s own
       serve fns (``greedy_trace``, which must reproduce the kernel run's
       tokens exactly): logits within ``TOL_SERVE_BF16`` of their scale at
@@ -2512,6 +2579,7 @@ def e2e_serve(sz):
   Returns the launch counts by path."""
   import torch
 
+  from repro_torch.kernels import flash_attention as fa
   from repro_torch.kernels import ops
   from repro_torch.serve import generate
   torch.cuda.empty_cache()
@@ -2536,8 +2604,9 @@ def e2e_serve(sz):
         *toks.shape))
     sync()
     launched = ops.launch_counts()["flash_attention"]
-    check(launched == (n_layers if backend == "auto" else 0),
-          f"f32 prefill backend {backend}: {launched} flash launches")
+    check(launched == (n_layers if backend == "auto" else 0) and
+          fa.tc_launches == 0, f"f32 prefill backend {backend}: {launched} "
+          f"flash launches, {fa.tc_launches} of the bf16 kernel")
   scale = float(last["ref"].abs().max())
   f32_err = float((last["auto"] - last["ref"]).abs().max())
   check(torch.isfinite(last["auto"]).all() and
@@ -2573,10 +2642,12 @@ def e2e_serve(sz):
     sync()
     wall = time.perf_counter() - t0
     counts[path] = ops.launch_counts()
+    tc = fa.tc_launches
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(counts[path]["flash_attention"] == n_layers,
+    check(counts[path]["flash_attention"] == n_layers and tc == n_layers,
           f"{name}: {counts[path]['flash_attention']} flash launches in one "
-          f"generate, expected {n_layers} (one a prefill layer)")
+          f"generate, {tc} of the tensor-core kernel, expected {n_layers} "
+          "(one a prefill layer)")
     check(out.shape == (bsz, steps) and int(out.min()) >= 0 and
           int(out.max()) < cfg.vocab and torch.equal(out[:, :1], first),
           f"{name}: bad tokens")
@@ -2609,6 +2680,7 @@ def e2e_serve(sz):
         decode_ms_per_token=(wall - ttft) / (steps - 1) * 1e3,
         tokens_per_s=bsz * steps / wall, wall_s=wall, peak_gib=peak,
         flash_launches=counts[path]["flash_attention"],
+        tensor_core_flash_launches=tc,
         prefill_max_abs_err=float(diff[:, 0].max()), logit_scale=r_scale,
         shared_history_steps=int(history.sum()),
         shared_history_max_abs_err=shared_err,
@@ -2650,7 +2722,7 @@ def profile_serve(sz):
   g = torch.Generator(device=DEVICE).manual_seed(sz.serve_seed + 1)
   batch = {"tokens": torch.randint(0, cfg.vocab, (bsz, plen), generator=g,
                                    device=DEVICE)}
-  groups = {"flash_attention": ("flash_fwd",),
+  groups = {"flash_attention": ("flash_fwd_tc", "flash_fwd"),
             "gemm": ("gemm", "cutlass", "xmma", "nvjet", "cublas")}
   model.prefill(batch, model.init_cache(bsz, plen))     # warm-up
   profiled("profile serve prefill",
@@ -2776,8 +2848,8 @@ def main() -> int:
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=r["shape"],
-        **{extra: r[extra] for extra in ("bound_live_ms", "bound_ffma_ms")
-           if extra in r}))
+        **{extra: r[extra] for extra in ("bound_live_ms", "tflops",
+                                         "bound_share") if extra in r}))
   emit("total", seconds=time.perf_counter() - t_start)
   print(gpu, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)

@@ -64,15 +64,21 @@ ENTRIES = {
                          [P, P, P, P, P, P, P, P, P, I64, I64, I64, I64,
                           I64, I64, I64, I64, I64, I64, F32, F32, P]),
     "sm90_graph_cut_gain": ("graph_cut",
-                            [P, P, P, I64, I64, I64, I64, I64, I64, P]),
+                            [P, P, I64, I64, I64, P, I64, I64, I64, P, P,
+                             I64, I64, I64, I64, I64, P]),
     "sm90_graph_cut_tiles": ("graph_cut", [I64, I64]),
     "sm90_graph_cut_select": ("graph_cut",
-                              [P, P, P, P, P, P, P, I64, I64, I64, I64, I64,
-                               I64, I64, P]),
+                              [P, P, I64, I64, I64, P, I64, I64, I64, P, I64,
+                               I64, P, P, P, P, P, P, I64, I64, I64, I64, I64,
+                               P]),
     "sm90_flash_attention": ("flash_attention",
                              [P, P, P, P, I64, I64, I64, I64, I64, I64, I64,
-                              I64, I64, I64, I64, I64, I64, I64, I64, I64,
-                              F32, P]),
+                              I64, I64, I64, I64, I64, I64, I64, I64, F32,
+                              P]),
+    "sm90_flash_attention_tc": ("flash_attention_tc",
+                                [P, P, P, P, I64, I64, I64, I64, I64, I64,
+                                 I64, I64, I64, I64, I64, I64, I64, I64,
+                                 I64, F32, P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -12,9 +12,8 @@
 //   acc  = acc * exp(m_old - m) + exp(s - m) . v
 //   out  = acc / max(l, 1e-30)            cast to q's dtype
 //
-// q, k and v are read in their dtype (float32 or bfloat16) and raised to
-// float32; all arithmetic is float32 FFMA, as the TPU kernel's is.  The
-// (L, L) logits never reach device memory.
+// This kernel takes float32 operands; all arithmetic is float32 FFMA, as
+// the TPU kernel's is.  The (L, L) logits never reach device memory.
 //
 // Bound on this card.  4 B H dh live_pairs operations (live_pairs = L(L+1)/2
 // causal, L^2 otherwise) against q, k, v and o read or written once: at the
@@ -42,11 +41,9 @@
 //     are bit-reproducible run to run.
 //   * Strides for the B, H and L axes (dh contiguous), so the projections'
 //     transposed views need no copy; 64-bit offsets.
-// Later work (ROADMAP.md): wgmma on bf16 tensor cores, TMA loads into a
-// ring of stages, warp specialisation, and overlapping the next tile's loads
-// with this tile's products.
-#include <cstring>
-
+// The wrapper sends only float32 operands here, the exact parity path;
+// bfloat16 operands go to the tensor-core kernel (flash_attention_tc.cu:
+// wgmma, a TMA ring of K / V stages, warp specialisation).
 #include "tile.cuh"
 
 namespace sm90 {
@@ -80,37 +77,17 @@ struct FaArgs {
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  __nv_bfloat162 lo, hi;
-  memcpy(&lo, &u.x, 4);
-  memcpy(&hi, &u.y, 4);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  memcpy(&u.x, &lo, 4);
-  memcpy(&u.y, &hi, 4);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 // Rows [row0, row0 + 64) of one head's (L, DH) matrix (row stride sl) into
 // s[r * PITCH + c] as float32 times mul, zero past row L.
-template <typename T, int DH, int PITCH>
-__device__ __forceinline__ void fa_stage(const T* __restrict__ base,
+template <int DH, int PITCH>
+__device__ __forceinline__ void fa_stage(const float* __restrict__ base,
                                          int64_t sl, int64_t row0,
                                          int64_t len, float mul,
                                          float* __restrict__ s) {
@@ -138,7 +115,7 @@ __device__ __forceinline__ int out_col(int c, int tx) {
   return (c / 4) * 64 + tx * W + (c % 4);
 }
 
-template <typename T, int DH, bool CAUSAL>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(FA_NT, 2) flash_fwd(const FaArgs a) {
   using S = FaSmem<DH>;
   constexpr int OC = DH / 16;  // output columns per thread
@@ -151,9 +128,9 @@ __global__ void __launch_bounds__(FA_NT, 2) flash_fwd(const FaArgs a) {
   const int64_t b = bh / a.h, h = bh % a.h, hk = h / a.group;
   const int64_t q0 = (static_cast<int64_t>(gridDim.x) - 1 - blockIdx.x) *
                      FA_BQ;
-  const T* qb = static_cast<const T*>(a.q) + b * a.sqb + h * a.sqh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.skb + hk * a.skh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.svb + hk * a.svh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.sqb + h * a.sqh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.skb + hk * a.skh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.svb + hk * a.svh;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int row_lane = threadIdx.x & 16;  // first lane of this row's 16
 
@@ -166,7 +143,7 @@ __global__ void __launch_bounds__(FA_NT, 2) flash_fwd(const FaArgs a) {
     for (int c = 0; c < OC; ++c) acc[i][c] = 0.0f;
   }
 
-  fa_stage<T, DH, S::QP>(qb, a.sql, q0, a.len, a.scale, qs);
+  fa_stage<DH, S::QP>(qb, a.sql, q0, a.len, a.scale, qs);
   int64_t n_tiles = cdiv(a.len, FA_BK);
   if (CAUSAL) {
     const int64_t diag = (q0 + FA_BQ - 1) / FA_BK + 1;
@@ -174,8 +151,8 @@ __global__ void __launch_bounds__(FA_NT, 2) flash_fwd(const FaArgs a) {
   }
   for (int64_t t = 0; t < n_tiles; ++t) {
     const int64_t k0 = t * FA_BK;
-    fa_stage<T, DH, S::QP>(kb, a.skl, k0, a.len, 1.0f, ks);
-    fa_stage<T, DH, DH>(vb, a.svl, k0, a.len, 1.0f, vs);
+    fa_stage<DH, S::QP>(kb, a.skl, k0, a.len, 1.0f, ks);
+    fa_stage<DH, DH>(vb, a.svl, k0, a.len, 1.0f, vs);
     __syncthreads();
 
     float s[4][4];
@@ -287,13 +264,13 @@ __global__ void __launch_bounds__(FA_NT, 2) flash_fwd(const FaArgs a) {
     __syncthreads();  // before the next tile overwrites P and V
   }
 
-  T* ob = static_cast<T*>(a.o) + bh * a.len * DH;
+  float* ob = static_cast<float*>(a.o) + bh * a.len * DH;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t row = q0 + ty + 16 * i;
     if (row >= a.len) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = ob + row * DH;
+    float* orow = ob + row * DH;
     if constexpr (OC >= 4) {
 #pragma unroll
       for (int g = 0; g < OC / 4; ++g)
@@ -306,11 +283,11 @@ __global__ void __launch_bounds__(FA_NT, 2) flash_fwd(const FaArgs a) {
   }
 }
 
-template <typename T, int DH, bool CAUSAL>
+template <int DH, bool CAUSAL>
 int fa_launch(FaArgs a, int64_t bh_total, cudaStream_t stream) {
   const int smem = FaSmem<DH>::FLOATS * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, DH, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<DH, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned gx = static_cast<unsigned>(cdiv(a.len, FA_BQ));
@@ -319,46 +296,44 @@ int fa_launch(FaArgs a, int64_t bh_total, cudaStream_t stream) {
     a.bh0 = bh0;
     const int64_t ny = bh_total - bh0 < MAX_Y ? bh_total - bh0 : MAX_Y;
     const dim3 grid(gx, static_cast<unsigned>(ny));
-    flash_fwd<T, DH, CAUSAL><<<grid, FA_NT, smem, stream>>>(a);
+    flash_fwd<DH, CAUSAL><<<grid, FA_NT, smem, stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
-template <typename T, int DH>
+template <int DH>
 int fa_causal(const FaArgs& a, int64_t bh_total, bool causal,
               cudaStream_t s) {
-  return causal ? fa_launch<T, DH, true>(a, bh_total, s)
-                : fa_launch<T, DH, false>(a, bh_total, s);
+  return causal ? fa_launch<DH, true>(a, bh_total, s)
+                : fa_launch<DH, false>(a, bh_total, s);
 }
 
-template <typename T>
 int fa_dh(const FaArgs& a, int64_t bh_total, int64_t dh, bool causal,
           cudaStream_t s) {
   switch (dh) {
-    case 32: return fa_causal<T, 32>(a, bh_total, causal, s);
-    case 64: return fa_causal<T, 64>(a, bh_total, causal, s);
-    case 128: return fa_causal<T, 128>(a, bh_total, causal, s);
+    case 32: return fa_causal<32>(a, bh_total, causal, s);
+    case 64: return fa_causal<64>(a, bh_total, causal, s);
+    case 128: return fa_causal<128>(a, bh_total, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace sm90
 
-// o (B, H, L, dh) contiguous in q's dtype; q, k, v with element strides over
-// their B, H and L axes and dh contiguous (the wrapper checks alignment).
+// o (B, H, L, dh) contiguous float32; q, k, v float32 with element strides
+// over their B, H and L axes and dh contiguous (the wrapper checks
+// alignment).  bfloat16 operands take csrc/flash_attention_tc.cu.
 extern "C" int sm90_flash_attention(
     const void* q, const void* k, const void* v, void* o, int64_t batch,
     int64_t heads, int64_t kv_heads, int64_t len, int64_t dh, int64_t sqb,
     int64_t sqh, int64_t sql, int64_t skb, int64_t skh, int64_t skl,
-    int64_t svb, int64_t svh, int64_t svl, int64_t causal, int64_t bf16,
-    float scale, void* stream) {
+    int64_t svb, int64_t svh, int64_t svl, int64_t causal, float scale,
+    void* stream) {
   using namespace sm90;
   const FaArgs a{q,   k,   v,   o,   heads, heads / kv_heads, len, sqb,
                  sqh, sql, skb, skh, skl,   svb,  svh,  svl,  0,   scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t bh_total = batch * heads;
-  return bf16 ? fa_dh<__nv_bfloat16>(a, bh_total, dh, causal != 0, s)
-              : fa_dh<float>(a, bh_total, dh, causal != 0, s);
+  return fa_dh(a, batch * heads, dh, causal != 0,
+               static_cast<cudaStream_t>(stream));
 }

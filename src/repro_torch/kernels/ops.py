@@ -53,6 +53,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
   for mod, attr in _COUNTED.values():
     setattr(mod, attr, 0)
+  _fa.tc_launches = 0
 
 
 def _cuda_only(fn):
@@ -105,7 +106,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     backend: str = "auto") -> torch.Tensor:
   """GQA attention (B, H, L, dh) against (B, Hkv, L, dh) (the port of
   ``src/repro/kernels/ops.py`` ``flash_attention``): ``backend`` "cuda"
-  launches ``csrc/flash_attention.cu`` and raises on CPU tensors, "ref"
+  launches ``csrc/flash_attention_tc.cu`` (bfloat16) or
+  ``csrc/flash_attention.cu`` (float32) and raises on CPU tensors, "ref"
   runs ``ref.mha_ref``, "auto" picks by the tensors' device.  No padding:
   the kernel masks ragged lengths itself."""
   return dispatch.resolve("flash_attention", backend)(q, k, v, causal=causal,

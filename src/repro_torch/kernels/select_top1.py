@@ -27,8 +27,9 @@ is the select entry of ``csrc/info_gain.cu`` and its plain version
 ``graph_cut_select`` is the graph-cut step in node space: the top-1 of the
 node cut gains over ``node_ok`` with the facility rules (NEG floor, lowest
 node on ties, (NEG, 0) when nothing is feasible).  Its kernel is the select
-entry of ``csrc/graph_cut.cu`` (the gains pass with a per-block top-1 and a
-deterministic fold) and its plain version ``ref.graph_cut_select_ref``.
+entry of ``csrc/graph_cut.cu`` (the gains pass with a per-block top-1, whose
+last block folds the pairs deterministically: one launch) and its plain
+version ``ref.graph_cut_select_ref``.
 ``graph_cut_select_batched`` is the reference's query-batched form: B
 selection vectors and oks over one shared W, one launch that reads W once
 for all of them.
@@ -188,7 +189,8 @@ def graph_cut_select(w: torch.Tensor, in_s: torch.Tensor,
   selection vectors over the shared W.
 
   Tensors on the CPU take the plain version; CUDA tensors launch the
-  kernel or raise.
+  kernel (one launch: the gains pass and, in its last block, the fold of
+  the per-block pairs) or raise.
   """
   if not w.is_cuda:
     return ref.graph_cut_select_ref(w, in_s, node_ok, ind)
@@ -196,24 +198,38 @@ def graph_cut_select(w: torch.Tensor, in_s: torch.Tensor,
   o = _gc.operands("graph_cut_select", w, in_s, node_ok=node_ok, ind=ind)
   dev = w.device
   n_tiles = _gc.tiles(o)
-  tile_best = torch.empty((o.n_part, n_tiles), dtype=torch.float32,
-                          device=dev)
-  tile_idx = torch.empty((o.n_part, n_tiles), dtype=torch.int32, device=dev)
+  # (best, index) pairs of every stripe of W: float32 bits, then int32
+  pairs = torch.empty((2 * o.n_part * n_tiles,), dtype=torch.int32,
+                      device=dev)
+  tile_idx = pairs.data_ptr() + 4 * o.n_part * n_tiles
   best = torch.empty((o.n_part,), dtype=torch.float32, device=dev)
-  idx = torch.empty((o.n_part,), dtype=torch.int32, device=dev)
+  idx = torch.empty((o.n_part,), dtype=torch.int64, device=dev)
+  ind_args = (None, 0, 0, 0) if o.ind is None else o.ind.args()
+  scratch = _gc.cbuf(o)
   with torch.cuda.device(dev):
     fn = build.entry("sm90_graph_cut_select")
-    err = fn(w.data_ptr(), o.c.data_ptr(), o.ok.data_ptr(),
-             tile_best.data_ptr(), tile_idx.data_ptr(), best.data_ptr(),
-             idx.data_ptr(), o.n, o.n_part, o.ldc,
-             build.batch_stride(o.ok, 1), int(w.dtype == torch.bfloat16),
-             o.vec, o.pb, build.stream_of(w))
+    err = fn(w.data_ptr(), *o.x.args(), *ind_args, *o.ok.args()[:3],
+             build.ptr(scratch), pairs.data_ptr(), tile_idx, _tickets(dev),
+             best.data_ptr(), idx.data_ptr(), o.n, o.n_part,
+             int(w.dtype == torch.bfloat16), o.vec, o.pb, build.stream_of(w))
   build.check(err, "sm90_graph_cut_select")
   graph_cut_launches += 1
-  idx = idx.to(torch.int64)
   if o.batch is None:
     return best[0], idx[0]
   return best, idx
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(dev) -> int:
+  """The graph-cut select's ticket counters on ``dev`` (zero between
+  launches: the kernel's folding block resets its own), allocated and
+  zeroed at the first call."""
+  if dev not in _TICKETS:
+    _TICKETS[dev] = torch.zeros((build.MAX_GRID,), dtype=torch.int32,
+                                device=dev)
+  return _TICKETS[dev].data_ptr()
 
 
 def graph_cut_select_batched(w: torch.Tensor, in_s: torch.Tensor,

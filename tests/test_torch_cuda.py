@@ -350,3 +350,92 @@ def test_cuda_flash_attention_matches_plain(cuda_device, causal, dtype):
   bad = torch.zeros(1, 2, 16, 48, device=cuda_device, dtype=td)
   with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
     ops.flash_attention(bad, bad, bad)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_takes_tensor_cores(cuda_device):
+  """Every bf16 call launches the tensor-core kernel (its own counter) and
+  float32 the FFMA kernel; a bf16 stride aligned to 4 but not 8 elements
+  raises; two launches on the same inputs give identical bytes; a grid of
+  B H past 65535 and a non-default scale on strided operands hold the plain
+  version (3e-2)."""
+  from repro_torch.kernels import flash_attention as fa
+  r = np.random.default_rng(8)
+  dev = cuda_device
+
+  def qkv(b, h, hkv, length, dh, td):
+    q = torch.tensor(r.normal(size=(b, h, length, dh)), device=dev).to(td)
+    k = torch.tensor(r.normal(size=(b, hkv, length, dh)), device=dev).to(td)
+    v = torch.tensor(r.normal(size=(b, length, hkv, dh)), device=dev).to(td)
+    return q, k, v.transpose(1, 2)
+
+  ops.reset_launch_counts()
+  q, k, v = qkv(257, 256, 32, 9, 32, torch.bfloat16)       # B H = 65792
+  torch.testing.assert_close(ops.flash_attention(q, k, v).float(),
+                             ref.mha_ref(q, k, v).float(), rtol=3e-2,
+                             atol=3e-2)
+  q, k, v = qkv(2, 8, 2, 200, 64, torch.bfloat16)
+  a = ops.flash_attention(q, k, v, causal=False, scale=0.3)
+  b = ops.flash_attention(q, k, v, causal=False, scale=0.3)
+  torch.cuda.synchronize()
+  assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+  torch.testing.assert_close(
+      a.float(), ref.mha_ref(q, k, v, causal=False, scale=0.3).float(),
+      rtol=3e-2, atol=3e-2)
+  ops.flash_attention(q.float(), k.float(), v.float())
+  assert (fa.launches, fa.tc_launches) == (4, 3)
+  wide = torch.zeros(1, 4, 16, 36, dtype=torch.bfloat16, device=dev)
+  with pytest.raises(ValueError, match="multiples of 8"):
+    ops.flash_attention(wide[..., :32], wide[:, :2, :, :32],
+                        wide[:, :2, :, :32])
+  assert fa.tc_launches == 3
+
+
+@pytest.mark.cuda
+def test_cuda_graph_cut_one_kernel_a_call(cuda_device):
+  """Each graph_cut_gain and graph_cut_select call is one CUDA kernel (a
+  torch.profiler count) at P = 1, 10 and 16 over a ragged n, with x and the
+  indicator in their own dtypes and an expanded (stride 0) indicator; the
+  results equal the plain versions' and the select's index is int64."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  r = np.random.default_rng(13)
+  dev = cuda_device
+  n = 1899
+  w = _cut_weights(r, n, dev, torch.float32)
+  for P, x_dt, ind_kind in ((None, torch.bool, None), (1, torch.float32,
+                                                       "u8"),
+                            (10, torch.uint8, "expanded"),
+                            (16, torch.float32, "f32")):
+    lead = () if P is None else (P,)
+    x = torch.tensor(r.uniform(size=(*lead, n)) < 0.2, device=dev).to(x_dt)
+    ind = None
+    if ind_kind == "u8":
+      ind = torch.tensor(r.uniform(size=(P, n)) < 0.5, device=dev).to(
+          torch.uint8)
+    elif ind_kind == "expanded":
+      ind = torch.tensor(r.uniform(size=n) < 0.5, device=dev).float().expand(
+          P, n)
+    elif ind_kind == "f32":
+      ind = torch.tensor(r.uniform(size=(P, n)) < 0.5, device=dev).float()
+    ok = torch.tensor(r.uniform(size=(*lead, n)) < 0.7, device=dev)
+    calls = (lambda: ops.graph_cut_gain(w, x, ind),
+             lambda: ops.graph_cut_select(w, x, ok, ind))
+    for call in calls:
+      call()                                     # warm-up: build, buffers
+      torch.cuda.synchronize()
+      with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   acc_events=True) as prof:
+        for _ in range(3):
+          call()
+        torch.cuda.synchronize()
+      kern = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+      assert sum(e.count for e in kern) == 3, [e.key for e in kern]
+    g = ops.graph_cut_gain(w, x, ind)
+    b, i = ops.graph_cut_select(w, x, ok, ind)
+    gw = ref.graph_cut_gain_ref(w, x, ind)
+    bw, iw = ref.masked_top1(gw, ok)
+    scale = ref.graph_cut_cols(x, ind).abs() @ w.float().abs().T
+    assert bool(((g - gw).abs() <= 1e-5 * gw.abs() + 1e-5 * scale).all())
+    assert i.dtype == torch.int64 and torch.equal(i, iw)

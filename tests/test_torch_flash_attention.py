@@ -121,3 +121,58 @@ def test_flash_attention_backends_and_operand_checks():
     fa.check_operands(q.half(), k.half(), v.half())
   with pytest.raises(ValueError, match="contiguous"):
     fa.check_operands(torch.zeros(1, 4, 32, 40).transpose(2, 3), k, v)
+
+
+def test_check_operands_bf16_alignment():
+  """bf16 operands feed tensor maps: every B, H, L stride and every base
+  address a multiple of 16 bytes (8 elements); float32 keeps the FFMA
+  kernel's rule of 4 elements.  The wrapper raises, never copies."""
+  wide = torch.zeros(1, 4, 16, 36)             # rows of 36 elements
+  for dt in (torch.float32, torch.bfloat16):
+    q = wide.to(dt)[..., :32]
+    if dt == torch.float32:
+      fa.check_operands(q, q[:, :2], q[:, :2])
+    else:
+      with pytest.raises(ValueError, match="multiples of 8 elements"):
+        fa.check_operands(q, q[:, :2], q[:, :2])
+  flat = torch.zeros(8 + 2 * 40 * 32, dtype=torch.bfloat16)
+  shifted = flat[4:4 + 2 * 40 * 32].view(1, 2, 40, 32)  # 8-byte aligned
+  with pytest.raises(ValueError, match="aligned to 8 elements"):
+    fa.check_operands(shifted, shifted[:, :1], shifted[:, :1])
+  ok = flat[8:8 + 2 * 40 * 32].view(1, 2, 40, 32)
+  fa.check_operands(ok, ok[:, :1], ok[:, :1])
+  _, (q, k, v) = _qkv(1, 4, 2, 40, 64, "bf16")
+  fa.check_operands(q, k, v.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+def _mha_p_bf16(q, k, v, causal, scale=None):
+  """``mha_ref`` with the tensor-core kernel's one extra rounding written
+  out: float32 logits and softmax numerators, P rounded to bf16 before
+  P . V, the row sums l taken from the float32 P, the output cast to bf16."""
+  b, h, length, dh = q.shape
+  group = h // k.shape[1]
+  scale = dh ** -0.5 if scale is None else scale
+  kr = k.float().repeat_interleave(group, 1)
+  vr = v.float().repeat_interleave(group, 1)
+  s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+  if causal:
+    keep = torch.ones(length, length, dtype=torch.bool).tril()
+    s = torch.where(keep, s, ref.NEG)
+  p = torch.exp(s - s.amax(-1, keepdim=True))
+  l = p.sum(-1, keepdim=True)
+  out = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), vr) / l
+  return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_p_rounding_within_tolerance_of_pallas(causal):
+  """The arithmetic of the bf16 tensor-core kernel (P rounded to bf16 before
+  P . V) against the Pallas kernel in interpret mode, L 200 (ragged), dh 64,
+  group 4: within the bf16 tolerance the card holds the kernel to (3e-2,
+  rtol and atol)."""
+  (jq, jk, jv), (tq, tk, tv) = _qkv(1, 8, 2, 200, 64, "bf16", seed=11)
+  got = _mha_p_bf16(tq, tk, tv, causal)
+  _close(got, jops.flash_attention(jq, jk, jv, causal=causal), 3e-2)
+  # the rounding moves the result, but by far less than the tolerance
+  plain = ref.mha_ref(tq, tk, tv, causal=causal)
+  assert float((got.float() - plain.float()).abs().max()) < 3e-2 / 2

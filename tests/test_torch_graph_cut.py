@@ -186,6 +186,64 @@ def test_graph_cut_local_indicator_matches_masked_copy():
     _close(got[p][on], want[on], n)
 
 
+@pytest.mark.parametrize("x_kind", ["f32", "bool", "u8"])
+@pytest.mark.parametrize("ind_kind", ["none", "shared", "expanded",
+                                      "per_partition"])
+def test_operands_contract_matches_reference(x_kind, ind_kind):
+  """The kernels read x and the indicator where they lie: float32, bool or
+  uint8, each with its own stride between the P vectors (0 for a vector
+  shared by all P, as ``GraphCut.broadcast``'s expanded indicator).  The
+  plain reading of that contract (``columns``: vector p starts p * ps
+  elements in) times W equals the reference's gains of every p."""
+  from repro_torch.kernels import graph_cut_gain as gc
+  n, P = 300, 3
+  r = np.random.default_rng(21)
+  w = _weights(n, 21)
+  x = r.uniform(size=(P, n)) < 0.3
+  ind = r.uniform(size=(P, n)) < 0.6
+  tx = torch.tensor(x)
+  tx = {"f32": tx.float(), "bool": tx, "u8": tx.to(torch.uint8)}[x_kind]
+  tind, ind_rows = {
+      "none": (None, np.ones((P, n), bool)),
+      "shared": (torch.tensor(ind[0]).float(), np.repeat(ind[:1], P, 0)),
+      "expanded": (torch.tensor(ind[0]).float().expand(P, n),
+                   np.repeat(ind[:1], P, 0)),
+      "per_partition": (torch.tensor(ind).to(torch.uint8), ind)}[ind_kind]
+  o = gc.operands("graph_cut_gain", torch.tensor(w), tx, ind=tind)
+  assert o.n_part == P and o.batch == P and o.pb == 4
+  assert (o.x.ps, o.x.u8) == (n, int(x_kind != "f32"))
+  if tind is not None:
+    assert o.ind.ps == (n if ind_kind == "per_partition" else 0)
+    assert o.ind.u8 == int(ind_kind == "per_partition")
+  got = (gc.columns(o) @ torch.tensor(w).T).numpy()
+  for p in range(P):
+    xp = x[p].astype(np.float32)
+    want = jops.graph_cut_gain(jnp.asarray(w * ind_rows[p][:, None]
+                                           * ind_rows[p][None, :]),
+                               jnp.asarray(xp))
+    on = ind_rows[p]
+    _close(got[p][on], np.asarray(want)[on], n)
+  # the registered plain path agrees with the contract's reading
+  torch.testing.assert_close(torch.tensor(got),
+                             ops.graph_cut_gain(torch.tensor(w), tx, tind))
+
+
+def test_operands_refuse_what_the_kernel_does_not_read():
+  from repro_torch.kernels import graph_cut_gain as gc
+  w = torch.tensor(_weights(64, 3))
+  with pytest.raises(TypeError, match="float32, bool or uint8"):
+    gc.operands("g", w, torch.zeros(64, dtype=torch.float64))
+  with pytest.raises(ValueError, match="contiguous along its n"):
+    gc.operands("g", w, torch.zeros(64, 2).T)
+  with pytest.raises(ValueError, match="length"):
+    gc.operands("g", w, torch.zeros(63))
+  with pytest.raises(ValueError, match="batch sizes differ"):
+    gc.operands("g", w, torch.zeros(2, 64), ind=torch.ones(3, 64))
+  o = gc.operands("g", w, torch.zeros(64), node_ok=torch.ones(64) > 0)
+  assert o.batch is None and (o.x.ps, o.ok.ps, o.ok.u8) == (0, 0, 1)
+  assert o.x.wide == 1 and gc.cbuf(o) is None
+
+
 def test_registry_graph_cut_backends():
   n = 40
   w = torch.tensor(_weights(n, 2))
