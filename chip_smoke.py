@@ -48,8 +48,17 @@ calls, counting each kernel's launches around each path:
 It holds every kernel against its plain version at the shapes those paths
 launch (the flash kernel also at its edges: ragged lengths, every head
 width, MHA and GQA, strided inputs, a grid past 65535 rows; bf16 on the
-tensor-core kernel, f32 on the FFMA kernel), counts the CUDA kernels of a
-graph-cut call with the profiler (one a call), and profiles the paths.
+tensor-core kernel, f32 on the FFMA kernel; the pairwise kernel at ragged
+nx / ny, d of 6, 17, 22, 36, 64, 128 and 130, a shared x or y block, bf16,
+misaligned bases, rows not 16-byte aligned and a batch past one wave of
+its persistent blocks, its TMA path at the main shapes and its tile kernel
+(the other operands) timed at s11's shape with d of 22 and 128; the info-gain kernels with
+the objectives' selection counts (``live``: count-aware, the live triangle
+of linv) and without (dense), at counts 0, partial and full, partitions of
+different counts in one launch, a linv with junk past its live triangle,
+and shapes past shared memory (d 64 at k 512, d 768 at k 64, k 2100 and
+k 5000)), counts the CUDA kernels of a graph-cut call with the profiler
+(one a call), and profiles the paths.
 The generic engine also runs facility location once, through the CLI's
 ``--no-fast``.
 
@@ -59,8 +68,9 @@ launches on its main path (``MAIN_PATH``: one full-size run, its counts set
 to 0 just before it) beside its launches on every path of that phase, its
 error against the plain version, its time, the plain version's time, the
 least time the card could take (``bound_ms``; for the info-gain kernels
-also ``bound_live_ms``, the work of an exact kernel that skips linv's
-zeros; for flash attention also its TFLOP/s and share of the bound), and
+the count-aware work at the state's selection count, with the dense
+``bound_dense_ms`` and the dense call's ``dense_ms`` beside it; for flash
+attention also its TFLOP/s and share of the bound), and
 the time of one PyTorch library call computing the same function where
 there is one; the run's total seconds; and, last, ``{"ok": true,
 "device": {...}}``.
@@ -268,14 +278,20 @@ def unit_rows(g, *shape, dtype=None):
   return x if dtype is None else x.to(dtype)
 
 
-def pairwise_phase(label, x, y, kernel, dtype, chunk, launches):
+def pairwise_phase(label, x, y, kernel, dtype, chunk, launches,
+                   want_tma=True):
   """Kernel vs plain on (B, nx, d) x (ny, d) or (B, ny, d); the plain
   version runs ``chunk`` batch entries at a time where the full block
   would not fit beside the kernel's output.  ``launches`` is the kernel's
-  count on the full-size main path, reported beside the phase."""
+  count on the full-size main path, reported beside the phase;
+  ``want_tma`` the load path the shape must take."""
   import torch
 
   from repro_torch.kernels import ops, ref
+  from repro_torch.kernels import pairwise as pw
+  tma = pw.takes_tma(x, y)
+  check(tma == want_tma, f"pairwise {label} {kernel} {dtype}: takes_tma is "
+        f"{tma}, want {want_tma}")
   out = ops.pairwise(x, y, kernel=kernel)
   sync()
   b = x.shape[0]
@@ -310,7 +326,7 @@ def pairwise_phase(label, x, y, kernel, dtype, chunk, launches):
   if kernel == "rbf":  # norms, then x2 - 2 dot + y2, clamp, divide, exp
     flops += 2.0 * (b * nx + y.shape[0] * ny) * d + 6.0 * b * nx * ny
   bms, by = bound_ms(moved, flops, dtype)
-  row = dict(shape=[b, nx, ny, d], kernel=kernel, dtype=dtype,
+  row = dict(shape=[b, nx, ny, d], kernel=kernel, dtype=dtype, tma=tma,
              max_abs_err=worst_abs, max_rel_err=worst_rel, tol=tol,
              kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
              bound_ms=bms, bound_by=by, launches=launches)
@@ -470,6 +486,50 @@ def edge_phase():
        ties="lowest index", result="pass")
 
 
+def pairwise_edge_phase():
+  """The pairwise kernel against its plain version at its edges: ragged nx
+  and ny, d of 6, 22, 36, 64 and 130 (d not a multiple of 4 and wider than
+  its TMA path takes plain loads), a shared y block (stride 0) and a shared
+  x block, bf16, ny not a multiple of 4 (plain stores), a batch past one
+  wave of persistent blocks; linear and rbf.  Two launches give the same
+  bytes."""
+  import torch
+
+  from repro_torch.kernels import ops, ref
+  from repro_torch.kernels import pairwise as pw
+  g = torch.Generator(device=DEVICE).manual_seed(13)
+  cases = (((2, 1000, 64), (2, 1037, 64)), ((3, 200, 6), (3, 130, 6)),
+           ((2, 300, 22), (300, 22)), ((2, 257, 130), (2, 129, 130)),
+           ((1, 129, 36), (1, 131, 36)), ((300, 130, 64), (300, 64, 64)),
+           ((100, 64), (4, 77, 64)), ((5, 128, 64), (128, 64)),
+           ((1, 4096, 64), (1, 1023, 64)), ((2, 300, 128), (2, 257, 128)),
+           ((2, 131, 17), (2, 70, 17)), ("offset", (2, 200, 64), (2, 90, 64)))
+  worst = {"f32": 0.0, "bf16": 0.0}
+  paths = {"tma": 0, "tile kernel": 0}
+  for case in cases:
+    xs, ys = case[-2:]
+    for dtype, td in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+      x, y = unit_rows(g, *xs, dtype=td), unit_rows(g, *ys, dtype=td)
+      if case[0] == "offset":  # bases one element past 16-byte alignment
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(xs)
+        y = torch.cat([y.new_zeros(1), y.flatten()])[1:].view(ys)
+      paths["tma" if pw.takes_tma(x, y) else "tile kernel"] += 1
+      for kernel in ("linear", "rbf"):
+        got = ops.pairwise(x, y, kernel=kernel)
+        again = ops.pairwise(x, y, kernel=kernel)
+        sync()
+        _, er = errors(got, ref.pairwise_ref(x, y, kernel=kernel))
+        check(er <= TOL[dtype], f"pairwise edge {xs} x {ys} {kernel} "
+              f"{dtype}: err {er:.3e}")
+        check(torch.equal(got, again), f"pairwise edge {xs} x {ys} {kernel} "
+              f"{dtype}: two launches differ")
+        worst[dtype] = max(worst[dtype], er)
+  emit("kernel pairwise edges", cases=[[*c[:-2], list(c[-2]), list(c[-1])]
+                                       for c in cases],
+       max_rel_err=worst, tol=TOL, operand_paths=paths,
+       repeat="identical bytes", result="pass")
+
+
 def kernel_phases(sz: Sizes, counts: dict):
   import torch
   g = torch.Generator(device=DEVICE).manual_seed(0)
@@ -487,6 +547,15 @@ def kernel_phases(sz: Sizes, counts: dict):
                          counts["pairwise"])
       rows[("pairwise", "s2", kernel, dtype)] = r
     del local, merged
+    torch.cuda.empty_cache()
+  # the tile kernel (operands the TMA path does not take) at s11's shape:
+  # d not a multiple of 4, and d past the resident x band
+  for d in (22, 128):
+    local = unit_rows(g, sz.m, nl, d)
+    rows[("pairwise", f"s11 d{d}", "linear", "f32")] = pairwise_phase(
+        f"s11 d{d}", local, local, "linear", "f32", sz.plain_chunk, 0,
+        want_tma=False)
+    del local
     torch.cuda.empty_cache()
   for kernel in ("linear", "rbf"):
     for dtype, td in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -852,12 +921,13 @@ def ig_compare(label, got, best, idx, want, ok, dtype, abs_tol=None):
 
 
 def ig_check(label, sel, linv, cand, ok, kernel, dtype, ridge=1.0,
-             h=0.75):
+             h=0.75, live=None):
   """Both info-gain kernels against the plain version on one operand set
   (``ig_compare``; a DPP ridge holds conds to TOL_DPP times k_vv,
-  absolute).  Returns (max abs error, near-ties)."""
+  absolute), with the selection-count contract ``live`` or dense.
+  Returns (max abs error, near-ties)."""
   from repro_torch.kernels import ops, ref
-  kw = dict(kernel=kernel, h=h, ridge=ridge)
+  kw = dict(kernel=kernel, h=h, ridge=ridge, live=live)
   got = ops.info_gain_cond(sel, linv, cand, **kw)
   best, idx = ops.info_select(sel, linv, cand, ok, **kw)
   sync()
@@ -872,18 +942,33 @@ def ig_check(label, sel, linv, cand, ok, kernel, dtype, ridge=1.0,
   return ea, ties
 
 
+def with_junk(g, linv, count):
+  """``linv`` with random values in its upper triangle and in the rows and
+  columns at or past ``count``: what the live contract masks."""
+  import torch
+  k = linv.shape[-1]
+  ar = torch.arange(k, device=DEVICE)
+  live = ar < count
+  keep = live[:, None] & live[None, :] & (ar[:, None] >= ar[None, :])
+  junk = torch.randn(linv.shape, generator=g, device=DEVICE)
+  return torch.where(keep, linv, junk).contiguous()
+
+
 def ig_edge_phase():
-  """The info-gain kernels against their plain versions at the edges:
-  ragged nc, k_max of 1, 7, 80, 128 and 400 (past the 384 rows the
-  shared-memory cross tile holds), counts 0 / partial / k_max, linear and
-  rbf, f32 and bf16, a DPP ridge, a zero candidate row, nothing feasible,
-  identical rows, and a shared candidate block equal to per-partition
-  calls."""
+  """The info-gain kernels against their plain versions at the edges, each
+  case dense and with the selection counts (``live``, on a linv carrying
+  junk past its live triangle): ragged nc, k_max of 1, 7, 80, 128 and 400
+  (past the shared-memory panels of linv), counts 0 / partial / k_max,
+  shapes past the staged modes' shared memory ((k, d) of (512, 64),
+  (64, 768), (2100, 6) and (5000, 6), the last with X in device scratch),
+  partitions of different counts in one launch, linear and rbf, f32 and
+  bf16, a DPP ridge, a zero candidate row, nothing feasible, identical
+  rows, and a shared candidate block equal to per-partition calls."""
   import torch
 
-  from repro_torch.kernels import ops
+  from repro_torch.kernels import ops, ref
   g = torch.Generator(device=DEVICE).manual_seed(12)
-  worst = 0.0
+  worst = {"dense": 0.0, "live": 0.0}
   n_cases = 0
   for k_max in (1, 7, 80, 128, 400):
     for count in sorted({0, k_max // 2, k_max}):
@@ -893,22 +978,76 @@ def ig_edge_phase():
                                         td)
           cand[1, 5] = 0.0  # a zero candidate row
           ok = torch.rand(3, 1037, generator=g, device=DEVICE) > 0.3
-          ea, _ = ig_check(f"edge k={k_max} count={count} {kernel} {dtype}",
-                           sel, linv, cand, ok, kernel, dtype)
-          worst = max(worst, ea)
-          n_cases += 1
+          label = f"edge k={k_max} count={count} {kernel} {dtype}"
+          ea, _ = ig_check(label, sel, linv, cand, ok, kernel, dtype)
+          worst["dense"] = max(worst["dense"], ea)
+          live = torch.full((3,), count, device=DEVICE)
+          el, _ = ig_check(label + " live", sel, with_junk(g, linv, count),
+                           cand, ok, kernel, dtype, live=live)
+          worst["live"] = max(worst["live"], el)
+          n_cases += 2
+  # partitions of different counts in one launch, each against its own
+  # dense call on the masked factor
+  for k_max, counts in ((128, (0, 37, 128)), (400, (5, 200, 400))):
+    parts = [ig_operands(g, None, k_max, c, 1500, 6, "rbf", torch.float32)
+             for c in counts]
+    sel = torch.stack([o[0] for o in parts])
+    linv = torch.stack([with_junk(g, o[1], c) for o, c in zip(parts,
+                                                                counts)])
+    cand = torch.stack([o[2] for o in parts])
+    ok = torch.rand(3, 1500, generator=g, device=DEVICE) > 0.2
+    live = torch.tensor(counts, device=DEVICE)
+    ea, _ = ig_check(f"edge mixed counts {counts}", sel, linv, cand, ok,
+                     "rbf", "f32", live=live)
+    worst["live"] = max(worst["live"], ea)
+    for p, o in enumerate(parts):
+      _, er = errors(ops.info_gain_cond(sel, linv, cand, live=live)[p],
+                     ops.info_gain_cond(o[0], o[1], o[2]))
+      check(er <= TOL["f32"], f"mixed counts {counts}, partition {p}: "
+            f"{er:.3e} against its dense call")
+    n_cases += 1
+  # shapes past the staged modes' shared memory (the GENERIC mode): X in
+  # shared memory at d 64 / k 512, d 768 / k 64 and k 2100 (past 256
+  # slots), in the per-block device scratch at k 5000
+  for k_max, counts, nc, d, dtypes in (
+      (512, (300, 512), 700, 64, ("f32", "bf16")),
+      (64, (10, 64), 500, 768, ("f32", "bf16")),
+      (2100, (2100,), 300, 6, ("f32",)), (5000, (4000, 5000), 200, 6, ("f32",))):
+    for kernel in ("linear", "rbf"):
+      for dtype in dtypes:
+        td = torch.float32 if dtype == "f32" else torch.bfloat16
+        parts = [ig_operands(g, None, k_max, c, nc, d, kernel, td)
+                 for c in counts]
+        sel = torch.stack([o[0] for o in parts])
+        clean = torch.stack([o[1] for o in parts])
+        cand = torch.stack([o[2] for o in parts])
+        ok = torch.rand(len(counts), nc, generator=g, device=DEVICE) > 0.2
+        label = f"edge past smem k={k_max} d={d} {kernel} {dtype}"
+        ea, _ = ig_check(label, sel, clean, cand, ok, kernel, dtype)
+        worst["dense"] = max(worst["dense"], ea)
+        junk = torch.stack([with_junk(g, o[1], c)
+                            for o, c in zip(parts, counts)])
+        el, _ = ig_check(label + " live", sel, junk, cand, ok, kernel, dtype,
+                         live=torch.tensor(counts, device=DEVICE))
+        worst["live"] = max(worst["live"], el)
+        n_cases += 2
+        del parts, sel, clean, cand, junk
   # a DPP ridge: cond = k_vv + 1e-6 - |L^-1 k|^2 cancels
   sel, linv, cand = ig_operands(g, 2, 64, 40, 700, 6, "rbf", torch.float32,
                                 ridge=1e-6, h=0.3)
-  ig_check("edge dpp", sel, linv, cand,
-           torch.ones(2, 700, dtype=torch.bool, device=DEVICE), "rbf", "f32",
-           ridge=1e-6, h=0.3)
+  allok = torch.ones(2, 700, dtype=torch.bool, device=DEVICE)
+  live40 = torch.full((2,), 40, device=DEVICE)
+  for live in (None, live40):
+    ig_check(f"edge dpp live={live is not None}", sel, linv, cand, allok,
+             "rbf", "f32", ridge=1e-6, h=0.3, live=live)
   # nothing feasible -> (0.0, 0)
   none = torch.zeros(2, 700, dtype=torch.bool, device=DEVICE)
-  best, idx = ops.info_select(sel, linv, cand, none, h=0.3, ridge=1e-6)
-  sync()
-  check(bool((best == 0.0).all()) and bool((idx == 0).all()),
-        f"info_select nothing feasible: {best.tolist()} {idx.tolist()}")
+  for live in (None, live40):
+    best, idx = ops.info_select(sel, linv, cand, none, h=0.3, ridge=1e-6,
+                                live=live)
+    sync()
+    check(bool((best == 0.0).all()) and bool((idx == 0).all()),
+          f"info_select nothing feasible: {best.tolist()} {idx.tolist()}")
   # exact ties: with nothing selected every rbf cond is 1 + ridge, so the
   # lowest feasible index wins; identical rows tie exactly in the kernel
   for kernel in ("linear", "rbf"):
@@ -922,30 +1061,42 @@ def ig_edge_phase():
       j = int(top[p])
       cand[p, (j + 1711) % 3000] = cand[p, j]
       cand[p, (j + 977) % 3000] = cand[p, j]
-    best, idx = ops.info_select(sel, linv, cand, ok, kernel=kernel)
-    sync()
-    for p in range(2):
-      j = int(top[p])
-      want = (3 if kernel == "rbf" else
-              min({j, (j + 1711) % 3000, (j + 977) % 3000} - {0, 1, 2}))
-      check(int(idx[p]) == want, f"ties {kernel}: index {int(idx[p])}, "
-            f"want {want}")
+    for live in (None, torch.zeros((2,), dtype=torch.int64, device=DEVICE)):
+      best, idx = ops.info_select(sel, linv, cand, ok, kernel=kernel,
+                                  live=live)
+      sync()
+      for p in range(2):
+        j = int(top[p])
+        want = (3 if kernel == "rbf" else
+                min({j, (j + 1711) % 3000, (j + 977) % 3000} - {0, 1, 2}))
+        check(int(idx[p]) == want, f"ties {kernel}: index {int(idx[p])}, "
+              f"want {want}")
   # a stride-0 shared candidate block equals per-partition calls
   sel, linv, cand = ig_operands(g, 4, 128, 64, 2000, 6, "rbf", torch.float32,
                                 shared=True)
   ok = torch.rand(4, 2000, generator=g, device=DEVICE) > 0.1
-  cond = ops.info_gain_cond(sel, linv, cand)
-  best, idx = ops.info_select(sel, linv, cand, ok)
-  for p in range(4):
-    c1 = ops.info_gain_cond(sel[p], linv[p], cand)
-    b1, i1 = ops.info_select(sel[p], linv[p], cand, ok[p])
-    check(torch.equal(cond[p], c1) and int(idx[p]) == int(i1) and
-          float(best[p]) == float(b1), f"shared block, partition {p}")
+  live64 = torch.full((4,), 64, device=DEVICE)
+  for live in (None, live64):
+    cond = ops.info_gain_cond(sel, linv, cand, live=live)
+    best, idx = ops.info_select(sel, linv, cand, ok, live=live)
+    for p in range(4):
+      one = None if live is None else live[p]
+      c1 = ops.info_gain_cond(sel[p], linv[p], cand, live=one)
+      b1, i1 = ops.info_select(sel[p], linv[p], cand, ok[p], live=one)
+      check(torch.equal(cond[p], c1) and int(idx[p]) == int(i1) and
+            float(best[p]) == float(b1), f"shared block, partition {p}, "
+            f"live={live is not None}")
+  # with the counts, the masked factor gives the dense answer
+  _, er = errors(ops.info_gain_cond(sel, linv, cand, live=live64),
+                 ref.info_gain_cond_ref(sel, linv, cand))
+  check(er <= TOL["f32"], f"live vs dense on a masked factor: {er:.3e}")
   sync()
   emit("kernel info edges", cases=n_cases, k_max=[1, 7, 80, 128, 400],
+       past_smem=[[512, 64], [64, 768], [2100, 6], [5000, 6]],
        max_abs_err=worst, dpp_ridge=1e-6, nothing_feasible="(0.0, 0)",
        ties="lowest index", shared_block="equal to per-partition calls",
-       result="pass")
+       mixed_counts=[[0, 37, 128], [5, 200, 400]],
+       junk_past_live="masked as the plain version masks", result="pass")
 
 
 def ig_bound(P, nc, k, d, kernel, esz, shared, select, count=None):
@@ -983,6 +1134,9 @@ IG_CASES = (
 )
 
 
+IG_COUNTS = (1, 32, 64, 96, 128)  # round-1 selection counts timed
+
+
 def ig_kernel_phase(sz: Sizes, path_counts: dict):
   """Both info-gain kernels against their plain versions at each shape the
   GP path gives them (``IG_CASES``): round 1 (P = 32 partitions of
@@ -990,11 +1144,15 @@ def ig_kernel_phase(sz: Sizes, path_counts: dict):
   (P = 32 states over one shared block of 32 x 128 merged candidates), the
   reference's round 2 (one state over those 4096 candidates) and the
   centralized greedy (one state over all 45,811,883 rows), with a real
-  selection of ``gp_count`` rows.  The plain version runs a few partitions,
-  or one partition's worth of candidates, at a time: one unchunked round-1
-  temporary is (32, 128, 1.43 M) floats, 23 GiB.  Each row carries the
-  launches of every path that gives the kernel that shape
-  (``path_counts``: the e2e phase's counts by path)."""
+  selection of ``gp_count`` rows, each timed with the selection counts
+  (``live``, as the objectives call them; ``bound_ms`` is that count-aware
+  work) and dense (``dense_ms`` against ``bound_dense_ms``).  Then the
+  round-1 select at the counts ``IG_COUNTS`` of one incremental Cholesky.
+  The plain version runs a few partitions, or one partition's worth of
+  candidates, at a time: one unchunked round-1 temporary is (32, 128,
+  1.43 M) floats, 23 GiB.  Each row carries the launches of every path
+  that gives the kernel that shape (``path_counts``: the e2e phase's counts
+  by path)."""
   import torch
 
   from repro_torch.core import objectives as O
@@ -1005,14 +1163,19 @@ def ig_kernel_phase(sz: Sizes, path_counts: dict):
   obj = O.InformationGain(k_max=k, kernel="rbf",
                           kernel_kwargs=(("h", sz.gp_h),), sigma=sz.gp_sigma)
   st = obj.init_d(d, device=DEVICE, batch=(P,))
-  for _ in range(sz.gp_count):  # a real incremental Cholesky
+  states = {}
+  for step in range(1, max(IG_COUNTS) + 1):  # a real incremental Cholesky
     st = obj.update(st, unit_rows(g, P, d))
-  sel_b, linv_b = st.sel_feats, O._masked_linv(st.chol, st.count)
+    if step in IG_COUNTS or step == sz.gp_count:
+      states[step] = (st.sel_feats, O._masked_linv(st.chol, st.count),
+                      st.count)
+  sel_b, linv_b, live_b = states[sz.gp_count]
   ridge = sz.gp_sigma ** 2
   rows = {}
   for label, batched, nc_of, shared, on_paths in IG_CASES:
     nc = nc_of(sz)
-    sel, linv = (sel_b, linv_b) if batched else (sel_b[0], linv_b[0])
+    sel, linv, live = ((sel_b, linv_b, live_b) if batched else
+                       (sel_b[0], linv_b[0], live_b[0]))
     lead = (P,) if batched else ()
     cand = unit_rows(g, *(() if shared else lead), nc, d)
     ok = torch.rand(*lead, nc, generator=g, device=DEVICE) > 0.01
@@ -1029,37 +1192,74 @@ def ig_kernel_phase(sz: Sizes, path_counts: dict):
                                                ridge=ridge)
                         for c0 in range(0, nc, nl)])
 
-    cond = ops.info_gain_cond(sel, linv, cand, ridge=ridge)
-    best, idx = ops.info_select(sel, linv, cand, ok, ridge=ridge)
-    sync()
-    c_abs, c_rel, b_abs, near = ig_compare(f"info kernels {label}", cond,
-                                           best, idx, plain(), ok, "f32")
-    cond_ms = time_ms(lambda: ops.info_gain_cond(sel, linv, cand,
-                                                 ridge=ridge))
-    sel_ms = time_ms(lambda: ops.info_select(sel, linv, cand, ok,
-                                             ridge=ridge))
+    want = plain()
+    res = {}
+    for mode, lv in (("live", live), ("dense", None)):
+      cond = ops.info_gain_cond(sel, linv, cand, ridge=ridge, live=lv)
+      best, idx = ops.info_select(sel, linv, cand, ok, ridge=ridge, live=lv)
+      sync()
+      res[mode] = ig_compare(f"info kernels {label} {mode}", cond, best, idx,
+                             want, ok, "f32")
+      del cond
+    del want
+    ms = {(mode, sel_): time_ms(
+        (lambda lv=lv: ops.info_select(sel, linv, cand, ok, ridge=ridge,
+                                       live=lv)) if sel_ else
+        (lambda lv=lv: ops.info_gain_cond(sel, linv, cand, ridge=ridge,
+                                          live=lv)))
+          for mode, lv in (("live", live), ("dense", None))
+          for sel_ in (False, True)}
     pc_ms = time_ms(plain, reps=1)
     ps_ms = time_ms(lambda: ref.masked_top1(plain(), ok, floor=0.0), reps=1)
     n_p = P if batched else None
     common = dict(shape=[n_p, k, nc, d], kernel="rbf", dtype="f32",
                   count=sz.gp_count, shared_candidates=shared,
                   tol=TOL["f32"], library_ms=None)
-    for name, err, ms, p_ms, select in (
-        ("info_gain_cond", dict(max_abs_err=c_abs, max_rel_err=c_rel),
-         cond_ms, pc_ms, False),
-        ("info_select", dict(max_abs_err=b_abs, near_ties=near), sel_ms,
-         ps_ms, True)):
+    for name, select, p_ms in (("info_gain_cond", False, pc_ms),
+                               ("info_select", True, ps_ms)):
+      c_abs, c_rel, b_abs, near = res["live"]
+      err = (dict(max_abs_err=b_abs, near_ties=near) if select else
+             dict(max_abs_err=c_abs, max_rel_err=c_rel))
       dense = ig_bound(n_p, nc, k, d, "rbf", 4, shared, select)
-      live = ig_bound(n_p, nc, k, d, "rbf", 4, shared, select,
-                      count=sz.gp_count)
+      lbound = ig_bound(n_p, nc, k, d, "rbf", 4, shared, select,
+                        count=sz.gp_count)
       rows[(name, label)] = dict(
-          common, **err, kernel_ms=ms, plain_ms=p_ms, bound_ms=dense[0],
-          bound_by=dense[1], bound_live_ms=live[0], bound_live_by=live[1],
-          on_paths=on_paths[name],
+          common, **err, kernel_ms=ms[("live", select)], plain_ms=p_ms,
+          bound_ms=lbound[0], bound_by=lbound[1],
+          dense_ms=ms[("dense", select)],
+          dense_max_abs_err=res["dense"][2 if select else 0],
+          bound_dense_ms=dense[0], on_paths=on_paths[name],
           launches={p: path_counts[p][name] for p in on_paths[name]})
       emit(f"kernel {name} {label}", **rows[(name, label)])
-    del cand, ok, cond
+    del cand, ok
     torch.cuda.empty_cache()
+  # the round-1 select at the counts of a run
+  cand = unit_rows(g, P, nl, d)
+  ok = torch.rand(P, nl, generator=g, device=DEVICE) > 0.01
+  for count in IG_COUNTS:
+    sel, linv, live = states[count]
+    want = torch.cat([
+        ref.info_gain_cond_ref(sel[c0:c0 + sz.plain_chunk],
+                               linv[c0:c0 + sz.plain_chunk],
+                               cand[c0:c0 + sz.plain_chunk], ridge=ridge)
+        for c0 in range(0, P, sz.plain_chunk)])
+    best, idx = ops.info_select(sel, linv, cand, ok, ridge=ridge, live=live)
+    cond = ops.info_gain_cond(sel, linv, cand, ridge=ridge, live=live)
+    sync()
+    c_abs, _, b_abs, near = ig_compare(f"info round1 count {count}", cond,
+                                       best, idx, want, ok, "f32")
+    del want, cond
+    k_ms = time_ms(lambda: ops.info_select(sel, linv, cand, ok, ridge=ridge,
+                                           live=live))
+    lb = ig_bound(P, nl, k, d, "rbf", 4, False, True, count=count)
+    row = dict(shape=[P, k, nl, d], count=count, kernel_ms=k_ms,
+               bound_live_ms=lb[0], bound_live_by=lb[1],
+               share_of_bound=lb[0] / k_ms, max_abs_err=b_abs,
+               cond_max_abs_err=c_abs, near_ties=near)
+    rows[("info_select", f"round1 count {count}")] = row
+    emit(f"kernel info_select round1 count {count}", **row)
+  del cand, ok, states
+  torch.cuda.empty_cache()
   return rows
 
 
@@ -2779,6 +2979,7 @@ def main() -> int:
     print(f"[smoke] ptxas {line}", flush=True)
 
   edge_phase()
+  pairwise_edge_phase()
   ig_edge_phase()
   cov_edge_phase()
   cut_edge_phase()
@@ -2848,8 +3049,9 @@ def main() -> int:
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=r["shape"],
-        **{extra: r[extra] for extra in ("bound_live_ms", "tflops",
-                                         "bound_share") if extra in r}))
+        **{extra: r[extra] for extra in ("bound_dense_ms", "dense_ms",
+                                         "tma", "tflops", "bound_share")
+           if extra in r}))
   emit("total", seconds=time.perf_counter() - t_start)
   print(gpu, flush=True)
   print(json.dumps({"kernels": kernels}), flush=True)

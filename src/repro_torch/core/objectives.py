@@ -378,19 +378,24 @@ class _IncrementalCholesky:
   def _oracle(self, state: IGState):
     return state.sel_feats, _masked_linv(state.chol, state.count)
 
+  # the kernels take the selection count (``live``): linv is lower-
+  # triangular with only its count x count corner live, so they skip the
+  # rest exactly
   def gains(self, state, cand_feats: torch.Tensor) -> torch.Tensor:
-    sel, linv = self._oracle(self._state(state))
+    st = self._state(state)
+    sel, linv = self._oracle(st)
     fn = dispatch.resolve("info_gain_cond", self.backend)
     cond = fn(sel, linv, cand_feats, kernel=self.kernel, h=self.h,
-              ridge=self._ridge)
+              ridge=self._ridge, live=st.count)
     return self._log_gain(cond)
 
   def select(self, state, cand_feats: torch.Tensor, feasible: torch.Tensor):
     """Fused select step: (best gain, int64 candidate index)."""
-    sel, linv = self._oracle(self._state(state))
+    st = self._state(state)
+    sel, linv = self._oracle(st)
     fn = dispatch.resolve_select("info_gain_cond", self.backend)
     cond, idx = fn(sel, linv, cand_feats, feasible, kernel=self.kernel,
-                   h=self.h, ridge=self._ridge)
+                   h=self.h, ridge=self._ridge, live=st.count)
     return self._log_gain(torch.clamp_min(cond, 1e-12)), idx
 
   def update(self, state, feat: torch.Tensor):

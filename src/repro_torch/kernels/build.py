@@ -41,6 +41,8 @@ ENTRIES = {
     "sm90_pairwise": ("pairwise",
                       [P, P, P, I64, I64, I64, I64, I64, I64, I64, I64, F32,
                        P]),
+    "sm90_pairwise_tma": ("pairwise", [P, P, I64, I64]),
+    "sm90_sim_mismatches": ("pairwise", [F32, P, I64, P]),
     "sm90_facility_gain": ("facility",
                            [P, P, P, P, P, P, I64, I64, I64, I64, I64, I64,
                             I64, I64, I64, I64, I64, F32, P]),
@@ -55,14 +57,15 @@ ENTRIES = {
                              [P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64,
                               I64, I64, I64, I64, I64, I64, I64, I64, I64,
                               I64, F32, P]),
-    "sm90_info_scratch_floats": ("info_gain",
-                                 [I64, I64, I64, ctypes.POINTER(I64)]),
+    "sm90_info_plan": ("info_gain",
+                       [I64, I64, I64, I64, I64, ctypes.POINTER(I64),
+                        ctypes.POINTER(I64), ctypes.POINTER(I64)]),
     "sm90_info_gain_cond": ("info_gain",
-                            [P, P, P, P, P, I64, I64, I64, I64, I64, I64,
-                             I64, I64, I64, F32, F32, P]),
+                            [P, P, P, P, P, P, I64, I64, I64, I64, I64, I64,
+                             I64, I64, I64, I64, F32, F32, P]),
     "sm90_info_select": ("info_gain",
-                         [P, P, P, P, P, P, P, P, P, I64, I64, I64, I64,
-                          I64, I64, I64, I64, I64, I64, F32, F32, P]),
+                         [P, P, P, P, P, P, P, P, P, P, I64, I64, I64, I64,
+                          I64, I64, I64, I64, I64, I64, I64, F32, F32, P]),
     "sm90_graph_cut_gain": ("graph_cut",
                             [P, P, I64, I64, I64, P, I64, I64, I64, P, P,
                              I64, I64, I64, I64, I64, P]),
@@ -186,6 +189,15 @@ def check(err: int, name: str) -> None:
 def check_kernel(name: str, kernel: str) -> None:
   if kernel not in ("linear", "rbf"):
     raise ValueError(f"{name}: kernel {kernel!r} not in ('linear', 'rbf')")
+
+
+def check_width(name: str, kernel: str, h: float) -> None:
+  """The rbf width the pairwise and info-gain kernels take: h * h within
+  [1e-20, 1e20], where their division-free quotient (csrc/sm90.cuh) is the
+  IEEE one."""
+  if kernel == "rbf" and not 1e-20 <= h * h <= 1e20:
+    raise ValueError(f"{name}: rbf width h={h!r} outside the kernel's range "
+                     "(h * h within [1e-20, 1e20])")
 
 
 def check_feats(name: str, *feats) -> None:

@@ -7,30 +7,573 @@
 //
 // out[b, i, j] = x[b, i] . y[b, j]                          (linear)
 //              = exp(-max(|x|^2 - 2 x.y + |y|^2, 0) / h^2)  (rbf)
-// f32 or bf16 inputs (loaded and converted to f32, as the Pallas body's
+// f32 or bf16 inputs (widened to f32 on load, as the Pallas body's
 // .astype(jnp.float32)), f32 output.
 //
 // Bound on this card: at d = 64 each output float costs 2 * 64 FLOP for
 // 4 bytes written, 32 FLOP/B against the ~20 FLOP/B ridge of FP32 FFMA on an
 // H100 SXM (67 TFLOP/s over 3.35 TB/s), so the kernel is bound by its FFMA
-// work.  The design keeps the FFMA units fed from registers: 128 x 128 tiles,
-// an 8 x 8 micro-tile per thread (64 FFMA per 16 shared-memory floats read),
-// the rbf norms taken from the staged tiles, and float4 stores of finished
-// rows.  No tensor cores: the port keeps full FP32 (no TF32) until a later
-// change brings a tensor-core variant with its own tolerance.
+// work (s11: 8.2 ms), but writing the output alone takes 5.1 ms: the stores
+// have to overlap the products.  No tensor cores: the port keeps full FP32
+// (no TF32) until a later change brings a tensor-core mode with its own
+// tolerance.
 //
-// Grid: (column tiles, row tiles, batch).  blockIdx.z walks the batch (all
-// shards' s11 in one launch); a zero batch stride on y shares one candidate
-// block across the batch (s2 for every shard in one launch).
+// Design (one persistent block of 256 threads a streaming multiprocessor,
+// up to 255 registers a thread):
+//   * Output tiles are 256 x-rows by 128 y-rows.  Work units are a 256-row
+//     band of one batch entry with a range of its column tiles (the whole
+//     row when there are enough bands to fill the card); block j takes
+//     units j, j + grid, ... so the blocks working at one time share a
+//     batch entry and its y tiles stay in L2.
+//   * TMA path (d * sizeof(T) a multiple of 16, at most 2 boxes of 128
+//     bytes of d): the x band stays resident in shared memory and thread 0
+//     streams the y tiles through a 2-stage ring of TMA loads
+//     (cp.async.bulk.tensor, 128-byte swizzle, a full and an empty mbarrier
+//     a stage: each warp arrives on the empty one after its products, and
+//     thread 0 refills the stage when all have; the x band likewise), so
+//     the next tile's load overlaps this tile's FFMAs and no block barrier
+//     sits in the loop.  The maps are 3-D (d,
+//     rows, batch); an operand shared by the batch (stride 0) gets a batch
+//     extent of 1 and coordinate 0.  Rows past n and columns past d arrive
+//     as TMA's zero fill.
+//   * Other shapes (d not a multiple of 4 in f32 or 8 in bf16, misaligned
+//     bases, d past 2 boxes) take the first port's kernel, tile_kernel: one
+//     128 x 128 tile a block, two blocks an SM, d staged in chunks of 16
+//     (tile.cuh tile_product), the rbf transform with sim_of.
+//   * The FFMA loop: warp w owns tile rows 32 w .. 32 w + 31; lane (h, tx)
+//     of it owns 16 of them (8 (i / 4) + 4 h + i % 4) and the columns
+//     tx + 16 j (8), a 16 x 8 register micro-tile fed by 24 shared loads of
+//     4 k values per 512 FFMA.  The swizzle puts the 8 rows a quarter-warp
+//     reads in 8 distinct bank groups, and the half-warps read rows 4
+//     apart, so neither the operand reads nor the staging writes conflict.
+//     The loop over the 4-value groups is not unrolled: its body stays
+//     small enough for the instruction cache.
+//   * Epilogue, per warp: its 32 x 64 half-rows at a time to its own two
+//     staged 32 x 32 boxes, the rbf transform there (sm90.cuh: sim_of's
+//     value without the division's slow path; the warp takes the norms of
+//     its rows and the tile's columns from the staged operands), then lane 0
+//     issues the TMA stores (shared -> global, clipped at nx and ny) and
+//     waits for them to have read the boxes (cp.async.bulk.wait_group.read)
+//     only before writing them again.  No block barrier: one warp's stores
+//     overlap the other warps' products.  Where ny is not a multiple of 4
+//     (rows not 16-byte aligned) the warp copies its boxes out with plain
+//     stores.
+//   * Same bits as the first port: each output is one fmaf chain over
+//     k = 0 .. d-1 from 0.0f, the rbf norms likewise; zero fill only adds
+//     +0 terms.  No atomics: results are bit-reproducible run to run.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
 #include "tile.cuh"
 
 namespace sm90 {
+namespace pw {
+
+constexpr int MI = 16;             // rows a thread
+constexpr int TM = 128;            // tile columns (y rows); output halves
+constexpr int TR = 16 * MI;        // tile rows (the x band)
+constexpr int NTH = 256;           // threads a block
+constexpr int BOX = TM * 128;      // bytes of a 128-row box, 128 bytes wide
+constexpr int XBOX = TR * 128;     // bytes of an x-band box
+constexpr int WROWS = TR / 8;      // rows a warp owns (and stores)
+constexpr int WBOX = WROWS * 128;  // a warp's staged box: 32 rows x 32 f32
+constexpr int OUT_BYTES = 8 * 2 * WBOX;  // each warp's 32 x 64 staging
+// boxes of d that fit resident: an x band and 2 y stages beside the staging
+constexpr int MAX_RES_BOXES =
+    (227 * 1024 - 4096 - OUT_BYTES) / (XBOX + 2 * BOX);
+
+struct Args {
+  const void* x;
+  const void* y;
+  float* out;
+  int64_t nx, ny, d, x_bs, y_bs;
+  int64_t n_rb, n_ct, cpc, cpb, units;  // row bands, column tiles, tiles
+                                        // a unit, units a band, units
+  int nb;        // 128-byte boxes of d
+  int tma_out;   // TMA stores (ny % 4 == 0)
+  float hh;
+};
+
+// ---------------------------------------------------------------------------
+// barriers, TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for a barrier phase; trap after about 10 s stuck (a lost TMA load
+// becomes a launch error instead of a hang).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity)) {
+    if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           uint32_t src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// the swizzled tile and the FFMA loop
+// ---------------------------------------------------------------------------
+
+// Byte offset of byte `cb` (< 128) of row r in a box written by TMA's
+// 128-byte swizzle (the 16-byte chunk index XORed with r mod 8; the box is
+// 1024-byte aligned).
+__device__ __forceinline__ int swz(int r, int cb) {
+  return r * 128 + ((((cb >> 4) ^ r) & 7) << 4) + (cb & 15);
+}
+
+// Four consecutive k values of a staged row as float32: 16 bytes of f32, or
+// 8 bytes of bf16 widened (element 2m is the low half of word m).
+__device__ __forceinline__ void load4(const float*, const char* p,
+                                      float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16*, const char* p,
+                                      float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+// Byte offset of group g (4 k values of T) in a swizzled row whose index
+// is r mod 8 = s: rows 8 apart share the offset, so a thread's rows (16
+// apart) differ only by constant multiples of 16 rows.
+template <typename T>
+__device__ __forceinline__ int group_off(int g, int s) {
+  constexpr int GB = 4 * sizeof(T);
+  return ((((g * GB) >> 4) ^ s) << 4) + ((g * GB) & 15);
+}
+
+// Row i (of 16) of the thread's micro-tile within its warp's 32 rows:
+// 8 (i / 4) + 4 h + i % 4, so the two half-warps read rows 4 apart.
+__device__ __forceinline__ int row_in_warp(int i, int h) {
+  return 8 * (i >> 2) + 4 * h + (i & 3);
+}
+
+// acc[i][j] += x[row i, k] * y[tx + 16 j, k] over the first `ng` groups of
+// 4 k values of one box (k ascending); xw is the box's row 32 w + 4 h.  With
+// NORMS the squared norms of the same staged y values accumulate in y2.
+template <typename T, bool NORMS>
+__device__ __forceinline__ void box_fma(const char* __restrict__ xw,
+                                        const char* __restrict__ ys, int ng,
+                                        int h, int tx, float (&acc)[MI][8],
+                                        float (&y2)[8]) {
+  const T* tag = nullptr;
+  const char* yr = ys + tx * 128;  // row tx; row tx + 16 j is 2048 j further
+  const int sy = tx & 7;
+  // one group an iteration, not unrolled: the body (512 FFMA) stays small
+  // enough for the instruction cache
+#pragma unroll 1
+  for (int g = 0; g < ng; ++g) {
+    const char* yg = yr + group_off<T>(g, sy);
+    int xo[4];  // the swizzled group offset of rows 4 h + q (mod 8)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xo[q] = group_off<T>(g, 4 * h + q);
+    float b[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) load4(tag, yg + 2048 * j, b[j]);
+    if (NORMS) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y2[j] = fmaf(b[j][e], b[j][e], y2[j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      float a[4];
+      load4(tag, xw + 1024 * (i >> 2) + 128 * (i & 3) + xo[i & 3], a);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[e], b[j][e], acc[i][j]);
+      }
+    }
+  }
+}
+
+// Continue the squared-norm chain s of row r over the first `nk` k values
+// of one box (k ascending), the rbf epilogue's |x|^2 / |y|^2 from the staged
+// values.
+template <typename T>
+__device__ __forceinline__ float row_norm(const char* __restrict__ box,
+                                          int r, int nk, float s) {
+  const T* tag = nullptr;
+  for (int g = 0; 4 * g < nk; ++g) {
+    float v[4];
+    load4(tag, box + r * 128 + group_off<T>(g, r & 7), v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * g + e < nk) s = fmaf(v[e], v[e], s);
+  }
+  return s;
+}
+
+// Groups of 4 elements of box kb (of bc) that hold some of d (the rest is
+// zero).
+__device__ __forceinline__ int groups_of(int64_t d, int kb, int bc) {
+  return static_cast<int>(min64(bc / 4, (d - int64_t{kb} * bc + 3) / 4));
+}
+
+// The block's walk over output tiles: units (a band of one batch entry and
+// a range of its column tiles) by a stride of gridDim.x.
+struct Walk {
+  int64_t u;
+  int64_t b, rb, ct, ct_end;
+  bool valid, fresh;  // fresh: the first tile of a unit (new x band)
+
+  __device__ void start(int64_t unit, const Args& a) {
+    u = unit;
+    valid = unit < a.units;
+    fresh = true;
+    if (!valid) return;
+    const int64_t band = unit / a.cpb, chunk = unit % a.cpb;
+    b = band / a.n_rb;
+    rb = band % a.n_rb;
+    ct = chunk * a.cpc;
+    ct_end = min64(a.n_ct, ct + a.cpc);
+  }
+  __device__ void next(const Args& a) {
+    if (++ct < ct_end) {
+      fresh = false;
+      return;
+    }
+    start(u + gridDim.x, a);
+  }
+};
 
 template <typename T, bool RBF>
+__global__ void __launch_bounds__(NTH, 1)
+    pairwise_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap ymap,
+                    const __grid_constant__ CUtensorMap omap, const Args a) {
+  extern __shared__ __align__(16) char smem_raw[];
+  char* sm = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  char* stg = sm;                     // OUT_BYTES: each warp's staging
+  char* xs = sm + OUT_BYTES;          // the x band: nb boxes of TR rows
+  char* ys = xs + a.nb * XBOX;        // y: 2 stages of nb boxes
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      ys + 2 * a.nb * BOX);  // x full / empty, y full / empty
+  float* norms = reinterpret_cast<float*>(bars + 6);  // 8 x (32 + 128)
+  const uint32_t xfull = smem_u32(bars), xempty = smem_u32(bars + 1);
+  auto yfull = [&](int s) { return smem_u32(bars + 2 + s); };
+  auto yempty = [&](int s) { return smem_u32(bars + 4 + s); };
+
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int tx = lane & 15, h = lane >> 4;
+  constexpr int BC = 128 / sizeof(T);
+  const uint32_t xbytes = static_cast<uint32_t>(a.nb) * XBOX;
+  const uint32_t ybytes = static_cast<uint32_t>(a.nb) * BOX;
+  const float rhh = __frcp_rn(a.hh);
+  char* stw = stg + w * 2 * WBOX;           // this warp's two boxes
+  float* xnw = norms + w * (WROWS + TM);    // its rows' |x|^2 (rbf)
+  float* ynw = xnw + WROWS;                 // the tile's |y|^2 (rbf)
+
+  auto load_x = [&](const Walk& t) {
+    mbar_expect_tx(xfull, xbytes);
+    for (int kb = 0; kb < a.nb; ++kb)
+      tma_load3(smem_u32(xs + kb * XBOX), &xmap, kb * BC,
+                static_cast<int>(t.rb * TR), a.x_bs ? static_cast<int>(t.b) : 0,
+                xfull);
+  };
+  auto load_y = [&](const Walk& t, int s) {
+    mbar_expect_tx(yfull(s), ybytes);
+    for (int kb = 0; kb < a.nb; ++kb)
+      tma_load3(smem_u32(ys + (s * a.nb + kb) * BOX), &ymap, kb * BC,
+                static_cast<int>(t.ct * TM), a.y_bs ? static_cast<int>(t.b) : 0,
+                yfull(s));
+  };
+
+  Walk cur;
+  cur.start(blockIdx.x, a);
+  Walk ahead1 = cur, ahead2 = cur;  // thread 0's loads: tiles n + 1, n + 2
+  if (tid == 0) {
+    mbar_init(xfull, 1);
+    mbar_init(xempty, NTH / 32);  // one arrival a warp
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(yfull(s), 1);
+      mbar_init(yempty(s), NTH / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (cur.valid) {
+      load_x(cur);
+      load_y(cur, 0);
+      ahead1.next(a);
+      if (ahead1.valid) load_y(ahead1, 1);
+      ahead2 = ahead1;
+      ahead2.next(a);
+    }
+  }
+  __syncthreads();
+
+  int64_t n = 0;      // tiles done by this block
+  uint32_t xi = 0;    // x bands loaded before this tile's
+  for (; cur.valid; ++n) {
+    const int64_t row0 = cur.rb * TR, col0 = cur.ct * TM, tb = cur.b;
+    float acc[MI][8];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    }
+    // rbf: lane l keeps the chain of its warp's row l, and each lane those
+    // of its 8 columns
+    float xs2 = 0.0f, y2[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) y2[j] = 0.0f;
+    const int s = static_cast<int>(n & 1);
+    if (cur.fresh && n > 0) ++xi;
+    mbar_wait(xfull, xi & 1);
+    mbar_wait(yfull(s), static_cast<uint32_t>((n >> 1) & 1));
+    for (int kb = 0; kb < a.nb; ++kb) {
+      const char* xb = xs + kb * XBOX;
+      const char* yb = ys + (s * a.nb + kb) * BOX;
+      if (RBF)
+        xs2 = row_norm<T>(xb, WROWS * w + lane,
+                          static_cast<int>(min64(BC, a.d - int64_t{kb} * BC)),
+                          xs2);
+      box_fma<T, RBF>(xb + (WROWS * w + 4 * h) * 128, yb,
+                      groups_of(a.d, kb, BC), h, tx, acc, y2);
+    }
+    cur.next(a);  // the next tile: a fresh one needs a new x band
+    // this warp is done with the y stage (and, before a new unit, the x
+    // band); thread 0 refills them once every warp is
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(yempty(s));
+      if (cur.valid && cur.fresh) mbar_arrive(xempty);
+    }
+    if (tid == 0) {
+      mbar_wait(yempty(s), static_cast<uint32_t>((n >> 1) & 1));
+      if (ahead2.valid) load_y(ahead2, s);
+      if (ahead1.valid && ahead1.fresh) {
+        mbar_wait(xempty, xi & 1);
+        load_x(ahead1);
+      }
+      ahead1 = ahead2;
+      ahead2.next(a);
+    }
+    if (RBF) {
+      xnw[lane] = xs2;
+      if (h == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ynw[tx + 16 * j] = y2[j];
+      }
+    }
+
+    // epilogue, this warp's 32 rows x 64 columns at a time through its own
+    // two staged boxes: no block barrier, so one warp's stores overlap the
+    // others' products; lane 0 waits for its last stores to have read the
+    // boxes before they are written again
+    const int64_t wrow = row0 + WROWS * w;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (lane == 0)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int r = row_in_warp(i, h);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;  // column within the 64
+          *reinterpret_cast<float*>(stw + (c >> 5) * WBOX +
+                                    swz(r, (c & 31) * 4)) =
+              acc[i][4 * k + j];
+        }
+      }
+      if (RBF) {  // the transform of this thread's 64 values from shared
+                  // memory, 4 at a time: no accumulator is live across it,
+                  // and the straight-line epilogue stays small
+        __syncwarp();
+        const float* yq = ynw + 64 * k;
+#pragma unroll 4
+        for (int e = 0; e < 64; ++e) {
+          const int r = row_in_warp(e >> 2, h), c = tx + 16 * (e & 3);
+          float* pv = reinterpret_cast<float*>(stw + (c >> 5) * WBOX +
+                                               swz(r, (c & 31) * 4));
+          *pv = sim_rn(*pv, xnw[r], yq[c], a.hh, rhh);
+        }
+      }
+      const int64_t kcol = col0 + 64 * k;
+      if (a.tma_out) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (lane == 0) {
+          if (wrow < a.nx) {
+            for (int bx = 0; bx < 2; ++bx) {
+              if (kcol + 32 * bx >= a.ny) break;
+              tma_store3(&omap, smem_u32(stw + bx * WBOX),
+                         static_cast<int>(kcol + 32 * bx),
+                         static_cast<int>(wrow), static_cast<int>(tb));
+            }
+          }
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
+      } else {
+        __syncwarp();
+        float* ob = a.out + tb * a.nx * a.ny;
+        for (int idx = lane; idx < WROWS * 64; idx += 32) {
+          const int r = idx / 64, c = idx % 64;
+          if (wrow + r < a.nx && kcol + c < a.ny)
+            ob[(wrow + r) * a.ny + kcol + c] = *reinterpret_cast<const float*>(
+                stw + (c >> 5) * WBOX + swz(r, (c & 31) * 4));
+        }
+        __syncwarp();
+      }
+    }
+  }
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps and the launch
+// ---------------------------------------------------------------------------
+
+PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 3-D map (cols, rows, batch) with 128-byte swizzled boxes of
+// (box_cols, box_rows, 1); a batch extent of 1 for an operand shared by the
+// batch.  Returns 0 or an error code (driver errors offset by 10000).
+int make_map(CUtensorMap* map, CUtensorMapDataType type, int esz,
+             const void* ptr, int64_t cols, int64_t rows, int64_t batch,
+             int64_t row_stride, int64_t batch_stride, int box_cols,
+             int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride * esz),
+                                 static_cast<cuuint64_t>(batch_stride * esz)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = enc(map, type, 3, const_cast<void*>(ptr), dims,
+                           strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                           CU_TENSOR_MAP_SWIZZLE_128B,
+                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
+}
+
+template <typename T, bool RBF>
+int launch(const CUtensorMap& xm, const CUtensorMap& ym,
+           const CUtensorMap& om, const Args& a, int grid,
+           cudaStream_t stream) {
+  const int smem = 1024 + OUT_BYTES + a.nb * (XBOX + 2 * BOX) + 48 +
+                   8 * (WROWS + TM) * 4;
+  auto kern = pairwise_kernel<T, RBF>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, NTH, smem, stream>>>(xm, ym, om, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Whether x and y load by TMA: rows of a multiple of 16 bytes, 16-byte
+// aligned bases, and at most MAX_RES_BOXES boxes of d so the x band and two
+// y stages fit beside the staging buffers.
+bool tma_in_ok(const void* x, const void* y, int64_t d, int esz) {
+  return (d * esz) % 16 == 0 && cdiv(d, 128 / esz) <= MAX_RES_BOXES &&
+         aligned16(x) && aligned16(y);
+}
+
+// ---------------------------------------------------------------------------
+// the other shapes: the first port's tile kernel
+// ---------------------------------------------------------------------------
+
+// One 128 x 128 output tile a block of 256 threads, two blocks an SM: d
+// staged in chunks of 16 by plain loads (tile.cuh tile_product), an 8 x 8
+// micro-tile, sim_of in the epilogue.  Grid (column tiles, row tiles,
+// batch).
+template <typename T, bool RBF>
 __global__ void __launch_bounds__(NT, 2)
-    pairwise_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                    float* __restrict__ out, int64_t nx, int64_t ny,
-                    int64_t d, int64_t x_bs, int64_t y_bs, float hh) {
+    tile_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                float* __restrict__ out, int64_t nx, int64_t ny, int64_t d,
+                int64_t x_bs, int64_t y_bs, float hh) {
   __shared__ __align__(16) float xs[BK * LDS];
   __shared__ __align__(16) float ys[BK * LDS];
   const int64_t b = blockIdx.z;
@@ -69,35 +612,139 @@ __global__ void __launch_bounds__(NT, 2)
 }
 
 template <typename T, bool RBF>
-void launch(const void* x, const void* y, void* out, int64_t batch,
-            int64_t nx, int64_t ny, int64_t d, int64_t x_bs, int64_t y_bs,
-            float hh, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(cdiv(ny, BN)),
-                  static_cast<unsigned>(cdiv(nx, BM)),
+int launch_tiles(const Args& a, int64_t batch, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(cdiv(a.ny, BN)),
+                  static_cast<unsigned>(cdiv(a.nx, BM)),
                   static_cast<unsigned>(batch));
-  pairwise_kernel<T, RBF><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<float*>(out), nx, ny, d, x_bs, y_bs, hh);
+  tile_kernel<T, RBF><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.y), a.out, a.nx,
+      a.ny, a.d, a.x_bs, a.y_bs, a.hh);
+  return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace pw
 }  // namespace sm90
 
 // x: (batch, nx, d) with batch stride x_bs elements; y: (batch, ny, d) with
 // batch stride y_bs (0 = shared); out: (batch, nx, ny) float32, contiguous.
 // bf16 != 0 selects bfloat16 inputs, rbf != 0 the rbf similarity with
-// hh = h * h.  Returns the launch's cudaGetLastError().
+// hh = h * h.  nx, ny < 2^31; where the TMA path does not take the
+// operands (sm90_pairwise_tma), the tile kernel's grid also needs
+// ceil(nx / 128) and batch <= 65535.  Returns the launch's
+// cudaGetLastError(), or a tensor-map error (driver errors offset by 10000).
 extern "C" int sm90_pairwise(const void* x, const void* y, void* out,
                              int64_t batch, int64_t nx, int64_t ny, int64_t d,
                              int64_t x_bs, int64_t y_bs, int64_t bf16,
                              int64_t rbf, float hh, void* stream) {
   using namespace sm90;
+  using namespace sm90::pw;
+  if (batch < 1 || nx < 1 || ny < 1 || d < 1 || nx >= (int64_t{1} << 31) ||
+      ny >= (int64_t{1} << 31) || batch >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int esz = bf16 ? 2 : 4;
+  const int bc = 128 / esz;  // elements of d a 128-byte box
+  Args a{};
+  a.x = x;
+  a.y = y;
+  a.out = static_cast<float*>(out);
+  a.nx = nx;
+  a.ny = ny;
+  a.d = d;
+  a.x_bs = x_bs;
+  a.y_bs = y_bs;
+  a.hh = hh;
+  a.nb = static_cast<int>(cdiv(d, bc));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (rbf) launch<__nv_bfloat16, true>(x, y, out, batch, nx, ny, d, x_bs, y_bs, hh, s);
-    else launch<__nv_bfloat16, false>(x, y, out, batch, nx, ny, d, x_bs, y_bs, hh, s);
-  } else {
-    if (rbf) launch<float, true>(x, y, out, batch, nx, ny, d, x_bs, y_bs, hh, s);
-    else launch<float, false>(x, y, out, batch, nx, ny, d, x_bs, y_bs, hh, s);
+  if (!tma_in_ok(x, y, d, esz)) {
+    if (cdiv(nx, BM) > 65535 || batch > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (bf16)
+      return rbf ? launch_tiles<__nv_bfloat16, true>(a, batch, s)
+                 : launch_tiles<__nv_bfloat16, false>(a, batch, s);
+    return rbf ? launch_tiles<float, true>(a, batch, s)
+               : launch_tiles<float, false>(a, batch, s);
   }
+  a.tma_out = (ny % 4) == 0 && aligned16(out);
+
+  // units: a band of 128 rows with cpc of its column tiles; split a band's
+  // columns only when the bands alone do not fill the card
+  const int nsm = sm_count();
+  a.n_rb = cdiv(nx, TR);
+  a.n_ct = cdiv(ny, TM);
+  const int64_t bands = batch * a.n_rb;
+  int64_t cpb = bands >= nsm ? 1 : cdiv(nsm, bands);
+  if (cpb > a.n_ct) cpb = a.n_ct;
+  a.cpc = cdiv(a.n_ct, cpb);
+  a.cpb = cdiv(a.n_ct, a.cpc);
+  a.units = bands * a.cpb;
+  const int grid = static_cast<int>(a.units < nsm ? a.units : nsm);
+
+  CUtensorMap xm{}, ym{}, om{};
+  const CUtensorMapDataType type = bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = make_map(&xm, type, esz, x, d, nx, x_bs ? batch : 1, d,
+                     x_bs ? x_bs : nx * d, bc, TR);
+  if (err == 0)
+    err = make_map(&ym, type, esz, y, d, ny, y_bs ? batch : 1, d,
+                   y_bs ? y_bs : ny * d, bc, TM);
+  if (err == 0 && a.tma_out)
+    err = make_map(&om, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, ny, nx, batch,
+                   ny, nx * ny, 32, WROWS);
+  if (err != 0) return err;
+  if (bf16)
+    return rbf ? launch<__nv_bfloat16, true>(xm, ym, om, a, grid, s)
+               : launch<__nv_bfloat16, false>(xm, ym, om, a, grid, s);
+  return rbf ? launch<float, true>(xm, ym, om, a, grid, s)
+             : launch<float, false>(xm, ym, om, a, grid, s);
+}
+
+// 1 when the launch at these operands takes the persistent TMA kernel, 0
+// when the tile kernel (for the tests and the smoke, which check that the
+// main shapes take the first).
+extern "C" int sm90_pairwise_tma(const void* x, const void* y, int64_t d,
+                                 int64_t bf16) {
+  return sm90::pw::tma_in_ok(x, y, d, bf16 ? 2 : 4);
+}
+
+namespace sm90 {
+namespace pw {
+
+// The check behind sm90.cuh sim_rn: over every non-negative finite float d2
+// (x2 = d2, dot = y2 = 0, so both functions see d2 itself), block b writes
+// to counts[b] how many d2 give a result that differs in any bit from
+// tile.cuh sim_of<true> at width hh.
+__global__ void __launch_bounds__(NTH) sim_check(float hh, int* counts) {
+  __shared__ int per_warp[NTH / 32];
+  const float rhh = __frcp_rn(hh);
+  const uint32_t stride = gridDim.x * blockDim.x;
+  int n = 0;
+  for (uint32_t b = blockIdx.x * blockDim.x + threadIdx.x; b < 0x7f800000u;
+       b += stride) {
+    const float d2 = __uint_as_float(b);
+    n += __float_as_uint(sim_rn(0.0f, d2, 0.0f, hh, rhh)) !=
+         __float_as_uint(sim_of<true>(0.0f, d2, 0.0f, hh));
+  }
+  n = __reduce_add_sync(0xffffffffu, n);
+  if ((threadIdx.x & 31) == 0) per_warp[threadIdx.x >> 5] = n;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int w = 0; w < NTH / 32; ++w) s += per_warp[w];
+    counts[blockIdx.x] = s;
+  }
+}
+
+}  // namespace pw
+}  // namespace sm90
+
+// counts: `blocks` int32 entries; their sum is the number of d2 at which
+// sim_rn and sim_of differ at width hh (sm90::pw::sim_check).
+extern "C" int sm90_sim_mismatches(float hh, void* counts, int64_t blocks,
+                                   void* stream) {
+  if (blocks < 1 || blocks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  sm90::pw::sim_check<<<static_cast<unsigned>(blocks), sm90::pw::NTH, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      hh, static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
 }

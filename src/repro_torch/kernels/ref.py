@@ -84,9 +84,22 @@ def coverage_gain_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   return (eval_mask.float().unsqueeze(-2) @ inc).squeeze(-2)
 
 
+def live_linv(linv: torch.Tensor, live) -> torch.Tensor:
+  """The live-count contract of the info-gain kernels made explicit:
+  ``tril(linv)`` with the rows and columns at or past ``live`` zeroed
+  (``live`` () or with linv's leading axes)."""
+  k = linv.shape[-1]
+  ar = torch.arange(k, device=linv.device)
+  live = torch.as_tensor(live, device=linv.device)
+  on = ar < live.unsqueeze(-1)                          # (..., k)
+  keep = on.unsqueeze(-1) & on.unsqueeze(-2) & (ar[:, None] >= ar[None, :])
+  return torch.where(keep, linv, 0.0)
+
+
 def info_gain_cond_ref(sel_feats: torch.Tensor, linv: torch.Tensor,
                        cand_feats: torch.Tensor, *, kernel: str = "rbf",
-                       h: float = 0.75, ridge: float = 1.0) -> torch.Tensor:
+                       h: float = 0.75, ridge: float = 1.0,
+                       live=None) -> torch.Tensor:
   """Posterior conditional variance of each candidate given the selected
   set, (..., nc) float32:
 
@@ -94,11 +107,14 @@ def info_gain_cond_ref(sel_feats: torch.Tensor, linv: torch.Tensor,
 
   with k(v, v) = 1 for rbf and |v|^2 for linear.  ``linv`` is inv(L) for
   L = chol(K_SS + ridge I) with the columns past the live selection count
-  zeroed, so padded selection rows contribute nothing.
+  zeroed, so padded selection rows contribute nothing.  With ``live`` (the
+  selection counts) the product uses ``live_linv(linv, live)``, the
+  contract the kernel takes with it; without, linv as it is.
   """
   sel = sel_feats.float()
   cd = cand_feats.float()
-  c = linv.float() @ _sim(sel, cd, kernel, h)           # (..., k, nc)
+  lv = linv.float() if live is None else live_linv(linv.float(), live)
+  c = lv @ _sim(sel, cd, kernel, h)                      # (..., k, nc)
   if kernel == "rbf":
     k_vv = torch.ones(cd.shape[:-1], dtype=torch.float32, device=cd.device)
   else:
@@ -148,13 +164,14 @@ def coverage_select_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
 
 def info_select_ref(sel_feats: torch.Tensor, linv: torch.Tensor,
                     cand_feats: torch.Tensor, cand_ok: torch.Tensor, *,
-                    kernel: str = "rbf", h: float = 0.75, ridge: float = 1.0):
+                    kernel: str = "rbf", h: float = 0.75, ridge: float = 1.0,
+                    live=None):
   """Top-1 over the conditional variances -> (best cond float32, int64
   index).  cond >= 1e-12, so the 0.0 floor of infeasible candidates keeps
   any feasible one ahead; nothing feasible gives (0.0, 0).  The caller maps
   the winning cond through its log, which preserves the order."""
   cond = info_gain_cond_ref(sel_feats, linv, cand_feats, kernel=kernel, h=h,
-                            ridge=ridge)
+                            ridge=ridge, live=live)
   return masked_top1(cond, cand_ok, floor=0.0)
 
 

@@ -147,33 +147,37 @@ def coverage_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
 
 def info_select(sel_feats: torch.Tensor, linv: torch.Tensor,
                 cand_feats: torch.Tensor, cand_ok: torch.Tensor, *,
-                kernel: str = "rbf", h: float = 0.75, ridge: float = 1.0):
+                kernel: str = "rbf", h: float = 0.75, ridge: float = 1.0,
+                live: torch.Tensor | None = None):
   """Fused top-1 conditional variance -> (best cond float32, int64 index),
-  each () or (P,) when an operand carries a partition axis.
+  each () or (P,) when an operand carries a partition axis.  ``live`` is
+  the selection-count contract of ``info_gain.info_gain_cond``.
 
   Tensors on the CPU take the plain version; CUDA tensors launch the
   kernel or raise.
   """
   if not (sel_feats.is_cuda or cand_feats.is_cuda):
     return ref.info_select_ref(sel_feats, linv, cand_feats, cand_ok,
-                               kernel=kernel, h=h, ridge=ridge)
+                               kernel=kernel, h=h, ridge=ridge, live=live)
   global info_launches
   build.check_kernel("info_select", kernel)
-  o = _ig.operands("info_select", sel_feats, linv, cand_feats, cand_ok)
+  build.check_width("info_select", kernel, h)
+  o = _ig.operands("info_select", sel_feats, linv, cand_feats, cand_ok,
+                   live=live)
   dev = o.sel.device
-  n_tiles = -(-o.nc // build.TILE)
-  tile_best = torch.empty((o.n_part, n_tiles), dtype=torch.float32,
+  tile_best = torch.empty((o.n_part, o.tiles), dtype=torch.float32,
                           device=dev)
-  tile_idx = torch.empty((o.n_part, n_tiles), dtype=torch.int32, device=dev)
+  tile_idx = torch.empty((o.n_part, o.tiles), dtype=torch.int32, device=dev)
   best = torch.empty((o.n_part,), dtype=torch.float32, device=dev)
   idx = torch.empty((o.n_part,), dtype=torch.int32, device=dev)
   with torch.cuda.device(dev):
     fn = build.entry("sm90_info_select")
     err = fn(o.sel.data_ptr(), o.linv.data_ptr(), o.cd.data_ptr(),
-             o.ok.data_ptr(), build.ptr(o.scratch), tile_best.data_ptr(),
+             o.ok.data_ptr(), build.ptr(o.live), build.ptr(o.scratch),
+             tile_best.data_ptr(),
              tile_idx.data_ptr(), best.data_ptr(), idx.data_ptr(), o.n_part,
              o.k, o.nc, o.d, *_ig.strides(o), build.batch_stride(o.ok, 1),
-             int(o.sel.dtype == torch.bfloat16),
+             o.live_bs, int(o.sel.dtype == torch.bfloat16),
              int(kernel == "rbf"), float(h * h), float(ridge),
              build.stream_of(o.sel))
   build.check(err, "sm90_info_select")

@@ -10,8 +10,12 @@ Tolerances: f32 within 2e-5 relative to the largest magnitude (1e-4 for
 gain sums over more than 16k eval rows, summed in another order), bf16
 within 3e-2; top-1 indices equal.  The info-gain conds are held the same
 way, the selection built from a real Cholesky factor (float64 on the CPU),
-and so are the saturated-coverage gains; one small selection-service run
-holds a warm-started epoch against a cold one on the card.
+dense and with the selection counts (``live``, junk past the live
+triangle), and so are the saturated-coverage gains; the pairwise kernel is
+held at its edges (both operand paths, shared blocks, plain stores, a
+batch past one wave) and two launches give the same bytes; one small
+selection-service run holds a warm-started epoch against a cold one on the
+card.
 """
 import numpy as np
 import pytest
@@ -88,6 +92,19 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda_device):
                                  "graph_cut_select": 0, "flash_attention": 0}
   with pytest.raises(TypeError, match="linv must be float32"):
     ops.info_gain_cond(sel, linv.double(), x[0])
+  with pytest.raises(ValueError, match="live of shape"):
+    ops.info_gain_cond(sel, linv, x[0], live=torch.zeros(3, dtype=torch.int64,
+                                                         device=cuda_device))
+  with pytest.raises(TypeError, match="integer tensor"):
+    ops.info_select(sel, linv, x[0], torch.ones(50, dtype=torch.bool,
+                                                device=cuda_device),
+                    live=torch.zeros(4, device=cuda_device))
+  with pytest.raises(ValueError, match="rbf width"):
+    ops.pairwise(x, x, kernel="rbf", h=1e-12)
+  with pytest.raises(ValueError, match="0 partitions"):
+    ops.info_gain_cond(torch.zeros(0, 4, 8, device=cuda_device),
+                       torch.zeros(0, 4, 4, device=cuda_device),
+                       torch.zeros(0, 50, 8, device=cuda_device))
   with pytest.raises(TypeError, match="float32 or bfloat16"):
     ops.pairwise(x.half(), x.half())
   with pytest.raises(ValueError, match="contiguous"):
@@ -142,6 +159,146 @@ def test_cuda_info_kernels_match_plain(cuda_device, kernel, dtype):
     _close(got, want, tol)
     assert torch.equal(idx.cpu(), wi.cpu()), (P, k, idx, wi)
     _close(best, wb, tol)
+
+
+def _junk(linv, count, r):
+  """linv with random values in its upper triangle and past ``count``
+  (per partition when count is a sequence)."""
+  k = linv.shape[-1]
+  ar = torch.arange(k, device=linv.device)
+  c = torch.as_tensor(count, device=linv.device)[..., None]
+  on = ar < c
+  keep = on[..., :, None] & on[..., None, :] & (ar[:, None] >= ar[None, :])
+  noise = torch.tensor(r.normal(size=tuple(linv.shape)), device=linv.device)
+  return torch.where(keep, linv, noise.float()).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["linear", "rbf"])
+def test_cuda_info_kernels_live_match_plain(cuda_device, kernel, dtype):
+  """With the selection counts the kernels equal the plain versions under
+  the same contract at counts 0, partial and k_max (k_max 7, 128 and 400,
+  whose linv is read from L2), with junk past the live triangle; one launch
+  over partitions of different counts; and the dense call on the masked
+  factor."""
+  td, tol = DTYPES[dtype]
+  r = np.random.default_rng(17)
+  dev = cuda_device
+  for (P, k, counts, nc, d) in [(2, 7, (0, 7), 300, 6),
+                                (3, 128, (0, 64, 128), 1037, 6),
+                                (3, 128, (1, 17, 100), 700, 22),
+                                (2, 400, (200, 400), 257, 6)]:
+    parts = [_ig_operands(r, None, k, c, nc, d, kernel, td, dev)
+             for c in counts]
+    sel = torch.stack([p_[0] for p_ in parts])
+    clean = torch.stack([p_[1] for p_ in parts])
+    cand = torch.stack([p_[2] for p_ in parts])
+    live = torch.tensor(counts, device=dev)
+    linv = _junk(clean, counts, r)
+    ok = torch.tensor(r.uniform(size=(len(counts), nc)) > 0.3, device=dev)
+    got = ops.info_gain_cond(sel, linv, cand, kernel=kernel, live=live)
+    best, idx = ops.info_select(sel, linv, cand, ok, kernel=kernel, live=live)
+    dense = ops.info_gain_cond(sel, clean, cand, kernel=kernel)
+    torch.cuda.synchronize()
+    want = ref.info_gain_cond_ref(sel, linv, cand, kernel=kernel, live=live)
+    wb, wi = ref.masked_top1(want, ok, floor=0.0)
+    _close(got, want, tol)
+    _close(dense, want, tol)
+    assert torch.equal(idx.cpu(), wi.cpu()), (k, counts, idx, wi)
+    _close(best, wb, tol)
+    for p, c in enumerate(counts):  # one partition alone, a scalar count
+      one = ops.info_gain_cond(sel[p], linv[p], cand[p], kernel=kernel,
+                               live=torch.tensor(c, device=dev))
+      assert torch.equal(one, got[p])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["linear", "rbf"])
+@pytest.mark.parametrize("k,counts,nc,d", [(512, (300, 512), 700, 64),
+                                           (64, (10, 64), 500, 768),
+                                           (2100, (2100,), 300, 6),
+                                           (5000, (4000, 5000), 200, 6)])
+def test_cuda_info_kernels_past_shared_memory(cuda_device, k, counts, nc, d,
+                                              kernel):
+  """Shapes whose sel rows, cross tile or candidate stages do not fit the
+  staged modes' shared memory (the GENERIC mode: d 64 at k 512, d 768 at
+  k 64, k 2100 past 256 slots, and k 5000 with X in device scratch) against
+  the plain versions, dense and with the selection counts (junk past the
+  live triangle), f32 and, at the first two, bf16."""
+  r = np.random.default_rng(19)
+  dev = cuda_device
+  for dtype in (("f32", "bf16") if k <= 512 else ("f32",)):
+    td, tol = DTYPES[dtype]
+    parts = [_ig_operands(r, None, k, c, nc, d, kernel, td, dev)
+             for c in counts]
+    sel = torch.stack([p_[0] for p_ in parts])
+    clean = torch.stack([p_[1] for p_ in parts])
+    cand = torch.stack([p_[2] for p_ in parts])
+    live = torch.tensor(counts, device=dev)
+    linv = _junk(clean, counts, r)
+    ok = torch.tensor(r.uniform(size=(len(counts), nc)) > 0.3, device=dev)
+    for lv, lf in ((None, clean), (live, linv)):
+      got = ops.info_gain_cond(sel, lf, cand, kernel=kernel, live=lv)
+      best, idx = ops.info_select(sel, lf, cand, ok, kernel=kernel, live=lv)
+      torch.cuda.synchronize()
+      want = ref.info_gain_cond_ref(sel, lf, cand, kernel=kernel, live=lv)
+      wb, wi = ref.masked_top1(want, ok, floor=0.0)
+      _close(got, want, tol)
+      _close(best, wb, tol)
+      assert torch.equal(idx.cpu(), wi.cpu()), (k, d, dtype, idx, wi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hh", [1e-20, 1e-12, 1e-6, 0.01, 0.5625, 1.0, 2.0,
+                                7.3, 1e6, 1e20])
+def test_cuda_sim_rn_equals_sim_of_bitwise(cuda_device, hh):
+  """The pairwise and info-gain kernels' division-free rbf value
+  (csrc/sm90.cuh sim_rn) equals tile.cuh's sim_of in every bit at every
+  non-negative finite squared distance, at widths across the range the
+  wrappers take (h * h within [1e-20, 1e20])."""
+  from repro_torch.kernels import pairwise as pw
+  assert pw.sim_mismatches(hh, cuda_device) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_pairwise_edges(cuda_device, dtype):
+  """The pairwise kernel against its plain version at ragged nx / ny, d of
+  6, 17, 22, 36, 64, 128 and 130 (the persistent TMA kernel at d = 64, 36
+  in f32 and 128 in bf16; the tile kernel where d * itemsize is not a
+  multiple of 16 or past 2 boxes, or a base is misaligned), a shared y and
+  a shared x block, ny not a multiple of 4 (plain stores), a batch past one
+  wave of persistent blocks; two launches give the same bytes."""
+  from repro_torch.kernels import pairwise as pw
+  td, tol = DTYPES[dtype]
+  r = np.random.default_rng(14)
+  cases = [((2, 1000, 64), (2, 1037, 64), True),
+           ((3, 200, 6), (3, 130, 6), False),
+           ((2, 300, 22), (300, 22), False),
+           ((2, 257, 130), (2, 129, 130), False),
+           ((1, 129, 36), (1, 131, 36), dtype == "f32"),
+           ((300, 130, 64), (300, 64, 64), True),
+           ((100, 64), (4, 77, 64), True),
+           ((5, 128, 64), (128, 64), True),
+           ((1, 4096, 64), (1, 1023, 64), True),
+           ((2, 300, 128), (2, 257, 128), dtype == "bf16"),
+           ((2, 131, 17), (2, 70, 17), False),
+           ("offset", (2, 200, 64), (2, 90, 64), False)]
+  for case in cases:
+    xs, ys, tma = case[-3:]
+    x = torch.tensor(r.normal(size=xs), device=cuda_device).to(td)
+    y = torch.tensor(r.normal(size=ys), device=cuda_device).to(td)
+    if case[0] == "offset":  # bases one element past 16-byte alignment
+      x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(xs)
+      y = torch.cat([y.new_zeros(1), y.flatten()])[1:].view(ys)
+    assert pw.takes_tma(x, y) == tma, (xs, ys)
+    for kernel in ("linear", "rbf"):
+      got = ops.pairwise(x, y, kernel=kernel)
+      again = ops.pairwise(x, y, kernel=kernel)
+      torch.cuda.synchronize()
+      _close(got, ref.pairwise_ref(x, y, kernel=kernel), tol)
+      assert torch.equal(got, again)
 
 
 def _cov_operands(r, lead, ne, nc, d, td, dev):

@@ -10,6 +10,12 @@ objectives ``InformationGain`` and ``LogDetDPP`` are held against the
 reference's on a state the reference built part way through a greedy run,
 carried across by ``interop.ig_state``.
 
+With the selection counts (``live``) the port's plain versions apply the
+kernel's contract (``tril(linv)`` with the rows and columns at or past the
+count zeroed); on the reference's ``_masked_linv`` factors, and on such a
+factor carrying junk past its live triangle, they are held to the JAX
+kernel on the masked factor, per partition when the counts differ.
+
 Tolerances: cond within 2e-5 (f32) or 3e-2 (bf16) relative to the largest
 magnitude (the rule of tests/test_kernels.py); top-1 indices equal.  The
 DPP's cond is k_vv + 1e-6 - |L^-1 k|^2, a difference of nearly equal
@@ -27,6 +33,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import objectives as JO  # noqa: E402
+from repro.core.objectives import _masked_linv as j_masked_linv  # noqa: E402
 from repro.core.greedy import greedy as j_greedy  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
@@ -288,3 +295,145 @@ def test_update_at_full_buffer_mirrors_reference():
   from repro_torch.core.greedy import greedy
   with pytest.raises(ValueError, match="k_max"):
     greedy(tobj, tobj.init_d(d), torch.tensor(x), k_max + 1)
+
+
+# ---------------------------------------------------------------------------
+# the selection-count contract (``live``)
+# ---------------------------------------------------------------------------
+
+K_MAX = 9
+LIVE_COUNTS = [0, 1, 5, K_MAX]  # empty, one row, partial, full buffer
+
+
+def _ref_state(count, d, kernel, seed, k_max=K_MAX):
+  """The reference's information-gain state after ``count`` updates: its
+  selection block, its ``_masked_linv`` factor and the count, as numpy."""
+  kw = (("h", 0.75),) if kernel == "rbf" else ()
+  jobj = JO.InformationGain(k_max=k_max, kernel=kernel, kernel_kwargs=kw,
+                            sigma=0.7, backend="ref")
+  st = jobj.init_d(d)
+  x = _feats(max(count, 1), d, seed)
+  for i in range(count):
+    st = jobj.update(st, jnp.asarray(x[i]))
+  return (np.asarray(st.sel_feats, np.float32),
+          np.asarray(j_masked_linv(st.chol, st.count), np.float32),
+          int(st.count))
+
+
+def _junk(linv, count, seed):
+  """``linv`` with random values in its upper triangle and in the rows and
+  columns at or past ``count``: what the live contract masks away."""
+  k = linv.shape[-1]
+  ar = np.arange(k)
+  keep = ((ar[:, None] < count) & (ar[None, :] < count)
+          & (ar[:, None] >= ar[None, :]))
+  junk = np.random.default_rng(seed).normal(size=linv.shape)
+  return np.where(keep, linv, junk).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["linear", "rbf"])
+@pytest.mark.parametrize("count", LIVE_COUNTS)
+def test_live_matches_reference_on_masked_linv(count, kernel, dtype):
+  """With ``live`` the plain versions equal the JAX kernel on the
+  reference's masked factor, at counts 0, 1, partial and k_max."""
+  sel, linv, c = _ref_state(count, 6, kernel, seed=30 + count)
+  assert c == count
+  cand = _feats(133, 6, seed=31)
+  ok = np.random.default_rng(32).uniform(size=(133,)) > 0.3
+  (js, ts), (jc, tc) = _both(sel, dtype), _both(cand, dtype)
+  live = torch.tensor(count)
+  got = ops.info_gain_cond(ts, torch.tensor(linv), tc, kernel=kernel,
+                           ridge=0.49, live=live).numpy()
+  tol = DTYPES[dtype][2]
+  _close(got, jops.info_gain_cond(js, jnp.asarray(linv), jc, kernel=kernel,
+                                  ridge=0.49), tol)
+  best, idx = ops.info_select(ts, torch.tensor(linv), tc, torch.tensor(ok),
+                              kernel=kernel, ridge=0.49, live=live)
+  jb, ji = jops.info_select(js, jnp.asarray(linv), jc, jnp.asarray(ok),
+                            kernel=kernel, ridge=0.49)
+  assert int(idx) == int(ji)
+  _close(float(best), float(jb), tol)
+
+
+@pytest.mark.parametrize("kernel", ["linear", "rbf"])
+@pytest.mark.parametrize("count", [0, 3, K_MAX])
+def test_live_masks_junk_past_the_live_triangle(count, kernel):
+  """A factor with junk in its upper triangle and past ``live`` gives, with
+  ``live``, what the JAX kernel gives on the masked factor; the dense call
+  on the same junk does not."""
+  sel, linv, _ = _ref_state(count, 5, kernel, seed=40 + count)
+  cand = _feats(97, 5, seed=41)
+  junk = _junk(linv, count, seed=42)
+  got = ops.info_gain_cond(torch.tensor(sel), torch.tensor(junk),
+                           torch.tensor(cand), kernel=kernel, ridge=0.49,
+                           live=torch.tensor(count)).numpy()
+  want = jops.info_gain_cond(jnp.asarray(sel), jnp.asarray(linv),
+                             jnp.asarray(cand), kernel=kernel, ridge=0.49)
+  _close(got, want, 2e-5)
+  np.testing.assert_array_equal(
+      ref.live_linv(torch.tensor(junk), torch.tensor(count)).numpy(),
+      np.tril(np.where(np.arange(K_MAX) < count, 1.0, 0.0)[:, None]
+              * np.where(np.arange(K_MAX) < count, 1.0, 0.0)[None, :]
+              * junk).astype(np.float32))
+  if 0 < count < K_MAX:
+    dense = ops.info_gain_cond(torch.tensor(sel), torch.tensor(junk),
+                               torch.tensor(cand), kernel=kernel,
+                               ridge=0.49).numpy()
+    assert np.abs(dense - np.asarray(want)).max() > 1e-3
+
+
+@pytest.mark.parametrize("shared_cands", [True, False])
+def test_live_partitions_with_different_counts(shared_cands):
+  """One batched call over partitions at counts 0, 4 and k_max (junk past
+  each live triangle) equals the JAX kernel per partition on its masked
+  factor."""
+  counts = (0, 4, K_MAX)
+  states = [_ref_state(c, 7, "rbf", seed=50 + c) for c in counts]
+  sel = np.stack([s_[0] for s_ in states])
+  linv = np.stack([_junk(s_[1], c, seed=51 + c)
+                   for s_, c in zip(states, counts)])
+  cands = [_feats(150, 7, seed=52 + p) for p in range(3)]
+  cand = cands[0] if shared_cands else np.stack(cands)
+  ok = np.random.default_rng(53).uniform(size=(3, 150)) > 0.2
+  live = torch.tensor(counts)
+  got = ops.info_gain_cond(torch.tensor(sel), torch.tensor(linv),
+                           torch.tensor(cand), live=live).numpy()
+  best, idx = ops.info_select(torch.tensor(sel), torch.tensor(linv),
+                              torch.tensor(cand), torch.tensor(ok), live=live)
+  for p, (s_, c) in enumerate(zip(states, counts)):
+    cp = cand if shared_cands else cand[p]
+    _close(got[p], jops.info_gain_cond(jnp.asarray(s_[0]),
+                                       jnp.asarray(s_[1]), jnp.asarray(cp)),
+           2e-5)
+    jb, ji = jops.info_select(jnp.asarray(s_[0]), jnp.asarray(s_[1]),
+                              jnp.asarray(cp), jnp.asarray(ok[p]))
+    assert int(idx[p]) == int(ji)
+    _close(float(best[p]), float(jb), 2e-5)
+
+
+@pytest.mark.parametrize("name,kernel,kw,scale", OBJECTIVES)
+@pytest.mark.parametrize("count", [0, 1, K_MAX - 1, K_MAX])
+def test_objective_gains_select_across_counts(count, name, kernel, kw,
+                                              scale):
+  """The objectives' gains and select (which pass their selection count
+  to the kernels as ``live``) on a state the reference built by ``count``
+  updates, carried across by ``interop.ig_state``, against the
+  reference's."""
+  d, n = 6, 120
+  x = _feats(n, d, seed=60 + count, scale=scale)
+  jobj, tobj = _objectives(name, kernel, kw, K_MAX)
+  jst = jobj.init_d(d)
+  for i in range(count):
+    jst = jobj.update(jst, jnp.asarray(x[(7 * i) % n]))
+  tst = interop.ig_state(jax.tree.map(np.asarray, jst))
+  assert int(tst.count) == count
+  jx, tx = jnp.asarray(x), torch.tensor(x)
+  k_vv = (x * x).sum(1) if kernel == "linear" else np.ones(n)
+  _hold_cond(name, tobj.gains(tst, tx).numpy(),
+             np.asarray(jobj.gains(jst, jx)), k_vv, tobj)
+  ok = np.random.default_rng(61).uniform(size=(n,)) > 0.25
+  tb, ti = tobj.select(tst, tx, torch.tensor(ok))
+  jb, ji = jobj.select(jst, jx, jnp.asarray(ok))
+  assert int(ti) == int(ji)
+  _hold_cond(name, [float(tb)], [float(jb)], k_vv, tobj)

@@ -69,6 +69,60 @@ def test_pairwise_matches_reference(ne, nc, d, kernel, dtype):
   _close(got, jref.pairwise_ref(jx, jy, kernel=kernel), tol)
 
 
+@pytest.mark.parametrize("layout", ["batched", "shared_y", "shared_x"])
+@pytest.mark.parametrize("d", [6, 22, 64, 130])
+def test_pairwise_batch_layouts_match_reference(d, layout):
+  """The batch layouts the pairwise kernel takes (both operands batched, a
+  shared y block as for s2, a shared x block), at widths off and on its TMA
+  path (d = 64) and past it (130), ragged against its 256 x 128 tiles,
+  equal the reference per batch entry, linear and rbf."""
+  r = np.random.default_rng(10 + d)
+  B, nx, ny = 3, 70, 45
+  x = r.normal(size=(B, nx, d)).astype(np.float32) / np.sqrt(d)
+  y = r.normal(size=(B, ny, d)).astype(np.float32) / np.sqrt(d)
+  tx = torch.tensor(x[0] if layout == "shared_x" else x)
+  ty = torch.tensor(y[0] if layout == "shared_y" else y)
+  for kernel in ("linear", "rbf"):
+    got = ops.pairwise(tx, ty, kernel=kernel)
+    assert got.shape == (B, nx, ny)
+    for b in range(B):
+      xb = x[0] if layout == "shared_x" else x[b]
+      yb = y[0] if layout == "shared_y" else y[b]
+      _close(got[b].numpy(), jref.pairwise_ref(xb, yb, kernel=kernel), 2e-5)
+
+
+@pytest.mark.parametrize("count", [0, 2, 6])
+def test_info_gain_live_through_the_registry(count):
+  """``live`` reaches the plain versions through every backend of the
+  registry ("ref" and "auto" agree), and ``ref.live_linv`` is the mask the
+  kernels apply: tril with the rows and columns at or past the count
+  zeroed, per partition."""
+  r = np.random.default_rng(20 + count)
+  junk = torch.tensor(r.normal(size=(2, 6, 6)).astype(np.float32))
+  live = torch.tensor([count, 6 - count])
+  masked = ref.live_linv(junk, live)
+  for p, c in enumerate((count, 6 - count)):
+    want = np.tril(junk[p].numpy())
+    want[c:, :] = 0.0
+    want[:, c:] = 0.0
+    np.testing.assert_array_equal(masked[p].numpy(), want)
+  sel = torch.tensor(r.normal(size=(2, 6, 5)).astype(np.float32))
+  cand = torch.tensor(r.normal(size=(40, 5)).astype(np.float32))
+  ok = torch.ones(2, 40, dtype=torch.bool)
+  kw = dict(kernel="rbf", h=0.9, ridge=0.3, live=live)
+  want = ref.info_gain_cond_ref(sel, masked, cand, kernel="rbf", h=0.9,
+                                ridge=0.3)
+  for backend in ("ref", "auto"):
+    torch.testing.assert_close(
+        dispatch.resolve("info_gain_cond", backend)(sel, junk, cand, **kw),
+        want)
+    b, i = dispatch.resolve_select("info_gain_cond", backend)(sel, junk, cand,
+                                                              ok, **kw)
+    wb, wi = ref.masked_top1(want, ok, floor=0.0)
+    torch.testing.assert_close(b, wb)
+    assert torch.equal(i, wi)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("kernel", ["linear", "rbf"])
 @pytest.mark.parametrize("ne,nc,d", SHAPES)
