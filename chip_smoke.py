@@ -52,7 +52,10 @@ tensor-core kernel, f32 on the FFMA kernel; the pairwise kernel at ragged
 nx / ny, d of 6, 17, 22, 36, 64, 128 and 130, a shared x or y block, bf16,
 misaligned bases, rows not 16-byte aligned and a batch past one wave of
 its persistent blocks, its TMA path at the main shapes and its tile kernel
-(the other operands) timed at s11's shape with d of 22 and 128; the info-gain kernels with
+(the other operands) timed at s11's shape with d of 22 and 128; the
+facility / coverage kernel on both of its paths, the persistent one
+required at every full-size shape and its ``path`` in each row, the first
+port's tile kernel at d 22; the info-gain kernels with
 the objectives' selection counts (``live``: count-aware, the live triangle
 of linv) and without (dense), at counts 0, partial and full, partitions of
 different counts in one launch, a linv with junk past its live triangle,
@@ -348,12 +351,24 @@ def fl_state(g, n_part, ne, nc, d, dtype):
   return ev, cd, cov, mask, ok
 
 
+def fl_path(label, ev, cd, cov, mask, ok, cap=None,
+            want="persistent"):
+  """The stage-1 path and work plan of a facility-family call
+  (``facility_gain.operands``); fails unless the path is ``want``."""
+  from repro_torch.kernels import facility_gain as fg
+  o = fg.operands(label, ev, cd, cov, mask, ok, cap=cap)
+  check(o.path == want, f"{label}: takes the {o.path} path, want {want}")
+  return dict(path=o.path, eval_chunks=o.plan.chunks, units=o.plan.units)
+
+
 def facility_phase(label, ev, cd, cov, mask, ok, kernel, dtype, chunk,
                    counts):
   """facility_gain and facility_select vs the plain version; the plain
   side runs ``chunk`` partitions at a time.  ``counts`` are the kernels'
-  launches on the full-size main path."""
+  launches on the full-size main path.  Every shape it is given is a
+  full-size one, so it must take the persistent kernel."""
   from repro_torch.kernels import ops, ref
+  plan = fl_path(f"facility {label} {kernel} {dtype}", ev, cd, cov, mask, ok)
   gains = ops.facility_gain(ev, cd, cov, mask, kernel=kernel)
   best, idx = ops.facility_select(ev, cd, cov, mask, ok, kernel=kernel)
   sync()
@@ -412,11 +427,8 @@ def facility_phase(label, ev, cd, cov, mask, ok, kernel, dtype, chunk,
   peak = dtype
   g_bound = bound_ms(read + n_part * nc * 4, flops, peak)
   s_bound = bound_ms(read + ok.numel() + n_part * 8, flops, peak)
-  from repro_torch.kernels import build
-  from repro_torch.kernels.facility_gain import eval_chunks
-  chunks = eval_chunks(-(-nc // build.TILE) * n_part, ne, ev.device)
   common = dict(shape=[n_part, ne, nc, d], kernel=kernel, dtype=dtype,
-                tol=tol, eval_chunks=chunks)
+                tol=tol, **plan)
   g_row = dict(common, max_abs_err=g_abs, max_rel_err=g_rel,
                kernel_ms=gain_ms, plain_ms=pg_ms, library_ms=None,
                bound_ms=g_bound[0], bound_by=g_bound[1],
@@ -432,23 +444,32 @@ def facility_phase(label, ev, cd, cov, mask, ok, kernel, dtype, chunk,
 
 
 def edge_phase():
-  """Ragged sizes, an all-infeasible ok, and exact ties from duplicated
-  candidate rows, on the card."""
+  """Ragged sizes on both stage-1 paths of the facility kernels (d 40 on
+  the persistent kernel, d 22 on the tile kernel; two calls give the same
+  bits), an all-infeasible ok, and exact ties from duplicated candidate
+  rows, on the card."""
   import torch
 
   from repro_torch.kernels import ops, ref
   g = torch.Generator(device=DEVICE).manual_seed(11)
+  paths = []
   for kernel in ("linear", "rbf"):
-    ev, cd, cov, mask, ok = fl_state(g, 3, 1000, 1037, 40, None)
-    gains = ops.facility_gain(ev, cd, cov, mask, kernel=kernel)
-    best, idx = ops.facility_select(ev, cd, cov, mask, ok, kernel=kernel)
-    want = ref.facility_gain_ref(ev, cd, cov, mask, kernel=kernel)
-    wb, wi = ref.masked_top1(want, ok)
-    sync()
-    _, er = errors(gains, want)
-    check(er <= TOL["f32"] and torch.equal(idx, wi),
-          f"ragged {kernel}: err {er:.3e}, idx {idx.tolist()} vs "
-          f"{wi.tolist()}")
+    for d, want_path in ((22, "tile"), (40, "persistent")):
+      ev, cd, cov, mask, ok = fl_state(g, 3, 1000, 1037, d, None)
+      paths.append(fl_path(f"ragged d{d}", ev, cd, cov, mask, ok,
+                           want=want_path)["path"])
+      gains = ops.facility_gain(ev, cd, cov, mask, kernel=kernel)
+      again = ops.facility_gain(ev, cd, cov, mask, kernel=kernel)
+      best, idx = ops.facility_select(ev, cd, cov, mask, ok, kernel=kernel)
+      want = ref.facility_gain_ref(ev, cd, cov, mask, kernel=kernel)
+      wb, wi = ref.masked_top1(want, ok)
+      sync()
+      _, er = errors(gains, want)
+      check(er <= TOL["f32"] and torch.equal(idx, wi),
+            f"ragged d{d} {kernel}: err {er:.3e}, idx {idx.tolist()} vs "
+            f"{wi.tolist()}")
+      check(torch.equal(gains, again), f"ragged d{d} {kernel}: two calls "
+            "differ")
     s = ops.pairwise(ev, cd[0], kernel=kernel)
     _, es = errors(s, ref.pairwise_ref(ev, cd[0], kernel=kernel))
     check(es <= TOL["f32"], f"ragged pairwise {kernel}: err {es:.3e}")
@@ -482,7 +503,8 @@ def edge_phase():
     sync()
     check(torch.equal(idx, wi) and torch.equal(best, wb),
           f"ties {kernel}: {idx.tolist()} vs {wi.tolist()}")
-  emit("kernel edges", ragged=[3, 1000, 1037, 40], all_infeasible="(NEG, 0)",
+  emit("kernel edges", ragged=[[3, 1000, 1037, 22], [3, 1000, 1037, 40]],
+       paths=paths, repeat="identical bits", all_infeasible="(NEG, 0)",
        ties="lowest index", result="pass")
 
 
@@ -1603,6 +1625,8 @@ def cov_kernel_phase(sz, path_counts: dict):
           g, lead, ne, nc, sz.d, td, shared_ev=sh_ev, shared_cands=sh_cd,
           shared_cap=sh_cap)
       kw = dict(kernel=kernel)
+      plan = fl_path(f"coverage {label} {kernel} {dtype}", ev, cd, cover,
+                     mask, ok, cap=cap)
       gains = ops.coverage_gain(ev, cd, cover, cap, mask, **kw)
       best, idx = ops.coverage_select(ev, cd, cover, cap, mask, ok, **kw)
       sync()
@@ -1631,13 +1655,9 @@ def cov_kernel_phase(sz, path_counts: dict):
       ps_ms = time_ms(lambda: ref.masked_top1(cov_plain(
           ev, cd, cover, cap, mask, kernel, sz.plain_chunk), ok), reps=1)
       esz = cd.element_size()
-      from repro_torch.kernels import build
-      from repro_torch.kernels.facility_gain import eval_chunks
-      n_p = 1 if P is None else P
-      chunks = eval_chunks(-(-nc // build.TILE) * n_p, ne, cd.device)
       common = dict(shape=[P, ne, nc, sz.d], kernel=kernel, dtype=dtype,
                     shared=dict(eval=sh_ev, candidates=sh_cd, cap=sh_cap),
-                    tol=tol, eval_chunks=chunks, library_ms=None)
+                    tol=tol, **plan, library_ms=None)
       for name, err, ms, p_ms, select in (
           ("coverage_gain", dict(max_abs_err=g_abs, max_rel_err=g_rel),
            gain_ms, pg_ms, False),
@@ -3050,7 +3070,8 @@ def main() -> int:
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=r["shape"],
         **{extra: r[extra] for extra in ("bound_dense_ms", "dense_ms",
-                                         "tma", "tflops", "bound_share")
+                                         "tma", "path", "tflops",
+                                         "bound_share")
            if extra in r}))
   emit("total", seconds=time.perf_counter() - t_start)
   print(gpu, flush=True)

@@ -28,7 +28,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-TILE = 128         # rows of a kernel tile (csrc/tile.cuh BM and BN)
+TILE = 128         # rows of a kernel tile (csrc/tile.cuh BM and BN; the
+                   # eval tile of both csrc/facility.cu paths)
 MAX_GRID = 65535   # CUDA's limit on gridDim.y and gridDim.z
 
 P = ctypes.c_void_p
@@ -53,6 +54,10 @@ ENTRIES = {
     "sm90_coverage_gain": ("facility",
                            [P, P, P, P, P, P, P, I64, I64, I64, I64, I64,
                             I64, I64, I64, I64, I64, I64, I64, F32, P]),
+    "sm90_facility_tma": ("facility",
+                          [P, P, P, P, P, I64, I64, I64, I64, I64, I64, I64,
+                           I64]),
+    "sm90_facility_band": ("facility", [I64]),
     "sm90_coverage_select": ("facility",
                              [P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64,
                               I64, I64, I64, I64, I64, I64, I64, I64, I64,
@@ -192,9 +197,9 @@ def check_kernel(name: str, kernel: str) -> None:
 
 
 def check_width(name: str, kernel: str, h: float) -> None:
-  """The rbf width the pairwise and info-gain kernels take: h * h within
-  [1e-20, 1e20], where their division-free quotient (csrc/sm90.cuh) is the
-  IEEE one."""
+  """The rbf width the pairwise, facility / coverage and info-gain kernels
+  take: h * h within [1e-20, 1e20], where their division-free quotient
+  (csrc/sm90.cuh) is the IEEE one."""
   if kernel == "rbf" and not 1e-20 <= h * h <= 1e20:
     raise ValueError(f"{name}: rbf width h={h!r} outside the kernel's range "
                      "(h * h within [1e-20, 1e20])")

@@ -6,11 +6,12 @@ For every candidate j (per partition when batched), Lin & Bilmes'
     gain[j] = sum_i mask_i * [min(cover_i + s_ij, cap_i) - min(cover_i, cap_i)]
 
 with s_ij = max(sim(e_i, c_j), 0).  The CUDA kernel is the coverage
-epilogue of ``csrc/facility.cu`` (the facility kernel's tile product,
-fixed-order reductions and eval-axis chunks, with the saturation clamp in
-place of the facility relu; see the header there).  Its plain version is
-``ref.coverage_gain_ref``.  Each operand may carry the partition axis or
-be shared by every partition (batch stride 0), the cap included.
+epilogue of ``csrc/facility.cu`` (the facility kernel's tile product on
+either of its paths, fixed-order reductions and eval-axis chunks, with the
+saturation clamp in place of the facility relu; see the header there).
+Its plain version is ``ref.coverage_gain_ref``.  Each operand may carry
+the partition axis or be shared by every partition (batch stride 0), the
+cap included.
 """
 from __future__ import annotations
 
@@ -36,10 +37,11 @@ def coverage_gain(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
                                  eval_mask, kernel=kernel, h=h)
   global launches
   build.check_kernel("coverage_gain", kernel)
+  build.check_width("coverage_gain", kernel, h)
   o = operands("coverage_gain", eval_feats, cand_feats, cover, eval_mask,
                cap=cap)
   dev = o.ev.device
-  part = torch.empty((o.chunks, o.n_part, o.nc), dtype=torch.float32,
+  part = torch.empty((o.plan.chunks, o.n_part, o.nc), dtype=torch.float32,
                      device=dev)
   gains = torch.empty((o.n_part, o.nc), dtype=torch.float32, device=dev)
   with torch.cuda.device(dev):
@@ -49,7 +51,7 @@ def coverage_gain(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
              gains.data_ptr(), o.n_part, o.ne, o.nc, o.d,
              build.batch_stride(o.ev, 2), build.batch_stride(o.cd, 2),
              build.batch_stride(o.cov, 1), build.batch_stride(o.cap, 1),
-             build.batch_stride(o.mask, 1), o.chunks,
+             build.batch_stride(o.mask, 1), o.plan.chunks,
              int(o.ev.dtype == torch.bfloat16), int(kernel == "rbf"),
              float(h * h), build.stream_of(o.ev))
   build.check(err, "sm90_coverage_gain")

@@ -1,6 +1,6 @@
-// Shared by the persistent kernels pairwise.cu and info_gain.cu: the SM
-// count their grids are sized by, and the rbf similarity without the
-// division's slow path.
+// Shared by the persistent kernels pairwise.cu, facility.cu and
+// info_gain.cu: the SM count their grids are sized by, and the rbf
+// similarity without the division's slow path.
 #pragma once
 
 #include <cstdint>

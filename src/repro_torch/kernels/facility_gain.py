@@ -6,10 +6,17 @@ For every candidate j (per partition when batched)
     gain[j] = sum_i mask_i * max(sim(e_i, c_j) - cov_i, 0)
 
 The CUDA kernel is ``csrc/facility.cu`` (stage 1 keeps the similarity tile
-in registers and reduces it to column sums; stage 2 sums the eval-axis
-chunks in a fixed order; see the header there for its bound and design).
-Its plain version is ``ref.facility_gain_ref``.  The wrapper needs no
-padding: the kernel masks ragged edges itself.
+in registers and reduces it to per-candidate sums; stage 2 sums the
+eval-axis chunks in a fixed order; see the header there for its bound and
+design).  Stage 1 has two paths, picked by the kernel library's shape rule:
+the persistent kernel (a resident 256-row candidate band, eval tiles
+through a TMA ring) for features TMA takes, the first port's tile kernel
+(128-candidate tiles, both operands staged by plain loads) for the rest
+(rows not a multiple of 16 bytes, d past 2 boxes of 128 bytes, misaligned
+bases).  ``operands`` reports the path and the work plan; ``plan`` is the
+plan as a pure function of the shapes.  Its plain version is
+``ref.facility_gain_ref``.  The wrapper needs no padding: the kernel masks
+ragged edges itself.
 """
 from __future__ import annotations
 
@@ -28,17 +35,68 @@ def _sm_count(index: int) -> int:
   return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def eval_chunks(n_blocks: int, ne: int, device: torch.device) -> int:
-  """How many fixed eval-axis ranges stage 1 splits into: 1 when candidate
-  tiles x partitions already give every SM several blocks, else enough
-  ranges for about four blocks per SM (at most one per eval tile).  A pure
-  function of the shapes and the card, so the summation order -- and with
-  it every result bit -- is fixed for a given call."""
-  target = 4 * _sm_count(device.index if device.index is not None
-                         else torch.cuda.current_device())
-  if n_blocks >= target:
-    return 1
-  return max(1, min(-(-target // n_blocks), -(-ne // build.TILE)))
+def sm_count(device: torch.device) -> int:
+  """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+  return _sm_count(device.index if device.index is not None
+                   else torch.cuda.current_device())
+
+
+UNIT_COST = 0.25  # a work unit's band load and final reduction, in eval
+                  # tiles' worth of products (the plan's cost model)
+
+
+@functools.lru_cache(maxsize=4096)
+def eval_chunks(n_bands: int, ne: int, slots: int) -> int:
+  """How many fixed eval-axis ranges stage 1 splits into, for ``n_bands``
+  candidate bands (of all partitions) over ``ne`` eval rows on a card that
+  runs ``slots`` stage-1 blocks at once.
+
+  Each range holds ceil(tiles / chunks) eval tiles of ``build.TILE`` rows,
+  every range at least one (chunks is rounded down to fit), and a work unit
+  is one band over one range.  The count is the one that minimises the
+  modelled time, waves x (tiles a unit + ``UNIT_COST``), among those that
+  give every slot a unit where the shape allows (up to 8 units a slot; a
+  larger count is taken only when it is modelled more than 1 % faster).
+  A pure function of the shapes and the card, so the summation order --
+  and with it every result bit -- is fixed for a given call."""
+  tiles = -(-ne // build.TILE)
+  need = min(slots, n_bands * tiles)  # units that give every slot work
+  best, best_cost = 1, None
+  for c in range(1, min(tiles, -(-8 * slots // n_bands)) + 1):
+    per = -(-tiles // c)
+    chunks = -(-tiles // per)  # c rounded down so that no range is empty
+    units = n_bands * chunks
+    if units < need:
+      continue
+    cost = -(-units // slots) * (per + UNIT_COST)
+    if best_cost is None or cost < 0.99 * best_cost:
+      best, best_cost = chunks, cost
+  return best
+
+
+class Plan(NamedTuple):
+  """The work plan of one call: units of (partition, candidate band, eval
+  chunk), chunk c holding eval tiles [c * per_chunk, (c + 1) * per_chunk)
+  of the ``tiles``."""
+  band: int       # candidate rows a band (csrc/facility.cu, by path)
+  bands: int      # bands a partition
+  tiles: int      # eval tiles of build.TILE rows
+  chunks: int     # eval-axis ranges, every one non-empty
+  per_chunk: int  # eval tiles a range (the last may hold fewer)
+  units: int      # work units: partitions x bands x chunks
+
+
+def plan(n_part: int, ne: int, nc: int, band: int, n_sm: int,
+         per_sm: int = 1) -> Plan:
+  """The plan of a call with these shapes on a card of ``n_sm`` SMs, for
+  the kernel path whose candidate band is ``band`` rows and which runs
+  ``per_sm`` blocks an SM at once (1: the persistent kernel; 2: the tile
+  kernel, ``__launch_bounds__(NT, 2)``)."""
+  bands = -(-nc // band)
+  tiles = -(-ne // build.TILE)
+  chunks = eval_chunks(bands * n_part, ne, per_sm * n_sm)
+  per = -(-tiles // chunks)
+  return Plan(band, bands, tiles, chunks, per, n_part * bands * chunks)
 
 
 class FLOperands(NamedTuple):
@@ -53,19 +111,27 @@ class FLOperands(NamedTuple):
   ne: int
   nc: int
   d: int
-  chunks: int
+  tma: bool   # the persistent TMA kernel takes the call (else the tile one)
+  plan: Plan
   cap: torch.Tensor | None = None  # saturated coverage only
+
+  @property
+  def path(self) -> str:
+    return "persistent" if self.tma else "tile"
 
 
 def operands(name: str, eval_feats, cand_feats, cov, eval_mask,
              cand_ok=None, cap=None) -> FLOperands:
   """Validate the facility (or, with ``cap``, the saturated-coverage)
-  kernels' operands and settle the batch layout.
+  kernels' operands, settle the batch layout, the kernel path and the
+  work plan.
 
   eval_feats (ne, d) | (P, ne, d); cand_feats (nc, d) | (P, nc, d);
   cov (the coverage's cover), cap, eval_mask (ne,) | (P, ne); cand_ok
   (nc,) | (P, nc).  Unbatched operands are shared by every partition
-  (batch stride 0).
+  (batch stride 0).  CUDA tensors only: the path comes from the kernel
+  library's own shape rule (``sm90_facility_tma``) and the band width from
+  ``sm90_facility_band``, so the scratch sizes follow the kernel.
   """
   build.check_feats(name, eval_feats, cand_feats)
   dev = eval_feats.device
@@ -88,12 +154,21 @@ def operands(name: str, eval_feats, cand_feats, cov, eval_mask,
   n_part = 1 if batch is None else batch
   if n_part > build.MAX_GRID:
     raise ValueError(f"{name}: {n_part} partitions exceed the grid")
-  n_blocks = -(-nc // build.TILE) * n_part
   ok = None if cand_ok is None else build.vec(name, cand_ok, nc, dev)
-  return FLOperands(eval_feats, cand_feats, build.vec(name, cov, ne, dev),
-                    build.vec(name, eval_mask, ne, dev), ok, batch, n_part,
-                    ne, nc, d, eval_chunks(n_blocks, ne, dev),
-                    None if cap is None else build.vec(name, cap, ne, dev))
+  cov = build.vec(name, cov, ne, dev)
+  mask = build.vec(name, eval_mask, ne, dev)
+  cap = None if cap is None else build.vec(name, cap, ne, dev)
+  tma = bool(build.entry("sm90_facility_tma")(  # host-only: no device call
+      eval_feats.data_ptr(), cand_feats.data_ptr(), cov.data_ptr(),
+      build.ptr(cap), mask.data_ptr(), n_part, ne, nc, d,
+      build.batch_stride(cov, 1),
+      0 if cap is None else build.batch_stride(cap, 1),
+      build.batch_stride(mask, 1), int(eval_feats.dtype == torch.bfloat16)))
+  band = build.entry("sm90_facility_band")(int(tma))
+  return FLOperands(eval_feats, cand_feats, cov, mask, ok, batch, n_part, ne,
+                    nc, d, tma,
+                    plan(n_part, ne, nc, band, sm_count(dev), 1 if tma else 2),
+                    cap)
 
 
 def facility_gain(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
@@ -109,9 +184,10 @@ def facility_gain(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
                                  kernel=kernel, h=h)
   global launches
   build.check_kernel("facility_gain", kernel)
+  build.check_width("facility_gain", kernel, h)
   o = operands("facility_gain", eval_feats, cand_feats, cov, eval_mask)
   dev = o.ev.device
-  part = torch.empty((o.chunks, o.n_part, o.nc), dtype=torch.float32,
+  part = torch.empty((o.plan.chunks, o.n_part, o.nc), dtype=torch.float32,
                      device=dev)
   gains = torch.empty((o.n_part, o.nc), dtype=torch.float32, device=dev)
   with torch.cuda.device(dev):
@@ -120,7 +196,7 @@ def facility_gain(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
              o.mask.data_ptr(), part.data_ptr(), gains.data_ptr(), o.n_part,
              o.ne, o.nc, o.d, build.batch_stride(o.ev, 2),
              build.batch_stride(o.cd, 2), build.batch_stride(o.cov, 1),
-             build.batch_stride(o.mask, 1), o.chunks,
+             build.batch_stride(o.mask, 1), o.plan.chunks,
              int(o.ev.dtype == torch.bfloat16), int(kernel == "rbf"),
              float(h * h), build.stream_of(o.ev))
   build.check(err, "sm90_facility_gain")

@@ -7,7 +7,8 @@ kernel returns (best gain, index) per partition: candidates with ``ok`` false
 score ``NEG``, the larger gain wins, ties go to the lowest index, and with no
 feasible candidate the answer is (NEG, 0).  The CUDA kernel is
 ``csrc/facility.cu`` (the gains body with a top-1 epilogue and a
-deterministic second stage in place of the TPU's sequential running best;
+deterministic second stage in place of the TPU's sequential running best,
+on the persistent or the tile path as ``facility_gain.operands`` reports;
 see the header there).  Its plain version is ``ref.facility_select_ref``.
 
 ``coverage_select`` is the same step for saturated coverage: the fused
@@ -51,17 +52,17 @@ graph_cut_launches = 0  # launches of csrc/graph_cut.cu's select
 
 def _top1_scratch(o):
   """(part, tile_best, tile_idx, best, idx) of a facility-family select:
-  per-tile top-1s with one eval chunk, the chunk partials otherwise."""
+  per-band top-1s with one eval chunk (a band is ``o.plan.band`` candidate
+  rows on the call's kernel path), the chunk partials otherwise."""
   dev = o.ev.device
-  if o.chunks == 1:
-    n_tiles = -(-o.nc // build.TILE)
+  if o.plan.chunks == 1:
     part = None
-    tile_best = torch.empty((o.n_part, n_tiles), dtype=torch.float32,
+    tile_best = torch.empty((o.n_part, o.plan.bands), dtype=torch.float32,
                             device=dev)
-    tile_idx = torch.empty((o.n_part, n_tiles), dtype=torch.int32,
+    tile_idx = torch.empty((o.n_part, o.plan.bands), dtype=torch.int32,
                            device=dev)
   else:
-    part = torch.empty((o.chunks, o.n_part, o.nc), dtype=torch.float32,
+    part = torch.empty((o.plan.chunks, o.n_part, o.nc), dtype=torch.float32,
                        device=dev)
     tile_best = tile_idx = None
   best = torch.empty((o.n_part,), dtype=torch.float32, device=dev)
@@ -91,6 +92,7 @@ def facility_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
                                    cand_ok, kernel=kernel, h=h)
   global launches
   build.check_kernel("facility_select", kernel)
+  build.check_width("facility_select", kernel, h)
   o = operands("facility_select", eval_feats, cand_feats, cov, eval_mask,
                cand_ok)
   dev = o.ev.device
@@ -104,7 +106,7 @@ def facility_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
              build.batch_stride(o.ev, 2),
              build.batch_stride(o.cd, 2), build.batch_stride(o.cov, 1),
              build.batch_stride(o.mask, 1), build.batch_stride(o.ok, 1),
-             o.chunks, int(o.ev.dtype == torch.bfloat16),
+             o.plan.chunks, int(o.ev.dtype == torch.bfloat16),
              int(kernel == "rbf"), float(h * h), build.stream_of(o.ev))
   build.check(err, "sm90_facility_select")
   launches += 1
@@ -126,6 +128,7 @@ def coverage_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
                                    eval_mask, cand_ok, kernel=kernel, h=h)
   global coverage_launches
   build.check_kernel("coverage_select", kernel)
+  build.check_width("coverage_select", kernel, h)
   o = operands("coverage_select", eval_feats, cand_feats, cover, eval_mask,
                cand_ok, cap=cap)
   part, tile_best, tile_idx, best, idx = _top1_scratch(o)
@@ -138,7 +141,7 @@ def coverage_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
              build.batch_stride(o.ev, 2), build.batch_stride(o.cd, 2),
              build.batch_stride(o.cov, 1), build.batch_stride(o.cap, 1),
              build.batch_stride(o.mask, 1), build.batch_stride(o.ok, 1),
-             o.chunks, int(o.ev.dtype == torch.bfloat16),
+             o.plan.chunks, int(o.ev.dtype == torch.bfloat16),
              int(kernel == "rbf"), float(h * h), build.stream_of(o.ev))
   build.check(err, "sm90_coverage_select")
   coverage_launches += 1

@@ -11,11 +11,13 @@ gain sums over more than 16k eval rows, summed in another order), bf16
 within 3e-2; top-1 indices equal.  The info-gain conds are held the same
 way, the selection built from a real Cholesky factor (float64 on the CPU),
 dense and with the selection counts (``live``, junk past the live
-triangle), and so are the saturated-coverage gains; the pairwise kernel is
-held at its edges (both operand paths, shared blocks, plain stores, a
-batch past one wave) and two launches give the same bytes; one small
-selection-service run holds a warm-started epoch against a cold one on the
-card.
+triangle), and so are the saturated-coverage gains; the facility /
+coverage kernel is held on both of its paths (the shape rule of
+``sm90_facility_tma``) with two calls giving the same bits; the pairwise
+kernel is held at its edges (both operand paths, shared blocks, plain
+stores, a batch past one wave) and two launches give the same bytes; one
+small selection-service run holds a warm-started epoch against a cold one
+on the card.
 """
 import numpy as np
 import pytest
@@ -366,6 +368,131 @@ def test_cuda_coverage_kernels_match_plain(cuda_device, kernel, dtype):
   bw, iw = ref.coverage_select_ref(e_t.to(td), signs.to(td), zero, big, ones,
                                    allok, kernel=kernel)
   assert int(i) == int(iw) and float(b) == float(bw)
+
+
+def _fl_case(r, lead, ne, nc, d, td, dev, shared_cd=False, shared_cap=False):
+  """Facility and coverage operands: eval rows, candidates (shared by the
+  partitions when ``shared_cd``), a facility cov, a cover with some rows
+  past their cap (shared when ``shared_cap``), a mask, an ok."""
+  ev = torch.tensor(r.normal(size=(*lead, ne, d)), device=dev).to(td)
+  cd = torch.tensor(r.normal(size=((() if shared_cd else lead)) + (nc, d)),
+                    device=dev).to(td)
+  cov = torch.tensor(np.abs(r.normal(size=(*lead, ne))), device=dev).float()
+  cap = np.abs(r.normal(size=((() if shared_cap else lead)) + (ne,))) * d
+  cover = torch.tensor(cap * r.uniform(0.0, 1.3, size=(*lead, ne)),
+                       device=dev).float()
+  mask = torch.tensor(r.uniform(size=(*lead, ne)) > 0.1, device=dev).float()
+  ok = torch.tensor(r.uniform(size=(*lead, nc)) > 0.3, device=dev)
+  return ev, cd, cov, torch.tensor(cap, device=dev).float(), cover, mask, ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["linear", "rbf"])
+def test_cuda_facility_persistent_matches_plain(cuda_device, kernel, dtype):
+  """The persistent facility / coverage kernel (d 64, a resident 256-row
+  candidate band, eval tiles through a TMA ring) against the plain
+  versions: ragged ne and nc, a shared candidate block and a shared cap
+  (batch stride 0), the chunked round-2 shape (one partition, a long eval
+  axis), unbatched operands, nothing feasible and exact ties from +-10
+  sign rows; two calls give the same bits."""
+  from repro_torch.kernels import facility_gain as fg
+  td, tol = DTYPES[dtype]
+  r = np.random.default_rng(18)
+  dev = cuda_device
+  for lead, ne, nc, sh_cd, sh_cap in [((3,), 1000, 1037, False, False),
+                                      ((4,), 700, 300, True, True),
+                                      ((1,), 40000, 1000, False, False),
+                                      ((), 3000, 700, False, False)]:
+    ev, cd, cov, cap, cover, mask, ok = _fl_case(r, lead, ne, nc, 64, td,
+                                                 dev, sh_cd, sh_cap)
+    o = fg.operands("facility", ev, cd, cov, mask, ok)
+    oc = fg.operands("coverage", ev, cd, cover, mask, ok, cap=cap)
+    assert o.path == oc.path == "persistent"
+    if ne == 40000:  # the eval axis is split: chunk partials, stage 2 sums
+      assert o.plan.chunks > 1 and oc.plan.chunks > 1
+    long_tol = tol if ne <= 16384 else max(tol, 1e-4)
+    for fn, sel, args, want in (
+        (ops.facility_gain, ops.facility_select, (cov,),
+         ref.facility_gain_ref),
+        (ops.coverage_gain, ops.coverage_select, (cover, cap),
+         ref.coverage_gain_ref)):
+      g = fn(ev, cd, *args, mask, kernel=kernel)
+      b, i = sel(ev, cd, *args, mask, ok, kernel=kernel)
+      g2 = fn(ev, cd, *args, mask, kernel=kernel)
+      b2, i2 = sel(ev, cd, *args, mask, ok, kernel=kernel)
+      torch.cuda.synchronize()
+      assert torch.equal(g, g2) and torch.equal(b, b2) and torch.equal(i, i2)
+      gw = want(ev, cd, *args, mask, kernel=kernel)
+      bw, iw = ref.masked_top1(gw, ok)
+      _close(g, gw, long_tol)
+      assert torch.equal(i.cpu(), iw.cpu())
+      _close(b, bw, long_tol)
+      b, i = sel(ev, cd, *args, mask, torch.zeros_like(ok), kernel=kernel)
+      assert bool((b == ref.NEG).all()) and bool((i == 0).all())
+  # exact ties: +-10 sign rows, the best candidate again at a higher and a
+  # lower index; every similarity and gain is an exact float
+  signs = torch.where(torch.rand(2, 300, 64, device=dev) > 0.5, 10.0, -10.0)
+  e_t = signs[:, torch.randint(0, 300, (700,), device=dev)]
+  zero = torch.zeros(2, 700, device=dev)
+  big = torch.full((2, 700), 1e6, device=dev)
+  ones = torch.ones(2, 700, device=dev)
+  top = ref.facility_gain_ref(e_t, signs, zero, ones,
+                              kernel=kernel).argmax(dim=1)
+  for p in range(2):
+    j = int(top[p])
+    signs[p, (j + 211) % 300] = signs[p, j]
+    signs[p, (j + 97) % 300] = signs[p, j]
+  allok = torch.ones(2, 300, dtype=torch.bool, device=dev)
+  e_t, signs = e_t.to(td), signs.to(td)
+  b, i = ops.facility_select(e_t, signs, zero, ones, allok, kernel=kernel)
+  bw, iw = ref.facility_select_ref(e_t, signs, zero, ones, allok,
+                                   kernel=kernel)
+  assert torch.equal(i, iw) and torch.equal(b, bw)
+  b, i = ops.coverage_select(e_t, signs, zero, big, ones, allok,
+                             kernel=kernel)
+  bw, iw = ref.coverage_select_ref(e_t, signs, zero, big, ones, allok,
+                                   kernel=kernel)
+  assert torch.equal(i, iw) and torch.equal(b, bw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,d,dtype,path", [
+    ("plain", 22, "f32", "tile"), ("plain", 22, "bf16", "tile"),
+    ("plain", 128, "f32", "tile"), ("plain", 64, "f32", "persistent"),
+    ("plain", 64, "bf16", "persistent"), ("plain", 128, "bf16", "persistent"),
+    ("offset features", 64, "f32", "tile"),
+    ("vector rows not 16 bytes apart", 64, "f32", "tile")])
+def test_cuda_facility_shape_rule(cuda_device, case, d, dtype, path):
+  """sm90_facility_tma's shape rule picks the path (the tile kernel for
+  rows not a multiple of 16 bytes, d past 2 boxes of 128 bytes, a
+  misaligned base, batched vectors whose rows are not 16 bytes apart), and
+  the call on that path matches the plain versions; an rbf width outside
+  the division-free quotient's range raises."""
+  from repro_torch.kernels import facility_gain as fg
+  td, tol = DTYPES[dtype]
+  r = np.random.default_rng(19)
+  ne = 1001 if case.startswith("vector") else 1000
+  ev, cd, cov, cap, cover, mask, ok = _fl_case(r, (3,), ne, 300, d, td,
+                                               cuda_device)
+  if case == "offset features":  # one element past 16-byte alignment
+    ev = torch.cat([ev.new_zeros(1), ev.flatten()])[1:].view(ev.shape)
+  assert fg.operands("t", ev, cd, cov, mask, ok).path == path
+  assert fg.operands("t", ev, cd, cover, mask, ok, cap=cap).path == path
+  for kernel in ("linear", "rbf"):
+    g = ops.facility_gain(ev, cd, cov, mask, kernel=kernel)
+    b, i = ops.facility_select(ev, cd, cov, mask, ok, kernel=kernel)
+    c = ops.coverage_gain(ev, cd, cover, cap, mask, kernel=kernel)
+    torch.cuda.synchronize()
+    gw = ref.facility_gain_ref(ev, cd, cov, mask, kernel=kernel)
+    bw, iw = ref.masked_top1(gw, ok)
+    _close(g, gw, tol)
+    _close(b, bw, tol)
+    assert torch.equal(i, iw)
+    _close(c, ref.coverage_gain_ref(ev, cd, cover, cap, mask, kernel=kernel),
+           tol)
+  with pytest.raises(ValueError, match="rbf width"):
+    ops.facility_gain(ev, cd, cov, mask, kernel="rbf", h=1e-12)
 
 
 @pytest.mark.cuda
