@@ -49,13 +49,15 @@ It holds every kernel against its plain version at the shapes those paths
 launch (the flash kernel also at its edges: ragged lengths, every head
 width, MHA and GQA, strided inputs, a grid past 65535 rows; bf16 on the
 tensor-core kernel, f32 on the FFMA kernel; the pairwise kernel at ragged
-nx / ny, d of 6, 17, 22, 36, 64, 128 and 130, a shared x or y block, bf16,
-misaligned bases, rows not 16-byte aligned and a batch past one wave of
-its persistent blocks, its TMA path at the main shapes and its tile kernel
-(the other operands) timed at s11's shape with d of 22 and 128; the
-facility / coverage kernel on both of its paths, the persistent one
-required at every full-size shape and its ``path`` in each row, the first
-port's tile kernel at d 22; the info-gain kernels with
+nx / ny, d of 6, 17, 22, 36, 64, 128 and 130, a shared x or y block (2-D
+or expanded), bf16, misaligned bases and column slices (padded copies),
+rows not 16-byte aligned and a batch past one wave of its persistent
+blocks, in both ring modes (``ring.plan``: resident to 2 boxes of 128
+bytes of d, streamed past them), timed at s11's shape at d of 22, 64, 128,
+768 and (16 x 4096 rows) 3072 beside cuBLAS; the facility / coverage
+kernel in both ring modes, the mode the rule names required at every
+shape and its ``path`` in each row, its round-1 selects also at d of 22,
+128, 768 and 3072; the info-gain kernels with
 the objectives' selection counts (``live``: count-aware, the live triangle
 of linv) and without (dense), at counts 0, partial and full, partitions of
 different counts in one launch, a linv with junk past its live triangle,
@@ -63,7 +65,10 @@ and shapes past shared memory (d 64 at k 512, d 768 at k 64, k 2100 and
 k 5000)), counts the CUDA kernels of a graph-cut call with the profiler
 (one a call), and profiles the paths.
 The generic engine also runs facility location once, through the CLI's
-``--no-fast``.
+``--no-fast``.  Phase ``e2e wide`` runs the coreset main path at d = 768
+(a sentence-embedding width): the reference protocol's fused select path
+and the fast engine through the CLI (``--d 768``), every facility and
+pairwise launch on the streamed ring.
 
 Output: one line per phase; the card's name and power limit
 (``nvidia-smi``); a ``{"kernels": [...]}`` JSON line with each kernel's
@@ -173,6 +178,13 @@ class Sizes:
   m: int = 16            # stacked logical shards / partitions
   n_cli: int = 65536     # the CLI's default size
   m_cli: int = 8
+  # widths off the main path: rows of 88 bytes (a padded copy), a band past
+  # the resident ring, a sentence-embedding width (also e2e wide's); the
+  # Tiny Images width (32 x 32 x 3 pixels) at n = 65536, 4096 rows a shard
+  wide_widths: tuple = (22, 128, 768)
+  wide_d: int = 768
+  tiny_d: int = 3072
+  tiny_rows: int = 4096
   plain_chunk: int = 4   # partitions per plain-version call at full size
   # GP active-set path: the Yahoo! Webscope data size of Sec. 6.2
   gp_n: int = 45811883
@@ -281,20 +293,27 @@ def unit_rows(g, *shape, dtype=None):
   return x if dtype is None else x.to(dtype)
 
 
-def pairwise_phase(label, x, y, kernel, dtype, chunk, launches,
-                   want_tma=True):
+def pairwise_phase(label, x, y, kernel, dtype, chunk, launches):
   """Kernel vs plain on (B, nx, d) x (ny, d) or (B, ny, d); the plain
   version runs ``chunk`` batch entries at a time where the full block
   would not fit beside the kernel's output.  ``launches`` is the kernel's
-  count on the full-size main path, reported beside the phase;
-  ``want_tma`` the load path the shape must take."""
+  count on the full-size main path, reported beside the phase; the ring
+  mode must be the one ``ring.plan`` names, and a padded copy (rows TMA
+  does not read as they are; one when ``y is x``, as the wrapper makes)
+  is timed alone as ``copy_ms``."""
   import torch
 
-  from repro_torch.kernels import ops, ref
+  from repro_torch.kernels import ops, ref, ring
   from repro_torch.kernels import pairwise as pw
-  tma = pw.takes_tma(x, y)
-  check(tma == want_tma, f"pairwise {label} {kernel} {dtype}: takes_tma is "
-        f"{tma}, want {want_tma}")
+  o = pw.operands(x, y)
+  rule = ring.plan("pairwise", x.shape[-1], x.element_size())
+  check(o.ring == rule, f"pairwise {label} {kernel} {dtype}: ring "
+        f"{o.ring}, the rule names {rule}")
+  copy_ms = None
+  if o.copies:
+    copy_ms = time_ms(lambda: [ring.features("pairwise", t) for t in
+                               ((x, y) if y is not x else (x,))])
+  del o
   out = ops.pairwise(x, y, kernel=kernel)
   sync()
   b = x.shape[0]
@@ -329,7 +348,8 @@ def pairwise_phase(label, x, y, kernel, dtype, chunk, launches,
   if kernel == "rbf":  # norms, then x2 - 2 dot + y2, clamp, divide, exp
     flops += 2.0 * (b * nx + y.shape[0] * ny) * d + 6.0 * b * nx * ny
   bms, by = bound_ms(moved, flops, dtype)
-  row = dict(shape=[b, nx, ny, d], kernel=kernel, dtype=dtype, tma=tma,
+  row = dict(shape=[b, nx, ny, d], kernel=kernel, dtype=dtype,
+             mode=rule.mode, copy_ms=copy_ms,
              max_abs_err=worst_abs, max_rel_err=worst_rel, tol=tol,
              kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
              bound_ms=bms, bound_by=by, launches=launches)
@@ -351,22 +371,25 @@ def fl_state(g, n_part, ne, nc, d, dtype):
   return ev, cd, cov, mask, ok
 
 
-def fl_path(label, ev, cd, cov, mask, ok, cap=None,
-            want="persistent"):
-  """The stage-1 path and work plan of a facility-family call
-  (``facility_gain.operands``); fails unless the path is ``want``."""
+def fl_path(label, ev, cd, cov, mask, ok, cap=None):
+  """The ring mode, padded copies and work plan of a facility-family call
+  (``facility_gain.operands``); fails unless the mode is the one
+  ``ring.plan`` names for its width."""
   from repro_torch.kernels import facility_gain as fg
+  from repro_torch.kernels import ring
   o = fg.operands(label, ev, cd, cov, mask, ok, cap=cap)
-  check(o.path == want, f"{label}: takes the {o.path} path, want {want}")
-  return dict(path=o.path, eval_chunks=o.plan.chunks, units=o.plan.units)
+  want = ring.plan("facility", o.d, ev.element_size(),
+                   2 if cap is None else 3)
+  check(o.ring == want, f"{label}: ring {o.ring}, want {want}")
+  return dict(path=o.path, copies=list(o.copies),
+              eval_chunks=o.plan.chunks, units=o.plan.units)
 
 
 def facility_phase(label, ev, cd, cov, mask, ok, kernel, dtype, chunk,
                    counts):
   """facility_gain and facility_select vs the plain version; the plain
   side runs ``chunk`` partitions at a time.  ``counts`` are the kernels'
-  launches on the full-size main path.  Every shape it is given is a
-  full-size one, so it must take the persistent kernel."""
+  launches on the full-size main path; the ring mode must be the rule's."""
   from repro_torch.kernels import ops, ref
   plan = fl_path(f"facility {label} {kernel} {dtype}", ev, cd, cov, mask, ok)
   gains = ops.facility_gain(ev, cd, cov, mask, kernel=kernel)
@@ -443,21 +466,24 @@ def facility_phase(label, ev, cd, cov, mask, ok, kernel, dtype, chunk,
   return g_row, s_row
 
 
+EDGE_WIDTHS = (22, 40, 130)  # the facility edge phases' widths
+
+
 def edge_phase():
-  """Ragged sizes on both stage-1 paths of the facility kernels (d 40 on
-  the persistent kernel, d 22 on the tile kernel; two calls give the same
-  bits), an all-infeasible ok, and exact ties from duplicated candidate
-  rows, on the card."""
+  """Ragged sizes in both ring modes of the facility kernels (d 22: rows of
+  88 bytes, a padded copy; d 40: resident; d 130: streamed and padded; two
+  calls give the same bits), an all-infeasible ok, and exact ties from
+  duplicated candidate rows, on the card."""
   import torch
 
   from repro_torch.kernels import ops, ref
   g = torch.Generator(device=DEVICE).manual_seed(11)
   paths = []
   for kernel in ("linear", "rbf"):
-    for d, want_path in ((22, "tile"), (40, "persistent")):
+    for d in EDGE_WIDTHS:
       ev, cd, cov, mask, ok = fl_state(g, 3, 1000, 1037, d, None)
-      paths.append(fl_path(f"ragged d{d}", ev, cd, cov, mask, ok,
-                           want=want_path)["path"])
+      plan = fl_path(f"ragged d{d}", ev, cd, cov, mask, ok)
+      paths.append([d, plan["path"], plan["copies"]])
       gains = ops.facility_gain(ev, cd, cov, mask, kernel=kernel)
       again = ops.facility_gain(ev, cd, cov, mask, kernel=kernel)
       best, idx = ops.facility_select(ev, cd, cov, mask, ok, kernel=kernel)
@@ -503,18 +529,19 @@ def edge_phase():
     sync()
     check(torch.equal(idx, wi) and torch.equal(best, wb),
           f"ties {kernel}: {idx.tolist()} vs {wi.tolist()}")
-  emit("kernel edges", ragged=[[3, 1000, 1037, 22], [3, 1000, 1037, 40]],
+  emit("kernel edges", ragged=[[3, 1000, 1037, d] for d in EDGE_WIDTHS],
        paths=paths, repeat="identical bits", all_infeasible="(NEG, 0)",
        ties="lowest index", result="pass")
 
 
 def pairwise_edge_phase():
   """The pairwise kernel against its plain version at its edges: ragged nx
-  and ny, d of 6, 22, 36, 64 and 130 (d not a multiple of 4 and wider than
-  its TMA path takes plain loads), a shared y block (stride 0) and a shared
-  x block, bf16, ny not a multiple of 4 (plain stores), a batch past one
-  wave of persistent blocks; linear and rbf.  Two launches give the same
-  bytes."""
+  and ny, d of 6, 17, 22, 36, 64, 128 and 130 (both ring modes; rows that
+  are not a multiple of 16 bytes go over as a padded copy), a shared y
+  block (2-D, and expanded with stride 0) and a shared x block, bf16,
+  misaligned bases and a column slice, ny not a multiple of 4 (plain
+  stores), a batch past one wave of persistent blocks; linear and rbf.
+  Two launches give the same bytes."""
   import torch
 
   from repro_torch.kernels import ops, ref
@@ -525,9 +552,10 @@ def pairwise_edge_phase():
            ((1, 129, 36), (1, 131, 36)), ((300, 130, 64), (300, 64, 64)),
            ((100, 64), (4, 77, 64)), ((5, 128, 64), (128, 64)),
            ((1, 4096, 64), (1, 1023, 64)), ((2, 300, 128), (2, 257, 128)),
-           ((2, 131, 17), (2, 70, 17)), ("offset", (2, 200, 64), (2, 90, 64)))
+           ((2, 131, 17), (2, 70, 17)), ("offset", (2, 200, 64), (2, 90, 64)),
+           ("slice", (3, 301, 130), (3, 129, 130)))
   worst = {"f32": 0.0, "bf16": 0.0}
-  paths = {"tma": 0, "tile kernel": 0}
+  paths = {}
   for case in cases:
     xs, ys = case[-2:]
     for dtype, td in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -535,7 +563,13 @@ def pairwise_edge_phase():
       if case[0] == "offset":  # bases one element past 16-byte alignment
         x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(xs)
         y = torch.cat([y.new_zeros(1), y.flatten()])[1:].view(ys)
-      paths["tma" if pw.takes_tma(x, y) else "tile kernel"] += 1
+      if case[0] == "slice":  # a column slice of x, y expanded (stride 0)
+        d = xs[-1]
+        x = unit_rows(g, *xs[:-1], d + 8, dtype=td)[..., 1:d + 1]
+        y = y[0].expand(ys)
+      o = pw.operands(x, y)
+      key = o.ring.mode + (" padded" if o.copies else "")
+      paths[key] = paths.get(key, 0) + 1
       for kernel in ("linear", "rbf"):
         got = ops.pairwise(x, y, kernel=kernel)
         again = ops.pairwise(x, y, kernel=kernel)
@@ -570,13 +604,14 @@ def kernel_phases(sz: Sizes, counts: dict):
       rows[("pairwise", "s2", kernel, dtype)] = r
     del local, merged
     torch.cuda.empty_cache()
-  # the tile kernel (operands the TMA path does not take) at s11's shape:
-  # d not a multiple of 4, and d past the resident x band
-  for d in (22, 128):
-    local = unit_rows(g, sz.m, nl, d)
+  # the other widths at s11's shape, linear f32 beside cuBLAS: rows of 88
+  # bytes (a padded copy), d past the resident band (streamed), a
+  # sentence-embedding width, and the Tiny Images width at 4096 rows a
+  # shard
+  for d, rows_ in wide_shapes(sz):
+    local = unit_rows(g, sz.m, rows_, d)
     rows[("pairwise", f"s11 d{d}", "linear", "f32")] = pairwise_phase(
-        f"s11 d{d}", local, local, "linear", "f32", sz.plain_chunk, 0,
-        want_tma=False)
+        f"s11 d{d}", local, local, "linear", "f32", sz.plain_chunk, 0)
     del local
     torch.cuda.empty_cache()
   for kernel in ("linear", "rbf"):
@@ -595,6 +630,98 @@ def kernel_phases(sz: Sizes, counts: dict):
     rows[("facility_select", "round2", kernel, "f32")] = sr
     del st
     torch.cuda.empty_cache()
+  return rows
+
+
+def wide_shapes(sz: Sizes):
+  """(d, rows a shard) of the kernel phases off the main path's d = 64."""
+  return [(d, sz.n // sz.m) for d in sz.wide_widths] + [
+      (sz.tiny_d, sz.tiny_rows)]
+
+
+def top1_agreement(what, best, idx, want, ok, tol):
+  """(max abs error, max relative error, equal indices, near-ties) of a
+  select's (best, idx) against the plain gains ``want``; an index that
+  differs must be a near-tie (its plain gain within ``tol`` of the plain
+  best, and feasible)."""
+  from repro_torch.kernels import ref
+  wb, wi = ref.masked_top1(want, ok)
+  same = idx == wi
+  picked = want.gather(-1, idx.unsqueeze(-1))[..., 0]
+  gap = (wb - picked).abs() / wb.abs().clamp_min(1e-30)
+  tie = (~same) & (gap <= tol) & ok.gather(-1, idx.unsqueeze(-1))[..., 0]
+  check(bool((same | tie).all()), f"{what}: index differs beyond a "
+        "near-tie")
+  ea, er = errors(best, wb)
+  check(er <= tol, f"{what}: best error {er:.3e} > {tol:.0e}")
+  return ea, er, int(same.sum()), int(tie.sum())
+
+
+def wide_select_phase(sz: Sizes):
+  """facility_select and coverage_select at round 1's shape (16
+  partitions of 16384 eval rows and candidates) at the widths off the main
+  path's d = 64, f32 and bf16, and facility_select at the Tiny Images width
+  (16 x 4096 x 4096, d 3072): each against the plain gains' top-1 (a
+  differing index must be a near-tie), the ring mode the rule names, the
+  padded copy timed alone where the rows need one."""
+  import torch
+
+  from repro_torch.kernels import ops, ref, ring
+  g = torch.Generator(device=DEVICE).manual_seed(23)
+  rows = {}
+  for d, n in wide_shapes(sz):
+    for dtype, td in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+      for name in ("facility_select", "coverage_select"):
+        if d == sz.tiny_d and (dtype, name) != ("f32", "facility_select"):
+          continue
+        coverage = name == "coverage_select"
+        if coverage:
+          ev, cd, cov, cap, mask, ok = cov_state(g, (sz.m,), n, n, d, td)
+          vecs = (cov, cap)
+        else:
+          ev, cd, cov, mask, ok = fl_state(g, sz.m, n, n, d, td)
+          cap, vecs = None, (cov,)
+        label = f"{name} round1 d{d} {dtype}"
+        plan = fl_path(label, ev, cd, cov, mask, ok, cap=cap)
+        select = getattr(ops, name)
+        best, idx = select(ev, cd, *vecs, mask, ok)
+        sync()
+
+        def plain():
+          if coverage:
+            return cov_plain(ev, cd, cov, cap, mask, "linear",
+                             sz.plain_chunk)
+          return torch.cat([ref.facility_gain_ref(
+              ev[s], cd[s], cov[s], mask[s], kernel="linear")
+              for s in (slice(p0, p0 + sz.plain_chunk)
+                        for p0 in range(0, sz.m, sz.plain_chunk))])
+
+        tol = TOL[dtype] if n <= 16384 or dtype != "f32" else TOL_LONG_SUM
+        b_abs, b_rel, same, ties = top1_agreement(label, best, idx, plain(),
+                                                  ok, tol)
+        k_ms = time_ms(lambda: select(ev, cd, *vecs, mask, ok))
+        p_ms = time_ms(lambda: ref.masked_top1(plain(), ok), reps=1)
+        copy_ms = None
+        if plan["copies"]:
+          copy_ms = time_ms(lambda: (ring.features(name, ev),
+                                     ring.features(name, cd)))
+        esz = cd.element_size()
+        if coverage:
+          bms, by = cov_bound(sz.m, n, n, d, esz, False, False, False,
+                              "linear", True)
+        else:
+          read = (ev.numel() + cd.numel()) * esz + 2 * cov.numel() * 4
+          bms, by = bound_ms(read + ok.numel() + sz.m * 8,
+                             (2.0 * d + 3.0) * sz.m * n * n, dtype)
+        row = dict(shape=[sz.m, n, n, d], kernel="linear", dtype=dtype,
+                   tol=tol, **plan, max_abs_err=b_abs, max_rel_err=b_rel,
+                   idx_equal=same, idx_total=sz.m, near_ties=ties,
+                   kernel_ms=k_ms, plain_ms=p_ms, copy_ms=copy_ms,
+                   library_ms=None, bound_ms=bms, bound_by=by, launches=0)
+        rows[(name, f"round1 d{d}", "linear", dtype)] = row
+        emit(f"kernel {name} round1 d{d}", **row)
+        del ev, cd, cov, cap, mask, ok, vecs
+        torch.cuda.empty_cache()
   return rows
 
 
@@ -787,6 +914,71 @@ def e2e_full(sz: Sizes):
        wall_s={k: v["wall_s"] for k, v in out.items()},
        peak_gib={k: v["peak_gib"] for k, v in out.items()},
        launches=counts, agreement=verdicts, value=value)
+  return counts
+
+
+def e2e_wide(sz: Sizes):
+  """The coreset main path at a sentence-embedding width (n = 262144, d =
+  ``sz.wide_d``, k = kappa = 64, m = 16, f32): the reference protocol's
+  fused select path and the fast engine through the CLI (``--d``), each
+  with the launch counts set to 0 before it and read after it, by kernel
+  and by ring mode.  Every pairwise and facility-family launch must be on
+  the ring the rule names at this width (streamed), and the two paths
+  must select the same ids or meet the near-tie rule.  Returns the counts
+  by path."""
+  import numpy as np
+  import torch
+
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.data.selection import greedi_select_indices
+  from repro_torch.kernels import ops, ring
+  from repro_torch.launch import select as cli
+  d = sz.wide_d
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=d, seed=0).features()
+  sync()
+  torch.cuda.empty_cache()
+  out, counts, modes = {}, {}, {}
+  (REPO / "build").mkdir(exist_ok=True)
+  for name in ("reference", "fast"):
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    if name == "reference":
+      sel = greedi_select_indices(torch.Generator().manual_seed(0), feats,
+                                  m=sz.m, kappa=sz.k, k_final=sz.k)
+    else:
+      with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        path = os.path.join(tmp, "sel.npy")
+        cli.main(["--n", str(sz.n), "--d", str(d), "--k", str(sz.k),
+                  "--mesh", str(sz.m), "--no-coverage", "--out", path])
+        sel = np.load(path)
+    sync()
+    out[name] = dict(sel=sel, wall_s=time.perf_counter() - t0,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    counts[name] = ops.launch_counts()
+    modes[name] = {f"{k} {m}": c for (k, m), c in
+                   sorted(ring.mode_launches.items())}
+    check(len(sel) == sz.k and len(set(sel.tolist())) == sz.k and
+          sel.min() >= 0 and sel.max() < sz.n, f"e2e wide {name}: bad "
+          "selection")
+    for (kernel, mode), c in ring.mode_launches.items():
+      want = ring.plan("pairwise" if kernel == "pairwise" else "facility",
+                       d, 4).mode
+      check(mode == want, f"e2e wide {name}: {c} {kernel} launches on the "
+            f"{mode} ring, the rule names {want}")
+  check(counts["reference"]["facility_select"] > 0 and
+        counts["fast"]["pairwise"] > 0, f"e2e wide: kernels not launched "
+        f"({counts})")
+  verdict = agree(feats, out["reference"]["sel"], out["fast"]["sel"],
+                  "e2e wide reference/fast")
+  emit("e2e wide", n=sz.n, d=d, k=sz.k, m=sz.m, dtype="f32",
+       wall_s={k: v["wall_s"] for k, v in out.items()},
+       peak_gib={k: v["peak_gib"] for k, v in out.items()},
+       launches=counts, ring_launches=modes,
+       agreement={"reference vs fast": verdict},
+       value=value_of(feats, out["reference"]["sel"]))
   return counts
 
 
@@ -1685,17 +1877,18 @@ def cov_kernel_phase(sz, path_counts: dict):
 
 def cov_edge_phase():
   """The coverage kernels at the edges, against the plain versions: ragged
-  ne and nc, linear and rbf, f32 and bf16, rows with cover >= cap (which
-  add 0), nothing feasible, exact ties, and cap = +inf with cover = 0,
-  which is the facility gain at cov = 0."""
+  ne and nc at d of 22, 40 and 130 (both ring modes, padded copies),
+  linear and rbf, f32 and bf16, rows with cover >= cap (which add 0),
+  nothing feasible, exact ties, and cap = +inf with cover = 0, which is
+  the facility gain at cov = 0."""
   import torch
 
   from repro_torch.kernels import ops, ref
   g = torch.Generator(device=DEVICE).manual_seed(13)
   worst = 0.0
-  for kernel in ("linear", "rbf"):
+  for kernel, d in ((k, d) for k in ("linear", "rbf") for d in EDGE_WIDTHS):
     for dtype, td in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-      ev, cd, cover, cap, mask, ok = cov_state(g, (3,), 1000, 1037, 40, td)
+      ev, cd, cover, cap, mask, ok = cov_state(g, (3,), 1000, 1037, d, td)
       sat = torch.rand(3, 1000, generator=g, device=DEVICE) > 0.7
       cover = torch.where(sat, cap * 1.5, cover)
       gains = ops.coverage_gain(ev, cd, cover, cap, mask, kernel=kernel)
@@ -1711,7 +1904,7 @@ def cov_edge_phase():
       _, eu = errors(gains, unsat)
       worst = max(worst, ea)
       check(er <= TOL[dtype] and eu <= TOL[dtype] and torch.equal(idx, wi),
-            f"coverage ragged {kernel} {dtype}: err {er:.3e}, saturated "
+            f"coverage ragged d{d} {kernel} {dtype}: err {er:.3e}, saturated "
             f"{eu:.3e}, idx {idx.tolist()} vs {wi.tolist()}")
       none = torch.zeros_like(ok)
       best, idx = ops.coverage_select(ev, cd, cover, cap, mask, none,
@@ -1750,7 +1943,8 @@ def cov_edge_phase():
     sync()
     check(torch.equal(idx, wi) and torch.equal(best, wb),
           f"coverage ties {kernel}: {idx.tolist()} vs {wi.tolist()}")
-  emit("kernel coverage edges", ragged=[3, 1000, 1037, 40],
+  emit("kernel coverage edges", ragged=[[3, 1000, 1037, d]
+                                       for d in EDGE_WIDTHS],
        max_abs_err=worst, saturated_rows="add 0",
        all_infeasible="(NEG, 0)", ties="lowest index",
        cap_inf_cover_0="equals facility_gain at cov 0", result="pass")
@@ -3008,6 +3202,8 @@ def main() -> int:
   torch.cuda.empty_cache()
   fl_counts = e2e_full(sz)
   torch.cuda.empty_cache()
+  e2e_wide(sz)
+  torch.cuda.empty_cache()
   gp_counts = e2e_gp_full(sz)
   torch.cuda.empty_cache()
   cov_counts = e2e_satcov(sz)
@@ -3030,6 +3226,8 @@ def main() -> int:
   e2e_gp_fig6(sz)
   torch.cuda.empty_cache()
   rows = kernel_phases(sz, launches)
+  torch.cuda.empty_cache()
+  rows.update(wide_select_phase(sz))
   torch.cuda.empty_cache()
   rows.update(ig_kernel_phase(sz, gp_counts))
   torch.cuda.empty_cache()
@@ -3070,7 +3268,7 @@ def main() -> int:
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=r["shape"],
         **{extra: r[extra] for extra in ("bound_dense_ms", "dense_ms",
-                                         "tma", "path", "tflops",
+                                         "mode", "path", "tflops",
                                          "bound_share")
            if extra in r}))
   emit("total", seconds=time.perf_counter() - t_start)

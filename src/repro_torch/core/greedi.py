@@ -54,8 +54,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.greedy import (draw_table, greedy, where_state,
-                                     with_backend)
+from repro_torch.core.greedy import (draw_table, greedy, kernel_rows,
+                                     where_state, with_backend)
 from repro_torch.core.objectives import _kernel_h, masked_top1
 from repro_torch.core.partition import random_partition, shard_live_counts
 from repro_torch.kernels import dispatch
@@ -207,6 +207,7 @@ def _objective_engine(objective, local_feats: torch.Tensor,
   count and hole rows move nothing.  ``state0`` is
   ``objective.init(local_feats, eval_mask)`` when the caller has it."""
   m = local_feats.shape[0]
+  cands = kernel_rows(objective, cands)
   if eval_mask is None:
     eval_mask = local_feats.new_ones(local_feats.shape[:-1])
   # count in f32: a low-precision mask dtype would round counts past 256

@@ -47,7 +47,7 @@ import torch
 
 from repro_torch.core import constraints as C
 from repro_torch.core.objectives import NEG, masked_top1
-from repro_torch.kernels import autotune
+from repro_torch.kernels import autotune, ring
 
 MODES = ("standard", "lazy", "random", "stochastic", "cost_benefit")
 
@@ -91,6 +91,13 @@ def where_state(take: torch.Tensor, new, old):
     return type(old)(*fields) if hasattr(old, "_fields") else tuple(fields)
   t = take.reshape(take.shape + (1,) * (old.dim() - take.dim()))
   return torch.where(t, new, old)
+
+
+def kernel_rows(objective, cand_feats: torch.Tensor) -> torch.Tensor:
+  """``cand_feats`` as the objective's kernels read them with no copy a
+  call (its ``kernel_rows``, where it has one), taken once a run."""
+  fn = getattr(objective, "kernel_rows", None)
+  return cand_feats if fn is None else fn(cand_feats)
 
 
 def _rows(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -271,6 +278,7 @@ def greedy(objective, state0, cand_feats: torch.Tensor, k_steps: int, *,
   select_path = (mode == "standard" and use_select
                  and hasattr(objective, "select"))
   kk = min(k_steps, n)
+  cand_feats = kernel_rows(objective, cand_feats)
 
   tr = _Trace(state0, C.init_batched(constraint, tuple(batch), dev),
               torch.zeros((*batch, n), dtype=torch.bool, device=dev),
@@ -389,7 +397,7 @@ def _greedy_lazy(objective, state0, cand_feats: torch.Tensor, k_steps: int,
   tile = max(min(tile, autotune.floor_pow2(n, cap=tile)), 1)
   npad = -(-n // tile) * tile
   nt = npad // tile
-  cand_pad = _pad_last(cand_feats, npad, 0.0, dim=-2)
+  cand_pad = kernel_rows(objective, _pad_last(cand_feats, npad, 0.0, dim=-2))
   mask_pad = _pad_last(cand_mask, npad, False)
   meta_pad = {k: _pad_last(v, npad, 0) for k, v in meta.items()}
   int_max = torch.iinfo(torch.int64).max
@@ -404,7 +412,8 @@ def _greedy_lazy(objective, state0, cand_feats: torch.Tensor, k_steps: int,
   if warm_bounds is None:
     # step 0: one full pass selects AND seeds the bounds (not a rescan)
     feasible = mask_pad & constraint.mask(tr.cstate, meta_pad)
-    stale = _pad_last(objective.gains(state0, cand_feats).float(), npad, NEG)
+    stale = _pad_last(objective.gains(state0, cand_pad[..., :n, :]).float(),
+                      npad, NEG)
     best, bidx = masked_top1(stale, feasible)
     tr = _apply(objective, tr, cand_pad, meta_pad, constraint, bidx, best,
                 feasible, stop_nonpositive)
@@ -432,8 +441,7 @@ def _greedy_lazy(objective, state0, cand_feats: torch.Tensor, k_steps: int,
         break
       pos = (p.clamp_max(nt - 1) * tile).unsqueeze(-1) + ar
       ids = torch.gather(order, -1, pos)                       # ((P,) tile)
-      rows = torch.gather(cand_pad, -2,
-                          ids.unsqueeze(-1).expand(*ids.shape, d))
+      rows = ring.gather_rows(cand_pad, ids)  # in cand_pad's pitch
       g = objective.gains(tr.state, rows).float()
       stale = torch.where(go.unsqueeze(-1), stale.scatter(-1, ids, g), stale)
       gm = torch.where(torch.gather(feasible, -1, ids), g, NEG)

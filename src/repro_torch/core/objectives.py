@@ -24,7 +24,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, ring
 # The masked-gain floor and the lowest-index masked argmax are defined ONCE,
 # in kernels/ref.py, and re-exported as the core layer's select path.
 from repro_torch.kernels.ref import NEG, masked_top1  # noqa: F401
@@ -109,6 +109,7 @@ class FacilityLocation:
 
   def init(self, eval_feats: torch.Tensor,
            eval_mask: torch.Tensor | None = None) -> FLState:
+    eval_feats = ring.pitched(eval_feats)  # padded once, not once a call
     if eval_mask is None:
       eval_mask = torch.ones(eval_feats.shape[:-1], dtype=eval_feats.dtype,
                              device=eval_feats.device)
@@ -117,6 +118,11 @@ class FacilityLocation:
     value = torch.zeros(eval_feats.shape[:-2], dtype=eval_feats.dtype,
                         device=eval_feats.device)
     return FLState(cov, eval_feats, eval_mask, value)
+
+  def kernel_rows(self, cand_feats: torch.Tensor) -> torch.Tensor:
+    """The candidates as the kernels read them with no copy a call
+    (``ring.pitched``); a greedy run takes them so once."""
+    return ring.pitched(cand_feats)
 
   def broadcast(self, state: FLState, n_part: int) -> FLState:
     """The same state for each of ``n_part`` partitions: cov and value get a
@@ -231,6 +237,7 @@ class SaturatedCoverage:
   def init(self, eval_feats: torch.Tensor,
            eval_mask: torch.Tensor | None = None,
            total: torch.Tensor | None = None) -> SatCovState:
+    eval_feats = ring.pitched(eval_feats)  # padded once, not once a call
     lead = eval_feats.shape[:-1]
     dev = eval_feats.device
     if eval_mask is None:
@@ -241,6 +248,11 @@ class SaturatedCoverage:
     value = torch.zeros(lead[:-1], dtype=torch.float32, device=dev)
     return SatCovState(cover, self.alpha * total.float(), eval_feats,
                        eval_mask, value)
+
+  def kernel_rows(self, cand_feats: torch.Tensor) -> torch.Tensor:
+    """The candidates as the kernels read them with no copy a call
+    (``ring.pitched``); a greedy run takes them so once."""
+    return ring.pitched(cand_feats)
 
   def broadcast(self, state: SatCovState, n_part: int) -> SatCovState:
     """The same state for each of ``n_part`` partitions: cover and value get

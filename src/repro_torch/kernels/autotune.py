@@ -2,16 +2,16 @@
 and ``lazy_tile`` parts of ``src/repro/kernels/autotune.py``).
 
 The reference keys a table on (backend, n, d) for the TPU and the CPU.  The
-CUDA kernels here use one fixed 128 x 128 tile (``build.TILE``), so the
-only knob left is the rescore tile of the tile-bound lazy greedy
-(core/greedy.py): the number of bound-sorted candidates each shard
-refreshes per rescan.
+CUDA kernels here use fixed tiles (the facility kernel: 256-row candidate
+bands against 128-row eval tiles, ``build.TILE``), so the only knob left
+is the rescore tile of the tile-bound lazy greedy (core/greedy.py): the
+number of bound-sorted candidates each shard refreshes per rescan.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import build
 
-# Rescore tile on the H100: two 128-column candidate tiles of the facility /
+# Rescore tile on the H100: one 256-row candidate band of the facility /
 # coverage kernels per shard.  A rescan of P stacked shards is one gains
 # launch over P x 256 candidates, which the kernel's eval-axis split spreads
 # over the card's SMs however small P is, so the tile trades the number of

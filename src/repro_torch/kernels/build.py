@@ -28,8 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-TILE = 128         # rows of a kernel tile (csrc/tile.cuh BM and BN; the
-                   # eval tile of both csrc/facility.cu paths)
+TILE = 128         # rows of the eval tile of csrc/facility.cu (fl::TM)
 MAX_GRID = 65535   # CUDA's limit on gridDim.y and gridDim.z
 
 P = ctypes.c_void_p
@@ -40,28 +39,26 @@ F32 = ctypes.c_float
 # cudaGetLastError() of its launches as an int.
 ENTRIES = {
     "sm90_pairwise": ("pairwise",
-                      [P, P, P, I64, I64, I64, I64, I64, I64, I64, I64, F32,
-                       P]),
-    "sm90_pairwise_tma": ("pairwise", [P, P, I64, I64]),
+                      [P, P, P, I64, I64, I64, I64, I64, I64, I64, I64, I64,
+                       I64, F32, I64, P]),
+    "sm90_pairwise_smem": ("pairwise", [I64, I64]),
     "sm90_sim_mismatches": ("pairwise", [F32, P, I64, P]),
     "sm90_facility_gain": ("facility",
                            [P, P, P, P, P, P, I64, I64, I64, I64, I64, I64,
-                            I64, I64, I64, I64, I64, F32, P]),
+                            I64, I64, I64, I64, I64, I64, I64, F32, I64, P]),
     "sm90_facility_select": ("facility",
                              [P, P, P, P, P, P, P, P, P, P, I64, I64, I64,
                               I64, I64, I64, I64, I64, I64, I64, I64, I64,
-                              F32, P]),
+                              I64, I64, F32, I64, P]),
     "sm90_coverage_gain": ("facility",
                            [P, P, P, P, P, P, P, I64, I64, I64, I64, I64,
-                            I64, I64, I64, I64, I64, I64, I64, F32, P]),
-    "sm90_facility_tma": ("facility",
-                          [P, P, P, P, P, I64, I64, I64, I64, I64, I64, I64,
-                           I64]),
-    "sm90_facility_band": ("facility", [I64]),
+                            I64, I64, I64, I64, I64, I64, I64, I64, I64, F32,
+                            I64, P]),
+    "sm90_facility_smem": ("facility", [I64, I64, I64]),
     "sm90_coverage_select": ("facility",
                              [P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64,
                               I64, I64, I64, I64, I64, I64, I64, I64, I64,
-                              I64, F32, P]),
+                              I64, I64, I64, F32, I64, P]),
     "sm90_info_plan": ("info_gain",
                        [I64, I64, I64, I64, I64, ctypes.POINTER(I64),
                         ctypes.POINTER(I64), ctypes.POINTER(I64)]),
@@ -149,15 +146,24 @@ def build() -> dict[str, Path]:
   return libs
 
 
-def ptxas_report() -> str:
+def ptxas_report(out_dir: Path | None = None) -> str:
   """The compiler's register / shared-memory / spill lines of the last
-  build (``-Xptxas -v``), one line per kernel instantiation."""
-  out_dir = BUILD_ROOT / _digest()
+  build (``-Xptxas -v``; the logs in ``out_dir``, by default this build's
+  directory), one line per kernel instantiation, each with the entry it
+  belongs to (the mangled name, which spells out the template
+  arguments)."""
+  out_dir = BUILD_ROOT / _digest() if out_dir is None else out_dir
   lines = []
   for log in sorted(out_dir.glob("*.log")):
+    entry, spill = "?", ""
     for line in log.read_text().splitlines():
-      if "registers" in line or "spill" in line:
-        lines.append(f"{log.stem}: {line.strip()}")
+      if "Compiling entry function" in line:
+        entry = line.split("'")[1] if "'" in line else line.strip()
+      elif "spill" in line:
+        spill = line.strip()
+      elif "registers" in line:
+        regs = line.split(":", 1)[-1].strip()
+        lines.append(f"{log.stem}: {entry}: {regs}; {spill}")
   return "\n".join(lines)
 
 
@@ -205,9 +211,11 @@ def check_width(name: str, kernel: str, h: float) -> None:
                      "(h * h within [1e-20, 1e20])")
 
 
-def check_feats(name: str, *feats) -> None:
-  """Features a kernel takes: CUDA, float32 or bfloat16 (one dtype),
-  contiguous, 2-D (shared by the batch) or 3-D (batched), one device."""
+def check_feats(name: str, *feats, rows_only: bool = False) -> None:
+  """Features a kernel takes: CUDA, float32 or bfloat16 (one dtype), 2-D
+  (shared by the batch) or 3-D (batched), one device; contiguous, or with
+  ``rows_only`` any layout whose rows are (stride 1 along d; the caller
+  copies what TMA cannot read, ``ring.features``)."""
   dev = feats[0].device
   for t in feats:
     if t.device.type != "cuda" or t.device != dev:
@@ -219,10 +227,12 @@ def check_feats(name: str, *feats) -> None:
     if t.dtype != feats[0].dtype:
       raise TypeError(f"{name}: feature dtypes differ: "
                       f"{[f.dtype for f in feats]}")
-    if t.dim() not in (2, 3) or not t.is_contiguous():
+    rows = t.shape[-1] == 1 or t.stride(-1) == 1
+    if t.dim() not in (2, 3) or not (t.is_contiguous() or
+                                     (rows_only and rows)):
       raise ValueError(f"{name}: features must be contiguous (n, d) or "
-                       f"(B, n, d), got shape {tuple(t.shape)} strides "
-                       f"{t.stride()}")
+                       f"(B, n, d){' rows' if rows_only else ''}, got shape "
+                       f"{tuple(t.shape)} strides {t.stride()}")
 
 
 def batch_of(name: str, *pairs) -> int | None:

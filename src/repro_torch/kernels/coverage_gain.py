@@ -6,8 +6,8 @@ For every candidate j (per partition when batched), Lin & Bilmes'
     gain[j] = sum_i mask_i * [min(cover_i + s_ij, cap_i) - min(cover_i, cap_i)]
 
 with s_ij = max(sim(e_i, c_j), 0).  The CUDA kernel is the coverage
-epilogue of ``csrc/facility.cu`` (the facility kernel's tile product on
-either of its paths, fixed-order reductions and eval-axis chunks, with the
+epilogue of ``csrc/facility.cu`` (the facility kernel's tile product in
+either ring mode, fixed-order reductions and eval-axis chunks, with the
 saturation clamp in place of the facility relu; see the header there).
 Its plain version is ``ref.coverage_gain_ref``.  Each operand may carry
 the partition axis or be shared by every partition (batch stride 0), the
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, ring
 from repro_torch.kernels.facility_gain import operands
 
 launches = 0  # launches of csrc/facility.cu's coverage gains
@@ -40,20 +40,17 @@ def coverage_gain(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   build.check_width("coverage_gain", kernel, h)
   o = operands("coverage_gain", eval_feats, cand_feats, cover, eval_mask,
                cap=cap)
-  dev = o.ev.device
+  dev = eval_feats.device
   part = torch.empty((o.plan.chunks, o.n_part, o.nc), dtype=torch.float32,
                      device=dev)
   gains = torch.empty((o.n_part, o.nc), dtype=torch.float32, device=dev)
   with torch.cuda.device(dev):
     fn = build.entry("sm90_coverage_gain")
-    err = fn(o.ev.data_ptr(), o.cd.data_ptr(), o.cov.data_ptr(),
-             o.cap.data_ptr(), o.mask.data_ptr(), part.data_ptr(),
-             gains.data_ptr(), o.n_part, o.ne, o.nc, o.d,
-             build.batch_stride(o.ev, 2), build.batch_stride(o.cd, 2),
-             build.batch_stride(o.cov, 1), build.batch_stride(o.cap, 1),
-             build.batch_stride(o.mask, 1), o.plan.chunks,
-             int(o.ev.dtype == torch.bfloat16), int(kernel == "rbf"),
-             float(h * h), build.stream_of(o.ev))
+    err = fn(*o.head(), part.data_ptr(), gains.data_ptr(), *o.dims(),
+             o.plan.chunks, int(eval_feats.dtype == torch.bfloat16),
+             int(kernel == "rbf"), float(h * h), int(o.ring.streamed),
+             build.stream_of(eval_feats))
   build.check(err, "sm90_coverage_gain")
   launches += 1
+  ring.mode_launches[("coverage_gain", o.ring.mode)] += 1
   return gains if o.batch is not None else gains[0]

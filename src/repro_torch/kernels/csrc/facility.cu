@@ -44,40 +44,42 @@
 // the bands of each partition (the (value, index) order is total, so the
 // fold's tree gives the same answer as a left-to-right one).
 //
-// Two stage-1 kernels, chosen by an explicit shape rule (persistent(),
-// reported by sm90_facility_tma):
-//   * facility_kernel (namespace fl), the persistent one: one block of 256
-//     threads an SM, up to 255 registers a thread, walking work units of
-//     (partition, 256-row candidate band, eval chunk) in pairwise.cu's
-//     order (ring.cuh Walk: the bands of one partition run together and
-//     share its eval rows in L2).  The band is the resident operand, loaded
-//     once a unit by TMA into 128-byte-swizzled boxes; the eval tiles of
-//     128 rows stream through a 3-stage TMA ring with a full and an empty
-//     mbarrier a stage (each warp arrives on the empty one after its
-//     epilogue, thread 0 refills the stage once all have: no block barrier
-//     in the loop), and each tile's per-row vectors (cov or cover, mask,
-//     cap) travel in the same stage as 2-D TMA loads.  The FFMA loop is
-//     ring.cuh box_fma, a 16 x 8 register micro-tile: acc[i][j] is
-//     (candidate row i, eval row tx + 16 j).  The epilogue stays in
-//     registers: colsum[i] += mask_j * max(s_ij - cov_j, 0) (or the
-//     coverage form, min(cover, cap) formed once a row) over the thread's 8
-//     eval rows in order, the rbf similarity by sm90.cuh sim_rn from the
-//     staged norms (|e|^2 from box_fma, the band's |c|^2 once a unit).  At
-//     the end of a unit the 16 lanes that share a candidate row sum it by a
-//     fixed __shfl_xor tree; then the band's masked top-1 (one chunk and
-//     TOP1) or the partial sums to the chunk scratch.  Rows past ne and nc
-//     arrive as TMA's zero fill (mask 0, so they add nothing).
-//   * facility_stage1 (below), the first port's: one 128-candidate tile a
-//     block, two blocks an SM, tile.cuh's tile_product staging both
-//     operands for every 128 x 128 tile, a fixed-order reduction across the
-//     block's threads.  It takes the shapes TMA does not: d * itemsize not
-//     a multiple of 16, d past the 2 boxes of 128 bytes that fit resident
-//     beside the ring, bases (features or vectors) not 16-byte aligned,
-//     batched vectors whose rows are not a multiple of 16 bytes apart.
-// A launch or build error on either path is returned, never replaced by
-// the other path.  Each similarity is one fmaf chain over k ascending from
-// 0.0f on both; the gain sums differ in order (the persistent kernel: a
-// thread's eval rows in tile order, then the lane tree, then chunk order).
+// Stage 1 is one persistent kernel, facility_kernel (namespace fl), for
+// every width and alignment: one block of 256 threads an SM, up to 255
+// registers a thread, walking work units of (partition, 256-row candidate
+// band, eval chunk) in pairwise.cu's order (ring.cuh Walk: the bands of one
+// partition run together and share its eval rows in L2).  The eval tiles
+// of 128 rows stream through a TMA ring (cp.async.bulk.tensor, 128-byte
+// swizzle) with a full and an empty mbarrier a stage (each warp arrives on
+// the empty one after its products, thread 0 refills the stage once all
+// have: no block barrier in the loop), and each tile's per-row vectors
+// (cov or cover, mask, cap) travel with it as 2-D TMA loads.  Two ring
+// modes (ring.cuh), picked on the host by d (kernels/ring.py `plan`):
+//   * resident (d within 2 boxes of 128 bytes): the band is loaded once a
+//     unit into 128-byte-swizzled boxes and stays; a 3-stage ring carries
+//     each eval tile's boxes and vectors;
+//   * streamed (wider d): each stage of a 4-stage ring carries one box of d
+//     of the band and of the eval tile, the vectors with the tile's last
+//     box; the accumulators carry across the tile's boxes and the epilogue
+//     runs after its last (the band is read again from L2 for every tile).
+// The FFMA loop is ring.cuh box_fma, a 16 x 8 register micro-tile:
+// acc[i][j] is (candidate row i, eval row tx + 16 j).  The epilogue stays
+// in registers: colsum[i] += mask_j * max(s_ij - cov_j, 0) (or the coverage
+// form, min(cover, cap) formed once a row) over the thread's 8 eval rows in
+// order, the rbf similarity by sm90.cuh sim_rn from the staged norms (|e|^2
+// from box_fma, the band's |c|^2 once a unit, box by box).  At the end of a
+// unit the 16 lanes that share a candidate row sum it by a fixed
+// __shfl_xor tree; then the band's masked top-1 (one chunk and TOP1) or the
+// partial sums to the chunk scratch.  Rows past ne and nc arrive as TMA's
+// zero fill (mask 0, so they add nothing).  TMA needs 16-byte row pitches,
+// bases and batch strides: the wrappers (kernels/facility_gain.py) hand
+// other operands over as a padded copy (features: d rounded up to 16
+// bytes; batched vectors: rows rounded up to 4 floats).
+// A launch or build error is returned, never replaced by another path.
+// Each similarity is one fmaf chain over k ascending from 0.0f (the first
+// port's 128 x 128 tile kernel's too); the gain sums run in a fixed order
+// (a thread's eval rows in tile order, then the lane tree, then chunk
+// order), so two calls give the same bits.
 #include "ring.cuh"
 #include "sm90.cuh"
 #include "tile.cuh"
@@ -85,112 +87,8 @@
 namespace sm90 {
 
 // ---------------------------------------------------------------------------
-// the first port's stage 1 (the shapes TMA does not take) and the stage-2
-// kernels both paths share
+// stage 2: the chunk sums and the select over them
 // ---------------------------------------------------------------------------
-
-// `cov` is the facility coverage or the saturated-coverage cover; `cap` is
-// read only when COV.
-template <typename T, bool RBF, bool TOP1, bool COV>
-__global__ void __launch_bounds__(NT, 2)
-    facility_stage1(const T* __restrict__ ev, const T* __restrict__ cd,
-                    const float* __restrict__ cov,
-                    const float* __restrict__ cap,
-                    const float* __restrict__ mask,
-                    const float* __restrict__ ok, float* __restrict__ part,
-                    float* __restrict__ tile_best, int* __restrict__ tile_idx,
-                    int64_t n_part, int64_t ne, int64_t nc, int64_t d,
-                    int64_t ev_bs, int64_t cd_bs, int64_t cov_bs,
-                    int64_t cap_bs, int64_t mask_bs, int64_t ok_bs,
-                    int64_t tiles_per_chunk, float hh) {
-  __shared__ __align__(16) float xs[BK * LDS];
-  __shared__ __align__(16) float ys[BK * LDS];
-  __shared__ float covs[BM];
-  __shared__ float msks[BM];
-  __shared__ float caps[COV ? BM : 1];
-  __shared__ float mins[COV ? BM : 1];
-  __shared__ float red[NT / 16][BN];
-  __shared__ float wv[NT / 32];
-  __shared__ int wi[NT / 32];
-
-  const int64_t p = blockIdx.y, chunk = blockIdx.z;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * BN;
-  ev += p * ev_bs;
-  cd += p * cd_bs;
-  cov += p * cov_bs;
-  mask += p * mask_bs;
-  if (COV) cap += p * cap_bs;
-  const int64_t n_tiles = cdiv(ne, BM);
-  const int64_t t0 = chunk * tiles_per_chunk;
-  const int64_t t1 =
-      t0 + tiles_per_chunk < n_tiles ? t0 + tiles_per_chunk : n_tiles;
-
-  float colsum[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) colsum[j] = 0.0f;
-
-  for (int64_t t = t0; t < t1; ++t) {
-    const int64_t row0 = t * BM;
-    if (threadIdx.x < BM) {
-      const int64_t r = row0 + threadIdx.x;
-      const float c = r < ne ? cov[r] : 0.0f;
-      covs[threadIdx.x] = c;
-      msks[threadIdx.x] = r < ne ? mask[r] : 0.0f;  // ragged rows weigh 0
-      if (COV) {
-        const float cp = r < ne ? cap[r] : 0.0f;
-        caps[threadIdx.x] = cp;
-        mins[threadIdx.x] = fminf(c, cp);  // once per row, not per pair
-      }
-    }
-    float acc[8][8], x2[8], y2[8];
-    tile_product<T, RBF>(ev, ne, cd, nc, d, row0, col0, xs, ys, acc, x2, y2);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float ci = covs[row_of(i)], mi = msks[row_of(i)];
-      if (COV) {
-        const float capi = caps[row_of(i)], mci = mins[row_of(i)];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float sij = fmaxf(sim_of<RBF>(acc[i][j], x2[i], y2[j], hh),
-                                  0.0f);
-          colsum[j] += (fminf(ci + sij, capi) - mci) * mi;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          colsum[j] +=
-              fmaxf(sim_of<RBF>(acc[i][j], x2[i], y2[j], hh) - ci, 0.0f) * mi;
-      }
-    }
-    __syncthreads();  // the per-row vectors are restaged by the next tile
-  }
-
-  // Fixed-order reduction of the 16 row groups of each column.
-#pragma unroll
-  for (int j = 0; j < 8; ++j) red[threadIdx.x / 16][col_of(j)] = colsum[j];
-  __syncthreads();
-  float s = 0.0f;
-  const int64_t c = col0 + threadIdx.x;
-  if (threadIdx.x < BN) {
-    for (int g = 0; g < NT / 16; ++g) s += red[g][threadIdx.x];
-  }
-  if (!TOP1) {
-    if (threadIdx.x < BN && c < nc) part[(chunk * n_part + p) * nc + c] = s;
-    return;
-  }
-  // Select epilogue (one chunk): this tile's masked top-1.
-  float v = -CUDART_INF_F;
-  int vi = 0x7fffffff;
-  if (threadIdx.x < BN) {
-    v = (c < nc && ok[p * ok_bs + c] > 0.0f) ? s : NEG;
-    vi = static_cast<int>(c);
-  }
-  block_top1(v, vi, wv, wi);
-  if (threadIdx.x == 0) {
-    tile_best[p * gridDim.x + blockIdx.x] = v;
-    tile_idx[p * gridDim.x + blockIdx.x] = vi;
-  }
-}
 
 // Stage 2 of the gains: gains[p, c] = sum over chunks, in chunk order.
 __global__ void __launch_bounds__(NT)
@@ -238,38 +136,11 @@ struct Args {
   const float* cap;  // coverage only
   const float* mask;
   const float* ok;
-  int64_t n_part, ne, nc, d, ev_bs, cd_bs, cov_bs, cap_bs, mask_bs, ok_bs,
-      chunks;
+  int64_t n_part, ne, nc, d, ev_ld, cd_ld, ev_bs, cd_bs, cov_bs, cap_bs,
+      mask_bs, ok_bs, chunks;
   float hh;
+  int64_t streamed;  // the ring mode (kernels/ring.py plan)
 };
-
-template <typename T, bool RBF, bool TOP1, bool COV>
-void stage1(const Args& a, float* part, float* tile_best, int* tile_idx,
-            cudaStream_t s) {
-  const int64_t tiles_per_chunk = cdiv(cdiv(a.ne, BM), a.chunks);
-  const dim3 grid(static_cast<unsigned>(cdiv(a.nc, BN)),
-                  static_cast<unsigned>(a.n_part),
-                  static_cast<unsigned>(a.chunks));
-  facility_stage1<T, RBF, TOP1, COV><<<grid, NT, 0, s>>>(
-      static_cast<const T*>(a.ev), static_cast<const T*>(a.cd), a.cov, a.cap,
-      a.mask, a.ok, part, tile_best, tile_idx, a.n_part, a.ne, a.nc, a.d,
-      a.ev_bs, a.cd_bs, a.cov_bs, a.cap_bs, a.mask_bs, a.ok_bs,
-      tiles_per_chunk, a.hh);
-}
-
-template <bool TOP1, bool COV>
-void stage1_any(const Args& a, int64_t bf16, int64_t rbf, float* part,
-                float* tile_best, int* tile_idx, cudaStream_t s) {
-  if (bf16) {
-    if (rbf)
-      stage1<__nv_bfloat16, true, TOP1, COV>(a, part, tile_best, tile_idx, s);
-    else
-      stage1<__nv_bfloat16, false, TOP1, COV>(a, part, tile_best, tile_idx, s);
-  } else {
-    if (rbf) stage1<float, true, TOP1, COV>(a, part, tile_best, tile_idx, s);
-    else stage1<float, false, TOP1, COV>(a, part, tile_best, tile_idx, s);
-  }
-}
 
 namespace fl {
 
@@ -277,12 +148,12 @@ using namespace ring;  // barriers, TMA, the swizzled box, box_fma, Walk
 
 constexpr int NTH = 256;          // threads a block
 constexpr int TM = 128;           // eval rows a tile (the streamed operand)
-constexpr int TR = 16 * MI;       // candidate rows a band (resident)
+constexpr int TR = 16 * MI;       // candidate rows a band
 constexpr int BOX = TM * 128;     // bytes of an eval box, 128 bytes of d
 constexpr int XBOX = TR * 128;    // bytes of a candidate-band box
-constexpr int STAGES = 3;         // eval tiles in flight
 constexpr int VEC = TM * 4;       // bytes of one per-row vector of a tile
-constexpr int MAX_RES_BOXES = 2;  // boxes of d: the band and 3 stages fit
+constexpr int RES_STAGES = 3;     // eval tiles in flight, resident mode
+constexpr int STR_STAGES = 4;     // (band box, eval box) stages, streamed
 
 struct Args {
   const float* ok;  // select only
@@ -299,15 +170,25 @@ struct Args {
   float hh;
 };
 
-// Dynamic shared memory: the band, the ring's feature boxes and vectors,
-// the band's norms, the top-1 scratch and the barriers, after 1024 bytes of
-// alignment slack.
-__host__ __device__ constexpr int smem_bytes(int nb, int nv) {
-  return 1024 + nb * (XBOX + STAGES * BOX) + STAGES * nv * VEC + TR * 4 +
-         16 * 8 + 8 * (2 + 2 * STAGES);
+// Dynamic shared memory with nv per-row vectors: 1024 bytes of alignment
+// slack, the ring (resident: the band's nb boxes and RES_STAGES stages of
+// the eval tile's nb boxes; streamed: STR_STAGES stages of one band box and
+// one eval box), the stages' vectors, the band's norms, the top-1 scratch
+// and the barriers (full and empty a stage, and the band's pair).
+// kernels/ring.py facility_smem is the same formula.
+__host__ __device__ constexpr int smem_bytes(int nb, int nv, bool streamed) {
+  return 1024 +
+         (streamed ? STR_STAGES * (XBOX + BOX)
+                   : nb * (XBOX + RES_STAGES * BOX)) +
+         (streamed ? STR_STAGES : RES_STAGES) * nv * VEC + TR * 4 + 16 * 8 +
+         8 * (2 + 2 * (streamed ? STR_STAGES : RES_STAGES));
 }
+static_assert(smem_bytes(MAX_RES_BOXES, 3, false) <= SMEM_MAX,
+              "the resident mode's widest band does not fit");
+static_assert(smem_bytes(1, 3, true) <= SMEM_MAX,
+              "the streamed ring does not fit");
 
-template <typename T, bool RBF, bool TOP1, bool COV>
+template <typename T, bool RBF, bool TOP1, bool COV, bool STREAM>
 __global__ void __launch_bounds__(NTH, 1)
     facility_kernel(const __grid_constant__ CUtensorMap cmap,
                     const __grid_constant__ CUtensorMap emap,
@@ -317,19 +198,22 @@ __global__ void __launch_bounds__(NTH, 1)
                     const Args a) {
   constexpr int NV = COV ? 3 : 2;  // per-row vectors: cov, mask (, cap)
   constexpr int BC = 128 / sizeof(T);
+  constexpr int ST = STREAM ? STR_STAGES : RES_STAGES;
   extern __shared__ __align__(16) char smem_raw[];
   char* sm = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
-  char* xs = sm;                // the candidate band: nb boxes of TR rows
-  char* ys = xs + a.nb * XBOX;  // eval tiles: STAGES x nb boxes
-  float* vs = reinterpret_cast<float*>(ys + STAGES * a.nb * BOX);
-  float* bn = vs + STAGES * NV * TM;  // the band's |c|^2 (rbf)
-  float* tv = bn + TR;                // top-1 scratch: 2 x 8 (value, index)
+  char* xs = sm;                // resident: the candidate band (nb boxes);
+                                // streamed: ST stages of (band, eval) box
+  char* ys = xs + a.nb * XBOX;  // resident: eval tiles, ST x nb boxes
+  float* vs = reinterpret_cast<float*>(STREAM ? xs + ST * (XBOX + BOX)
+                                              : ys + ST * a.nb * BOX);
+  float* bn = vs + ST * NV * TM;  // the band's |c|^2 (rbf)
+  float* tv = bn + TR;            // top-1 scratch: 2 x 8 (value, index)
   int* ti = reinterpret_cast<int*>(tv + 16);
   uint64_t* bars = reinterpret_cast<uint64_t*>(ti + 16);
   const uint32_t xfull = smem_u32(bars), xempty = smem_u32(bars + 1);
   auto efull = [&](int s) { return smem_u32(bars + 2 + s); };
-  auto eempty = [&](int s) { return smem_u32(bars + 2 + STAGES + s); };
+  auto eempty = [&](int s) { return smem_u32(bars + 2 + ST + s); };
 
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int tx = lane & 15, h = lane >> 4;
@@ -344,35 +228,73 @@ __global__ void __launch_bounds__(NTH, 1)
                 static_cast<int>(t.rb * TR), a.cd_b ? static_cast<int>(t.b) : 0,
                 xfull);
   };
-  auto load_tile = [&](const Walk& t, int s) {
-    const uint32_t bar = efull(s);
+  auto load_vecs = [&](const Walk& t, int s, uint32_t bar) {
     const int row0 = static_cast<int>(t.ct * TM);
     const int p = static_cast<int>(t.b);
-    mbar_expect_tx(bar, ebytes);
-    for (int kb = 0; kb < a.nb; ++kb)
-      tma_load3(smem_u32(ys + (s * a.nb + kb) * BOX), &emap, kb * BC, row0,
-                a.ev_b ? p : 0, bar);
     float* v = vs + s * NV * TM;
     tma_load2(smem_u32(v), &covmap, row0, a.cov_b ? p : 0, bar);
     tma_load2(smem_u32(v + TM), &maskmap, row0, a.mask_b ? p : 0, bar);
     if (COV) tma_load2(smem_u32(v + 2 * TM), &capmap, row0, a.cap_b ? p : 0,
                        bar);
   };
+  auto load_tile = [&](const Walk& t, int s) {
+    const uint32_t bar = efull(s);
+    mbar_expect_tx(bar, ebytes);
+    for (int kb = 0; kb < a.nb; ++kb)
+      tma_load3(smem_u32(ys + (s * a.nb + kb) * BOX), &emap, kb * BC,
+                static_cast<int>(t.ct * TM), a.ev_b ? static_cast<int>(t.b) : 0,
+                bar);
+    load_vecs(t, s, bar);
+  };
+  // streamed: box kb of tile t's band and eval tile into stage s, the
+  // tile's vectors with its last box
+  auto load_box = [&](const Walk& t, int kb, int s) {
+    const uint32_t bar = efull(s);
+    const bool last = kb == a.nb - 1;
+    char* st = xs + s * (XBOX + BOX);
+    mbar_expect_tx(bar, XBOX + BOX + (last ? NV * VEC : 0));
+    tma_load3(smem_u32(st), &cmap, kb * BC, static_cast<int>(t.rb * TR),
+              a.cd_b ? static_cast<int>(t.b) : 0, bar);
+    tma_load3(smem_u32(st + XBOX), &emap, kb * BC, static_cast<int>(t.ct * TM),
+              a.ev_b ? static_cast<int>(t.b) : 0, bar);
+    if (last) load_vecs(t, s, bar);
+  };
 
   Walk cur;
   cur.start(blockIdx.x, a);
-  Walk fill = cur;  // thread 0: the next tile to load into the ring
+  Walk fill = cur;  // thread 0: the next tile (streamed: and box fkb of it)
+  int fkb = 0;      // to load into the ring
+  // streamed: the stage's refill, once every warp has arrived on its empty
+  // barrier
+  auto refill = [&](const Slot& q) {
+    mbar_wait(eempty(q.s), q.ph);
+    if (fill.valid) {
+      load_box(fill, fkb, q.s);
+      if (++fkb == a.nb) {
+        fkb = 0;
+        fill.next(a);
+      }
+    }
+  };
   if (tid == 0) {
     mbar_init(xfull, 1);
     mbar_init(xempty, NTH / 32);  // one arrival a warp
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(efull(s), 1);
       mbar_init(eempty(s), NTH / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (cur.valid) {
+    if constexpr (STREAM) {
+      for (int s = 0; s < ST && fill.valid; ++s) {
+        load_box(fill, fkb, s);
+        if (++fkb == a.nb) {
+          fkb = 0;
+          fill.next(a);
+        }
+      }
+    } else if (cur.valid) {
       load_band(cur);
-      for (int s = 0; s < STAGES && fill.valid; ++s) {
+      for (int s = 0; s < ST && fill.valid; ++s) {
         load_tile(fill, s);
         fill.next(a);
       }
@@ -382,27 +304,29 @@ __global__ void __launch_bounds__(NTH, 1)
 
   float colsum[MI];  // candidate row i's sum over this thread's eval rows
   int64_t n = 0;     // tiles done by this block
-  uint32_t xi = 0;   // bands loaded before this tile's
+  uint32_t xi = 0;   // bands loaded before this tile's (resident)
   uint32_t nu = 0;   // units finished (the top-1 scratch alternates)
+  Slot q{0, 0};      // the ring position (streamed)
   for (; cur.valid; ++n) {
-    const int s = static_cast<int>(n % STAGES);
-    const uint32_t ph = static_cast<uint32_t>((n / STAGES) & 1);
+    const int s = STREAM ? q.s : static_cast<int>(n % ST);
+    const uint32_t ph = static_cast<uint32_t>((n / ST) & 1);
     if (cur.fresh) {
-      if (n > 0) ++xi;
 #pragma unroll
       for (int i = 0; i < MI; ++i) colsum[i] = 0.0f;
-      mbar_wait(xfull, xi & 1);
-      if (RBF) {  // |c|^2 of the warp's 32 band rows (lane l: row 32 w + l)
-        float c2 = 0.0f;
-        for (int kb = 0; kb < a.nb; ++kb)
-          c2 = row_norm<T>(xs + kb * XBOX, 32 * w + lane,
-                           static_cast<int>(min64(BC, a.d - int64_t{kb} * BC)),
-                           c2);
-        bn[32 * w + lane] = c2;
-        __syncwarp();
+      if (!STREAM) {
+        if (n > 0) ++xi;
+        mbar_wait(xfull, xi & 1);
+        if (RBF) {  // |c|^2 of the warp's 32 band rows (lane l: 32 w + l)
+          float c2 = 0.0f;
+          for (int kb = 0; kb < a.nb; ++kb) {
+            const int nk = static_cast<int>(min64(BC, a.d - int64_t{kb} * BC));
+            c2 = row_norm<T>(xs + kb * XBOX, 32 * w + lane, nk, c2);
+          }
+          bn[32 * w + lane] = c2;
+          __syncwarp();
+        }
       }
     }
-    mbar_wait(efull(s), ph);
     float acc[MI][8], y2[8];
 #pragma unroll
     for (int i = 0; i < MI; ++i) {
@@ -411,14 +335,41 @@ __global__ void __launch_bounds__(NTH, 1)
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) y2[j] = 0.0f;
-    for (int kb = 0; kb < a.nb; ++kb)
-      box_fma<T, RBF>(xs + kb * XBOX + (32 * w + 4 * h) * 128,
-                      ys + (s * a.nb + kb) * BOX, groups_of(a.d, kb, BC), h,
-                      tx, acc, y2);
+    const float* vc;  // this tile's vectors, in its (last) stage
+    if constexpr (STREAM) {
+      float c2 = 0.0f;  // rbf, a unit's first tile: |c|^2 of band row
+                        // 32 w + lane, box by box
+      for (int kb = 0; kb < a.nb; ++kb) {
+        mbar_wait(efull(q.s), q.ph);
+        const char* xb = xs + q.s * (XBOX + BOX);
+        if (RBF && cur.fresh)
+          c2 = row_norm<T>(xb, 32 * w + lane,
+                           static_cast<int>(min64(BC, a.d - int64_t{kb} * BC)),
+                           c2);
+        box_fma<T, RBF>(xb + (32 * w + 4 * h) * 128, xb + XBOX,
+                        groups_of(a.d, kb, BC), h, tx, acc, y2);
+        if (kb + 1 == a.nb) break;  // the last stage stays for the epilogue
+        __syncwarp();
+        if (lane == 0) mbar_arrive(eempty(q.s));
+        if (tid == 0) refill(q);
+        q.next(ST);
+      }
+      if (RBF && cur.fresh) {
+        bn[32 * w + lane] = c2;
+        __syncwarp();
+      }
+      vc = vs + q.s * NV * TM;
+    } else {
+      mbar_wait(efull(s), ph);
+      for (int kb = 0; kb < a.nb; ++kb)
+        box_fma<T, RBF>(xs + kb * XBOX + (32 * w + 4 * h) * 128,
+                        ys + (s * a.nb + kb) * BOX, groups_of(a.d, kb, BC), h,
+                        tx, acc, y2);
+      vc = vs + s * NV * TM;
+    }
 
     // epilogue in registers: the thread's 8 eval rows in order, each row's
     // vectors read once from the stage
-    const float* vc = vs + s * NV * TM;
     float xn[MI];
     if (RBF) {
 #pragma unroll
@@ -448,19 +399,25 @@ __global__ void __launch_bounds__(NTH, 1)
     // this warp is done with the stage (and, before a new unit, the band);
     // thread 0 refills them once every warp is
     __syncwarp();
-    if (lane == 0) {
-      mbar_arrive(eempty(s));
-      if (cur.valid && cur.fresh) mbar_arrive(xempty);
-    }
-    if (tid == 0) {
-      mbar_wait(eempty(s), ph);
-      if (fill.valid) {
-        load_tile(fill, s);
-        fill.next(a);
+    if constexpr (STREAM) {
+      if (lane == 0) mbar_arrive(eempty(q.s));
+      if (tid == 0) refill(q);
+      q.next(ST);
+    } else {
+      if (lane == 0) {
+        mbar_arrive(eempty(s));
+        if (cur.valid && cur.fresh) mbar_arrive(xempty);
       }
-      if (cur.valid && cur.fresh) {
-        mbar_wait(xempty, xi & 1);
-        load_band(cur);
+      if (tid == 0) {
+        mbar_wait(eempty(s), ph);
+        if (fill.valid) {
+          load_tile(fill, s);
+          fill.next(a);
+        }
+        if (cur.valid && cur.fresh) {
+          mbar_wait(xempty, xi & 1);
+          load_band(cur);
+        }
       }
     }
     if (cur.valid && !cur.fresh) continue;
@@ -495,31 +452,8 @@ __global__ void __launch_bounds__(NTH, 1)
 }
 
 // ---------------------------------------------------------------------------
-// host side: the shape rule, the maps and the launch
+// host side: the maps and the launch
 // ---------------------------------------------------------------------------
-
-// Whether a per-row vector loads by TMA: absent, or a 16-byte aligned base
-// and, when it has a partition axis that the launch walks, rows a multiple
-// of 16 bytes apart.
-inline bool vec_ok(const void* p, int64_t bs, int64_t n_part) {
-  return p == nullptr ||
-         (aligned16(p) && (bs == 0 || n_part == 1 || (bs * 4) % 16 == 0));
-}
-
-// The shape rule: the persistent kernel takes the call when its features
-// load by TMA (rows of a multiple of 16 bytes, 16-byte aligned bases, at
-// most MAX_RES_BOXES boxes of d so the band and the ring fit) and so do its
-// vectors; rows and partitions fit TMA's int32 coordinates.
-inline bool persistent(const void* ev, const void* cd, const void* cov,
-                       const void* cap, const void* mask, int64_t n_part,
-                       int64_t ne, int64_t nc, int64_t d, int64_t cov_bs,
-                       int64_t cap_bs, int64_t mask_bs, int esz) {
-  return (d * esz) % 16 == 0 && cdiv(d, 128 / esz) <= MAX_RES_BOXES &&
-         aligned16(ev) && aligned16(cd) && vec_ok(cov, cov_bs, n_part) &&
-         vec_ok(cap, cap_bs, n_part) && vec_ok(mask, mask_bs, n_part) &&
-         ne < (int64_t{1} << 30) && nc < (int64_t{1} << 30) &&
-         n_part < (int64_t{1} << 30);
-}
 
 // A 2-D map (n, partitions) of float32 with boxes of TM x 1, unswizzled;
 // a partition extent of 1 for a vector the partitions share.  Sets *batched
@@ -548,10 +482,10 @@ struct Maps {
   CUtensorMap c, e, cov, mask, cap;
 };
 
-template <typename T, bool RBF, bool TOP1, bool COV>
+template <typename T, bool RBF, bool TOP1, bool COV, bool STREAM>
 int launch(const Maps& m, const Args& a, int grid, cudaStream_t stream) {
-  const int smem = smem_bytes(a.nb, COV ? 3 : 2);
-  auto kern = facility_kernel<T, RBF, TOP1, COV>;
+  const int smem = smem_bytes(a.nb, COV ? 3 : 2, STREAM);
+  auto kern = facility_kernel<T, RBF, TOP1, COV, STREAM>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -559,8 +493,15 @@ int launch(const Maps& m, const Args& a, int grid, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Stage 1 on the persistent kernel: units of (partition, band, chunk),
-// one block an SM (fewer when there are fewer units).
+template <typename T, bool RBF, bool TOP1, bool COV>
+int launch_mode(const Maps& m, const Args& a, int grid, bool streamed,
+                cudaStream_t stream) {
+  return streamed ? launch<T, RBF, TOP1, COV, true>(m, a, grid, stream)
+                  : launch<T, RBF, TOP1, COV, false>(m, a, grid, stream);
+}
+
+// Stage 1: units of (partition, band, chunk), one block an SM (fewer when
+// there are fewer units).
 template <bool TOP1, bool COV>
 int run(const sm90::Args& c, int64_t bf16, int64_t rbf, float* part,
         float* tile_best, int* tile_idx, cudaStream_t stream) {
@@ -585,16 +526,18 @@ int run(const sm90::Args& c, int64_t bf16, int64_t rbf, float* part,
   a.ev_b = c.ev_bs != 0 && c.n_part > 1;
   a.cd_b = c.cd_bs != 0 && c.n_part > 1;
   a.hh = c.hh;
+  if (!c.streamed && a.nb > MAX_RES_BOXES)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(min64(a.units, sm_count()));
 
   Maps m{};
   const CUtensorMapDataType type = bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   int err = make_map(&m.c, type, esz, c.cd, c.d, c.nc, a.cd_b ? c.n_part : 1,
-                     c.d, a.cd_b ? c.cd_bs : c.nc * c.d, bc, TR);
+                     c.cd_ld, a.cd_b ? c.cd_bs : c.nc * c.cd_ld, bc, TR);
   if (err == 0)
     err = make_map(&m.e, type, esz, c.ev, c.d, c.ne, a.ev_b ? c.n_part : 1,
-                   c.d, a.ev_b ? c.ev_bs : c.ne * c.d, bc, TM);
+                   c.ev_ld, a.ev_b ? c.ev_bs : c.ne * c.ev_ld, bc, TM);
   if (err == 0)
     err = make_vec_map(&m.cov, c.cov, c.ne, c.n_part, c.cov_bs, &a.cov_b);
   if (err == 0)
@@ -603,43 +546,28 @@ int run(const sm90::Args& c, int64_t bf16, int64_t rbf, float* part,
     err = make_vec_map(&m.cap, c.cap, c.ne, c.n_part, c.cap_bs, &a.cap_b);
   if (err != 0) return err;
   if (!COV) m.cap = m.mask;  // unused
+  const bool st = c.streamed != 0;
   if (bf16)
-    return rbf ? launch<__nv_bfloat16, true, TOP1, COV>(m, a, grid, stream)
-               : launch<__nv_bfloat16, false, TOP1, COV>(m, a, grid, stream);
-  return rbf ? launch<float, true, TOP1, COV>(m, a, grid, stream)
-             : launch<float, false, TOP1, COV>(m, a, grid, stream);
+    return rbf ? launch_mode<__nv_bfloat16, true, TOP1, COV>(m, a, grid, st,
+                                                             stream)
+               : launch_mode<__nv_bfloat16, false, TOP1, COV>(m, a, grid, st,
+                                                              stream);
+  return rbf ? launch_mode<float, true, TOP1, COV>(m, a, grid, st, stream)
+             : launch_mode<float, false, TOP1, COV>(m, a, grid, st, stream);
 }
 
 }  // namespace fl
 
-bool takes_persistent(const Args& a, int64_t bf16) {
-  return fl::persistent(a.ev, a.cd, a.cov, a.cap, a.mask, a.n_part, a.ne,
-                        a.nc, a.d, a.cov_bs, a.cap_bs, a.mask_bs,
-                        bf16 ? 2 : 4);
-}
-
-// Candidate rows of a stage-1 block's band (tile path) or unit's band
-// (persistent path): the select's per-band scratch holds P * ceil(nc / band)
-// entries.
-int band_of(bool persistent) { return persistent ? fl::TR : BN; }
-
 // A plan the kernels take: at least one chunk, every chunk non-empty (the
-// stage-2 sums read every chunk's partials), the grid within CUDA's limits.
+// stage-2 sums read every chunk's partials), the grid and TMA's int32
+// coordinates within their limits, row pitches covering d.
 bool plan_ok(const Args& a) {
-  const int64_t tiles = cdiv(a.ne, BM);
+  const int64_t tiles = cdiv(a.ne, fl::TM);
   return a.n_part >= 1 && a.ne >= 1 && a.nc >= 1 && a.d >= 1 &&
          a.n_part <= 65535 && a.chunks >= 1 && a.chunks <= 65535 &&
-         (a.chunks - 1) * cdiv(tiles, a.chunks) < tiles;
-}
-
-// Stage 1 on the path the shape rule picks.
-template <bool TOP1, bool COV>
-int stage1_run(const Args& a, int64_t bf16, int64_t rbf, float* part,
-               float* tile_best, int* tile_idx, cudaStream_t s) {
-  if (takes_persistent(a, bf16))
-    return fl::run<TOP1, COV>(a, bf16, rbf, part, tile_best, tile_idx, s);
-  stage1_any<TOP1, COV>(a, bf16, rbf, part, tile_best, tile_idx, s);
-  return static_cast<int>(cudaGetLastError());
+         (a.chunks - 1) * cdiv(tiles, a.chunks) < tiles &&
+         a.ne < (int64_t{1} << 30) && a.nc < (int64_t{1} << 30) &&
+         a.ev_ld >= a.d && a.cd_ld >= a.d;
 }
 
 // Both objectives' gains: stage 1, then the chunk sums in chunk order.
@@ -647,8 +575,8 @@ template <bool COV>
 int gains_launch(const Args& a, int64_t bf16, int64_t rbf, float* part,
                  float* gains, cudaStream_t s) {
   if (!plan_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = stage1_run<false, COV>(a, bf16, rbf, part, nullptr,
-                                         nullptr, s);
+  const int err = fl::run<false, COV>(a, bf16, rbf, part, nullptr, nullptr,
+                                      s);
   if (err != 0) return err;
   const dim3 grid(static_cast<unsigned>(cdiv(a.nc, NT)),
                   static_cast<unsigned>(a.n_part));
@@ -666,15 +594,14 @@ int select_launch(const Args& a, int64_t bf16, int64_t rbf, float* part,
   if (!plan_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid2(1, static_cast<unsigned>(a.n_part));
   if (a.chunks == 1) {
-    const int err = stage1_run<true, COV>(a, bf16, rbf, nullptr, tile_best,
-                                          tile_idx, s);
+    const int err = fl::run<true, COV>(a, bf16, rbf, nullptr, tile_best,
+                                       tile_idx, s);
     if (err != 0) return err;
-    fold_tiles<<<grid2, NT, 0, s>>>(
-        tile_best, tile_idx, best, idx,
-        cdiv(a.nc, band_of(takes_persistent(a, bf16))));
+    fold_tiles<<<grid2, NT, 0, s>>>(tile_best, tile_idx, best, idx,
+                                    cdiv(a.nc, fl::TR));
   } else {
-    const int err = stage1_run<false, COV>(a, bf16, rbf, part, nullptr,
-                                           nullptr, s);
+    const int err = fl::run<false, COV>(a, bf16, rbf, part, nullptr, nullptr,
+                                        s);
     if (err != 0) return err;
     facility_select_chunks<<<grid2, NT, 0, s>>>(part, a.ok, best, idx,
                                                 a.n_part, a.nc, a.chunks,
@@ -685,35 +612,28 @@ int select_launch(const Args& a, int64_t bf16, int64_t rbf, float* part,
 
 }  // namespace sm90
 
-// Shapes, in elements: ev (P, ne, d) with batch stride ev_bs (0 = shared),
-// cd (P, nc, d) / cd_bs, cov (or cover), cap and mask (P, ne) f32 / cov_bs,
-// cap_bs, mask_bs, ok (P, nc) f32 / ok_bs.  Rows are contiguous with row
-// stride d.  The caller allocates every output and scratch from the plan
-// (sm90_facility_tma picks the path, sm90_facility_band gives its band):
-// `part` holds chunks * P * nc floats, every chunk covering at least one
-// of the ceil(ne / 128) eval tiles (chunk c: tiles [c t, (c + 1) t) with
-// t = ceil(tiles / chunks)); with chunks == 1 the select's scratch is
-// tile_best / tile_idx, P * ceil(nc / band) entries each, and `part` is
-// unused.  Every entry returns the first launch error, a tensor-map error
-// (driver errors offset by 10000), or 0; a plan it does not take is
-// cudaErrorInvalidValue.
+// Shapes, in elements: ev (P, ne, d) with rows ev_ld apart and batch stride
+// ev_bs (0 = shared), cd (P, nc, d) / cd_ld / cd_bs, cov (or cover), cap and
+// mask (P, ne) f32 / cov_bs, cap_bs, mask_bs, ok (P, nc) f32 / ok_bs.  The
+// features' bases, pitches and batch strides in bytes, and the vectors'
+// bases and (batched) strides in bytes, are multiples of 16 (TMA's rule;
+// the wrappers copy other operands).  streamed != 0 selects the streamed
+// ring (resident takes d within 2 boxes of 128 bytes; kernels/ring.py
+// plan).  The caller allocates every output and scratch from the plan
+// (kernels/facility_gain.py plan): `part` holds chunks * P * nc floats,
+// every chunk covering at least one of the ceil(ne / 128) eval tiles
+// (chunk c: tiles [c t, (c + 1) t) with t = ceil(tiles / chunks)); with
+// chunks == 1 the select's scratch is tile_best / tile_idx, P * ceil(nc /
+// 256) entries each, and `part` is unused.  Every entry returns the first
+// launch error, a tensor-map error (driver errors offset by 10000), or 0;
+// a plan it does not take is cudaErrorInvalidValue.
 
-// 1 when a call with these operands takes the persistent TMA kernel, 0
-// when the first port's tile kernel (the tests and the smoke check that
-// the main shapes take the first).  cap is NULL for facility location.
-extern "C" int sm90_facility_tma(const void* ev, const void* cd,
-                                 const void* cov, const void* cap,
-                                 const void* mask, int64_t n_part, int64_t ne,
-                                 int64_t nc, int64_t d, int64_t cov_bs,
-                                 int64_t cap_bs, int64_t mask_bs,
-                                 int64_t bf16) {
-  return sm90::fl::persistent(ev, cd, cov, cap, mask, n_part, ne, nc, d,
-                              cov_bs, cap_bs, mask_bs, bf16 ? 2 : 4);
-}
-
-// Candidate rows of a band on each path (tma != 0: the persistent kernel).
-extern "C" int sm90_facility_band(int64_t tma) {
-  return sm90::band_of(tma != 0);
+// The dynamic shared memory a launch with nb boxes of d and nv per-row
+// vectors (2: facility, 3: coverage) takes in either mode (host only; the
+// tests hold kernels/ring.py's formula to it).
+extern "C" int sm90_facility_smem(int64_t nb, int64_t nv, int64_t streamed) {
+  return sm90::fl::smem_bytes(static_cast<int>(nb), static_cast<int>(nv),
+                              streamed != 0);
 }
 
 // Facility gains (P, nc) f32.
@@ -721,14 +641,16 @@ extern "C" int sm90_facility_gain(const void* ev, const void* cd,
                                   const void* cov, const void* mask,
                                   void* part, void* gains, int64_t n_part,
                                   int64_t ne, int64_t nc, int64_t d,
-                                  int64_t ev_bs, int64_t cd_bs, int64_t cov_bs,
+                                  int64_t ev_ld, int64_t cd_ld, int64_t ev_bs,
+                                  int64_t cd_bs, int64_t cov_bs,
                                   int64_t mask_bs, int64_t chunks,
                                   int64_t bf16, int64_t rbf, float hh,
-                                  void* stream) {
+                                  int64_t streamed, void* stream) {
   using namespace sm90;
   const Args a{ev, cd, static_cast<const float*>(cov), nullptr,
                static_cast<const float*>(mask), nullptr, n_part, ne, nc, d,
-               ev_bs, cd_bs, cov_bs, 0, mask_bs, 0, chunks, hh};
+               ev_ld, cd_ld, ev_bs, cd_bs, cov_bs, 0, mask_bs, 0, chunks, hh,
+               streamed};
   return gains_launch<false>(a, bf16, rbf, static_cast<float*>(part),
                              static_cast<float*>(gains),
                              static_cast<cudaStream_t>(stream));
@@ -739,14 +661,14 @@ extern "C" int sm90_facility_select(
     const void* ev, const void* cd, const void* cov, const void* mask,
     const void* ok, void* part, void* tile_best, void* tile_idx, void* best,
     void* idx, int64_t n_part, int64_t ne, int64_t nc, int64_t d,
-    int64_t ev_bs, int64_t cd_bs, int64_t cov_bs, int64_t mask_bs,
-    int64_t ok_bs, int64_t chunks, int64_t bf16, int64_t rbf, float hh,
-    void* stream) {
+    int64_t ev_ld, int64_t cd_ld, int64_t ev_bs, int64_t cd_bs,
+    int64_t cov_bs, int64_t mask_bs, int64_t ok_bs, int64_t chunks,
+    int64_t bf16, int64_t rbf, float hh, int64_t streamed, void* stream) {
   using namespace sm90;
   const Args a{ev, cd, static_cast<const float*>(cov), nullptr,
                static_cast<const float*>(mask), static_cast<const float*>(ok),
-               n_part, ne, nc, d, ev_bs, cd_bs, cov_bs, 0, mask_bs, ok_bs,
-               chunks, hh};
+               n_part, ne, nc, d, ev_ld, cd_ld, ev_bs, cd_bs, cov_bs, 0,
+               mask_bs, ok_bs, chunks, hh, streamed};
   return select_launch<false>(
       a, bf16, rbf, static_cast<float*>(part), static_cast<float*>(tile_best),
       static_cast<int*>(tile_idx), static_cast<float*>(best),
@@ -754,20 +676,19 @@ extern "C" int sm90_facility_select(
 }
 
 // Saturated-coverage gains (P, nc) f32.
-extern "C" int sm90_coverage_gain(const void* ev, const void* cd,
-                                  const void* cover, const void* cap,
-                                  const void* mask, void* part, void* gains,
-                                  int64_t n_part, int64_t ne, int64_t nc,
-                                  int64_t d, int64_t ev_bs, int64_t cd_bs,
-                                  int64_t cover_bs, int64_t cap_bs,
-                                  int64_t mask_bs, int64_t chunks,
-                                  int64_t bf16, int64_t rbf, float hh,
-                                  void* stream) {
+extern "C" int sm90_coverage_gain(
+    const void* ev, const void* cd, const void* cover, const void* cap,
+    const void* mask, void* part, void* gains, int64_t n_part, int64_t ne,
+    int64_t nc, int64_t d, int64_t ev_ld, int64_t cd_ld, int64_t ev_bs,
+    int64_t cd_bs, int64_t cover_bs, int64_t cap_bs, int64_t mask_bs,
+    int64_t chunks, int64_t bf16, int64_t rbf, float hh, int64_t streamed,
+    void* stream) {
   using namespace sm90;
   const Args a{ev, cd, static_cast<const float*>(cover),
                static_cast<const float*>(cap),
                static_cast<const float*>(mask), nullptr, n_part, ne, nc, d,
-               ev_bs, cd_bs, cover_bs, cap_bs, mask_bs, 0, chunks, hh};
+               ev_ld, cd_ld, ev_bs, cd_bs, cover_bs, cap_bs, mask_bs, 0,
+               chunks, hh, streamed};
   return gains_launch<true>(a, bf16, rbf, static_cast<float*>(part),
                             static_cast<float*>(gains),
                             static_cast<cudaStream_t>(stream));
@@ -778,15 +699,16 @@ extern "C" int sm90_coverage_select(
     const void* ev, const void* cd, const void* cover, const void* cap,
     const void* mask, const void* ok, void* part, void* tile_best,
     void* tile_idx, void* best, void* idx, int64_t n_part, int64_t ne,
-    int64_t nc, int64_t d, int64_t ev_bs, int64_t cd_bs, int64_t cover_bs,
-    int64_t cap_bs, int64_t mask_bs, int64_t ok_bs, int64_t chunks,
-    int64_t bf16, int64_t rbf, float hh, void* stream) {
+    int64_t nc, int64_t d, int64_t ev_ld, int64_t cd_ld, int64_t ev_bs,
+    int64_t cd_bs, int64_t cover_bs, int64_t cap_bs, int64_t mask_bs,
+    int64_t ok_bs, int64_t chunks, int64_t bf16, int64_t rbf, float hh,
+    int64_t streamed, void* stream) {
   using namespace sm90;
   const Args a{ev, cd, static_cast<const float*>(cover),
                static_cast<const float*>(cap),
                static_cast<const float*>(mask), static_cast<const float*>(ok),
-               n_part, ne, nc, d, ev_bs, cd_bs, cover_bs, cap_bs, mask_bs,
-               ok_bs, chunks, hh};
+               n_part, ne, nc, d, ev_ld, cd_ld, ev_bs, cd_bs, cover_bs, cap_bs,
+               mask_bs, ok_bs, chunks, hh, streamed};
   return select_launch<true>(
       a, bf16, rbf, static_cast<float*>(part), static_cast<float*>(tile_best),
       static_cast<int*>(tile_idx), static_cast<float*>(best),

@@ -14,32 +14,34 @@
 // 4 bytes written, 32 FLOP/B against the ~20 FLOP/B ridge of FP32 FFMA on an
 // H100 SXM (67 TFLOP/s over 3.35 TB/s), so the kernel is bound by its FFMA
 // work (s11: 8.2 ms), but writing the output alone takes 5.1 ms: the stores
-// have to overlap the products.  No tensor cores: the port keeps full FP32
-// (no TF32) until a later change brings a tensor-core mode with its own
-// tolerance.
+// have to overlap the products.  Below d of about 40 the output's bytes
+// bound it; at wider d the FFMAs do, more so the wider.  No tensor cores:
+// the port keeps full FP32 (no TF32) until a later change brings a
+// tensor-core mode with its own tolerance.
 //
 // Design (one persistent block of 256 threads a streaming multiprocessor,
-// up to 255 registers a thread):
+// up to 255 registers a thread; every width and alignment on this kernel):
 //   * Output tiles are 256 x-rows by 128 y-rows.  Work units are a 256-row
 //     band of one batch entry with a range of its column tiles (the whole
 //     row when there are enough bands to fill the card); block j takes
 //     units j, j + grid, ... so the blocks working at one time share a
 //     batch entry and its y tiles stay in L2.
-//   * TMA path (d * sizeof(T) a multiple of 16, at most 2 boxes of 128
-//     bytes of d): the x band stays resident in shared memory and thread 0
-//     streams the y tiles through a 2-stage ring of TMA loads
-//     (cp.async.bulk.tensor, 128-byte swizzle, a full and an empty mbarrier
-//     a stage: each warp arrives on the empty one after its products, and
-//     thread 0 refills the stage when all have; the x band likewise), so
-//     the next tile's load overlaps this tile's FFMAs and no block barrier
-//     sits in the loop.  The maps are 3-D (d,
-//     rows, batch); an operand shared by the batch (stride 0) gets a batch
-//     extent of 1 and coordinate 0.  Rows past n and columns past d arrive
-//     as TMA's zero fill.
-//   * Other shapes (d not a multiple of 4 in f32 or 8 in bf16, misaligned
-//     bases, d past 2 boxes) take the first port's kernel, tile_kernel: one
-//     128 x 128 tile a block, two blocks an SM, d staged in chunks of 16
-//     (tile.cuh tile_product), the rbf transform with sim_of.
+//   * Operands load by TMA (cp.async.bulk.tensor, 128-byte swizzle, 3-D
+//     maps (d, rows, batch) with a row pitch; an operand shared by the
+//     batch, stride 0, gets a batch extent of 1 and coordinate 0).  Rows
+//     past n and columns past d arrive as TMA's zero fill.  TMA needs
+//     16-byte row pitches and bases: the wrapper (kernels/pairwise.py,
+//     kernels/ring.py) hands other operands over as a padded copy.
+//   * Two ring modes (ring.cuh; the wrapper picks by d, kernels/ring.py):
+//     resident (d within 2 boxes of 128 bytes): the x band stays in shared
+//     memory for a unit and thread 0 streams the y tiles through a 2-stage
+//     ring; streamed (wider d): each stage of a 3-stage ring carries one
+//     box of d of the x band and of the y tile, the accumulators carry
+//     across the tile's boxes and the epilogue runs after its last.  A full
+//     and an empty mbarrier a stage: each warp arrives on the empty one
+//     after its products, and thread 0 refills the stage when all have, so
+//     the next loads overlap this box's FFMAs and no block barrier sits in
+//     the loop.
 //   * The FFMA loop: warp w owns tile rows 32 w .. 32 w + 31; lane (h, tx)
 //     of it owns 16 of them (8 (i / 4) + 4 h + i % 4) and the columns
 //     tx + 16 j (8), a 16 x 8 register micro-tile fed by 24 shared loads of
@@ -51,18 +53,20 @@
 //   * Epilogue, per warp: its 32 x 64 half-rows at a time to its own two
 //     staged 32 x 32 boxes, the rbf transform there (sm90.cuh: sim_of's
 //     value without the division's slow path; the warp takes the norms of
-//     its rows and the tile's columns from the staged operands), then lane 0
-//     issues the TMA stores (shared -> global, clipped at nx and ny) and
-//     waits for them to have read the boxes (cp.async.bulk.wait_group.read)
-//     only before writing them again.  No block barrier: one warp's stores
-//     overlap the other warps' products.  Where ny is not a multiple of 4
-//     (rows not 16-byte aligned) the warp copies its boxes out with plain
-//     stores.
+//     its rows and the tile's columns from the staged operands, box by
+//     box), then lane 0 issues the TMA stores (shared -> global, clipped at
+//     nx and ny) and waits for them to have read the boxes
+//     (cp.async.bulk.wait_group.read) only before writing them again.  No
+//     block barrier: one warp's stores overlap the other warps' products.
+//     Where ny is not a multiple of 4 (rows not 16-byte aligned) the warp
+//     copies its boxes out with plain stores.
 //   * The barriers and TMA loads, the swizzled box, the FFMA loop and the
 //     walk over units are in ring.cuh, shared with facility.cu.
-//   * Same bits as the first port: each output is one fmaf chain over
-//     k = 0 .. d-1 from 0.0f, the rbf norms likewise; zero fill only adds
-//     +0 terms.  No atomics: results are bit-reproducible run to run.
+//   * Same bits as the first port (a 128 x 128 tile kernel, d staged in
+//     chunks of 16): each output is one fmaf chain over k = 0 .. d-1 from
+//     0.0f, the rbf norms likewise, in both modes; zero fill and a padded
+//     copy's zero columns only add +0 terms.  No atomics: results are
+//     bit-reproducible run to run.
 #include <type_traits>
 
 #include "ring.cuh"
@@ -82,13 +86,27 @@ constexpr int XBOX = TR * 128;     // bytes of an x-band box
 constexpr int WROWS = TR / 8;      // rows a warp owns (and stores)
 constexpr int WBOX = WROWS * 128;  // a warp's staged box: 32 rows x 32 f32
 constexpr int OUT_BYTES = 8 * 2 * WBOX;  // each warp's 32 x 64 staging
-// boxes of d that fit resident: an x band and 2 y stages beside the staging
-constexpr int MAX_RES_BOXES =
-    (227 * 1024 - 4096 - OUT_BYTES) / (XBOX + 2 * BOX);
+constexpr int RES_STAGES = 2;      // y stages of the resident mode
+constexpr int STR_STAGES = 3;      // (x box, y box) stages of the streamed
+constexpr int NORM_BYTES = 8 * (WROWS + TM) * 4;  // rbf norms, per warp
+
+// Dynamic shared memory of a launch: 1024 bytes of alignment slack, the
+// staging, the ring (resident: the x band's nb boxes and RES_STAGES y
+// stages of nb boxes; streamed: STR_STAGES stages of one x and one y box),
+// the barriers (full and empty a stage, and the x band's pair) and the
+// norms.  kernels/ring.py pairwise_smem is the same formula.
+__host__ __device__ constexpr int smem_bytes(int nb, bool streamed) {
+  return 1024 + OUT_BYTES +
+         (streamed ? STR_STAGES * (XBOX + BOX)
+                   : nb * (XBOX + RES_STAGES * BOX)) +
+         8 * (2 + 2 * (streamed ? STR_STAGES : RES_STAGES)) + NORM_BYTES;
+}
+static_assert(smem_bytes(MAX_RES_BOXES, false) <= SMEM_MAX,
+              "the resident mode's widest band does not fit");
+static_assert(smem_bytes(1, true) <= SMEM_MAX,
+              "the streamed ring does not fit");
 
 struct Args {
-  const void* x;
-  const void* y;
   float* out;
   int64_t nx, ny, d, x_bs, y_bs;
   int64_t n_rb, n_ct, cpc, cpb, units;  // row bands, column tiles, tiles
@@ -98,23 +116,25 @@ struct Args {
   float hh;
 };
 
-template <typename T, bool RBF>
+template <typename T, bool RBF, bool STREAM>
 __global__ void __launch_bounds__(NTH, 1)
     pairwise_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap ymap,
                     const __grid_constant__ CUtensorMap omap, const Args a) {
+  constexpr int ST = STREAM ? STR_STAGES : RES_STAGES;
   extern __shared__ __align__(16) char smem_raw[];
   char* sm = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   char* stg = sm;                     // OUT_BYTES: each warp's staging
-  char* xs = sm + OUT_BYTES;          // the x band: nb boxes of TR rows
-  char* ys = xs + a.nb * XBOX;        // y: 2 stages of nb boxes
+  char* xs = sm + OUT_BYTES;          // resident: the x band (nb boxes);
+                                      // streamed: ST stages of (x, y) box
+  char* ys = xs + a.nb * XBOX;        // resident: y, ST stages of nb boxes
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      ys + 2 * a.nb * BOX);  // x full / empty, y full / empty
-  float* norms = reinterpret_cast<float*>(bars + 6);  // 8 x (32 + 128)
+      STREAM ? xs + ST * (XBOX + BOX) : ys + ST * a.nb * BOX);
+  float* norms = reinterpret_cast<float*>(bars + 2 + 2 * ST);  // 8 x 160
   const uint32_t xfull = smem_u32(bars), xempty = smem_u32(bars + 1);
   auto yfull = [&](int s) { return smem_u32(bars + 2 + s); };
-  auto yempty = [&](int s) { return smem_u32(bars + 4 + s); };
+  auto yempty = [&](int s) { return smem_u32(bars + 2 + ST + s); };
 
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int tx = lane & 15, h = lane >> 4;
@@ -140,19 +160,40 @@ __global__ void __launch_bounds__(NTH, 1)
                 static_cast<int>(t.ct * TM), a.y_bs ? static_cast<int>(t.b) : 0,
                 yfull(s));
   };
+  // streamed: box kb of tile t's x band and y tile into stage s
+  auto load_box = [&](const Walk& t, int kb, int s) {
+    char* st = xs + s * (XBOX + BOX);
+    mbar_expect_tx(yfull(s), XBOX + BOX);
+    tma_load3(smem_u32(st), &xmap, kb * BC, static_cast<int>(t.rb * TR),
+              a.x_bs ? static_cast<int>(t.b) : 0, yfull(s));
+    tma_load3(smem_u32(st + XBOX), &ymap, kb * BC,
+              static_cast<int>(t.ct * TM), a.y_bs ? static_cast<int>(t.b) : 0,
+              yfull(s));
+  };
 
   Walk cur;
   cur.start(blockIdx.x, a);
-  Walk ahead1 = cur, ahead2 = cur;  // thread 0's loads: tiles n + 1, n + 2
+  // thread 0's loads: resident, tiles n + 1 and n + 2; streamed, ahead1 and
+  // box fkb of it are the next (tile, box) to load
+  Walk ahead1 = cur, ahead2 = cur;
+  int fkb = 0;
   if (tid == 0) {
     mbar_init(xfull, 1);
     mbar_init(xempty, NTH / 32);  // one arrival a warp
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(yfull(s), 1);
       mbar_init(yempty(s), NTH / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (cur.valid) {
+    if constexpr (STREAM) {
+      for (int s = 0; s < ST && ahead1.valid; ++s) {
+        load_box(ahead1, fkb, s);
+        if (++fkb == a.nb) {
+          fkb = 0;
+          ahead1.next(a);
+        }
+      }
+    } else if (cur.valid) {
       load_x(cur);
       load_y(cur, 0);
       ahead1.next(a);
@@ -164,7 +205,8 @@ __global__ void __launch_bounds__(NTH, 1)
   __syncthreads();
 
   int64_t n = 0;      // tiles done by this block
-  uint32_t xi = 0;    // x bands loaded before this tile's
+  uint32_t xi = 0;    // x bands loaded before this tile's (resident)
+  Slot q{0, 0};       // the ring position (streamed)
   for (; cur.valid; ++n) {
     const int64_t row0 = cur.rb * TR, col0 = cur.ct * TM, tb = cur.b;
     float acc[MI][8];
@@ -178,37 +220,66 @@ __global__ void __launch_bounds__(NTH, 1)
     float xs2 = 0.0f, y2[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) y2[j] = 0.0f;
-    const int s = static_cast<int>(n & 1);
-    if (cur.fresh && n > 0) ++xi;
-    mbar_wait(xfull, xi & 1);
-    mbar_wait(yfull(s), static_cast<uint32_t>((n >> 1) & 1));
-    for (int kb = 0; kb < a.nb; ++kb) {
-      const char* xb = xs + kb * XBOX;
-      const char* yb = ys + (s * a.nb + kb) * BOX;
-      if (RBF)
-        xs2 = row_norm<T>(xb, WROWS * w + lane,
-                          static_cast<int>(min64(BC, a.d - int64_t{kb} * BC)),
-                          xs2);
-      box_fma<T, RBF>(xb + (WROWS * w + 4 * h) * 128, yb,
-                      groups_of(a.d, kb, BC), h, tx, acc, y2);
-    }
-    cur.next(a);  // the next tile: a fresh one needs a new x band
-    // this warp is done with the y stage (and, before a new unit, the x
-    // band); thread 0 refills them once every warp is
-    __syncwarp();
-    if (lane == 0) {
-      mbar_arrive(yempty(s));
-      if (cur.valid && cur.fresh) mbar_arrive(xempty);
-    }
-    if (tid == 0) {
-      mbar_wait(yempty(s), static_cast<uint32_t>((n >> 1) & 1));
-      if (ahead2.valid) load_y(ahead2, s);
-      if (ahead1.valid && ahead1.fresh) {
-        mbar_wait(xempty, xi & 1);
-        load_x(ahead1);
+    if constexpr (STREAM) {
+      for (int kb = 0; kb < a.nb; ++kb) {
+        mbar_wait(yfull(q.s), q.ph);
+        const char* xb = xs + q.s * (XBOX + BOX);
+        if (RBF)
+          xs2 = row_norm<T>(xb, WROWS * w + lane,
+                            static_cast<int>(min64(BC, a.d - int64_t{kb} * BC)),
+                            xs2);
+        box_fma<T, RBF>(xb + (WROWS * w + 4 * h) * 128, xb + XBOX,
+                        groups_of(a.d, kb, BC), h, tx, acc, y2);
+        // this warp is done with the stage; thread 0 refills it once every
+        // warp is
+        __syncwarp();
+        if (lane == 0) mbar_arrive(yempty(q.s));
+        if (tid == 0) {
+          mbar_wait(yempty(q.s), q.ph);
+          if (ahead1.valid) {
+            load_box(ahead1, fkb, q.s);
+            if (++fkb == a.nb) {
+              fkb = 0;
+              ahead1.next(a);
+            }
+          }
+        }
+        q.next(ST);
       }
-      ahead1 = ahead2;
-      ahead2.next(a);
+      cur.next(a);
+    } else {
+      const int s = static_cast<int>(n & 1);
+      if (cur.fresh && n > 0) ++xi;
+      mbar_wait(xfull, xi & 1);
+      mbar_wait(yfull(s), static_cast<uint32_t>((n >> 1) & 1));
+      for (int kb = 0; kb < a.nb; ++kb) {
+        const char* xb = xs + kb * XBOX;
+        const char* yb = ys + (s * a.nb + kb) * BOX;
+        if (RBF)
+          xs2 = row_norm<T>(xb, WROWS * w + lane,
+                            static_cast<int>(min64(BC, a.d - int64_t{kb} * BC)),
+                            xs2);
+        box_fma<T, RBF>(xb + (WROWS * w + 4 * h) * 128, yb,
+                        groups_of(a.d, kb, BC), h, tx, acc, y2);
+      }
+      cur.next(a);  // the next tile: a fresh one needs a new x band
+      // this warp is done with the y stage (and, before a new unit, the x
+      // band); thread 0 refills them once every warp is
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(yempty(s));
+        if (cur.valid && cur.fresh) mbar_arrive(xempty);
+      }
+      if (tid == 0) {
+        mbar_wait(yempty(s), static_cast<uint32_t>((n >> 1) & 1));
+        if (ahead2.valid) load_y(ahead2, s);
+        if (ahead1.valid && ahead1.fresh) {
+          mbar_wait(xempty, xi & 1);
+          load_x(ahead1);
+        }
+        ahead1 = ahead2;
+        ahead2.next(a);
+      }
     }
     if (RBF) {
       xnw[lane] = xs2;
@@ -287,13 +358,12 @@ __global__ void __launch_bounds__(NTH, 1)
 // host side: the launch
 // ---------------------------------------------------------------------------
 
-template <typename T, bool RBF>
+template <typename T, bool RBF, bool STREAM>
 int launch(const CUtensorMap& xm, const CUtensorMap& ym,
            const CUtensorMap& om, const Args& a, int grid,
            cudaStream_t stream) {
-  const int smem = 1024 + OUT_BYTES + a.nb * (XBOX + 2 * BOX) + 48 +
-                   8 * (WROWS + TM) * 4;
-  auto kern = pairwise_kernel<T, RBF>;
+  const int smem = smem_bytes(a.nb, STREAM);
+  auto kern = pairwise_kernel<T, RBF, STREAM>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -301,99 +371,40 @@ int launch(const CUtensorMap& xm, const CUtensorMap& ym,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Whether x and y load by TMA: rows of a multiple of 16 bytes, 16-byte
-// aligned bases, and at most MAX_RES_BOXES boxes of d so the x band and two
-// y stages fit beside the staging buffers.
-bool tma_in_ok(const void* x, const void* y, int64_t d, int esz) {
-  return (d * esz) % 16 == 0 && cdiv(d, 128 / esz) <= MAX_RES_BOXES &&
-         aligned16(x) && aligned16(y);
-}
-
-// ---------------------------------------------------------------------------
-// the other shapes: the first port's tile kernel
-// ---------------------------------------------------------------------------
-
-// One 128 x 128 output tile a block of 256 threads, two blocks an SM: d
-// staged in chunks of 16 by plain loads (tile.cuh tile_product), an 8 x 8
-// micro-tile, sim_of in the epilogue.  Grid (column tiles, row tiles,
-// batch).
 template <typename T, bool RBF>
-__global__ void __launch_bounds__(NT, 2)
-    tile_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                float* __restrict__ out, int64_t nx, int64_t ny, int64_t d,
-                int64_t x_bs, int64_t y_bs, float hh) {
-  __shared__ __align__(16) float xs[BK * LDS];
-  __shared__ __align__(16) float ys[BK * LDS];
-  const int64_t b = blockIdx.z;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * BM;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * BN;
-  x += b * x_bs;
-  y += b * y_bs;
-  out += b * nx * ny;
-
-  float acc[8][8], x2[8], y2[8];
-  tile_product<T, RBF>(x, nx, y, ny, d, row0, col0, xs, ys, acc, x2, y2);
-
-  const bool vec = (ny % 4) == 0;  // rows start 16-byte aligned
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t r = row0 + row_of(i);
-    if (r >= nx) continue;
-    float* orow = out + r * ny;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int64_t c = col0 + col_of(half * 4);
-      float v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        v[q] = sim_of<RBF>(acc[i][half * 4 + q], x2[i], y2[half * 4 + q], hh);
-      if (vec && c < ny) {
-        *reinterpret_cast<float4*>(orow + c) = make_float4(v[0], v[1], v[2],
-                                                           v[3]);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (c + q < ny) orow[c + q] = v[q];
-      }
-    }
-  }
-}
-
-template <typename T, bool RBF>
-int launch_tiles(const Args& a, int64_t batch, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(cdiv(a.ny, BN)),
-                  static_cast<unsigned>(cdiv(a.nx, BM)),
-                  static_cast<unsigned>(batch));
-  tile_kernel<T, RBF><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.y), a.out, a.nx,
-      a.ny, a.d, a.x_bs, a.y_bs, a.hh);
-  return static_cast<int>(cudaGetLastError());
+int launch_mode(const CUtensorMap& xm, const CUtensorMap& ym,
+                const CUtensorMap& om, const Args& a, int grid,
+                bool streamed, cudaStream_t stream) {
+  return streamed ? launch<T, RBF, true>(xm, ym, om, a, grid, stream)
+                  : launch<T, RBF, false>(xm, ym, om, a, grid, stream);
 }
 
 }  // namespace pw
 }  // namespace sm90
 
-// x: (batch, nx, d) with batch stride x_bs elements; y: (batch, ny, d) with
-// batch stride y_bs (0 = shared); out: (batch, nx, ny) float32, contiguous.
-// bf16 != 0 selects bfloat16 inputs, rbf != 0 the rbf similarity with
-// hh = h * h.  nx, ny < 2^31; where the TMA path does not take the
-// operands (sm90_pairwise_tma), the tile kernel's grid also needs
-// ceil(nx / 128) and batch <= 65535.  Returns the launch's
-// cudaGetLastError(), or a tensor-map error (driver errors offset by 10000).
+// x: (batch, nx, d) with rows x_ld elements apart and batch stride x_bs
+// elements (0 = shared); y likewise; out: (batch, nx, ny) float32,
+// contiguous.  bf16 != 0 selects bfloat16 inputs, rbf != 0 the rbf
+// similarity with hh = h * h, streamed != 0 the streamed ring (resident
+// takes d within 2 boxes of 128 bytes).  The bases, the pitches and the
+// batch strides in bytes must be multiples of 16 (TMA's rule; the wrapper
+// copies other operands); nx, ny, batch < 2^31.  Returns the launch's
+// cudaGetLastError(), a tensor-map error (driver errors offset by 10000),
+// or cudaErrorInvalidValue for operands it does not take.
 extern "C" int sm90_pairwise(const void* x, const void* y, void* out,
                              int64_t batch, int64_t nx, int64_t ny, int64_t d,
-                             int64_t x_bs, int64_t y_bs, int64_t bf16,
-                             int64_t rbf, float hh, void* stream) {
+                             int64_t x_ld, int64_t y_ld, int64_t x_bs,
+                             int64_t y_bs, int64_t bf16, int64_t rbf,
+                             float hh, int64_t streamed, void* stream) {
   using namespace sm90;
   using namespace sm90::pw;
   if (batch < 1 || nx < 1 || ny < 1 || d < 1 || nx >= (int64_t{1} << 31) ||
-      ny >= (int64_t{1} << 31) || batch >= (int64_t{1} << 31))
+      ny >= (int64_t{1} << 31) || batch >= (int64_t{1} << 31) || x_ld < d ||
+      y_ld < d)
     return static_cast<int>(cudaErrorInvalidValue);
   const int esz = bf16 ? 2 : 4;
   const int bc = 128 / esz;  // elements of d a 128-byte box
   Args a{};
-  a.x = x;
-  a.y = y;
   a.out = static_cast<float*>(out);
   a.nx = nx;
   a.ny = ny;
@@ -402,19 +413,11 @@ extern "C" int sm90_pairwise(const void* x, const void* y, void* out,
   a.y_bs = y_bs;
   a.hh = hh;
   a.nb = static_cast<int>(cdiv(d, bc));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!tma_in_ok(x, y, d, esz)) {
-    if (cdiv(nx, BM) > 65535 || batch > 65535)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (bf16)
-      return rbf ? launch_tiles<__nv_bfloat16, true>(a, batch, s)
-                 : launch_tiles<__nv_bfloat16, false>(a, batch, s);
-    return rbf ? launch_tiles<float, true>(a, batch, s)
-               : launch_tiles<float, false>(a, batch, s);
-  }
+  if (!streamed && a.nb > MAX_RES_BOXES)
+    return static_cast<int>(cudaErrorInvalidValue);
   a.tma_out = (ny % 4) == 0 && aligned16(out);
 
-  // units: a band of 128 rows with cpc of its column tiles; split a band's
+  // units: a band of 256 rows with cpc of its column tiles; split a band's
   // columns only when the bands alone do not fill the card
   const int nsm = sm_count();
   a.n_rb = cdiv(nx, TR);
@@ -430,28 +433,29 @@ extern "C" int sm90_pairwise(const void* x, const void* y, void* out,
   CUtensorMap xm{}, ym{}, om{};
   const CUtensorMapDataType type = bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  int err = make_map(&xm, type, esz, x, d, nx, x_bs ? batch : 1, d,
-                     x_bs ? x_bs : nx * d, bc, TR);
+  int err = make_map(&xm, type, esz, x, d, nx, x_bs ? batch : 1, x_ld,
+                     x_bs ? x_bs : nx * x_ld, bc, TR);
   if (err == 0)
-    err = make_map(&ym, type, esz, y, d, ny, y_bs ? batch : 1, d,
-                   y_bs ? y_bs : ny * d, bc, TM);
+    err = make_map(&ym, type, esz, y, d, ny, y_bs ? batch : 1, y_ld,
+                   y_bs ? y_bs : ny * y_ld, bc, TM);
   if (err == 0 && a.tma_out)
     err = make_map(&om, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, ny, nx, batch,
                    ny, nx * ny, 32, WROWS);
   if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return rbf ? launch<__nv_bfloat16, true>(xm, ym, om, a, grid, s)
-               : launch<__nv_bfloat16, false>(xm, ym, om, a, grid, s);
-  return rbf ? launch<float, true>(xm, ym, om, a, grid, s)
-             : launch<float, false>(xm, ym, om, a, grid, s);
+    return rbf ? launch_mode<__nv_bfloat16, true>(xm, ym, om, a, grid,
+                                                  streamed, s)
+               : launch_mode<__nv_bfloat16, false>(xm, ym, om, a, grid,
+                                                   streamed, s);
+  return rbf ? launch_mode<float, true>(xm, ym, om, a, grid, streamed, s)
+             : launch_mode<float, false>(xm, ym, om, a, grid, streamed, s);
 }
 
-// 1 when the launch at these operands takes the persistent TMA kernel, 0
-// when the tile kernel (for the tests and the smoke, which check that the
-// main shapes take the first).
-extern "C" int sm90_pairwise_tma(const void* x, const void* y, int64_t d,
-                                 int64_t bf16) {
-  return sm90::pw::tma_in_ok(x, y, d, bf16 ? 2 : 4);
+// The dynamic shared memory a launch with nb boxes of d takes in either
+// mode (host only; the tests hold kernels/ring.py's formula to it).
+extern "C" int sm90_pairwise_smem(int64_t nb, int64_t streamed) {
+  return sm90::pw::smem_bytes(static_cast<int>(nb), streamed != 0);
 }
 
 namespace sm90 {

@@ -6,11 +6,23 @@
 // Layout: a box is up to 256 rows of 128 bytes (32 f32 or 64 bf16 values of
 // d), written by TMA with the 128-byte swizzle (the 16-byte chunk index of
 // byte cb in row r is XORed with r mod 8; boxes are 1024-byte aligned).
-// The resident operand (x: pairwise's row band, facility's candidate band)
-// is a band of 256 rows; the streamed operand (y: pairwise's column tile,
-// facility's eval tile) a tile of 128 rows.  Warp w owns band rows
-// 32 w .. 32 w + 31; lane (h, tx) = (lane / 16, lane % 16) of it owns 16 of
-// them (row_in_warp) and the tile rows tx + 16 j (j < 8): acc[i][j].
+// The band operand (x: pairwise's row band, facility's candidate band) is
+// 256 rows; the tile operand (y: pairwise's column tile, facility's eval
+// tile) 128 rows.  Warp w owns band rows 32 w .. 32 w + 31; lane (h, tx) =
+// (lane / 16, lane % 16) of it owns 16 of them (row_in_warp) and the tile
+// rows tx + 16 j (j < 8): acc[i][j].
+//
+// Two ring modes, chosen on the host by the width d (kernels/ring.py
+// `plan`, the rule both kernels share):
+//   * resident (d within MAX_RES_BOXES = 2 boxes): the band's boxes stay in
+//     shared memory for a whole work unit and each ring stage carries every
+//     box of one tile;
+//   * streamed (wider d): each ring stage carries one box of d for both
+//     operands, the band's box and the tile's, so shared memory holds a few
+//     boxes whatever d is; the accumulators of one output tile carry across
+//     its nb boxes and the band is read again (from L2) for every tile.
+// Both give each product one fmaf chain over k = 0 .. d-1 from 0.0f: the
+// same bits.
 #pragma once
 
 #include <cuda.h>
@@ -26,7 +38,9 @@
 namespace sm90 {
 namespace ring {
 
-constexpr int MI = 16;  // band rows a thread
+constexpr int MI = 16;            // band rows a thread
+constexpr int MAX_RES_BOXES = 2;  // boxes of d the resident mode takes
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
 
 // ---------------------------------------------------------------------------
 // barriers, TMA
@@ -249,6 +263,19 @@ struct Walk {
   }
 };
 
+// A position in a ring of `stages` stages: the stage and the parity of the
+// phase its barriers are in.
+struct Slot {
+  int s;
+  uint32_t ph;
+  __device__ void next(int stages) {
+    if (++s == stages) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
 // host side: tensor maps
 // ---------------------------------------------------------------------------
@@ -273,7 +300,9 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encoder() {
 
 // A 3-D map (cols, rows, batch) with 128-byte swizzled boxes of
 // (box_cols, box_rows, 1); a batch extent of 1 for an operand shared by the
-// batch.  Returns 0 or an error code (driver errors offset by 10000).
+// batch.  Rows are row_stride elements apart (a pitch past cols reads as
+// TMA's zero fill past cols).  Returns 0 or an error code (driver errors
+// offset by 10000).
 inline int make_map(CUtensorMap* map, CUtensorMapDataType type, int esz,
                     const void* ptr, int64_t cols, int64_t rows,
                     int64_t batch, int64_t row_stride, int64_t batch_stride,

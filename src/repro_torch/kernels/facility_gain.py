@@ -8,15 +8,15 @@ For every candidate j (per partition when batched)
 The CUDA kernel is ``csrc/facility.cu`` (stage 1 keeps the similarity tile
 in registers and reduces it to per-candidate sums; stage 2 sums the
 eval-axis chunks in a fixed order; see the header there for its bound and
-design).  Stage 1 has two paths, picked by the kernel library's shape rule:
-the persistent kernel (a resident 256-row candidate band, eval tiles
-through a TMA ring) for features TMA takes, the first port's tile kernel
-(128-candidate tiles, both operands staged by plain loads) for the rest
-(rows not a multiple of 16 bytes, d past 2 boxes of 128 bytes, misaligned
-bases).  ``operands`` reports the path and the work plan; ``plan`` is the
-plan as a pure function of the shapes.  Its plain version is
-``ref.facility_gain_ref``.  The wrapper needs no padding: the kernel masks
-ragged edges itself.
+design).  Stage 1 is one persistent kernel for every width: a 256-row
+candidate band against eval tiles streamed through a TMA ring, the band
+resident while d fits 2 boxes of 128 bytes and streamed box by box beside
+the eval tile past that (``ring.plan``).  ``operands`` checks the
+operands, hands those TMA cannot read as they are over as padded copies
+(``ring.features`` / ``ring.vector``) and gives the ring and the work plan;
+``plan`` is the work plan as a pure function of the shapes.  Its plain
+version is ``ref.facility_gain_ref``.  The kernel masks ragged edges
+itself.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, ring
 
 launches = 0  # launches of csrc/facility.cu's gains through this wrapper
 
@@ -78,7 +78,7 @@ class Plan(NamedTuple):
   """The work plan of one call: units of (partition, candidate band, eval
   chunk), chunk c holding eval tiles [c * per_chunk, (c + 1) * per_chunk)
   of the ``tiles``."""
-  band: int       # candidate rows a band (csrc/facility.cu, by path)
+  band: int       # candidate rows a band (ring.BAND)
   bands: int      # bands a partition
   tiles: int      # eval tiles of build.TILE rows
   chunks: int     # eval-axis ranges, every one non-empty
@@ -86,54 +86,71 @@ class Plan(NamedTuple):
   units: int      # work units: partitions x bands x chunks
 
 
-def plan(n_part: int, ne: int, nc: int, band: int, n_sm: int,
-         per_sm: int = 1) -> Plan:
-  """The plan of a call with these shapes on a card of ``n_sm`` SMs, for
-  the kernel path whose candidate band is ``band`` rows and which runs
-  ``per_sm`` blocks an SM at once (1: the persistent kernel; 2: the tile
-  kernel, ``__launch_bounds__(NT, 2)``)."""
-  bands = -(-nc // band)
+def plan(n_part: int, ne: int, nc: int, n_sm: int) -> Plan:
+  """The plan of a call with these shapes on a card of ``n_sm`` SMs, one
+  persistent block an SM; the same in both ring modes."""
+  bands = -(-nc // ring.BAND)
   tiles = -(-ne // build.TILE)
-  chunks = eval_chunks(bands * n_part, ne, per_sm * n_sm)
+  chunks = eval_chunks(bands * n_part, ne, n_sm)
   per = -(-tiles // chunks)
-  return Plan(band, bands, tiles, chunks, per, n_part * bands * chunks)
+  return Plan(ring.BAND, bands, tiles, chunks, per, n_part * bands * chunks)
 
 
 class FLOperands(NamedTuple):
   """Checked kernel operands of the facility and coverage kernels."""
-  ev: torch.Tensor
-  cd: torch.Tensor
-  cov: torch.Tensor
-  mask: torch.Tensor
+  ev: ring.Feat
+  cd: ring.Feat
+  cov: ring.Vec     # the facility coverage, or the coverage's cover
+  mask: ring.Vec
   ok: torch.Tensor | None
   batch: int | None   # None: no operand is batched
   n_part: int
   ne: int
   nc: int
   d: int
-  tma: bool   # the persistent TMA kernel takes the call (else the tile one)
+  ring: ring.Ring
   plan: Plan
-  cap: torch.Tensor | None = None  # saturated coverage only
+  cap: ring.Vec | None = None  # saturated coverage only
 
   @property
   def path(self) -> str:
-    return "persistent" if self.tma else "tile"
+    """The ring mode of the call: "resident" or "streamed"."""
+    return self.ring.mode
+
+  @property
+  def copies(self) -> tuple[str, ...]:
+    """The operands handed over as a padded copy."""
+    return tuple(k for k in ("ev", "cd", "cov", "mask", "cap")
+                 if getattr(self, k) is not None and getattr(self, k).copied)
+
+  def _vecs(self) -> tuple:
+    return (self.cov,) + (() if self.cap is None else (self.cap,)) + (
+        self.mask,)
+
+  def head(self) -> tuple:
+    """The C entries' leading pointers: ev, cd, cov [, cap], mask."""
+    return (self.ev.t.data_ptr(), self.cd.t.data_ptr(),
+            *(v.t.data_ptr() for v in self._vecs()))
+
+  def dims(self) -> tuple:
+    """The C entries' (n_part, ne, nc, d, ev_ld, cd_ld, ev_bs, cd_bs,
+    cov_bs [, cap_bs], mask_bs)."""
+    return (self.n_part, self.ne, self.nc, self.d, self.ev.ld, self.cd.ld,
+            self.ev.bs, self.cd.bs, *(v.bs for v in self._vecs()))
 
 
 def operands(name: str, eval_feats, cand_feats, cov, eval_mask,
              cand_ok=None, cap=None) -> FLOperands:
   """Validate the facility (or, with ``cap``, the saturated-coverage)
-  kernels' operands, settle the batch layout, the kernel path and the
-  work plan.
+  kernels' operands, settle the batch layout, the ring and the work plan,
+  and copy any feature or vector TMA cannot read as it is.
 
   eval_feats (ne, d) | (P, ne, d); cand_feats (nc, d) | (P, nc, d);
   cov (the coverage's cover), cap, eval_mask (ne,) | (P, ne); cand_ok
   (nc,) | (P, nc).  Unbatched operands are shared by every partition
-  (batch stride 0).  CUDA tensors only: the path comes from the kernel
-  library's own shape rule (``sm90_facility_tma``) and the band width from
-  ``sm90_facility_band``, so the scratch sizes follow the kernel.
+  (batch stride 0).  CUDA tensors only.
   """
-  build.check_feats(name, eval_feats, cand_feats)
+  build.check_feats(name, eval_feats, cand_feats, rows_only=True)
   dev = eval_feats.device
   ne, d = eval_feats.shape[-2:]
   nc, dc = cand_feats.shape[-2:]
@@ -154,21 +171,20 @@ def operands(name: str, eval_feats, cand_feats, cov, eval_mask,
   n_part = 1 if batch is None else batch
   if n_part > build.MAX_GRID:
     raise ValueError(f"{name}: {n_part} partitions exceed the grid")
+  if max(ne, nc) >= 2**30:
+    raise ValueError(f"{name}: ne={ne}, nc={nc} past 2^30")
   ok = None if cand_ok is None else build.vec(name, cand_ok, nc, dev)
-  cov = build.vec(name, cov, ne, dev)
-  mask = build.vec(name, eval_mask, ne, dev)
-  cap = None if cap is None else build.vec(name, cap, ne, dev)
-  tma = bool(build.entry("sm90_facility_tma")(  # host-only: no device call
-      eval_feats.data_ptr(), cand_feats.data_ptr(), cov.data_ptr(),
-      build.ptr(cap), mask.data_ptr(), n_part, ne, nc, d,
-      build.batch_stride(cov, 1),
-      0 if cap is None else build.batch_stride(cap, 1),
-      build.batch_stride(mask, 1), int(eval_feats.dtype == torch.bfloat16)))
-  band = build.entry("sm90_facility_band")(int(tma))
-  return FLOperands(eval_feats, cand_feats, cov, mask, ok, batch, n_part, ne,
-                    nc, d, tma,
-                    plan(n_part, ne, nc, band, sm_count(dev), 1 if tma else 2),
-                    cap)
+
+  def vector(t):
+    return ring.vector(build.vec(name, t, ne, dev))
+
+  rp = ring.plan("facility", d, eval_feats.element_size(),
+                 2 if cap is None else 3)
+  return FLOperands(ring.features(name, eval_feats),
+                    ring.features(name, cand_feats), vector(cov),
+                    vector(eval_mask), ok, batch, n_part, ne, nc, d, rp,
+                    plan(n_part, ne, nc, sm_count(dev)),
+                    None if cap is None else vector(cap))
 
 
 def facility_gain(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
@@ -186,19 +202,17 @@ def facility_gain(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   build.check_kernel("facility_gain", kernel)
   build.check_width("facility_gain", kernel, h)
   o = operands("facility_gain", eval_feats, cand_feats, cov, eval_mask)
-  dev = o.ev.device
+  dev = eval_feats.device
   part = torch.empty((o.plan.chunks, o.n_part, o.nc), dtype=torch.float32,
                      device=dev)
   gains = torch.empty((o.n_part, o.nc), dtype=torch.float32, device=dev)
   with torch.cuda.device(dev):
     fn = build.entry("sm90_facility_gain")
-    err = fn(o.ev.data_ptr(), o.cd.data_ptr(), o.cov.data_ptr(),
-             o.mask.data_ptr(), part.data_ptr(), gains.data_ptr(), o.n_part,
-             o.ne, o.nc, o.d, build.batch_stride(o.ev, 2),
-             build.batch_stride(o.cd, 2), build.batch_stride(o.cov, 1),
-             build.batch_stride(o.mask, 1), o.plan.chunks,
-             int(o.ev.dtype == torch.bfloat16), int(kernel == "rbf"),
-             float(h * h), build.stream_of(o.ev))
+    err = fn(*o.head(), part.data_ptr(), gains.data_ptr(), *o.dims(),
+             o.plan.chunks, int(eval_feats.dtype == torch.bfloat16),
+             int(kernel == "rbf"), float(h * h), int(o.ring.streamed),
+             build.stream_of(eval_feats))
   build.check(err, "sm90_facility_gain")
   launches += 1
+  ring.mode_launches[("facility_gain", o.ring.mode)] += 1
   return gains if o.batch is not None else gains[0]

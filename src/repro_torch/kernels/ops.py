@@ -20,6 +20,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import graph_cut_gain as _gc
 from repro_torch.kernels import info_gain as _ig
 from repro_torch.kernels import pairwise as _pw
+from repro_torch.kernels import ring
 from repro_torch.kernels import select_top1 as _st
 
 coverage_gain = _cg.coverage_gain
@@ -54,6 +55,7 @@ def reset_launch_counts() -> None:
   for mod, attr in _COUNTED.values():
     setattr(mod, attr, 0)
   _fa.tc_launches = 0
+  ring.mode_launches.clear()
 
 
 def _cuda_only(fn):

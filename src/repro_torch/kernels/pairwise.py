@@ -2,21 +2,58 @@
 ``src/repro/kernels/pairwise.py`` ``pairwise_pallas``.
 
 The CUDA kernel is ``csrc/pairwise.cu``: persistent blocks of an FP32 FFMA
-tile product, the y tiles streamed through a ring of TMA loads beside a
-resident x band, the rbf transform fused into the epilogue and the finished
-tiles written by asynchronous TMA stores; operands TMA does not take (rows
-not a multiple of 16 bytes, d past 2 boxes of 128 bytes, misaligned bases)
-go to the same file's tile kernel, one 128 x 128 tile a block (see the
-header there for its bound and design).  Its plain version is
-``ref.pairwise_ref``.
+tile product, the operands streamed through a ring of TMA loads (the x band
+resident beside the y ring while d fits 2 boxes of 128 bytes, both streamed
+box by box past that: ``ring.plan``), the rbf transform fused into the
+epilogue and the finished tiles written by asynchronous TMA stores (see the
+header there for its bound and design).  Every width and alignment runs
+on it: ``operands`` hands rows TMA cannot read (a pitch or base off 16
+bytes) over as a padded copy.  Its plain version is ``ref.pairwise_ref``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, ring
 
 launches = 0  # launches of csrc/pairwise.cu through this wrapper
+
+
+class PWOperands(NamedTuple):
+  """Checked kernel operands of one call and its ring plan."""
+  x: ring.Feat
+  y: ring.Feat
+  batch: int | None  # None: neither operand is batched
+  nx: int
+  ny: int
+  d: int
+  ring: ring.Ring
+
+  @property
+  def copies(self) -> tuple[str, ...]:
+    """The operands handed over as a padded copy."""
+    return tuple(k for k, f in (("x", self.x), ("y", self.y)) if f.copied)
+
+
+def operands(x: torch.Tensor, y: torch.Tensor) -> PWOperands:
+  """Validate the operands, settle the batch layout and the ring plan, and
+  copy any operand TMA cannot read as it is (``ring.features``; once when
+  ``y is x``)."""
+  build.check_feats("pairwise", x, y, rows_only=True)
+  batch = build.batch_of("pairwise", (x, 2), (y, 2))
+  nx, d = x.shape[-2:]
+  ny, dy = y.shape[-2:]
+  if dy != d:
+    raise ValueError(f"pairwise: feature widths differ ({d} vs {dy})")
+  b = 1 if batch is None else batch
+  if max(nx, ny, b) >= 2**31:
+    raise ValueError(f"pairwise: nx={nx}, ny={ny}, batch={b} past 2^31")
+  fx = ring.features("pairwise", x)
+  fy = fx if y is x else ring.features("pairwise", y)
+  return PWOperands(fx, fy, batch, nx, ny, d,
+                    ring.plan("pairwise", d, x.element_size()))
 
 
 def pairwise(x: torch.Tensor, y: torch.Tensor, *, kernel: str = "rbf",
@@ -33,42 +70,22 @@ def pairwise(x: torch.Tensor, y: torch.Tensor, *, kernel: str = "rbf",
   global launches
   build.check_kernel("pairwise", kernel)
   build.check_width("pairwise", kernel, h)
-  build.check_feats("pairwise", x, y)
-  batch = build.batch_of("pairwise", (x, 2), (y, 2))
-  nx, d = x.shape[-2:]
-  ny, dy = y.shape[-2:]
-  if dy != d:
-    raise ValueError(f"pairwise: feature widths differ ({d} vs {dy})")
-  b = 1 if batch is None else batch
-  if max(nx, ny, b) >= 2**31:
-    raise ValueError(f"pairwise: nx={nx}, ny={ny}, batch={b} past 2^31")
-  shape = (nx, ny) if batch is None else (b, nx, ny)
+  o = operands(x, y)
+  b = 1 if o.batch is None else o.batch
+  shape = (o.nx, o.ny) if o.batch is None else (b, o.nx, o.ny)
   out = torch.empty(shape, dtype=torch.float32, device=x.device)
   if out.numel() == 0:
     return out
   with torch.cuda.device(x.device):
-    if not takes_tma(x, y) and (-(-nx // build.TILE) > build.MAX_GRID or
-                                b > build.MAX_GRID):
-      raise ValueError(f"pairwise: grid too large for nx={nx}, batch={b} "
-                       "(operands the TMA path does not take)")
     fn = build.entry("sm90_pairwise")
-    err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), b, nx, ny, d,
-             build.batch_stride(x, 2), build.batch_stride(y, 2),
+    err = fn(o.x.t.data_ptr(), o.y.t.data_ptr(), out.data_ptr(), b, o.nx,
+             o.ny, o.d, o.x.ld, o.y.ld, o.x.bs, o.y.bs,
              int(x.dtype == torch.bfloat16), int(kernel == "rbf"),
-             float(h * h), build.stream_of(x))
+             float(h * h), int(o.ring.streamed), build.stream_of(x))
   build.check(err, "sm90_pairwise")
   launches += 1
+  ring.mode_launches[("pairwise", o.ring.mode)] += 1
   return out
-
-
-def takes_tma(x: torch.Tensor, y: torch.Tensor) -> bool:
-  """Whether these operands take the persistent kernel, which loads them
-  by TMA (the resident x band and the y ring), rather than the tile
-  kernel: d * itemsize a multiple of 16 bytes, at most 2 boxes of 128
-  bytes of d, 16-byte aligned bases."""
-  fn = build.entry("sm90_pairwise_tma")
-  return bool(fn(x.data_ptr(), y.data_ptr(), x.shape[-1],
-                 int(x.dtype == torch.bfloat16)))
 
 
 def sim_mismatches(hh: float, device) -> int:

@@ -8,8 +8,8 @@ score ``NEG``, the larger gain wins, ties go to the lowest index, and with no
 feasible candidate the answer is (NEG, 0).  The CUDA kernel is
 ``csrc/facility.cu`` (the gains body with a top-1 epilogue and a
 deterministic second stage in place of the TPU's sequential running best,
-on the persistent or the tile path as ``facility_gain.operands`` reports;
-see the header there).  Its plain version is ``ref.facility_select_ref``.
+in the ring mode ``facility_gain.operands`` reports; see the header
+there).  Its plain version is ``ref.facility_select_ref``.
 
 ``coverage_select`` is the same step for saturated coverage: the fused
 top-1 of ``coverage_gain`` with the same floor, tie and empty rules, its
@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, ring
 from repro_torch.kernels import graph_cut_gain as _gc
 from repro_torch.kernels import info_gain as _ig
 from repro_torch.kernels.facility_gain import operands
@@ -53,8 +53,8 @@ graph_cut_launches = 0  # launches of csrc/graph_cut.cu's select
 def _top1_scratch(o):
   """(part, tile_best, tile_idx, best, idx) of a facility-family select:
   per-band top-1s with one eval chunk (a band is ``o.plan.band`` candidate
-  rows on the call's kernel path), the chunk partials otherwise."""
-  dev = o.ev.device
+  rows), the chunk partials otherwise."""
+  dev = o.ev.t.device
   if o.plan.chunks == 1:
     part = None
     tile_best = torch.empty((o.n_part, o.plan.bands), dtype=torch.float32,
@@ -95,21 +95,19 @@ def facility_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   build.check_width("facility_select", kernel, h)
   o = operands("facility_select", eval_feats, cand_feats, cov, eval_mask,
                cand_ok)
-  dev = o.ev.device
+  dev = eval_feats.device
   part, tile_best, tile_idx, best, idx = _top1_scratch(o)
   with torch.cuda.device(dev):
     fn = build.entry("sm90_facility_select")
-    err = fn(o.ev.data_ptr(), o.cd.data_ptr(), o.cov.data_ptr(),
-             o.mask.data_ptr(), o.ok.data_ptr(), build.ptr(part),
+    err = fn(*o.head(), o.ok.data_ptr(), build.ptr(part),
              build.ptr(tile_best), build.ptr(tile_idx), best.data_ptr(),
-             idx.data_ptr(), o.n_part, o.ne, o.nc, o.d,
-             build.batch_stride(o.ev, 2),
-             build.batch_stride(o.cd, 2), build.batch_stride(o.cov, 1),
-             build.batch_stride(o.mask, 1), build.batch_stride(o.ok, 1),
-             o.plan.chunks, int(o.ev.dtype == torch.bfloat16),
-             int(kernel == "rbf"), float(h * h), build.stream_of(o.ev))
+             idx.data_ptr(), *o.dims(), build.batch_stride(o.ok, 1),
+             o.plan.chunks, int(eval_feats.dtype == torch.bfloat16),
+             int(kernel == "rbf"), float(h * h), int(o.ring.streamed),
+             build.stream_of(eval_feats))
   build.check(err, "sm90_facility_select")
   launches += 1
+  ring.mode_launches[("facility_select", o.ring.mode)] += 1
   return _top1_result(o, best, idx)
 
 
@@ -132,19 +130,17 @@ def coverage_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   o = operands("coverage_select", eval_feats, cand_feats, cover, eval_mask,
                cand_ok, cap=cap)
   part, tile_best, tile_idx, best, idx = _top1_scratch(o)
-  with torch.cuda.device(o.ev.device):
+  with torch.cuda.device(eval_feats.device):
     fn = build.entry("sm90_coverage_select")
-    err = fn(o.ev.data_ptr(), o.cd.data_ptr(), o.cov.data_ptr(),
-             o.cap.data_ptr(), o.mask.data_ptr(), o.ok.data_ptr(),
-             build.ptr(part), build.ptr(tile_best), build.ptr(tile_idx),
-             best.data_ptr(), idx.data_ptr(), o.n_part, o.ne, o.nc, o.d,
-             build.batch_stride(o.ev, 2), build.batch_stride(o.cd, 2),
-             build.batch_stride(o.cov, 1), build.batch_stride(o.cap, 1),
-             build.batch_stride(o.mask, 1), build.batch_stride(o.ok, 1),
-             o.plan.chunks, int(o.ev.dtype == torch.bfloat16),
-             int(kernel == "rbf"), float(h * h), build.stream_of(o.ev))
+    err = fn(*o.head(), o.ok.data_ptr(), build.ptr(part),
+             build.ptr(tile_best), build.ptr(tile_idx), best.data_ptr(),
+             idx.data_ptr(), *o.dims(), build.batch_stride(o.ok, 1),
+             o.plan.chunks, int(eval_feats.dtype == torch.bfloat16),
+             int(kernel == "rbf"), float(h * h), int(o.ring.streamed),
+             build.stream_of(eval_feats))
   build.check(err, "sm90_coverage_select")
   coverage_launches += 1
+  ring.mode_launches[("coverage_select", o.ring.mode)] += 1
   return _top1_result(o, best, idx)
 
 

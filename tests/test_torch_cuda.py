@@ -11,13 +11,14 @@ gain sums over more than 16k eval rows, summed in another order), bf16
 within 3e-2; top-1 indices equal.  The info-gain conds are held the same
 way, the selection built from a real Cholesky factor (float64 on the CPU),
 dense and with the selection counts (``live``, junk past the live
-triangle), and so are the saturated-coverage gains; the facility /
-coverage kernel is held on both of its paths (the shape rule of
-``sm90_facility_tma``) with two calls giving the same bits; the pairwise
-kernel is held at its edges (both operand paths, shared blocks, plain
-stores, a batch past one wave) and two launches give the same bytes; one
-small selection-service run holds a warm-started epoch against a cold one
-on the card.
+triangle), and so are the saturated-coverage gains; the pairwise and the
+facility / coverage kernels are held at every width class (d = 6 to 3072,
+both ring modes of ``ring.plan``, padded copies of rows TMA does not read
+as they are, column slices, stride-0 shared operands) with two calls
+giving the same bits and the kernels' shared memory equal to the rule's;
+the pairwise kernel also at its edges (shared blocks, plain stores, a
+batch past one wave); one small selection-service run holds a
+warm-started epoch against a cold one on the card.
 """
 import numpy as np
 import pytest
@@ -267,40 +268,130 @@ def test_cuda_sim_rn_equals_sim_of_bitwise(cuda_device, hh):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_cuda_pairwise_edges(cuda_device, dtype):
   """The pairwise kernel against its plain version at ragged nx / ny, d of
-  6, 17, 22, 36, 64, 128 and 130 (the persistent TMA kernel at d = 64, 36
-  in f32 and 128 in bf16; the tile kernel where d * itemsize is not a
-  multiple of 16 or past 2 boxes, or a base is misaligned), a shared y and
-  a shared x block, ny not a multiple of 4 (plain stores), a batch past one
-  wave of persistent blocks; two launches give the same bytes."""
+  6, 17, 22, 36, 64, 128 and 130 (the resident ring to 2 boxes of 128
+  bytes, the streamed ring past them; a padded copy where d * itemsize is
+  not a multiple of 16 or a base is misaligned), a shared y and a shared x
+  block, ny not a multiple of 4 (plain stores), a batch past one wave of
+  persistent blocks; two launches give the same bytes."""
   from repro_torch.kernels import pairwise as pw
   td, tol = DTYPES[dtype]
+  f32 = dtype == "f32"
   r = np.random.default_rng(14)
-  cases = [((2, 1000, 64), (2, 1037, 64), True),
-           ((3, 200, 6), (3, 130, 6), False),
-           ((2, 300, 22), (300, 22), False),
-           ((2, 257, 130), (2, 129, 130), False),
-           ((1, 129, 36), (1, 131, 36), dtype == "f32"),
-           ((300, 130, 64), (300, 64, 64), True),
-           ((100, 64), (4, 77, 64), True),
-           ((5, 128, 64), (128, 64), True),
-           ((1, 4096, 64), (1, 1023, 64), True),
-           ((2, 300, 128), (2, 257, 128), dtype == "bf16"),
-           ((2, 131, 17), (2, 70, 17), False),
-           ("offset", (2, 200, 64), (2, 90, 64), False)]
+  # (x shape, y shape, ring mode, operands copied)
+  cases = [((2, 1000, 64), (2, 1037, 64), "resident", ()),
+           ((3, 200, 6), (3, 130, 6), "resident", ("x", "y")),
+           ((2, 300, 22), (300, 22), "resident", ("x", "y")),
+           ((2, 257, 130), (2, 129, 130), "streamed", ("x", "y")),
+           ((1, 129, 36), (1, 131, 36), "resident",
+            () if f32 else ("x", "y")),
+           ((300, 130, 64), (300, 64, 64), "resident", ()),
+           ((100, 64), (4, 77, 64), "resident", ()),
+           ((5, 128, 64), (128, 64), "resident", ()),
+           ((1, 4096, 64), (1, 1023, 64), "resident", ()),
+           ((2, 300, 128), (2, 257, 128), "streamed" if f32 else "resident",
+            ()),
+           ((2, 131, 17), (2, 70, 17), "resident", ("x", "y")),
+           ("offset", (2, 200, 64), (2, 90, 64), "resident", ("x", "y"))]
   for case in cases:
-    xs, ys, tma = case[-3:]
+    xs, ys, mode, copies = case[-4:]
     x = torch.tensor(r.normal(size=xs), device=cuda_device).to(td)
     y = torch.tensor(r.normal(size=ys), device=cuda_device).to(td)
     if case[0] == "offset":  # bases one element past 16-byte alignment
       x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(xs)
       y = torch.cat([y.new_zeros(1), y.flatten()])[1:].view(ys)
-    assert pw.takes_tma(x, y) == tma, (xs, ys)
+    o = pw.operands(x, y)
+    assert (o.ring.mode, o.copies) == (mode, copies), (xs, ys)
     for kernel in ("linear", "rbf"):
       got = ops.pairwise(x, y, kernel=kernel)
       again = ops.pairwise(x, y, kernel=kernel)
       torch.cuda.synchronize()
       _close(got, ref.pairwise_ref(x, y, kernel=kernel), tol)
       assert torch.equal(got, again)
+
+
+WIDTHS = [6, 17, 22, 36, 64, 128, 130, 768, 3072]
+
+
+def _sliced(r, shape, td, dev, offset, scale):
+  """Normal rows of ``shape`` times ``scale`` as a column slice of a wider
+  block, starting ``offset`` columns in (1: a base off 16 bytes and rows a
+  pitch apart)."""
+  *lead, n, d = shape
+  wide = torch.tensor(r.normal(size=(*lead, n, d + 8)) * scale,
+                      device=dev).to(td)
+  return wide[..., offset:offset + d]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_every_width_matches_plain(cuda_device, dtype, d):
+  """pairwise and the four facility / coverage entries at width d against
+  their plain versions: ragged n, a column slice whose base is one element
+  off 16 bytes (a padded copy), a stride-0 shared operand (an expanded
+  block), the resident or the streamed ring as ``ring.plan`` names it (and
+  the kernels' own shared-memory formulas equal to the rule's); two calls
+  give the same bits."""
+  from repro_torch.kernels import build, ring
+  from repro_torch.kernels import facility_gain as fg
+  from repro_torch.kernels import pairwise as pw
+  td, tol = DTYPES[dtype]
+  esz = 4 if dtype == "f32" else 2
+  r = np.random.default_rng(d)
+  dev = cuda_device
+  rp = ring.plan("pairwise", d, esz)
+  assert build.entry("sm90_pairwise_smem")(rp.boxes, int(rp.streamed)) == (
+      rp.smem)
+  for nv in (2, 3):
+    rf = ring.plan("facility", d, esz, nv)
+    assert build.entry("sm90_facility_smem")(rf.boxes, nv, int(
+        rf.streamed)) == rf.smem
+  scale = 1.0 / np.sqrt(d)  # unit-scale similarities: rbf at h = 0.75
+  x = _sliced(r, (3, 301, d), td, dev, 1, scale)
+  y = (torch.tensor(r.normal(size=(129, d)), device=dev).to(td) * scale
+       ).expand(3, 129, d)
+  o = pw.operands(x, y)
+  assert o.ring == rp and o.x.copied and o.y.bs == 0
+  assert o.y.copied == (d * esz % 16 != 0)
+  for kernel in ("linear", "rbf"):
+    got = ops.pairwise(x, y, kernel=kernel)
+    again = ops.pairwise(x, y, kernel=kernel)
+    torch.cuda.synchronize()
+    _close(got, ref.pairwise_ref(x, y, kernel=kernel), tol)
+    assert torch.equal(got, again)
+  # facility / coverage: sliced eval rows, a shared (expanded) block of
+  # candidates, ragged ne and nc
+  ne, nc = 700, 300
+  ev = _sliced(r, (3, ne, d), td, dev, 1, scale).abs_()
+  cd = (torch.tensor(np.abs(r.normal(size=(nc, d))), device=dev).to(td) *
+        scale).expand(3, nc, d)
+  cov = torch.tensor(np.abs(r.normal(size=(3, ne))) * 0.2, device=dev).float()
+  cap = torch.tensor(np.abs(r.normal(size=(3, ne))) * 4, device=dev).float()
+  cover = cap * torch.tensor(r.uniform(0.0, 1.3, size=(3, ne)),
+                             device=dev).float()
+  mask = torch.tensor(r.uniform(size=(3, ne)) > 0.1, device=dev).float()
+  ok = torch.tensor(r.uniform(size=(3, nc)) > 0.3, device=dev)
+  for args, gain, sel, want, nv in (
+      ((cov,), ops.facility_gain, ops.facility_select, ref.facility_gain_ref,
+       2),
+      ((cover, cap), ops.coverage_gain, ops.coverage_select,
+       ref.coverage_gain_ref, 3)):
+    o = fg.operands("t", ev, cd, args[0], mask, ok,
+                    cap=args[1] if nv == 3 else None)
+    assert o.ring == ring.plan("facility", d, esz, nv)
+    assert o.path == o.ring.mode and o.ev.copied and o.cd.bs == 0
+    for kernel in ("linear", "rbf"):
+      g = gain(ev, cd, *args, mask, kernel=kernel)
+      b, i = sel(ev, cd, *args, mask, ok, kernel=kernel)
+      g2 = gain(ev, cd, *args, mask, kernel=kernel)
+      b2, i2 = sel(ev, cd, *args, mask, ok, kernel=kernel)
+      torch.cuda.synchronize()
+      assert torch.equal(g, g2) and torch.equal(b, b2) and torch.equal(i, i2)
+      gw = want(ev, cd, *args, mask, kernel=kernel)
+      bw, iw = ref.masked_top1(gw, ok)
+      _close(g, gw, tol)
+      assert torch.equal(i.cpu(), iw.cpu())
+      _close(b, bw, tol)
 
 
 def _cov_operands(r, lead, ne, nc, d, td, dev):
@@ -390,8 +481,8 @@ def _fl_case(r, lead, ne, nc, d, td, dev, shared_cd=False, shared_cap=False):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("kernel", ["linear", "rbf"])
 def test_cuda_facility_persistent_matches_plain(cuda_device, kernel, dtype):
-  """The persistent facility / coverage kernel (d 64, a resident 256-row
-  candidate band, eval tiles through a TMA ring) against the plain
+  """The facility / coverage kernel at d 64 (a resident 256-row candidate
+  band, eval tiles through a TMA ring) against the plain
   versions: ragged ne and nc, a shared candidate block and a shared cap
   (batch stride 0), the chunked round-2 shape (one partition, a long eval
   axis), unbatched operands, nothing feasible and exact ties from +-10
@@ -408,7 +499,7 @@ def test_cuda_facility_persistent_matches_plain(cuda_device, kernel, dtype):
                                                  dev, sh_cd, sh_cap)
     o = fg.operands("facility", ev, cd, cov, mask, ok)
     oc = fg.operands("coverage", ev, cd, cover, mask, ok, cap=cap)
-    assert o.path == oc.path == "persistent"
+    assert o.path == oc.path == "resident"
     if ne == 40000:  # the eval axis is split: chunk partials, stage 2 sums
       assert o.plan.chunks > 1 and oc.plan.chunks > 1
     long_tol = tol if ne <= 16384 else max(tol, 1e-4)
@@ -457,18 +548,23 @@ def test_cuda_facility_persistent_matches_plain(cuda_device, kernel, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case,d,dtype,path", [
-    ("plain", 22, "f32", "tile"), ("plain", 22, "bf16", "tile"),
-    ("plain", 128, "f32", "tile"), ("plain", 64, "f32", "persistent"),
-    ("plain", 64, "bf16", "persistent"), ("plain", 128, "bf16", "persistent"),
-    ("offset features", 64, "f32", "tile"),
-    ("vector rows not 16 bytes apart", 64, "f32", "tile")])
-def test_cuda_facility_shape_rule(cuda_device, case, d, dtype, path):
-  """sm90_facility_tma's shape rule picks the path (the tile kernel for
-  rows not a multiple of 16 bytes, d past 2 boxes of 128 bytes, a
-  misaligned base, batched vectors whose rows are not 16 bytes apart), and
-  the call on that path matches the plain versions; an rbf width outside
-  the division-free quotient's range raises."""
+@pytest.mark.parametrize("case,d,dtype,path,copies", [
+    ("plain", 22, "f32", "resident", ("ev", "cd")),
+    ("plain", 22, "bf16", "resident", ("ev", "cd")),
+    ("plain", 128, "f32", "streamed", ()),
+    ("plain", 64, "f32", "resident", ()),
+    ("plain", 64, "bf16", "resident", ()),
+    ("plain", 128, "bf16", "resident", ()),
+    ("offset features", 64, "f32", "resident", ("ev",)),
+    ("vector rows not 16 bytes apart", 64, "f32", "resident",
+     ("cov", "mask"))])
+def test_cuda_facility_shape_rule(cuda_device, case, d, dtype, path, copies):
+  """The ring rule picks the mode (resident within 2 boxes of 128 bytes of
+  d, streamed past them) and the operands TMA does not read as they are go
+  over as padded copies (rows not a multiple of 16 bytes, a misaligned
+  base, batched vectors whose rows are not 16 bytes apart); the call
+  matches the plain versions; an rbf width outside the division-free
+  quotient's range raises."""
   from repro_torch.kernels import facility_gain as fg
   td, tol = DTYPES[dtype]
   r = np.random.default_rng(19)
@@ -477,8 +573,11 @@ def test_cuda_facility_shape_rule(cuda_device, case, d, dtype, path):
                                                cuda_device)
   if case == "offset features":  # one element past 16-byte alignment
     ev = torch.cat([ev.new_zeros(1), ev.flatten()])[1:].view(ev.shape)
-  assert fg.operands("t", ev, cd, cov, mask, ok).path == path
-  assert fg.operands("t", ev, cd, cover, mask, ok, cap=cap).path == path
+  o = fg.operands("t", ev, cd, cov, mask, ok)
+  assert (o.path, o.copies) == (path, copies)
+  oc = fg.operands("t", ev, cd, cover, mask, ok, cap=cap)
+  assert (oc.path, oc.copies) == (path, copies + (
+      ("cap",) if "cov" in copies else ()))
   for kernel in ("linear", "rbf"):
     g = ops.facility_gain(ev, cd, cov, mask, kernel=kernel)
     b, i = ops.facility_select(ev, cd, cov, mask, ok, kernel=kernel)
@@ -493,6 +592,53 @@ def test_cuda_facility_shape_rule(cuda_device, case, d, dtype, path):
            tol)
   with pytest.raises(ValueError, match="rbf width"):
     ops.facility_gain(ev, cd, cov, mask, kernel="rbf", h=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_pitched_operands_need_no_copy_and_keep_the_bits(cuda_device,
+                                                              dtype):
+  """``ring.pitched`` pads rows that are not a multiple of 16 bytes once:
+  the wrappers then take them with no copy and give the bits of the call
+  that copies; ``pairwise(x, x)`` copies x once.  The facility objective
+  holds its eval rows so, a greedy run its candidates, and the standard
+  and lazy runs select what the plain versions select."""
+  from repro_torch.core import greedy as G
+  from repro_torch.core import objectives as O
+  from repro_torch.kernels import facility_gain as fg
+  from repro_torch.kernels import pairwise as pw
+  from repro_torch.kernels import ring
+  td, _ = DTYPES[dtype]
+  r = np.random.default_rng(29)
+  ev, cd, cov, cap, cover, mask, ok = _fl_case(r, (3,), 1000, 300, 22, td,
+                                               cuda_device)
+  pe, pc = ring.pitched(ev), ring.pitched(cd)
+  assert pe.shape == ev.shape and torch.equal(pe, ev) and torch.equal(pc, cd)
+  assert fg.operands("t", ev, cd, cov, mask, ok).copies == ("ev", "cd")
+  assert fg.operands("t", pe, pc, cov, mask, ok).copies == ()
+  assert ring.pitched(pe) is pe
+  o = pw.operands(ev, ev)
+  assert o.x is o.y and o.x.copied and pw.operands(pe, pe).copies == ()
+  assert torch.equal(ops.pairwise(pe, pc), ops.pairwise(ev, cd))
+  assert torch.equal(ops.facility_gain(pe, pc, cov, mask),
+                     ops.facility_gain(ev, cd, cov, mask))
+  for got, want in zip(ops.facility_select(pe, pc, cov, mask, ok),
+                       ops.facility_select(ev, cd, cov, mask, ok)):
+    assert torch.equal(got, want)
+  assert torch.equal(ops.coverage_gain(pe, pc, cover, cap, mask),
+                     ops.coverage_gain(ev, cd, cover, cap, mask))
+  for got, want in zip(ops.coverage_select(pe, pc, cover, cap, mask, ok),
+                       ops.coverage_select(ev, cd, cover, cap, mask, ok)):
+    assert torch.equal(got, want)
+  obj = O.FacilityLocation()
+  st = obj.broadcast(obj.init(ev[0]), 3)
+  assert not ring.features("t", st.eval_feats).copied
+  assert not ring.features("t", obj.kernel_rows(cd)).copied
+  if dtype == "f32":  # bf16 plain sums round differently
+    want = G.greedy(obj, st, cd, 6, backend="ref").idx
+    for mode in ("standard", "lazy"):
+      assert torch.equal(G.greedy(obj, st, cd, 6, mode=mode,
+                                  lazy_tile=64).idx, want), mode
 
 
 @pytest.mark.cuda
