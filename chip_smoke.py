@@ -13,7 +13,11 @@ calls, counting each kernel's launches around each path:
   * the coreset path (facility location: ``repro_torch.data.selection`` and
     the ``repro_torch.launch.select`` CLI) at the CLI's default size and at
     full size (n = 262144 embeddings of width 64, k = kappa = 64, m = 16
-    stacked shards);
+    stacked shards); at full size also the fast engine's lazy round 1
+    against its standard one (the same bits), the accumulation-tree merge
+    (tree_branch 16, which must give the flat merge's bits, and 4, in the
+    fast and the generic engine) and ``greedi_hierarchical`` over 4 pods x
+    4;
   * the GP active-set path (information gain, Sec. 6.2 of the paper:
     ``greedi_reference``, the generic ``greedi_sharded`` and
     ``centralized_greedy``) at the data size of the paper's Yahoo! Webscope
@@ -62,8 +66,12 @@ the objectives' selection counts (``live``: count-aware, the live triangle
 of linv) and without (dense), at counts 0, partial and full, partitions of
 different counts in one launch, a linv with junk past its live triangle,
 and shapes past shared memory (d 64 at k 512, d 768 at k 64, k 2100 and
-k 5000)), counts the CUDA kernels of a graph-cut call with the profiler
-(one a call), and profiles the paths.
+k 5000); the relu column-sum kernel of the fast engine at the round-1
+block in a full pass and a 256-column gathered tile (a lazy rescan), at
+the round-2 block and at a ragged nl over pitched rows, bit for bit
+against its plain version), counts the CUDA kernels of a graph-cut call
+(one a call) and of a relu column-sum call with the profiler, and
+profiles the paths.
 The generic engine also runs facility location once, through the CLI's
 ``--no-fast``.  Phase ``e2e wide`` runs the coreset main path at d = 768
 (a sentence-embedding width): the reference protocol's fused select path
@@ -135,6 +143,8 @@ REPLACES = {
     "graph_cut_gain": "src/repro/kernels/graph_cut_gain.py:36",
     "graph_cut_select": "src/repro/kernels/select_top1.py:323",
     "flash_attention": "src/repro/kernels/flash_attention.py:78",
+    # no TPU kernel: the reference computes the relu column sums inline
+    "relu_colsum": "src/repro/core/greedi.py:964",
 }
 # the path whose launch count each kernel reports in the kernels line (one
 # run, its counts set to 0 just before it); every path's count rides along
@@ -149,6 +159,7 @@ MAIN_PATH = {
     "graph_cut_gain": "cut_greedi",            # e2e cut, full size
     "graph_cut_select": "cut_node_order",
     "flash_attention": "serve",                # e2e serve, set 1
+    "relu_colsum": "fast",                     # coreset, e2e full-size
 }
 GP_KERNELS = ("info_gain_cond", "info_select")
 COV_KERNELS = ("coverage_gain", "coverage_select")
@@ -167,6 +178,7 @@ SOURCES = {
     # the main path (bf16 serving) runs the tensor-core kernel; float32
     # operands take csrc/flash_attention.cu (its row in flash_kernel_phase)
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+    "relu_colsum": "src/repro_torch/kernels/csrc/colsum.cu",
 }
 
 
@@ -176,6 +188,11 @@ class Sizes:
   d: int = 64
   k: int = 64            # k_final = kappa
   m: int = 16            # stacked logical shards / partitions
+  tile: int = 256        # a lazy rescan's columns a shard (lazy_tile)
+  tree_b: int = 4        # the two-level tree (16 = 4 x 4) ...
+  pods: int = 4          # ... and greedi_hierarchical's 4 pods x 4
+  ragged_nl: int = 16307  # the relu column sums at a ragged nl ...
+  ragged_nc: int = 1000   # ... over rows of 1000 in a pitch of 1024
   n_cli: int = 65536     # the CLI's default size
   m_cli: int = 8
   # widths off the main path: rows of 88 bytes (a padded copy), a band past
@@ -914,7 +931,286 @@ def e2e_full(sz: Sizes):
        wall_s={k: v["wall_s"] for k, v in out.items()},
        peak_gib={k: v["peak_gib"] for k, v in out.items()},
        launches=counts, agreement=verdicts, value=value)
+  return counts, out["reference"]["sel"]
+
+
+def fast_layout(feats, m):
+  """The shard-contiguous layout and gids the sharded selection path gives
+  the engines (``greedi_select_indices_sharded``, generator seed 0, as the
+  CLI draws it)."""
+  import torch
+
+  from repro_torch.core import greedi as GD
+  from repro_torch.core.partition import partition_gids, random_partition
+  r_part = GD.greedi_keys(torch.Generator().manual_seed(0))[0]
+  parts, _, perm = random_partition(r_part, feats, m)
+  return parts.reshape(-1, feats.shape[1]), partition_gids(perm)
+
+
+def timed_run(fn):
+  """One run of ``fn``: its result, wall time, peak memory, launch counts
+  and lazy host syncs, the counts and the peak reset just before it."""
+  import torch
+
+  from repro_torch.core import greedy
+  from repro_torch.kernels import ops
+  torch.cuda.empty_cache()
+  ops.reset_launch_counts()
+  torch.cuda.reset_peak_memory_stats()
+  syncs = greedy.lazy_syncs
+  sync()
+  t0 = time.perf_counter()
+  r = fn()
+  sync()
+  return dict(result=r, wall_s=time.perf_counter() - t0,
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+              launches=ops.launch_counts(),
+              syncs=greedy.lazy_syncs - syncs)
+
+
+def selected(r, n, k, what):
+  """The valid ids of a GreediResult, checked: k unique ids in [0, n)."""
+  sel = r.sel_gids[r.sel_valid].cpu().numpy()
+  check(len(sel) == k and len(set(sel.tolist())) == k and sel.min() >= 0
+        and sel.max() < n, f"{what}: not k unique in-range ids")
+  return sel
+
+
+def e2e_fast_lazy(sz: Sizes, ref_sel):
+  """The fast engine at full size, round 1 standard and lazy
+  (``mode="lazy"``: bound-sorted column tiles of s11 through the relu
+  column-sum kernel's gathered calls): equal ``sel_gids``, ``value`` and
+  ``stage1_values`` bits, the lazy tiles rescanned per shard and the host
+  syncs, wall time and peak memory of both, and the selection against the
+  reference path's (``ref_sel``; equal, or a recorded near-tie).  Returns
+  the standard run's result and the counts by path."""
+  import numpy as np
+
+  from repro_torch.core import greedi as GD
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+  fsh, gids = fast_layout(feats, sz.m)
+  runs = {mode: timed_run(lambda mode=mode: GD.greedi_sharded_fast(
+      fsh, m=sz.m, kappa=sz.k, k_final=sz.k, gids=gids, mode=mode))
+          for mode in ("standard", "lazy")}
+  std, lz = runs["standard"]["result"], runs["lazy"]["result"]
+  for name in ("sel_gids", "value", "stage1_values"):
+    check(bool((getattr(std, name) == getattr(lz, name)).all()),
+          f"e2e fast lazy: {name} differs from the standard round 1")
+  for mode, run in runs.items():
+    check(run["launches"]["relu_colsum"] > 0 and
+          run["launches"]["pairwise"] > 0, f"e2e fast lazy: {mode} did not "
+          f"launch the kernels ({run['launches']})")
+  sel = selected(lz, sz.n, sz.k, "e2e fast lazy")
+  rescans = lz.r1_rescans.cpu().numpy()
+  check(bool((rescans > 0).all()), "e2e fast lazy: a shard never rescanned")
+  emit("e2e fast lazy", n=sz.n, d=sz.d, k=sz.k, m=sz.m,
+       tile=sz.tile, bits_equal=True,
+       wall_s={k: v["wall_s"] for k, v in runs.items()},
+       peak_gib={k: v["peak_gib"] for k, v in runs.items()},
+       rescans_per_shard=rescans.tolist(),
+       tiles_per_step=float(np.mean(rescans)) / (sz.k - 1),
+       host_syncs=runs["lazy"]["syncs"],
+       launches={k: v["launches"] for k, v in runs.items()},
+       agreement={"reference vs lazy": agree(feats, ref_sel, sel,
+                                             "reference/lazy")},
+       value=float(lz.value))
+  return std, {f"fast_{k}": v["launches"] for k, v in runs.items()}
+
+
+def e2e_tree(sz: Sizes, flat):
+  """The accumulation-tree merge and the hierarchical variant at full size
+  (the same layout as ``e2e_fast_lazy``; ``flat`` its standard flat run):
+  the fast engine with tree_branch = 16 (one level: flat's bits), = 4 (two
+  levels), the generic engine with tree_branch = 4, and
+  ``greedi_hierarchical`` over 4 pods x 4.  Each: wall time, peak memory,
+  ``merge_peak_rows``, f / f(flat) under the full-set objective, held at
+  or above the Thm-4 floor, and the launches of the kernels on its path.
+  The generic and the fast tree4 share a partition, so they must select
+  the same coreset (``agree``).  Then the CLI with ``--merge-tree 4`` (the same partition: the fast
+  tree's coreset).  Returns the counts by path."""
+  import numpy as np
+
+  from repro_torch.core import bounds
+  from repro_torch.core import greedi as GD
+  from repro_torch.core import objectives as O
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.launch import select as cli
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+  fsh, gids = fast_layout(feats, sz.m)
+  obj = O.FacilityLocation()
+  kw = dict(kappa=sz.k, k_final=sz.k, gids=gids)
+  b, m = sz.tree_b, sz.m
+  paths = {
+      f"fast tree{m}": (lambda: GD.greedi_sharded_fast(
+          fsh, m=m, merge="tree", tree_branch=m, **kw),
+                        GD.merge_peak_rows(m, sz.k, merge="tree",
+                                           tree_branch=m), "fast"),
+      f"fast tree{b}": (lambda: GD.greedi_sharded_fast(
+          fsh, m=m, merge="tree", tree_branch=b, **kw),
+                        GD.merge_peak_rows(m, sz.k, merge="tree",
+                                           tree_branch=b), "fast"),
+      f"generic tree{b}": (lambda: GD.greedi_sharded(
+          fsh, m=m, objective=obj, merge="tree", tree_branch=b, **kw),
+                           GD.merge_peak_rows(m, sz.k, merge="tree",
+                                              tree_branch=b), "generic"),
+      f"hierarchical {sz.pods}x{m // sz.pods}": (
+          lambda: GD.greedi_hierarchical(fsh, pods=sz.pods,
+                                         per_pod=m // sz.pods,
+                                         objective=obj, **kw),
+          max(sz.pods, m // sz.pods) * sz.k, "generic"),
+  }
+  v_flat = value_of(feats, selected(flat, sz.n, sz.k, "flat"))
+  floor = bounds.thm4_bound(m, sz.k, sz.k)
+  rows, counts, sels = {}, {}, {}
+  for name, (run, peak_rows, engine) in paths.items():
+    res = timed_run(run)
+    r = res["result"]
+    sel = selected(r, sz.n, sz.k, f"e2e tree {name}")
+    ratio = value_of(feats, sel) / v_flat
+    check(ratio >= floor, f"e2e tree {name}: f / f(flat) {ratio} below the "
+          f"Thm-4 floor {floor}")
+    kernels = (("pairwise", "relu_colsum") if engine == "fast" else
+               ("facility_select", "facility_gain"))
+    for kname in kernels:
+      check(res["launches"][kname] > 0, f"e2e tree {name}: {kname} was not "
+            f"launched ({res['launches']})")
+    if name == f"fast tree{m}":
+      for field in ("sel_gids", "value", "stage1_values"):
+        check(bool((getattr(r, field) == getattr(flat, field)).all()),
+              f"e2e tree: tree_branch = {m} differs from flat in {field}")
+    rows[name] = dict(wall_s=res["wall_s"], peak_gib=res["peak_gib"],
+                      merge_peak_rows=peak_rows, ratio_to_flat=ratio,
+                      stage1_values=len(r.stage1_values),
+                      launches={k: v for k, v in res["launches"].items()
+                                if v})
+    counts[name] = res["launches"]
+    sels[name] = sel
+  # one partition, two engines: the same coreset, or a recorded near-tie
+  engines_agree = agree(feats, sels[f"fast tree{b}"],
+                        sels[f"generic tree{b}"],
+                        f"e2e tree: generic tree{b} against fast tree{b}")
+  tree_sel = sels[f"fast tree{b}"]
+  # the same tree through the CLI (--merge-tree): the same coreset
+  (REPO / "build").mkdir(exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    path = os.path.join(tmp, "sel.npy")
+    res = timed_run(lambda: cli.main([
+        "--n", str(sz.n), "--d", str(sz.d), "--k", str(sz.k), "--mesh",
+        str(m), "--merge-tree", str(b), "--no-coverage", "--out", path]))
+    cli_sel = np.load(path)
+  check(np.array_equal(np.sort(cli_sel), np.sort(tree_sel)) and
+        res["launches"]["relu_colsum"] > 0, f"e2e tree: --merge-tree {b} "
+        "through the CLI selected another coreset or missed the kernel")
+  rows[f"cli --merge-tree {b}"] = dict(
+      wall_s=res["wall_s"], peak_gib=res["peak_gib"],
+      launches={k: v for k, v in res["launches"].items() if v})
+  counts[f"cli tree{b}"] = res["launches"]
+  emit("e2e tree", n=sz.n, d=sz.d, k=sz.k, m=m, flat_merge_peak_rows=m *
+       sz.k, thm4_floor=floor, tree16_bits_equal_flat=True,
+       generic_vs_fast_tree=engines_agree, paths=rows)
   return counts
+
+
+def colsum_phase(label, s, cov, cols, launches, full=None):
+  """The relu column-sum kernel against its plain version on one call
+  (``cols`` None: a full pass), within 1e-5 relative and reported bit for
+  bit; a gathered call's columns must have the full pass's bits
+  (``full``).  Bound: the bytes of the values summed, cov, the ids and the
+  output at 3.35 TB/s; a gathered call reads a 32-byte sector for each
+  4-byte value, 8 x its useful bytes, given as ``sector_bound_ms``."""
+  import torch
+
+  from repro_torch.kernels import ops, ref
+  m, nl = cov.shape
+  out = ops.relu_colsum(s, cov, cols)
+  sync()
+  want = ref.relu_colsum_ref(s, cov, cols)
+  ea, er = errors(out, want)
+  check(er <= 1e-5, f"relu_colsum {label}: relative error {er:.3e} > 1e-5")
+  if full is not None:
+    check(torch.equal(out, torch.gather(full, 1, cols)), f"relu_colsum "
+          f"{label}: a gathered column's bits differ from the full pass's")
+  t = out.shape[1]
+  k_ms = time_ms(lambda: ops.relu_colsum(s, cov, cols), reps=5)
+  p_ms = time_ms(lambda: ref.relu_colsum_ref(s, cov, cols), reps=1)
+  ids = 0 if cols is None else m * t * 8
+  moved = m * nl * t * 4 + m * nl * 4 + m * t * 4 + ids
+  bms, by = bound_ms(moved, 3.0 * m * nl * t, "f32")
+  row = dict(shape=[m, nl, s.shape[2], t], gathered=cols is not None,
+             pitch=s.stride(1), max_abs_err=ea, max_rel_err=er,
+             bits_equal_plain=bool(torch.equal(out, want)), tol=1e-5,
+             kernel_ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=bms,
+             bound_by=by, launches=launches)
+  if cols is not None:
+    row["sector_bound_ms"] = (m * nl * t * 32 + moved - m * nl * t * 4) / (
+        PEAK_BYTES_S) * 1e3
+  emit(f"kernel relu_colsum {label}", **row)
+  return row
+
+
+def colsum_kernel_phase(sz: Sizes, launches: int):
+  """The relu column-sum kernel at the shapes the fast engine gives it:
+  the round-1 block (16 x 16384 x 16384, 16 GiB) in a full pass and in a
+  256-column gathered tile (a lazy rescan), the round-2 block (16 x 16384
+  x 1024), and a ragged nl over pitched rows (1000 of 1024).  The blocks
+  are real similarity blocks (``pairwise`` of unit rows), cov the
+  coverage after 8 picks."""
+  import torch
+
+  from repro_torch.kernels import ops
+  g = torch.Generator(device=DEVICE).manual_seed(1)
+  nl = sz.n // sz.m
+  rows = {}
+  local = unit_rows(g, sz.m, nl, sz.d)
+  s11 = ops.pairwise(local, local, kernel="linear")
+  cov = s11[:, :, :8].amax(dim=2).clamp_min(0.0)
+  rows[("relu_colsum", "full")] = colsum_phase("full", s11, cov, None,
+                                               launches)
+  full = ops.relu_colsum(s11, cov)
+  cols = torch.argsort(torch.rand(sz.m, nl, generator=g, device=DEVICE),
+                       dim=1)[:, :sz.tile]
+  rows[("relu_colsum", "gathered")] = colsum_phase(
+      f"gathered {sz.tile}", s11, cov, cols, launches, full=full)
+  del s11, full
+  torch.cuda.empty_cache()
+  merged = unit_rows(g, sz.m * sz.k, sz.d)
+  s2 = ops.pairwise(local, merged, kernel="linear")
+  cov = s2[:, :, :8].amax(dim=2).clamp_min(0.0)
+  rows[("relu_colsum", "round2")] = colsum_phase("round2", s2, cov, None,
+                                                 launches)
+  del s2, local, merged
+  ev = unit_rows(g, sz.m, sz.ragged_nl, sz.d)
+  y = unit_rows(g, sz.ragged_nc, sz.d)
+  buf = torch.empty((sz.m, sz.ragged_nl, 1024), device=DEVICE)
+  s = buf[..., :sz.ragged_nc]
+  s.copy_(ops.pairwise(ev, y, kernel="linear"))
+  cov = s[:, :, :8].amax(dim=2).clamp_min(0.0)
+  rows[("relu_colsum", "ragged")] = colsum_phase("ragged pitched", s, cov,
+                                                 None, launches)
+  del buf, s, ev, y
+  torch.cuda.empty_cache()
+  return rows
+
+
+def colsum_kernels_per_call(sz: Sizes, row: dict) -> None:
+  """CUDA kernels a relu column-sum call runs at the round-2 shape (2: the
+  chunk sums and their fold), counted by the profiler into ``row`` (the
+  kernels line's)."""
+  import torch
+
+  from repro_torch.kernels import ops
+  g = torch.Generator(device=DEVICE).manual_seed(2)
+  s = unit_rows(g, sz.m, sz.n // sz.m, sz.m * sz.k)  # round 2's nl and nc
+  cov = s[:, :, :8].amax(dim=2).clamp_min(0.0)
+  per_call, records, names = kernels_per_call(
+      lambda: ops.relu_colsum(s, cov))
+  check(all(c == 2 for c in per_call), f"relu_colsum: {per_call} kernel "
+        f"launches a call in the profiled windows ({names}), expected 2 in "
+        "each")
+  row["kernels_per_call"] = per_call[0]
+  emit("kernel relu_colsum kernels per call", kernels_per_call=per_call,
+       device_records_per_call=records, kernel_names=names)
 
 
 def e2e_wide(sz: Sizes):
@@ -1023,22 +1319,40 @@ def profiled(label: str, run, groups: dict | None = None) -> None:
                  ms=e.self_device_time_total / 1e3) for e in top])
 
 
-def kernels_per_call(fn, calls: int = 3):
-  """(CUDA kernels a call of ``fn`` runs, their names), counted by
-  torch.profiler over ``calls`` calls after a warm-up call."""
+# torch.profiler can drop a window's first device records, more of them the
+# longer the process has profiled, while the launch calls it records on the
+# host are complete (``python -m repro_torch.kernels.diagnose profiler
+# --gap-s 240``, PERF.md section 7).  So a call's kernels are counted by its
+# launch calls, each count in three windows, and the device records are
+# reported beside them.
+COUNT_WINDOWS = 3
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch")  # cudart and cu* launch calls
+
+
+def kernels_per_call(fn):
+  """Kernel launches a call of ``fn`` makes, read by torch.profiler in each
+  of ``COUNT_WINDOWS`` windows of 3 calls after a warm-up call: (launch
+  calls a call in each window, device records a call in each window, the
+  kernels' names)."""
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   fn()
   sync()
-  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-               acc_events=True) as prof:
-    for _ in range(calls):
-      fn()
-    sync()
-  kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-  return (sum(e.count for e in kern) / calls,
-          sorted({e.key.split("(")[0][-60:] for e in kern}))
+  launches, records, names = [], [], set()
+  for _ in range(COUNT_WINDOWS):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+      for _ in range(3):
+        fn()
+      sync()
+    evs = prof.events()
+    launches.append(sum(e.device_type == DeviceType.CPU and
+                        e.name.startswith(LAUNCH_CALLS) for e in evs) / 3)
+    kern = [e for e in evs if e.device_type == DeviceType.CUDA]
+    records.append(len(kern) / 3)
+    names |= {e.name.split("(")[0][-60:] for e in kern}
+  return launches, records, sorted(names)
 
 
 def profile_phase(sz: Sizes):
@@ -1057,9 +1371,14 @@ def profile_phase(sz: Sizes):
       "fast": lambda: greedi_select_indices_sharded(
           torch.Generator().manual_seed(0), feats, m=sz.m, kappa=sz.k,
           k_final=sz.k),
+      "fast lazy": lambda: greedi_select_indices_sharded(
+          torch.Generator().manual_seed(0), feats, m=sz.m, kappa=sz.k,
+          k_final=sz.k, mode="lazy"),
   }
+  groups = {"relu_colsum": ("colsum",), "pairwise": ("pairwise",)}
   for name, run in paths.items():
-    profiled(f"profile {name}", run)
+    profiled(f"profile {name}", run,
+             groups=None if name == "reference" else groups)
 
 
 # ---------------------------------------------------------------------------
@@ -2673,9 +2992,9 @@ def cut_kernel_phase(sz, path_counts: dict):
         ("graph_cut_gain", lambda: ops.graph_cut_gain(w, x, ind)),
         ("graph_cut_select", lambda: ops.graph_cut_select(w, x, ok, ind))):
       per_call[name] = kernels_per_call(call)
-      check(per_call[name][0] == 1, f"{name} {label}: "
-            f"{per_call[name][0]} CUDA kernels a call "
-            f"({per_call[name][1]}), expected 1")
+      check(all(c == 1 for c in per_call[name][0]), f"{name} {label}: "
+            f"{per_call[name][0]} kernel launches a call in the profiled "
+            f"windows ({per_call[name][2]}), expected 1 in each")
     # 20 launches a timing: a paper-size call is tens of microseconds
     k_ms = time_ms(lambda: ops.graph_cut_gain(w, x, ind), reps=20)
     s_ms = time_ms(lambda: ops.graph_cut_select(w, x, ok, ind), reps=20)
@@ -2704,7 +3023,8 @@ def cut_kernel_phase(sz, path_counts: dict):
     for name in ("graph_cut_gain", "graph_cut_select"):
       r_ = rows[(name, label)]
       r_["cuda_kernels_per_call"] = per_call[name][0]
-      r_["kernel_names"] = per_call[name][1]
+      r_["device_records_per_call"] = per_call[name][1]
+      r_["kernel_names"] = per_call[name][2]
       r_["launches"] = {p: c.get(name, 0) for p, c in
                         ((p, path_counts.get(p, {})) for p in on_paths)}
       emit(f"kernel {name} {label}", **r_)
@@ -3200,7 +3520,13 @@ def main() -> int:
   flash_edge_phase()
   e2e_cli_size(sz)
   torch.cuda.empty_cache()
-  fl_counts = e2e_full(sz)
+  fl_counts, ref_sel = e2e_full(sz)
+  torch.cuda.empty_cache()
+  flat, lazy_counts = e2e_fast_lazy(sz, ref_sel)
+  fl_counts.update(lazy_counts)
+  torch.cuda.empty_cache()
+  fl_counts.update(e2e_tree(sz, flat))
+  del flat
   torch.cuda.empty_cache()
   e2e_wide(sz)
   torch.cuda.empty_cache()
@@ -3227,6 +3553,9 @@ def main() -> int:
   torch.cuda.empty_cache()
   rows = kernel_phases(sz, launches)
   torch.cuda.empty_cache()
+  rows.update(colsum_kernel_phase(sz, launches["relu_colsum"]))
+  torch.cuda.empty_cache()
+  colsum_kernels_per_call(sz, rows[("relu_colsum", "full")])
   rows.update(wide_select_phase(sz))
   torch.cuda.empty_cache()
   rows.update(ig_kernel_phase(sz, gp_counts))
@@ -3255,7 +3584,8 @@ def main() -> int:
                                     "f32"),
                 "graph_cut_gain": ("graph_cut_gain", "round1 local"),
                 "graph_cut_select": ("graph_cut_select", "unbatched"),
-                "flash_attention": ("flash_attention", "serve")}
+                "flash_attention": ("flash_attention", "serve"),
+                "relu_colsum": ("relu_colsum", "full")}
   kernels = []
   for name, key in main_shape.items():
     r = rows[key]
@@ -3269,7 +3599,7 @@ def main() -> int:
         shape=r["shape"],
         **{extra: r[extra] for extra in ("bound_dense_ms", "dense_ms",
                                          "mode", "path", "tflops",
-                                         "bound_share")
+                                         "bound_share", "kernels_per_call")
            if extra in r}))
   emit("total", seconds=time.perf_counter() - t_start)
   print(gpu, flush=True)

@@ -1,24 +1,34 @@
 """GreeDi, the paper's two-round distributed protocol (the port of
 ``src/repro/core/greedi.py``: the reference path, the centralized baseline,
-the naive baselines of Sec. 6, the generic sharded engine and the
-cached-similarity fast engine, both with the flat merge).
+the naive baselines of Sec. 6, the generic sharded engine, the
+cached-similarity fast engine and the three-level hierarchical variant).
 
   * ``greedi_reference``    -- one process, the m partitions as a leading
     tensor axis (the reference vmaps over them).  Global and local
     (decomposable, Sec. 4.5) evaluation, and the Thm-10 subset U.
   * ``greedi_sharded``      -- the generic engine for any objective with
     ``init``/``partial_stats``/``update``/``value`` (facility location,
-    information gain) over m stacked logical shards: round 1 is the greedy
-    loop on every shard at once, round 2 the distributed greedy whose
-    per-step gains are the shards' weighted partial sums.
+    saturated coverage, information gain) over m stacked logical shards:
+    round 1 is the greedy loop on every shard at once, each merge level a
+    distributed greedy whose per-step gains are the shards' weighted
+    partial sums.
   * ``greedi_sharded_fast`` -- the production selection path for facility
     location, with m *stacked* logical shards on one card: what the
     reference runs under ``shard_map`` over m devices runs here with the
     shards as a leading axis, an ``all_gather`` is a reshape and a ``psum``
     is a sum over that axis.  Round 1 caches every shard's local similarity
-    block through the ``pairwise`` oracle; the merge caches one cross block
-    against the merged candidates, and round 2 runs the shared
-    ``_dist_greedy_core`` over it.
+    block through the ``pairwise`` oracle and takes each greedy step as a
+    ``relu_colsum`` pass over it (every column, or bound-sorted column
+    tiles in the lazy mode); each merge level caches one cross block
+    against its candidates and runs the shared ``_dist_greedy_core`` over
+    it.
+  * ``greedi_hierarchical`` -- shard -> pod -> global over pods x per_pod
+    stacked shards.
+
+Merges: "flat" merges all m round-1 blocks at once; "tree" is the
+accumulation tree, ceil(log_b m) levels of b-child merges, the groups of a
+level (its subtrees) run as one batched loop over a leading group axis.
+``tree_branch = m`` is the flat merge, bit for bit.
 
 Index tracking: every path threads global ground-set ids through both
 rounds and returns them as ``GreediResult.sel_gids`` (-1 = no-op step).
@@ -39,14 +49,12 @@ as ``GreediResult.alive``.
 "standard", "lazy", and the random modes of Sec. 5 ("random", RandomGreedy
 for non-monotone objectives such as the graph cut; "stochastic"), whose
 draws come as explicit tables or from the generators ``greedi_keys``
-returns.  The generic ``greedi_sharded`` runs round 1 in "standard" or
-"lazy"; its lazy round 1 also takes ``warm_bounds``, the selection
+returns.  The sharded engines run round 1 in "standard" or "lazy"; the
+generic engine's lazy round 1 also takes ``warm_bounds``, the selection
 service's carried table (service/service.py).
 
-Not ported yet (ROADMAP.md): the accumulation-tree merge, the fast
-engine's lazy round 1, ``greedi_hierarchical``, and the
-``torch.distributed`` collective backend (liveness across processes with
-it).
+Not ported yet (ROADMAP.md, queue 1): the ``torch.distributed`` collective
+backend beside the stacked one (liveness across processes with it).
 """
 from __future__ import annotations
 
@@ -54,13 +62,12 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.greedy import (draw_table, greedy, kernel_rows,
-                                     where_state, with_backend)
-from repro_torch.core.objectives import _kernel_h, masked_top1
+from repro_torch.core import greedy as _greedy
+from repro_torch.core.greedy import (_pad_last, _rows, draw_table, greedy,
+                                     kernel_rows, where_state, with_backend)
+from repro_torch.core.objectives import NEG, _kernel_h, masked_top1
 from repro_torch.core.partition import random_partition, shard_live_counts
-from repro_torch.kernels import dispatch
-
-_LATER = "is not ported yet (ROADMAP.md, modules to port, item 5)"
+from repro_torch.kernels import autotune, dispatch
 
 # ---------------------------------------------------------------------------
 # shared helpers
@@ -171,7 +178,108 @@ class GreediResult(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# THE distributed-greedy core, stacked form
+# the merge plan: flat, or the accumulation tree over the stacked shards
+# ---------------------------------------------------------------------------
+
+
+def _norm_branch(m: int, tree_branch: int | None) -> int:
+  """The tree's branching factor: default 8, clamped to the shard count
+  (b >= m is the one-level tree, which is the flat merge)."""
+  b = 8 if tree_branch is None else int(tree_branch)
+  if b < 2 and m > 1:
+    raise ValueError(f"tree_branch must be >= 2, got {b}")
+  return max(min(b, m), 1)
+
+
+def _tree_factors(m: int, b: int) -> tuple[int, ...]:
+  """Inner-to-outer child counts of the accumulation tree over ``m``
+  shards: ``b`` children at every level and one final (possibly smaller)
+  outer factor, so the product is exactly m and the depth ceil(log_b m)."""
+  factors = []
+  rem = m
+  while rem > b:
+    if rem % b:
+      raise ValueError(
+          f"mesh size {m} does not factor into tree_branch={b} levels "
+          f"(need m = b^t * c with c <= b); pick a branch factor whose "
+          "powers divide the mesh, or use merge='flat'")
+    factors.append(b)
+    rem //= b
+  factors.append(rem)
+  return tuple(factors)
+
+
+class _Level(NamedTuple):
+  """One merge level over the stacked shards: the m shards reshaped into
+  m // size groups of ``size`` consecutive combined indices (a subtree),
+  each merging the blocks of its ``c`` children."""
+  c: int       # children a group merges
+  size: int    # shards a group spans
+  root: bool   # the last level: one group of all m shards
+
+
+def _merge_plan(m: int, merge: str,
+                tree_branch: int | None) -> tuple[_Level, ...]:
+  """The merge levels, inner first: "flat" is one level of one group over
+  all m shards; "tree" one level per factor of ``_tree_factors`` (the
+  stacked counterpart of the reference's re-viewed mesh: a level's group
+  is the subtree its psums span, its children the groups of the level
+  below, the shards themselves at the first).  b >= m gives the flat
+  plan itself, so its bits are the flat merge's."""
+  if merge == "flat":
+    return (_Level(m, m, True),)
+  if merge != "tree":
+    raise ValueError(f"merge must be 'flat' or 'tree', got {merge!r}")
+  factors = _tree_factors(m, _norm_branch(m, tree_branch))
+  levels, size = [], 1
+  for i, c in enumerate(factors):
+    size *= c
+    levels.append(_Level(c, size, i == len(factors) - 1))
+  return tuple(levels)
+
+
+def merge_peak_rows(m: int, kappa: int, *, merge: str = "flat",
+                    tree_branch: int | None = None) -> int:
+  """Peak merged-candidate rows a shard holds under the merge: the largest
+  block any level gathers.  Flat gathers all m kappa-blocks at once (m *
+  kappa rows); the tree at most its widest level's child count (<=
+  tree_branch) of them."""
+  if merge == "flat":
+    return m * kappa
+  if merge != "tree":
+    raise ValueError(f"merge must be 'flat' or 'tree', got {merge!r}")
+  return max(_tree_factors(m, _norm_branch(m, tree_branch))) * kappa
+
+
+def _group_sum(x: torch.Tensor, size: int) -> torch.Tensor:
+  """The reference's psum over a subtree, stacked: x (m, ...) summed over
+  each group of ``size`` consecutive shards -> (m // size, ...)."""
+  return torch.sum(x.reshape(-1, size, *x.shape[1:]), dim=1)
+
+
+def _first_alive(keep: torch.Tensor, size: int) -> torch.Tensor:
+  """(m // size,) combined index of each group's first alive shard (its
+  first shard when none is alive): the Thm-10 U-holder, re-elected per
+  subtree from the liveness mask."""
+  sub = keep.reshape(-1, size).to(torch.float32)
+  first = masked_top1(sub, torch.ones_like(sub, dtype=torch.bool))[1]
+  return torch.arange(0, keep.shape[0], size, device=keep.device) + first
+
+
+def _level_weight(keep: torch.Tensor, size: int,
+                  u_subset_eval: bool) -> torch.Tensor:
+  """(m,) evaluation weight of each shard at a level: its liveness, times
+  (under Thm 10) whether it holds its subtree's U subset."""
+  w = keep.to(torch.float32)
+  if u_subset_eval:
+    holder = _first_alive(keep, size).repeat_interleave(size)
+    w = w * (torch.arange(keep.shape[0], device=keep.device)
+             == holder).to(torch.float32)
+  return w
+
+
+# ---------------------------------------------------------------------------
+# THE distributed-greedy core, stacked form with a group axis
 # ---------------------------------------------------------------------------
 
 
@@ -179,47 +287,56 @@ class _Engine(NamedTuple):
   """What a sharded variant plugs into the shared distributed-greedy loop.
 
   Gain and value quantities are *local, unnormalized* per-shard
-  contributions with a leading shard axis; the core sums them over the
-  shards (the reference's psum), weighted by each shard's evaluation
-  weight.
+  contributions with a leading shard axis; the core sums them over each
+  group's shards (the reference's psum over a subtree), weighted by each
+  shard's evaluation weight.  A group's shards share its candidate block.
   """
   state0: Any
-  # state -> (m, nc) per-shard partial marginal gains of every candidate
+  # state -> (m, nc) per-shard partial marginal gains of its group's block
   partial_gains: Callable[[Any], torch.Tensor]
-  # (state, chosen column (), chosen feature row (d,), take ()) -> new state
+  # (state, chosen column (m,), its feature row (m, d), take (m,)) -> new
+  # state; every shard gets its group's choice
   apply_update: Callable[[Any, torch.Tensor, torch.Tensor, torch.Tensor], Any]
   # state -> (m,) per-shard partial objective value
   partial_value: Callable[[Any], torch.Tensor]
-  cands: torch.Tensor   # (nc, d) candidate block, shared by the shards
-  cmask: torch.Tensor   # (nc,) bool selectable
-  cgids: torch.Tensor   # (nc,) int64 global ids of the candidates
+  cands: torch.Tensor   # (G, nc, d) candidate block of each group
+  cmask: torch.Tensor   # (G, nc) bool selectable
+  cgids: torch.Tensor   # (G, nc) int64 global ids of the candidates
+
+
+def _shard_cands(cands: torch.Tensor, size: int) -> torch.Tensor:
+  """Each shard's candidate block: the one shared block (nc, d) for one
+  group, else (m, nc, d) with every group's block repeated over its
+  shards."""
+  if cands.shape[0] == 1:
+    return cands[0]
+  return cands.repeat_interleave(size, dim=0)
 
 
 def _objective_engine(objective, local_feats: torch.Tensor,
                       cands: torch.Tensor, cmask: torch.Tensor,
-                      cgids: torch.Tensor,
+                      cgids: torch.Tensor, size: int,
                       eval_mask: torch.Tensor | None = None,
                       state0=None) -> _Engine:
   """Engine over a generic objective exposing partial_stats/update/value,
   the m shards stacked: ``local_feats`` (m, nl, d) binds each shard's
   evaluation rows and ``eval_mask`` (m, nl) marks the live ones (holes
   carry 0), so the partial value is each shard's mean times its live
-  count and hole rows move nothing.  ``state0`` is
-  ``objective.init(local_feats, eval_mask)`` when the caller has it."""
-  m = local_feats.shape[0]
-  cands = kernel_rows(objective, cands)
+  count and hole rows move nothing.  ``cands`` (G, nc, d) holds each group
+  of ``size`` shards' block.  ``state0`` is ``objective.init(local_feats,
+  eval_mask)`` when the caller has it."""
+  rows = kernel_rows(objective, _shard_cands(cands, size))
   if eval_mask is None:
     eval_mask = local_feats.new_ones(local_feats.shape[:-1])
   # count in f32: a low-precision mask dtype would round counts past 256
   n_live = torch.sum(eval_mask.to(torch.float32), dim=-1)     # (m,)
 
   def partial_gains(state):
-    return objective.partial_stats(state, cands)[0]
+    return objective.partial_stats(state, rows)[0]
 
   def apply_update(state, j, feat, take):
     del j
-    return where_state(take, objective.update(state, feat.expand(m, -1)),
-                       state)
+    return where_state(take, objective.update(state, feat), state)
 
   def partial_value(state):
     return objective.value(state) * n_live
@@ -231,36 +348,55 @@ def _objective_engine(objective, local_feats: torch.Tensor,
 
 
 def _dist_greedy_core(engine: _Engine, steps: int, weight: torch.Tensor,
-                      denom: torch.Tensor, feat_dtype):
-  """Distributed greedy over the engine's candidate block, m shards
-  stacked on one device.
+                      denom: torch.Tensor, feat_dtype, size: int):
+  """Distributed greedy of G = m // size independent groups over their
+  candidate blocks, m shards stacked on one device, all groups in one
+  batched loop.
 
-  Per step: sum the weighted per-shard partial gains over the shard axis,
-  then one ``masked_top1`` over gains and feasibility (the same tie rule as
-  the fused select oracles).  ``weight`` is each shard's evaluation weight
-  (0 for dead machines); ``denom`` the weighted live-row count.  Returns
-  (sel_feats (steps, d), sel_valid (steps,), sel_gids (steps,), value ()).
+  Per step: sum each group's weighted per-shard partial gains over its
+  shards, then one ``masked_top1`` per group over gains and feasibility
+  (the same tie rule as the fused select oracles).  ``weight`` (m,) is each
+  shard's evaluation weight (0 for dead machines); ``denom`` (G,) each
+  group's weighted live-row count.  One group of all m shards is the flat
+  merge.  Returns (sel_feats (G, steps, d), sel_valid (G, steps),
+  sel_gids (G, steps), value (G,)).
   """
   cands, cmask, cgids = engine.cands, engine.cmask, engine.cgids
-  nc = cands.shape[0]
+  g_n, nc = cmask.shape
   state = engine.state0
-  selmask = torch.zeros((nc,), dtype=torch.bool, device=cands.device)
+  selmask = torch.zeros((g_n, nc), dtype=torch.bool, device=cands.device)
   outf, outv, outg = [], [], []
   for _ in range(steps):
-    gains = torch.sum(engine.partial_gains(state) * weight[:, None],
-                      dim=0) / denom
+    gains = _group_sum(engine.partial_gains(state) * weight[:, None],
+                       size) / denom[:, None]
     feasible = cmask & ~selmask
-    _, chosen = masked_top1(gains, feasible)
-    take = feasible.any()
-    feat = _pick(cands, chosen)
-    state = engine.apply_update(state, chosen, feat, take)
-    selmask = selmask.scatter(0, chosen.reshape(1),
-                              (_pick(selmask, chosen) | take).reshape(1))
-    outf.append(torch.where(take, feat, 0.0).to(feat_dtype))
+    _, chosen = masked_top1(gains, feasible)                  # (G,)
+    take = feasible.any(dim=1)
+    feat = _rows(cands, chosen)                               # (G, d)
+    state = engine.apply_update(state, chosen.repeat_interleave(size),
+                                feat.repeat_interleave(size, dim=0),
+                                take.repeat_interleave(size))
+    hit = torch.gather(selmask, 1, chosen[:, None]) | take[:, None]
+    selmask = selmask.scatter(1, chosen[:, None], hit)
+    outf.append(torch.where(take[:, None], feat, 0.0).to(feat_dtype))
     outv.append(take)
-    outg.append(torch.where(take, _pick(cgids, chosen), -1))
-  val = torch.sum(engine.partial_value(state) * weight) / denom
-  return (torch.stack(outf), torch.stack(outv), torch.stack(outg), val)
+    outg.append(torch.where(take, torch.gather(cgids, 1, chosen[:, None])[
+        :, 0], -1))
+  val = _group_sum(engine.partial_value(state) * weight, size) / denom
+  return (torch.stack(outf, dim=1), torch.stack(outv, dim=1),
+          torch.stack(outg, dim=1), val)
+
+
+def _block_values(objective, st0, blocks: torch.Tensor,
+                  bvalid: torch.Tensor, m: int) -> torch.Tensor:
+  """objective.value of each of the c blocks (c, k, d) replayed on each of
+  the m shards' evaluation rows (``st0`` has the leading shard axis), all
+  m * c states in one batch: (m, c)."""
+  c = blocks.shape[0]
+  st_all = _repeat_state(st0, c)                              # entry s*c+i
+  vals = objective.value(set_value_feats(
+      objective, st_all, blocks.repeat(m, 1, 1), bvalid.repeat(m, 1)))
+  return vals.reshape(m, c)
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +610,39 @@ def baselines(rng: torch.Generator | None, feats: torch.Tensor, *, m: int,
 # ---------------------------------------------------------------------------
 
 
+def _shard_layout(feats: torch.Tensor, m: int, gids, dev):
+  """The stacked shard view of a shard-contiguous ground set: (local (m,
+  nl, d), local gids (m, nl) int64, live mask (m, nl), live counts (m,))."""
+  n, d = feats.shape
+  if n % m:
+    raise ValueError(f"{n} rows do not split into {m} equal shards")
+  if gids is None:
+    gids = torch.arange(n, device=dev)
+  local_gids = torch.as_tensor(gids, device=dev).to(torch.int64).reshape(
+      m, n // m)
+  local_valid = local_gids >= 0                       # pad-and-mask holes
+  return (feats.reshape(m, n // m, d), local_gids, local_valid,
+          shard_live_counts(local_valid, m))
+
+
+def _finish(v_merged, merged, stage1_vals, children, k_final: int, alive,
+            rescans) -> GreediResult:
+  """Alg. 2's last step: the merged solution or the best root child's
+  block (its first k_final rows), whichever is worth more.  ``merged`` and
+  ``children`` are (feats, valid, gids) triples, the children's with a
+  leading child axis."""
+  best_i = _first_argmax(stage1_vals)
+  v_best_single = _pick(stage1_vals, best_i)
+  use_merged = v_merged >= v_best_single
+  feats, valid, gids = (
+      torch.where(use_merged, mine,
+                  _take_k(_pick(child, best_i), k_final, fill))
+      for mine, child, fill in zip(merged, children, (0.0, False, -1)))
+  return GreediResult(feats, valid, torch.maximum(v_merged, v_best_single),
+                      v_merged, v_best_single, stage1_vals, gids, alive,
+                      rescans)
+
+
 def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
                    objective, straggler_keep: torch.Tensor | None = None,
                    u_subset_eval: bool = False, backend: str | None = None,
@@ -484,23 +653,24 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
                    merge: str = "flat",
                    tree_branch: int | None = None) -> GreediResult:
   """GreeDi over m stacked logical shards for any objective exposing
-  init/partial_stats/update/value (the reference's ``greedi_sharded`` with
-  the flat merge); round-2 gains are the shards' weighted partial sums.
+  init/partial_stats/update/value (the reference's ``greedi_sharded``);
+  the merge levels' gains are the shards' weighted partial sums.
 
   Args:
     feats: (m * npp, d) shard-contiguous ground set (shard b owns rows
       b*npp .. (b+1)*npp - 1); rows with ``gids = -1`` are holes, never
       candidates and never evaluation mass.
-    objective: facility location or information gain.
+    objective: facility location, saturated coverage or information gain.
     straggler_keep: optional (m,) bool; False machines are dropped at the
       merge and carry no evaluation weight.
-    u_subset_eval: Thm-10 mode -- round 2 and A_max evaluate on ONE
-      machine's partition, held by the first alive shard.
+    u_subset_eval: Thm-10 mode -- the merge levels and A_max evaluate on
+      ONE machine's partition per subtree, held by its first alive shard
+      (re-elected from the liveness mask at every level).
     backend: optional gain-oracle backend override for both rounds.
     gids: optional (m * npp,) global ids of the rows (default arange).
     mode: round-1 greedy mode, "standard" (the fused select step) or
-      "lazy" (tile-bound lazy rescans; the same selection).  Round 2 is
-      the distributed greedy either way.
+      "lazy" (tile-bound lazy rescans; the same selection).  The merge
+      levels run the distributed greedy either way.
     warm_bounds: optional (m * npp,) upper bounds on each row's empty-set
       gain under its shard's local evaluation, for the lazy round 1
       (mode="lazy"; standard ignores them): step 0 skips its full pass.
@@ -510,114 +680,192 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
       their deadline; the liveness collective turns them into the
       straggler mask (ANDed with ``straggler_keep``), returned as
       ``GreediResult.alive``.
-    merge, tree_branch: only "flat" and None are ported.
+    merge: "flat" (all m kappa-blocks merged at once) or "tree" (the
+      accumulation tree: ceil(log_b m) levels, each group of a level runs
+      the distributed greedy over its children's blocks, so the largest
+      merged block is b * kappa rows instead of m * kappa).  ``tree_branch
+      = m`` (any b >= m) is a one-level tree and gives the flat merge's
+      bits; otherwise ``stage1_values`` has one entry per root child.
+    tree_branch: children per tree node (merge="tree"; default 8); m must
+      factor as b^t * c with c <= b.
 
-  A_max replays every machine's block on every shard's evaluation rows at
-  once (m * m states in one batch), then sums the shards' partial values.
-  The shards' initial state is built once and serves round 1, A_max and
-  round 2 (saturated coverage's ``init`` is a full pass over the shard).
+  A_max replays every root child's block on every shard's evaluation rows
+  at once (m * c states in one batch), then sums the shards' partial
+  values; a child counts while any shard of its subtree is alive.  The
+  shards' initial state is built once and serves round 1, A_max and every
+  merge level (saturated coverage's ``init`` is a full pass over the
+  shard).
   """
-  if merge != "flat" or tree_branch is not None:
-    raise NotImplementedError(
-        f"greedi_sharded merge {merge!r}: the accumulation-tree merge "
-        f"{_LATER}")
+  plan = _merge_plan(m, merge, tree_branch)
   objective = with_backend(objective, backend)
-  n, d = feats.shape
-  if n % m:
-    raise ValueError(f"{n} rows do not split into {m} equal shards")
-  nl = n // m
   dev = feats.device
   keep = _alive(straggler_keep, liveness_age, liveness_deadline, m, dev)
-  if gids is None:
-    gids = torch.arange(n, device=dev)
-  local = feats.reshape(m, nl, d)
-  local_gids = torch.as_tensor(gids, device=dev).to(torch.int64).reshape(
-      m, nl)
-  local_valid = local_gids >= 0                       # pad-and-mask holes
+  local, local_gids, local_valid, n_live = _shard_layout(feats, m, gids,
+                                                         dev)
   evalw = local_valid.to(feats.dtype)
-  n_live = shard_live_counts(local_valid, m)
 
   # ---- round 1: the local greedy of every shard, one batch ---------------
   st0 = objective.init(local, evalw)
   wb = (None if warm_bounds is None else torch.as_tensor(
-      warm_bounds, device=dev).to(torch.float32).reshape(m, nl))
+      warm_bounds, device=dev).to(torch.float32).reshape(m, -1))
   r1 = greedy(objective, st0, local, kappa, cand_mask=local_valid,
               mode=mode, warm_bounds=wb)
   took = r1.idx >= 0
-  valid = took & keep[:, None]
   gsel = torch.where(took, torch.gather(local_gids, 1, r1.idx.clamp_min(0)),
                      -1)
 
-  # ---- merge: the candidate blocks of every shard (the all_gather) -------
-  Bflat = r1.feats.reshape(m * kappa, d)
-  Bmask = valid.reshape(m * kappa)
-  Bgflat = gsel.reshape(m * kappa)
-  # evaluation weight of each shard: the full set, or the Thm-10 U subset
-  # held by the first ALIVE shard; zero for dead machines
-  u_holder = _first_argmax(keep.to(torch.float32))
-  w = keep.to(torch.float32)
-  if u_subset_eval:
-    w = w * (torch.arange(m, device=dev) == u_holder).to(torch.float32)
-  denom = torch.clamp_min(torch.sum(n_live * w), 1.0)
-
-  # ---- A_max: machine i's block replayed on shard s's rows, all (s, i) ---
-  st_all = _repeat_state(st0, m)                              # (m*m, ...)
-  blocks = r1.feats.repeat(m, 1, 1)                           # entry s*m+i
-  bvalid = valid.repeat(m, 1)
-  part_vals = objective.value(set_value_feats(objective, st_all, blocks,
-                                              bvalid)).reshape(m, m)
-  stage1_vals = torch.sum(part_vals * (n_live * w)[:, None], dim=0) / denom
-  stage1_vals = torch.where(keep, stage1_vals, -torch.inf)
-  best_i = _first_argmax(stage1_vals)
-
-  # ---- round 2: the distributed greedy over the merged block -------------
-  engine = _objective_engine(objective, local, Bflat, Bmask, Bgflat,
-                             eval_mask=evalw, state0=st0)
-  merged_feats, merged_valid, merged_gids, v_merged = _dist_greedy_core(
-      engine, k_final, w, denom, feats.dtype)
-
-  v_best_single = _pick(stage1_vals, best_i)
-  use_merged = v_merged >= v_best_single
-  return GreediResult(
-      torch.where(use_merged, merged_feats,
-                  _take_k(_pick(r1.feats, best_i), k_final, 0.0)),
-      torch.where(use_merged, merged_valid,
-                  _take_k(_pick(valid, best_i), k_final, False)),
-      torch.maximum(v_merged, v_best_single), v_merged, v_best_single,
-      stage1_vals,
-      torch.where(use_merged, merged_gids,
-                  _take_k(_pick(gsel, best_i), k_final, -1)),
-      keep, r1.rescans)
+  # ---- merge levels: each group's distributed greedy over its children --
+  q = (r1.feats, took & keep[:, None], gsel)  # one block per child (shard)
+  for lv in plan:
+    kprev = q[0].shape[1]
+    w = _level_weight(keep, lv.size, u_subset_eval)
+    denom = torch.clamp_min(_group_sum(n_live * w, lv.size), 1.0)   # (G,)
+    if lv.root:
+      # ---- A_max: each root child's block replayed on every shard ------
+      part_vals = _block_values(objective, st0, q[0], q[1], m)    # (m, c)
+      stage1_vals = torch.sum(part_vals * (n_live * w)[:, None],
+                              dim=0) / denom
+      child_keep = keep.reshape(lv.c, -1).any(dim=1)
+      stage1_vals = torch.where(child_keep, stage1_vals, -torch.inf)
+      children = q
+    blocks = tuple(x.reshape(m // lv.size, lv.c * kprev, *x.shape[2:])
+                   for x in q)
+    engine = _objective_engine(objective, local, *blocks, lv.size,
+                               eval_mask=evalw, state0=st0)
+    *q, v_merged = _dist_greedy_core(
+        engine, k_final if lv.root else kappa, w, denom, feats.dtype,
+        lv.size)
+  return _finish(v_merged[0], tuple(x[0] for x in q), stage1_vals,
+                 children, k_final, keep, r1.rescans)
 
 
 # ---------------------------------------------------------------------------
 # the cached-similarity fast engine, m stacked shards
 # ---------------------------------------------------------------------------
 
-_ROW_CHUNK = 4096  # eval rows per step of the plain relu-reduce
-
-
-def _relu_colsum(s: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
-  """sum_i relu(s[:, i, j] - cov[:, i]) over the eval rows of a cached
-  similarity block: s (m, nl, nc), cov (m, nl) -> (m, nc).
-
-  The reference's masked relu-reduce in plain PyTorch.  Row chunks bound
-  the temporary at (m, 4096, nc) floats instead of a copy of s (16 GiB for
-  the round-1 block at 16 x 16384 rows); the plain version's cost is a
-  target of a later kernel (PERF.md).
-  """
-  out = None
-  for r0 in range(0, s.shape[1], _ROW_CHUNK):
-    inc = s[:, r0:r0 + _ROW_CHUNK] - cov[:, r0:r0 + _ROW_CHUNK, None]
-    part = inc.clamp_min_(0.0).sum(dim=1)
-    out = part if out is None else out + part
-  return out
-
 
 def _column(s: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
   """s[b, :, j[b]] per shard b: s (m, nl, nc), j (m,) -> (m, nl)."""
   m, nl, _ = s.shape
   return torch.gather(s, 2, j.reshape(m, 1, 1).expand(m, nl, 1))[..., 0]
+
+
+def _fast_r1_standard(s11: torch.Tensor, local_valid: torch.Tensor,
+                      kappa: int, colsum):
+  """Round 1 of the fast engine, every step a full column pass over the
+  cached block: (sel_idx (m, kappa), took (m, kappa))."""
+  m, nl = local_valid.shape
+  cov = torch.zeros((m, nl), dtype=torch.float32, device=s11.device)
+  selmask = torch.zeros((m, nl), dtype=torch.bool, device=s11.device)
+  sel_idx, took = [], []
+  for _ in range(kappa):
+    gains = colsum(s11, cov)
+    feasible = ~selmask & local_valid
+    _, j = masked_top1(gains, feasible)
+    take = feasible.any(dim=1)
+    cov = torch.where(take[:, None], torch.maximum(cov, _column(s11, j)), cov)
+    hit = torch.gather(selmask, 1, j[:, None]) | take[:, None]
+    selmask = selmask.scatter(1, j[:, None], hit)
+    sel_idx.append(j)
+    took.append(take)
+  return torch.stack(sel_idx, dim=1), torch.stack(took, dim=1)
+
+
+def _fast_r1_lazy(s11: torch.Tensor, local_valid: torch.Tensor, kappa: int,
+                  d: int, colsum):
+  """Round 1 of the fast engine with tile-bound lazy pruning over the
+  cached similarity columns (``mode="lazy"``; the port of
+  ``_fast_r1_lazy`` in src/repro/core/greedi.py).
+
+  ``stale[b, j]`` holds column j's last computed gain sum_i relu(s11[b, i,
+  j] - cov[b, i]), an upper bound on its current gain: cov only grows, so
+  every term shrinks, and ``colsum`` adds the terms of a column in one
+  fixed order whichever columns a call takes, so the bound holds in
+  floating point too.  Step 0 is one full pass that selects and seeds
+  ``stale``.  Every later step sorts the bounds (descending, stable: equal
+  bounds keep column order) and rescans bound-sorted column tiles of s11
+  (``autotune.lazy_tile`` columns, gathered by the kernel from the ids)
+  while the next tile's head bound is >= the running best, score ties to
+  the lowest column: the standard step's pick, bit for bit.
+
+  The m shards rescan together, as ``core/greedy._greedy_lazy`` does: one
+  batched rescan an iteration, each shard stopping on its own head test (a
+  stopped shard's tile is still summed but changes nothing), one host sync
+  an iteration (``greedy.lazy_syncs``).  Columns, not rows: hole rows are
+  zeroed out of s11 and rbf bits are not symmetric, so s11 is read along
+  its columns.  Returns (sel_idx (m, kappa), took (m, kappa), rescans (m,)
+  int32).
+  """
+  m, nl = local_valid.shape
+  dev = s11.device
+  rescans = torch.zeros((m,), dtype=torch.int32, device=dev)
+  tile = autotune.lazy_tile(nl, d)
+  tile = max(min(tile, autotune.floor_pow2(nl, cap=tile)), 1)
+  npad = -(-nl // tile) * tile
+  nt = npad // tile
+  valid_pad = _pad_last(local_valid, npad, False)
+  int_max = torch.iinfo(torch.int64).max
+
+  # step 0: one full column pass selects AND seeds the bounds
+  cov = torch.zeros((m, nl), dtype=torch.float32, device=dev)
+  g0 = colsum(s11, cov)
+  _, j = masked_top1(g0, local_valid)
+  take = local_valid.any(dim=1)
+  cov = torch.where(take[:, None], torch.maximum(cov, _column(s11, j)), cov)
+  selmask = torch.zeros((m, npad), dtype=torch.bool, device=dev).scatter(
+      1, j[:, None], take[:, None])
+  stale = _pad_last(g0, npad, NEG)
+  sel_idx, took = [j], [take]
+
+  ar = torch.arange(tile, device=dev)
+  for _ in range(1, kappa):
+    feasible = ~selmask & valid_pad
+    pri = torch.where(feasible, stale, NEG)
+    sorted_pri, order = torch.sort(pri, dim=-1, descending=True, stable=True)
+    p = torch.zeros((m,), dtype=torch.int64, device=dev)
+    best = torch.full((m,), -torch.inf, dtype=torch.float32, device=dev)
+    bidx = torch.full((m,), int_max, dtype=torch.int64, device=dev)
+    while True:
+      head = torch.gather(sorted_pri, 1,
+                          (p * tile).clamp_max(npad - 1)[:, None])[:, 0]
+      go = (p < nt) & (head >= best)
+      _greedy.lazy_syncs += 1
+      if not bool(go.any()):
+        break
+      ids = torch.gather(order, 1, p.clamp_max(nt - 1)[:, None] * tile + ar)
+      g = colsum(s11, cov, ids.clamp_max(nl - 1))  # pad slots: infeasible
+      stale = torch.where(go[:, None], stale.scatter(1, ids, g), stale)
+      gm = torch.where(torch.gather(feasible, 1, ids), g, NEG)
+      tb = gm.max(dim=1).values
+      gi = torch.where(gm == tb[:, None], ids, int_max).min(dim=1).values
+      better = go & ((tb > best) | ((tb == best) & (gi < bidx)))
+      best = torch.where(better, tb, best)
+      bidx = torch.where(better, gi, bidx)
+      p = p + go
+      rescans = rescans + go.to(torch.int32)
+    take = feasible.any(dim=1)
+    j = torch.where(take, bidx.clamp(0, nl - 1), 0)
+    cov = torch.where(take[:, None], torch.maximum(cov, _column(s11, j)), cov)
+    hit = torch.gather(selmask, 1, j[:, None]) | take[:, None]
+    selmask = selmask.scatter(1, j[:, None], hit)
+    sel_idx.append(j)
+    took.append(take)
+  return torch.stack(sel_idx, dim=1), torch.stack(took, dim=1), rescans
+
+
+def _cached_engine(s2: torch.Tensor, colsum, blocks) -> _Engine:
+  """Engine over a cached (m, nl, nc) cross-similarity block: the gains are
+  relu column sums of s2, an update takes each shard's chosen column.
+  ``blocks`` are the groups' (cands, cmask, cgids), s2's columns in their
+  order."""
+  m, nl, _ = s2.shape
+  return _Engine(
+      state0=torch.zeros((m, nl), dtype=torch.float32, device=s2.device),
+      partial_gains=lambda cov: colsum(s2, cov),
+      apply_update=lambda cov, j, feat, take: torch.where(
+          take[:, None], torch.maximum(cov, _column(s2, j)), cov),
+      partial_value=lambda cov: cov.sum(dim=1),
+      cands=blocks[0], cmask=blocks[1], cgids=blocks[2])
 
 
 def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
@@ -628,21 +876,26 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
                         gids: torch.Tensor | None = None,
                         mode: str = "standard",
                         merge: str = "flat",
+                        tree_branch: int | None = None,
                         liveness_age: torch.Tensor | None = None,
                         liveness_deadline: float | None = None
                         ) -> GreediResult:
   """Cached-similarity GreeDi for facility location over m stacked shards
-  (the reference's ``greedi_sharded_fast`` with the flat merge).
+  (the reference's ``greedi_sharded_fast``).
 
     * round 1 caches each shard's (n/m x n/m) similarity block once through
       the ``pairwise`` oracle (one launch for all shards); each greedy step
-      is then a masked relu-reduce over the cached block;
-    * the merge gathers the (m, kappa, d) candidate blocks (a reshape) and
-      caches S2 = sim(local eval, merged B), again one launch for all
-      shards with the merged block shared;
-    * A_max needs no replay: f(A_i) = mean_e max over machine i's columns of
-      S2;
-    * round 2 runs ``_dist_greedy_core`` over the cached S2 columns.
+      is then a masked relu column sum over the cached block (the
+      ``relu_colsum`` oracle), every column ("standard") or bound-sorted
+      column tiles (``mode="lazy"``, ``_fast_r1_lazy``: the same
+      selection, bit for bit);
+    * each merge level gathers its groups' candidate blocks (a reshape) and
+      caches one (nl, c * kprev) cross block sim(local eval, the group's
+      block) per shard, again one ``pairwise`` launch; its distributed
+      greedy runs ``_dist_greedy_core`` over the cached columns.  The flat
+      merge is one level of one group, the block (nl, m * kappa);
+    * A_max needs no replay: f(A_i) = mean_e max over root child i's
+      columns of the root level's block.
 
   Args:
     feats: (m * npp, d) shard-contiguous ground set (shard b owns rows
@@ -650,38 +903,30 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
     m: number of stacked logical shards.
     straggler_keep: optional (m,) bool; False machines contribute neither
       candidates nor evaluation mass.
-    backend: ``pairwise`` backend override ("cuda" | "ref" | "auto").
+    backend: backend of the ``pairwise`` and ``relu_colsum`` oracles
+      ("cuda" | "ref" | "auto").
     gids: optional (m * npp,) global ids of the rows (default arange); -1
       marks a hole.
+    mode: "standard" or "lazy" (round 1).
+    merge, tree_branch: as in ``greedi_sharded`` (b = m gives flat's bits).
     liveness_age, liveness_deadline: as in ``greedi_sharded``.
   """
-  if mode != "standard":
-    raise NotImplementedError(
-        f"greedi_sharded_fast mode {mode!r}: lazy round 1 {_LATER}")
-  if merge != "flat":
-    raise NotImplementedError(
-        f"greedi_sharded_fast merge {merge!r}: the accumulation-tree merge "
-        f"{_LATER}")
+  if mode not in ("standard", "lazy"):
+    raise ValueError(f"mode must be 'standard' or 'lazy', got {mode!r}")
   if kernel not in dispatch.FUSED_SIMS:
     raise ValueError(f"greedi_sharded_fast caches similarities through the "
                      f"'pairwise' oracle and supports {dispatch.FUSED_SIMS}, "
                      f"got {kernel!r}")
+  plan = _merge_plan(m, merge, tree_branch)
   sim = dispatch.resolve("pairwise", backend or "auto")
+  colsum = dispatch.resolve("relu_colsum", backend or "auto")
   h = _kernel_h(kernel_kwargs)
-  n, d = feats.shape
-  if n % m:
-    raise ValueError(f"{n} rows do not split into {m} equal shards")
-  nl = n // m
+  d = feats.shape[1]
   dev = feats.device
   keep = _alive(straggler_keep, liveness_age, liveness_deadline, m, dev)
-  if gids is None:
-    gids = torch.arange(n, device=dev)
-  local = feats.reshape(m, nl, d)
-  local_gids = torch.as_tensor(gids, device=dev).to(torch.int64).reshape(
-      m, nl)
-  local_valid = local_gids >= 0                       # pad-and-mask holes
+  local, local_gids, local_valid, n_live = _shard_layout(feats, m, gids,
+                                                         dev)
   vrow = local_valid.to(torch.float32)
-  n_live = shard_live_counts(local_valid, m)
   w = keep.to(torch.float32)
 
   # ---- round 1: local greedy over each shard's cached similarity block --
@@ -690,68 +935,116 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
   # block is the run's largest tensor
   s11 = sim(local, local, kernel=kernel, h=h)         # (m, nl, nl) f32
   s11.mul_(vrow[:, :, None])
-  cov = torch.zeros((m, nl), dtype=torch.float32, device=dev)
-  selmask = torch.zeros((m, nl), dtype=torch.bool, device=dev)
-  sel_idx, took = [], []
-  for _ in range(kappa):
-    gains = _relu_colsum(s11, cov)
-    feasible = ~selmask & local_valid
-    _, j = masked_top1(gains, feasible)
-    take = feasible.any(dim=1)
-    cov = torch.where(take[:, None], torch.maximum(cov, _column(s11, j)), cov)
-    hit = torch.gather(selmask, 1, j[:, None]) | take[:, None]
-    selmask = selmask.scatter(1, j[:, None], hit)
-    sel_idx.append(j)
-    took.append(take)
+  if mode == "lazy":
+    sel_idx, took, rescans = _fast_r1_lazy(s11, local_valid, kappa, d,
+                                           colsum)
+  else:
+    sel_idx, took = _fast_r1_standard(s11, local_valid, kappa, colsum)
+    rescans = torch.zeros((m,), dtype=torch.int32, device=dev)
   del s11
-  sel_idx = torch.stack(sel_idx, dim=1)               # (m, kappa)
-  took = torch.stack(took, dim=1)
   sel = torch.gather(local, 1, sel_idx[..., None].expand(m, kappa, d))
   # steps past the live local rows find nothing feasible: invalidate them
   # like the reference does, so kappa > live rows leaks no duplicates
   gsel = torch.where(took, torch.gather(local_gids, 1, sel_idx), -1)
-  valid = keep[:, None] & took
 
-  # ---- merge + ONE cross-similarity block --------------------------------
-  denom = torch.clamp_min(torch.sum(n_live * w), 1.0)
-  Bflat = sel.reshape(m * kappa, d)
-  Bmask = valid.reshape(m * kappa)
-  Bgflat = gsel.reshape(m * kappa)
-  s2 = sim(local, Bflat, kernel=kernel, h=h)          # (m, nl, m*kappa)
-  s2.mul_(vrow[:, :, None])
+  # ---- merge levels: one cached cross block each -------------------------
+  q = (sel, keep[:, None] & took, gsel)   # one block per child (shard)
+  for lv in plan:
+    kprev = q[0].shape[1]
+    denom = torch.clamp_min(_group_sum(n_live * w, lv.size), 1.0)   # (G,)
+    blocks = tuple(x.reshape(m // lv.size, lv.c * kprev, *x.shape[2:])
+                   for x in q)
+    s2 = sim(local, _shard_cands(blocks[0], lv.size), kernel=kernel, h=h)
+    s2.mul_(vrow[:, :, None])                         # (m, nl, c * kprev)
+    if lv.root:
+      # ---- A_max: no replay needed ---------------------------------------
+      # invalid candidate columns (padding past a machine's live rows, or
+      # rows of a dead machine) carry no coverage in f(A_i)
+      s2_pos = torch.clamp_min(s2, 0.0) * blocks[1].to(torch.float32)
+      per_child = s2_pos.reshape(m, s2.shape[1], lv.c, kprev).amax(dim=3)
+      del s2_pos
+      stage1_vals = torch.sum(per_child.sum(dim=1) * w[:, None],
+                              dim=0) / denom
+      child_keep = keep.reshape(lv.c, -1).any(dim=1)
+      stage1_vals = torch.where(child_keep, stage1_vals, -torch.inf)
+      children = q
+    *q, v_merged = _dist_greedy_core(
+        _cached_engine(s2, colsum, blocks), k_final if lv.root else kappa,
+        w, denom, feats.dtype, lv.size)
+    del s2
+  return _finish(v_merged[0], tuple(x[0] for x in q), stage1_vals,
+                 children, k_final, keep, rescans)
 
-  # ---- A_max: no replay needed -------------------------------------------
-  # invalid candidate columns (padding past a machine's live rows, or rows
-  # of a dead machine) carry no coverage in f(A_i)
-  s2_pos = torch.clamp_min(s2, 0.0) * Bmask.to(torch.float32)
-  per_machine = s2_pos.reshape(m, nl, m, kappa).amax(dim=3)   # (m, nl, m)
-  del s2_pos
-  stage1_vals = torch.sum(per_machine.sum(dim=1) * w[:, None],
-                          dim=0) / denom
-  stage1_vals = torch.where(keep, stage1_vals, -torch.inf)
-  best_i = _first_argmax(stage1_vals)
 
-  # ---- round 2: the shared core over the cached columns ------------------
-  engine = _Engine(
-      state0=torch.zeros((m, nl), dtype=torch.float32, device=dev),
-      partial_gains=lambda c: _relu_colsum(s2, c),
-      apply_update=lambda c, j, feat, take: torch.where(
-          take, torch.maximum(c, s2.index_select(2, j.reshape(1))[..., 0]),
-          c),
-      partial_value=lambda c: c.sum(dim=1),
-      cands=Bflat, cmask=Bmask, cgids=Bgflat)
-  merged_feats, merged_valid, merged_gids, v_merged = _dist_greedy_core(
-      engine, k_final, w, denom, feats.dtype)
+# ---------------------------------------------------------------------------
+# three-level GreeDi: shard -> pod -> global
+# ---------------------------------------------------------------------------
 
-  v_best_single = _pick(stage1_vals, best_i)
-  use_merged = v_merged >= v_best_single
-  return GreediResult(
-      torch.where(use_merged, merged_feats,
-                  _take_k(_pick(sel, best_i), k_final, 0.0)),
-      torch.where(use_merged, merged_valid,
-                  _take_k(_pick(valid, best_i), k_final, False)),
-      torch.maximum(v_merged, v_best_single), v_merged, v_best_single,
-      stage1_vals,
-      torch.where(use_merged, merged_gids,
-                  _take_k(_pick(gsel, best_i), k_final, -1)),
-      keep, torch.zeros((m,), dtype=torch.int32, device=dev))
+
+def greedi_hierarchical(feats: torch.Tensor, *, pods: int, per_pod: int,
+                        kappa: int, k_final: int, objective,
+                        straggler_keep: torch.Tensor | None = None,
+                        backend: str | None = None,
+                        gids: torch.Tensor | None = None,
+                        mode: str = "standard") -> GreediResult:
+  """Three-level GreeDi over pods x per_pod stacked shards (the
+  reference's ``greedi_hierarchical`` over a (pod, data) mesh), pod-major
+  like the shard layout: pod p holds shards p * per_pod .. (p + 1) *
+  per_pod - 1.
+
+    * level 1: every shard greedily selects kappa from its partition;
+    * level 2: each pod's distributed greedy over its shards' blocks picks
+      kappa (gains summed over the pod's shards);
+    * level 3: the distributed greedy over the pods' blocks, over all
+      shards, picks k_final.
+
+  Both merge levels are ``_dist_greedy_core``, the pods of level 2 one
+  batched loop.  ``straggler_keep`` ((pods * per_pod,) bool) masks dead
+  shards out of the candidates AND the evaluation weight at every level.
+  The best pod-level solution, evaluated over all the alive data, is kept
+  beside the global one and the better is returned (Alg. 2's max(A_max,
+  A_B)); ``stage1_values`` holds the pods' values (-inf for a pod that
+  selected nothing), ``value_best_single`` the best pod's.
+  """
+  objective = with_backend(objective, backend)
+  m = pods * per_pod
+  dev = feats.device
+  keep = _alive(straggler_keep, None, None, m, dev)
+  local, local_gids, local_valid, n_live = _shard_layout(feats, m, gids,
+                                                         dev)
+  evalw = local_valid.to(feats.dtype)
+  w = keep.to(torch.float32)
+  nl_w = n_live * w
+  denom_pod = torch.clamp_min(_group_sum(nl_w, per_pod), 1.0)   # (pods,)
+  denom_all = torch.clamp_min(_group_sum(nl_w, m), 1.0)         # (1,)
+
+  # ---- level 1: the shard-local greedy -----------------------------------
+  st0 = objective.init(local, evalw)
+  r1 = greedy(objective, st0, local, kappa, cand_mask=local_valid,
+              mode=mode)
+  took = r1.idx >= 0
+  g1 = torch.where(took, torch.gather(local_gids, 1, r1.idx.clamp_min(0)),
+                   -1)
+
+  # ---- level 2: each pod's merge and distributed greedy ------------------
+  blocks = tuple(x.reshape(pods, per_pod * kappa, *x.shape[2:])
+                 for x in (r1.feats, took & keep[:, None], g1))
+  pod_f, pod_v, pod_g, _ = _dist_greedy_core(
+      _objective_engine(objective, local, *blocks, per_pod, eval_mask=evalw,
+                        state0=st0),
+      kappa, w, denom_pod, feats.dtype, per_pod)
+
+  # ---- level 3: the pods' blocks, one distributed greedy over all --------
+  blocks = tuple(x.reshape(1, pods * kappa, *x.shape[2:])
+                 for x in (pod_f, pod_v, pod_g))
+  glob_f, glob_v, glob_g, glob_val = _dist_greedy_core(
+      _objective_engine(objective, local, *blocks, m, eval_mask=evalw,
+                        state0=st0),
+      k_final, w, denom_all, feats.dtype, m)
+
+  # ---- the best pod-level solution, evaluated over all the alive data ----
+  part_vals = _block_values(objective, st0, pod_f, pod_v, m)   # (m, pods)
+  pod_vals = torch.sum(part_vals * nl_w[:, None], dim=0) / denom_all
+  pod_vals = torch.where(pod_v.any(dim=1), pod_vals, -torch.inf)
+  return _finish(glob_val[0], (glob_f[0], glob_v[0], glob_g[0]), pod_vals,
+                 (pod_f, pod_v, pod_g), k_final, keep, r1.rescans)

@@ -48,6 +48,7 @@ def greedi_select_indices_sharded(rng: torch.Generator | None,
                                   backend: str | None = None,
                                   mode: str = "standard",
                                   merge: str = "flat",
+                                  tree_branch: int | None = None,
                                   perm: torch.Tensor | None = None,
                                   fast: bool = True) -> np.ndarray:
   """GreeDi over m stacked logical shards returning global indices.
@@ -58,14 +59,19 @@ def greedi_select_indices_sharded(rng: torch.Generator | None,
   ``gids`` input.  A non-divisible n is padded with hole rows (gids = -1).
   ``fast=False`` runs facility location through the generic engine
   ``greedi_sharded`` instead of the cached-similarity one (same
-  selection).
+  selection).  ``mode`` is round 1's ("standard" | "lazy": the same
+  selection on both engines; the fast engine's lazy mode prunes the
+  cached similarity columns); ``merge`` "flat" or "tree" with
+  ``tree_branch`` children a node (``tree_branch = m`` is flat, bit for
+  bit).
   """
   r_part = GD.greedi_keys(rng)[0] if perm is None else None
   parts, _, perm = random_partition(r_part, feats, m, perm=perm)
   npp, d = parts.shape[1:]
   common = dict(m=m, kappa=kappa, k_final=k_final,
                 straggler_keep=straggler_keep, backend=backend,
-                gids=partition_gids(perm), mode=mode, merge=merge)
+                gids=partition_gids(perm), mode=mode, merge=merge,
+                tree_branch=tree_branch)
   if fast:
     r = GD.greedi_sharded_fast(parts.reshape(m * npp, d), kernel=kernel,
                                kernel_kwargs=kernel_kwargs, **common)

@@ -76,6 +76,9 @@ ENTRIES = {
                               [P, P, I64, I64, I64, P, I64, I64, I64, P, I64,
                                I64, P, P, P, P, P, P, I64, I64, I64, I64, I64,
                                P]),
+    "sm90_relu_colsum": ("colsum",
+                         [P, P, P, P, P, I64, I64, I64, I64, I64, I64, I64,
+                          I64, P]),
     "sm90_flash_attention": ("flash_attention",
                              [P, P, P, P, I64, I64, I64, I64, I64, I64, I64,
                               I64, I64, I64, I64, I64, I64, I64, I64, F32,

@@ -30,6 +30,21 @@ package of another checkout.
       64, m = 16: the reference protocol's fused select path and the fast
       engine through the CLI: wall time, peak memory, launches and the
       selections.
+  python -m repro_torch.kernels.diagnose colsum
+      ``ops.relu_colsum`` at the round-2 shape (16 x 16384 x 1024) on two
+      operand sets, the smoke's (a ``pairwise`` block) and a block of unit
+      rows of width 1024: CUDA-event means over 5 and over 50 calls, the
+      host's time a call and the device's (the profiler's kernel time).
+  python -m repro_torch.kernels.diagnose profiler --first colsum|cut
+      torch.profiler's kernel records and launch calls in each of 5
+      windows of 3 calls, for the three calls whose kernels a call the
+      smoke counts by profiler (``relu_colsum``, ``graph_cut_gain`` at 16 x
+      36692, ``graph_cut_select`` unbatched at 36692 and at the paper's 10
+      x 1899), profiled in
+      the order ``--first`` starts; ``--gap-s`` waits that
+      long after the first call's windows, profiling one window of it
+      every 15 s, and prints each window's lag from the first launch call
+      to its kernel's record (the host and device clocks' agreement).
 
 With ``--parent DIR`` the same readings are taken through the package of
 the checkout at DIR (its ``src``, its kernels built from its own sources)
@@ -457,6 +472,116 @@ def e2e(parent: Path, d: int, n: int = 262144, k: int = 64,
   print(json.dumps(row), flush=True)
 
 
+def colsum_round2() -> None:
+  """``ops.relu_colsum`` at the round-2 shape on the smoke's operands and
+  on unit rows of width 1024, each read four ways (the module's doc)."""
+  import time
+
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  local = unit_rows(1, M, NL, 64)
+  s2 = ops.pairwise(local, unit_rows(2, 1024, 64), kernel="linear")
+  del local
+  blocks = {"pairwise block": s2, "unit rows 1024": unit_rows(3, M, NL,
+                                                               1024)}
+  for name, s in blocks.items():
+    cov = s[:, :, :8].amax(dim=2).clamp_min(0.0)
+    def call():
+      return ops.relu_colsum(s, cov)
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+      call()
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      for _ in range(10):
+        call()
+      torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    print(json.dumps({
+        "colsum round2": name, "shape": list(s.shape), "pitch": s.stride(1),
+        "event_ms_5": [time_ms(call, reps=5) for _ in range(3)],
+        "event_ms_50": [time_ms(call, reps=50) for _ in range(3)],
+        "host_ms": host_ms,
+        "device_ms": sum(e.self_device_time_total for e in kern) / 1e4,
+        "kernel_records": sum(e.count for e in kern)}), flush=True)
+
+
+def profiler_windows(first: str, gap_s: float) -> None:
+  """Kernel records and launch calls a profiled window of 3 calls sees
+  (the module's doc), with each record's start in µs from the trace's."""
+  import time
+
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  from repro_torch.data.graphs import chung_lu_graph, social_graph
+  g = torch.Generator(device="cuda").manual_seed(15)
+
+  def cut_operands(w, P):
+    n = w.shape[0]
+    x = (torch.rand(P, n, generator=g, device="cuda") < 0.002).float()
+    part = torch.randint(0, P, (n,), generator=g, device="cuda")
+    ind = (part == torch.arange(P, device="cuda")[:, None]).float()
+    x = x * ind
+    ok = (torch.rand(P, n, generator=g, device="cuda") < 0.98) & (x == 0)
+    return x, ind, ok
+  s = unit_rows(2, M, NL, 1024)
+  cov = s[:, :, :8].amax(dim=2).clamp_min(0.0)
+  w = chung_lu_graph(36692, 183831, seed=0, device="cuda")
+  x, ind, _ = cut_operands(w, 16)
+  wp = torch.as_tensor(social_graph(1899, seed=0), device="cuda")
+  xp, indp, okp = cut_operands(wp, 10)
+  x1 = (torch.rand(w.shape[0], generator=g, device="cuda") < 0.002).float()
+  ok1 = x1 == 0
+  calls = {"relu_colsum": lambda: ops.relu_colsum(s, cov),
+           "graph_cut_gain": lambda: ops.graph_cut_gain(w, x, ind),
+           "graph_cut_select unbatched": lambda: ops.graph_cut_select(
+               w, x1, ok1),
+           "graph_cut_select paper": lambda: ops.graph_cut_select(
+               wp, xp, okp, indp)}
+  order = list(calls)
+  if first == "cut":
+    order = order[1:] + order[:1]
+  t_first = time.perf_counter()
+
+  def window(name, label):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+      for _ in range(3):
+        calls[name]()
+      torch.cuda.synchronize()
+    evs = prof.events()
+    kern = [e for e in evs if e.device_type == DeviceType.CUDA]
+    launch = [e for e in evs if e.device_type == DeviceType.CPU
+              and e.name.startswith(("cudaLaunch", "cuLaunch"))]
+    row = {"profiler": name, "first": first,
+           "window": label, "kernel_records": len(kern),
+           "launch_calls": len(launch),
+           "kernel_start_us": [round(e.time_range.start, 1) for e in kern],
+           "launch_start_us": [round(e.time_range.start, 1) for e in launch],
+           "kernels": sorted({e.name[:40] for e in kern}),
+           "launch_names": sorted({e.name for e in launch}),
+           "since_first_s": round(time.perf_counter() - t_first, 1)}
+    if kern and launch:
+      row["first_lag_us"] = round(min(e.time_range.start for e in kern) -
+                                  min(e.time_range.start for e in launch), 1)
+    print(json.dumps(row), flush=True)
+  for i, name in enumerate(order):
+    calls[name]()
+    torch.cuda.synchronize()
+    for w_ in range(5):
+      window(name, w_)
+    if i == 0 and gap_s:
+      for k in range(int(gap_s // 15)):
+        time.sleep(15)
+        window(name, f"gap {k}")
+
+
 def main() -> None:
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   sub = ap.add_subparsers(dest="cmd", required=True)
@@ -472,6 +597,10 @@ def main() -> None:
   e = sub.add_parser("e2e")
   e.add_argument("--parent", type=Path, required=True)
   e.add_argument("--d", type=int, default=768)
+  sub.add_parser("colsum")
+  pr = sub.add_parser("profiler")
+  pr.add_argument("--first", choices=("colsum", "cut"), default="colsum")
+  pr.add_argument("--gap-s", type=float, default=0.0)
   args = ap.parse_args()
   torch.backends.cuda.matmul.allow_tf32 = False
   print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -483,6 +612,10 @@ def main() -> None:
     widths(args.parent, args.d)
   elif args.cmd == "facility":
     facility(args.parent, args.d)
+  elif args.cmd == "colsum":
+    colsum_round2()
+  elif args.cmd == "profiler":
+    profiler_windows(args.first, args.gap_s)
   else:
     e2e(args.parent, args.d)
 

@@ -18,8 +18,9 @@ eagerly, so there is no trace-time resolution to cache.  The families are
 
   * gain oracles (``register``/``resolve``): the full (nc,) gains vector
     (``facility_gain``), the information-gain conditional variances
-    (``info_gain_cond``), and ``pairwise``, the materialized similarity
-    blocks the fast GreeDi engine caches;
+    (``info_gain_cond``), ``pairwise``, the materialized similarity
+    blocks the fast GreeDi engine caches, and ``relu_colsum``, that
+    engine's masked relu column sums over them;
   * select oracles (``register_select``/``resolve_select``): the fused
     top-1 reductions returning (best gain, index) directly, registered under
     the name of their gain counterpart;

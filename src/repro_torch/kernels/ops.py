@@ -13,6 +13,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import colsum as _cs
 from repro_torch.kernels import coverage_gain as _cg
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import facility_gain as _fg
@@ -33,6 +34,7 @@ graph_cut_select_batched = _st.graph_cut_select_batched
 info_gain_cond = _ig.info_gain_cond
 info_select = _st.info_select
 pairwise = _pw.pairwise
+relu_colsum = _cs.relu_colsum
 
 # kernel name -> (wrapper module, its counter attribute)
 _COUNTED = {"pairwise": (_pw, "launches"), "facility_gain": (_fg, "launches"),
@@ -43,7 +45,8 @@ _COUNTED = {"pairwise": (_pw, "launches"), "facility_gain": (_fg, "launches"),
             "info_select": (_st, "info_launches"),
             "graph_cut_gain": (_gc, "launches"),
             "graph_cut_select": (_st, "graph_cut_launches"),
-            "flash_attention": (_fa, "launches")}
+            "flash_attention": (_fa, "launches"),
+            "relu_colsum": (_cs, "launches")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -137,6 +140,8 @@ dispatch.register("graph_cut_gain", cuda=_cuda_only(graph_cut_gain),
                   ref=ref.graph_cut_gain_ref, auto=graph_cut_gain)
 dispatch.register_select("graph_cut_gain", cuda=_cuda_only(graph_cut_select),
                          ref=ref.graph_cut_select_ref, auto=graph_cut_select)
+dispatch.register("relu_colsum", cuda=_cuda_only(relu_colsum),
+                  ref=ref.relu_colsum_ref, auto=relu_colsum)
 dispatch.register("flash_attention", cuda=_cuda_only(_fa.flash_attention),
                   ref=ref.mha_ref, auto=_fa.flash_attention)
 dispatch.register_select_batched(

@@ -84,6 +84,64 @@ def coverage_gain_ref(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   return (eval_mask.float().unsqueeze(-2) @ inc).squeeze(-2)
 
 
+# rows of a chunk of the relu column sums: a multiple of 256 that keeps
+# the chunks at most 64, so a pass's partial sums stay small beside s
+COLSUM_CHUNK = 256
+COLSUM_MAX_CHUNKS = 64
+
+
+def colsum_chunk_rows(nl: int) -> int:
+  """Rows a chunk of ``relu_colsum_ref`` and of ``csrc/colsum.cu`` sums at
+  nl eval rows: a function of nl alone, so a column's order of additions
+  never depends on which columns a call takes."""
+  span = COLSUM_CHUNK * COLSUM_MAX_CHUNKS
+  return COLSUM_CHUNK * max(1, -(-nl // span))
+
+
+def relu_colsum_ref(s: torch.Tensor, cov: torch.Tensor,
+                    cols: torch.Tensor | None = None) -> torch.Tensor:
+  """Masked relu column sums of a cached similarity block, (m, t) float32:
+
+    out[b, c] = sum_i relu(s[b, i, col(b, c)] - cov[b, i])
+
+  with col(b, c) = c over all nc columns of s (m, nl, nc), or cols[b, c]
+  for an (m, t) int64 ``cols``; cov is (m, nl).  The additions run in the
+  kernel's fixed order: chunks of ``colsum_chunk_rows(nl)`` rows, each
+  summed in ascending row order from +0, then the chunks' sums in
+  ascending order from +0.  Every step is an elementwise IEEE operation,
+  so a column's sum has the same bits in a full pass, in any gathered
+  call, on the CPU and in the kernel.
+  """
+  s = s.float()
+  if cols is not None:
+    s = torch.stack([s[b].index_select(1, cols[b])
+                     for b in range(s.shape[0])])
+  m, nl, nc = s.shape
+  cov = cov.float()
+  ch = colsum_chunk_rows(nl)
+  full = nl // ch
+  out = torch.zeros((m, nc), dtype=torch.float32, device=s.device)
+  tmp = torch.empty((m, max(full, 1), nc), dtype=torch.float32,
+                    device=s.device)
+  if full:  # every full chunk at once, one row offset a step
+    sv = s[:, :full * ch].unflatten(1, (full, ch))
+    cv = cov[:, :full * ch].unflatten(1, (full, ch))
+    acc = torch.zeros((m, full, nc), dtype=torch.float32, device=s.device)
+    for i in range(ch):
+      torch.sub(sv[:, :, i], cv[:, :, i, None], out=tmp)
+      acc.add_(tmp.clamp_min_(0.0))
+    for k in range(full):
+      out.add_(acc[:, k])
+  if full * ch < nl:  # the ragged last chunk
+    acc = torch.zeros((m, nc), dtype=torch.float32, device=s.device)
+    t1 = tmp[:, 0]
+    for r in range(full * ch, nl):
+      torch.sub(s[:, r], cov[:, r, None], out=t1)
+      acc.add_(t1.clamp_min_(0.0))
+    out.add_(acc)
+  return out
+
+
 def live_linv(linv: torch.Tensor, live) -> torch.Tensor:
   """The live-count contract of the info-gain kernels made explicit:
   ``tril(linv)`` with the rows and columns at or past ``live`` zeroed

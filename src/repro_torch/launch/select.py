@@ -23,9 +23,12 @@ centralized greedy when n is small enough for its O(k n^2) work to be
 cheap (force with ``--coverage``, skip with ``--no-coverage``).  The run
 ends with one ``[select] done`` line.
 
+``--merge-tree B`` merges the round-1 blocks through the accumulation tree
+with B children a node (sharded and service modes; B = the shard count is
+the flat merge, bit for bit); the ``done`` line then says ``merge=treeB``.
 ``--device`` defaults to ``cuda`` and fails when CUDA is missing; ``cpu``
-runs the kernels' plain versions.  The query, observability and tree-merge
-flags of the reference CLI are not ported yet (ROADMAP.md).
+runs the kernels' plain versions.  The query and observability flags of
+the reference CLI are not ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -58,7 +61,8 @@ def _service(args, feats, kappa, dev, sync):
                          capacity=args.n, kernel=args.kernel,
                          backend=args.backend, warm_start=not args.cold,
                          deadline=args.deadline, objective=args.objective,
-                         device=dev)
+                         merge="tree" if args.merge_tree else "flat",
+                         tree_branch=args.merge_tree or None, device=dev)
   if args.objective == "saturated_coverage":
     feats = feats.abs()  # nonnegative coverage mass (Lin & Bilmes)
   n0 = args.n - int(args.n * args.append_frac)
@@ -98,6 +102,11 @@ def main(argv=None) -> None:
   ap.add_argument("--no-fast", action="store_true",
                   help="sharded path: use the generic objective engine "
                   "instead of the cached-similarity fast engine")
+  ap.add_argument("--merge-tree", type=int, default=0, metavar="B",
+                  help="merge the round-1 blocks through an accumulation "
+                  "tree with B children a node instead of all at once "
+                  "(sharded and service modes; 0 = flat; B = the shard "
+                  "count is bit-identical to flat)")
   ap.add_argument("--epochs", type=int, default=0,
                   help="run the multi-epoch SelectionService for this many "
                   "epochs (mesh mode only)")
@@ -147,19 +156,22 @@ def main(argv=None) -> None:
     if dev.type == "cuda":
       torch.cuda.synchronize(dev)
 
+  merge = f"tree{args.merge_tree}" if args.merge_tree else "flat"
   sync()
   t0 = time.perf_counter()
   if args.mesh and args.epochs:
     sel, feats = _service(args, feats, kappa, dev, sync)
     mode_fields = dict(mode="service", m=args.mesh, epochs=args.epochs,
-                       objective=args.objective, merge="flat")
+                       objective=args.objective, merge=merge)
   elif args.mesh:
     sel = greedi_select_indices_sharded(
         rng, feats, m=args.mesh, kappa=kappa, k_final=args.k,
-        kernel=args.kernel, backend=args.backend, fast=not args.no_fast)
+        kernel=args.kernel, backend=args.backend, fast=not args.no_fast,
+        merge="tree" if args.merge_tree else "flat",
+        tree_branch=args.merge_tree or None)
     mode_fields = dict(mode="sharded", m=args.mesh,
                        engine="generic" if args.no_fast else "fast",
-                       merge="flat")
+                       merge=merge)
   else:
     sel = greedi_select_indices(rng, feats, m=args.m, kappa=kappa,
                                 k_final=args.k, kernel=args.kernel,

@@ -32,9 +32,13 @@ permutation explicitly (the tests pass the reference's); without one it is
 drawn from a device generator seeded from ``seed`` and the epoch index, so
 a restarted service that replays the same appends repeats its epochs.
 
-No counterpart here (ROADMAP.md): the reference's ``retrace_count`` (there
-is no compiled epoch function to retrace), its obs metric feeds, the
-standing sieves, ``query``/``query_batch`` and the tree merge.
+Epochs merge flat or through the accumulation tree (``merge="tree"``,
+``tree_branch`` children a node; ``tree_branch = m`` is flat, bit for bit).
+
+No counterpart here (ROADMAP.md, queue 1): the reference's
+``retrace_count`` (there is no compiled epoch function to retrace), its obs
+metric feeds (the merge-peak gauges among them), the standing sieves and
+``query``/``query_batch``.
 """
 from __future__ import annotations
 
@@ -111,6 +115,11 @@ class SelectionService:
     seed: seed of the per-epoch partitions drawn when ``epoch`` is given
       no ``perm``.
     append_block: rows per append chunk of the store.
+    merge / tree_branch: the epochs' merge (core/greedi.py): "flat" merges
+      all m round-1 blocks at once, "tree" through the accumulation tree
+      with ``tree_branch`` children a node, so the largest merged block is
+      b * kappa rows instead of m * kappa (``merge_peak_rows``).  Checked
+      here: m must factor into the tree's levels.
     device: ``cuda`` by default (raises when CUDA is missing unless ``cpu``
       is asked for).
   """
@@ -121,7 +130,8 @@ class SelectionService:
                mode: str = "lazy", warm_start: bool = True,
                deadline: float | None = None, seed: int = 0,
                append_block: int = 1024, feat_dtype=torch.float32,
-               objective: str | Any = "facility", device="cuda"):
+               objective: str | Any = "facility", merge: str = "flat",
+               tree_branch: int | None = None, device="cuda"):
     self._m = m
     self._d = d
     self._kappa = kappa
@@ -129,6 +139,12 @@ class SelectionService:
     self._mode = mode
     self._deadline = deadline
     self._seed = seed
+    self._merge = merge
+    self._tree_branch = tree_branch
+    # validates merge / tree_branch at construction (m must factor) and
+    # fixes the largest merged block an epoch gathers
+    self.merge_peak_rows = GD.merge_peak_rows(m, kappa, merge=merge,
+                                              tree_branch=tree_branch)
     if isinstance(objective, str):
       if objective == "info_gain":
         # one state serves round 1 (kappa steps), round 2 (k_final) and the
@@ -224,7 +240,8 @@ class SelectionService:
         feats_sh, m=m, kappa=self._kappa, k_final=self._k_final,
         objective=self._objective, backend=self._backend, gids=gids_sh,
         mode=self._mode, warm_bounds=wb, liveness_age=ages,
-        liveness_deadline=deadline)
+        liveness_deadline=deadline, merge=self._merge,
+        tree_branch=self._tree_branch)
 
   def epoch(self, perm: torch.Tensor | None = None) -> EpochResult:
     """Run one selection epoch: re-partition, select, return ids + stats.

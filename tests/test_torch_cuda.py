@@ -92,7 +92,8 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda_device):
                                  "facility_select": 0, "coverage_gain": 1,
                                  "coverage_select": 0, "info_gain_cond": 1,
                                  "info_select": 1, "graph_cut_gain": 0,
-                                 "graph_cut_select": 0, "flash_attention": 0}
+                                 "graph_cut_select": 0, "flash_attention": 0,
+                                 "relu_colsum": 0}
   with pytest.raises(TypeError, match="linv must be float32"):
     ops.info_gain_cond(sel, linv.double(), x[0])
   with pytest.raises(ValueError, match="live of shape"):
@@ -869,3 +870,137 @@ def test_cuda_graph_cut_one_kernel_a_call(cuda_device):
     scale = ref.graph_cut_cols(x, ind).abs() @ w.float().abs().T
     assert bool(((g - gw).abs() <= 1e-5 * gw.abs() + 1e-5 * scale).all())
     assert i.dtype == torch.int64 and torch.equal(i, iw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,nl,nc", [(3, 300, 70), (2, 16384 + 77, 300),
+                                     (16, 1000, 1024)])
+def test_cuda_relu_colsum_matches_plain_bitwise(cuda_device, m, nl, nc):
+  """The relu column-sum kernel equals its plain version in every bit (the
+  same fixed order of additions) on ragged nl (several chunks and a tail),
+  hole rows (zero rows with cov 0), pitched rows (a view of a wider
+  buffer) and gathered columns; a column's bits in a gathered call equal
+  its bits in the full pass; a bad column id gives NaN, not a read out of
+  bounds."""
+  from repro_torch.kernels import colsum
+  r = np.random.default_rng(21)
+  dev = cuda_device
+  buf = torch.tensor(r.normal(size=(m, nl, nc + 5)), device=dev).float()
+  s = buf[..., :nc]                                  # row pitch nc + 5
+  holes = torch.tensor(r.uniform(size=(m, nl)) < 0.1, device=dev)
+  s[holes] = 0.0
+  cov = torch.tensor(np.abs(r.normal(size=(m, nl))), device=dev).float()
+  cov[holes] = 0.0
+  cols = torch.tensor(r.integers(0, nc, size=(m, 64)), device=dev)
+  before = colsum.launches
+  full = ops.relu_colsum(s, cov)
+  got = ops.relu_colsum(s, cov, cols)
+  assert colsum.launches == before + 2
+  want = torch.clamp_min(s.double() - cov.double()[:, :, None], 0).sum(1)
+  assert torch.equal(full, ref.relu_colsum_ref(s, cov))
+  assert torch.equal(got, ref.relu_colsum_ref(s, cov, cols))
+  _close(full, want.float(), 1e-5)
+  assert torch.equal(got, torch.gather(full, 1, cols))
+  bad = cols.clone()
+  bad[0, 3] = nc
+  out = ops.relu_colsum(s, cov, bad)
+  assert bool(out[0, 3].isnan()) and not bool(out[1:].isnan().any())
+  with pytest.raises(ValueError, match="cuda"):
+    from repro_torch.kernels import dispatch
+    dispatch.resolve("relu_colsum", "cuda")(s.cpu(), cov.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["linear", "rbf"])
+def test_cuda_fast_lazy_equals_standard(cuda_device, kernel):
+  """The fast engine's lazy round 1 selects what its standard round 1
+  selects, bit for bit (sel_gids, value, stage1_values), flat and through
+  a two-level tree, with hole rows; it rescans, and every column pass
+  went through the relu column-sum kernel.  ``tree_branch = m`` gives the
+  flat merge's bits."""
+  from repro_torch.core import greedi as TG
+  r = np.random.default_rng(22)
+  dev = cuda_device
+  n, m = 8 * 2048, 8
+  f = torch.tensor(r.normal(size=(n, 16)), device=dev).float()
+  gids = torch.arange(n, device=dev)
+  gids[::9] = -1
+  kw = dict(m=m, kappa=16, k_final=16, kernel=kernel, gids=gids,
+            kernel_kwargs=(("h", 2.0),) if kernel == "rbf" else ())
+  for merge, b in (("flat", None), ("tree", 2)):
+    ops.reset_launch_counts()
+    std = TG.greedi_sharded_fast(f, merge=merge, tree_branch=b, **kw)
+    lz = TG.greedi_sharded_fast(f, merge=merge, tree_branch=b, mode="lazy",
+                                **kw)
+    assert ops.launch_counts()["relu_colsum"] > 0
+    assert torch.equal(std.sel_gids, lz.sel_gids), merge
+    assert torch.equal(std.value, lz.value), merge
+    assert torch.equal(std.stage1_values, lz.stage1_values), merge
+    assert bool((lz.r1_rescans > 0).all())
+    assert not bool((lz.sel_gids[lz.sel_valid] < 0).any())
+  flat = TG.greedi_sharded_fast(f, **kw)
+  tree = TG.greedi_sharded_fast(f, merge="tree", tree_branch=m, **kw)
+  assert torch.equal(flat.sel_gids, tree.sel_gids)
+  assert torch.equal(flat.value, tree.value)
+  assert torch.equal(flat.stage1_values, tree.stage1_values)
+
+
+@pytest.mark.cuda
+def test_cuda_tree_and_hierarchical_run_on_the_kernels(cuda_device):
+  """The generic tree merge and greedi_hierarchical on the card: valid,
+  unique selections through the facility kernels, the same selection as
+  the plain versions on the card (backend "ref")."""
+  from repro_torch.core import greedi as TG
+  from repro_torch.core import objectives as TO
+  r = np.random.default_rng(23)
+  dev = cuda_device
+  f = torch.tensor(r.normal(size=(8 * 512, 16)), device=dev).float()
+  f = f / f.norm(dim=1, keepdim=True)
+  obj = TO.FacilityLocation()
+  for run in (lambda be: TG.greedi_sharded(
+                  f, m=8, kappa=8, k_final=8, objective=obj, merge="tree",
+                  tree_branch=2, backend=be),
+              lambda be: TG.greedi_hierarchical(
+                  f, pods=2, per_pod=4, kappa=8, k_final=8, objective=obj,
+                  backend=be)):
+    ops.reset_launch_counts()
+    got = run("auto")
+    counts = ops.launch_counts()
+    assert counts["facility_select"] > 0 and counts["facility_gain"] > 0
+    want = run("ref")
+    sel = got.sel_gids[got.sel_valid]
+    assert len(set(sel.tolist())) == len(sel) == 8
+    assert torch.equal(got.sel_gids, want.sel_gids)
+    _close(got.value, want.value, 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_service_and_cli_merge_tree(cuda_device, tmp_path, capsys):
+  """SelectionService(merge="tree") and the CLI's --merge-tree on the card:
+  b = m epochs select what the flat service selects; a two-level tree
+  serves k unique ids; the CLI's tree run goes through the relu
+  column-sum kernel and says merge=tree2 on the card."""
+  from repro_torch.launch import select as cli
+  from repro_torch.service import SelectionService
+  r = np.random.default_rng(24)
+  feats = torch.tensor(r.normal(size=(4096, 16)), device=cuda_device).float()
+  mk = dict(m=8, d=16, kappa=8, k_final=8, capacity=4096)
+  res = []
+  for kw in ({}, dict(merge="tree", tree_branch=8),
+             dict(merge="tree", tree_branch=2)):
+    svc = SelectionService(**mk, **kw)
+    svc.append(feats)
+    res.append(svc.epoch())
+  assert np.array_equal(res[0].sel_gids, res[1].sel_gids)
+  sel = res[2].sel_gids
+  assert sel.size == 8 and len(set(sel.tolist())) == 8
+  ops.reset_launch_counts()
+  out = tmp_path / "sel.npy"
+  cli.main(["--n", "4096", "--d", "16", "--k", "8", "--mesh", "8",
+            "--merge-tree", "2", "--no-coverage", "--out", str(out)])
+  assert ops.launch_counts()["relu_colsum"] > 0
+  done = [ln for ln in capsys.readouterr().out.splitlines()
+          if ln.startswith("[select] done")]
+  assert "merge=tree2" in done[-1] and "device=cuda" in done[-1]
+  sel = np.load(out)
+  assert len(sel) == 8 and len(set(sel.tolist())) == 8

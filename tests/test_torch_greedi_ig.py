@@ -299,8 +299,16 @@ def test_generic_sharded_stragglers_and_liveness():
   assert not dead_rows & set(a.sel_gids.tolist())
   assert not (dead_rows | set(np.asarray(perm)[2].tolist())) & set(
       c.sel_gids.tolist())
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    TG.greedi_sharded(feats_sh, merge="tree", **common)
+  # the tree merge (ported since): b = m is the flat merge, bit for bit;
+  # a two-level tree keeps the dead shard out as well
+  tree = TG.greedi_sharded(feats_sh, straggler_keep=keep, merge="tree",
+                           tree_branch=m, **common)
+  assert torch.equal(tree.sel_gids, a.sel_gids)
+  assert torch.equal(tree.value, a.value)
+  two = TG.greedi_sharded(feats_sh, straggler_keep=keep, merge="tree",
+                          tree_branch=2, **common)
+  sel = two.sel_gids[two.sel_valid].tolist()
+  assert len(set(sel)) == len(sel) == k and not dead_rows & set(sel)
   # the lazy round 1 (ported since) selects what the standard one does
   lazy = TG.greedi_sharded(feats_sh, straggler_keep=keep, mode="lazy",
                            **common)

@@ -239,7 +239,7 @@ def test_registry_backends():
   raises instead of falling back; "ref" and "auto" run the plain version."""
   assert dispatch.names() == ("bound_update", "coverage_gain", "facility_gain",
                               "flash_attention", "graph_cut_gain",
-                              "info_gain_cond", "pairwise")
+                              "info_gain_cond", "pairwise", "relu_colsum")
   assert dispatch.select_names() == ("coverage_gain", "facility_gain",
                                      "graph_cut_gain", "info_gain_cond")
   assert dispatch.select_batched_names() == ("graph_cut_gain",)
@@ -303,13 +303,19 @@ def test_registry_backends():
   torch.testing.assert_close(
       dispatch.resolve("flash_attention", "ref")(q, kv, kv, causal=False),
       dispatch.resolve("flash_attention", "auto")(q, kv, kv, causal=False))
+  s3, c2 = torch.rand(2, 20, 10), torch.rand(2, 20)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve("relu_colsum", "cuda")(s3, c2)
+  assert torch.equal(dispatch.resolve("relu_colsum", "ref")(s3, c2),
+                     dispatch.resolve("relu_colsum", "auto")(s3, c2))
   with pytest.raises(ValueError, match="not in"):
     dispatch.resolve("pairwise", "pallas")
   assert ops.launch_counts() == {"pairwise": 0, "facility_gain": 0,
                                  "facility_select": 0, "coverage_gain": 0,
                                  "coverage_select": 0, "info_gain_cond": 0,
                                  "info_select": 0, "graph_cut_gain": 0,
-                                 "graph_cut_select": 0, "flash_attention": 0}
+                                 "graph_cut_select": 0, "flash_attention": 0,
+                                 "relu_colsum": 0}
 
 
 @pytest.mark.parametrize("kernel", ["linear", "rbf"])
