@@ -33,6 +33,14 @@ calls, counting each kernel's launches around each path:
     ingested, three epochs around the last 25 %, warm-started and cold, for
     saturated coverage and facility location (the ``coverage_gain`` lazy
     rescans), and the CLI's service mode once;
+  * the service's query path at the same size: the facility service
+    ingesting the corpus in 16 appends with its standing sieves (the
+    ``csrc/sieve.cu`` admission scan) and without, a ``query()`` after
+    each append, 64-request ``query_batch`` calls against the requests
+    alone before and after an epoch, the merge through the kernels
+    against the plain route, host syncs per append chunk and per query
+    tile; the exact tier (a batched greedy over the block) on its own
+    store of 16,384 rows, 64 tenants, against the plain route;
   * the graph-cut path of Sec. 5 / 6.3 (non-monotone max-cut, RandomGreedy
     through ``greedi_reference`` with local evaluation, Alg. 3 under a
     partition matroid as ``examples/maxcut_constrained_torch.py`` runs it,
@@ -69,7 +77,8 @@ and shapes past shared memory (d 64 at k 512, d 768 at k 64, k 2100 and
 k 5000); the relu column-sum kernel of the fast engine at the round-1
 block in a full pass and a 256-column gathered tile (a lazy rescan), at
 the round-2 block and at a ragged nl over pitched rows, bit for bit
-against its plain version), counts the CUDA kernels of a graph-cut call
+against its plain version; the sieve admission scan over 4 chunks from
+the full-size ingest's state, linear and rbf, bit for bit), counts the CUDA kernels of a graph-cut call
 (one a call) and of a relu column-sum call with the profiler, and
 profiles the paths.
 The generic engine also runs facility location once, through the CLI's
@@ -145,6 +154,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:78",
     # no TPU kernel: the reference computes the relu column sums inline
     "relu_colsum": "src/repro/core/greedi.py:964",
+    # no TPU kernel: the reference's lax.scan over an append chunk's rows
+    "sieve_admit": "src/repro/kernels/ops.py:365",
 }
 # the path whose launch count each kernel reports in the kernels line (one
 # run, its counts set to 0 just before it); every path's count rides along
@@ -160,11 +171,13 @@ MAIN_PATH = {
     "graph_cut_select": "cut_node_order",
     "flash_attention": "serve",                # e2e serve, set 1
     "relu_colsum": "fast",                     # coreset, e2e full-size
+    "sieve_admit": "query_ingest",             # e2e query, full size
 }
 GP_KERNELS = ("info_gain_cond", "info_select")
 COV_KERNELS = ("coverage_gain", "coverage_select")
 CUT_KERNELS = ("graph_cut_gain", "graph_cut_select")
 SERVE_KERNELS = ("flash_attention",)
+QUERY_KERNELS = ("sieve_admit",)
 SOURCES = {
     "pairwise": "src/repro_torch/kernels/csrc/pairwise.cu",
     "facility_select": "src/repro_torch/kernels/csrc/facility.cu",
@@ -179,6 +192,7 @@ SOURCES = {
     # operands take csrc/flash_attention.cu (its row in flash_kernel_phase)
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
     "relu_colsum": "src/repro_torch/kernels/csrc/colsum.cu",
+    "sieve_admit": "src/repro_torch/kernels/csrc/sieve.cu",
 }
 
 
@@ -244,6 +258,15 @@ class Sizes:
   # whose length is not a multiple of 128
   serve_sets: tuple = ((8, 2048, 64), (1, 6000, 16))
   serve_tf_steps: int = 4      # (d): decode steps held to teacher forcing
+  # the service's query path: the facility service at full size ingested
+  # in 16 appends of 16384 rows (a query after each), 64-request batches;
+  # the exact tier on its own store of benchmarks/query_serving.py's size
+  query_appends: int = 16
+  query_b: int = 64
+  sieve_chunks: int = 4   # chunks the admission scan runs against its plain
+  exact_n: int = 16384
+  exact_b: int = 64
+  exact_plain_tile: int = 4  # lanes a plain-version call (memory: B n^2)
 
 
 class SmokeFailure(Exception):
@@ -2522,6 +2545,433 @@ def profile_service(sz):
 
 
 # ---------------------------------------------------------------------------
+# the service's query path: the standing sieves (csrc/sieve.cu), the sieve
+# and exact query tiers, query_batch
+# ---------------------------------------------------------------------------
+
+# an L2 hit on an H100 (about 260 cycles at the 1.98 GHz boost clock): the
+# assumed length of one dependent step of the admission scan, which reads
+# the row's similarities from L2 before the warp's max and the compare
+L2_HIT_S = 260 / 1.98e9
+
+
+def count_syncs(fn):
+  """(fn's result, the synchronizing CUDA operations it ran: a blocking
+  copy either way, a ``.cpu()``, an ``.item()``), counted through
+  ``torch.cuda.set_sync_debug_mode("warn")``."""
+  import warnings
+
+  import torch
+  torch.cuda.set_sync_debug_mode("warn")
+  try:
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter("always")
+      out = fn()
+  finally:
+    torch.cuda.set_sync_debug_mode("default")
+  return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def query_requests(base_ids, b, k, mc):
+  """b heterogeneous tenant requests: k over 1..k, seeds 0..6 (0: none),
+  exclusion lists of 0..mc ids of a live answer."""
+  from repro_torch.service import QueryRequest
+  return [QueryRequest(k=1 + (i * 7) % k, seed=i % 7, exclude_gids=tuple(
+      int(g) for g in base_ids[:min(i % (mc + 1), len(base_ids))]))
+          for i in range(b)]
+
+
+def batch_vs_sequential(svc, reqs, what):
+  """One ``query_batch`` against every request alone through ``query()``:
+  the same source and ids for every lane, values within 1e-6 (and how
+  many with the same bits).  Returns the two wall times and the
+  sources."""
+  import numpy as np
+  sync()
+  t0 = time.perf_counter()
+  batched = svc.query_batch(reqs)
+  t_batch = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  seq = [svc.query(r.k, seed=r.seed, exclude_gids=r.exclude_gids or None)
+         for r in reqs]
+  t_seq = time.perf_counter() - t0
+  same_bits = 0
+  for i, (rb, rs) in enumerate(zip(batched, seq)):
+    check(rb.source == rs.source and np.array_equal(rb.sel_gids, rs.sel_gids)
+          and abs(rb.value_estimate - rs.value_estimate) <= 1e-6 * abs(
+              rs.value_estimate), f"{what} request {i}: batched "
+          f"{rb.source} {rb.sel_gids} ({rb.value_estimate!r}), alone "
+          f"{rs.source} {rs.sel_gids} ({rs.value_estimate!r})")
+    same_bits += rb.value_estimate == rs.value_estimate
+    check(len(set(rb.sel_gids.tolist())) == len(rb.sel_gids) and not
+          set(reqs[i].exclude_gids) & set(rb.sel_gids.tolist()),
+          f"{what} request {i}: repeated or excluded ids")
+  sources = {}
+  for r in batched:
+    sources[r.source] = sources.get(r.source, 0) + 1
+  return dict(requests=len(reqs), batch_ms=t_batch * 1e3,
+              seq_ms=t_seq * 1e3, batch_qps=len(reqs) / t_batch,
+              seq_qps=len(reqs) / t_seq, sources=sources,
+              values_same_bits=same_bits)
+
+
+def merge_routes(svc, feats, what):
+  """The sieve merge from one state through the kernel route (the
+  service's store: the ``pairwise`` kernel) and the plain route (a store
+  of backend "ref" holding the same state): equal ids, or a near-tie
+  whose f(S) agree within 1e-5; a default merge, then a seeded one that
+  excludes the default answer's first four ids."""
+  import numpy as np
+
+  from repro_torch.service import CorpusStore
+  st = svc.store
+  plain = CorpusStore(m=st._m, d=feats.shape[1], capacity=1024,
+                      append_block=1024, maintainer=st._maintainer,
+                      sieve_k=st.sieve_k, backend="ref")
+  plain.set_sieve_state(st.sieve_state)
+  excl = np.full((st.query_mask_cap,), -1, np.int64)
+  out = []
+  for kw in (dict(), dict(seed=5, exclude_gids=excl)):
+    a = st.query_sieves(**kw)[0]
+    b = plain.query_sieves(**kw)[0]
+    excl[:4] = a[:4]
+    a, b = a[a >= 0], b[b >= 0]
+    if np.array_equal(a, b):
+      out.append("equal")
+      continue
+    va, vb = value_of(feats, a), value_of(feats, b)
+    rel = abs(va - vb) / max(abs(va), 1e-30)
+    check(rel <= 1e-5, f"{what}: kernel and plain merges differ, f(S) "
+          f"{va!r} vs {vb!r}")
+    out.append(f"near-tie (f rel {rel:.2e})")
+  return out
+
+
+def e2e_query(sz):
+  """The facility service's query path at full size: 262,144 EmbeddedCorpus
+  rows of width 64, m = 16, k_final = kappa = sieve_k = 64 (T = 13 buckets
+  a shard, 13,312 pooled members), append_block 1024, the store growing
+  twice from capacity 65536.  The corpus is ingested in 16 appends of
+  16,384 rows by a service with the sieve and by one without (ingest
+  rows/s of each, the appends alone), a ``query()`` after each append of
+  the first; a 64-request batch against the requests alone before and
+  after an epoch; the merge through the kernels against the plain route;
+  after the epoch a default query answers from it and a seeded one from
+  the reset grid (a subset of its picks); f(sieve answer) / f(epoch
+  answer) replayed under the epoch's partition; host syncs per append
+  chunk and per query tile.  Returns (launch counts by path, the
+  service)."""
+  import numpy as np
+  import torch
+
+  from repro_torch.core import objectives as O
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.kernels import ops
+  from repro_torch.service import SelectionService
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+  step = sz.n // sz.query_appends
+  chunks = step // sz.append_block
+  counts, ingest, report = {}, {}, {}
+  svc = None
+  for sieve_on in (False, True):
+    torch.cuda.empty_cache()
+    svc = SelectionService(m=sz.m, d=sz.d, kappa=sz.k, k_final=sz.k,
+                           capacity=sz.svc_cap0, append_block=sz.append_block,
+                           seed=0, sieve=sieve_on)
+    check(svc.sieve_enabled == sieve_on, "the sieve switch")
+    acc_in, acc_q, wall, lat, answers = {}, {}, 0.0, [], []
+    ops.reset_launch_counts()
+    for a in range(sz.query_appends):
+      part = feats[a * step:(a + 1) * step]
+      sync()
+      t0 = time.perf_counter()
+      if a == sz.query_appends - 1:
+        _, syncs = count_syncs(lambda p=part: svc.append(p))
+      else:
+        svc.append(part)
+      sync()
+      wall += time.perf_counter() - t0
+      for kname, c in ops.launch_counts().items():
+        acc_in[kname] = acc_in.get(kname, 0) + c
+      ops.reset_launch_counts()
+      if sieve_on:
+        if a == sz.query_appends - 1:
+          q, q_syncs = count_syncs(svc.query)
+        else:
+          q = svc.query()
+        ids = q.sel_gids
+        check(q.source == "sieve" and 0 < len(ids) <= sz.k and
+              len(set(ids.tolist())) == len(ids) and ids.min() >= 0 and
+              ids.max() < svc.n_docs, f"query after append {a}: {q}")
+        lat.append(q.wall_s * 1e3)
+        answers.append(len(ids))
+        for kname, c in ops.launch_counts().items():
+          acc_q[kname] = acc_q.get(kname, 0) + c
+        ops.reset_launch_counts()
+    check(svc.growths == 2 and svc.n_docs == sz.n, "query ingest: growths")
+    name = "sieve" if sieve_on else "no_sieve"
+    ingest[name] = dict(rows_per_s=sz.n / wall, append_s=wall,
+                        syncs_per_chunk=syncs / chunks)
+    counts["query_ingest" if sieve_on else "query_ingest_no_sieve"] = acc_in
+    if sieve_on:
+      counts["query_merge"] = acc_q
+    else:
+      check(acc_in["sieve_admit"] == 0, "sieve_admit ran with the sieve off")
+      del svc
+  check(counts["query_ingest"]["sieve_admit"] > 0,
+        "sieve_admit was not launched on the ingest path")
+  st = svc.store
+  report.update(ingest=ingest, query_ms=lat, ids_per_query=answers,
+                query_syncs=q_syncs, sieve_thresholds=st.sieve_thresholds,
+                pooled=st.sieve_state.gid.numel(),
+                sieve_state_mib=st.sieve_state_bytes / 2**20,
+                admitted=int(st.sieve_state.count.sum()),
+                launches_per_chunk=counts["query_ingest"]["sieve_admit"] / (
+                    sz.n // sz.append_block))
+  sieve_ids = q.sel_gids
+  reqs = query_requests(sieve_ids, sz.query_b, sz.k, st.query_mask_cap)
+  report["batch_pre_epoch"] = batch_vs_sequential(svc, reqs, "pre-epoch")
+  _, report["batch_syncs"] = count_syncs(lambda: svc.query_batch(reqs))
+  report["merge_routes"] = merge_routes(svc, feats, "sieve merge")
+  e = svc.epoch()
+  qe = svc.query()
+  check(qe.source == "epoch" and np.array_equal(qe.sel_gids, e.sel_gids),
+        "after the epoch a default query does not answer from it")
+  qs = svc.query(seed=3)
+  check(qs.source == "sieve" and set(qs.sel_gids.tolist()) <= set(
+      e.sel_gids.tolist()) and len(qs.sel_gids) > 0,
+        f"the reset grid's answer {qs.sel_gids} is not the epoch's picks")
+  reqs = query_requests(e.sel_gids, sz.query_b, sz.k, st.query_mask_cap)
+  report["batch_post_epoch"] = batch_vs_sequential(svc, reqs, "post-epoch")
+  obj = O.FacilityLocation()
+  perm = svc.epoch_perm(e.stats.epoch)
+  f_sieve = sharded_value(obj, st, perm, sz.m, sieve_ids)
+  f_epoch = sharded_value(obj, st, perm, sz.m, e.sel_gids)
+  check(f_sieve >= 0.5 * f_epoch, f"f(sieve) {f_sieve!r} < 0.5 f(epoch) "
+        f"{f_epoch!r}")
+  report.update(f_sieve=f_sieve, f_epoch=f_epoch,
+                f_ratio=f_sieve / f_epoch, epoch_wall_s=e.stats.wall_s,
+                reset_answer=len(qs.sel_gids))
+  emit("e2e query", n=sz.n, d=sz.d, m=sz.m, k=sz.k,
+       append_block=sz.append_block, appends=sz.query_appends,
+       launches=counts, **report)
+  return counts, svc
+
+
+def sieve_work(gains, rgids, active, tau, cnt0, src, cnt1, *,
+               linear: bool) -> dict:
+  """What one chunk's admission scan had to do, read from its inputs and
+  its result: ``steps``, the most candidate rows one (shard, bucket) weighs
+  in order (active, a real gid, gain at or above the bucket's threshold:
+  no other row can be admitted) up to the row that fills it, none for a
+  bucket full on entry; ``bytes``, what the scan must read and write once:
+  for each weighed row the similarities of the bucket's live members (a
+  standing member's from s_pre, one admitted earlier in the chunk from
+  s_intra, each (row, member) pair of s_intra once over all buckets), the
+  row tests up to the last weighed row, the thresholds, the admitted
+  slots' gid and gain, src, the counts, and for the linear kernel the
+  weighed rows' and the standing members' norms."""
+  import torch
+  n_sh, t, k = src.shape
+  ab = gains.shape[0]
+  dev = gains.device
+  rows = torch.arange(ab, device=dev)
+  ok = (rgids >= 0)[None, None, :] & active[:, None, :]
+  cand = ok & ((tau <= 0)[None, :, None] | (gains[None, None, :] >=
+                                            tau[None, :, None]))
+  full = cnt1 == k
+  last = torch.where(full & (cnt0 < k), src.amax(-1),
+                     torch.where(cnt0 >= k, -1, ab - 1))
+  weighed = cand & (rows <= last[..., None])               # (S, T, ab)
+  steps = int(weighed.sum(-1).max())
+  adm = torch.zeros((n_sh, t, ab + 1), dtype=torch.bool, device=dev)
+  adm.scatter_(2, torch.where(src >= 0, src, ab), True)
+  adm = adm[..., :ab]                                      # admitted rows
+  pairs = (weighed.reshape(-1, ab).T.float() @ adm.reshape(-1, ab).float()
+           > 0) & (rows[:, None] > rows[None, :])
+  n_weighed = weighed.sum(-1)
+  pre = int((n_weighed * cnt0).sum())
+  seen = int(last.max()) + 1
+  shard_seen = int((last.amax(-1) + 1).sum())
+  new = int((cnt1 - cnt0).sum())
+  moved = (pre * 4 + int(pairs.sum()) * 4 + seen * (4 + 8) + shard_seen +
+           t * 4 + new * (8 + 4) + src.numel() * 8 + cnt0.numel() * 8 * 2)
+  if linear:
+    moved += int(weighed.any(0).any(0).sum()) * 4 + int(cnt0.sum()) * 4
+  return dict(steps=steps, bytes=moved)
+
+
+def sieve_kernel_phase(sz, state, launches: int):
+  """The admission-scan kernel against its plain version (``ref.
+  sieve_scan_ref``) on the card: the sieve state the full-size facility
+  ingest left, shards 0 and 1 (a chunk that straddles a shard boundary:
+  its first half lands on shard 0, the rest on shard 1), shard 0's four
+  lowest buckets emptied so they fill, 4 chunks of 1024 new rows whose
+  gains span the grid (duplicated rows among them, the last 8 rows gid
+  -1 padding), linear and rbf, the same sweeps (``pairwise`` kernel) into
+  both.  Every state must be equal bit for bit.  Both bounds count the
+  work this run's data needs (``sieve_work``): ``bound_ms`` the bytes the
+  scan must read and write at 3.35 TB/s, ``latency_bound_ms`` the longest
+  chain of dependent steps a (shard, bucket) takes, each one L2 hit
+  (``L2_HIT_S``); both are means over the chunks, as ``kernel_ms`` is."""
+  import math
+
+  import torch
+
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.kernels import ops, ref
+  from repro_torch.kernels import sieve as SV
+  m, k, d, ab = sz.m, sz.k, sz.d, sz.append_block
+  t = state.count.numel() // m
+  n_sh = 2
+  g = torch.Generator(device=DEVICE).manual_seed(7)
+  rows_all = EmbeddedCorpus(n_docs=sz.sieve_chunks * ab, feat_dim=d,
+                            seed=1).features()
+  delta = float(state.delta[0])
+  jtop = int(state.jtop[0])
+  tau = torch.exp((jtop - (t - 1) + torch.arange(t, device=DEVICE)).to(
+      torch.float32) * math.log1p(0.5))
+  rgids = torch.arange(ab, device=DEVICE) + 10**7
+  rgids[-8:] = -1
+  active = torch.zeros((n_sh, ab), dtype=torch.bool, device=DEVICE)
+  active[0, :ab // 2] = True
+  active[1, ab // 2:] = True
+  rows = {}
+  for kernel, h in (("linear", 0.75), ("rbf", 0.75)):
+    gid = state.gid[:n_sh * t].view(n_sh, t, k).clone()
+    gain = state.gain[:n_sh * t].view(n_sh, t, k).clone()
+    feat = state.feat[:n_sh * t].view(n_sh, t, k, d).clone()
+    cnt = state.count[:n_sh * t].view(n_sh, t).clone()
+    cnt[0, :4] = 0
+    gid[0, :4] = -1
+    mine = (gid, gain, cnt)
+    plain = tuple(x.clone() for x in mine)
+    k_ms, admitted, intra, filled = [], 0, False, False
+    p_ms, err, work = None, 0.0, []
+    for c in range(sz.sieve_chunks):
+      x = rows_all[c * ab:(c + 1) * ab].clone()
+      x[1:4] = x[0]
+      gains = delta * (0.02 + torch.rand(ab, generator=g, device=DEVICE))
+      s_pre = ops.pairwise(x, feat.view(n_sh, t * k, d), kernel=kernel, h=h)
+      s_intra = ops.pairwise(x, x, kernel=kernel, h=h)
+      rsq, msq = (ref.sieve_norms(x, feat) if kernel == "linear"
+                  else (None, None))
+      args = (s_pre, s_intra, rsq, msq, gains, rgids, active, tau)
+      got = SV.sieve_scan(*args, *mine)
+      sync()
+      want = ref.sieve_scan_ref(*args, *plain)
+      for a, b in zip(got, want):
+        check(torch.equal(a, b), f"sieve_admit {kernel} chunk {c}: the "
+              "state differs from the plain version's")
+        err = max(err, float(torch.where(
+            a == b, 0.0, (a.double() - b.double()).abs()).max()))
+      work.append(sieve_work(gains, rgids, active, tau, mine[2], got[2],
+                             got[3], linear=kernel == "linear"))
+      k_ms.append(time_ms(lambda: SV.sieve_scan(*args, *mine), reps=5))
+      if p_ms is None:
+        p_ms = time_ms(lambda: ref.sieve_scan_ref(*args, *plain), reps=1)
+      src = got[2]
+      admitted += int((got[3] - mine[2]).sum())
+      intra |= bool(((src >= 0).sum(-1) >= 2).any())
+      filled |= bool(((got[3] == k) & (mine[2] < k)).any())
+      feat = torch.where((src >= 0)[..., None], x[src.clamp_min(0)], feat)
+      mine = (got[0], got[1], got[3])
+      plain = (want[0], want[1], want[3])
+    check(admitted > 0 and intra and filled, f"sieve_admit {kernel}: "
+          f"admitted {admitted}, intra-chunk {intra}, a bucket filled "
+          f"{filled}")
+    b_ms = [bound_ms(w["bytes"], 0.0, "f32")[0] for w in work]
+    lat_ms = [w["steps"] * L2_HIT_S * 1e3 for w in work]
+    row = dict(shape=[n_sh, ab, t, k], kernel=kernel, max_abs_err=err,
+               bits_equal_plain=True, kernel_ms=sum(k_ms) / len(k_ms),
+               kernel_ms_by_chunk=k_ms, plain_ms=p_ms, library_ms=None,
+               bound_ms=sum(b_ms) / len(b_ms), bound_by="bytes",
+               bound_ms_by_chunk=b_ms,
+               latency_bound_ms=sum(lat_ms) / len(lat_ms),
+               latency_bound_ms_by_chunk=lat_ms,
+               steps_by_chunk=[w["steps"] for w in work],
+               bytes_by_chunk=[w["bytes"] for w in work],
+               admitted=admitted, intra_chunk=intra, bucket_filled=filled,
+               launches=launches)
+    emit(f"kernel sieve_admit {kernel}", **row)
+    rows[("sieve_admit", kernel)] = row
+  return rows
+
+
+def e2e_query_exact(sz):
+  """The exact tier on its own store of 16,384 rows (the size of
+  benchmarks/query_serving.py), m = 16, k_cap = 64: 64 tenant requests
+  (k over 1..64, exclusion lists of up to 16 ids) through
+  ``query_batch(tier="exact")``, one batched ``facility_select`` a pick,
+  against the plain route (a store of backend "ref", 4 lanes a call):
+  ids equal, or a near-tie whose values agree within 1e-5.  Reports the
+  visible counts and both wall times."""
+  import numpy as np
+  import torch
+
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.kernels import ops
+  from repro_torch.service import SelectionService
+  feats = EmbeddedCorpus(n_docs=sz.exact_n, feat_dim=sz.d, seed=2).features()
+  kw = dict(m=sz.m, d=sz.d, kappa=sz.k, k_final=sz.k, capacity=sz.exact_n,
+            append_block=sz.append_block, seed=0)
+  svc = SelectionService(**kw)
+  plain = SelectionService(backend="ref", sieve=False,
+                           query_batch_tile=sz.exact_plain_tile, **kw)
+  svc.append(feats)
+  plain.append(feats)
+  reqs = query_requests(svc.query().sel_gids, sz.exact_b, sz.k,
+                        svc.store.query_mask_cap)
+  torch.cuda.empty_cache()
+  ops.reset_launch_counts()
+  sync()
+  t0 = time.perf_counter()
+  got = svc.query_batch(reqs, tier="exact")
+  wall = time.perf_counter() - t0
+  launches = ops.launch_counts()
+  check(launches["facility_select"] == sz.k,
+        f"exact tier: {launches['facility_select']} facility_select "
+        f"launches, expected one a pick ({sz.k})")
+  ks = np.array([r.k for r in reqs])
+  excl = np.full((len(reqs), svc.store.query_mask_cap), -1, np.int64)
+  for i, r in enumerate(reqs):
+    excl[i, :len(r.exclude_gids)] = r.exclude_gids
+  sync()
+  t0 = time.perf_counter()
+  g, s, nvis = plain.store.query_exact_batch(ks, excl, k_cap=sz.k)
+  wall_plain = time.perf_counter() - t0
+  verdicts = []
+  for i, r in enumerate(got):
+    want = g[i][g[i] >= 0]
+    check(r.source == "exact" and len(r.sel_gids) == reqs[i].k and
+          len(set(r.sel_gids.tolist())) == reqs[i].k and not
+          set(reqs[i].exclude_gids) & set(r.sel_gids.tolist()),
+          f"exact request {i}: ids {r.sel_gids}")
+    v_plain = float(s[i][g[i] >= 0].sum()) / float(nvis[i])
+    rel = abs(r.value_estimate - v_plain) / max(abs(v_plain), 1e-30)
+    if np.array_equal(r.sel_gids, want):
+      verdicts.append("equal")
+    else:
+      check(rel <= 1e-5, f"exact request {i}: kernel {r.sel_gids} "
+            f"({r.value_estimate!r}) vs plain {want} ({v_plain!r})")
+      verdicts.append(f"near-tie (f rel {rel:.2e})")
+  n_equal = sum(v == "equal" for v in verdicts)
+  emit("e2e query exact", n=sz.exact_n, d=sz.d, requests=sz.exact_b,
+       k_cap=sz.k, wall_s=wall, plain_wall_s=wall_plain,
+       nvis=sorted(set(nvis.astype(int).tolist())), equal=n_equal,
+       near_ties=[v for v in verdicts if v != "equal"], launches=launches)
+
+
+def profile_query(svc, sz):
+  """Where a 64-request query tile's time goes: one ``query_batch`` over
+  the full-size sieve under ``profiled``."""
+  reqs = query_requests(svc.query(seed=1).sel_gids, sz.query_b, sz.k,
+                        svc.store.query_mask_cap)
+  svc.query_batch(reqs)  # warm-up
+  profiled("profile query batch", lambda: svc.query_batch(reqs))
+
+
+# ---------------------------------------------------------------------------
 # graph cut (Sec. 5 / 6.3): kernels 8-9, GreeDi with RandomGreedy, Alg. 3
 # ---------------------------------------------------------------------------
 
@@ -3536,6 +3986,15 @@ def main() -> int:
   torch.cuda.empty_cache()
   cov_counts.update(e2e_service(sz))
   torch.cuda.empty_cache()
+  query_counts, qsvc = e2e_query(sz)
+  query_rows = sieve_kernel_phase(
+      sz, qsvc.store.sieve_state,
+      query_counts[MAIN_PATH["sieve_admit"]]["sieve_admit"])
+  profile_query(qsvc, sz)
+  del qsvc
+  torch.cuda.empty_cache()
+  e2e_query_exact(sz)
+  torch.cuda.empty_cache()
   cut_counts = {"paper": e2e_cut_paper(sz)}
   torch.cuda.empty_cache()
   cut_counts.update(e2e_cut_full(sz))
@@ -3546,7 +4005,8 @@ def main() -> int:
       gp_counts if name in GP_KERNELS else
       cov_counts if name in COV_KERNELS else
       cut_counts if name in CUT_KERNELS else
-      serve_counts if name in SERVE_KERNELS else fl_counts).items()}
+      serve_counts if name in SERVE_KERNELS else
+      query_counts if name in QUERY_KERNELS else fl_counts).items()}
              for name in MAIN_PATH}
   launches = {name: by_path[name][path] for name, path in MAIN_PATH.items()}
   e2e_gp_fig6(sz)
@@ -3565,6 +4025,7 @@ def main() -> int:
   rows.update(cut_kernel_phase(sz, cut_counts))
   torch.cuda.empty_cache()
   rows.update(flash_kernel_phase(serve_counts))
+  rows.update(query_rows)
   profile_phase(sz)
   profile_gp(sz)
   profile_service(sz)
@@ -3585,7 +4046,8 @@ def main() -> int:
                 "graph_cut_gain": ("graph_cut_gain", "round1 local"),
                 "graph_cut_select": ("graph_cut_select", "unbatched"),
                 "flash_attention": ("flash_attention", "serve"),
-                "relu_colsum": ("relu_colsum", "full")}
+                "relu_colsum": ("relu_colsum", "full"),
+                "sieve_admit": ("sieve_admit", "linear")}
   kernels = []
   for name, key in main_shape.items():
     r = rows[key]
@@ -3599,7 +4061,8 @@ def main() -> int:
         shape=r["shape"],
         **{extra: r[extra] for extra in ("bound_dense_ms", "dense_ms",
                                          "mode", "path", "tflops",
-                                         "bound_share", "kernels_per_call")
+                                         "bound_share", "kernels_per_call",
+                                         "latency_bound_ms")
            if extra in r}))
   emit("total", seconds=time.perf_counter() - t_start)
   print(gpu, flush=True)

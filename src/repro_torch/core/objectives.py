@@ -679,11 +679,15 @@ class SumFormBoundMaintainer:
   ``(1/|P|) sum_{e in P} relu(sim(e, i) - baseline) <= table[i] / |P|``)
   and for saturated coverage (its per-point contribution
   ``min(relu(sim), cap_e)`` is at most relu(sim) whatever the partition):
-  one maintainer, two objectives.  (The reference's standing sieves ride
-  the same sums; the port's store has no sieve yet, ROADMAP.md.)
+  one maintainer, two objectives.
+
+  ``supports_sieve``: the same sums power the store's standing threshold
+  sieves (select-on-append): each new row's summed ``sums`` is its
+  standing singleton gain, the sieve's admission gain.
   """
   oracle: str = "bound_update"
   sums_global: bool = False
+  supports_sieve: bool = True
 
   def supports(self, objective: Any) -> bool:
     """The similarity must be one the ``bound_update`` pass implements,
@@ -719,9 +723,12 @@ class InfoGainPriorBoundMaintainer:
   the partition and every other document.  Appends set the new rows'
   bounds and move nobody else's (``add == 0``); ``epoch_bounds`` is the
   identity.  ``sums_global``: each new row's bound is complete as
-  computed, so the store must not sum it over shards."""
+  computed, so the store must not sum it over shards.  No sum-form
+  singleton gains, so no standing sieve (``supports_sieve``): the service
+  answers queries from its last epoch."""
   sigma: float = 1.0
   sums_global: bool = True
+  supports_sieve: bool = False
 
   def supports(self, objective: Any) -> bool:
     # k(v, v) from the row alone: 1 for rbf, |v|^2 for linear

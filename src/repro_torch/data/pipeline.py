@@ -1,15 +1,20 @@
-"""Synthetic embedded corpus (the port of ``EmbeddedCorpus.features`` in
-``src/repro/data/pipeline.py``).
+"""Synthetic embedded corpus and the train-side consumers of a selection
+stream (the port of ``EmbeddedCorpus`` and ``batches_from_indices`` /
+``batches_from_epochs`` in ``src/repro/data/pipeline.py``).
 
 The documents' feature embeddings are a k-cluster Gaussian mixture on the
 unit sphere, drawn on the device from a seeded ``torch.Generator``: the same
 distribution as the reference's draw, not the same bits (the tests feed
-numpy features to both sides instead).
+numpy features to both sides instead).  Each document's token sequence is
+drawn from its cluster's band of the vocabulary, by a generator seeded
+with the corpus seed and the document id, so a document's tokens never
+depend on which batch asks for them.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -26,16 +31,86 @@ class EmbeddedCorpus:
   n_clusters: int = 32
   seed: int = 0
   device: str = "cuda"
+  vocab: int = 1024
+  seq_len: int = 8
 
-  def features(self) -> torch.Tensor:
+  def _draw(self):
+    """(generator, centers, assignments): the first two draws of the
+    corpus, shared by ``features`` and ``cluster_assignments``."""
     dev = resolve_device(self.device)
     g = torch.Generator(device=dev).manual_seed(self.seed)
     centers = torch.randn((self.n_clusters, self.feat_dim), generator=g,
                           device=dev)
-    centers = centers / torch.linalg.norm(centers, dim=1, keepdim=True)
     assign = torch.randint(0, self.n_clusters, (self.n_docs,), generator=g,
                            device=dev)
+    return g, centers, assign
+
+  def cluster_assignments(self) -> torch.Tensor:
+    """(n_docs,) int64 mixture component of every document."""
+    return self._draw()[2]
+
+  def tokens_for(self, doc_ids) -> dict:
+    """Token sequences of the given documents: {"tokens", "labels" (b,
+    seq_len) int64, "mask" (b, seq_len) float32}.  Tokens come from the
+    document's cluster band of the vocabulary (band * u^1.1 + cluster *
+    band, u uniform on [1e-6, 1)), so a model trained on a coreset that
+    covers every cluster sees the whole token distribution."""
+    dev = resolve_device(self.device)
+    ids = torch.as_tensor(np.asarray(doc_ids), dtype=torch.int64)
+    assign = self.cluster_assignments()[ids.to(dev)]
+    u = torch.empty((ids.shape[0], self.seq_len + 1), dtype=torch.float32)
+    for r, i in enumerate(ids.tolist()):
+      g = torch.Generator().manual_seed(
+          ((self.seed + 1) * 1_000_003 + i) % 2**63)
+      u[r] = torch.rand((self.seq_len + 1,), generator=g)
+    u = (1e-6 + (1.0 - 1e-6) * u).to(dev)
+    band = self.vocab // self.n_clusters
+    toks = ((band * u ** 1.1).to(torch.int64) + assign[:, None] * band).clamp(
+        0, self.vocab - 1)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+            "mask": torch.ones((ids.shape[0], self.seq_len),
+                               dtype=torch.float32, device=dev)}
+
+  def features(self) -> torch.Tensor:
+    g, centers, assign = self._draw()
+    dev = centers.device
+    centers = centers / torch.linalg.norm(centers, dim=1, keepdim=True)
     noise = 0.3 * torch.randn((self.n_docs, self.feat_dim), generator=g,
                               device=dev)
     f = centers[assign] + noise
     return f / torch.linalg.norm(f, dim=1, keepdim=True)
+
+
+def batches_from_indices(corpus: EmbeddedCorpus, indices, batch_size: int,
+                         steps: int, seed: int = 0, *, board=None,
+                         shard: int | None = None):
+  """Cycle ``steps`` token batches over a selected index set (documents
+  drawn with replacement only when the set is smaller than a batch).
+
+  ``board`` / ``shard`` wire the consumer to a
+  ``service.heartbeat.HeartbeatBoard``: every batch fetch beats the
+  consuming shard's heartbeat (``shard=None`` beats every shard).  The
+  data-fetch ack is the liveness signal: a trainer shard that stops
+  pulling batches stops beating, its age crosses the service's deadline,
+  and the next epoch's liveness collective masks it out.
+  """
+  rng = np.random.default_rng(seed)
+  idx = np.asarray(indices)
+  for _ in range(steps):
+    take = rng.choice(idx, size=batch_size, replace=len(idx) < batch_size)
+    if board is not None:
+      board.beat(shard)
+    yield corpus.tokens_for(take)
+
+
+def batches_from_epochs(corpus: EmbeddedCorpus, selections, batch_size: int,
+                        steps_per_epoch: int, seed: int = 0, *, board=None,
+                        shard: int | None = None):
+  """Train-side consumer of a multi-epoch selection stream: each epoch's
+  index array (e.g. from ``SelectionService.selections``) feeds
+  ``steps_per_epoch`` batches through ``batches_from_indices`` with an
+  epoch-distinct seed, the heartbeat acks threaded through."""
+  for e, idx in enumerate(selections):
+    yield from batches_from_indices(corpus, idx, batch_size,
+                                    steps_per_epoch, seed=seed + e,
+                                    board=board, shard=shard)

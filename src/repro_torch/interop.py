@@ -6,8 +6,8 @@ returns it as an (m, ceil(n/m)) int32 array with -1 padding), global
 document ids, objective states the reference built part way through a
 greedy run (``ig_state``/``ig_shard_state``/``satcov_state``/``cut_state``),
 the draw tables of the random greedy modes built from the reference's key
-chain (``rank_table``/``keep_table``), and the selection service's host
-bound table (``bound_table``).  These helpers take the
+chain (``rank_table``/``keep_table``), the selection service's host
+bound table (``bound_table``) and its standing sieves (``sieve_state``).  These helpers take the
 reference's numpy arrays to tensors on a given device, and a port result
 back to numpy with the reference's dtypes (int32 ids), so one test can run
 both sides on the same data, the same partition and the same state.
@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.objectives import (CutState, IGShardState, IGState,
                                         SatCovState)
 from repro_torch.models.registry import Model
+from repro_torch.service.store import SieveState
 
 
 def features(x, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -110,6 +111,23 @@ def bound_table(ubound, device="cpu") -> torch.Tensor:
   """The reference store's host ``ubound`` (float64, the sum of its
   double-float pair) as the port's float64 table on ``device``."""
   return torch.as_tensor(np.asarray(ubound, np.float64), device=device)
+
+
+def sieve_state(state, device="cpu") -> SieveState:
+  """A reference store's ``sieve_state_host()`` (gid, gain, feat, count,
+  delta, jtop as numpy arrays) as the port's ``SieveState``, int32 ids,
+  counts and exponents as int64; ``CorpusStore.set_sieve_state`` takes
+  it."""
+  gid, gain, feat, cnt, delta, jtop = (np.asarray(x) for x in state)
+
+  def as64(a):
+    return torch.as_tensor(a.astype(np.int64), device=device)
+
+  return SieveState(as64(gid), torch.as_tensor(gain.astype(np.float32),
+                                               device=device),
+                    features(feat.astype(np.float32), device), as64(cnt),
+                    torch.as_tensor(delta.astype(np.float32), device=device),
+                    as64(jtop))
 
 
 def tensor(a) -> torch.Tensor:

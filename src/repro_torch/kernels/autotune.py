@@ -1,11 +1,12 @@
-"""Tile sizes the port picks from the shapes (the port of the ``floor_pow2``
-and ``lazy_tile`` parts of ``src/repro/kernels/autotune.py``).
+"""Tile sizes the port picks from the shapes (the port of the ``floor_pow2``,
+``lazy_tile`` and ``query_tile`` parts of ``src/repro/kernels/autotune.py``).
 
 The reference keys a table on (backend, n, d) for the TPU and the CPU.  The
 CUDA kernels here use fixed tiles (the facility kernel: 256-row candidate
 bands against 128-row eval tiles, ``build.TILE``), so the only knob left
 is the rescore tile of the tile-bound lazy greedy (core/greedy.py): the
-number of bound-sorted candidates each shard refreshes per rescan.
+number of bound-sorted candidates each shard refreshes per rescan, and the
+query tile of the selection service's batched query path.
 """
 from __future__ import annotations
 
@@ -35,3 +36,17 @@ def lazy_tile(n: int, d: int) -> int:
   width d (the width does not change the card's choice)."""
   del d
   return floor_pow2(n, cap=LAZY_TILE)
+
+
+# device type -> query-batch tile of the multi-tenant batched query path
+# (service/store.py): the batch width B of one batched sieve merge or exact
+# step.  Ragged request batches pad up to it and bigger ones chunk through
+# it, so a drained batch of up to B requests reads back once.  The card's
+# entry is the reference's default until it is measured.
+_QUERY_TILE: dict[str, int] = {"cuda": 64, "cpu": 64}
+
+
+def query_tile(device: str = "cuda") -> int:
+  """Batch width of the batched query path on a device of type ``device``
+  ("cuda" or "cpu")."""
+  return _QUERY_TILE[str(device).split(":")[0]]

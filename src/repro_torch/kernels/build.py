@@ -79,6 +79,9 @@ ENTRIES = {
     "sm90_relu_colsum": ("colsum",
                          [P, P, P, P, P, I64, I64, I64, I64, I64, I64, I64,
                           I64, P]),
+    "sm90_sieve_scan": ("sieve",
+                        [P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64,
+                         I64, I64, P]),
     "sm90_flash_attention": ("flash_attention",
                              [P, P, P, P, I64, I64, I64, I64, I64, I64, I64,
                               I64, I64, I64, I64, I64, I64, I64, I64, F32,

@@ -27,7 +27,13 @@ eagerly, so there is no trace-time resolution to cache.  The families are
   * query-batched select oracles (``register_select_batched``/
     ``resolve_select_batched``): the reference's ``*_select_batched``, B
     per-query states over one shared corpus-side operand in one launch
-    (``graph_cut_gain``: B selection vectors over one W).
+    (``facility_gain``, ``coverage_gain``: B covers, masks and oks over
+    one feature block, the store's exact query tier; ``info_gain_cond``:
+    B selections over one candidate block; ``graph_cut_gain``: B
+    selection vectors over one W).
+
+``sieve_update`` is the standing-sieve admission of the selection
+service's append (two ``pairwise`` sweeps and the ``csrc/sieve.cu`` scan).
 """
 from __future__ import annotations
 

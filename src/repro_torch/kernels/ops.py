@@ -23,6 +23,7 @@ from repro_torch.kernels import info_gain as _ig
 from repro_torch.kernels import pairwise as _pw
 from repro_torch.kernels import ring
 from repro_torch.kernels import select_top1 as _st
+from repro_torch.kernels import sieve as _sv
 
 coverage_gain = _cg.coverage_gain
 coverage_select = _st.coverage_select
@@ -35,6 +36,7 @@ info_gain_cond = _ig.info_gain_cond
 info_select = _st.info_select
 pairwise = _pw.pairwise
 relu_colsum = _cs.relu_colsum
+sieve_scan = _sv.sieve_scan
 
 # kernel name -> (wrapper module, its counter attribute)
 _COUNTED = {"pairwise": (_pw, "launches"), "facility_gain": (_fg, "launches"),
@@ -46,7 +48,8 @@ _COUNTED = {"pairwise": (_pw, "launches"), "facility_gain": (_fg, "launches"),
             "graph_cut_gain": (_gc, "launches"),
             "graph_cut_select": (_st, "graph_cut_launches"),
             "flash_attention": (_fa, "launches"),
-            "relu_colsum": (_cs, "launches")}
+            "relu_colsum": (_cs, "launches"),
+            "sieve_admit": (_sv, "launches")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -106,6 +109,25 @@ def _bound_update(sim):
   return bound_update
 
 
+def _batched(select, name: str, rank: int):
+  """The reference's query-batched select ``name``: ``select`` with its
+  per-query state carrying a leading axis of B queries over the shared
+  corpus-side operands (one launch for the batch; ``rank`` is the rank of
+  one query's ``cand_ok``, the last argument)."""
+
+  def batched(*args, **kwargs):
+    ok = args[-1]
+    if ok.dim() != rank + 1:
+      raise ValueError(f"{name}: per-query state must carry a leading "
+                       f"batch axis, got cand_ok of shape {tuple(ok.shape)}")
+    return select(*args, **kwargs)
+
+  batched.__name__ = name
+  batched.__doc__ = (f"``{name}``: per-query state (B, ...), corpus-side "
+                     "operands shared -> ((B,) best, (B,) index).")
+  return batched
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     backend: str = "auto") -> torch.Tensor:
@@ -120,6 +142,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 bound_update = _bound_update(pairwise)
+sieve_update = ref.sieve_update_with(pairwise, sieve_scan)
+facility_select_batched = _batched(facility_select,
+                                   "facility_select_batched", 1)
+coverage_select_batched = _batched(coverage_select,
+                                   "coverage_select_batched", 1)
+info_select_batched = _batched(info_select, "info_select_batched", 1)
 dispatch.register("bound_update", cuda=_bound_update(_cuda_only(pairwise)),
                   ref=_bound_update(ref.pairwise_ref), auto=bound_update)
 dispatch.register("coverage_gain", cuda=_cuda_only(coverage_gain),
@@ -144,6 +172,22 @@ dispatch.register("relu_colsum", cuda=_cuda_only(relu_colsum),
                   ref=ref.relu_colsum_ref, auto=relu_colsum)
 dispatch.register("flash_attention", cuda=_cuda_only(_fa.flash_attention),
                   ref=ref.mha_ref, auto=_fa.flash_attention)
+dispatch.register("sieve_update",
+                  cuda=ref.sieve_update_with(_cuda_only(pairwise),
+                                             _cuda_only(sieve_scan)),
+                  ref=ref.sieve_update_ref, auto=sieve_update)
+dispatch.register_select_batched(
+    "facility_gain", cuda=_cuda_only(facility_select_batched),
+    ref=_batched(ref.facility_select_ref, "facility_select_batched", 1),
+    auto=facility_select_batched)
+dispatch.register_select_batched(
+    "coverage_gain", cuda=_cuda_only(coverage_select_batched),
+    ref=_batched(ref.coverage_select_ref, "coverage_select_batched", 1),
+    auto=coverage_select_batched)
+dispatch.register_select_batched(
+    "info_gain_cond", cuda=_cuda_only(info_select_batched),
+    ref=_batched(ref.info_select_ref, "info_select_batched", 1),
+    auto=info_select_batched)
 dispatch.register_select_batched(
     "graph_cut_gain", cuda=_cuda_only(graph_cut_select_batched),
     ref=ref.graph_cut_select_ref, auto=graph_cut_select_batched)

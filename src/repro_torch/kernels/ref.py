@@ -241,6 +241,159 @@ def graph_cut_select_ref(w: torch.Tensor, in_s: torch.Tensor,
   return masked_top1(graph_cut_gain_ref(w, in_s, ind), node_ok)
 
 
+# ---------------------------------------------------------------------------
+# threshold-sieve admission: the streaming select-on-append oracle of the
+# selection service's standing sieves
+# ---------------------------------------------------------------------------
+
+
+def sieve_redundancy_ref(v: torch.Tensor, members: torch.Tensor,
+                         live: torch.Tensor, *, kernel: str = "linear",
+                         h: float = 0.75) -> torch.Tensor:
+  """Normalized redundancy of item ``v`` (d,) against each sieve bucket,
+  (T,) in [0, 1]: the max over the live members of the (T, k, d)
+  ``members`` (``live`` (T, k) bool) of ``relu(sim(v, s)) / sqrt(sim(v, v)
+  * sim(s, s))`` (rbf: sim itself, since sim(v, v) = 1).  Empty buckets
+  score 0."""
+  t, k, d = members.shape
+  sim = _sim(v[None].float(), members.reshape(t * k, d).float(), kernel,
+             h)[0].reshape(t, k)
+  if kernel == "linear":
+    vsq = torch.clamp_min(torch.sum(v.float() ** 2), 1e-12)
+    msq = torch.clamp_min(torch.sum(members.float() ** 2, dim=-1), 1e-12)
+    red = torch.clamp_min(sim, 0.0) / torch.sqrt(vsq * msq)
+  else:
+    red = sim
+  return torch.where(live, red, 0.0).amax(dim=1)
+
+
+def sieve_admit_ref(v: torch.Tensor, gain, gid, active, tau: torch.Tensor,
+                    sieve_gid: torch.Tensor, sieve_gain: torch.Tensor,
+                    sieve_feat: torch.Tensor, sieve_count: torch.Tensor, *,
+                    kernel: str = "linear", h: float = 0.75):
+  """ONE streaming admission step, the per-item semantics the chunk scan
+  replays row by row: item ``v`` (d,) with standing singleton gain
+  ``gain`` and id ``gid`` scores ``gain * relu(1 - redundancy)`` against
+  each bucket, and bucket t admits it into slot ``count_t`` iff
+  ``active``, the score reaches ``tau[t]``, the bucket has room and gid >=
+  0.  Returns the updated (sieve_gid, sieve_gain, sieve_feat,
+  sieve_count)."""
+  t, k = sieve_gid.shape
+  dev = sieve_gid.device
+  live = torch.arange(k, device=dev)[None, :] < sieve_count[:, None]
+  red = sieve_redundancy_ref(v, sieve_feat, live, kernel=kernel, h=h)
+  score = torch.as_tensor(gain, dtype=torch.float32, device=dev) * (
+      torch.clamp_min(1.0 - red, 0.0))
+  gid = torch.as_tensor(gid, device=dev)
+  admit = (torch.as_tensor(active, device=dev) & (score >= tau)
+           & (sieve_count < k) & (gid >= 0))
+  at = (torch.arange(k, device=dev)[None, :] == sieve_count[:, None]) & (
+      admit[:, None])
+  return (torch.where(at, gid.to(sieve_gid.dtype), sieve_gid),
+          torch.where(at, score[:, None], sieve_gain),
+          torch.where(at[..., None], v.float()[None, None, :], sieve_feat),
+          sieve_count + admit.to(sieve_count.dtype))
+
+
+def sieve_scan_ref(s_pre: torch.Tensor, s_intra: torch.Tensor,
+                   rsq: torch.Tensor | None, msq_pre: torch.Tensor | None,
+                   gains: torch.Tensor, rgids: torch.Tensor,
+                   active: torch.Tensor, tau: torch.Tensor,
+                   sieve_gid: torch.Tensor, sieve_gain: torch.Tensor,
+                   sieve_count: torch.Tensor):
+  """The admission scan of one append chunk, the plain version of
+  ``csrc/sieve.cu`` (shapes and result as ``sieve.sieve_scan``): rows in
+  order, every (shard, bucket) at once, a member admitted earlier in the
+  chunk read from ``s_intra`` and a standing one from ``s_pre``.  Each step
+  is elementwise or a max, so the kernel agrees in every bit."""
+  n_sh, t, k = sieve_gid.shape
+  dev = sieve_gid.device
+  gid, gain, cnt = sieve_gid.clone(), sieve_gain.clone(), sieve_count.clone()
+  src = torch.full((n_sh, t, k), -1, dtype=torch.int64, device=dev)
+  slots = torch.arange(k, device=dev)
+  pre = s_pre.reshape(n_sh, -1, t, k)
+  for i in range(gains.shape[0]):
+    live = slots < cnt[..., None]
+    own = src >= 0
+    at = src.clamp_min(0)
+    sim = torch.where(own, s_intra[i][at], pre[:, i])
+    if rsq is not None:
+      msq = torch.where(own, rsq[at], msq_pre)
+      red = torch.clamp_min(sim, 0.0) / torch.sqrt(rsq[i] * msq)
+    else:
+      red = sim
+    red = torch.where(live, red, 0.0).amax(dim=-1)           # (S, T)
+    score = gains[i] * torch.clamp_min(1.0 - red, 0.0)
+    admit = (active[:, i, None] & (score >= tau) & (cnt < k)
+             & (rgids[i] >= 0))
+    put = (slots == cnt[..., None]) & admit[..., None]
+    gid = torch.where(put, rgids[i], gid)
+    gain = torch.where(put, score[..., None], gain)
+    src = torch.where(put, i, src)
+    cnt = cnt + admit.to(cnt.dtype)
+  return gid, gain, src, cnt
+
+
+def sieve_norms(rows: torch.Tensor, sieve_feat: torch.Tensor):
+  """(rsq (ab,), msq_pre (S, T, k)): the squared norms of the chunk rows
+  and of the standing members, clamped at 1e-12, that the linear
+  redundancy divides by."""
+  rsq = torch.clamp_min(torch.sum(rows.float() ** 2, dim=-1), 1e-12)
+  msq = torch.clamp_min(torch.sum(sieve_feat.float() ** 2, dim=-1), 1e-12)
+  return rsq, msq
+
+
+def sieve_update_with(sim, scan):
+  """``sieve_update`` over the similarity implementation ``sim`` and the
+  admission scan ``scan``: ``ops.sieve_update`` takes ``pairwise`` and the
+  kernel's ``sieve.sieve_scan``, ``sieve_update_ref`` the plain versions."""
+
+  def sieve_update(rows: torch.Tensor, gains: torch.Tensor,
+                   rgids: torch.Tensor, active: torch.Tensor,
+                   tau: torch.Tensor, sieve_gid: torch.Tensor,
+                   sieve_gain: torch.Tensor, sieve_feat: torch.Tensor,
+                   sieve_count: torch.Tensor, *, kernel: str = "linear",
+                   h: float = 0.75):
+    """Streaming threshold-sieve admission over one append chunk (the port
+    of ``src/repro/kernels/ops.py`` ``sieve_update``): each row, in order,
+    joins every bucket t that has room when ``gains[i] * relu(1 - max
+    redundancy to t's live members) >= tau[t]``, members admitted earlier
+    in the chunk included.  Two similarity sweeps (the chunk against the
+    standing members, and against itself), then the row scan, then the
+    admitted rows' features.  The state is one shard's, ((T, k) gid int64,
+    (T, k) gain, (T, k, d) float32 features, (T,) count int64) with
+    ``active`` (ab,), or S shards' stacked ((S, T, k), ...) with ``active``
+    (S, ab): the store passes only the shards the chunk lands on.
+    ``rgids`` (ab,) int64, -1 for padding; ``tau`` (T,) float32.  Returns
+    the four updated arrays (new tensors; the inputs are not modified).
+    """
+    one = sieve_gid.dim() == 2
+    if one:
+      sieve_gid, sieve_gain, sieve_feat, sieve_count, active = (
+          x.unsqueeze(0) for x in (sieve_gid, sieve_gain, sieve_feat,
+                                   sieve_count, active))
+    n_sh, t, k, d = sieve_feat.shape
+    rows = rows.float().contiguous()
+    s_pre = sim(rows, sieve_feat.reshape(n_sh, t * k, d), kernel=kernel,
+                h=h)
+    s_intra = sim(rows, rows, kernel=kernel, h=h)
+    rsq, msq = (sieve_norms(rows, sieve_feat) if kernel == "linear"
+                else (None, None))
+    gid, gain, src, cnt = scan(s_pre, s_intra, rsq, msq, gains.float(),
+                               rgids, active.bool(), tau.float(), sieve_gid,
+                               sieve_gain, sieve_count)
+    feat = torch.where((src >= 0)[..., None], rows[src.clamp_min(0)],
+                       sieve_feat)
+    if one:
+      return gid[0], gain[0], feat[0], cnt[0]
+    return gid, gain, feat, cnt
+
+  return sieve_update
+
+
+sieve_update_ref = sieve_update_with(pairwise_ref, sieve_scan_ref)
+
+
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, scale: float | None = None) -> torch.Tensor:
   """Reference GQA attention. q: (B, H, Lq, dh); k, v: (B, Hkv, Lk, dh).

@@ -26,9 +26,17 @@ ends with one ``[select] done`` line.
 ``--merge-tree B`` merges the round-1 blocks through the accumulation tree
 with B children a node (sharded and service modes; B = the shard count is
 the flat merge, bit for bit); the ``done`` line then says ``merge=treeB``.
-``--device`` defaults to ``cuda`` and fails when CUDA is missing; ``cpu``
-runs the kernels' plain versions.  The query and observability flags of
-the reference CLI are not ported yet (ROADMAP.md, queue 1).
+
+Service mode's query path: ``--query-every R`` appends the held-back rows
+R at a time after the first epoch and runs ``query()`` after each block
+(one ``[select] query`` line each: source, latency); ``--query-batch B``
+answers B heterogeneous tenant requests (k, seed and exclusions varying)
+through one ``query_batch`` call after the first append and again after
+the last epoch, replays them one by one through ``query()``, and exits
+non-zero unless every selection is the same (one ``[select] query_batch``
+line each).  ``--device`` defaults to ``cuda`` and fails when CUDA is
+missing; ``cpu`` runs the kernels' plain versions.  The observability
+flags of the reference CLI are not ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -52,6 +60,40 @@ def stats_line(event: str, **fields) -> str:
   return " ".join([event] + [f"{k}={_compact(v)}" for k, v in fields.items()])
 
 
+def _query_batch_cycle(svc, b: int, k: int, stage: str, sync) -> None:
+  """Answer ``b`` heterogeneous tenant requests through one
+  ``query_batch`` call, replay them one by one through ``query()``, and
+  exit non-zero unless every selection is the same (value estimates to
+  1e-5 relative)."""
+  import numpy as np
+
+  from repro_torch.service import QueryRequest
+  mc = svc.store.query_mask_cap
+  base = svc.query()  # live gids for the exclusion lists
+  reqs = [QueryRequest(k=1 + (i % k), seed=i % 4, exclude_gids=tuple(
+      int(g) for g in base.sel_gids[:min(i % 3, mc)])) for i in range(b)]
+  sync()
+  t0 = time.perf_counter()
+  batched = svc.query_batch(reqs)
+  t_batch = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  seq = [svc.query(r.k, seed=r.seed, exclude_gids=r.exclude_gids)
+         for r in reqs]
+  t_seq = time.perf_counter() - t0
+  for i, (rb, rs) in enumerate(zip(batched, seq)):
+    if (not np.array_equal(rb.sel_gids, rs.sel_gids) or not np.isclose(
+        rb.value_estimate, rs.value_estimate, rtol=1e-5, atol=1e-7)):
+      raise SystemExit(f"[select] query_batch parity FAILED ({stage}, "
+                       f"request {i}): batched={rb.sel_gids} "
+                       f"(v={rb.value_estimate!r}) sequential="
+                       f"{rs.sel_gids} (v={rs.value_estimate!r})")
+  print("[select] " + stats_line(
+      "query_batch", stage=stage, requests=b, batch_ms=t_batch * 1e3,
+      qps=b / max(t_batch, 1e-9), seq_ms=t_seq * 1e3,
+      speedup=t_seq / max(t_batch, 1e-9), parity="ok",
+      batch_calls=svc.store.query_batch_calls), flush=True)
+
+
 def _service(args, feats, kappa, dev, sync):
   """The service mode: append, run the epochs, append the held-back rows
   after the first; returns (last epoch's ids, the features selected
@@ -67,6 +109,8 @@ def _service(args, feats, kappa, dev, sync):
     feats = feats.abs()  # nonnegative coverage mass (Lin & Bilmes)
   n0 = args.n - int(args.n * args.append_frac)
   svc.append(feats[:n0])
+  if args.query_batch:
+    _query_batch_cycle(svc, args.query_batch, args.k, "pre-epoch", sync)
   res = None
   for e in range(args.epochs):
     svc.board.beat()  # every stacked shard is alive by construction
@@ -80,12 +124,26 @@ def _service(args, feats, kappa, dev, sync):
     if e == 0 and n0 < args.n:
       sync()
       t0 = time.perf_counter()
-      svc.append(feats[n0:])
+      if args.query_every:
+        # the held-back rows in blocks, "which k now?" after each from the
+        # standing sieves, no epoch run
+        for off in range(n0, args.n, args.query_every):
+          svc.append(feats[off:off + args.query_every])
+          q = svc.query()
+          print("[select] " + stats_line(
+              "query", docs=svc.n_docs, ids=len(q.sel_gids),
+              source=q.source, est=q.value_estimate,
+              stale_appends=q.appends_since_epoch, wall_ms=q.wall_s * 1e3),
+                flush=True)
+      else:
+        svc.append(feats[n0:])
       sync()
       wall = time.perf_counter() - t0
       print("[select] " + stats_line(
           "append", docs=args.n - n0, wall_s=wall,
           rows_per_s=(args.n - n0) / max(wall, 1e-9), growths=svc.growths))
+  if args.query_batch:
+    _query_batch_cycle(svc, args.query_batch, args.k, "post-epoch", sync)
   return res.sel_gids, feats
 
 
@@ -118,6 +176,14 @@ def main(argv=None) -> None:
   ap.add_argument("--append-frac", type=float, default=0.0,
                   help="service mode: fraction of the corpus appended only "
                   "after the first epoch (streaming ingest)")
+  ap.add_argument("--query-every", type=int, default=0, metavar="R",
+                  help="service mode: append the held-back rows R at a "
+                  "time and run query() after each block")
+  ap.add_argument("--query-batch", type=int, default=0, metavar="B",
+                  help="service mode: answer B heterogeneous requests "
+                  "through one query_batch call after the first append "
+                  "and after the last epoch, and fail unless they select "
+                  "what sequential query() calls select")
   ap.add_argument("--cold", action="store_true",
                   help="service mode: disable warm-started lazy bounds")
   ap.add_argument("--deadline", type=float, default=None,

@@ -1,11 +1,14 @@
-"""The selection service's epoch path (the port of ``src/repro/service``):
-the device-resident ``CorpusStore`` with its warm-bound table, the
-``SelectionService`` epochs and the ``HeartbeatBoard``.  The standing
-sieves, the queries and ``QueryBatcher`` are not ported yet (ROADMAP.md)."""
+"""The selection service (the port of ``src/repro/service``): the
+device-resident ``CorpusStore`` with its warm-bound table and standing
+sieves, the ``SelectionService`` epochs and queries, the ``QueryBatcher``
+and the ``HeartbeatBoard``."""
+from repro_torch.service.batching import BatcherStats, QueryBatcher
 from repro_torch.service.heartbeat import HeartbeatBoard
 from repro_torch.service.service import (EpochResult, EpochStats,
+                                         QueryRequest, QueryResult,
                                          SelectionService)
-from repro_torch.service.store import CorpusStore
+from repro_torch.service.store import CorpusStore, SieveState
 
-__all__ = ["CorpusStore", "EpochResult", "EpochStats", "HeartbeatBoard",
-           "SelectionService"]
+__all__ = ["BatcherStats", "CorpusStore", "EpochResult", "EpochStats",
+           "HeartbeatBoard", "QueryBatcher", "QueryRequest", "QueryResult",
+           "SelectionService", "SieveState"]

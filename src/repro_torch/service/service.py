@@ -35,10 +35,20 @@ a restarted service that replays the same appends repeats its epochs.
 Epochs merge flat or through the accumulation tree (``merge="tree"``,
 ``tree_branch`` children a node; ``tree_branch = m`` is flat, bit for bit).
 
+Queries between epochs: with the standing sieves on (``sieve=True``, the
+default, for an objective whose maintainer supports them) ``query``
+answers "which k documents now?" after any append by merging the store's
+threshold buckets, never touching the corpus block; with nothing appended
+since the last epoch it returns that epoch's selection.  ``query_batch``
+answers a batch of tenant requests (``QueryRequest``: k, seed, excluded
+ids) with one merge call a query tile, each request selecting what it
+would select alone; ``tier="exact"`` runs the batched exact greedy over
+the resident block instead.  ``service/batching.QueryBatcher`` turns
+requests that arrive one at a time into such batches.
+
 No counterpart here (ROADMAP.md, queue 1): the reference's
-``retrace_count`` (there is no compiled epoch function to retrace), its obs
-metric feeds (the merge-peak gauges among them), the standing sieves and
-``query``/``query_batch``.
+``retrace_count`` (there is no compiled epoch function to retrace) and its
+obs metric feeds (the merge-peak gauges among them).
 """
 from __future__ import annotations
 
@@ -54,6 +64,7 @@ from repro_torch.core import objectives as O
 from repro_torch.core.objectives import NEG
 from repro_torch.core.partition import (partition_gids, repartition,
                                         shard_live_counts)
+from repro_torch.kernels.dispatch import FUSED_SIMS
 from repro_torch.service.heartbeat import HeartbeatBoard
 from repro_torch.service.store import CorpusStore
 
@@ -89,6 +100,36 @@ class EpochResult(NamedTuple):
   raw: Any              # the full GreediResult (tensors on the device)
 
 
+class QueryResult(NamedTuple):
+  """Answer of ``SelectionService.query``, fresh after every append.
+
+  ``value_estimate`` is, for a "sieve" answer, the sieve's own surrogate
+  (the picks' redundancy-discounted admission gains summed, over the live
+  documents): not f(selection).  For "epoch" and "exact" answers it is the
+  exact value.
+  """
+  sel_gids: np.ndarray     # selected ids, filtered (no -1 padding)
+  value_estimate: float
+  source: str              # "sieve" | "epoch" (the last epoch's) | "exact"
+  appends_since_epoch: int  # appends a "sieve" answer folds in and an
+                            # "epoch" answer does not reflect
+  wall_s: float            # host wall clock of the query (of the whole
+                           # batch for ``query_batch``: each request's
+                           # latency)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryRequest:
+  """One tenant's request for ``SelectionService.query_batch``: ``k`` the
+  coreset size (None: the service's ``k_final``), ``seed`` the tie-break
+  decorrelation (0: none; a default request answers as ``query()``), and
+  ``exclude_gids`` the ids this tenant must never get back (at most
+  ``store.query_mask_cap``)."""
+  k: int | None = None
+  seed: int = 0
+  exclude_gids: tuple = ()
+
+
 class SelectionService:
   """Multi-epoch GreeDi over a device-resident growing ground set, m
   stacked shards on one device.
@@ -115,6 +156,12 @@ class SelectionService:
     seed: seed of the per-epoch partitions drawn when ``epoch`` is given
       no ``perm``.
     append_block: rows per append chunk of the store.
+    sieve: keep the store's standing sieves of depth ``k_final`` (needs a
+      maintainer that supports them: facility location and saturated
+      coverage in lazy mode with warm starts), so ``query`` answers fresh
+      between epochs.
+    query_mask_cap / query_batch_tile: the store's per-query exclusion
+      capacity and the lanes of one batched query call (None: autotuned).
     merge / tree_branch: the epochs' merge (core/greedi.py): "flat" merges
       all m round-1 blocks at once, "tree" through the accumulation tree
       with ``tree_branch`` children a node, so the largest merged block is
@@ -130,8 +177,10 @@ class SelectionService:
                mode: str = "lazy", warm_start: bool = True,
                deadline: float | None = None, seed: int = 0,
                append_block: int = 1024, feat_dtype=torch.float32,
-               objective: str | Any = "facility", merge: str = "flat",
-               tree_branch: int | None = None, device="cuda"):
+               objective: str | Any = "facility", sieve: bool = True,
+               query_mask_cap: int = 16, query_batch_tile: int | None = None,
+               merge: str = "flat", tree_branch: int | None = None,
+               device="cuda"):
     self._m = m
     self._d = d
     self._kappa = kappa
@@ -169,10 +218,14 @@ class SelectionService:
                         if warm_start and mode == "lazy" else None)
     self._warm = self._maintainer is not None
     self._epoch_idx = 0
+    self._appends_since_epoch = 0
+    self._last_epoch: EpochResult | None = None
     self.store = CorpusStore(
         m=m, d=d, capacity=capacity, append_block=append_block,
         kernel=kernel, kernel_kwargs=kernel_kwargs, backend=backend,
-        maintainer=self._maintainer, feat_dtype=feat_dtype, device=device)
+        maintainer=self._maintainer, sieve_k=k_final if sieve else 0,
+        query_mask_cap=query_mask_cap, query_batch_tile=query_batch_tile,
+        feat_dtype=feat_dtype, device=device)
     self.board = HeartbeatBoard(m)
 
   # ---- public surface ------------------------------------------------------
@@ -198,12 +251,166 @@ class SelectionService:
   def objective(self):
     return self._objective
 
+  @property
+  def sieve_enabled(self) -> bool:
+    """Whether the store keeps standing sieves, i.e. ``query`` answers
+    fresh after every append."""
+    return self.store.sieve_enabled
+
+  @property
+  def appends_since_epoch(self) -> int:
+    return self._appends_since_epoch
+
   def append(self, feats, gids=None) -> None:
     """Grow the ground set through the store: the new rows land in the
     resident block and, with a maintainer, one bound pass per chunk keeps
-    the table valid.  Duplicate explicit gids raise ``ValueError`` before
-    anything is written."""
+    the table valid (and the standing sieves admit the rows).  Duplicate
+    explicit gids raise ``ValueError`` before anything is written."""
+    n_before = self.store.n_docs
     self.store.append(feats, gids)
+    if self.store.n_docs > n_before:
+      self._appends_since_epoch += 1
+
+  def _norm_k(self, k: int | None) -> int:
+    k = self._k_final if k is None else int(k)
+    if not 0 < k <= self._k_final:
+      raise ValueError(f"k must be in (0, {self._k_final}], got {k}")
+    return k
+
+  def _norm_excl(self, exclude_gids) -> np.ndarray | None:
+    """A tenant's exclusion list as a (query_mask_cap,) -1-padded array
+    (None when empty)."""
+    if exclude_gids is None:
+      return None
+    a = np.asarray(exclude_gids, np.int64).ravel()
+    if a.size == 0:
+      return None
+    if (a < 0).any():
+      raise ValueError("exclude_gids must be >= 0")
+    mc = self.store.query_mask_cap
+    if a.size > mc:
+      raise ValueError(
+          f"at most {mc} excluded gids per query (store query_mask_cap; "
+          f"got {a.size})")
+    out = np.full((mc,), -1, np.int64)
+    out[:a.size] = a
+    return out
+
+  def _epoch_answers(self, excl, seed: int) -> bool:
+    """Whether a request is answered by the last epoch: no filter, no seed,
+    an epoch run, and nothing appended since (or no sieve to do better)."""
+    return (excl is None and seed == 0 and self._last_epoch is not None
+            and (self._appends_since_epoch == 0
+                 or not self.store.sieve_enabled))
+
+  def _need_sieve(self, what: str) -> None:
+    if not self.store.sieve_enabled:
+      raise RuntimeError(
+          f"{what} needs a standing sieve (an objective with a sum-form "
+          "bound maintainer) or at least one completed epoch (and masked / "
+          "seeded queries always need the sieve)")
+
+  def query(self, k: int | None = None, *, seed: int = 0,
+            exclude_gids=None, jitter=None) -> QueryResult:
+    """Give me k representatives now, without running the protocol.
+
+    With the standing sieve on, the answer reflects every append so far:
+    the store merges its buckets on the device and reads back the (k,)
+    winners once.  With nothing appended since the last epoch the epoch's
+    selection is returned as it is; without a sieve the last epoch's
+    selection is the answer (stale by ``appends_since_epoch`` appends).
+    ``exclude_gids`` hides up to ``store.query_mask_cap`` ids and ``seed``
+    != 0 decorrelates tie-breaks (``jitter``: its uniforms, as in
+    ``CorpusStore.query_sieves``); either one needs the sieve.
+    """
+    k = self._norm_k(k)
+    t0 = time.perf_counter()
+    excl = self._norm_excl(exclude_gids)
+    stale = self._appends_since_epoch
+    if self._epoch_answers(excl, seed):
+      le = self._last_epoch
+      src, sel, val = "epoch", le.sel_gids[:k], float(le.stats.value)
+    else:
+      self._need_sieve("query()")
+      gids, scores = self.store.query_sieves(k=k, exclude_gids=excl,
+                                             seed=seed, jitter=jitter)
+      slots = gids[:k]
+      sel = slots[slots >= 0]
+      # only live winner slots count (k can exceed the live winners)
+      val = float(scores[:k][slots >= 0].sum()) / max(self.store.n_docs, 1)
+      src = "sieve"
+    return QueryResult(sel, val, src, stale, time.perf_counter() - t0)
+
+  def query_batch(self, requests, tier: str = "sieve") -> list[QueryResult]:
+    """Answer a batch of tenant requests with one merge call a query tile
+    instead of one a request.
+
+    ``requests`` are ``QueryRequest`` (an int is a k-only shorthand, None
+    all defaults).  Routing mirrors ``query()``: default requests take the
+    last epoch's answer when nothing is stale, the rest drain through the
+    batched sieve merge, so each request selects what it would select
+    alone.  Every result's ``wall_s`` is the whole batch's.
+
+    ``tier="exact"`` runs every request through the exact tier instead: a
+    batched greedy facility-location pass over the resident block (one
+    batched select a pick serves all tenants), values exact over each
+    tenant's visible rows.  Facility location with a fused similarity only.
+    """
+    if tier not in ("sieve", "exact"):
+      raise ValueError(f"tier must be 'sieve' or 'exact', got {tier!r}")
+    reqs = [r if isinstance(r, QueryRequest)
+            else QueryRequest() if r is None else QueryRequest(k=int(r))
+            for r in requests]
+    t0 = time.perf_counter()
+    stale = self._appends_since_epoch
+    norm = [(self._norm_k(r.k), self._norm_excl(r.exclude_gids or None),
+             int(r.seed)) for r in reqs]
+    mc = self.store.query_mask_cap
+
+    def pack_excl(sub):
+      return (np.stack([e if e is not None else np.full((mc,), -1, np.int64)
+                        for e in sub]) if sub
+              else np.zeros((0, mc), np.int64))
+
+    if tier == "exact":
+      if not isinstance(self._objective, O.FacilityLocation):
+        raise ValueError(
+            "tier='exact' supports the facility-location objective only "
+            f"(got {type(self._objective).__name__})")
+      if getattr(self._objective, "kernel", None) not in FUSED_SIMS:
+        raise ValueError(f"tier='exact' needs a fused similarity kernel "
+                         f"({FUSED_SIMS})")
+      ks = np.array([k for k, _, _ in norm], np.int64)
+      g, s, nvis = self.store.query_exact_batch(
+          ks, pack_excl([e for _, e, _ in norm]), k_cap=self._k_final)
+      answers = []
+      for i, (k, _, _) in enumerate(norm):
+        slots = g[i, :k]
+        val = float(s[i, :k][slots >= 0].sum()) / max(float(nvis[i]), 1.0)
+        answers.append(("exact", slots[slots >= 0], val))
+    else:
+      answers = [None] * len(reqs)
+      batch_idx = []
+      for i, (k, excl, seed) in enumerate(norm):
+        if self._epoch_answers(excl, seed):
+          le = self._last_epoch
+          answers[i] = ("epoch", le.sel_gids[:k], float(le.stats.value))
+        else:
+          self._need_sieve("query_batch()")
+          batch_idx.append(i)
+      if batch_idx:
+        ks = np.array([norm[i][0] for i in batch_idx], np.int64)
+        sd = np.array([norm[i][2] for i in batch_idx], np.int64)
+        g, s = self.store.query_sieves_batch(
+            ks, pack_excl([norm[i][1] for i in batch_idx]), sd)
+        nd = max(self.store.n_docs, 1)
+        for j, i in enumerate(batch_idx):
+          slots = g[j, :norm[i][0]]
+          val = float(s[j, :norm[i][0]][slots >= 0].sum()) / nd
+          answers[i] = ("sieve", slots[slots >= 0], val)
+    wall = time.perf_counter() - t0
+    return [QueryResult(sel, val, src, stale, wall)
+            for src, sel, val in answers]
 
   def epoch_perm(self, epoch: int | None = None) -> torch.Tensor:
     """The (capacity,) partition permutation this service draws for epoch
@@ -269,13 +476,22 @@ class SelectionService:
     wall = time.perf_counter() - t0
     sv = r.sel_valid.cpu().numpy()
     sel = r.sel_gids.cpu().numpy()[sv]
-    sel = sel[sel >= 0]
+    keep = sel >= 0
+    sel = sel[keep]
     stats = EpochStats(epoch=self._epoch_idx, n_live=st.n_docs,
                        capacity=st.capacity, value=float(r.value),
                        alive=r.alive.cpu().numpy(), warm=warm_eff,
                        wall_s=wall, rescans=r.r1_rescans.cpu().numpy())
     self._epoch_idx += 1
-    return EpochResult(sel, stats, r)
+    result = EpochResult(sel, stats, r)
+    # the epoch's selection seeds the fresh sieve grid, re-derived from the
+    # whole corpus' standing gains: queries between epochs start from (at
+    # least) the refined selection
+    if st.sieve_enabled:
+      st.reset_sieves(r.sel_feats.float().cpu().numpy()[sv][keep], sel)
+    self._appends_since_epoch = 0
+    self._last_epoch = result
+    return result
 
   def selections(self, n_epochs: int) -> Iterator[np.ndarray]:
     """Yield ``sel_gids`` for ``n_epochs`` epochs."""

@@ -22,17 +22,88 @@ per-shard arithmetic of the bound pass is the reference's.
   double-float (hi, lo) pair of f32 words because its device has no f64;
   both keep f32 summation drift far below the epoch's bound slack.
 
-Not ported yet (ROADMAP.md): the standing sieves (``sieve_k``,
-``sieve_update``), ``query_sieves``, ``query_sieves_batch``,
-``query_exact_batch`` and ``reset_sieves``, and the obs metric feeds.
+Select-on-append (the standing sieves): when the maintainer supports it
+(``supports_sieve``, the sum-form tables), each shard also keeps T =
+O(log Delta / eps) threshold buckets of up to ``sieve_k`` members, (m * T,
+k) ids and gains, (m * T, k, d) float32 features and (m * T,) counts,
+with the running max singleton gain Delta and the grid's top exponent
+``jtop`` per shard.  Every append chunk, after its bound pass, folds the
+chunk's summed ``sums`` (the admission gains) into Delta, rolls the
+buckets down when the grid top moved (a gather over the bucket axis, so
+no host sync), and streams the chunk's rows through ``ops.sieve_update``
+for the shards the chunk lands on (the others' update is a no-op in the
+reference): two ``pairwise`` sweeps and one ``csrc/sieve.cu`` scan.
+Growth leaves the sieve state as it is (its shapes do not depend on the
+capacity).
+
+The query surface merges the standing buckets into a coreset without
+touching the corpus block:
+
+* ``query_sieves`` / ``query_sieves_batch``: the m * T * k pooled members
+  through a k-step MMR greedy (the admission score against the picks so
+  far), per query tile of ``query_batch_tile`` lanes: one ``pairwise``
+  call a pick for the whole tile, and one read-back of the tile's ids and
+  scores.  Per query: ``k`` (picks past it are masked; greedy prefixes
+  nest), a -1-padded exclusion list of ``query_mask_cap`` ids, and a seed
+  whose tie-break jitter multiplies each score by 1 + 1e-4 u (seed 0: by
+  exactly 1).  The reference draws u with ``jax.random``; here it is an
+  explicit ``jitter`` argument, or drawn from a ``torch.Generator`` seeded
+  with the seed.
+* ``query_exact_batch``: the exact tier, a batched greedy facility
+  location over the resident block, one batched facility select a pick
+  (per-tenant visibility on the batch axis).
+* ``reset_sieves``: the epoch hand-off, clearing the buckets, re-gridding
+  from the table's max and seeding shard 0's buckets with the epoch's
+  selection on the host.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.objectives import _kernel_h
+from repro_torch.kernels import autotune, dispatch
+from repro_torch.kernels.ref import NEG
+
+_JTOP_COLD = -(1 << 30)  # sieve grid sentinel: no positive gain seen yet
+# relative tie-break jitter of seeded queries: big enough to decorrelate
+# near-equal candidates across tenants, small enough never to reorder
+# admission scores with a real gap (the reference's constant)
+_QUERY_JITTER = 1e-4
+
+
+def _sieve_n_thresholds(sieve_k: int, eps: float) -> int:
+  """Bucket count covering the SieveStreaming grid [Delta/(2k), Delta]."""
+  return int(np.ceil(np.log(2 * sieve_k) / np.log1p(eps))) + 1
+
+
+def _np_sim(a: np.ndarray, b: np.ndarray, kernel: str, h: float) -> np.ndarray:
+  """Host similarity of the epoch-reset sieve replay (kernels/ref._sim in
+  numpy float32)."""
+  a = a.astype(np.float32)
+  b = b.astype(np.float32)
+  if kernel == "linear":
+    return a @ b.T
+  d2 = np.maximum((a * a).sum(-1)[:, None] - 2.0 * (a @ b.T)
+                  + (b * b).sum(-1)[None, :], 0.0)
+  return np.exp(-d2 / (h * h))
+
+
+class SieveState(NamedTuple):
+  """The standing sieves of all m shards, bucket p of shard s at row s * T
+  + p: ids (m * T, k) int64 (-1 = empty), admission gains (m * T, k)
+  float32, member features (m * T, k, d) float32, counts (m * T,) int64,
+  and the running Delta (m,) float32 and grid top exponent jtop (m,)
+  int64 (``_JTOP_COLD`` before any positive gain)."""
+  gid: torch.Tensor
+  gain: torch.Tensor
+  feat: torch.Tensor
+  count: torch.Tensor
+  delta: torch.Tensor
+  jtop: torch.Tensor
 
 
 class CorpusStore:
@@ -49,6 +120,14 @@ class CorpusStore:
       maintainer's bound pass (unused when ``maintainer`` is None).
     maintainer: the objective's bound maintainer
       (``core.objectives.bound_maintainer_for``) or None to keep no table.
+    sieve_k: standing-sieve depth (bucket size, the largest query coreset);
+      0 disables the sieve.  Needs a maintainer with ``supports_sieve``
+      (its sums are the admission gains); otherwise the store keeps none.
+    sieve_eps: geometric grid ratio of the threshold sieve (1 + eps).
+    query_mask_cap: per-query exclusion-list capacity of the query paths.
+    query_batch_tile: lanes of one batched query call; None takes
+      ``kernels/autotune.query_tile`` for the device.  Ragged batches pad
+      up to it, bigger ones run tile by tile.
     feat_dtype: storage dtype of the feature rows.
     device: where the block lives; ``cuda`` by default (raises when CUDA is
       missing unless ``cpu`` is asked for).
@@ -57,7 +136,9 @@ class CorpusStore:
   def __init__(self, *, m: int, d: int, capacity: int = 4096,
                append_block: int = 1024, kernel: str = "linear",
                kernel_kwargs: tuple = (), backend: str | None = None,
-               maintainer=None, feat_dtype=torch.float32, device="cuda"):
+               maintainer=None, sieve_k: int = 0, sieve_eps: float = 0.5,
+               query_mask_cap: int = 16, query_batch_tile: int | None = None,
+               feat_dtype=torch.float32, device="cuda"):
     self._dev = resolve_device(device)
     self._m = m
     self._d = d
@@ -77,7 +158,24 @@ class CorpusStore:
     self._explicit_gids: set[int] = set()
     self._growths = 0
     self._bounds_seen = False
+    self._sieve_k = 0
+    self._sieve_eps = float(sieve_eps)
+    if sieve_k and getattr(maintainer, "supports_sieve", False):
+      self._sieve_k = int(sieve_k)
+    self._sieve_T = (_sieve_n_thresholds(self._sieve_k, self._sieve_eps)
+                     if self._sieve_k else 0)
+    # log1p(eps) as float32: the reference's weakly typed Python float
+    # meets float32 arrays, so its grid arithmetic runs in float32
+    self._log1pe = torch.tensor(np.log1p(self._sieve_eps),
+                                dtype=torch.float32, device=self._dev)
+    self._mask_cap = int(query_mask_cap)
+    self._qb_tile = (int(query_batch_tile) if query_batch_tile
+                     else autotune.query_tile(self._dev.type))
+    self._query_count = 0
+    self._query_batch_calls = 0
+    self._query_batch_queries = 0
     self._alloc(self._cap)
+    self._alloc_sieve()
 
   # ---- placement -----------------------------------------------------------
 
@@ -90,6 +188,22 @@ class CorpusStore:
                               device=self._dev)
     self._gids = torch.full((cap,), -1, dtype=torch.int64, device=self._dev)
     self._table = torch.zeros((cap,), dtype=torch.float64, device=self._dev)
+
+  def _alloc_sieve(self) -> None:
+    """The empty standing sieves: shapes independent of the capacity, so
+    growth leaves them as they are.  Features are float32 whatever the
+    block's dtype, as in the reference."""
+    if not self._sieve_k:
+      self._sieve = None
+      return
+    m, t, k, dev = self._m, self._sieve_T, self._sieve_k, self._dev
+    self._sieve = SieveState(
+        torch.full((m * t, k), -1, dtype=torch.int64, device=dev),
+        torch.zeros((m * t, k), dtype=torch.float32, device=dev),
+        torch.zeros((m * t, k, self._d), dtype=torch.float32, device=dev),
+        torch.zeros((m * t,), dtype=torch.int64, device=dev),
+        torch.zeros((m,), dtype=torch.float32, device=dev),
+        torch.full((m,), _JTOP_COLD, dtype=torch.int64, device=dev))
 
   def _grow(self) -> None:
     """Double the capacity on the device; every value, the table's
@@ -203,8 +317,13 @@ class CorpusStore:
     is raised before any row is written.  The id bookkeeping is committed
     after every chunk has landed.
     """
-    feats = torch.as_tensor(feats).to(device=self._dev,
-                                      dtype=self._feat_dtype)
+    # a copy from pageable host memory is issued without a stream sync (the
+    # source is staged before the call returns), so an append reads nothing
+    # back and waits for nothing; a pinned source is copied blocking, since
+    # an asynchronous DMA would still read it after the call returns
+    feats = torch.as_tensor(feats)
+    feats = feats.to(device=self._dev, dtype=self._feat_dtype,
+                     non_blocking=not feats.is_pinned())
     if feats.dim() != 2 or feats.shape[1] != self._d:
       raise ValueError(f"append: rows of width {self._d} expected, got "
                        f"shape {tuple(feats.shape)}")
@@ -214,7 +333,7 @@ class CorpusStore:
     gids = self._check_gids(gids, b)
     self.reserve(self._n + b)
     ab = self._append_block
-    gids_dev = torch.as_tensor(gids, device=self._dev)
+    gids_dev = self._h2d(gids)
     for off in range(0, b, ab):
       chunk = feats[off:off + ab]
       cb = chunk.shape[0]
@@ -222,7 +341,9 @@ class CorpusStore:
       self._feats[n0:n0 + cb] = chunk
       self._gids[n0:n0 + cb] = gids_dev[off:off + cb]
       if self._maintainer is not None:
-        self._bound_pass(chunk, n0)
+        sums = self._bound_pass(chunk, n0)
+        if self._sieve is not None:
+          self._sieve_pass(chunk, gids_dev[off:off + cb], sums, n0)
       self._n += cb
     # every chunk landed: commit the id bookkeeping
     if auto:
@@ -236,12 +357,13 @@ class CorpusStore:
       self._explicit_gids.update(int(g) for g in gids.tolist())
       self._next_gid = max(self._next_gid, int(gids.max()) + 1 if b else 0)
 
-  def _bound_pass(self, chunk: torch.Tensor, n0: int) -> None:
+  def _bound_pass(self, chunk: torch.Tensor, n0: int) -> torch.Tensor:
     """One chunk's (append_block x capacity) pass over the already written
     block, so the new rows' mutual and self terms count once: older rows
-    gain the chunk's mass, the chunk's rows get their own sums.  The last
-    chunk of an append is not padded to ``append_block`` (the reference's
-    padding rows carry no mass)."""
+    gain the chunk's mass, the chunk's rows get their own sums, which are
+    returned (float32, the sieve's admission gains).  The last chunk of an
+    append is not padded to ``append_block`` (the reference's padding rows
+    carry no mass)."""
     cb, m = chunk.shape[0], self._m
     rvalid = torch.ones((cb,), dtype=torch.float32, device=self._dev)
     block = self._feats.view(m, self._cap // m, self._d)
@@ -253,3 +375,422 @@ class CorpusStore:
       sums = sums.sum(dim=0)  # the shards' partial sums (the psum)
     self._table += add.reshape(-1).to(torch.float64)
     self._table[n0:n0 + cb] = sums.to(torch.float64)
+    return sums
+
+  def _sieve_pass(self, chunk: torch.Tensor, rgids: torch.Tensor,
+                  sums: torch.Tensor, n0: int) -> None:
+    """The standing-sieve update of one chunk (the reference's
+    ``sieve_body``), with no host sync: fold the chunk's gains into Delta,
+    re-grid (roll the buckets down by the grid top's move, open fresh top
+    buckets), then admit the chunk's rows into the shards they land on.
+    Which shards those are follows from n0, the chunk's rows and the shard
+    size alone, so the host knows them without a read-back; the other
+    shards' update is a no-op."""
+    sv, m, t, k = self._sieve, self._m, self._sieve_T, self._sieve_k
+    dev, cb, npp = self._dev, chunk.shape[0], self._cap // m
+    # Delta folds every row of the chunk (the reference's padding rows add
+    # 0.0), the same on every shard, so the sieves stay mergeable
+    delta = torch.maximum(sv.delta[0], sums.max().clamp_min(0.0))
+    has = delta > 0.0
+    jtop = torch.where(has, torch.ceil(
+        torch.log(delta.clamp_min(1e-30)) / self._log1pe).to(torch.int64),
+                       _JTOP_COLD)
+    # slot p holds threshold (1+eps)^(jtop - (T-1) + p): when the top moves
+    # up by `shift`, the `shift` lowest buckets roll out and fresh top ones
+    # open, every surviving bucket's contents kept
+    shift = (jtop - sv.jtop[0]).clamp(0, t)
+    ar = torch.arange(t, device=dev)
+    src = (ar + shift) % t
+    cleared = ar >= t - shift
+
+    def roll(x, fill):
+      x = x.view(m, t, *x.shape[1:])
+      mask = cleared.view(1, t, *(1,) * (x.dim() - 2))
+      return torch.where(mask, fill, x[:, src]).view(m * t, *x.shape[2:])
+
+    gid, gain = roll(sv.gid, -1), roll(sv.gain, 0.0)
+    feat, cnt = roll(sv.feat, 0.0), roll(sv.count, 0)
+    expo = (jtop - (t - 1) + ar).to(torch.float32)
+    tau = torch.exp(expo * self._log1pe)
+    s0, s1 = n0 // npp, (n0 + cb - 1) // npp + 1
+    pos = (n0 + torch.arange(cb, device=dev))[None, :] - (
+        torch.arange(s0, s1, device=dev)[:, None] * npp)
+    active = (pos >= 0) & (pos < npp) & has
+    lo, hi = s0 * t, s1 * t
+    update = dispatch.resolve("sieve_update", self._backend or "auto")
+    g2, w2, f2, c2 = update(
+        chunk, sums, rgids, active, tau, gid[lo:hi].view(-1, t, k),
+        gain[lo:hi].view(-1, t, k), feat[lo:hi].view(-1, t, k, self._d),
+        cnt[lo:hi].view(-1, t), kernel=self._kernel, h=self._h)
+    gid[lo:hi] = g2.view(-1, k)
+    gain[lo:hi] = w2.view(-1, k)
+    feat[lo:hi] = f2.view(-1, k, self._d)
+    cnt[lo:hi] = c2.view(-1)
+    self._sieve = SieveState(gid, gain, feat, cnt, delta.expand(m).clone(),
+                             jtop.expand(m).clone())
+
+  # ---- standing-sieve surface ----------------------------------------------
+
+  @property
+  def sieve_enabled(self) -> bool:
+    return self._sieve_k > 0
+
+  @property
+  def sieve_k(self) -> int:
+    return self._sieve_k
+
+  @property
+  def sieve_thresholds(self) -> int:
+    """Bucket count T = O(log Delta / eps) (0 when the sieve is off)."""
+    return self._sieve_T
+
+  @property
+  def sieve_state_bytes(self) -> int:
+    """Device bytes held by the standing sieves of all shards."""
+    if self._sieve is None:
+      return 0
+    return sum(x.numel() * x.element_size() for x in self._sieve)
+
+  @property
+  def sieve_state(self) -> SieveState | None:
+    """The standing sieves on the device (None when the sieve is off)."""
+    return self._sieve
+
+  @property
+  def query_mask_cap(self) -> int:
+    """Per-query exclusion-list capacity of the query paths."""
+    return self._mask_cap
+
+  @property
+  def query_batch_tile(self) -> int:
+    """Lanes of one batched query call (one read-back each)."""
+    return self._qb_tile
+
+  @property
+  def query_count(self) -> int:
+    """Single queries merged so far (``query_sieves``)."""
+    return self._query_count
+
+  @property
+  def query_batch_calls(self) -> int:
+    """Batched merge calls so far (one a query tile)."""
+    return self._query_batch_calls
+
+  @property
+  def query_batch_queries(self) -> int:
+    """Requests answered through the batched merge so far."""
+    return self._query_batch_queries
+
+  def sieve_state_host(self):
+    """Host copy of (gid, gain, feat, count, delta, jtop) with the
+    reference's dtypes (int32 ids, counts and exponents): tests only."""
+    if self._sieve is None:
+      raise RuntimeError("sieve disabled on this store")
+    out = []
+    for x in self._sieve:
+      a = x.cpu().numpy()
+      out.append(a.astype(np.int32) if a.dtype == np.int64 else a)
+    return tuple(out)
+
+  def set_sieve_state(self, state: SieveState) -> None:
+    """Replace the standing sieves (``interop.sieve_state`` carries a
+    reference store's across); shapes must be this store's."""
+    if self._sieve is None:
+      raise RuntimeError("sieve disabled on this store")
+    new = []
+    for mine, x in zip(self._sieve, state):
+      if tuple(x.shape) != tuple(mine.shape):
+        raise ValueError(f"sieve state of shape {tuple(x.shape)}, this "
+                         f"store holds {tuple(mine.shape)}")
+      new.append(x.to(device=self._dev, dtype=mine.dtype).clone())
+    self._sieve = SieveState(*new)
+
+  def _h2d(self, a) -> torch.Tensor:
+    """A host array on the device, copied without a stream sync unless it
+    lies in pinned memory (see ``append``)."""
+    t = torch.as_tensor(np.asarray(a))
+    return t.to(self._dev, non_blocking=not t.is_pinned())
+
+  def _excl(self, exclude, b: int | None) -> torch.Tensor:
+    """-1-padded exclusion lists as int64 on the device, (mask_cap,) or (b,
+    mask_cap); None: no filter."""
+    shape = (self._mask_cap,) if b is None else (b, self._mask_cap)
+    if exclude is None:
+      return torch.full(shape, -1, dtype=torch.int64, device=self._dev)
+    e = self._h2d(np.asarray(exclude, np.int64))
+    if tuple(e.shape) != shape:
+      raise ValueError(f"exclusion lists of shape {tuple(e.shape)}, "
+                       f"expected {shape} (query_mask_cap "
+                       f"{self._mask_cap})")
+    return e
+
+  def _jitter_mult(self, seeds: np.ndarray, jitter, n: int) -> torch.Tensor:
+    """(B, n) float32 score multipliers: 1 + 1e-4 u for a lane with a
+    nonzero seed, exactly 1 otherwise.  ``jitter`` gives u, (B, n) or (n,)
+    (the tests pass the reference's ``jax.random.uniform(PRNGKey(seed),
+    (n,))``); without it u is drawn from a generator seeded with the
+    lane's seed."""
+    b = seeds.shape[0]
+    if jitter is not None:
+      u = self._h2d(np.array(jitter, np.float32)).expand(b, n)
+    else:
+      u = torch.zeros((b, n), dtype=torch.float32, device=self._dev)
+      for i, sd in enumerate(seeds.tolist()):
+        if sd:
+          g = torch.Generator(device=self._dev).manual_seed(int(sd))
+          u[i] = torch.rand((n,), generator=g, device=self._dev)
+    on = self._h2d(seeds != 0)[:, None]
+    return torch.where(on, 1.0 + _QUERY_JITTER * u, 1.0)
+
+  def _merge(self, kq: torch.Tensor, excl: torch.Tensor,
+             mult: torch.Tensor | None):
+    """The sieve merge of one query tile of B lanes: every bucket of every
+    shard pools into N = m * T * k candidates, and a k-step greedy MMR pass
+    re-applies the admission score (standing gain times relu(1 - the
+    largest redundancy to the picks so far)) over the pool, at least as
+    good as the best single bucket, which carries the sieve guarantee.  A
+    gid admitted into several buckets is masked by gid once picked, so no
+    document comes back twice.  ``kq`` (B,) masks picks past each lane's
+    k; ``excl`` (B, mask_cap) hides ids; ``mult`` (B, N) is the seed
+    jitter (None: all seeds 0).  One ``pairwise`` call a pick for the
+    whole tile; the (N, N) block is never formed.  Returns (B, k) ids and
+    scores on the device."""
+    sv, k = self._sieve, self._sieve_k
+    n = sv.gid.numel()
+    b = kq.shape[0]
+    gt = sv.gid.reshape(n)
+    wt = sv.gain.reshape(n)
+    ft = sv.feat.reshape(n, self._d)
+    linear = self._kernel == "linear"
+    if linear:
+      nsq = torch.clamp_min(torch.sum(ft * ft, dim=-1), 1e-12)
+    # masked out: holes, excluded ids, and (growing) the ids picked so far
+    blocked = (gt < 0)[None, :] | (gt[None, :, None] == excl[:, None, :]).any(
+        dim=-1)
+    redmax = torch.zeros((b, n), dtype=torch.float32, device=self._dev)
+    out_g = torch.full((b, k), -1, dtype=torch.int64, device=self._dev)
+    out_s = torch.zeros((b, k), dtype=torch.float32, device=self._dev)
+    pair = dispatch.resolve("pairwise", self._backend or "auto")
+    for i in range(k):
+      score = wt * torch.clamp_min(1.0 - redmax, 0.0)
+      if mult is not None:
+        score = score * mult
+      score.masked_fill_(blocked, NEG)
+      best, j = torch.max(score, dim=1)  # the first of equal maxima
+      take = (best > 0.0) & (kq > i)
+      gj = gt[j]
+      out_g[:, i] = torch.where(take, gj, -1)
+      out_s[:, i] = torch.where(take, best, 0.0)
+      blocked |= take[:, None] & (gt[None, :] == gj[:, None])
+      simj = pair(ft, ft[j], kernel=self._kernel, h=self._h).T   # (b, n)
+      if linear:
+        simj = torch.clamp_min(simj, 0.0) / torch.sqrt(nsq[None, :]
+                                                       * nsq[j][:, None])
+      redmax = torch.where(take[:, None], torch.maximum(redmax, simj),
+                           redmax)
+    return out_g, out_s
+
+  def _read_back(self, g: torch.Tensor, s: torch.Tensor):
+    """(ids int64, scores float32) on the host in one device-to-host copy."""
+    both = torch.stack([g.to(torch.float64), s.to(torch.float64)]).cpu()
+    return both[0].numpy().astype(np.int64), both[1].numpy().astype(
+        np.float32)
+
+  def query_sieves(self, k: int | None = None, exclude_gids=None,
+                   seed: int = 0, jitter=None):
+    """Merge the standing sieves into a (sieve_k,) coreset: host (gids,
+    scores), gid -1 past the end.  The merge reads only the sieve state,
+    never the corpus block, and reads back once.
+
+    ``k`` masks picks past the requested size (the same as slicing: greedy
+    prefixes nest); ``exclude_gids`` is a (query_mask_cap,) -1-padded
+    exclusion list; ``seed`` != 0 applies the tie-break jitter, whose
+    uniforms ``jitter`` (N,) may give (N = m * T * k)."""
+    if self._sieve is None:
+      raise RuntimeError("sieve disabled on this store")
+    kq = self._sieve_k if k is None else int(k)
+    seeds = np.array([int(seed)], np.int64)
+    n = self._sieve.gid.numel()
+    mult = self._jitter_mult(seeds, jitter, n) if seed else None
+    g, s = self._merge(self._h2d(np.array([kq], np.int64)),
+                       self._excl(exclude_gids, None)[None], mult)
+    self._query_count += 1
+    g, s = self._read_back(g, s)
+    return g[0], s[0]
+
+  def query_sieves_batch(self, ks, exclude, seeds, jitter=None):
+    """Batched sieve merge: one merge call a query tile answers a whole
+    heterogeneous batch.
+
+    ``ks`` (B,) coreset sizes, ``exclude`` (B, query_mask_cap) -1-padded
+    exclusion lists, ``seeds`` (B,) tie-break seeds (0: none); ``jitter``
+    optionally the (B, N) uniforms of the seeded lanes.  Ragged batches pad
+    up to ``query_batch_tile`` with k = 0 lanes, bigger ones run tile by
+    tile.  Returns host (B, sieve_k) gids / scores; each lane selects what
+    ``query_sieves`` selects at the same (k, exclusions, seed)."""
+    if self._sieve is None:
+      raise RuntimeError("sieve disabled on this store")
+    ks = np.asarray(ks, np.int64).reshape(-1)
+    seeds = np.asarray(seeds, np.int64).reshape(-1)
+    b = ks.shape[0]
+    excl = np.asarray(exclude, np.int64).reshape(b, -1)
+    if excl.shape != (b, self._mask_cap) or seeds.shape != (b,):
+      raise ValueError(f"exclude {excl.shape} / seeds {seeds.shape} do not "
+                       f"match {b} requests of mask cap {self._mask_cap}")
+    n = self._sieve.gid.numel()
+    if jitter is not None:
+      jitter = np.broadcast_to(np.asarray(jitter, np.float32), (b, n))
+    bq = self._qb_tile
+    out_g, out_s = [], []
+    for off in range(0, b, bq):
+      nb = min(bq, b - off)
+      pad = bq - nb
+      kc = np.pad(ks[off:off + nb], (0, pad))  # k = 0: padding picks none
+      ec = np.pad(excl[off:off + nb], ((0, pad), (0, 0)),
+                  constant_values=-1)
+      sc = np.pad(seeds[off:off + nb], (0, pad))
+      jc = None if jitter is None else np.pad(jitter[off:off + nb],
+                                              ((0, pad), (0, 0)))
+      mult = self._jitter_mult(sc, jc, n) if sc.any() else None
+      g, s = self._merge(self._h2d(kc), self._excl(ec, bq), mult)
+      g, s = self._read_back(g, s)
+      out_g.append(g[:nb])
+      out_s.append(s[:nb])
+      self._query_batch_calls += 1
+    self._query_batch_queries += b
+    if not out_g:
+      k = self._sieve_k
+      return np.zeros((0, k), np.int64), np.zeros((0, k), np.float32)
+    return np.concatenate(out_g), np.concatenate(out_s)
+
+  def _exact_tile(self, kq: torch.Tensor, excl: torch.Tensor, k_cap: int):
+    """The exact tier on one query tile: k_cap greedy facility-location
+    steps over the resident block, each ONE batched facility select (the
+    block shared, per-lane coverage, visibility and candidates on the
+    batch axis) and one ``pairwise`` call for the picks' columns."""
+    backend = self._backend or "auto"
+    sel_b = dispatch.resolve_select_batched("facility_gain", backend)
+    pair = dispatch.resolve("pairwise", backend)
+    f32 = self._feats.float()
+    gids = self._gids
+    cap, b = f32.shape[0], kq.shape[0]
+    hidden = (gids[None, :, None] == excl[:, None, :]).any(dim=-1)
+    vis = ((gids >= 0)[None, :] & ~hidden).to(torch.float32)   # (b, cap)
+    nvis = vis.sum(dim=1)
+    cov = torch.zeros((b, cap), dtype=torch.float32, device=self._dev)
+    okf = vis.clone()
+    out_g = torch.full((b, k_cap), -1, dtype=torch.int64, device=self._dev)
+    out_s = torch.zeros((b, k_cap), dtype=torch.float32, device=self._dev)
+    ar = torch.arange(cap, device=self._dev)
+    for i in range(k_cap):
+      best, idx = sel_b(f32, f32, cov, vis, okf, kernel=self._kernel,
+                        h=self._h)
+      take = (best > 0.0) & (kq > i)
+      sim = pair(f32[idx], f32, kernel=self._kernel, h=self._h)  # (b, cap)
+      cov = torch.where(take[:, None], torch.maximum(cov, sim), cov)
+      okf = torch.where(take[:, None] & (ar[None, :] == idx[:, None]), 0.0,
+                        okf)
+      out_g[:, i] = torch.where(take, gids[idx], -1)
+      out_s[:, i] = torch.where(take, best, 0.0)
+    return out_g, out_s, nvis
+
+  def query_exact_batch(self, ks, exclude, k_cap: int):
+    """Exact-tier batched query over the resident block (facility
+    location): the request surface of ``query_sieves_batch`` without
+    seeds (the exact greedy is deterministic).  Returns host (B, k_cap)
+    gids / scores (the greedy gains over each tenant's visible rows) and
+    the (B,) visible-row counts ``nvis`` (the value normalizer); one
+    read-back a query tile."""
+    ks = np.asarray(ks, np.int64).reshape(-1)
+    b = ks.shape[0]
+    excl = np.asarray(exclude, np.int64).reshape(b, -1)
+    if excl.shape != (b, self._mask_cap):
+      raise ValueError(f"exclude {excl.shape} does not match {b} requests "
+                       f"of mask cap {self._mask_cap}")
+    bq, k_cap = self._qb_tile, int(k_cap)
+    out_g, out_s, out_n = [], [], []
+    for off in range(0, b, bq):
+      nb = min(bq, b - off)
+      pad = bq - nb
+      kc = np.pad(ks[off:off + nb], (0, pad))
+      ec = np.pad(excl[off:off + nb], ((0, pad), (0, 0)),
+                  constant_values=-1)
+      g, s, nv = self._exact_tile(self._h2d(kc), self._excl(ec, bq), k_cap)
+      both = torch.cat([g.to(torch.float64), s.to(torch.float64),
+                        nv.to(torch.float64)[:, None]], dim=1).cpu().numpy()
+      out_g.append(both[:nb, :k_cap].astype(np.int64))
+      out_s.append(both[:nb, k_cap:2 * k_cap].astype(np.float32))
+      out_n.append(both[:nb, 2 * k_cap].astype(np.float32))
+    if not out_g:
+      return (np.zeros((0, k_cap), np.int64),
+              np.zeros((0, k_cap), np.float32), np.zeros((0,), np.float32))
+    return (np.concatenate(out_g), np.concatenate(out_s),
+            np.concatenate(out_n))
+
+  def _gather_bounds(self, gids_q: np.ndarray) -> np.ndarray:
+    """Table entries of the given gids (0.0 for unknown ids) as float32,
+    the rounding of the reference's f32 ``hi`` word."""
+    q = self._h2d(np.asarray(gids_q, np.int64))
+    eq = self._gids[None, :] == q[:, None]
+    hit = eq.any(dim=1)
+    at = eq.to(torch.uint8).argmax(dim=1)
+    vals = torch.where(hit, self._table[at], 0.0)
+    return vals.to(torch.float32).cpu().numpy()
+
+  def reset_sieves(self, sel_feats=None, sel_gids=None) -> None:
+    """Epoch hand-off: clear the sieves and re-grid from the table.
+
+    The new Delta is the table's largest standing singleton gain, rounded
+    to float32 as the reference reads it from its f32 ``hi`` word (one
+    scalar read-back), so the grid reflects the whole corpus.  The epoch's
+    selection (``sel_feats`` / ``sel_gids``, padding already dropped)
+    seeds the fresh buckets through the admission rule, replayed on the
+    host on shard 0's buckets with the rows' table entries as gains: a
+    query right after an epoch answers with at least the epoch's picks.
+    """
+    if self._sieve is None:
+      return
+    m, t, k, d = self._m, self._sieve_T, self._sieve_k, self._d
+    eps = self._sieve_eps
+    delta = float(np.float32(self._table.max().item()))
+    sgid = np.full((m * t, k), -1, np.int64)
+    sgain = np.zeros((m * t, k), np.float32)
+    sfeat = np.zeros((m * t, k, d), np.float32)
+    scnt = np.zeros((m * t,), np.int64)
+    if delta > 0.0:
+      jtop = int(np.ceil(np.log(delta) / np.log1p(eps)))
+      tau = np.exp((jtop - (t - 1) + np.arange(t)) * np.log1p(eps))
+      if sel_feats is not None and len(sel_feats):
+        if isinstance(sel_feats, torch.Tensor):
+          sel_feats = sel_feats.float().cpu().numpy()
+        sel_feats = np.asarray(sel_feats, np.float32)
+        sel_gids = np.asarray(sel_gids, np.int64)
+        gains = self._gather_bounds(sel_gids)
+        for v, g, gid in zip(sel_feats, gains, sel_gids):
+          # ref.sieve_admit_ref on shard 0's buckets
+          red = np.zeros((t,), np.float32)
+          for p in range(t):
+            c = int(scnt[p])
+            if c:
+              sim = _np_sim(v[None], sfeat[p, :c], self._kernel, self._h)[0]
+              if self._kernel == "linear":
+                vsq = max((v.astype(np.float32) ** 2).sum(), 1e-12)
+                msq = np.maximum(
+                    (sfeat[p, :c].astype(np.float32) ** 2).sum(-1), 1e-12)
+                sim = np.maximum(sim, 0.0) / np.sqrt(vsq * msq)
+              red[p] = max(float(np.max(sim)), 0.0)
+          score = float(g) * np.maximum(1.0 - red, 0.0)
+          admit = (score >= tau) & (scnt[:t] < k) & (gid >= 0)
+          for p in np.nonzero(admit)[0]:
+            sgid[p, scnt[p]] = gid
+            sgain[p, scnt[p]] = score[p]
+            sfeat[p, scnt[p]] = v
+            scnt[p] += 1
+    else:
+      jtop = _JTOP_COLD
+    dev = self._dev
+    self._sieve = SieveState(
+        torch.as_tensor(sgid, device=dev), torch.as_tensor(sgain, device=dev),
+        torch.as_tensor(sfeat, device=dev), torch.as_tensor(scnt, device=dev),
+        torch.full((m,), max(delta, 0.0), dtype=torch.float32, device=dev),
+        torch.full((m,), jtop, dtype=torch.int64, device=dev))

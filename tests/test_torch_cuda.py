@@ -93,7 +93,18 @@ def test_cuda_wrappers_count_launches_and_check_operands(cuda_device):
                                  "coverage_select": 0, "info_gain_cond": 1,
                                  "info_select": 1, "graph_cut_gain": 0,
                                  "graph_cut_select": 0, "flash_attention": 0,
-                                 "relu_colsum": 0}
+                                 "relu_colsum": 0, "sieve_admit": 0}
+  from repro_torch.kernels import sieve as SV
+  s_pre = torch.zeros(1, 50, 6, device=cuda_device)
+  with pytest.raises(ValueError, match="sieve_scan: s_intra"):
+    SV.sieve_scan(s_pre, torch.zeros(50, 49, device=cuda_device), None, None,
+                  torch.ones(50, device=cuda_device),
+                  torch.arange(50, device=cuda_device),
+                  torch.ones(1, 50, dtype=torch.bool, device=cuda_device),
+                  torch.ones(3, device=cuda_device),
+                  torch.full((1, 3, 2), -1, device=cuda_device),
+                  torch.zeros(1, 3, 2, device=cuda_device),
+                  torch.zeros(1, 3, dtype=torch.int64, device=cuda_device))
   with pytest.raises(TypeError, match="linv must be float32"):
     ops.info_gain_cond(sel, linv.double(), x[0])
   with pytest.raises(ValueError, match="live of shape"):
@@ -824,10 +835,13 @@ def test_cuda_flash_attention_bf16_takes_tensor_cores(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_graph_cut_one_kernel_a_call(cuda_device):
-  """Each graph_cut_gain and graph_cut_select call is one CUDA kernel (a
-  torch.profiler count) at P = 1, 10 and 16 over a ragged n, with x and the
-  indicator in their own dtypes and an expanded (stride 0) indicator; the
-  results equal the plain versions' and the select's index is int64."""
+  """Each graph_cut_gain and graph_cut_select call is one CUDA kernel at
+  P = 1, 10 and 16 over a ragged n, with x and the indicator in their own
+  dtypes and an expanded (stride 0) indicator; the results equal the plain
+  versions' and the select's index is int64.  The kernels are counted by
+  the launch calls torch.profiler records on the host (``cudaLaunch*`` /
+  ``cuLaunch*``), which are complete, where its device records can drop a
+  window's first ones."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   r = np.random.default_rng(13)
@@ -860,9 +874,11 @@ def test_cuda_graph_cut_one_kernel_a_call(cuda_device):
         for _ in range(3):
           call()
         torch.cuda.synchronize()
-      kern = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-      assert sum(e.count for e in kern) == 3, [e.key for e in kern]
+      evs = prof.events()
+      launch = [e.name for e in evs if e.device_type == DeviceType.CPU
+                and e.name.startswith(("cudaLaunch", "cuLaunch"))]
+      assert len(launch) == 3, (launch, sorted(
+          {e.name for e in evs if e.device_type == DeviceType.CUDA}))
     g = ops.graph_cut_gain(w, x, ind)
     b, i = ops.graph_cut_select(w, x, ok, ind)
     gw = ref.graph_cut_gain_ref(w, x, ind)
@@ -1004,3 +1020,183 @@ def test_cuda_service_and_cli_merge_tree(cuda_device, tmp_path, capsys):
   assert "merge=tree2" in done[-1] and "device=cuda" in done[-1]
   sel = np.load(out)
   assert len(sel) == 8 and len(set(sel.tolist())) == 8
+
+
+def _sieve_case(r, n_sh, ab, t, k, d, dev):
+  """A chunk against S shards' part-filled sieves: duplicated rows, -1
+  padding, rows split between the shards, a full bucket, empty ones."""
+  rows = torch.tensor(r.normal(size=(ab, d)), device=dev).float()
+  rows[1:3] = rows[0]
+  gains = torch.tensor(np.abs(r.normal(size=ab)) * 3, device=dev).float()
+  rgids = torch.arange(ab, device=dev) + 1000
+  rgids[-3:] = -1
+  active = torch.tensor(r.uniform(size=(n_sh, ab)) < 0.6, device=dev)
+  tau = torch.tensor(np.exp((np.arange(t) - 3) * np.log1p(0.5)),
+                     device=dev).float()
+  cnt = torch.tensor(r.integers(0, k + 1, size=(n_sh, t)), device=dev)
+  cnt[0, 0], cnt[0, 1] = k, 0
+  slots = torch.arange(k, device=dev)
+  live = slots < cnt[..., None]
+  gid = torch.where(live, torch.arange(n_sh * t * k, device=dev).view(
+      n_sh, t, k), -1)
+  gain = torch.where(live, 1.0, 0.0)
+  feat = torch.tensor(r.normal(size=(n_sh, t, k, d)), device=dev).float()
+  feat = torch.where(live[..., None], feat, 0.0)
+  return rows, gains, rgids, active, tau, gid, gain, feat, cnt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["linear", "rbf"])
+@pytest.mark.parametrize("n_sh,ab,t,k,d", [(1, 64, 5, 8, 16),
+                                           (2, 1024, 13, 64, 64),
+                                           (3, 300, 4, 40, 22)])
+def test_cuda_sieve_scan_equals_plain_bitwise(cuda_device, kernel, n_sh, ab,
+                                              t, k, d):
+  """The admission-scan kernel (csrc/sieve.cu) equals its plain version
+  ``ref.sieve_scan_ref`` bit for bit on the same sweeps: intra-chunk
+  admissions, a bucket that stays full and one that fills, inactive rows
+  and -1 padding, 1 to 3 shards, k of 8 to 64 slots.  ``ops.sieve_update``
+  equals the sweeps of the ``pairwise`` kernel into the plain scan, and
+  launches the scan once."""
+  from repro_torch.kernels import sieve as SV
+  r = np.random.default_rng(30)
+  dev = cuda_device
+  rows, gains, rgids, active, tau, gid, gain, feat, cnt = _sieve_case(
+      r, n_sh, ab, t, k, d, dev)
+  s_pre = ops.pairwise(rows, feat.view(n_sh, t * k, d), kernel=kernel)
+  s_intra = ops.pairwise(rows, rows, kernel=kernel)
+  rsq, msq = (ref.sieve_norms(rows, feat) if kernel == "linear"
+              else (None, None))
+  args = (s_pre, s_intra, rsq, msq, gains, rgids, active, tau, gid, gain,
+          cnt)
+  before = SV.launches
+  got = SV.sieve_scan(*args)
+  assert SV.launches == before + 1
+  want = ref.sieve_scan_ref(*args)
+  for a, b in zip(got, want):
+    assert torch.equal(a, b)
+  assert bool((got[3] > cnt).any()) and bool((got[3][0, 0] == k))
+  assert bool(((got[2] >= 0).sum(-1) >= 2).any())       # intra-chunk
+  assert torch.equal(gid, args[8]) and torch.equal(cnt, args[10])
+  feat_w = torch.where((want[2] >= 0)[..., None],
+                       rows[want[2].clamp_min(0)], feat)
+  upd = ops.sieve_update(rows, gains, rgids, active, tau, gid, gain, feat,
+                         cnt, kernel=kernel)
+  assert SV.launches == before + 2
+  for a, b in zip(upd, (want[0], want[1], feat_w, want[3])):
+    assert torch.equal(a, b)
+  from repro_torch.kernels import dispatch
+  with pytest.raises(ValueError, match="cuda"):
+    dispatch.resolve("sieve_update", "cuda")(
+        *(x.cpu() for x in (rows, gains, rgids, active, tau, gid, gain,
+                            feat, cnt)))
+
+
+@pytest.mark.cuda
+def test_cuda_batched_selects_match_plain(cuda_device):
+  """The three query-batched selects (B per-query states over one shared
+  block, one launch each) against their plain versions on the card."""
+  from repro_torch.kernels import dispatch
+  r = np.random.default_rng(31)
+  dev = cuda_device
+  b, ne, nc, d, k = 6, 700, 500, 32, 8
+  ev = torch.tensor(np.abs(r.normal(size=(ne, d))), device=dev).float()
+  cd = torch.tensor(np.abs(r.normal(size=(nc, d))), device=dev).float()
+  ok = torch.tensor(r.uniform(size=(b, nc)) > 0.3, device=dev)
+  cov = torch.tensor(r.uniform(0, 2, size=(b, ne)), device=dev).float()
+  mask = (torch.tensor(r.uniform(size=(b, ne)), device=dev) > 0.2).float()
+  cap = torch.full((ne,), 3.0, device=dev)
+  sel = torch.tensor(r.normal(size=(b, k, d)), device=dev).float() * 0.2
+  kss = torch.exp(-torch.cdist(sel.double(), sel.double()) ** 2 / 0.75 ** 2)
+  linv = torch.linalg.inv(torch.linalg.cholesky(
+      kss + torch.eye(k, device=dev, dtype=torch.float64))).float()
+  cases = (("facility_gain", (ev, cd, cov, mask, ok), {}),
+           ("coverage_gain", (ev, cd, cov, cap, mask, ok), {}),
+           ("info_gain_cond", (sel, linv, cd, ok), dict(kernel="rbf")))
+  ops.reset_launch_counts()
+  for name, args, kw in cases:
+    best, idx = dispatch.resolve_select_batched(name, "cuda")(*args, **kw)
+    wb, wi = dispatch.resolve_select_batched(name, "ref")(*args, **kw)
+    assert best.shape == (b,) and torch.equal(idx, wi), name
+    _close(best, wb, 2e-5)
+  counts = ops.launch_counts()
+  assert (counts["facility_select"], counts["coverage_select"],
+          counts["info_select"]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_service_query_path(cuda_device):
+  """The facility service's query path on the card: the admission scan
+  runs in every append chunk and adds no host sync to it; a query and a
+  batch read back once a query tile; batched answers select what the
+  requests select alone; the merge and the exact tier through the
+  kernels select what the plain route selects."""
+  import warnings
+
+  from repro_torch.kernels import sieve as SV
+  from repro_torch.service import CorpusStore, QueryRequest, SelectionService
+  r = np.random.default_rng(32)
+  x = torch.tensor(r.normal(size=(4096, 16)), device=cuda_device).float()
+  x = x / x.norm(dim=1, keepdim=True)
+
+  def syncs(fn):
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+      with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fn()
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+  kw = dict(m=4, d=16, kappa=8, k_final=8, capacity=2048, append_block=256,
+            seed=0)
+  svc = SelectionService(**kw)
+  plain = SelectionService(backend="ref", sieve=False, **kw)
+  svc.append(x[:3000])
+  plain.append(x[:3000])
+  plain.append(x[3000:])
+  before = SV.launches
+  n_sync = syncs(lambda: svc.append(x[3000:]))
+  assert SV.launches - before == -(-1096 // 256)
+  assert n_sync == 0
+  assert syncs(lambda: svc.query()) == 1
+  base = svc.query().sel_gids
+  reqs = [QueryRequest(k=1 + i % 8, seed=i % 3, exclude_gids=tuple(
+      int(g) for g in base[:i % 4])) for i in range(20)]
+  assert syncs(lambda: svc.query_batch(reqs[:10])) == 1
+  batched = svc.query_batch(reqs)
+  for rq, rb in zip(reqs, batched):
+    rs = svc.query(rq.k, seed=rq.seed, exclude_gids=rq.exclude_gids or None)
+    assert np.array_equal(rb.sel_gids, rs.sel_gids)
+  st = svc.store
+  ref_store = CorpusStore(m=4, d=16, maintainer=st._maintainer,
+                          sieve_k=st.sieve_k, backend="ref")
+  ref_store.set_sieve_state(st.sieve_state)
+  assert np.array_equal(st.query_sieves()[0], ref_store.query_sieves()[0])
+  ex = svc.query_batch(reqs[:6], tier="exact")
+  ex_plain = plain.query_batch(reqs[:6], tier="exact")
+  for a, b in zip(ex, ex_plain):
+    assert np.array_equal(a.sel_gids, b.sel_gids)
+    assert a.value_estimate == pytest.approx(b.value_estimate, rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_append_from_pinned_memory_keeps_its_rows(cuda_device):
+  """An append from a pinned host buffer has landed when it returns: the
+  caller may overwrite the buffer at once, even with the stream busy, and
+  the store holds the rows as they were."""
+  from repro_torch.core import objectives as O
+  from repro_torch.service import CorpusStore
+  r = np.random.default_rng(33)
+  rows = torch.tensor(r.normal(size=(1024, 16)), dtype=torch.float32)
+  buf = rows.clone().pin_memory()
+  st = CorpusStore(m=2, d=16, capacity=2048, append_block=256,
+                   maintainer=O.bound_maintainer_for(O.FacilityLocation()),
+                   sieve_k=8)
+  busy = torch.randn(4096, 4096, device=cuda_device)
+  for _ in range(8):
+    busy = busy @ busy * 1e-3
+  st.append(buf)
+  buf.fill_(float("nan"))
+  assert torch.equal(st.feats[:1024].cpu(), rows)

@@ -239,10 +239,13 @@ def test_registry_backends():
   raises instead of falling back; "ref" and "auto" run the plain version."""
   assert dispatch.names() == ("bound_update", "coverage_gain", "facility_gain",
                               "flash_attention", "graph_cut_gain",
-                              "info_gain_cond", "pairwise", "relu_colsum")
+                              "info_gain_cond", "pairwise", "relu_colsum",
+                              "sieve_update")
   assert dispatch.select_names() == ("coverage_gain", "facility_gain",
                                      "graph_cut_gain", "info_gain_cond")
-  assert dispatch.select_batched_names() == ("graph_cut_gain",)
+  assert dispatch.select_batched_names() == ("coverage_gain", "facility_gain",
+                                             "graph_cut_gain",
+                                             "info_gain_cond")
   w = torch.rand(12, 12)
   xs = torch.zeros(3, 12)
   oks = torch.ones(3, 12, dtype=torch.bool)
@@ -308,6 +311,19 @@ def test_registry_backends():
     dispatch.resolve("relu_colsum", "cuda")(s3, c2)
   assert torch.equal(dispatch.resolve("relu_colsum", "ref")(s3, c2),
                      dispatch.resolve("relu_colsum", "auto")(s3, c2))
+  rows, tau = torch.randn(6, 8), torch.ones(2)
+  sieve = (torch.full((2, 3), -1), torch.zeros(2, 3), torch.zeros(2, 3, 8),
+           torch.zeros(2, dtype=torch.int64))
+  sieve_args = (rows, torch.ones(6), torch.arange(6), torch.ones(
+      6, dtype=torch.bool), tau, *sieve)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve("sieve_update", "cuda")(*sieve_args)
+  for a, b in zip(dispatch.resolve("sieve_update", "ref")(*sieve_args),
+                  dispatch.resolve("sieve_update", "auto")(*sieve_args)):
+    assert torch.equal(a, b)
+  with pytest.raises(ValueError, match="backend 'cuda' needs CUDA"):
+    dispatch.resolve_select_batched("facility_gain", "cuda")(
+        x, y, cov.expand(3, -1), mask.expand(3, -1), ok.expand(3, -1))
   with pytest.raises(ValueError, match="not in"):
     dispatch.resolve("pairwise", "pallas")
   assert ops.launch_counts() == {"pairwise": 0, "facility_gain": 0,
@@ -315,7 +331,7 @@ def test_registry_backends():
                                  "coverage_select": 0, "info_gain_cond": 0,
                                  "info_select": 0, "graph_cut_gain": 0,
                                  "graph_cut_select": 0, "flash_attention": 0,
-                                 "relu_colsum": 0}
+                                 "relu_colsum": 0, "sieve_admit": 0}
 
 
 @pytest.mark.parametrize("kernel", ["linear", "rbf"])
@@ -345,8 +361,8 @@ def test_bound_update_matches_reference(kernel):
 
 def test_port_imports_neither_jax_nor_reference():
   """In a fresh interpreter, importing every module of the port (the
-  selection service's, the graph-cut path's and the LM serving path's
-  among them) and the port's
+  selection service's with its query path, the graph-cut path's and the
+  LM serving path's among them) and the port's
   examples, examples/active_set_gp_torch.py and
   examples/maxcut_constrained_torch.py, loads no JAX and no module of the
   reference package."""
@@ -367,7 +383,9 @@ for name in ("repro_torch.service.service", "repro_torch.service.store",
              "repro_torch.kernels.graph_cut_gain", "repro_torch.data.graphs",
              "repro_torch.kernels.flash_attention", "repro_torch.configs",
              "repro_torch.configs.qwen3_4b", "repro_torch.models.registry",
-             "repro_torch.models.transformer", "repro_torch.serve.serve_step"):
+             "repro_torch.models.transformer", "repro_torch.serve.serve_step",
+             "repro_torch.service.batching", "repro_torch.kernels.sieve",
+             "repro_torch.data.pipeline", "repro_torch.interop"):
   assert name in sys.modules, name
 """
   env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
