@@ -18,6 +18,16 @@ calls, counting each kernel's launches around each path:
     (tree_branch 16, which must give the flat merge's bits, and 4, in the
     fast and the generic engine) and ``greedi_hierarchical`` over 4 pods x
     4;
+  * the remaining objectives at the coreset path's full size:
+    ``FacilityLocationPre`` through ``greedi_reference`` (the cached
+    (16, 16384, 16384) block, one ``relu_colsum`` launch a step, 128 in
+    all) against the reference path and the fast engine on the same
+    partition; the k-medoid surrogate of Eq. (6) (``neg_sq_dist``,
+    baseline -1, the generic path: cuBLAS blocks of at most 1 GiB through
+    ``relu_colsum``) through ``greedi_reference`` and the generic
+    ``greedi_sharded``, and at the CLI's size against the centralized
+    greedy (at or above the Thm-4 floor); ``Modular`` through GreeDi and
+    the centralized greedy (equal ids);
   * the GP active-set path (information gain, Sec. 6.2 of the paper:
     ``greedi_reference``, the generic ``greedi_sharded`` and
     ``centralized_greedy``) at the data size of the paper's Yahoo! Webscope
@@ -40,7 +50,11 @@ calls, counting each kernel's launches around each path:
     alone before and after an epoch, the merge through the kernels
     against the plain route, host syncs per append chunk and per query
     tile; the exact tier (a batched greedy over the block) on its own
-    store of 16,384 rows, 64 tenants, against the plain route;
+    store of 16,384 rows, 64 tenants, against the plain route; the same
+    ingest with obs off and with obs on (``repro_torch.obs``: spans,
+    device-fed series, a ``/metrics`` scrape and a ``POST /healthz`` beat
+    through the sidecar, host syncs each way), and the CLI's service mode
+    with ``--trace-out`` / ``--stats-json`` in a process of its own;
   * the graph-cut path of Sec. 5 / 6.3 (non-monotone max-cut, RandomGreedy
     through ``greedi_reference`` with local evaluation, Alg. 3 under a
     partition matroid as ``examples/maxcut_constrained_torch.py`` runs it,
@@ -267,6 +281,7 @@ class Sizes:
   exact_n: int = 16384
   exact_b: int = 64
   exact_plain_tile: int = 4  # lanes a plain-version call (memory: B n^2)
+  obs_turns: int = 3      # epochs with obs off and on, in turns
 
 
 class SmokeFailure(Exception):
@@ -770,13 +785,14 @@ def wide_select_phase(sz: Sizes):
 # ---------------------------------------------------------------------------
 
 
-def value_of(feats, sel):
-  """f(S) of a selection under the full-set facility objective."""
+def value_of(feats, sel, obj=None):
+  """f(S) of a selection under the full-set facility objective (``obj``,
+  by default linear facility location)."""
   import torch
 
   from repro_torch.core import greedi as GD
   from repro_torch.core import objectives as O
-  obj = O.FacilityLocation()
+  obj = O.FacilityLocation() if obj is None else obj
   sf = feats[torch.as_tensor(sel, device=feats.device)]
   st = GD.set_value_feats(obj, obj.init(feats), sf,
                           torch.ones(sf.shape[:1], dtype=torch.bool,
@@ -784,11 +800,12 @@ def value_of(feats, sel):
   return float(obj.value(st))
 
 
-def agree(feats, a, b, what):
+def agree(feats, a, b, what, obj=None):
   """Equal selections, or the near-tie rule: at the first position where
   they differ both picks' marginal gains (after the common prefix, under
-  the full-set objective) agree within the f32 tolerance, and the two f(S)
-  agree within 1e-5 relative."""
+  the full-set objective ``obj``, by default linear facility location)
+  agree within the f32 tolerance, and the two f(S) agree within 1e-5
+  relative."""
   import numpy as np
   import torch
 
@@ -798,7 +815,7 @@ def agree(feats, a, b, what):
     return "equal"
   t = int(np.flatnonzero(a[:min(len(a), len(b))] !=
                          b[:min(len(a), len(b))])[0])
-  obj = O.FacilityLocation()
+  obj = O.FacilityLocation() if obj is None else obj
   prefix = feats[torch.as_tensor(a[:t], device=feats.device)]
   st = GD.set_value_feats(obj, obj.init(feats), prefix,
                           torch.ones((t,), dtype=torch.bool,
@@ -806,7 +823,7 @@ def agree(feats, a, b, what):
   pair = feats[torch.as_tensor([a[t], b[t]], device=feats.device)]
   g = obj.gains(st, pair)
   gap = float((g[0] - g[1]).abs() / g.abs().max())
-  va, vb = value_of(feats, a), value_of(feats, b)
+  va, vb = value_of(feats, a, obj), value_of(feats, b, obj)
   rel = abs(va - vb) / max(abs(va), 1e-30)
   check(gap <= TOL_LONG_SUM and rel <= 1e-5,
         f"{what}: selections differ at step {t} (gain gap {gap:.3e}, "
@@ -954,7 +971,7 @@ def e2e_full(sz: Sizes):
        wall_s={k: v["wall_s"] for k, v in out.items()},
        peak_gib={k: v["peak_gib"] for k, v in out.items()},
        launches=counts, agreement=verdicts, value=value)
-  return counts, out["reference"]["sel"]
+  return counts, out["reference"]["sel"], out["fast"]["sel"]
 
 
 def fast_layout(feats, m):
@@ -1133,6 +1150,334 @@ def e2e_tree(sz: Sizes, flat):
        sz.k, thm4_floor=floor, tree16_bits_equal_flat=True,
        generic_vs_fast_tree=engines_agree, paths=rows)
   return counts
+
+
+def e2e_pre(sz: Sizes, ref_sel, fast_sel):
+  """FacilityLocationPre (linear) through ``greedi_reference`` at full size
+  (n = 262144, m = 16, k = kappa = 64, local evaluation), the same rows and
+  partition as ``e2e full-size``: round 1 caches the (16, 16384, 16384)
+  block (16 GiB) through one ``pairwise`` launch, round 2 the (262144,
+  1024) block (1 GiB), and every step is one ``relu_colsum`` launch (128
+  in all).  Held against the FacilityLocation reference path and the fast
+  engine (which caches the same ``pairwise`` bits) under the ``agree``
+  rule.  Returns the launch counts by path."""
+  import torch
+
+  from repro_torch.core import greedi as GD
+  from repro_torch.core import objectives as O
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+  pre = O.FacilityLocationPre(kernel="linear")
+  # twice: the first run in a process once stalled 3.6 s (section 7 of
+  # PERF.md), so the second, the same selection, is reported beside it
+  runs = [timed_run(lambda: GD.greedi_reference(
+      torch.Generator().manual_seed(0), feats, m=sz.m, kappa=sz.k,
+      k_final=sz.k, objective=pre, local_eval=True,
+      init_for=lambda ef, em, cf: pre.init(ef, em, cf))) for _ in range(2)]
+  run = runs[0]
+  sel = selected(run["result"], sz.n, sz.k, "e2e pre")
+  check(bool((runs[1]["result"].sel_gids == run["result"].sel_gids).all()),
+        "e2e pre: the second run selected another coreset")
+  n_colsum = run["launches"]["relu_colsum"]
+  check(n_colsum == 2 * sz.k, f"e2e pre: {n_colsum} relu_colsum launches, "
+        f"expected {2 * sz.k} (one a step)")
+  check(run["launches"]["pairwise"] == 2 and not any(
+      run["launches"][k] for k in ("facility_select", "facility_gain")),
+        f"e2e pre: launches {run['launches']}")
+  verdicts = {"pre vs reference": agree(feats, sel, ref_sel,
+                                        "e2e pre/reference"),
+              "pre vs fast": agree(feats, sel, fast_sel, "e2e pre/fast")}
+  emit("e2e pre full-size", n=sz.n, d=sz.d, k=sz.k, m=sz.m,
+       cache_gib={"round1": sz.m * (sz.n // sz.m) ** 2 * 4 / 2**30,
+                  "round2": sz.n * sz.m * sz.k * 4 / 2**30},
+       wall_s=[r["wall_s"] for r in runs],
+       peak_gib=[r["peak_gib"] for r in runs],
+       launches={k: v for k, v in run["launches"].items() if v},
+       agreement=verdicts, value=float(run["result"].value))
+  return {"pre": run["launches"]}
+
+
+def e2e_exemplar(sz: Sizes):
+  """The k-medoid surrogate of Eq. (6): FacilityLocation(kernel =
+  "neg_sq_dist", baseline = -1) on unit rows (the phantom exemplar at the
+  origin), the generic path (cuBLAS blocks of at most
+  ``objectives._GENERIC_BLOCK_BYTES``, each through the ``relu_colsum``
+  kernel).  At full size ``greedi_reference`` (local evaluation) and the
+  generic ``greedi_sharded`` on one partition must agree; at the CLI size
+  GreeDi against ``centralized_greedy``, f(GreeDi) / f(central) at or
+  above the Thm-4 floor.  Returns the launch counts by path."""
+  import torch
+
+  from repro_torch.core import bounds
+  from repro_torch.core import greedi as GD
+  from repro_torch.core import objectives as O
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  obj = O.FacilityLocation(kernel="neg_sq_dist", baseline=-1.0)
+  init = obj.init
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+  fsh, gids = fast_layout(feats, sz.m)
+  npp = sz.n // sz.m
+  runs = {
+      "exemplar_reference": timed_run(lambda: GD.greedi_reference(
+          torch.Generator().manual_seed(0), feats, m=sz.m, kappa=sz.k,
+          k_final=sz.k, objective=obj, init_for=init, local_eval=True)),
+      "exemplar_generic": timed_run(lambda: GD.greedi_sharded(
+          fsh, m=sz.m, kappa=sz.k, k_final=sz.k, objective=obj,
+          gids=gids)),
+  }
+  sels = {k: selected(v["result"], sz.n, sz.k, f"e2e exemplar {k}")
+          for k, v in runs.items()}
+  engines = agree(feats, sels["exemplar_reference"],
+                  sels["exemplar_generic"], "e2e exemplar reference/generic",
+                  obj)
+  for name, run in runs.items():
+    check(run["launches"]["relu_colsum"] > 0 and not any(
+        run["launches"][k] for k in ("facility_select", "facility_gain",
+                                     "pairwise")),
+          f"e2e exemplar {name}: launches {run['launches']}")
+  # round 1's step: candidate chunks of the byte budget over the stacked
+  # (m, npp, npp) block, a cuBLAS product and a relu_colsum launch each
+  chunk = O._chunk_cols(sz.m, npp)
+  per_step = -(-npp // chunk)
+  check(runs["exemplar_reference"]["launches"]["relu_colsum"] ==
+        sz.k * per_step + sz.k * -(-sz.m * sz.k // O._chunk_cols(1, sz.n)),
+        "e2e exemplar: relu_colsum launches a step")
+  # the CLI size: GreeDi against the centralized greedy
+  cli = EmbeddedCorpus(n_docs=sz.n_cli, feat_dim=sz.d, seed=0).features()
+  small = {
+      "exemplar_cli_greedi": timed_run(lambda: GD.greedi_reference(
+          torch.Generator().manual_seed(0), cli, m=sz.m_cli, kappa=sz.k,
+          k_final=sz.k, objective=obj, init_for=init, local_eval=True)),
+      "exemplar_cli_central": timed_run(lambda: GD.centralized_greedy(
+          cli, sz.k, objective=obj, init_for=init)),
+  }
+  v_g = float(small["exemplar_cli_greedi"]["result"].value)
+  v_c = float(small["exemplar_cli_central"]["result"][1])
+  floor = bounds.thm4_bound(sz.m_cli, sz.k, sz.k)
+  check(v_g / v_c >= floor, f"e2e exemplar: f(GreeDi) / f(central) "
+        f"{v_g / v_c} below the Thm-4 floor {floor}")
+  runs.update(small)
+  budget = O._GENERIC_BLOCK_BYTES / 2**30
+  emit("e2e exemplar", n=sz.n, d=sz.d, k=sz.k, m=sz.m, baseline=-1.0,
+       block_budget_gib=budget, round1_chunks_a_step=per_step,
+       round1_cublas_a_step=per_step, round1_relu_colsum_a_step=per_step,
+       wall_s={k: v["wall_s"] for k, v in runs.items()},
+       peak_gib={k: v["peak_gib"] for k, v in runs.items()},
+       relu_colsum_launches={k: v["launches"]["relu_colsum"]
+                             for k, v in runs.items()},
+       agreement={"reference vs generic": engines},
+       cli_ratio=v_g / v_c, thm4_floor=floor,
+       value=float(runs["exemplar_reference"]["result"].value))
+  return {k: v["launches"] for k, v in runs.items()}
+
+
+def e2e_modular(sz: Sizes):
+  """``Modular`` (f(S) = sum relu(w . x)) through ``greedi_reference`` and
+  ``centralized_greedy`` at n = 262144: GreeDi is exact for a modular f,
+  so the ids must be equal (both the top k by weight)."""
+  import numpy as np
+  import torch
+
+  from repro_torch.core import greedi as GD
+  from repro_torch.core import objectives as O
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+  w = torch.randn((sz.d,), generator=torch.Generator(device=DEVICE)
+                  .manual_seed(7), device=DEVICE)
+  obj = O.Modular()
+  init = lambda ef, em: obj.init_w(w)  # noqa: E731
+  g = timed_run(lambda: GD.greedi_reference(
+      torch.Generator().manual_seed(0), feats, m=sz.m, kappa=sz.k,
+      k_final=sz.k, objective=obj, init_for=init))
+  c = timed_run(lambda: GD.centralized_greedy(feats, sz.k, objective=obj,
+                                              init_for=init))
+  gs = selected(g["result"], sz.n, sz.k, "e2e modular")
+  cs = c["result"][0].idx.cpu().numpy()
+  top = torch.topk(torch.clamp_min(feats @ w, 0.0), sz.k).indices
+  check(np.array_equal(gs, cs) and set(cs.tolist()) == set(
+      top.cpu().tolist()), f"e2e modular: GreeDi {gs} and centralized "
+        f"{cs} differ (or miss the top k)")
+  emit("e2e modular", n=sz.n, d=sz.d, k=sz.k, m=sz.m, ids_equal=True,
+       wall_s={"greedi": g["wall_s"], "central": c["wall_s"]},
+       value=float(g["result"].value),
+       value_central=float(c["result"][1]))
+
+
+def parse_prometheus(text: str) -> dict:
+  """{series: value} of a Prometheus text exposition (``name{labels}``
+  keys), checking every line is a comment or a sample."""
+  out = {}
+  for line in text.splitlines():
+    if not line or line.startswith("#"):
+      continue
+    key, _, val = line.rpartition(" ")
+    check(bool(key) and (key.split("{")[0].replace("_", "").isalnum()),
+          f"/metrics: bad line {line!r}")
+    out[key] = float(val.replace("+Inf", "inf"))
+  return out
+
+
+def e2e_obs(sz: Sizes):
+  """The e2e query facility service (16 appends of 16,384 rows, a
+  ``query()`` after each, one 64-request batch, two epochs) with obs off
+  and with ``obs.enable(trace_out=...)`` and a ``Sidecar`` on port 0: the
+  spans by name against the calls made; the device-fed series (eval mass a
+  shard, merge peak rows, admissions) and ``repro_epochs_total``; a
+  ``/metrics`` scrape over 127.0.0.1, parsed; a ``POST /healthz`` beat
+  moving the board's age; host syncs of an append chunk and of a query
+  tile (0 and 1 with obs off); the epoch wall and the ingest rows/s each
+  way, and then epochs of the same service with obs off and on in turns
+  (``obs_turns`` of each: epoch walls spread by tens of percent from one
+  service to the next)."""
+  import json
+  import urllib.request
+
+  import torch
+
+  from repro_torch import obs
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.service import SelectionService
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+  step = sz.n // sz.query_appends
+  chunks = step // sz.append_block
+  report = {}
+  (REPO / "build").mkdir(exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    trace = os.path.join(tmp, "trace.jsonl")
+    for on in (False, True):
+      torch.cuda.empty_cache()
+      obs.REGISTRY.reset()
+      side = None
+      if on:
+        obs.enable(trace_out=trace)
+      try:
+        svc = SelectionService(m=sz.m, d=sz.d, kappa=sz.k, k_final=sz.k,
+                               capacity=sz.svc_cap0,
+                               append_block=sz.append_block, seed=0)
+        if on:
+          side = obs.Sidecar(board=svc.board, port=0)
+        wall, ids = 0.0, 0
+        for a in range(sz.query_appends):
+          part = feats[a * step:(a + 1) * step]
+          sync()
+          t0 = time.perf_counter()
+          if a == sz.query_appends - 1:
+            _, n_sync = count_syncs(lambda p=part: svc.append(p))
+          else:
+            svc.append(part)
+          sync()
+          wall += time.perf_counter() - t0
+          if a == sz.query_appends - 1:
+            q, q_sync = count_syncs(svc.query)
+          else:
+            q = svc.query()
+          ids += len(q.sel_gids)
+        reqs = query_requests(q.sel_gids, sz.query_b, sz.k,
+                              svc.store.query_mask_cap)
+        svc.query_batch(reqs)
+        epochs = [svc.epoch().stats.wall_s for _ in range(2)]
+        snap = obs.REGISTRY.snapshot()
+        row = dict(rows_per_s=sz.n / wall, append_s=wall,
+                   syncs_per_chunk=n_sync / chunks, query_syncs=q_sync,
+                   epoch_wall_s=epochs)
+        if on:
+          body = urllib.request.urlopen(side.url + "/metrics",
+                                        timeout=30).read().decode()
+          scraped = parse_prometheus(body)
+          before = svc.board.ages()
+          time.sleep(0.05)
+          req = urllib.request.Request(side.url + "/healthz?shard=3",
+                                       data=b"", method="POST")
+          beat = json.loads(urllib.request.urlopen(req, timeout=30).read())
+          after = svc.board.ages()
+          check(beat == {"ok": True, "shard": 3} and after[3] < before[3]
+                and after[3] < after[2], f"e2e obs: POST /healthz did not "
+                f"move shard 3's age ({before} -> {after})")
+          row.update(scraped_series=len(scraped), beat_age_s=[
+              float(before[3]), float(after[3])])
+      finally:
+        if side is not None:
+          side.close()
+        obs.disable()
+      if not on:
+        check(n_sync == 0 and q_sync == 1, f"e2e obs: with obs off an "
+              f"append chunk made {n_sync / chunks} host syncs and a query "
+              f"{q_sync}, expected 0 and 1")
+        for name in ("repro_epoch_eval_mass", "repro_sieve_admissions_total"):
+          check(name not in snap, f"e2e obs: {name} read with obs off")
+      else:
+        recs = [json.loads(line) for line in open(trace)]
+        names = {}
+        for r in recs:
+          check(set(r) == {"name", "ts", "dur_s", "pid", "tid", "attrs"},
+                f"e2e obs: span record keys {sorted(r)}")
+          names[r["name"]] = names.get(r["name"], 0) + 1
+        want = {"service.query": sz.query_appends, "service.query_batch": 1,
+                "service.epoch": 2}
+        check(names == want, f"e2e obs: spans {names}, expected {want}")
+        mass = snap["repro_epoch_eval_mass"]["series"]
+        rows = snap["repro_merge_peak_rows"]["series"]
+        adm = snap["repro_sieve_admissions_total"]["series"][0]["value"]
+        check(len(mass) == sz.m and all(s["value"] > 0 for s in mass) and
+              len(rows) == sz.m and all(s["value"] == sz.m * sz.k
+                                        for s in rows) and adm > 0 and
+              snap["repro_epochs_total"]["series"][0]["value"] == 2,
+              "e2e obs: device-fed series missing or zero")
+        check(scraped.get("repro_epochs_total") == 2.0 and
+              scraped.get('repro_epoch_eval_mass{shard="0"}') ==
+              mass[0]["value"], "e2e obs: /metrics does not carry the "
+              "registry's series")
+        row.update(spans=names, admissions=adm,
+                   eval_mass=[s["value"] for s in mass])
+      report["on" if on else "off"] = row
+    # the epoch's obs overhead on one service, in turns: off, on, ...
+    alt = {"off": [], "on": []}
+    for _ in range(sz.obs_turns):
+      for mode in ("off", "on"):
+        if mode == "on":
+          obs.enable(trace_out=os.path.join(tmp, "turns.jsonl"))
+        try:
+          alt[mode].append(svc.epoch().stats.wall_s)
+        finally:
+          obs.disable()
+    report["epoch_wall_s_in_turns"] = alt
+    del svc
+  emit("e2e obs", n=sz.n, d=sz.d, m=sz.m, k=sz.k, appends=sz.query_appends,
+       **report)
+
+
+def cli_obs_run(sz: Sizes):
+  """``python -m repro_torch.launch.select`` in service mode at the CLI
+  size with ``--trace-out``, ``--stats-json`` and ``--metrics-port 0``:
+  its files parsed (a span an epoch, a record a stats line, the registry
+  snapshot)."""
+  import json
+  (REPO / "build").mkdir(exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    trace, stats = os.path.join(tmp, "t.jsonl"), os.path.join(tmp, "s.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.select", "--n",
+           str(sz.n_cli), "--d", str(sz.d), "--k", str(sz.k), "--mesh",
+           str(sz.m_cli), "--epochs", "2", "--append-frac", "0.25",
+           "--no-coverage", "--trace-out", trace, "--stats-json", stats,
+           "--metrics-port", "0", "--device", DEVICE]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=str(
+                             SRC)))
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"CLI obs run failed: {out.stderr[-2000:]}")
+    recs = [json.loads(line) for line in open(trace)]
+    payload = json.load(open(stats))
+  epochs = [r for r in recs if r["name"] == "service.epoch"]
+  events = [r["event"] for r in payload["stats"]]
+  check(len(epochs) == 2 and events.count("epoch") == 2 and "done" in events
+        and "sidecar" in events and payload["metrics"]["repro_epochs_total"][
+            "series"][0]["value"] == 2 and len(payload["metrics"][
+                "repro_epoch_eval_mass"]["series"]) == sz.m_cli,
+        f"CLI obs run: spans {len(epochs)}, events {events}")
+  emit("cli obs", n=sz.n_cli, m=sz.m_cli, wall_s=wall, spans=len(recs),
+       events=events, metrics=len(payload["metrics"]),
+       epoch_wall_s=[r["dur_s"] for r in epochs])
 
 
 def colsum_phase(label, s, cov, cols, launches, full=None):
@@ -3970,13 +4315,19 @@ def main() -> int:
   flash_edge_phase()
   e2e_cli_size(sz)
   torch.cuda.empty_cache()
-  fl_counts, ref_sel = e2e_full(sz)
+  fl_counts, ref_sel, fast_sel = e2e_full(sz)
   torch.cuda.empty_cache()
   flat, lazy_counts = e2e_fast_lazy(sz, ref_sel)
   fl_counts.update(lazy_counts)
   torch.cuda.empty_cache()
   fl_counts.update(e2e_tree(sz, flat))
   del flat
+  torch.cuda.empty_cache()
+  fl_counts.update(e2e_pre(sz, ref_sel, fast_sel))
+  torch.cuda.empty_cache()
+  fl_counts.update(e2e_exemplar(sz))
+  torch.cuda.empty_cache()
+  e2e_modular(sz)
   torch.cuda.empty_cache()
   e2e_wide(sz)
   torch.cuda.empty_cache()
@@ -3992,6 +4343,10 @@ def main() -> int:
       query_counts[MAIN_PATH["sieve_admit"]]["sieve_admit"])
   profile_query(qsvc, sz)
   del qsvc
+  torch.cuda.empty_cache()
+  e2e_obs(sz)
+  torch.cuda.empty_cache()
+  cli_obs_run(sz)
   torch.cuda.empty_cache()
   e2e_query_exact(sz)
   torch.cuda.empty_cache()

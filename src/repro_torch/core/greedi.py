@@ -36,6 +36,13 @@ Rows with ``gids = -1`` are holes -- never candidates, never evaluation
 mass -- so any n shards cleanly.  ``straggler_keep`` drops machines from
 the merge AND from the evaluation weight.
 
+Initial states: ``greedi_reference``, ``centralized_greedy`` and
+``baselines`` build them with the caller's ``init_for``; one that takes
+three positional arguments (``_init_arity``) also receives the candidate
+block the state will score, the precompute path of
+``FacilityLocationPre`` (``_call_init``).  The sharded engines call
+``objective.init`` themselves, as the reference's do.
+
 Randomness: the protocol's generators come from ``greedi_keys``; every
 entry point also takes an explicit ``perm`` (and ``u_idx`` for the Thm-10
 subset), so a caller can inject the partition another implementation drew.
@@ -58,6 +65,7 @@ backend beside the stacked one (liveness across processes with it).
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -86,6 +94,33 @@ def set_value_feats(objective, state0, sel_feats: torch.Tensor,
     state = where_state(valid[..., t], objective.update(
         state, sel_feats[..., t, :]), state)
   return state
+
+
+def _init_arity(init_for) -> int:
+  """Positional arity of a user ``init_for``: 3 when it takes the
+  candidate block (a precompute path such as ``FacilityLocationPre``),
+  else 2.  Read from the signature, never by calling and retrying, so a
+  TypeError raised inside the user's function propagates.  A ``*args``
+  callable is taken at its word and receives the candidate block."""
+  try:
+    sig = inspect.signature(init_for)
+  except (TypeError, ValueError):  # builtins without inspectable signatures
+    return 2
+  n = 0
+  for p in sig.parameters.values():
+    if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD):
+      n += 1
+    elif p.kind is p.VAR_POSITIONAL:
+      return 3
+  return n
+
+
+def _call_init(init_for, eval_feats: torch.Tensor, eval_mask: torch.Tensor,
+               cand_feats: torch.Tensor):
+  """``init_for(eval_feats, eval_mask[, cand_feats])`` by its arity."""
+  if _init_arity(init_for) >= 3:
+    return init_for(eval_feats, eval_mask, cand_feats)
+  return init_for(eval_feats, eval_mask)
 
 
 def _take_k(x: torch.Tensor, k: int, fill) -> torch.Tensor:
@@ -436,6 +471,10 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
       receives (m, npp, d) / (m, npp) blocks under ``local_eval``.  For
       set-only objectives (information gain, DPP) it may ignore its inputs
       and return an unbatched state: every partition gets its own copy.
+      A 3-argument callable also receives the candidate block the state
+      will score (round 1: the (m, npp, d) partitions; round 2: the
+      (m * kappa, d) merged block), the precompute path of
+      ``FacilityLocationPre``.
     local_eval: round-1 machines evaluate f on their local partition only
       (the decomposable mode of Sec. 4.5).
     final_subset: if given, round 2 and the final comparison evaluate f on
@@ -466,14 +505,18 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
 
   # ---- round 1: one greedy per machine, all machines in one batch -------
   if local_eval:
-    st0 = init_for(parts, pmask.to(parts.dtype))
+    st0 = _call_init(init_for, parts, pmask.to(parts.dtype), parts)
   else:
-    st0 = init_for(feats, feats.new_ones((n,)))
+    st0 = _call_init(init_for, feats, feats.new_ones((n,)), parts)
   r1 = greedy(objective, objective.broadcast(st0, m), parts, kappa,
               cand_mask=pmask, mode=mode, stop_nonpositive=stop_nonpositive,
               use_select=use_select,
               draws=_round_draws(mode, r1_draws, r_sel, (m,), kappa, npp,
                                  sample_frac, feats.device))
+  # the round-1 states (FacilityLocationPre's (m, ne, npp) cache among
+  # them) are not needed past here
+  del st0
+  r1 = r1._replace(state=None)
   valid1 = r1.idx >= 0
   gid1 = torch.gather(perm, 1, r1.idx.clamp_min(0))
   gid1 = torch.where(valid1, gid1, -1)                      # (m, kappa)
@@ -487,7 +530,9 @@ def greedi_reference(rng: torch.Generator | None, feats: torch.Tensor, *,
     eval_feats = feats[u_idx]
   else:
     eval_feats = feats
-  st_final0 = init_for(eval_feats, eval_feats.new_ones(eval_feats.shape[:1]))
+  st_final0 = _call_init(init_for, eval_feats,
+                         eval_feats.new_ones(eval_feats.shape[:1]),
+                         r1.feats.reshape(m * kappa, d))
 
   # ---- A_max: best single-machine solution under final evaluation -------
   stage1_vals = objective.value(set_value_feats(
@@ -530,7 +575,7 @@ def centralized_greedy(feats: torch.Tensor, k: int, *, objective, init_for,
   """Plain greedy over the whole ground set -> (GreedyResult, f(S)).  The
   random modes take ``draws`` or draw from ``rng``, as ``greedy`` does."""
   objective = with_backend(objective, backend)
-  st0 = init_for(feats, feats.new_ones(feats.shape[:1]))
+  st0 = _call_init(init_for, feats, feats.new_ones(feats.shape[:1]), feats)
   r = greedy(objective, st0, feats, k, mode=mode, rng=rng,
              sample_frac=sample_frac, draws=draws,
              stop_nonpositive=stop_nonpositive, use_select=use_select)
@@ -553,7 +598,9 @@ def baselines(rng: torch.Generator | None, feats: torch.Tensor, *, m: int,
   implementation's: ``perm`` the (m, npp) partition, ``rr_idx`` the (k,)
   random/random picks, ``rand_idx`` the (m, min(k, npp)) per-machine
   random picks of random/greedy.  What is not given is drawn from the
-  generators ``greedi_keys`` splits off ``rng``.
+  generators ``greedi_keys`` splits off ``rng``.  A 3-argument
+  ``init_for`` receives the candidate block of each greedy run (the
+  random pool, the partitions; the ground set for the replays).
   """
   objective = with_backend(objective, backend)
   n, d = feats.shape
@@ -563,7 +610,7 @@ def baselines(rng: torch.Generator | None, feats: torch.Tensor, *, m: int,
   parts, pmask, _ = random_partition(r_part, feats, m, perm=perm)
   npp = parts.shape[1]
   ones = torch.ones((n,), dtype=feats.dtype, device=dev)
-  st_full0 = init_for(feats, ones)
+  st_full0 = _call_init(init_for, feats, ones, feats)
   out = {}
 
   # -- random/random: k random out of (m x k random) == k random overall
@@ -581,24 +628,27 @@ def baselines(rng: torch.Generator | None, feats: torch.Tensor, *, m: int,
     rand_idx = torch.topk(pr, min(k, npp), dim=1).indices
   rand_idx = torch.as_tensor(rand_idx, device=dev).to(torch.int64)
   pool = torch.gather(parts, 1, rand_idx[..., None].expand(-1, -1, d))
+  pool = pool.reshape(-1, d)
   pool_mask = torch.gather(pmask, 1, rand_idx)
-  r = greedy(objective, st_full0, pool.reshape(-1, d), k,
+  r = greedy(objective, _call_init(init_for, feats, ones, pool), pool, k,
              cand_mask=pool_mask.reshape(-1),
              stop_nonpositive=stop_nonpositive)
   out["random/greedy"] = objective.value(r.state)
 
   # -- greedy/merge: ceil(k/m) greedy per machine, merged as-is
   kpm = -(-k // m)
-  r1 = greedy(objective, objective.broadcast(init_for(feats, ones), m),
-              parts, kpm, cand_mask=pmask, stop_nonpositive=stop_nonpositive)
+  st_parts0 = objective.broadcast(_call_init(init_for, feats, ones, parts),
+                                  m)
+  r1 = greedy(objective, st_parts0, parts, kpm, cand_mask=pmask,
+              stop_nonpositive=stop_nonpositive)
   merged = r1.feats.reshape(m * kpm, d)[:k]
   mvalid = (r1.idx >= 0).reshape(m * kpm)[:k]
   out["greedy/merge"] = objective.value(
       set_value_feats(objective, st_full0, merged, mvalid))
 
   # -- greedy/max: greedy k per machine, report the best single solution
-  rk = greedy(objective, objective.broadcast(init_for(feats, ones), m),
-              parts, k, cand_mask=pmask, stop_nonpositive=stop_nonpositive)
+  rk = greedy(objective, st_parts0, parts, k, cand_mask=pmask,
+              stop_nonpositive=stop_nonpositive)
   vals = objective.value(set_value_feats(
       objective, objective.broadcast(st_full0, m), rk.feats, rk.idx >= 0))
   out["greedy/max"] = torch.max(vals)

@@ -1,7 +1,8 @@
-"""Submodular objectives as fixed-shape state machines (the port of the
-``FacilityLocation``, ``SaturatedCoverage``, ``InformationGain``,
-``LogDetDPP`` and ``GraphCut`` parts of ``src/repro/core/objectives.py``,
-and of its warm-start bound maintainers).
+"""Submodular objectives as fixed-shape state machines (the port of
+``src/repro/core/objectives.py``: ``FacilityLocation``,
+``FacilityLocationPre``, ``SaturatedCoverage``, ``InformationGain``,
+``LogDetDPP``, ``GraphCut``, ``Modular``, the warm-start bound maintainers
+and ``set_value``).
 
 The interface is the reference's:
 
@@ -16,6 +17,15 @@ written out: every state field may carry one (P, ...) axis, and the
 evaluation features/mask either carry it too or are shared by every
 partition.  Gains and select route through kernels/dispatch.py by the
 ``backend`` field ("cuda" | "ref" | "auto").
+
+Similarities outside ``dispatch.FUSED_SIMS`` (``neg_sq_dist``, the k-means
+dissimilarity of Sec. 6.1) take the generic path, as in the reference: the
+similarity block is a ``torch.matmul`` (cuBLAS on the card) cut into
+candidate chunks of at most ``_GENERIC_BLOCK_BYTES``, facility location's
+masked relu-reduce over it is the ``relu_colsum`` kernel (a dead eval row
+gets cov = +inf, which relu zeroes; the eval masks are 0/1 at every
+caller), and the other objectives apply their reference formulas to the
+block.
 """
 from __future__ import annotations
 
@@ -55,14 +65,27 @@ def rbf_kernel(x: torch.Tensor, y: torch.Tensor,
   return torch.exp(-d2 / (h * h))
 
 
-KERNELS = {"linear": linear_kernel, "rbf": rbf_kernel}
+def neg_sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  """-|x - y|^2, the negated k-means dissimilarity l = d^2 of Sec. 6.1
+  (no clamp): (..., n, d) x (..., m, d) -> (..., n, m)."""
+  x2 = torch.sum(x * x, dim=-1, keepdim=True)
+  y2 = torch.sum(y * y, dim=-1, keepdim=True)
+  return -(x2 - 2.0 * (x @ y.transpose(-1, -2)) + y2.transpose(-1, -2))
+
+
+KERNELS = {"linear": linear_kernel, "rbf": rbf_kernel,
+           "neg_sq_dist": neg_sq_dist}
+
+
+def _check_sim(owner: str, kernel: str) -> None:
+  if kernel not in KERNELS:
+    raise ValueError(f"{owner} kernel {kernel!r} not in {sorted(KERNELS)}")
 
 
 def _sim_column(eval_feats: torch.Tensor, feat: torch.Tensor, kernel: str,
                 h: float) -> torch.Tensor:
   """sim(e_i, feat) for every eval row: eval_feats ((P,) ne, d) against
-  feat ((P,) d) -> ((P,) ne).  The formulas of objectives.py linear_kernel
-  and rbf_kernel."""
+  feat ((P,) d) -> ((P,) ne).  The formulas of ``KERNELS``."""
   if eval_feats.dim() == 2 and feat.dim() == 2:  # shared eval set
     dot = feat @ eval_feats.T
   else:
@@ -71,8 +94,106 @@ def _sim_column(eval_feats: torch.Tensor, feat: torch.Tensor, kernel: str,
     return dot
   x2 = torch.sum(eval_feats * eval_feats, dim=-1)
   y2 = torch.sum(feat * feat, dim=-1, keepdim=True)
+  if kernel == "neg_sq_dist":
+    return -(x2 - 2.0 * dot + y2)
   d2 = torch.clamp_min(x2 - 2.0 * dot + y2, 0.0)
   return torch.exp(-d2 / (h * h))
+
+
+# ---------------------------------------------------------------------------
+# The generic path (similarities outside dispatch.FUSED_SIMS)
+# ---------------------------------------------------------------------------
+
+# bytes of one similarity block of the generic path: the candidates go
+# that many columns at a time (the stacked round 1 at n = 262144, m = 16
+# would otherwise hold 16 x 16384^2 floats, 16 GiB, a step)
+_GENERIC_BLOCK_BYTES = 1 << 30
+
+
+def _sim_block(x: torch.Tensor, y: torch.Tensor, kernel: str,
+               h: float) -> torch.Tensor:
+  """sim(x_i, y_j) float32, ((P,) n, m), in the bits of ``KERNELS``'
+  formulas but in place on the one product buffer (negation and scaling
+  by 2 are exact, so x2 - 2 x.y is x2 + (-2 x.y) and -(a + b) is -a - b
+  in IEEE arithmetic), so a block costs one buffer, not four."""
+  x, y = x.float(), y.float()
+  s = x @ y.transpose(-1, -2)
+  if kernel == "linear":
+    return s
+  x2 = torch.sum(x * x, dim=-1, keepdim=True)
+  y2 = torch.sum(y * y, dim=-1, keepdim=True).transpose(-1, -2)
+  if kernel == "neg_sq_dist":
+    # -((x2 - 2 s) + y2) is (2 s - x2) - y2 exactly: three passes, not four
+    return s.mul_(2.0).sub_(x2).sub_(y2)
+  s.mul_(-2.0).add_(x2).add_(y2)   # x2 and y2 broadcast into s
+  return s.clamp_min_(0.0).neg_().div_(h * h).exp_()
+
+
+def _lead(*shaped) -> tuple:
+  """The partition axis of a call: () or (P,), from ((P,) n, ...) operands
+  given as (tensor, core dims) pairs."""
+  lead = torch.broadcast_shapes(*(t.shape[:t.dim() - c] for t, c in shaped))
+  if len(lead) > 1:
+    raise ValueError(f"at most one leading partition axis, got {lead}")
+  return tuple(lead)
+
+
+def _chunk_cols(p: int, ne: int) -> int:
+  """Candidate columns a generic block holds under the byte budget."""
+  return max(1, _GENERIC_BLOCK_BYTES // (4 * max(p, 1) * max(ne, 1)))
+
+
+def _masked_colsum(s: torch.Tensor, cov: torch.Tensor,
+                   eval_mask: torch.Tensor, colsum) -> torch.Tensor:
+  """sum_i mask_i relu(s_ij - cov_i) over a ((P,) ne, nc) block, ((P,) nc)
+  float32, as one ``colsum`` (``relu_colsum``) call.  The mask is 0/1: a
+  dead row's cov becomes +inf, which relu zeroes."""
+  lead = _lead((s, 2), (cov, 1), (eval_mask, 1))
+  ne, nc = s.shape[-2:]
+  p = lead[0] if lead else 1
+  c = torch.where(eval_mask > 0, cov.float(), torch.inf).expand(p, ne)
+  g = colsum(s.expand(p, ne, nc), c)
+  return g if lead else g[0]
+
+
+def _generic_facility(eval_feats, cand_feats, cov, eval_mask, kernel, h,
+                      colsum) -> torch.Tensor:
+  """sum_i mask_i relu(sim(e_i, c_j) - cov_i) for every candidate, ((P,)
+  nc) float32: candidate chunks of ``_chunk_cols`` columns, each a
+  ``_sim_block`` and one ``_masked_colsum``."""
+  lead = _lead((eval_feats, 2), (cand_feats, 2), (cov, 1), (eval_mask, 1))
+  ne, nc = eval_feats.shape[-2], cand_feats.shape[-2]
+  step = _chunk_cols(lead[0] if lead else 1, ne)
+  out = [_masked_colsum(_sim_block(eval_feats, cand_feats[..., c0:c0 + step,
+                                                          :], kernel, h),
+                        cov, eval_mask, colsum)
+         for c0 in range(0, nc, step)]
+  return torch.cat(out, dim=-1) if out else torch.zeros(
+      (*lead, 0), dtype=torch.float32, device=eval_feats.device)
+
+
+def _generic_coverage(eval_feats, cand_feats, cover, cap, eval_mask, kernel,
+                      h) -> torch.Tensor:
+  """The reference's generic saturated-coverage sum, mask @ (min(cover +
+  relu(sim), cap) - min(cover, cap)), ((P,) nc) float32, in candidate
+  chunks under the byte budget."""
+  lead = _lead((eval_feats, 2), (cand_feats, 2), (cover, 1), (cap, 1),
+               (eval_mask, 1))
+  ne, nc = eval_feats.shape[-2], cand_feats.shape[-2]
+  cover = cover.float().unsqueeze(-1)
+  cap = cap.float().unsqueeze(-1)
+  base = torch.minimum(cover, cap)
+  w = eval_mask.float().unsqueeze(-2)
+  step = _chunk_cols(lead[0] if lead else 1, ne)
+  out = []
+  for c0 in range(0, nc, step):
+    s = _sim_block(eval_feats, cand_feats[..., c0:c0 + step, :], kernel,
+                   h).clamp_min_(0.0)
+    s = cover + s          # the full leading shape, a buffer of its own
+    torch.minimum(s, cap, out=s)
+    out.append((w @ s.sub_(base)).squeeze(-2))
+  return torch.cat(out, dim=-1) if out else torch.zeros(
+      (*lead, 0), dtype=torch.float32, device=eval_feats.device)
 
 
 class FLState(NamedTuple):
@@ -86,8 +207,14 @@ class FLState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class FacilityLocation:
   """f(S) = mean_i [ max_{s in S} sim(e_i, s) - baseline ]_+ over the live
-  eval rows, with a linear or rbf similarity (``kernel_kwargs=(("h", h),)``).
+  eval rows.  With ``sim = -l`` (``neg_sq_dist``) and ``baseline = -l(e_i,
+  e_0)`` this is the phantom-exemplar k-medoid surrogate of Eq. (6).
   Monotone, nonnegative, decomposable (Sec. 4.5 of the paper).
+
+  A linear or rbf similarity (``kernel_kwargs=(("h", h),)``) runs through
+  the fused facility kernels; any other in ``KERNELS`` takes the generic
+  path (a cuBLAS block, then the ``relu_colsum`` kernel), where ``select``
+  is ``masked_top1`` over the gains.
   """
   monotone = True  # marginal gains are >= 0 and diminishing (lazy-exact)
 
@@ -97,19 +224,20 @@ class FacilityLocation:
   backend: str = "auto"
 
   def __post_init__(self):
-    if self.kernel not in dispatch.FUSED_SIMS:
-      raise NotImplementedError(
-          f"FacilityLocation kernel {self.kernel!r}: the port implements "
-          f"{dispatch.FUSED_SIMS}; other similarities come with the "
-          "remaining objectives (ROADMAP.md, modules to port, item 7)")
+    _check_sim("FacilityLocation", self.kernel)
 
   @property
   def h(self) -> float:
     return _kernel_h(self.kernel_kwargs)
 
+  @property
+  def fused(self) -> bool:
+    return self.kernel in dispatch.FUSED_SIMS
+
   def init(self, eval_feats: torch.Tensor,
            eval_mask: torch.Tensor | None = None) -> FLState:
-    eval_feats = ring.pitched(eval_feats)  # padded once, not once a call
+    if self.fused:
+      eval_feats = ring.pitched(eval_feats)  # padded once, not once a call
     if eval_mask is None:
       eval_mask = torch.ones(eval_feats.shape[:-1], dtype=eval_feats.dtype,
                              device=eval_feats.device)
@@ -122,7 +250,7 @@ class FacilityLocation:
   def kernel_rows(self, cand_feats: torch.Tensor) -> torch.Tensor:
     """The candidates as the kernels read them with no copy a call
     (``ring.pitched``); a greedy run takes them so once."""
-    return ring.pitched(cand_feats)
+    return ring.pitched(cand_feats) if self.fused else cand_feats
 
   def broadcast(self, state: FLState, n_part: int) -> FLState:
     """The same state for each of ``n_part`` partitions: cov and value get a
@@ -134,15 +262,24 @@ class FacilityLocation:
   def _denom(self, state: FLState) -> torch.Tensor:
     return torch.clamp_min(torch.sum(state.eval_mask, dim=-1), 1.0)
 
+  def _partial(self, state: FLState, cand_feats: torch.Tensor):
+    if self.fused:
+      fn = dispatch.resolve("facility_gain", self.backend)
+      return fn(state.eval_feats, cand_feats, state.cov, state.eval_mask,
+                kernel=self.kernel, h=self.h)
+    return _generic_facility(state.eval_feats, cand_feats, state.cov,
+                             state.eval_mask, self.kernel, self.h,
+                             dispatch.resolve("relu_colsum", self.backend))
+
   def gains(self, state: FLState, cand_feats: torch.Tensor) -> torch.Tensor:
-    fn = dispatch.resolve("facility_gain", self.backend)
-    g = fn(state.eval_feats, cand_feats, state.cov, state.eval_mask,
-           kernel=self.kernel, h=self.h)
-    return g / self._denom(state).unsqueeze(-1)
+    return self._partial(state, cand_feats) / self._denom(state).unsqueeze(-1)
 
   def select(self, state: FLState, cand_feats: torch.Tensor,
              feasible: torch.Tensor):
-    """Fused select step: (best normalized gain, int64 candidate index)."""
+    """Select step: (best normalized gain, int64 candidate index), one fused
+    launch for a fused similarity."""
+    if not self.fused:
+      return masked_top1(self.gains(state, cand_feats), feasible)
     fn = dispatch.resolve_select("facility_gain", self.backend)
     best, idx = fn(state.eval_feats, cand_feats, state.cov, state.eval_mask,
                    feasible, kernel=self.kernel, h=self.h)
@@ -161,10 +298,97 @@ class FacilityLocation:
   def partial_stats(self, state: FLState, cand_feats: torch.Tensor):
     """(sum-of-gains ((P,) nc), live count ((P,))): summing both over shards
     reproduces the global objective exactly."""
-    fn = dispatch.resolve("facility_gain", self.backend)
-    part = fn(state.eval_feats, cand_feats, state.cov, state.eval_mask,
-              kernel=self.kernel, h=self.h)
-    return part, torch.sum(state.eval_mask, dim=-1)
+    return (self._partial(state, cand_feats),
+            torch.sum(state.eval_mask, dim=-1))
+
+
+class FLPreState(NamedTuple):
+  cov: torch.Tensor          # ((P,) n_eval) current best similarity
+  sim: torch.Tensor          # ((P,) n_eval, n_cand) cached similarities
+  eval_feats: torch.Tensor   # ((P,) n_eval, d), shared when 2-D
+  eval_mask: torch.Tensor    # ((P,) n_eval) 1.0 for live eval rows
+  value: torch.Tensor        # ((P,)) f(S)
+
+
+@dataclasses.dataclass(frozen=True)
+class FacilityLocationPre:
+  """Facility location with the (eval x cand) similarity block cached once
+  a greedy run instead of recomputed every step: a step is one
+  ``relu_colsum`` launch over the cache (the masked relu-reduce; a dead
+  eval row's cov is +inf).  The cache is O(n_e n_c) on the device, so
+  this is the small-n path.
+
+  ``init(eval_feats, eval_mask, cand_feats)`` builds the ((P,) ne, nc)
+  block, through the ``pairwise`` kernel for a fused similarity (the
+  fast engine's ``s11`` bits) and through ``_sim_block`` otherwise.
+  ``update`` recomputes the chosen column from the features, as the
+  reference does.  ``supports_lazy = False``: ``gains`` answers for the
+  cached candidates whatever slice it is handed, so greedy's lazy mode
+  falls back to standard.
+  """
+  monotone = True
+  supports_lazy = False
+
+  kernel: str = "linear"
+  kernel_kwargs: tuple = ()
+  baseline: float = 0.0
+  backend: str = "auto"
+
+  def __post_init__(self):
+    _check_sim("FacilityLocationPre", self.kernel)
+
+  @property
+  def h(self) -> float:
+    return _kernel_h(self.kernel_kwargs)
+
+  def init(self, eval_feats: torch.Tensor,
+           eval_mask: torch.Tensor | None = None,
+           cand_feats: torch.Tensor | None = None) -> FLPreState:
+    if eval_mask is None:
+      eval_mask = torch.ones(eval_feats.shape[:-1], dtype=eval_feats.dtype,
+                             device=eval_feats.device)
+    if cand_feats is None:
+      cand_feats = eval_feats
+    if self.kernel in dispatch.FUSED_SIMS:
+      sim = dispatch.resolve("pairwise", self.backend)(
+          eval_feats, cand_feats, kernel=self.kernel, h=self.h)
+    else:
+      sim = _sim_block(eval_feats, cand_feats, self.kernel, self.h)
+    cov = torch.full(eval_feats.shape[:-1], self.baseline,
+                     dtype=eval_feats.dtype, device=eval_feats.device)
+    value = torch.zeros(eval_feats.shape[:-2], dtype=eval_feats.dtype,
+                        device=eval_feats.device)
+    return FLPreState(cov, sim, eval_feats, eval_mask, value)
+
+  def broadcast(self, state: FLPreState, n_part: int) -> FLPreState:
+    """The same state for each of ``n_part`` partitions: cov and value get a
+    leading axis; the cache and the evaluation set stay shared."""
+    return FLPreState(state.cov.expand(n_part, -1).clone(), state.sim,
+                      state.eval_feats, state.eval_mask,
+                      state.value.expand(n_part).clone())
+
+  def _denom(self, state: FLPreState) -> torch.Tensor:
+    return torch.clamp_min(torch.sum(state.eval_mask, dim=-1), 1.0)
+
+  def gains(self, state: FLPreState, cand_feats: torch.Tensor):
+    del cand_feats  # the cached candidate set answers
+    g = _masked_colsum(state.sim, state.cov, state.eval_mask,
+                       dispatch.resolve("relu_colsum", self.backend))
+    return g / self._denom(state).unsqueeze(-1)
+
+  def select(self, state: FLPreState, cand_feats: torch.Tensor,
+             feasible: torch.Tensor):
+    return masked_top1(self.gains(state, cand_feats), feasible)
+
+  def update(self, state: FLPreState, feat: torch.Tensor) -> FLPreState:
+    sim = _sim_column(state.eval_feats, feat, self.kernel, self.h)
+    new_cov = torch.maximum(state.cov, sim)
+    gain = torch.sum((new_cov - state.cov) * state.eval_mask, dim=-1)
+    return FLPreState(new_cov, state.sim, state.eval_feats, state.eval_mask,
+                      state.value + gain / self._denom(state))
+
+  def value(self, state: FLPreState) -> torch.Tensor:
+    return state.value
 
 
 # ---------------------------------------------------------------------------
@@ -191,13 +415,17 @@ class SaturatedCoverage:
 
       f(S) = mean_i min(C_i(S), alpha C_i(V)),  C_i(S) = sum_{j in S} s_ij,
 
-  over the live eval rows, s = relu(sim) with a linear or rbf similarity.
-  Monotone submodular; the saturation rewards covering every document a
-  little instead of a few a lot.  ``total`` (C_i(V)) may be passed to
-  ``init`` (each machine may use its own partition's levels, Sec. 4.5);
-  otherwise it is computed once from the eval set and carried in the state
-  as ``cap``.  Gains go through the ``coverage_gain`` kernels, the select
-  step through their fused top-1.
+  over the live eval rows, s = relu(sim).  Monotone submodular; the
+  saturation rewards covering every document a little instead of a few a
+  lot.  ``total`` (C_i(V)) may be passed to ``init`` (each machine may use
+  its own partition's levels, Sec. 4.5); otherwise it is computed once from
+  the eval set and carried in the state as ``cap``.  A linear or rbf
+  similarity runs through the ``coverage_gain`` kernels and their fused
+  top-1; any other in ``KERNELS`` takes the generic path (the reference's
+  formula over cuBLAS blocks).  Unlike the reference, ``total`` is
+  keyword-only, so ``init`` keeps the 2-argument meaning under greedi's
+  arity hook (``_call_init``) instead of receiving the candidate block as
+  its levels.
   """
   monotone = True
 
@@ -207,14 +435,15 @@ class SaturatedCoverage:
   backend: str = "auto"
 
   def __post_init__(self):
-    if self.kernel not in dispatch.FUSED_SIMS:
-      raise NotImplementedError(
-          f"SaturatedCoverage kernel {self.kernel!r}: the port implements "
-          f"{dispatch.FUSED_SIMS} (ROADMAP.md)")
+    _check_sim("SaturatedCoverage", self.kernel)
 
   @property
   def h(self) -> float:
     return _kernel_h(self.kernel_kwargs)
+
+  @property
+  def fused(self) -> bool:
+    return self.kernel in dispatch.FUSED_SIMS
 
   def total(self, eval_feats: torch.Tensor,
             eval_mask: torch.Tensor) -> torch.Tensor:
@@ -222,7 +451,18 @@ class SaturatedCoverage:
     the (ne, ne) similarity block: the coverage gain of each eval row taken
     as a candidate, from cover 0 under an infinite cap, is
     sum_j mask_j relu(sim(e_j, e_i)), which the symmetry of sim makes
-    C_i(V).  Candidate rows go ``_TOTAL_CHUNK`` at a time."""
+    C_i(V).  Candidate rows go ``_TOTAL_CHUNK`` at a time.  The generic
+    path sums relu(sim(e_i, e_j)) mask_j over row chunks as the reference
+    does (its formula need not be symmetric in the bits)."""
+    if not self.fused:
+      ne = eval_feats.shape[-2]
+      w = eval_mask.float().unsqueeze(-1)
+      step = _chunk_cols(eval_feats.shape[0] if eval_feats.dim() == 3
+                         else 1, ne)
+      return torch.cat([
+          (_sim_block(eval_feats[..., r0:r0 + step, :], eval_feats,
+                      self.kernel, self.h).clamp_min_(0.0) @ w)[..., 0]
+          for r0 in range(0, ne, step)], dim=-1)
     fn = dispatch.resolve("coverage_gain", self.backend)
     lead = eval_feats.shape[:-1]
     zero = torch.zeros(lead, dtype=torch.float32, device=eval_feats.device)
@@ -235,9 +475,10 @@ class SaturatedCoverage:
         for c0 in range(0, ne, _TOTAL_CHUNK)], dim=-1)
 
   def init(self, eval_feats: torch.Tensor,
-           eval_mask: torch.Tensor | None = None,
+           eval_mask: torch.Tensor | None = None, *,
            total: torch.Tensor | None = None) -> SatCovState:
-    eval_feats = ring.pitched(eval_feats)  # padded once, not once a call
+    if self.fused:
+      eval_feats = ring.pitched(eval_feats)  # padded once, not once a call
     lead = eval_feats.shape[:-1]
     dev = eval_feats.device
     if eval_mask is None:
@@ -252,7 +493,7 @@ class SaturatedCoverage:
   def kernel_rows(self, cand_feats: torch.Tensor) -> torch.Tensor:
     """The candidates as the kernels read them with no copy a call
     (``ring.pitched``); a greedy run takes them so once."""
-    return ring.pitched(cand_feats)
+    return ring.pitched(cand_feats) if self.fused else cand_feats
 
   def broadcast(self, state: SatCovState, n_part: int) -> SatCovState:
     """The same state for each of ``n_part`` partitions: cover and value get
@@ -266,6 +507,10 @@ class SaturatedCoverage:
     return torch.clamp_min(torch.sum(state.eval_mask.float(), dim=-1), 1.0)
 
   def _partial(self, state: SatCovState, cand_feats: torch.Tensor):
+    if not self.fused:
+      return _generic_coverage(state.eval_feats, cand_feats, state.cover,
+                               state.cap, state.eval_mask, self.kernel,
+                               self.h)
     fn = dispatch.resolve("coverage_gain", self.backend)
     return fn(state.eval_feats, cand_feats, state.cover, state.cap,
               state.eval_mask, kernel=self.kernel, h=self.h)
@@ -275,7 +520,10 @@ class SaturatedCoverage:
 
   def select(self, state: SatCovState, cand_feats: torch.Tensor,
              feasible: torch.Tensor):
-    """Fused select step: (best normalized gain, int64 candidate index)."""
+    """Select step: (best normalized gain, int64 candidate index), one fused
+    launch for a fused similarity."""
+    if not self.fused:
+      return masked_top1(self.gains(state, cand_feats), feasible)
     fn = dispatch.resolve_select("coverage_gain", self.backend)
     best, idx = fn(state.eval_feats, cand_feats, state.cover, state.cap,
                    state.eval_mask, feasible, kernel=self.kernel, h=self.h)
@@ -343,19 +591,33 @@ class _IncrementalCholesky:
   """The oracle both objectives share: an incremental Cholesky of
   M = K_SS + ridge I in a fixed (k_max, k_max) buffer and the conditional
   variance cond(v) = k(v, v) + ridge - |L^-1 k(S, v)|^2 of every candidate
-  through the ``info_gain_cond`` kernels.  Subclasses set ``_ridge`` and
-  map cond to a gain with ``_log_gain``, which is strictly increasing, so
-  the cond-space top-1 of the fused select IS the gain top-1."""
+  through the ``info_gain_cond`` kernels (a similarity outside
+  ``FUSED_SIMS``: the reference's generic formula, ``_generic_cond``).
+  Subclasses set ``_ridge`` and map cond to a gain with ``_log_gain``,
+  which is strictly increasing, so the cond-space top-1 of the fused
+  select IS the gain top-1."""
 
   @property
   def h(self) -> float:
     return _kernel_h(self.kernel_kwargs)
 
   def _check_kernel(self):
-    if self.kernel not in dispatch.FUSED_SIMS:
-      raise NotImplementedError(
-          f"{type(self).__name__} kernel {self.kernel!r}: the port "
-          f"implements {dispatch.FUSED_SIMS} (ROADMAP.md)")
+    _check_sim(type(self).__name__, self.kernel)
+
+  def _generic_cond(self, state: IGState, cand_feats: torch.Tensor):
+    """max(k(v, v) + ridge - |L^-1 k(S, v)|^2, 1e-12) for every candidate,
+    the cross kernel's rows past the count zeroed, k(v, v) by the kernel's
+    formula on the row alone (the reference's vmap)."""
+    live = torch.arange(self.k_max, device=state.count.device) < \
+        state.count.unsqueeze(-1)
+    k_sc = torch.where(live.unsqueeze(-1),
+                       self._k(state.sel_feats, cand_feats.to(
+                           state.sel_feats.dtype)), 0.0)
+    c = torch.linalg.solve_triangular(state.chol, k_sc, upper=False)
+    c1 = cand_feats.unsqueeze(-2).to(state.sel_feats.dtype)
+    k_vv = self._k(c1, c1)[..., 0, 0]
+    return torch.clamp_min(k_vv + self._ridge - torch.sum(c * c, dim=-2),
+                           1e-12)
 
   def _k(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return KERNELS[self.kernel](x, y, **dict(self.kernel_kwargs))
@@ -395,6 +657,8 @@ class _IncrementalCholesky:
   # rest exactly
   def gains(self, state, cand_feats: torch.Tensor) -> torch.Tensor:
     st = self._state(state)
+    if self.kernel not in dispatch.FUSED_SIMS:
+      return self._log_gain(self._generic_cond(st, cand_feats))
     sel, linv = self._oracle(st)
     fn = dispatch.resolve("info_gain_cond", self.backend)
     cond = fn(sel, linv, cand_feats, kernel=self.kernel, h=self.h,
@@ -402,7 +666,10 @@ class _IncrementalCholesky:
     return self._log_gain(cond)
 
   def select(self, state, cand_feats: torch.Tensor, feasible: torch.Tensor):
-    """Fused select step: (best gain, int64 candidate index)."""
+    """Select step: (best gain, int64 candidate index), one fused launch
+    for a fused similarity."""
+    if self.kernel not in dispatch.FUSED_SIMS:
+      return masked_top1(self.gains(state, cand_feats), feasible)
     st = self._state(state)
     sel, linv = self._oracle(st)
     fn = dispatch.resolve_select("info_gain_cond", self.backend)
@@ -651,6 +918,46 @@ class GraphCut:
 
 
 # ---------------------------------------------------------------------------
+# Modular (additive) objective: a sanity baseline, GreeDi is exactly optimal
+# ---------------------------------------------------------------------------
+
+
+class ModState(NamedTuple):
+  weights: torch.Tensor   # (d,) fixed linear weights, shared
+  value: torch.Tensor     # ((P,)) f(S)
+
+
+@dataclasses.dataclass(frozen=True)
+class Modular:
+  """f(S) = sum_{v in S} relu(w . x_v): modular, so distributed ==
+  centralized."""
+  monotone = True
+
+  def init_w(self, weights: torch.Tensor) -> ModState:
+    return ModState(weights, torch.zeros((), dtype=weights.dtype,
+                                         device=weights.device))
+
+  def broadcast(self, state: ModState, n_part: int) -> ModState:
+    """The same state for each of ``n_part`` partitions; w stays shared."""
+    return ModState(state.weights, state.value.expand(n_part).clone())
+
+  def gains(self, state: ModState, cand_feats: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(cand_feats.to(state.weights.dtype)
+                           @ state.weights, 0.0)
+
+  def select(self, state: ModState, cand_feats: torch.Tensor,
+             feasible: torch.Tensor):
+    return masked_top1(self.gains(state, cand_feats), feasible)
+
+  def update(self, state: ModState, feat: torch.Tensor) -> ModState:
+    return ModState(state.weights, state.value + torch.clamp_min(
+        feat.to(state.weights.dtype) @ state.weights, 0.0))
+
+  def value(self, state: ModState) -> torch.Tensor:
+    return state.value
+
+
+# ---------------------------------------------------------------------------
 # Warm-start bound maintainers (the selection service's cross-epoch tables)
 # ---------------------------------------------------------------------------
 #
@@ -786,3 +1093,26 @@ def bound_maintainer_for(objective: Any) -> Any | None:
 register_bound_maintainer(FacilityLocation, SumFormBoundMaintainer())
 register_bound_maintainer(SaturatedCoverage, SumFormBoundMaintainer())
 register_bound_maintainer(InformationGain, InfoGainPriorBoundMaintainer())
+
+
+# ---------------------------------------------------------------------------
+# Exact evaluation by replay (tests and small benchmarks)
+# ---------------------------------------------------------------------------
+
+
+def set_value(objective: Any, state0, feats: torch.Tensor, idx,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
+  """f({feats[i] for i in idx}) by replaying updates from ``state0``;
+  entries whose ``mask`` is False are skipped (their state is kept, as the
+  reference's masked scan does).  ``idx`` and ``mask`` are (k,); see
+  ``greedi.set_value_feats`` for an explicit feature block."""
+  from repro_torch.core.greedy import where_state
+  idx = torch.as_tensor(idx, device=feats.device).to(torch.int64)
+  if mask is None:
+    mask = torch.ones(idx.shape, dtype=torch.bool, device=feats.device)
+  mask = torch.as_tensor(mask, device=feats.device).to(torch.bool)
+  state = state0
+  for t in range(idx.shape[0]):
+    state = where_state(mask[t], objective.update(
+        state, feats.index_select(0, idx[t:t + 1])[0]), state)
+  return objective.value(state)

@@ -14,7 +14,12 @@ three implementations:
 
 Objectives carry a ``backend`` field ("cuda" | "ref" | "auto") and
 ``resolve``/``resolve_select`` map it to a callable, per call: PyTorch runs
-eagerly, so there is no trace-time resolution to cache.  The families are
+eagerly, so there is no trace-time resolution to cache.  The similarity
+kernels the fused oracles implement are listed in ``FUSED_SIMS``; the
+objectives fall back to their generic path for anything else (e.g.
+``neg_sq_dist``), as the reference does: a ``torch.matmul`` similarity
+block in candidate chunks and, for facility location, the ``relu_colsum``
+oracle over it (``core/objectives.py``).  The families are
 
   * gain oracles (``register``/``resolve``): the full (nc,) gains vector
     (``facility_gain``), the information-gain conditional variances

@@ -35,32 +35,26 @@ through one ``query_batch`` call after the first append and again after
 the last epoch, replays them one by one through ``query()``, and exits
 non-zero unless every selection is the same (one ``[select] query_batch``
 line each).  ``--device`` defaults to ``cuda`` and fails when CUDA is
-missing; ``cpu`` runs the kernels' plain versions.  The observability
-flags of the reference CLI are not ported yet (ROADMAP.md, queue 1).
+missing; ``cpu`` runs the kernels' plain versions.
+
+Observability (``repro_torch.obs``): every line is ``obs.stats_line``;
+``--trace-out PATH`` enables obs and writes the spans as JSONL,
+``--stats-json PATH`` enables obs and writes every stats line as a record
+with a registry snapshot, ``--metrics-port P`` serves the sidecar
+(``/metrics``, ``/healthz``; 0 picks a free port, bound to 127.0.0.1; in
+service mode ``POST /healthz`` beats the service's heartbeat board) and
+prints one ``[select] sidecar`` line with its URL, and ``--linger S`` keeps
+the sidecar up S seconds after the run.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-
-def _compact(v) -> str:
-  if isinstance(v, bool):
-    return str(v).lower()
-  if isinstance(v, float):
-    a = abs(v)
-    if a != 0 and (a < 1e-3 or a >= 1e5):
-      return f"{v:.3e}"
-    return f"{v:.4f}".rstrip("0").rstrip(".")
-  return str(v)
+from repro_torch import obs
 
 
-def stats_line(event: str, **fields) -> str:
-  """``event key=value ...``, the reference CLI's stats-line format."""
-  return " ".join([event] + [f"{k}={_compact(v)}" for k, v in fields.items()])
-
-
-def _query_batch_cycle(svc, b: int, k: int, stage: str, sync) -> None:
+def _query_batch_cycle(svc, b: int, k: int, stage: str, sync, emit) -> None:
   """Answer ``b`` heterogeneous tenant requests through one
   ``query_batch`` call, replay them one by one through ``query()``, and
   exit non-zero unless every selection is the same (value estimates to
@@ -87,17 +81,16 @@ def _query_batch_cycle(svc, b: int, k: int, stage: str, sync) -> None:
                        f"request {i}): batched={rb.sel_gids} "
                        f"(v={rb.value_estimate!r}) sequential="
                        f"{rs.sel_gids} (v={rs.value_estimate!r})")
-  print("[select] " + stats_line(
-      "query_batch", stage=stage, requests=b, batch_ms=t_batch * 1e3,
-      qps=b / max(t_batch, 1e-9), seq_ms=t_seq * 1e3,
-      speedup=t_seq / max(t_batch, 1e-9), parity="ok",
-      batch_calls=svc.store.query_batch_calls), flush=True)
+  emit("query_batch", stage=stage, requests=b, batch_ms=t_batch * 1e3,
+       qps=b / max(t_batch, 1e-9), seq_ms=t_seq * 1e3,
+       speedup=t_seq / max(t_batch, 1e-9), parity="ok",
+       batch_calls=svc.store.query_batch_calls)
 
 
-def _service(args, feats, kappa, dev, sync):
+def _service(args, feats, kappa, dev, sync, emit, serve):
   """The service mode: append, run the epochs, append the held-back rows
   after the first; returns (last epoch's ids, the features selected
-  over)."""
+  over).  ``serve(board)`` starts the sidecar on the service's board."""
   from repro_torch.service import SelectionService
   svc = SelectionService(m=args.mesh, d=args.d, kappa=kappa, k_final=args.k,
                          capacity=args.n, kernel=args.kernel,
@@ -105,22 +98,24 @@ def _service(args, feats, kappa, dev, sync):
                          deadline=args.deadline, objective=args.objective,
                          merge="tree" if args.merge_tree else "flat",
                          tree_branch=args.merge_tree or None, device=dev)
+  # POST /healthz beats feed the same board as the in-process beats
+  serve(svc.board)
   if args.objective == "saturated_coverage":
     feats = feats.abs()  # nonnegative coverage mass (Lin & Bilmes)
   n0 = args.n - int(args.n * args.append_frac)
   svc.append(feats[:n0])
   if args.query_batch:
-    _query_batch_cycle(svc, args.query_batch, args.k, "pre-epoch", sync)
+    _query_batch_cycle(svc, args.query_batch, args.k, "pre-epoch", sync,
+                       emit)
   res = None
   for e in range(args.epochs):
     svc.board.beat()  # every stacked shard is alive by construction
     res = svc.epoch()
     s = res.stats
-    print("[select] " + stats_line(
-        "epoch", epoch=s.epoch, docs=len(res.sel_gids), live=s.n_live,
-        cap=s.capacity, f=s.value, alive=int(s.alive.sum()),
-        shards=len(s.alive), warm=s.warm, wall_s=s.wall_s,
-        rescans=int(s.rescans.sum())))
+    emit("epoch", epoch=s.epoch, docs=len(res.sel_gids), live=s.n_live,
+         cap=s.capacity, f=s.value, alive=int(s.alive.sum()),
+         shards=len(s.alive), warm=s.warm, wall_s=s.wall_s,
+         rescans=int(s.rescans.sum()))
     if e == 0 and n0 < args.n:
       sync()
       t0 = time.perf_counter()
@@ -130,20 +125,18 @@ def _service(args, feats, kappa, dev, sync):
         for off in range(n0, args.n, args.query_every):
           svc.append(feats[off:off + args.query_every])
           q = svc.query()
-          print("[select] " + stats_line(
-              "query", docs=svc.n_docs, ids=len(q.sel_gids),
-              source=q.source, est=q.value_estimate,
-              stale_appends=q.appends_since_epoch, wall_ms=q.wall_s * 1e3),
-                flush=True)
+          emit("query", docs=svc.n_docs, ids=len(q.sel_gids),
+               source=q.source, est=q.value_estimate,
+               stale_appends=q.appends_since_epoch, wall_ms=q.wall_s * 1e3)
       else:
         svc.append(feats[n0:])
       sync()
       wall = time.perf_counter() - t0
-      print("[select] " + stats_line(
-          "append", docs=args.n - n0, wall_s=wall,
-          rows_per_s=(args.n - n0) / max(wall, 1e-9), growths=svc.growths))
+      emit("append", docs=args.n - n0, wall_s=wall,
+           rows_per_s=(args.n - n0) / max(wall, 1e-9), growths=svc.growths)
   if args.query_batch:
-    _query_batch_cycle(svc, args.query_batch, args.k, "post-epoch", sync)
+    _query_batch_cycle(svc, args.query_batch, args.k, "post-epoch", sync,
+                       emit)
   return res.sel_gids, feats
 
 
@@ -200,6 +193,19 @@ def main(argv=None) -> None:
                   help="seed of the corpus and of the partition")
   ap.add_argument("--device", default="cuda",
                   help="cuda (default) or cpu (the plain versions)")
+  ap.add_argument("--metrics-port", type=int, default=None,
+                  help="serve the obs sidecar (/metrics Prometheus text, "
+                  "/healthz liveness) on 127.0.0.1 at this port (0 = pick "
+                  "a free one); service mode wires POST /healthz beats "
+                  "into the heartbeat board")
+  ap.add_argument("--trace-out", default=None,
+                  help="write obs trace spans as JSONL to this path")
+  ap.add_argument("--stats-json", default=None,
+                  help="write every stats line plus a metrics-registry "
+                  "snapshot to this path as JSON (all modes)")
+  ap.add_argument("--linger", type=float, default=0.0,
+                  help="keep the sidecar serving this many seconds after "
+                  "the run (a scrape window)")
   args = ap.parse_args(argv)
 
   import numpy as np
@@ -222,14 +228,33 @@ def main(argv=None) -> None:
     if dev.type == "cuda":
       torch.cuda.synchronize(dev)
 
+  if args.trace_out or args.stats_json or args.metrics_port is not None:
+    obs.enable(trace_out=args.trace_out)
+  records: list = []
+
+  def emit(event, **fields):
+    """The one stats format of every mode: a stats line on stdout and a
+    record for --stats-json."""
+    print("[select] " + obs.stats_line(event, **fields), flush=True)
+    records.append(dict(event=event, **fields))
+
+  sidecar = None
+
+  def serve(board=None):
+    nonlocal sidecar
+    if args.metrics_port is not None:
+      sidecar = obs.Sidecar(board=board, port=args.metrics_port)
+      emit("sidecar", url=sidecar.url)
+
   merge = f"tree{args.merge_tree}" if args.merge_tree else "flat"
   sync()
   t0 = time.perf_counter()
   if args.mesh and args.epochs:
-    sel, feats = _service(args, feats, kappa, dev, sync)
+    sel, feats = _service(args, feats, kappa, dev, sync, emit, serve)
     mode_fields = dict(mode="service", m=args.mesh, epochs=args.epochs,
                        objective=args.objective, merge=merge)
   elif args.mesh:
+    serve()
     sel = greedi_select_indices_sharded(
         rng, feats, m=args.mesh, kappa=kappa, k_final=args.k,
         kernel=args.kernel, backend=args.backend, fast=not args.no_fast,
@@ -239,6 +264,7 @@ def main(argv=None) -> None:
                        engine="generic" if args.no_fast else "fast",
                        merge=merge)
   else:
+    serve()
     sel = greedi_select_indices(rng, feats, m=args.m, kappa=kappa,
                                 k_final=args.k, kernel=args.kernel,
                                 backend=args.backend)
@@ -249,7 +275,7 @@ def main(argv=None) -> None:
   # persist the coreset BEFORE the (expensive) coverage baseline
   if args.out:
     np.save(args.out, sel)
-    print("[select] " + stats_line("wrote", path=args.out))
+    emit("wrote", path=args.out)
   done = dict(mode_fields, docs=len(sel), wall_s=t_sel,
               device=str(dev))
   want_cov = args.coverage or (not args.no_coverage and args.n <= 16384)
@@ -258,7 +284,17 @@ def main(argv=None) -> None:
                                       backend=args.backend)
   elif not args.no_coverage:
     done["coverage"] = "skipped"
-  print("[select] " + stats_line("done", **done))
+  emit("done", **done)
+  if args.stats_json:
+    obs.write_stats_json(args.stats_json, records,
+                         tool="repro_torch.launch.select", n=args.n,
+                         d=args.d, k=args.k, mesh=args.mesh,
+                         epochs=args.epochs, device=str(dev))
+    print(f"[select] wrote {args.stats_json}", flush=True)
+  if sidecar is not None:
+    if args.linger > 0:
+      time.sleep(args.linger)
+    sidecar.close()
 
 
 if __name__ == "__main__":

@@ -14,7 +14,8 @@ through ONE ``query_batch`` call whenever
 
 Every request of a drained batch observes the same wall clock
 (``QueryResult.wall_s``).  Closing drains what is pending, it drops
-nothing.
+nothing.  Each drain is a ``batcher.drain`` span (tier, occupancy) and
+feeds the ``repro_batcher_*`` series.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import threading
 import time
 from concurrent.futures import Future
 
+from repro_torch import obs
 from repro_torch.service.service import QueryRequest
 
 
@@ -101,17 +103,29 @@ class QueryBatcher:
           self._cv.wait(timeout=left)
         batch = self._pending[:self._max_batch]
         del self._pending[:self._max_batch]
-      try:
-        results = self._svc.query_batch([r for r, _ in batch],
-                                        tier=self._tier)
-        for (_, fut), res in zip(batch, results):
-          fut.set_result(res)
-      except Exception as e:  # a bad request fails only its own batch
-        for _, fut in batch:
-          fut.set_exception(e)
+      with obs.span("batcher.drain", tier=self._tier,
+                    occupancy=len(batch)) as sp:
+        try:
+          results = self._svc.query_batch([r for r, _ in batch],
+                                          tier=self._tier)
+          for (_, fut), res in zip(batch, results):
+            fut.set_result(res)
+        except Exception as e:  # a bad request fails only its own batch
+          for _, fut in batch:
+            fut.set_exception(e)
       self.stats.batches += 1
       self.stats.served += len(batch)
       self.stats.max_occupancy = max(self.stats.max_occupancy, len(batch))
+      reg = obs.REGISTRY
+      reg.counter("repro_batcher_requests_total",
+                  "requests drained by the micro-batcher").inc(len(batch))
+      reg.counter("repro_batcher_batches_total",
+                  "micro-batch drains").inc()
+      reg.gauge("repro_batcher_occupancy",
+                "requests in the last drained batch").set(len(batch))
+      reg.histogram("repro_batcher_drain_wall_seconds",
+                    "wall clock of one drain (the request latency "
+                    "surface)").observe(sp.wall_s)
 
   def close(self) -> None:
     """Stop accepting requests, drain what is pending, join the worker."""

@@ -46,19 +46,32 @@ would select alone; ``tier="exact"`` runs the batched exact greedy over
 the resident block instead.  ``service/batching.QueryBatcher`` turns
 requests that arrive one at a time into such batches.
 
-No counterpart here (ROADMAP.md, queue 1): the reference's
-``retrace_count`` (there is no compiled epoch function to retrace) and its
-obs metric feeds (the merge-peak gauges among them).
+Observability (``repro_torch.obs``): ``epoch``, ``query`` and
+``query_batch`` are the spans ``service.epoch`` (epoch, warm),
+``service.query`` (k, then tier, stale) and ``service.query_batch`` (tier,
+batch, stale), whose wall clocks are the stats' ``wall_s``; each feeds the
+reference's series (epochs, the epoch wall histogram, value, alive shards,
+live documents, capacity, warm, transfer bytes; queries by tier,
+staleness, the query wall histogram).  The device-fed epoch diagnostics,
+per-shard live evaluation rows and per-shard peak merged rows, are
+computed on the device every epoch and read, with the rescans, only while
+``obs.enabled()`` (``repro_epoch_eval_mass``, ``repro_merge_peak_rows`` /
+``_bytes``, ``repro_lazy_tile_rescans_total``).
+
+No counterpart here: the reference's ``retrace_count`` and its
+``repro_epoch_retraces`` gauge (there is no compiled epoch function to
+retrace; ``EpochStats`` has no ``retraces``, and the port sets no such
+gauge).
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Iterator, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import greedi as GD
 from repro_torch.core import objectives as O
 from repro_torch.core.objectives import NEG
@@ -324,22 +337,25 @@ class SelectionService:
     ``CorpusStore.query_sieves``); either one needs the sieve.
     """
     k = self._norm_k(k)
-    t0 = time.perf_counter()
-    excl = self._norm_excl(exclude_gids)
-    stale = self._appends_since_epoch
-    if self._epoch_answers(excl, seed):
-      le = self._last_epoch
-      src, sel, val = "epoch", le.sel_gids[:k], float(le.stats.value)
-    else:
-      self._need_sieve("query()")
-      gids, scores = self.store.query_sieves(k=k, exclude_gids=excl,
-                                             seed=seed, jitter=jitter)
-      slots = gids[:k]
-      sel = slots[slots >= 0]
-      # only live winner slots count (k can exceed the live winners)
-      val = float(scores[:k][slots >= 0].sum()) / max(self.store.n_docs, 1)
-      src = "sieve"
-    return QueryResult(sel, val, src, stale, time.perf_counter() - t0)
+    with obs.span("service.query", k=k) as sp:
+      excl = self._norm_excl(exclude_gids)
+      stale = self._appends_since_epoch
+      if self._epoch_answers(excl, seed):
+        le = self._last_epoch
+        src, sel, val = "epoch", le.sel_gids[:k], float(le.stats.value)
+      else:
+        self._need_sieve("query()")
+        gids, scores = self.store.query_sieves(k=k, exclude_gids=excl,
+                                               seed=seed, jitter=jitter)
+        slots = gids[:k]
+        sel = slots[slots >= 0]
+        # only live winner slots count (k can exceed the live winners)
+        val = float(scores[:k][slots >= 0].sum()) / max(self.store.n_docs,
+                                                         1)
+        src = "sieve"
+      sp.add(tier=src, stale=stale)
+    self._feed_query_metrics(src, 1, stale, sp.wall_s, path="single")
+    return QueryResult(sel, val, src, stale, sp.wall_s)
 
   def query_batch(self, requests, tier: str = "sieve") -> list[QueryResult]:
     """Answer a batch of tenant requests with one merge call a query tile
@@ -361,8 +377,19 @@ class SelectionService:
     reqs = [r if isinstance(r, QueryRequest)
             else QueryRequest() if r is None else QueryRequest(k=int(r))
             for r in requests]
-    t0 = time.perf_counter()
-    stale = self._appends_since_epoch
+    with obs.span("service.query_batch", tier=tier, batch=len(reqs)) as sp:
+      stale = self._appends_since_epoch
+      sp.add(stale=stale)
+      answers = self._answer_batch(reqs, tier)
+    for src in sorted(set(a[0] for a in answers)):
+      self._feed_query_metrics(src, sum(1 for a in answers if a[0] == src),
+                               stale, sp.wall_s, path="batch")
+    return [QueryResult(sel, val, src, stale, sp.wall_s)
+            for src, sel, val in answers]
+
+  def _answer_batch(self, reqs, tier: str) -> list:
+    """(source, ids, value) for every request of a batch (``query_batch``'s
+    routing)."""
     norm = [(self._norm_k(r.k), self._norm_excl(r.exclude_gids or None),
              int(r.seed)) for r in reqs]
     mc = self.store.query_mask_cap
@@ -408,9 +435,7 @@ class SelectionService:
           slots = g[j, :norm[i][0]]
           val = float(s[j, :norm[i][0]][slots >= 0].sum()) / nd
           answers[i] = ("sieve", slots[slots >= 0], val)
-    wall = time.perf_counter() - t0
-    return [QueryResult(sel, val, src, stale, wall)
-            for src, sel, val in answers]
+    return answers
 
   def epoch_perm(self, epoch: int | None = None) -> torch.Tensor:
     """The (capacity,) partition permutation this service draws for epoch
@@ -423,7 +448,10 @@ class SelectionService:
 
   def _epoch(self, perm: torch.Tensor, ages: torch.Tensor,
              deadline: float):
-    """Re-partition the block, derive the warm bounds, run GreeDi."""
+    """Re-partition the block, derive the warm bounds, run GreeDi.
+    Returns the GreediResult and the device-fed diagnostics: each shard's
+    live evaluation rows under this partition and its peak merged rows
+    ((m,) int64 each, on the device)."""
     st = self.store
     m, cap, d = self._m, st.capacity, self._d
     npp = cap // m
@@ -443,12 +471,16 @@ class SelectionService:
       wb = self._maintainer.epoch_bounds(wb, nv.repeat_interleave(npp))
       wb = (wb * (1.0 + _BOUND_SLACK_REL) + _BOUND_SLACK_ABS).to(
           torch.float32)
-    return GD.greedi_sharded(
+    r = GD.greedi_sharded(
         feats_sh, m=m, kappa=self._kappa, k_final=self._k_final,
         objective=self._objective, backend=self._backend, gids=gids_sh,
         mode=self._mode, warm_bounds=wb, liveness_age=ages,
         liveness_deadline=deadline, merge=self._merge,
         tree_branch=self._tree_branch)
+    eval_mass = shard_live_counts(gids_sh >= 0, m).to(torch.int64)
+    merge_rows = torch.full((m,), self.merge_peak_rows, dtype=torch.int64,
+                            device=st.device)
+    return r, eval_mass, merge_rows
 
   def epoch(self, perm: torch.Tensor | None = None) -> EpochResult:
     """Run one selection epoch: re-partition, select, return ids + stats.
@@ -458,30 +490,36 @@ class SelectionService:
     """
     st = self.store
     dev = st.device
-    if perm is None:
-      perm = self.epoch_perm()
-    perm = torch.as_tensor(perm, device=dev).to(torch.int64)
-    ages = torch.as_tensor(self.board.ages(), dtype=torch.float32,
-                           device=dev)
+    perm = torch.as_tensor(self.epoch_perm() if perm is None else perm)
+    ages = torch.as_tensor(self.board.ages(), dtype=torch.float32)
+    # host-to-device bytes: the ages, and an injected host permutation
+    h2d = sum(t.nbytes for t in (perm, ages) if t.device != dev)
+    perm = perm.to(device=dev, dtype=torch.int64)
+    ages = ages.to(dev)
     deadline = float("inf") if self._deadline is None else self._deadline
     # "warm" means bounds with signal were threaded: a configured-warm
     # service whose table is still all zeros ran this epoch effectively cold
     warm_eff = self._warm and st.bounds_populated
     if dev.type == "cuda":
       torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    r = self._epoch(perm, ages, deadline)
-    if dev.type == "cuda":
-      torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    sv = r.sel_valid.cpu().numpy()
-    sel = r.sel_gids.cpu().numpy()[sv]
+    with obs.span("service.epoch", epoch=self._epoch_idx,
+                  warm=warm_eff) as sp:
+      r, eval_mass, merge_rows = self._epoch(perm, ages, deadline)
+      if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    host = [x.cpu().numpy() for x in (r.sel_valid, r.sel_gids, r.value,
+                                      r.alive, r.r1_rescans)]
+    sv, sel_all, value, alive, rescans = host
+    sel = sel_all[sv]
     keep = sel >= 0
     sel = sel[keep]
     stats = EpochStats(epoch=self._epoch_idx, n_live=st.n_docs,
-                       capacity=st.capacity, value=float(r.value),
-                       alive=r.alive.cpu().numpy(), warm=warm_eff,
-                       wall_s=wall, rescans=r.r1_rescans.cpu().numpy())
+                       capacity=st.capacity, value=float(value),
+                       alive=alive, warm=warm_eff, wall_s=sp.wall_s,
+                       rescans=rescans)
+    self._feed_epoch_metrics(
+        stats, eval_mass, merge_rows, h2d_bytes=h2d,
+        d2h_bytes=sum(a.nbytes for a in host) if dev.type != "cpu" else 0)
     self._epoch_idx += 1
     result = EpochResult(sel, stats, r)
     # the epoch's selection seeds the fresh sieve grid, re-derived from the
@@ -492,6 +530,59 @@ class SelectionService:
     self._appends_since_epoch = 0
     self._last_epoch = result
     return result
+
+  def _feed_query_metrics(self, tier: str, n: int, stale: int,
+                          wall_s: float, path: str) -> None:
+    reg = obs.REGISTRY
+    reg.counter("repro_queries_total",
+                "queries answered, by serving tier").inc(n, tier=tier)
+    reg.gauge("repro_query_staleness_appends",
+              "appends since the last epoch at answer time").set(stale)
+    reg.histogram("repro_query_wall_seconds",
+                  "query wall clock (batch: whole drained batch)").observe(
+                      wall_s, path=path)
+
+  def _feed_epoch_metrics(self, stats: EpochStats, eval_mass, merge_rows,
+                          *, h2d_bytes: int, d2h_bytes: int) -> None:
+    """Feed the registry after an epoch: host values always; the
+    device-fed per-shard eval mass and merge rows, and the rescans, only
+    while obs is enabled (one device-to-host copy)."""
+    reg = obs.REGISTRY
+    reg.counter("repro_epochs_total", "selection epochs run").inc()
+    xfer = reg.counter("repro_transfer_bytes_total",
+                       "host<->device bytes moved, by path")
+    xfer.inc(h2d_bytes, path="epoch_h2d")
+    xfer.inc(d2h_bytes, path="epoch_d2h")
+    reg.histogram("repro_epoch_wall_seconds",
+                  "device-synced epoch wall clock").observe(stats.wall_s)
+    reg.gauge("repro_epoch_value", "f(selection) of the last epoch").set(
+        stats.value)
+    reg.gauge("repro_alive_shards",
+              "shards the liveness collective kept last epoch").set(
+                  int(stats.alive.sum()))
+    reg.gauge("repro_corpus_live_docs", "live documents").set(stats.n_live)
+    reg.gauge("repro_corpus_capacity", "pad-and-mask capacity").set(
+        stats.capacity)
+    reg.gauge("repro_epoch_warm", "1 when warm bounds carried signal").set(
+        int(stats.warm))
+    if not obs.enabled():
+      return
+    em, rows = torch.stack([eval_mass, merge_rows]).cpu().numpy()
+    row_bytes = self._d * self.store.feats.element_size()
+    for i in range(em.shape[0]):
+      reg.gauge("repro_epoch_eval_mass",
+                "per-shard live evaluation rows (device-fed)").set(
+                    int(em[i]), shard=i)
+      reg.gauge("repro_merge_peak_rows",
+                "per-shard peak merged-candidate rows gathered by the "
+                "epoch merge (device-fed; b*kappa tree vs m*kappa flat)"
+                ).set(int(rows[i]), shard=i)
+      reg.gauge("repro_merge_peak_bytes",
+                "per-shard peak merged-candidate bytes (rows * d * "
+                "itemsize)").set(int(rows[i]) * row_bytes, shard=i)
+    reg.counter("repro_lazy_tile_rescans_total",
+                "round-1 lazy tiles rescanned (device-fed)").inc(
+                    int(stats.rescans.sum()))
 
   def selections(self, n_epochs: int) -> Iterator[np.ndarray]:
     """Yield ``sel_gids`` for ``n_epochs`` epochs."""

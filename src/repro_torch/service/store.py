@@ -55,6 +55,15 @@ touching the corpus block:
 * ``reset_sieves``: the epoch hand-off, clearing the buckets, re-gridding
   from the table's max and seeding shard 0's buckets with the epoch's
   selection on the host.
+
+Metrics (``repro_torch.obs``, the reference's names): every append chunk
+counts its chunk, rows and host-to-device bytes and sets the growth gauge;
+the standing sieves' admissions and considered rows of a chunk are
+computed on the device every time (the admissions as the change of the
+bucket counts across the scan, no output of ``csrc/sieve.cu``) and, with
+the sieve grid's top exponent, read to the host only while
+``obs.enabled()``, so with obs off an append chunk still makes no host
+sync.  The query tiers count their transfer bytes by path.
 """
 from __future__ import annotations
 
@@ -63,7 +72,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.objectives import _kernel_h
 from repro_torch.kernels import autotune, dispatch
 from repro_torch.kernels.ref import NEG
@@ -174,6 +183,9 @@ class CorpusStore:
     self._query_count = 0
     self._query_batch_calls = 0
     self._query_batch_queries = 0
+    # host<->device bytes of the current query call (transfer metrics)
+    self._h2d_bytes = 0
+    self._d2h_bytes = 0
     self._alloc(self._cap)
     self._alloc_sieve()
 
@@ -322,6 +334,7 @@ class CorpusStore:
     # back and waits for nothing; a pinned source is copied blocking, since
     # an asynchronous DMA would still read it after the call returns
     feats = torch.as_tensor(feats)
+    crossed = feats.device.type == "cpu" and self._dev.type != "cpu"
     feats = feats.to(device=self._dev, dtype=self._feat_dtype,
                      non_blocking=not feats.is_pinned())
     if feats.dim() != 2 or feats.shape[1] != self._d:
@@ -334,17 +347,22 @@ class CorpusStore:
     self.reserve(self._n + b)
     ab = self._append_block
     gids_dev = self._h2d(gids)
+    self._h2d_bytes = 0  # the ids are fed with their chunk's rows below
+    row_bytes = self._d * feats.element_size() if crossed else 0
     for off in range(0, b, ab):
       chunk = feats[off:off + ab]
       cb = chunk.shape[0]
       n0 = self._n
       self._feats[n0:n0 + cb] = chunk
       self._gids[n0:n0 + cb] = gids_dev[off:off + cb]
+      diag = None
       if self._maintainer is not None:
         sums = self._bound_pass(chunk, n0)
         if self._sieve is not None:
-          self._sieve_pass(chunk, gids_dev[off:off + cb], sums, n0)
+          diag = self._sieve_pass(chunk, gids_dev[off:off + cb], sums, n0)
       self._n += cb
+      self._feed_append_metrics(
+          cb, diag, cb * (row_bytes + (8 if self._dev.type != "cpu" else 0)))
     # every chunk landed: commit the id bookkeeping
     if auto:
       self._next_gid = start + b
@@ -378,14 +396,16 @@ class CorpusStore:
     return sums
 
   def _sieve_pass(self, chunk: torch.Tensor, rgids: torch.Tensor,
-                  sums: torch.Tensor, n0: int) -> None:
+                  sums: torch.Tensor, n0: int) -> torch.Tensor:
     """The standing-sieve update of one chunk (the reference's
     ``sieve_body``), with no host sync: fold the chunk's gains into Delta,
     re-grid (roll the buckets down by the grid top's move, open fresh top
     buckets), then admit the chunk's rows into the shards they land on.
     Which shards those are follows from n0, the chunk's rows and the shard
     size alone, so the host knows them without a read-back; the other
-    shards' update is a no-op."""
+    shards' update is a no-op.  Returns the chunk's device-fed
+    diagnostics, (admissions, rows considered) summed over the shards:
+    the bucket counts' growth across the scan and the rows offered."""
     sv, m, t, k = self._sieve, self._m, self._sieve_T, self._sieve_k
     dev, cb, npp = self._dev, chunk.shape[0], self._cap // m
     # Delta folds every row of the chunk (the reference's padding rows add
@@ -422,12 +442,58 @@ class CorpusStore:
         chunk, sums, rgids, active, tau, gid[lo:hi].view(-1, t, k),
         gain[lo:hi].view(-1, t, k), feat[lo:hi].view(-1, t, k, self._d),
         cnt[lo:hi].view(-1, t), kernel=self._kernel, h=self._h)
+    diag = torch.stack([c2.sum() - cnt[lo:hi].sum(), active.sum()])
     gid[lo:hi] = g2.view(-1, k)
     gain[lo:hi] = w2.view(-1, k)
     feat[lo:hi] = f2.view(-1, k, self._d)
     cnt[lo:hi] = c2.view(-1)
     self._sieve = SieveState(gid, gain, feat, cnt, delta.expand(m).clone(),
                              jtop.expand(m).clone())
+    return diag
+
+  # ---- metric feeds --------------------------------------------------------
+
+  def _feed_transfer(self) -> None:
+    """Count the host<->device bytes of the query call that just ran
+    (always on; host ints) and start the next count from zero."""
+    xfer = obs.REGISTRY.counter("repro_transfer_bytes_total",
+                                "host<->device bytes moved, by path")
+    if self._h2d_bytes:
+      xfer.inc(self._h2d_bytes, path="query_h2d")
+    if self._d2h_bytes:
+      xfer.inc(self._d2h_bytes, path="query_d2h")
+    self._h2d_bytes = self._d2h_bytes = 0
+
+  def _feed_append_metrics(self, rows_written: int, diag,
+                           h2d_bytes: int) -> None:
+    """Feed the registry after one append chunk.  The chunk, row and byte
+    counters are host ints (always on); ``diag``, the chunk's device-fed
+    (admissions, considered) pair, and the sieve grid's top exponent are
+    read to the host (one copy) only while obs is enabled."""
+    reg = obs.REGISTRY
+    reg.counter("repro_append_chunks_total",
+                "fixed-shape append chunks written").inc()
+    reg.counter("repro_append_rows_total",
+                "document rows appended").inc(rows_written)
+    reg.counter("repro_transfer_bytes_total",
+                "host<->device bytes moved, by path").inc(
+                    h2d_bytes, path="append_h2d")
+    reg.gauge("repro_store_growths", "capacity doublings so far").set(
+        self._growths)
+    if not obs.enabled() or diag is None:
+      return
+    admitted, considered, jtop = torch.cat(
+        [diag, self._sieve.jtop[:1]]).tolist()
+    reg.counter("repro_sieve_admissions_total",
+                "sieve bucket admissions (device-fed)").inc(
+                    max(admitted, 0))
+    reg.counter("repro_sieve_rejections_total",
+                "sieve rows considered but not admitted (device-fed)").inc(
+                    max(considered - admitted, 0))
+    if jtop != _JTOP_COLD:
+      reg.gauge("repro_sieve_grid_level",
+                "sieve threshold-grid top exponent jtop (device-fed)").set(
+                    jtop)
 
   # ---- standing-sieve surface ----------------------------------------------
 
@@ -507,8 +573,11 @@ class CorpusStore:
 
   def _h2d(self, a) -> torch.Tensor:
     """A host array on the device, copied without a stream sync unless it
-    lies in pinned memory (see ``append``)."""
+    lies in pinned memory (see ``append``); its bytes are counted for the
+    transfer metrics."""
     t = torch.as_tensor(np.asarray(a))
+    if self._dev.type != "cpu":
+      self._h2d_bytes += t.nbytes
     return t.to(self._dev, non_blocking=not t.is_pinned())
 
   def _excl(self, exclude, b: int | None) -> torch.Tensor:
@@ -593,6 +662,8 @@ class CorpusStore:
   def _read_back(self, g: torch.Tensor, s: torch.Tensor):
     """(ids int64, scores float32) on the host in one device-to-host copy."""
     both = torch.stack([g.to(torch.float64), s.to(torch.float64)]).cpu()
+    if self._dev.type != "cpu":
+      self._d2h_bytes += both.nbytes
     return both[0].numpy().astype(np.int64), both[1].numpy().astype(
         np.float32)
 
@@ -608,6 +679,7 @@ class CorpusStore:
     uniforms ``jitter`` (N,) may give (N = m * T * k)."""
     if self._sieve is None:
       raise RuntimeError("sieve disabled on this store")
+    self._h2d_bytes = self._d2h_bytes = 0
     kq = self._sieve_k if k is None else int(k)
     seeds = np.array([int(seed)], np.int64)
     n = self._sieve.gid.numel()
@@ -616,6 +688,7 @@ class CorpusStore:
                        self._excl(exclude_gids, None)[None], mult)
     self._query_count += 1
     g, s = self._read_back(g, s)
+    self._feed_transfer()
     return g[0], s[0]
 
   def query_sieves_batch(self, ks, exclude, seeds, jitter=None):
@@ -630,6 +703,7 @@ class CorpusStore:
     ``query_sieves`` selects at the same (k, exclusions, seed)."""
     if self._sieve is None:
       raise RuntimeError("sieve disabled on this store")
+    self._h2d_bytes = self._d2h_bytes = 0
     ks = np.asarray(ks, np.int64).reshape(-1)
     seeds = np.asarray(seeds, np.int64).reshape(-1)
     b = ks.shape[0]
@@ -658,6 +732,7 @@ class CorpusStore:
       out_s.append(s[:nb])
       self._query_batch_calls += 1
     self._query_batch_queries += b
+    self._feed_transfer()
     if not out_g:
       k = self._sieve_k
       return np.zeros((0, k), np.int64), np.zeros((0, k), np.float32)
@@ -708,6 +783,7 @@ class CorpusStore:
       raise ValueError(f"exclude {excl.shape} does not match {b} requests "
                        f"of mask cap {self._mask_cap}")
     bq, k_cap = self._qb_tile, int(k_cap)
+    self._h2d_bytes = self._d2h_bytes = 0
     out_g, out_s, out_n = [], [], []
     for off in range(0, b, bq):
       nb = min(bq, b - off)
@@ -718,9 +794,12 @@ class CorpusStore:
       g, s, nv = self._exact_tile(self._h2d(kc), self._excl(ec, bq), k_cap)
       both = torch.cat([g.to(torch.float64), s.to(torch.float64),
                         nv.to(torch.float64)[:, None]], dim=1).cpu().numpy()
+      if self._dev.type != "cpu":
+        self._d2h_bytes += both.nbytes
       out_g.append(both[:nb, :k_cap].astype(np.int64))
       out_s.append(both[:nb, k_cap:2 * k_cap].astype(np.float32))
       out_n.append(both[:nb, 2 * k_cap].astype(np.float32))
+    self._feed_transfer()
     if not out_g:
       return (np.zeros((0, k_cap), np.int64),
               np.zeros((0, k_cap), np.float32), np.zeros((0,), np.float32))

@@ -1200,3 +1200,150 @@ def test_cuda_append_from_pinned_memory_keeps_its_rows(cuda_device):
   st.append(buf)
   buf.fill_(float("nan"))
   assert torch.equal(st.feats[:1024].cpu(), rows)
+
+
+def _launch_calls(fn, n=3):
+  """Host launch calls (``cudaLaunch*`` / ``cuLaunch*``) a call of ``fn``
+  makes, read by torch.profiler over ``n`` calls after a warm-up call (the
+  host's records are complete where the device's can drop)."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               acc_events=True) as prof:
+    for _ in range(n):
+      fn()
+    torch.cuda.synchronize()
+  calls = sum(e.device_type == DeviceType.CPU and e.name.startswith(
+      ("cudaLaunch", "cuLaunch")) for e in prof.events())
+  assert calls % n == 0, calls
+  return calls // n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,kw,baseline", [
+    ("linear", (), 0.0), ("rbf", (("h", 0.75),), 0.0),
+    ("neg_sq_dist", (), -1.0)])
+def test_cuda_facility_pre_gains_one_colsum_launch(cuda_device, kernel, kw,
+                                                   baseline, monkeypatch):
+  """FacilityLocationPre.gains on the card: one ``relu_colsum`` launch a
+  call (the wrapper's count; the call's host launches are exactly those of
+  one relu_colsum call beside its elementwise ops), equal in every bit to
+  its plain version over the same cache; the fused similarities' cache is
+  the ``pairwise`` kernel's block (the fast engine's ``s11`` bits)."""
+  import dataclasses
+
+  from repro_torch.core import objectives as O
+  from repro_torch.kernels import colsum, dispatch
+  r = np.random.default_rng(41)
+  dev = cuda_device
+  x = torch.tensor(r.normal(size=(3, 700, 64)), device=dev).float()
+  x = x / x.norm(dim=-1, keepdim=True)
+  mask = torch.tensor(r.uniform(size=(3, 700)) < 0.9, device=dev).float()
+  obj = O.FacilityLocationPre(kernel=kernel, kernel_kwargs=kw,
+                              baseline=baseline)
+  st = obj.init(x, mask, x)
+  if kernel != "neg_sq_dist":
+    assert torch.equal(st.sim, ops.pairwise(x, x, kernel=kernel, h=0.75))
+  for i in (5, 300):
+    st = obj.update(st, x[:, i])
+  plain = dataclasses.replace(obj, backend="ref")
+  before = colsum.launches
+  g = obj.gains(st, x)
+  assert colsum.launches == before + 1
+  assert torch.equal(g, plain.gains(st, x))
+  cov = torch.where(st.eval_mask > 0, st.cov, torch.inf)
+  n_colsum = _launch_calls(lambda: ops.relu_colsum(st.sim, cov))
+  assert n_colsum == 1 + (colsum.chunks(700) > 1)
+  n_gains = _launch_calls(lambda: obj.gains(st, x))
+  resolve = dispatch.resolve
+  monkeypatch.setattr(dispatch, "resolve", lambda name, backend="auto": (
+      (lambda s, c: torch.empty(s.shape[0], s.shape[2], device=s.device))
+      if name == "relu_colsum" else resolve(name, backend)))
+  n_rest = _launch_calls(lambda: obj.gains(st, x))
+  assert n_gains - n_rest == n_colsum
+
+
+@pytest.mark.cuda
+def test_cuda_generic_neg_sq_dist_gains_match_the_cpu(cuda_device):
+  """The generic path on the card (cuBLAS blocks, the ``relu_colsum``
+  kernel for facility location) within 1e-5 of the plain CPU version, for
+  the four objectives over a batch of partitions.  Rows of norm about 0.3
+  keep the information-gain and DPP conditional variances off their 1e-12
+  floor, where the log turns an ulp of cond into 1e-4 of gain."""
+  from repro_torch.core import objectives as O
+  from repro_torch.kernels import colsum
+  r = np.random.default_rng(42)
+  x = (r.normal(size=(4, 900, 32)) * 0.05).astype(np.float32)
+  c = (r.normal(size=(4, 300, 32)) * 0.05).astype(np.float32)
+  mask = (r.uniform(size=(4, 900)) < 0.9).astype(np.float32)
+  objs = (O.FacilityLocation(kernel="neg_sq_dist", baseline=-0.05),
+          O.SaturatedCoverage(kernel="neg_sq_dist"),
+          O.InformationGain(k_max=6, kernel="neg_sq_dist", kernel_kwargs=()),
+          O.LogDetDPP(k_max=6, kernel="neg_sq_dist", kernel_kwargs=(),
+                      jitter=1.0))
+  for obj in objs:
+    gains = []
+    for dev in ("cpu", cuda_device):
+      xt, ct = torch.tensor(x, device=dev), torch.tensor(c, device=dev)
+      if isinstance(obj, (O.InformationGain, O.LogDetDPP)):
+        st = obj.broadcast(obj.init_d(32, device=dev), 4)
+      else:
+        st = obj.init(xt, torch.tensor(mask, device=dev))
+      for i in (3, 50):
+        st = obj.update(st, xt[:, i])
+      before = colsum.launches
+      gains.append(obj.gains(st, ct).cpu())
+      if dev != "cpu" and isinstance(obj, O.FacilityLocation):
+        assert colsum.launches == before + 1
+    _close(gains[1], gains[0], 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_service_obs_off_no_sync_an_append_chunk(cuda_device):
+  """With obs off an append chunk makes no host sync and a query one; with
+  obs on the device-fed series reach the registry (each chunk's
+  diagnostics read once) and the selection is the same."""
+  import warnings
+
+  from repro_torch import obs
+  from repro_torch.service import SelectionService
+  r = np.random.default_rng(43)
+  x = torch.tensor(r.normal(size=(4096, 16)), device=cuda_device).float()
+  x = x / x.norm(dim=1, keepdim=True)
+
+  def syncs(fn):
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+      with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fn()
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+  kw = dict(m=4, d=16, kappa=8, k_final=8, capacity=4096, append_block=256,
+            seed=0)
+  sels = []
+  for on in (False, True):
+    obs.REGISTRY.reset()
+    if on:
+      obs.enable()
+    try:
+      svc = SelectionService(**kw)
+      svc.append(x[:2048])
+      n_sync = syncs(lambda: svc.append(x[2048:]))
+      q_sync = syncs(lambda: svc.query())
+      sels.append(svc.epoch().sel_gids.tolist())
+      snap = obs.REGISTRY.snapshot()
+    finally:
+      obs.disable()
+    if on:
+      assert n_sync == 2048 // 256
+      assert snap["repro_sieve_admissions_total"]["series"][0]["value"] > 0
+      assert len(snap["repro_epoch_eval_mass"]["series"]) == 4
+    else:
+      assert n_sync == 0 and q_sync == 1
+      assert "repro_sieve_admissions_total" not in snap
+  assert sels[0] == sels[1]

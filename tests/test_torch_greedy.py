@@ -133,7 +133,9 @@ def test_greedy_runs_out_of_candidates_and_caps_at_cardinality():
 def test_greedy_other_modes_raise():
   """The random modes are ported (tests/test_torch_constraints.py); what
   raises now is a mode that does not exist, and a mode without the inputs
-  it needs (a sample fraction, item costs)."""
+  it needs (a sample fraction, item costs).  Every similarity of the
+  reference is ported (``neg_sq_dist``: tests/test_torch_objectives.py), so
+  what an objective refuses is a similarity outside ``KERNELS``."""
   f = torch.tensor(_feats(20, seed=5))
   to = TO.FacilityLocation()
   with pytest.raises(ValueError, match="not in"):
@@ -142,5 +144,5 @@ def test_greedy_other_modes_raise():
     TG.greedy(to, to.init(f), f, 3, mode="stochastic")
   with pytest.raises(ValueError, match="cost"):
     TG.greedy(to, to.init(f), f, 3, mode="cost_benefit")
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    TO.FacilityLocation(kernel="neg_sq_dist")
+  with pytest.raises(ValueError, match="not in"):
+    TO.FacilityLocation(kernel="cosine")

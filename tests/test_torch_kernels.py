@@ -361,10 +361,10 @@ def test_bound_update_matches_reference(kernel):
 
 def test_port_imports_neither_jax_nor_reference():
   """In a fresh interpreter, importing every module of the port (the
-  selection service's with its query path, the graph-cut path's and the
-  LM serving path's among them) and the port's
-  examples, examples/active_set_gp_torch.py and
-  examples/maxcut_constrained_torch.py, loads no JAX and no module of the
+  selection service's with its query path, the graph-cut path's, the LM
+  serving path's and ``obs`` among them) and the port's examples,
+  examples/active_set_gp_torch.py, examples/maxcut_constrained_torch.py
+  and examples/quickstart_torch.py, loads no JAX and no module of the
   reference package."""
   code = r"""
 import importlib, pkgutil, sys
@@ -385,7 +385,10 @@ for name in ("repro_torch.service.service", "repro_torch.service.store",
              "repro_torch.configs.qwen3_4b", "repro_torch.models.registry",
              "repro_torch.models.transformer", "repro_torch.serve.serve_step",
              "repro_torch.service.batching", "repro_torch.kernels.sieve",
-             "repro_torch.data.pipeline", "repro_torch.interop"):
+             "repro_torch.data.pipeline", "repro_torch.interop",
+             "repro_torch.obs", "repro_torch.obs.metrics",
+             "repro_torch.obs.export", "repro_torch.obs.trace",
+             "repro_torch.obs.sidecar"):
   assert name in sys.modules, name
 """
   env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -395,7 +398,8 @@ for name in ("repro_torch.service.service", "repro_torch.service.store",
   assert "BAD []" in out.stdout, out.stdout
   assert int(out.stdout.split("LOADED")[1].split()[0]) >= 45, out.stdout
   # the port's examples, imported without running them
-  for name in ("active_set_gp_torch.py", "maxcut_constrained_torch.py"):
+  for name in ("active_set_gp_torch.py", "maxcut_constrained_torch.py",
+               "quickstart_torch.py"):
     example = os.path.join(REPO, "examples", name)
     with_example = code.replace(
         "import repro_torch\n",
