@@ -69,7 +69,18 @@ calls, counting each kernel's launches around each path:
     the flash-attention kernel against the plain version, then bf16
     serving of 8 prompts of 2048 tokens (64 new each) and one of 6000 (16
     new), greedy, with and without the kernel, and decode against teacher
-    forcing.
+    forcing;
+  * the training path (``repro_torch.train``, ``launch/train.py
+    --select-coreset``): the launcher's coreset step (4096 documents of
+    width 64, m = 8, kappa = 256, k_final = 1024) on the facility-select
+    kernel against the plain run, then qwen3-4b at full width and depth
+    (bf16, 4.41 B random parameters, remat "dots", the AdamW state beside
+    them) trained 4 steps at batch 8 x 256 on the coreset's batches (no
+    flash launch in a grad step, 36 in an eval step whose loss must be
+    within 2e-2 of the first step's), a profile of one step (GEMMs,
+    chunked attention, the xent chunks, the optimizer), and the launcher
+    at ``--reduced`` run to step 6 and resumed to 9 in processes of its
+    own.
 
 It holds every kernel against its plain version at the shapes those paths
 launch (the flash kernel also at its edges: ragged lengths, every head
@@ -187,6 +198,9 @@ MAIN_PATH = {
     "relu_colsum": "fast",                     # coreset, e2e full-size
     "sieve_admit": "query_ingest",             # e2e query, full size
 }
+# the training paths' launches, reported beside each kernel's main path
+TRAIN_PATHS = {"facility_select": ("train_coreset",),
+               "flash_attention": ("train_grad_step", "train_eval")}
 GP_KERNELS = ("info_gain_cond", "info_select")
 COV_KERNELS = ("coverage_gain", "coverage_select")
 CUT_KERNELS = ("graph_cut_gain", "graph_cut_select")
@@ -282,6 +296,17 @@ class Sizes:
   exact_b: int = 64
   exact_plain_tile: int = 4  # lanes a plain-version call (memory: B n^2)
   obs_turns: int = 3      # epochs with obs off and on, in turns
+  # training: qwen3-4b at full width and depth (bf16, remat "dots"), the
+  # launcher's global batch x sequence, on the launcher's coreset
+  # (launch/train.py CORESET: 4096 docs of width 64, m 8, kappa 256,
+  # k_final 1024); the CLI at --reduced, checkpoints every 3 steps, run to
+  # 6 and resumed to 9
+  train_arch: str = "qwen3-4b"
+  train_batch: int = 8
+  train_seq: int = 256
+  train_steps: int = 4
+  train_cli_steps: tuple = (6, 9)
+  train_ckpt_every: int = 3
 
 
 class SmokeFailure(Exception):
@@ -3975,6 +4000,7 @@ FLASH_CASES = (   # label, its e2e path, (B, H, Hkv, L, dh), dtype; causal
     ("serve", "serve", (8, 32, 8, 2048, 128), "bf16"),    # set 1's prefill
     ("long", "serve_long", (1, 32, 8, 6000, 128), "bf16"),  # set 2's
     ("serve f32", None, (8, 32, 8, 2048, 128), "f32"),    # FFMA either way
+    ("train eval", "train_eval", (8, 32, 8, 256, 128), "bf16"),  # e2e train
 )
 
 
@@ -4219,7 +4245,8 @@ def e2e_serve(sz):
       # (d) teacher forcing over the prompt and the first decoded tokens
       tf = sz.serve_tf_steps
       full = torch.cat([prompt, k_toks[:, :tf]], dim=1)
-      train = m16.apply_train({"tokens": full})[:, plen - 1:]
+      with torch.no_grad():   # the forward alone: attention on the kernel
+        train = m16.apply_train({"tokens": full})[:, plen - 1:]
       tf_err = float((train.float() - k_logits[:, :tf + 1]).abs().max())
       tf_scale = float(train.float().abs().max())
       check(tf_err <= TOL_SERVE_BF16 * tf_scale, f"teacher forcing: decode "
@@ -4266,6 +4293,346 @@ def profile_serve(sz):
            groups=groups)
   del model, caches
   torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the training path: the coreset step, the train / eval steps, the CLI
+# ---------------------------------------------------------------------------
+
+# the eval loss (flash kernel, bf16) against the first train step's loss
+# (chunked attention) on the same parameters and batch, absolute
+TOL_TRAIN_EVAL = 2e-2
+
+
+def train_coreset(sz, corpus_kw):
+  """The launcher's coreset step (``launch.train.CORESET``) with the
+  kernels, with ``backend="ref"`` and with the kernels again (its launch
+  counts read around it): the kernel runs' ids equal, and equal to the
+  plain run's or a near-tie.  Returns (corpus, ids, counts, fields)."""
+  import numpy as np
+  import torch
+
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.data.selection import greedi_select_indices
+  from repro_torch.kernels import ops
+  from repro_torch.launch.train import CORESET
+  corpus = EmbeddedCorpus(n_docs=CORESET["n_docs"],
+                          feat_dim=CORESET["feat_dim"], **corpus_kw)
+  feats = corpus.features()
+  kw = dict(m=CORESET["m"], kappa=CORESET["kappa"],
+            k_final=CORESET["k_final"])
+  sels, walls = {}, {"auto": [], "ref": []}
+  # the kernels, the plain versions, the kernels again (its counts kept)
+  for backend in ("auto", "ref", "auto"):
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    sel = greedi_select_indices(torch.Generator().manual_seed(0), feats,
+                                backend=backend, **kw)
+    sync()
+    walls[backend].append(time.perf_counter() - t0)
+    check(backend not in sels or np.array_equal(sels[backend], sel),
+          f"train coreset: two {backend} runs differ")
+    sels[backend] = sel
+  counts = ops.launch_counts()
+  sel = sels["auto"]
+  check(len(sel) == kw["k_final"] and len(set(sel.tolist())) == len(sel) and
+        sel.min() >= 0 and sel.max() < corpus.n_docs, "train coreset: not "
+        "k_final unique in-range ids")
+  check(counts["facility_select"] > 0, "train coreset: facility_select was "
+        "not launched")
+  verdict = agree(feats, sel, sels["ref"], "train coreset kernel/plain")
+  return corpus, sel, counts, dict(wall_s=walls, agreement=verdict,
+                                   facility_select=counts["facility_select"])
+
+
+def train_kernel_phase(counts: dict):
+  """facility_gain / facility_select at the coreset step's shapes (round
+  1: 8 partitions of 512 x 512 at d 64; round 2: 4096 eval rows x 2048
+  merged candidates), linear f32, against the plain versions."""
+  import torch
+
+  from repro_torch.launch.train import CORESET
+  g = torch.Generator(device=DEVICE).manual_seed(23)
+  m, n, d = CORESET["m"], CORESET["n_docs"], CORESET["feat_dim"]
+  rows = {}
+  for label, shape in (("train round1", (m, n // m, n // m)),
+                       ("train round2", (1, n, m * CORESET["kappa"]))):
+    st = fl_state(g, *shape, d, torch.float32)
+    gr, sr = facility_phase(label, *st, "linear", "f32", m, counts)
+    rows[("facility_gain", label)] = gr
+    rows[("facility_select", label)] = sr
+  return rows
+
+
+def train_cli(sz):
+  """``python -m repro_torch.launch.train --reduced --select-coreset`` in
+  a process of its own: ``train_cli_steps[0]`` steps with a checkpoint
+  every ``train_ckpt_every``, then ``--steps train_cli_steps[1]``, which
+  must resume from the first run's last step."""
+  first, last = sz.train_cli_steps
+  (REPO / "build").mkdir(exist_ok=True)
+  outs, walls = [], []
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    for steps in (first, last):
+      cmd = [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+             "--select-coreset", "--steps", str(steps), "--ckpt-every",
+             str(sz.train_ckpt_every), "--ckpt-dir", os.path.join(tmp, "ck"),
+             "--device", DEVICE]
+      t0 = time.perf_counter()
+      out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                           timeout=600, env=dict(os.environ,
+                                                 PYTHONPATH=str(SRC)))
+      walls.append(time.perf_counter() - t0)
+      check(out.returncode == 0, f"train CLI --steps {steps} failed: "
+            f"{out.stderr[-2000:]}")
+      outs.append(out.stdout)
+    kept = sorted(os.listdir(os.path.join(tmp, "ck")))
+  check("resumed" not in outs[0] and "GreeDi selected 1024" in outs[0],
+        f"train CLI first run: {outs[0][-1000:]}")
+  check(f"[train] resumed from step {first}" in outs[1] and
+        f"[train] done: steps {first}..{last}" in outs[1],
+        f"train CLI second run did not resume from step {first}: "
+        f"{outs[1][-1000:]}")
+  losses = [float(line.split("loss")[1].split()[0])
+            for out in outs for line in out.splitlines()
+            if line.startswith("[train] step")]
+  check(len(losses) >= 2 and all(x == x and abs(x) < 1e4 for x in losses),
+        f"train CLI losses {losses}")
+  return dict(steps=[first, last], wall_s=walls, resumed_from=first,
+              losses=losses, checkpoints=kept)
+
+
+def e2e_train(sz):
+  """The training path through the entry points a user calls:
+
+  (a) the coreset step at the launcher's sizes (``launch.train.CORESET``)
+      with the facility-select kernel, its ids held to the plain run's
+      (equal or a near-tie);
+  (b) qwen3-4b at full width and depth (36 layers, d 2560, vocab 151936;
+      4.41 B random bf16 parameters from a seed, remat "dots"), the
+      optimizer state beside it: the eval step (``make_eval_step``, the
+      flash kernel, 36 launches) on the first coreset batch, then
+      ``train_steps`` of ``make_train_step`` (chunked attention, 0 flash
+      launches) on the coreset's batches: ms a step (the median after the
+      first), tokens/s, peak memory, loss and grad norm each step (all
+      finite), and the eval loss within ``TOL_TRAIN_EVAL`` of the first
+      step's loss (the same parameters and batch);
+  (c) the CLI: ``train_cli``.
+  Returns (launch counts by path, the model and optimizer state and a
+  batch for ``profile_train``)."""
+  import statistics
+
+  import torch
+
+  from repro_torch.configs import get_config
+  from repro_torch.data.pipeline import batches_from_indices
+  from repro_torch.kernels import flash_attention as fa
+  from repro_torch.kernels import ops
+  from repro_torch.models import Model
+  from repro_torch.train import (OptConfig, init_opt_state, make_eval_step,
+                                 make_train_step)
+  cfg = get_config(sz.train_arch)
+  torch.cuda.empty_cache()
+  corpus, sel, coreset_counts, coreset = train_coreset(
+      sz, dict(vocab=cfg.vocab, seq_len=sz.train_seq, device=DEVICE))
+  counts = {"train_coreset": coreset_counts}
+  batches = list(batches_from_indices(corpus, sel, sz.train_batch,
+                                      sz.train_steps))
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  model = Model(cfg, device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(42))
+  opt = init_opt_state(model)
+  sync()
+  init_s = time.perf_counter() - t0
+  state_gib = torch.cuda.memory_allocated() / 2**30
+  opt_cfg = OptConfig(lr=3e-4, total_steps=200, warmup_steps=10)
+  step = make_train_step(model, opt_cfg)
+  eval_step = make_eval_step(model)
+
+  ops.reset_launch_counts()
+  tc0 = fa.tc_launches
+  ev = eval_step(batches[0])
+  sync()
+  counts["train_eval"] = ops.launch_counts()
+  eval_loss = float(ev["loss"])
+  check(counts["train_eval"]["flash_attention"] == cfg.n_layers and
+        fa.tc_launches - tc0 == cfg.n_layers, f"eval step: "
+        f"{counts['train_eval']['flash_attention']} flash launches "
+        f"({fa.tc_launches - tc0} tensor-core), expected {cfg.n_layers}")
+  walls, losses, norms, lrs = [], [], [], []
+  for i, batch in enumerate(batches):
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    m = step(opt, batch)
+    sync()
+    walls.append(time.perf_counter() - t0)
+    launched = ops.launch_counts()
+    if i == 0:
+      counts["train_grad_step"] = launched
+    check(launched["flash_attention"] == 0, f"train step {i}: "
+          f"{launched['flash_attention']} flash launches under autograd")
+    losses.append(float(m["loss"]))
+    norms.append(float(m["grad_norm"]))
+    lrs.append(float(m["lr"]))
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  check(all(x == x and abs(x) < 1e4 for x in losses + norms), f"train "
+        f"steps: loss {losses}, grad norm {norms}")
+  check(abs(eval_loss - losses[0]) <= TOL_TRAIN_EVAL, f"eval loss "
+        f"{eval_loss} (kernel) vs the first step's {losses[0]} (chunked "
+        f"attention)")
+  ms = statistics.median(walls[1:]) * 1e3
+  tokens = sz.train_batch * sz.train_seq
+  emit("e2e train", arch=cfg.name, n_layers=cfg.n_layers, reduced=[],
+       d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype, remat="dots",
+       params=sum(p.numel() for p in model.parameters()),
+       batch=sz.train_batch, seq=sz.train_seq, coreset=coreset,
+       init_s=init_s, state_gib=state_gib, peak_gib=peak,
+       step_wall_s=walls, ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
+       loss=losses, grad_norm=norms, lr=lrs, eval_loss=eval_loss,
+       eval_minus_first_loss=eval_loss - losses[0], tol=TOL_TRAIN_EVAL,
+       flash_launches={"grad step": counts["train_grad_step"][
+           "flash_attention"], "eval step": counts["train_eval"][
+               "flash_attention"]})
+  emit("e2e train cli", **train_cli(sz))
+  return counts, (model, opt, step, batches[0])
+
+
+def scope_of(events, scopes):
+  """A function from a profiled CPU op to its scope in a train step: an op
+  inside a ``record_function`` scope named in ``scopes`` (its forward, and
+  its recomputation under a checkpoint) belongs to it, and so does an op
+  of the backward of a node that a forward op of the scope created
+  (``autograd::engine::evaluate_function`` with that op's sequence
+  number); any other op is "rest"."""
+  from torch.autograd import DeviceType
+
+  def ancestors(e):
+    while e is not None:
+      yield e
+      e = e.cpu_parent
+
+  def backward(a):
+    return a.name.startswith("autograd::engine::evaluate_function")
+
+  seq_scope = {}
+  for e in events:
+    if (e.device_type == DeviceType.CPU and e.sequence_nr >= 0
+        and not any(backward(a) for a in ancestors(e))):
+      hit = next((a.name for a in ancestors(e) if a.name in scopes), None)
+      if hit:
+        seq_scope[e.sequence_nr] = hit
+
+  def scope(e):
+    for a in ancestors(e):
+      if a.name in scopes:
+        return a.name
+      if backward(a) and a.sequence_nr in seq_scope:
+        return seq_scope[a.sequence_nr]
+    return "rest"
+
+  return scope
+
+
+TRAIN_SCOPES = ("train.chunked_attention", "train.xent_chunk",
+                "train.adamw_update")
+GEMM_KEYS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+
+
+def scoped_train_step(step, opt, batch):
+  """Run ``step(opt, batch)`` with ``chunked_attention``,
+  ``Model._xent_chunk`` and the step's ``adamw_update`` each inside a
+  ``record_function`` scope of ``TRAIN_SCOPES`` (restored after)."""
+  import torch
+
+  from repro_torch.models import attention, registry
+  from repro_torch.train import train_step
+
+  def scoped(name, fn):
+    def run(*a, **kw):
+      with torch.profiler.record_function(name):
+        return fn(*a, **kw)
+    return run
+
+  saved = (attention.chunked_attention, registry.Model._xent_chunk,
+           train_step.adamw_update)
+  attention.chunked_attention = scoped(TRAIN_SCOPES[0], saved[0])
+  registry.Model._xent_chunk = scoped(TRAIN_SCOPES[1], saved[1])
+  train_step.adamw_update = scoped(TRAIN_SCOPES[2], saved[2])
+  try:
+    return step(opt, batch)
+  finally:
+    (attention.chunked_attention, registry.Model._xent_chunk,
+     train_step.adamw_update) = saved
+
+
+def profile_train(handles):
+  """Where one full-width train step's device time goes: the GEMMs (every
+  cuBLAS / CUTLASS kernel, and those outside attention and the xent
+  chunks: the projections and the MLP), chunked attention (forward,
+  recomputation and backward), the xent chunks (final norm, head,
+  logsumexp: forward, recomputation, backward) and the optimizer's
+  elementwise passes, as shares of the device time; and the busy share
+  (device time over the profiled wall, a lower bound)."""
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  model, opt, step, batch = handles
+  scoped_train_step(step, opt, batch)                   # warm-up
+  torch.cuda.empty_cache()
+  sync()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    scoped_train_step(step, opt, batch)
+    sync()
+    wall = time.perf_counter() - t0
+  events = prof.events()
+  scope = scope_of(events, TRAIN_SCOPES)
+
+  def dur_ms(e):
+    return (e.time_range.end - e.time_range.start) / 1e3
+
+  # the device records less the scopes' own spans on the device timeline
+  # (user annotations), which are not device time
+  kern = [e for e in events if e.device_type == DeviceType.CUDA
+          and e.name not in TRAIN_SCOPES
+          and not getattr(e, "is_user_annotation", False)]
+  device_ms = sum(dur_ms(e) for e in kern)
+  if not device_ms:
+    emit("profile train step", wall_s=wall, device_ms="not measured",
+         busy_share="not measured", kernel_records=len(kern))
+    return
+  # each kernel counts for the scope of the launch call (its CUDA
+  # correlation id) and so of the op that made it; "unlinked" if none
+  launches = {e.id: e for e in events if e.device_type == DeviceType.CPU
+              and e.name.startswith(("cuda", "cuLaunch", "cuMem"))}
+  groups = [*TRAIN_SCOPES, "rest", "unlinked"]
+  by_scope, gemm = dict.fromkeys(groups, 0.0), dict.fromkeys(groups, 0.0)
+  for k in kern:
+    call = launches.get(k.id)
+    hit = "unlinked" if call is None else scope(call)
+    by_scope[hit] += dur_ms(k)
+    if any(key in k.name.lower() for key in GEMM_KEYS):
+      gemm[hit] += dur_ms(k)
+  top = {}
+  for e in kern:
+    top[e.name[:60]] = top.get(e.name[:60], 0.0) + dur_ms(e)
+  emit("profile train step", wall_s=wall, device_ms=device_ms,
+       busy_share=device_ms / 1e3 / wall, kernel_launches=len(kern),
+       by_scope_ms=by_scope,
+       by_scope_share={k: v / device_ms for k, v in by_scope.items()},
+       gemm_ms=sum(gemm.values()), gemm_share=sum(gemm.values()) / device_ms,
+       gemm_outside_attention_xent_share=gemm["rest"] / device_ms,
+       gemm_by_scope_ms=gemm,
+       top=sorted(top.items(), key=lambda kv: -kv[1])[:6])
+  # a scope that read nothing lost its wrapper (the function was renamed or
+  # is reached another way): its time would hide in "rest"
+  dark = [name for name in TRAIN_SCOPES if not by_scope[name] > 0]
+  check(not dark, f"profile train step: no device time under {dark}")
 
 
 # ---------------------------------------------------------------------------
@@ -4354,8 +4721,13 @@ def main() -> int:
   torch.cuda.empty_cache()
   cut_counts.update(e2e_cut_full(sz))
   torch.cuda.empty_cache()
+  train_counts, handles = e2e_train(sz)
+  profile_train(handles)
+  del handles
+  torch.cuda.empty_cache()
   serve_counts = e2e_serve(sz)
-  # kernel -> {path: launches} over the paths of its e2e phase
+  # kernel -> {path: launches} over the paths of its e2e phase; the train
+  # paths ride along for the two kernels they launch
   by_path = {name: {p: c[name] for p, c in (
       gp_counts if name in GP_KERNELS else
       cov_counts if name in COV_KERNELS else
@@ -4363,6 +4735,8 @@ def main() -> int:
       serve_counts if name in SERVE_KERNELS else
       query_counts if name in QUERY_KERNELS else fl_counts).items()}
              for name in MAIN_PATH}
+  for name, paths in TRAIN_PATHS.items():
+    by_path[name].update({p: train_counts[p][name] for p in paths})
   launches = {name: by_path[name][path] for name, path in MAIN_PATH.items()}
   e2e_gp_fig6(sz)
   torch.cuda.empty_cache()
@@ -4379,7 +4753,9 @@ def main() -> int:
   torch.cuda.empty_cache()
   rows.update(cut_kernel_phase(sz, cut_counts))
   torch.cuda.empty_cache()
-  rows.update(flash_kernel_phase(serve_counts))
+  rows.update(flash_kernel_phase({**serve_counts, **train_counts}))
+  rows.update(train_kernel_phase(train_counts["train_coreset"]))
+  torch.cuda.empty_cache()
   rows.update(query_rows)
   profile_phase(sz)
   profile_gp(sz)

@@ -24,18 +24,26 @@ def greedi_select_indices(rng: torch.Generator | None, feats: torch.Tensor,
                           *, m: int, kappa: int, k_final: int,
                           kernel: str = "linear", kernel_kwargs: tuple = (),
                           local_eval: bool = True, mode: str = "standard",
+                          sample_frac: float | None = None,
                           backend: str | None = None, use_select: bool = True,
-                          perm: torch.Tensor | None = None) -> np.ndarray:
+                          perm: torch.Tensor | None = None,
+                          r1_draws: torch.Tensor | None = None,
+                          r2_draws: torch.Tensor | None = None) -> np.ndarray:
   """GreeDi (Alg. 2) returning global indices of the selected coreset.
 
   ``use_select=False`` runs each greedy step as the gains oracle plus a
   masked top-1 instead of the fused select oracle (same selection).
+  ``sample_frac`` is the stochastic mode's inclusion probability;
+  ``perm`` and the draw tables ``r1_draws`` / ``r2_draws`` go to
+  ``greedi_reference`` (drawn from ``rng`` when None).
   """
   obj = O.FacilityLocation(kernel=kernel, kernel_kwargs=kernel_kwargs)
   r = GD.greedi_reference(rng, feats, m=m, kappa=kappa, k_final=k_final,
                           objective=obj, init_for=obj.init,
-                          local_eval=local_eval, mode=mode, backend=backend,
-                          use_select=use_select, perm=perm)
+                          local_eval=local_eval, mode=mode,
+                          sample_frac=sample_frac, backend=backend,
+                          use_select=use_select, perm=perm,
+                          r1_draws=r1_draws, r2_draws=r2_draws)
   sel = r.sel_gids.cpu().numpy()
   return sel[sel >= 0]
 

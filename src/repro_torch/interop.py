@@ -7,7 +7,10 @@ document ids, objective states the reference built part way through a
 greedy run (``ig_state``/``ig_shard_state``/``satcov_state``/``cut_state``),
 the draw tables of the random greedy modes built from the reference's key
 chain (``rank_table``/``keep_table``), the selection service's host
-bound table (``bound_table``) and its standing sieves (``sieve_state``).  These helpers take the
+bound table (``bound_table``) and its standing sieves (``sieve_state``), and
+for the LM substrate the reference's parameters, gradients and optimizer
+state keyed by the port's parameter names (``lm_tree``, ``lm_params``,
+``opt_state``).  These helpers take the
 reference's numpy arrays to tensors on a given device, and a port result
 back to numpy with the reference's dtypes (int32 ids), so one test can run
 both sides on the same data, the same partition and the same state.
@@ -23,6 +26,7 @@ from repro_torch.core.objectives import (CutState, IGShardState, IGState,
                                         SatCovState)
 from repro_torch.models.registry import Model
 from repro_torch.service.store import SieveState
+from repro_torch.train.optimizer import OptState
 
 
 def features(x, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -141,51 +145,71 @@ def tensor(a) -> torch.Tensor:
   return torch.from_numpy(a)
 
 
-@torch.no_grad()
-def lm_params(model: Model, params: dict) -> Model:
-  """Fill ``model`` with the reference's ``Model.init`` pytree (leaves as
-  numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``).
+def lm_tree(model: Model, tree: dict) -> dict[str, torch.Tensor]:
+  """A pytree shaped like the reference's ``Model.init`` parameters
+  (params, their gradients, an optimizer's moments; leaves as numpy arrays)
+  as a dict keyed by the port's parameter names, CPU tensors of the leaves'
+  dtypes.
 
-  Each stacked ``periods/b{j}/...`` leaf is split per layer (period t, block
-  j is layer t * len(pattern) + j) and ``rem/r{j}`` maps to the layers after
-  the periods.  Shapes and dtypes must match the model's: nothing is cast.
-  Every parameter of the model must be filled.  Returns ``model``.
+  Each stacked ``periods/b{j}/...`` leaf is split per layer (period t,
+  block j is layer t * len(pattern) + j) and ``rem/r{j}`` maps to the
+  layers after the periods.
   """
   cfg = model.cfg
   width = len(cfg.pattern)
-  filled = set()
+  out = {}
 
-  def put(prefix: str, module, name: str, leaf) -> None:
-    dst = getattr(module, name)
-    src = tensor(leaf)
-    if src.shape != dst.shape or src.dtype != dst.dtype:
-      raise ValueError(f"{prefix}{name}: reference {tuple(src.shape)} "
-                       f"{src.dtype}, port {tuple(dst.shape)} {dst.dtype}")
-    dst.copy_(src)
-    filled.add(prefix + name)
-
-  def walk(prefix: str, module, tree: dict, index=None) -> None:
-    for name, leaf in tree.items():
+  def walk(prefix: str, sub: dict, index=None) -> None:
+    for name, leaf in sub.items():
       if isinstance(leaf, dict):
-        walk(f"{prefix}{name}.", getattr(module, name), leaf, index)
+        walk(f"{prefix}{name}.", leaf, index)
       else:
-        put(prefix, module, name, leaf if index is None else leaf[index])
+        out[prefix + name] = tensor(leaf if index is None else leaf[index])
 
-  for name in ("embed", "ln_f", "head"):
-    if name in params:
-      put("", model, name, params[name])
-  periods, rem = params.get("periods") or {}, params.get("rem") or {}
+  walk("", {n: tree[n] for n in ("embed", "ln_f", "head") if n in tree})
+  periods, rem = tree.get("periods") or {}, tree.get("rem") or {}
   for t in range(cfg.n_periods):
     for j in range(width):
       if f"b{j}" in periods:
-        i = t * width + j
-        walk(f"layers.{i}.", model.layers[i], periods[f"b{j}"], t)
+        walk(f"layers.{t * width + j}.", periods[f"b{j}"], t)
   for j in range(cfg.n_remainder):
     if f"r{j}" in rem:
-      i = cfg.n_periods * width + j
-      walk(f"layers.{i}.", model.layers[i], rem[f"r{j}"])
-  missing = sorted(set(model.state_dict()) - filled)
+      walk(f"layers.{cfg.n_periods * width + j}.", rem[f"r{j}"])
+  return out
+
+
+@torch.no_grad()
+def lm_params(model: Model, params: dict) -> Model:
+  """Fill ``model`` with the reference's ``Model.init`` pytree (leaves as
+  numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``), mapped by
+  ``lm_tree``.  Shapes and dtypes must match the model's: nothing is cast.
+  Every parameter of the model must be filled.  Returns ``model``.
+  """
+  state = model.state_dict()
+  tree = lm_tree(model, params)
+  for name, src in tree.items():
+    dst = state[name]
+    if src.shape != dst.shape or src.dtype != dst.dtype:
+      raise ValueError(f"{name}: reference {tuple(src.shape)} {src.dtype}, "
+                       f"port {tuple(dst.shape)} {dst.dtype}")
+    dst.copy_(src)
+  missing = sorted(set(state) - set(tree))
   if missing:
     raise ValueError(f"parameters the reference pytree did not fill: "
                      f"{missing}")
   return model
+
+
+def opt_state(model: Model, state) -> OptState:
+  """The reference's ``OptState`` (step, mu, nu; leaves as numpy arrays) as
+  the port's, on the model's device: the moments keyed by the port's
+  parameter names (``lm_tree``), float32; the int32 step as int64."""
+  dev = model.device
+
+  def moments(tree):
+    return {n: t.to(device=dev, dtype=torch.float32).contiguous()
+            for n, t in lm_tree(model, tree).items()}
+
+  return OptState(torch.as_tensor(int(np.asarray(state.step)),
+                                  dtype=torch.int64, device=dev),
+                  moments(state.mu), moments(state.nu))

@@ -4,8 +4,8 @@ port of ``src/repro/models/layers.py``).
 Matmul weights are stored (in_dim, out_dim), the reference's layout, so
 ``x @ w`` is the same product and carrying weights across is a copy.  Every
 cast sits where the reference has it: bf16 parity depends on it.
-``gelu_mlp``, ``causal_conv1d`` and ``softmax_xent`` come with the families
-and the training path that use them (ROADMAP.md).
+``gelu_mlp`` and ``causal_conv1d`` come with the families that use them
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -62,3 +62,25 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
   g = x @ w_gate
   u = x @ w_up
   return (torch.nn.functional.silu(g.float()).to(x.dtype) * u) @ w_down
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+  """Per-token negative log-likelihood in float32: logsumexp(logits) minus
+  the gold logit.  logits (..., V); labels (...).
+
+  The gold logit is a ``gather``: picking one element gives the value of
+  the reference's one-hot masked sum (which it uses to keep a
+  vocab-sharded axis sharded, a concern of the GSPMD layer only).
+  """
+  logits = logits.float()
+  logz = torch.logsumexp(logits, dim=-1)
+  gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+  return logz - gold
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+  """Mean masked token cross-entropy in float32.  logits (B, S, V); labels
+  and mask (B, S)."""
+  nll = token_nll(logits, labels) * mask
+  return nll.sum() / mask.sum().clamp_min(1.0)

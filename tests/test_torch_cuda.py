@@ -1347,3 +1347,82 @@ def test_cuda_service_obs_off_no_sync_an_append_chunk(cuda_device):
       assert n_sync == 0 and q_sync == 1
       assert "repro_sieve_admissions_total" not in snap
   assert sels[0] == sels[1]
+
+
+def _reduced_lm(dtype="float32"):
+  import dataclasses
+
+  from repro_torch import configs
+  return dataclasses.replace(configs.reduced(configs.get_config("qwen3-4b")),
+                             dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+  """Two reduced train steps (qwen3-4b, float32, remat "dots") on the card
+  against the same steps on the CPU from the same weights and batches:
+  loss, grad norm and lr within 1e-5 relative, parameters within 2 x lr
+  per element and 99.9 % of them within 1e-5; no flash launch (attention
+  under autograd runs chunked_attention)."""
+  from repro_torch.data.pipeline import SyntheticLM
+  from repro_torch.models import Model
+  from repro_torch.train import OptConfig, init_opt_state, make_train_step
+  cfg = _reduced_lm()
+  cpu = Model(cfg, device="cpu")
+  card = Model(cfg, device=cuda_device)
+  card.load_state_dict(cpu.state_dict())
+  data = SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=4,
+                     device="cpu")
+  ocfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+  steps = {"cpu": make_train_step(cpu, ocfg),
+           "card": make_train_step(card, ocfg)}
+  opts = {"cpu": init_opt_state(cpu), "card": init_opt_state(card)}
+  for i in range(2):
+    batch = data.batch(i)
+    want = steps["cpu"](opts["cpu"], batch)
+    ops.reset_launch_counts()
+    got = steps["card"](opts["card"], {k: v.to(cuda_device)
+                                       for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 0
+    for key in ("loss", "grad_norm", "lr"):
+      np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                 rtol=1e-5, err_msg=key)
+    lr = float(want["lr"])
+    far = total = 0
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+      d = (p.detach().cpu() - q.detach()).abs()
+      assert float(d.max()) <= 2 * lr, (i, name, float(d.max()))
+      far += int((d > 1e-5).sum())
+      total += d.numel()
+    assert far <= 1e-3 * total, (i, far, total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_eval_step_kernel_path_matches_plain(cuda_device, dtype):
+  """The eval step (no_grad) launches the flash kernel once a layer (the
+  tensor-core kernel for bf16) and its loss holds the backend="ref" run's
+  (no launch): 1e-5 relative in float32, 2e-2 absolute in bf16."""
+  from repro_torch.data.pipeline import SyntheticLM
+  from repro_torch.kernels import flash_attention as fa
+  from repro_torch.models import Model
+  from repro_torch.train import make_eval_step
+  cfg = _reduced_lm(dtype)
+  model = Model(cfg, device=cuda_device)
+  batch = SyntheticLM(vocab=cfg.vocab, seq_len=200, global_batch=4,
+                      device=str(cuda_device)).batch(0)
+  step = make_eval_step(model)
+  losses = {}
+  for backend in ("auto", "ref"):
+    model.backend = backend
+    ops.reset_launch_counts()
+    losses[backend] = float(step(batch)["loss"])
+    launched = ops.launch_counts()["flash_attention"]
+    assert launched == (cfg.n_layers if backend == "auto" else 0)
+    if backend == "auto":
+      assert fa.tc_launches == (cfg.n_layers if dtype == "bfloat16" else 0)
+  if dtype == "float32":
+    np.testing.assert_allclose(losses["auto"], losses["ref"], rtol=1e-5)
+  else:
+    assert abs(losses["auto"] - losses["ref"]) <= 2e-2

@@ -362,9 +362,11 @@ def test_bound_update_matches_reference(kernel):
 def test_port_imports_neither_jax_nor_reference():
   """In a fresh interpreter, importing every module of the port (the
   selection service's with its query path, the graph-cut path's, the LM
-  serving path's and ``obs`` among them) and the port's examples,
-  examples/active_set_gp_torch.py, examples/maxcut_constrained_torch.py
-  and examples/quickstart_torch.py, loads no JAX and no module of the
+  serving path's, the training path's and ``obs`` among them) and the
+  port's examples, examples/active_set_gp_torch.py,
+  examples/maxcut_constrained_torch.py, examples/quickstart_torch.py,
+  examples/train_with_selection_torch.py and
+  examples/selection_service_torch.py, loads no JAX and no module of the
   reference package."""
   code = r"""
 import importlib, pkgutil, sys
@@ -388,7 +390,9 @@ for name in ("repro_torch.service.service", "repro_torch.service.store",
              "repro_torch.data.pipeline", "repro_torch.interop",
              "repro_torch.obs", "repro_torch.obs.metrics",
              "repro_torch.obs.export", "repro_torch.obs.trace",
-             "repro_torch.obs.sidecar"):
+             "repro_torch.obs.sidecar", "repro_torch.train",
+             "repro_torch.train.optimizer", "repro_torch.train.train_step",
+             "repro_torch.train.checkpoint", "repro_torch.launch.train"):
   assert name in sys.modules, name
 """
   env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -399,7 +403,8 @@ for name in ("repro_torch.service.service", "repro_torch.service.store",
   assert int(out.stdout.split("LOADED")[1].split()[0]) >= 45, out.stdout
   # the port's examples, imported without running them
   for name in ("active_set_gp_torch.py", "maxcut_constrained_torch.py",
-               "quickstart_torch.py"):
+               "quickstart_torch.py", "train_with_selection_torch.py",
+               "selection_service_torch.py"):
     example = os.path.join(REPO, "examples", name)
     with_example = code.replace(
         "import repro_torch\n",
