@@ -17,7 +17,14 @@ calls, counting each kernel's launches around each path:
     against its standard one (the same bits), the accumulation-tree merge
     (tree_branch 16, which must give the flat merge's bits, and 4, in the
     fast and the generic engine) and ``greedi_hierarchical`` over 4 pods x
-    4;
+    4; and the ``torch.distributed`` backend (phase ``e2e dist``): the
+    CLI under ``torch.distributed.run`` with 4 gloo ranks on the card (4
+    shards a rank; the fast engine flat and at tree b = 4, the generic
+    engine flat), each run's ids equal to the stacked run's and each
+    rank's peak within a quarter of the stacked peak plus 0.5 GiB, nccl
+    with one rank a card where there are 4 cards, and one library run with
+    rank 1's shards past the liveness deadline (this script's
+    ``--dist-liveness DIR`` mode, one rank of it);
   * the remaining objectives at the coreset path's full size:
     ``FacilityLocationPre`` through ``greedi_reference`` (the cached
     (16, 16384, 16384) block, one ``relu_colsum`` launch a step, 128 in
@@ -996,7 +1003,8 @@ def e2e_full(sz: Sizes):
        wall_s={k: v["wall_s"] for k, v in out.items()},
        peak_gib={k: v["peak_gib"] for k, v in out.items()},
        launches=counts, agreement=verdicts, value=value)
-  return counts, out["reference"]["sel"], out["fast"]["sel"]
+  return (counts, out["reference"]["sel"], out["fast"]["sel"],
+          {"fast": (out["fast"]["sel"], out["fast"]["peak_gib"])})
 
 
 def fast_layout(feats, m):
@@ -1083,7 +1091,7 @@ def e2e_fast_lazy(sz: Sizes, ref_sel):
   return std, {f"fast_{k}": v["launches"] for k, v in runs.items()}
 
 
-def e2e_tree(sz: Sizes, flat):
+def e2e_tree(sz: Sizes, flat, stacked: dict):
   """The accumulation-tree merge and the hierarchical variant at full size
   (the same layout as ``e2e_fast_lazy``; ``flat`` its standard flat run):
   the fast engine with tree_branch = 16 (one level: flat's bits), = 4 (two
@@ -1092,8 +1100,10 @@ def e2e_tree(sz: Sizes, flat):
   ``merge_peak_rows``, f / f(flat) under the full-set objective, held at
   or above the Thm-4 floor, and the launches of the kernels on its path.
   The generic and the fast tree4 share a partition, so they must select
-  the same coreset (``agree``).  Then the CLI with ``--merge-tree 4`` (the same partition: the fast
-  tree's coreset).  Returns the counts by path."""
+  the same coreset (``agree``).  Then the CLI with ``--merge-tree 4`` (the
+  same partition: the fast tree's coreset).  Returns the counts by path;
+  adds the CLI's ids and peak to ``stacked`` (``e2e dist`` holds its
+  ranks to them)."""
   import numpy as np
 
   from repro_torch.core import bounds
@@ -1171,10 +1181,218 @@ def e2e_tree(sz: Sizes, flat):
       wall_s=res["wall_s"], peak_gib=res["peak_gib"],
       launches={k: v for k, v in res["launches"].items() if v})
   counts[f"cli tree{b}"] = res["launches"]
+  stacked[f"fast tree{b}"] = (cli_sel, res["peak_gib"])
   emit("e2e tree", n=sz.n, d=sz.d, k=sz.k, m=m, flat_merge_peak_rows=m *
        sz.k, thm4_floor=floor, tree16_bits_equal_flat=True,
        generic_vs_fast_tree=engines_agree, paths=rows)
   return counts
+
+
+DIST_RANKS = 4
+DIST_DEADLINE = 1.0   # e2e dist's liveness run: rank 1's shards miss it
+
+
+def dist_ages(sz: Sizes):
+  """(m,) heartbeat ages of e2e dist's liveness run: rank 1's shards are
+  past ``DIST_DEADLINE``."""
+  import torch
+  per = sz.m // DIST_RANKS
+  return torch.tensor([5.0 if per <= s < 2 * per else 0.0
+                       for s in range(sz.m)])
+
+
+def torchrun(args, timeout: int = 600):
+  """``python -m torch.distributed.run --standalone --nproc-per-node 4
+  ARGS`` from the checkout in a process group of its own (killed whole on
+  a timeout): (wall seconds, stdout).  A failed rank fails the smoke."""
+  env = dict(os.environ, PYTHONPATH=str(SRC))
+  t0 = time.perf_counter()
+  proc = subprocess.Popen(
+      [sys.executable, "-m", "torch.distributed.run", "--standalone",
+       "--nproc-per-node", str(DIST_RANKS), *args], cwd=REPO, env=env,
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+      process_group=0)
+  try:
+    out, err = proc.communicate(timeout=timeout)
+  except subprocess.TimeoutExpired:
+    proc.terminate()   # torchrun stops its ranks on SIGTERM
+    try:
+      proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+      os.killpg(proc.pid, 9)
+      proc.wait()
+    raise SmokeFailure(f"torchrun {' '.join(args)}: no end in {timeout} s")
+  check(proc.returncode == 0, f"torchrun {' '.join(args)} exited "
+        f"{proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+  return time.perf_counter() - t0, out
+
+
+def dist_liveness_rank(out_dir: str) -> None:
+  """One rank of e2e dist's library run (``chip_smoke.py --dist-liveness
+  DIR`` under torchrun): the fast engine over a gloo mesh of 4 ranks on the
+  card, each rank passing its own shards' heartbeat ages (``dist_ages``),
+  twice (the first run also sets the collectives up); writes the second
+  run's result, both wall times, the peak and one run's collectives to
+  DIR."""
+  sys.path.insert(0, str(SRC))
+  import numpy as np
+  import torch
+
+  from repro_torch import no_tf32
+  from repro_torch.core import greedi as GD
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.launch.mesh import ProcessMesh
+  no_tf32()
+  sz = Sizes()
+  mesh = ProcessMesh.from_env(sz.m, "gloo", DEVICE)
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0,
+                         device=str(mesh.device)).features()
+  fsh, gids = fast_layout(feats, sz.m)
+
+  def own(x):
+    return x.reshape(sz.m, -1, *x.shape[1:])[mesh.shards].reshape(
+        -1, *x.shape[1:])
+
+  torch.cuda.reset_peak_memory_stats()
+  walls = []
+  for _ in range(2):
+    mesh.gathers = mesh.gather_bytes = 0
+    sync()
+    t0 = time.perf_counter()
+    r = GD.greedi_sharded_fast(
+        own(fsh), m=sz.m, kappa=sz.k, k_final=sz.k, gids=own(gids),
+        liveness_age=own(dist_ages(sz)), liveness_deadline=DIST_DEADLINE,
+        mesh=mesh)
+    sync()
+    walls.append(time.perf_counter() - t0)
+  np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"),
+           **{f: getattr(r, f).cpu().numpy() for f in (
+               "sel_gids", "sel_valid", "alive", "value", "stage1_values")},
+           wall_s=walls, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+           gathers=mesh.gathers, gather_bytes=mesh.gather_bytes)
+  mesh.close()
+
+
+def e2e_dist(sz: Sizes, stacked: dict):
+  """The selection CLI under ``torch.distributed.run`` with 4 ranks (gloo,
+  every rank on this card) at full size (n = 262144, d = 64, m = 16, k =
+  kappa = 64): the fast engine flat and at tree b = 4, the generic engine
+  flat.  Each run's ids must equal the stacked in-process run's bit for
+  bit (``stacked``: e2e full-size's and e2e tree's CLI runs; the generic
+  engine's flat run here) and each rank's peak must stay within a quarter
+  of the stacked peak plus 0.5 GiB; a failed rank fails the smoke.  With
+  4 or more cards the same runs go over nccl, one rank a card.  Then one
+  library run, ``greedi_sharded_fast(mesh=)`` with rank 1's shards past
+  the liveness deadline, against the stacked run with the same ages.
+  Prints each run's wall time, its collectives and their bytes."""
+  import numpy as np
+  import torch
+
+  from repro_torch.core import greedi as GD
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.launch import select as cli
+  # --n-docs / --dim: torchrun's parser takes --n and --d for its own
+  base = ["-m", "repro_torch.launch.select", "--n-docs", str(sz.n), "--dim",
+          str(sz.d), "--k", str(sz.k), "--mesh", str(sz.m), "--no-coverage"]
+  runs = {"fast": [], f"fast tree{sz.tree_b}": ["--merge-tree",
+                                                str(sz.tree_b)],
+          "generic": ["--no-fast"]}
+  kernels = {"fast": ("pairwise", "relu_colsum"),
+             "generic": ("facility_select", "facility_gain")}
+  cards = torch.cuda.device_count()
+  backends = ["gloo"] + (["nccl"] if cards >= DIST_RANKS else [])
+  rows = {}
+  (REPO / "build").mkdir(exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    path = os.path.join(tmp, "generic.npy")
+    res = timed_run(lambda: cli.main([*base[2:], "--no-fast", "--out",
+                                      path]))
+    stacked["generic"] = (np.load(path), res["peak_gib"])
+    rows["stacked generic"] = dict(wall_s=res["wall_s"],
+                                   peak_gib=res["peak_gib"])
+    for backend in backends:
+      for name, flags in runs.items():
+        out, stats = (os.path.join(tmp, f"{backend}{len(rows)}.{ext}")
+                      for ext in ("npy", "json"))
+        wall, _ = torchrun([*base, *flags, "--dist-backend", backend,
+                            "--out", out, "--stats-json", stats])
+        ids = np.load(out)
+        with open(stats) as f:
+          done = [r for r in json.load(f)["stats"] if r["event"] == "done"]
+        check(len(done) == 1 and done[0]["world"] == DIST_RANKS,
+              f"e2e dist {backend} {name}: done records {done}")
+        done = done[0]
+        want, peak = stacked[name]
+        check(np.array_equal(ids, want), f"e2e dist {backend} {name}: ids "
+              f"{ids.tolist()} differ from the stacked run's "
+              f"{want.tolist()}")
+        peaks = [float(p) for p in done["rank_peak_gib"].split(",")]
+        limit = peak / DIST_RANKS + 0.5
+        check(len(peaks) == DIST_RANKS and max(peaks) <= limit,
+              f"e2e dist {backend} {name}: rank peaks {peaks} GiB over "
+              f"{limit} (stacked {peak})")
+        launched = dict(kv.split(":") for kv in done["launches"].split(",")
+                        if ":" in kv)
+        for kname in kernels[name.split()[0]]:
+          check(int(launched.get(kname, 0)) > 0, f"e2e dist {backend} "
+                f"{name}: rank 0 did not launch {kname} ({launched})")
+        rows[f"{backend} {name}"] = dict(
+            launch_wall_s=wall, select_wall_s=done["wall_s"],
+            stacked_peak_gib=peak, rank_peak_gib=peaks, limit_gib=limit,
+            gathers=done["gathers"], gather_bytes=done["gather_bytes"],
+            launches=launched, ids_equal=True)
+    # the library run: rank 1's shards dead through liveness
+    live_dir = os.path.join(tmp, "liveness")
+    os.mkdir(live_dir)
+    wall, _ = torchrun([str(REPO / "chip_smoke.py"), "--dist-liveness",
+                        live_dir])
+    ranks = [dict(np.load(os.path.join(live_dir, f"rank{r}.npz")))
+             for r in range(DIST_RANKS)]
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+  fsh, gids = fast_layout(feats, sz.m)
+  ages = dist_ages(sz)
+  res = timed_run(lambda: GD.greedi_sharded_fast(
+      fsh, m=sz.m, kappa=sz.k, k_final=sz.k, gids=gids, liveness_age=ages,
+      liveness_deadline=DIST_DEADLINE))
+  want = res["result"]
+  dead = (ages > DIST_DEADLINE).numpy()
+  check(want.alive.cpu().numpy().tolist() == (~dead).tolist(),
+        f"e2e dist liveness: stacked alive {want.alive.tolist()}")
+  sel = selected(want, sz.n, sz.k, "e2e dist liveness")
+  dead_rows = set(gids.reshape(sz.m, -1).cpu()[torch.as_tensor(dead)]
+                  .reshape(-1).tolist())
+  check(not dead_rows & set(sel.tolist()), "e2e dist liveness: a dead "
+        "shard's row was selected")
+  rel = 0.0
+  for r, got in enumerate(ranks):
+    for f in ("sel_gids", "sel_valid", "alive"):
+      check(np.array_equal(got[f], getattr(want, f).cpu().numpy()),
+            f"e2e dist liveness: rank {r} {f} differs from the stacked run")
+    for f in ("value", "stage1_values"):
+      w = getattr(want, f).cpu().numpy()
+      ok = np.isfinite(w)
+      check(np.array_equal(np.isfinite(got[f]), ok), f"e2e dist liveness: "
+            f"rank {r} {f} {got[f]} against {w}")
+      rel = max(rel, float(np.max(np.abs(got[f][ok] - w[ok]) /
+                                  np.abs(w[ok]))))
+  check(rel <= 1e-5, f"e2e dist liveness: values differ by {rel} relative")
+  peaks = [float(g["peak_gib"]) for g in ranks]
+  limit = res["peak_gib"] / DIST_RANKS + 0.5
+  check(max(peaks) <= limit, f"e2e dist liveness: rank peaks {peaks} over "
+        f"{limit}")
+  rows["gloo liveness"] = dict(
+      launch_wall_s=wall,
+      select_wall_s_first_second=[g["wall_s"].tolist() for g in ranks],
+      stacked_wall_s=res["wall_s"], stacked_peak_gib=res["peak_gib"],
+      rank_peak_gib=peaks, limit_gib=limit,
+      gathers=int(ranks[0]["gathers"]),
+      gather_bytes=int(ranks[0]["gather_bytes"]), ids_equal=True,
+      alive=int((~dead).sum()), values_max_rel=rel)
+  nccl = ("run, one rank a card" if "nccl" in backends else
+          f"not run: {cards} card(s) here and nccl puts one rank on each "
+          f"of {DIST_RANKS} cards")
+  emit("e2e dist", n=sz.n, d=sz.d, k=sz.k, m=sz.m, ranks=DIST_RANKS,
+       shards_a_rank=sz.m // DIST_RANKS, nccl=nccl, runs=rows)
 
 
 def e2e_pre(sz: Sizes, ref_sel, fast_sel):
@@ -4682,13 +4900,15 @@ def main() -> int:
   flash_edge_phase()
   e2e_cli_size(sz)
   torch.cuda.empty_cache()
-  fl_counts, ref_sel, fast_sel = e2e_full(sz)
+  fl_counts, ref_sel, fast_sel, stacked = e2e_full(sz)
   torch.cuda.empty_cache()
   flat, lazy_counts = e2e_fast_lazy(sz, ref_sel)
   fl_counts.update(lazy_counts)
   torch.cuda.empty_cache()
-  fl_counts.update(e2e_tree(sz, flat))
+  fl_counts.update(e2e_tree(sz, flat, stacked))
   del flat
+  torch.cuda.empty_cache()
+  e2e_dist(sz, stacked)
   torch.cuda.empty_cache()
   fl_counts.update(e2e_pre(sz, ref_sel, fast_sel))
   torch.cuda.empty_cache()
@@ -4806,6 +5026,9 @@ def main() -> int:
 
 if __name__ == "__main__":
   try:
+    if sys.argv[1:2] == ["--dist-liveness"]:
+      dist_liveness_rank(sys.argv[2])
+      sys.exit(0)
     code = main()
   except SmokeFailure as e:
     print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -48,9 +48,23 @@ entry point also takes an explicit ``perm`` (and ``u_idx`` for the Thm-10
 subset), so a caller can inject the partition another implementation drew.
 
 Liveness: the sharded engines take per-machine heartbeat ages and a
-deadline; with the shards stacked on one card the liveness collective is
-the vector ``age <= deadline``, ANDed with ``straggler_keep`` and returned
-as ``GreediResult.alive``.
+deadline; the liveness collective gathers every shard's bit ``age <=
+deadline`` into the (m,) straggler mask, ANDed with ``straggler_keep``
+and returned as ``GreediResult.alive``.
+
+The shard axis: by default the m shards are stacked on this process (a
+leading tensor axis).  With ``mesh=`` (a ``launch.mesh.ProcessMesh``) the
+sharded engines and ``greedi_hierarchical`` run over the ranks of a
+process group instead, each rank holding its ``m_local`` contiguous shards
+(``feats``, ``gids``, ``warm_bounds`` and ``liveness_age`` are the rank's
+own rows).  Every read across the shard axis goes through one small
+object (``_Stacked`` or ``_Ranks``): ``gather`` turns a rank's (m_local,
+...) slab into the full (m, ...) tensor, the same bits on every rank, and
+``mine`` takes the rank's rows of a full one.  The stacked arithmetic then
+runs on the full tensors as it is, so every rank takes the same
+``masked_top1`` without a broadcast and selects the stacked run's ids bit
+for bit.  A psum is such a gather followed by the stacked sum, never an
+``all_reduce``, whose order would depend on the ring.
 
 ``greedi_reference`` and ``centralized_greedy`` run every greedy mode:
 "standard", "lazy", and the random modes of Sec. 5 ("random", RandomGreedy
@@ -59,9 +73,6 @@ draws come as explicit tables or from the generators ``greedi_keys``
 returns.  The sharded engines run round 1 in "standard" or "lazy"; the
 generic engine's lazy round 1 also takes ``warm_bounds``, the selection
 service's carried table (service/service.py).
-
-Not ported yet (ROADMAP.md, queue 1): the ``torch.distributed`` collective
-backend beside the stacked one (liveness across processes with it).
 """
 from __future__ import annotations
 
@@ -151,6 +162,64 @@ def _repeat_state(state, reps: int):
   return type(state)(*(_repeat_state(x, reps) for x in state))
 
 
+# ---------------------------------------------------------------------------
+# the shard axis: stacked on this process, or over the ranks of a mesh
+# ---------------------------------------------------------------------------
+
+
+class _Stacked:
+  """Every shard on this process: a gather is the tensor itself and the
+  process's rows are all of them."""
+
+  def __init__(self, m: int):
+    self.m = self.m_local = m
+
+  def gather(self, x: torch.Tensor) -> torch.Tensor:
+    return x
+
+  def mine(self, x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+class _Ranks:
+  """The shards over the ranks of a ``launch.mesh.ProcessMesh``: ``gather``
+  concatenates every rank's (m_local, ...) slab into the (m, ...) tensor in
+  rank order (the list form of ``all_gather``, which gloo also carries for
+  CUDA tensors), ``mine`` takes the rank's rows of an (m, ...) tensor."""
+
+  def __init__(self, mesh):
+    self.mesh = mesh
+    self.m, self.m_local = mesh.m, mesh.m_local
+
+  def gather(self, x: torch.Tensor) -> torch.Tensor:
+    import torch.distributed as dist
+    mesh = self.mesh
+    if x.shape[0] != self.m_local:
+      raise ValueError(f"gather of a slab of {x.shape[0]} shards, this rank "
+                       f"holds {self.m_local}")
+    flag = x.dtype == torch.bool
+    src = (x.to(torch.uint8) if flag else x).contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.world)]
+    dist.all_gather(parts, src, group=mesh.group)
+    mesh.gathers += 1
+    mesh.gather_bytes += (mesh.world - 1) * src.numel() * src.element_size()
+    out = torch.cat(parts)
+    return out.to(torch.bool) if flag else out
+
+  def mine(self, x: torch.Tensor) -> torch.Tensor:
+    return x[self.mesh.shards]
+
+
+def _shard_axis(mesh, m: int):
+  """The shard axis of an engine call: stacked without a mesh, else over
+  its ranks (``m`` must be the mesh's)."""
+  if mesh is None:
+    return _Stacked(m)
+  if m != mesh.m:
+    raise ValueError(f"m={m} but the mesh has {mesh.m} shards")
+  return _Ranks(mesh)
+
+
 def _prep_liveness(liveness_age, liveness_deadline, m: int, device):
   """The liveness inputs as ((m,) float32 ages, () float32 deadline).
 
@@ -168,23 +237,25 @@ def _prep_liveness(liveness_age, liveness_deadline, m: int, device):
   return age, torch.as_tensor(deadline, device=device).to(torch.float32)
 
 
-def _liveness_collective(age: torch.Tensor,
-                         deadline: torch.Tensor) -> torch.Tensor:
-  """The deadline-based liveness collective, stacked form: every shard
-  contributes the bit "my last heartbeat landed within the deadline", and
-  the gathered (m,) vector IS the straggler mask.  With the m shards
-  stacked on one card the gather is the vector itself."""
-  return age <= deadline
+def _liveness_collective(age: torch.Tensor, deadline: torch.Tensor,
+                         axis) -> torch.Tensor:
+  """The deadline-based liveness collective: every shard contributes the
+  bit "my last heartbeat landed within the deadline", and the gathered (m,)
+  vector IS the straggler mask.  With the m shards stacked on one card the
+  gather is the vector itself."""
+  return axis.gather(age <= deadline)
 
 
-def _alive(straggler_keep, liveness_age, liveness_deadline, m: int,
+def _alive(straggler_keep, liveness_age, liveness_deadline, axis,
            device) -> torch.Tensor:
-  """``straggler_keep`` ANDed with the liveness collective: (m,) bool."""
-  keep = (torch.ones((m,), dtype=torch.bool, device=device)
+  """``straggler_keep`` (an (m,) operator input) ANDed with the liveness
+  collective over each shard's own age ((m_local,)): (m,) bool."""
+  keep = (torch.ones((axis.m,), dtype=torch.bool, device=device)
           if straggler_keep is None
           else torch.as_tensor(straggler_keep, device=device).to(torch.bool))
-  age, deadline = _prep_liveness(liveness_age, liveness_deadline, m, device)
-  return keep & _liveness_collective(age, deadline)
+  age, deadline = _prep_liveness(liveness_age, liveness_deadline,
+                                 axis.m_local, device)
+  return keep & _liveness_collective(age, deadline, axis)
 
 
 def greedi_keys(rng: torch.Generator):
@@ -322,49 +393,51 @@ class _Engine(NamedTuple):
   """What a sharded variant plugs into the shared distributed-greedy loop.
 
   Gain and value quantities are *local, unnormalized* per-shard
-  contributions with a leading shard axis; the core sums them over each
-  group's shards (the reference's psum over a subtree), weighted by each
-  shard's evaluation weight.  A group's shards share its candidate block.
+  contributions with a leading shard axis; the core gathers them and sums
+  them over each group's shards (the reference's psum over a subtree),
+  weighted by each shard's evaluation weight.  A group's shards share its
+  candidate block.  The state holds the process's m_local shards.
   """
   state0: Any
-  # state -> (m, nc) per-shard partial marginal gains of its group's block
+  # state -> (m_local, nc) per-shard partial marginal gains of its group's
+  # block
   partial_gains: Callable[[Any], torch.Tensor]
-  # (state, chosen column (m,), its feature row (m, d), take (m,)) -> new
-  # state; every shard gets its group's choice
+  # (state, chosen column (m_local,), its feature row (m_local, d), take
+  # (m_local,)) -> new state; every shard gets its group's choice
   apply_update: Callable[[Any, torch.Tensor, torch.Tensor, torch.Tensor], Any]
-  # state -> (m,) per-shard partial objective value
+  # state -> (m,) every shard's partial objective value, gathered
   partial_value: Callable[[Any], torch.Tensor]
   cands: torch.Tensor   # (G, nc, d) candidate block of each group
   cmask: torch.Tensor   # (G, nc) bool selectable
   cgids: torch.Tensor   # (G, nc) int64 global ids of the candidates
 
 
-def _shard_cands(cands: torch.Tensor, size: int) -> torch.Tensor:
-  """Each shard's candidate block: the one shared block (nc, d) for one
-  group, else (m, nc, d) with every group's block repeated over its
-  shards."""
+def _shard_cands(cands: torch.Tensor, size: int, axis) -> torch.Tensor:
+  """Each of the process's shards' candidate block: the one shared block
+  (nc, d) for one group, else (m_local, nc, d) with every group's block
+  repeated over its shards."""
   if cands.shape[0] == 1:
     return cands[0]
-  return cands.repeat_interleave(size, dim=0)
+  return axis.mine(cands.repeat_interleave(size, dim=0))
 
 
 def _objective_engine(objective, local_feats: torch.Tensor,
                       cands: torch.Tensor, cmask: torch.Tensor,
-                      cgids: torch.Tensor, size: int,
+                      cgids: torch.Tensor, size: int, axis,
                       eval_mask: torch.Tensor | None = None,
                       state0=None) -> _Engine:
-  """Engine over a generic objective exposing partial_stats/update/value,
-  the m shards stacked: ``local_feats`` (m, nl, d) binds each shard's
-  evaluation rows and ``eval_mask`` (m, nl) marks the live ones (holes
-  carry 0), so the partial value is each shard's mean times its live
-  count and hole rows move nothing.  ``cands`` (G, nc, d) holds each group
-  of ``size`` shards' block.  ``state0`` is ``objective.init(local_feats,
-  eval_mask)`` when the caller has it."""
-  rows = kernel_rows(objective, _shard_cands(cands, size))
+  """Engine over a generic objective exposing partial_stats/update/value:
+  ``local_feats`` (m_local, nl, d) binds each of the process's shards'
+  evaluation rows and ``eval_mask`` (m_local, nl) marks the live ones
+  (holes carry 0), so the partial value is each shard's mean times its
+  live count and hole rows move nothing.  ``cands`` (G, nc, d) holds each
+  group of ``size`` shards' block.  ``state0`` is
+  ``objective.init(local_feats, eval_mask)`` when the caller has it."""
+  rows = kernel_rows(objective, _shard_cands(cands, size, axis))
   if eval_mask is None:
     eval_mask = local_feats.new_ones(local_feats.shape[:-1])
   # count in f32: a low-precision mask dtype would round counts past 256
-  n_live = torch.sum(eval_mask.to(torch.float32), dim=-1)     # (m,)
+  n_live = torch.sum(eval_mask.to(torch.float32), dim=-1)     # (m_local,)
 
   def partial_gains(state):
     return objective.partial_stats(state, rows)[0]
@@ -374,7 +447,7 @@ def _objective_engine(objective, local_feats: torch.Tensor,
     return where_state(take, objective.update(state, feat), state)
 
   def partial_value(state):
-    return objective.value(state) * n_live
+    return axis.gather(objective.value(state) * n_live)
 
   if state0 is None:
     state0 = objective.init(local_feats, eval_mask)
@@ -383,18 +456,19 @@ def _objective_engine(objective, local_feats: torch.Tensor,
 
 
 def _dist_greedy_core(engine: _Engine, steps: int, weight: torch.Tensor,
-                      denom: torch.Tensor, feat_dtype, size: int):
+                      denom: torch.Tensor, feat_dtype, size: int, axis):
   """Distributed greedy of G = m // size independent groups over their
-  candidate blocks, m shards stacked on one device, all groups in one
-  batched loop.
+  candidate blocks, all groups in one batched loop.
 
-  Per step: sum each group's weighted per-shard partial gains over its
-  shards, then one ``masked_top1`` per group over gains and feasibility
-  (the same tie rule as the fused select oracles).  ``weight`` (m,) is each
-  shard's evaluation weight (0 for dead machines); ``denom`` (G,) each
-  group's weighted live-row count.  One group of all m shards is the flat
-  merge.  Returns (sel_feats (G, steps, d), sel_valid (G, steps),
-  sel_gids (G, steps), value (G,)).
+  Per step: gather the shards' partial gains over ``axis`` (one all-gather
+  a step over ranks, nothing stacked), sum each group's weighted gains
+  over its shards, then one ``masked_top1`` per group over gains and
+  feasibility (the same tie rule as the fused select oracles); every
+  process holds the same gains, so every process takes the same choice.
+  ``weight`` (m,) is each shard's evaluation weight (0 for dead machines);
+  ``denom`` (G,) each group's weighted live-row count.  One group of all m
+  shards is the flat merge.  Returns (sel_feats (G, steps, d), sel_valid
+  (G, steps), sel_gids (G, steps), value (G,)), the same on every process.
   """
   cands, cmask, cgids = engine.cands, engine.cmask, engine.cgids
   g_n, nc = cmask.shape
@@ -402,15 +476,16 @@ def _dist_greedy_core(engine: _Engine, steps: int, weight: torch.Tensor,
   selmask = torch.zeros((g_n, nc), dtype=torch.bool, device=cands.device)
   outf, outv, outg = [], [], []
   for _ in range(steps):
-    gains = _group_sum(engine.partial_gains(state) * weight[:, None],
-                       size) / denom[:, None]
+    gains = _group_sum(axis.gather(engine.partial_gains(state)) *
+                       weight[:, None], size) / denom[:, None]
     feasible = cmask & ~selmask
     _, chosen = masked_top1(gains, feasible)                  # (G,)
     take = feasible.any(dim=1)
     feat = _rows(cands, chosen)                               # (G, d)
-    state = engine.apply_update(state, chosen.repeat_interleave(size),
-                                feat.repeat_interleave(size, dim=0),
-                                take.repeat_interleave(size))
+    state = engine.apply_update(
+        state, axis.mine(chosen.repeat_interleave(size)),
+        axis.mine(feat.repeat_interleave(size, dim=0)),
+        axis.mine(take.repeat_interleave(size)))
     hit = torch.gather(selmask, 1, chosen[:, None]) | take[:, None]
     selmask = selmask.scatter(1, chosen[:, None], hit)
     outf.append(torch.where(take[:, None], feat, 0.0).to(feat_dtype))
@@ -701,15 +776,18 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
                    liveness_age: torch.Tensor | None = None,
                    liveness_deadline: float | None = None,
                    merge: str = "flat",
-                   tree_branch: int | None = None) -> GreediResult:
-  """GreeDi over m stacked logical shards for any objective exposing
+                   tree_branch: int | None = None,
+                   mesh=None) -> GreediResult:
+  """GreeDi over m logical shards for any objective exposing
   init/partial_stats/update/value (the reference's ``greedi_sharded``);
   the merge levels' gains are the shards' weighted partial sums.
 
   Args:
     feats: (m * npp, d) shard-contiguous ground set (shard b owns rows
       b*npp .. (b+1)*npp - 1); rows with ``gids = -1`` are holes, never
-      candidates and never evaluation mass.
+      candidates and never evaluation mass.  With ``mesh`` the rank's own
+      (m_local * npp, d) rows, and ``gids``, ``warm_bounds`` and
+      ``liveness_age`` its own entries too.
     objective: facility location, saturated coverage or information gain.
     straggler_keep: optional (m,) bool; False machines are dropped at the
       merge and carry no evaluation weight.
@@ -738,6 +816,9 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
       bits; otherwise ``stage1_values`` has one entry per root child.
     tree_branch: children per tree node (merge="tree"; default 8); m must
       factor as b^t * c with c <= b.
+    mesh: a ``launch.mesh.ProcessMesh`` to run the shards over its ranks
+      (the module docstring); the result is the same on every rank and the
+      stacked run's.
 
   A_max replays every root child's block on every shard's evaluation rows
   at once (m * c states in one batch), then sums the shards' partial
@@ -749,15 +830,17 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
   plan = _merge_plan(m, merge, tree_branch)
   objective = with_backend(objective, backend)
   dev = feats.device
-  keep = _alive(straggler_keep, liveness_age, liveness_deadline, m, dev)
-  local, local_gids, local_valid, n_live = _shard_layout(feats, m, gids,
-                                                         dev)
+  axis = _shard_axis(mesh, m)
+  keep = _alive(straggler_keep, liveness_age, liveness_deadline, axis, dev)
+  local, local_gids, local_valid, n_live = _shard_layout(
+      feats, axis.m_local, gids, dev)
+  n_live = axis.gather(n_live)
   evalw = local_valid.to(feats.dtype)
 
   # ---- round 1: the local greedy of every shard, one batch ---------------
   st0 = objective.init(local, evalw)
   wb = (None if warm_bounds is None else torch.as_tensor(
-      warm_bounds, device=dev).to(torch.float32).reshape(m, -1))
+      warm_bounds, device=dev).to(torch.float32).reshape(axis.m_local, -1))
   r1 = greedy(objective, st0, local, kappa, cand_mask=local_valid,
               mode=mode, warm_bounds=wb)
   took = r1.idx >= 0
@@ -765,14 +848,18 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
                      -1)
 
   # ---- merge levels: each group's distributed greedy over its children --
-  q = (r1.feats, took & keep[:, None], gsel)  # one block per child (shard)
+  # one block per child (shard), gathered once: the levels' blocks are the
+  # same on every process from here on
+  q = tuple(axis.gather(x) for x in (r1.feats,
+                                     took & axis.mine(keep)[:, None], gsel))
   for lv in plan:
     kprev = q[0].shape[1]
     w = _level_weight(keep, lv.size, u_subset_eval)
     denom = torch.clamp_min(_group_sum(n_live * w, lv.size), 1.0)   # (G,)
     if lv.root:
       # ---- A_max: each root child's block replayed on every shard ------
-      part_vals = _block_values(objective, st0, q[0], q[1], m)    # (m, c)
+      part_vals = axis.gather(_block_values(
+          objective, st0, q[0], q[1], axis.m_local))              # (m, c)
       stage1_vals = torch.sum(part_vals * (n_live * w)[:, None],
                               dim=0) / denom
       child_keep = keep.reshape(lv.c, -1).any(dim=1)
@@ -780,13 +867,13 @@ def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
       children = q
     blocks = tuple(x.reshape(m // lv.size, lv.c * kprev, *x.shape[2:])
                    for x in q)
-    engine = _objective_engine(objective, local, *blocks, lv.size,
+    engine = _objective_engine(objective, local, *blocks, lv.size, axis,
                                eval_mask=evalw, state0=st0)
     *q, v_merged = _dist_greedy_core(
         engine, k_final if lv.root else kappa, w, denom, feats.dtype,
-        lv.size)
+        lv.size, axis)
   return _finish(v_merged[0], tuple(x[0] for x in q), stage1_vals,
-                 children, k_final, keep, r1.rescans)
+                 children, k_final, keep, axis.gather(r1.rescans))
 
 
 # ---------------------------------------------------------------------------
@@ -903,18 +990,19 @@ def _fast_r1_lazy(s11: torch.Tensor, local_valid: torch.Tensor, kappa: int,
   return torch.stack(sel_idx, dim=1), torch.stack(took, dim=1), rescans
 
 
-def _cached_engine(s2: torch.Tensor, colsum, blocks) -> _Engine:
-  """Engine over a cached (m, nl, nc) cross-similarity block: the gains are
-  relu column sums of s2, an update takes each shard's chosen column.
-  ``blocks`` are the groups' (cands, cmask, cgids), s2's columns in their
-  order."""
+def _cached_engine(s2: torch.Tensor, colsum, blocks, axis) -> _Engine:
+  """Engine over a cached (m_local, nl, nc) cross-similarity block: the
+  gains are relu column sums of s2, an update takes each shard's chosen
+  column.  ``blocks`` are the groups' (cands, cmask, cgids), s2's columns
+  in their order.  The value sums the gathered coverage, so its bits are
+  the stacked sum's."""
   m, nl, _ = s2.shape
   return _Engine(
       state0=torch.zeros((m, nl), dtype=torch.float32, device=s2.device),
       partial_gains=lambda cov: colsum(s2, cov),
       apply_update=lambda cov, j, feat, take: torch.where(
           take[:, None], torch.maximum(cov, _column(s2, j)), cov),
-      partial_value=lambda cov: cov.sum(dim=1),
+      partial_value=lambda cov: axis.gather(cov).sum(dim=1),
       cands=blocks[0], cmask=blocks[1], cgids=blocks[2])
 
 
@@ -928,9 +1016,9 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
                         merge: str = "flat",
                         tree_branch: int | None = None,
                         liveness_age: torch.Tensor | None = None,
-                        liveness_deadline: float | None = None
-                        ) -> GreediResult:
-  """Cached-similarity GreeDi for facility location over m stacked shards
+                        liveness_deadline: float | None = None,
+                        mesh=None) -> GreediResult:
+  """Cached-similarity GreeDi for facility location over m logical shards
   (the reference's ``greedi_sharded_fast``).
 
     * round 1 caches each shard's (n/m x n/m) similarity block once through
@@ -949,8 +1037,9 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
 
   Args:
     feats: (m * npp, d) shard-contiguous ground set (shard b owns rows
-      b*npp .. (b+1)*npp - 1).
-    m: number of stacked logical shards.
+      b*npp .. (b+1)*npp - 1); with ``mesh`` the rank's own (m_local *
+      npp, d) rows, and ``gids`` and ``liveness_age`` its own entries.
+    m: number of logical shards.
     straggler_keep: optional (m,) bool; False machines contribute neither
       candidates nor evaluation mass.
     backend: backend of the ``pairwise`` and ``relu_colsum`` oracles
@@ -960,6 +1049,9 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
     mode: "standard" or "lazy" (round 1).
     merge, tree_branch: as in ``greedi_sharded`` (b = m gives flat's bits).
     liveness_age, liveness_deadline: as in ``greedi_sharded``.
+    mesh: as in ``greedi_sharded``: a rank caches s11 and s2 for its own
+      shards only (m_local / m of the stacked memory); round 1, lazy host
+      syncs included, stays local.
   """
   if mode not in ("standard", "lazy"):
     raise ValueError(f"mode must be 'standard' or 'lazy', got {mode!r}")
@@ -973,9 +1065,12 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
   h = _kernel_h(kernel_kwargs)
   d = feats.shape[1]
   dev = feats.device
-  keep = _alive(straggler_keep, liveness_age, liveness_deadline, m, dev)
-  local, local_gids, local_valid, n_live = _shard_layout(feats, m, gids,
-                                                         dev)
+  axis = _shard_axis(mesh, m)
+  keep = _alive(straggler_keep, liveness_age, liveness_deadline, axis, dev)
+  local, local_gids, local_valid, n_live = _shard_layout(
+      feats, axis.m_local, gids, dev)
+  n_live = axis.gather(n_live)
+  m_local = axis.m_local
   vrow = local_valid.to(torch.float32)
   w = keep.to(torch.float32)
 
@@ -990,28 +1085,32 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
                                            colsum)
   else:
     sel_idx, took = _fast_r1_standard(s11, local_valid, kappa, colsum)
-    rescans = torch.zeros((m,), dtype=torch.int32, device=dev)
+    rescans = torch.zeros((m_local,), dtype=torch.int32, device=dev)
   del s11
-  sel = torch.gather(local, 1, sel_idx[..., None].expand(m, kappa, d))
+  sel = torch.gather(local, 1, sel_idx[..., None].expand(m_local, kappa, d))
   # steps past the live local rows find nothing feasible: invalidate them
   # like the reference does, so kappa > live rows leaks no duplicates
   gsel = torch.where(took, torch.gather(local_gids, 1, sel_idx), -1)
 
   # ---- merge levels: one cached cross block each -------------------------
-  q = (sel, keep[:, None] & took, gsel)   # one block per child (shard)
+  # one block per child (shard), gathered once
+  q = tuple(axis.gather(x) for x in (sel, axis.mine(keep)[:, None] & took,
+                                     gsel))
   for lv in plan:
     kprev = q[0].shape[1]
     denom = torch.clamp_min(_group_sum(n_live * w, lv.size), 1.0)   # (G,)
     blocks = tuple(x.reshape(m // lv.size, lv.c * kprev, *x.shape[2:])
                    for x in q)
-    s2 = sim(local, _shard_cands(blocks[0], lv.size), kernel=kernel, h=h)
-    s2.mul_(vrow[:, :, None])                         # (m, nl, c * kprev)
+    s2 = sim(local, _shard_cands(blocks[0], lv.size, axis), kernel=kernel,
+             h=h)
+    s2.mul_(vrow[:, :, None])                   # (m_local, nl, c * kprev)
     if lv.root:
       # ---- A_max: no replay needed ---------------------------------------
       # invalid candidate columns (padding past a machine's live rows, or
       # rows of a dead machine) carry no coverage in f(A_i)
       s2_pos = torch.clamp_min(s2, 0.0) * blocks[1].to(torch.float32)
-      per_child = s2_pos.reshape(m, s2.shape[1], lv.c, kprev).amax(dim=3)
+      per_child = axis.gather(s2_pos.reshape(
+          m_local, s2.shape[1], lv.c, kprev).amax(dim=3))    # (m, nl, c)
       del s2_pos
       stage1_vals = torch.sum(per_child.sum(dim=1) * w[:, None],
                               dim=0) / denom
@@ -1019,11 +1118,11 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
       stage1_vals = torch.where(child_keep, stage1_vals, -torch.inf)
       children = q
     *q, v_merged = _dist_greedy_core(
-        _cached_engine(s2, colsum, blocks), k_final if lv.root else kappa,
-        w, denom, feats.dtype, lv.size)
+        _cached_engine(s2, colsum, blocks, axis),
+        k_final if lv.root else kappa, w, denom, feats.dtype, lv.size, axis)
     del s2
   return _finish(v_merged[0], tuple(x[0] for x in q), stage1_vals,
-                 children, k_final, keep, rescans)
+                 children, k_final, keep, axis.gather(rescans))
 
 
 # ---------------------------------------------------------------------------
@@ -1036,8 +1135,8 @@ def greedi_hierarchical(feats: torch.Tensor, *, pods: int, per_pod: int,
                         straggler_keep: torch.Tensor | None = None,
                         backend: str | None = None,
                         gids: torch.Tensor | None = None,
-                        mode: str = "standard") -> GreediResult:
-  """Three-level GreeDi over pods x per_pod stacked shards (the
+                        mode: str = "standard", mesh=None) -> GreediResult:
+  """Three-level GreeDi over pods x per_pod logical shards (the
   reference's ``greedi_hierarchical`` over a (pod, data) mesh), pod-major
   like the shard layout: pod p holds shards p * per_pod .. (p + 1) *
   per_pod - 1.
@@ -1054,14 +1153,18 @@ def greedi_hierarchical(feats: torch.Tensor, *, pods: int, per_pod: int,
   The best pod-level solution, evaluated over all the alive data, is kept
   beside the global one and the better is returned (Alg. 2's max(A_max,
   A_B)); ``stage1_values`` holds the pods' values (-inf for a pod that
-  selected nothing), ``value_best_single`` the best pod's.
+  selected nothing), ``value_best_single`` the best pod's.  With ``mesh``
+  (as in ``greedi_sharded``) a pod may sit inside one rank or span
+  several: the levels run on the gathered blocks either way.
   """
   objective = with_backend(objective, backend)
   m = pods * per_pod
   dev = feats.device
-  keep = _alive(straggler_keep, None, None, m, dev)
-  local, local_gids, local_valid, n_live = _shard_layout(feats, m, gids,
-                                                         dev)
+  axis = _shard_axis(mesh, m)
+  keep = _alive(straggler_keep, None, None, axis, dev)
+  local, local_gids, local_valid, n_live = _shard_layout(
+      feats, axis.m_local, gids, dev)
+  n_live = axis.gather(n_live)
   evalw = local_valid.to(feats.dtype)
   w = keep.to(torch.float32)
   nl_w = n_live * w
@@ -1077,24 +1180,26 @@ def greedi_hierarchical(feats: torch.Tensor, *, pods: int, per_pod: int,
                    -1)
 
   # ---- level 2: each pod's merge and distributed greedy ------------------
-  blocks = tuple(x.reshape(pods, per_pod * kappa, *x.shape[2:])
-                 for x in (r1.feats, took & keep[:, None], g1))
+  blocks = tuple(axis.gather(x).reshape(pods, per_pod * kappa, *x.shape[2:])
+                 for x in (r1.feats, took & axis.mine(keep)[:, None], g1))
   pod_f, pod_v, pod_g, _ = _dist_greedy_core(
-      _objective_engine(objective, local, *blocks, per_pod, eval_mask=evalw,
-                        state0=st0),
-      kappa, w, denom_pod, feats.dtype, per_pod)
+      _objective_engine(objective, local, *blocks, per_pod, axis,
+                        eval_mask=evalw, state0=st0),
+      kappa, w, denom_pod, feats.dtype, per_pod, axis)
 
   # ---- level 3: the pods' blocks, one distributed greedy over all --------
   blocks = tuple(x.reshape(1, pods * kappa, *x.shape[2:])
                  for x in (pod_f, pod_v, pod_g))
   glob_f, glob_v, glob_g, glob_val = _dist_greedy_core(
-      _objective_engine(objective, local, *blocks, m, eval_mask=evalw,
+      _objective_engine(objective, local, *blocks, m, axis, eval_mask=evalw,
                         state0=st0),
-      k_final, w, denom_all, feats.dtype, m)
+      k_final, w, denom_all, feats.dtype, m, axis)
 
   # ---- the best pod-level solution, evaluated over all the alive data ----
-  part_vals = _block_values(objective, st0, pod_f, pod_v, m)   # (m, pods)
+  part_vals = axis.gather(_block_values(
+      objective, st0, pod_f, pod_v, axis.m_local))              # (m, pods)
   pod_vals = torch.sum(part_vals * nl_w[:, None], dim=0) / denom_all
   pod_vals = torch.where(pod_v.any(dim=1), pod_vals, -torch.inf)
   return _finish(glob_val[0], (glob_f[0], glob_v[0], glob_g[0]), pod_vals,
-                 (pod_f, pod_v, pod_g), k_final, keep, r1.rescans)
+                 (pod_f, pod_v, pod_g), k_final, keep,
+                 axis.gather(r1.rescans))

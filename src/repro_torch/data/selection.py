@@ -5,10 +5,11 @@ port of ``src/repro/data/selection.py``).
 leading axis); ``greedi_select_indices_sharded`` lays the randomly
 partitioned ground set out shard-contiguously and runs the cached-similarity
 fast engine (or, with ``fast=False``, the generic engine) over m stacked
-logical shards on one card, threading the partition permutation through as
-``gids`` so the returned ids refer to the original document order.  Given
-the same partition both paths select the same coreset.  Both take the
-generator that ``greedi_keys`` splits, or an explicit ``perm``.
+logical shards on one card, or with ``mesh=`` over the ranks of a process
+group, threading the partition permutation through as ``gids`` so the
+returned ids refer to the original document order.  Given the same
+partition both paths select the same coreset.  Both take the generator
+that ``greedi_keys`` splits, or an explicit ``perm``.
 """
 from __future__ import annotations
 
@@ -58,8 +59,9 @@ def greedi_select_indices_sharded(rng: torch.Generator | None,
                                   merge: str = "flat",
                                   tree_branch: int | None = None,
                                   perm: torch.Tensor | None = None,
-                                  fast: bool = True) -> np.ndarray:
-  """GreeDi over m stacked logical shards returning global indices.
+                                  fast: bool = True,
+                                  mesh=None) -> np.ndarray:
+  """GreeDi over m logical shards returning global indices.
 
   The ground set is randomly partitioned with the same generator schedule
   as ``greedi_reference`` (``greedi_keys``), each shard receives one
@@ -71,22 +73,27 @@ def greedi_select_indices_sharded(rng: torch.Generator | None,
   selection on both engines; the fast engine's lazy mode prunes the
   cached similarity columns); ``merge`` "flat" or "tree" with
   ``tree_branch`` children a node (``tree_branch = m`` is flat, bit for
-  bit).
+  bit).  With ``mesh`` (a ``launch.mesh.ProcessMesh``) every rank draws
+  the same partition from the same generator state and runs its own
+  shards' rows; every rank returns the same ids, the stacked run's.
   """
   r_part = GD.greedi_keys(rng)[0] if perm is None else None
   parts, _, perm = random_partition(r_part, feats, m, perm=perm)
-  npp, d = parts.shape[1:]
+  gids = partition_gids(perm)
+  if mesh is not None:
+    parts = parts[mesh.shards]
+    gids = gids.reshape(m, -1)[mesh.shards].reshape(-1)
+  d = parts.shape[2]
   common = dict(m=m, kappa=kappa, k_final=k_final,
-                straggler_keep=straggler_keep, backend=backend,
-                gids=partition_gids(perm), mode=mode, merge=merge,
-                tree_branch=tree_branch)
+                straggler_keep=straggler_keep, backend=backend, gids=gids,
+                mode=mode, merge=merge, tree_branch=tree_branch, mesh=mesh)
+  rows = parts.reshape(-1, d)
   if fast:
-    r = GD.greedi_sharded_fast(parts.reshape(m * npp, d), kernel=kernel,
+    r = GD.greedi_sharded_fast(rows, kernel=kernel,
                                kernel_kwargs=kernel_kwargs, **common)
   else:
     obj = O.FacilityLocation(kernel=kernel, kernel_kwargs=kernel_kwargs)
-    r = GD.greedi_sharded(parts.reshape(m * npp, d), objective=obj,
-                          **common)
+    r = GD.greedi_sharded(rows, objective=obj, **common)
   sel = r.sel_gids.cpu().numpy()
   return sel[sel >= 0]
 

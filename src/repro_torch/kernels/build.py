@@ -6,7 +6,9 @@ together) into ``build/kernels/<hash>/`` at the repository root, where
 ``<hash>`` covers every source and the compiler flags: a changed source
 builds anew, an unchanged one is loaded from the directory.  The libraries
 are loaded with ``ctypes``; nothing here includes PyTorch's headers, so a
-build takes seconds.
+build takes seconds.  Processes that load at once (the ranks of a
+``torch.distributed`` run) take a file lock on the directory: one of them
+compiles, the others wait for it and load what it built.
 
 Nothing is compiled when this module is imported: the CPU tests import
 every module and have no ``nvcc``.
@@ -14,6 +16,7 @@ every module and have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -123,33 +126,43 @@ def build() -> dict[str, Path]:
 
   Raises with the compiler's output when a source does not compile.
   """
-  global build_seconds
   out_dir = BUILD_ROOT / _digest()
   out_dir.mkdir(parents=True, exist_ok=True)
   sources = sorted(CSRC.glob("*.cu"))
   libs = {src.stem: out_dir / f"{src.stem}.so" for src in sources}
-  todo = [src for src in sources if not libs[src.stem].exists()]
-  if todo:
-    t0 = time.perf_counter()
-    nvcc = _nvcc()
-    procs = []
-    for src in todo:
-      tmp = out_dir / f"{src.stem}.{os.getpid()}.tmp.so"
-      cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-      procs.append((src, tmp, subprocess.Popen(
-          cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for src, tmp, proc in procs:
-      log, _ = proc.communicate()
-      (out_dir / f"{src.stem}.log").write_text(log)
-      if proc.returncode != 0:
-        failed.append(f"{src.name}:\n{log}")
-      else:
-        os.replace(tmp, libs[src.stem])  # atomic: readers see whole files
-    if failed:
-      raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    build_seconds = time.perf_counter() - t0
+  if all(lib.exists() for lib in libs.values()):
+    return libs
+  with open(out_dir / ".lock", "w") as lock:
+    fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+    _compile([src for src in sources if not libs[src.stem].exists()], libs,
+             out_dir)
   return libs
+
+
+def _compile(todo, libs: dict, out_dir: Path) -> None:
+  """One ``nvcc`` per source of ``todo``, all started together."""
+  global build_seconds
+  if not todo:
+    return
+  t0 = time.perf_counter()
+  nvcc = _nvcc()
+  procs = []
+  for src in todo:
+    tmp = out_dir / f"{src.stem}.{os.getpid()}.tmp.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    procs.append((src, tmp, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+  failed = []
+  for src, tmp, proc in procs:
+    log, _ = proc.communicate()
+    (out_dir / f"{src.stem}.log").write_text(log)
+    if proc.returncode != 0:
+      failed.append(f"{src.name}:\n{log}")
+    else:
+      os.replace(tmp, libs[src.stem])  # atomic: readers see whole files
+  if failed:
+    raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+  build_seconds = time.perf_counter() - t0
 
 
 def ptxas_report(out_dir: Path | None = None) -> str:

@@ -23,6 +23,32 @@ centralized greedy when n is small enough for its O(k n^2) work to be
 cheap (force with ``--coverage``, skip with ``--no-coverage``).  The run
 ends with one ``[select] done`` line.
 
+Under torchrun the sharded mode runs over the ranks of a process group
+(``launch.mesh.ProcessMesh``): ``--mesh N`` shards in all, N / P on each
+of the P ranks, every rank drawing the same corpus and partition from the
+seed and selecting the same ids::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.select --mesh 16 --n-docs 262144
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.select --mesh 4 --dist-backend gloo \
+        --device cpu --n-docs 4096 --dim 16 --k 8
+
+(``--n-docs`` and ``--dim`` are ``--n`` and ``--d``: the short spellings
+are prefixes of torchrun's own options, which its parser takes for its own
+under some Python 3.12 releases.)
+
+``--dist-backend`` is ``nccl`` (one rank a card, the default on CUDA) or
+``gloo`` (the default on the CPU; on CUDA every rank on the one card
+``--device`` names).  Rank 0 prints the ``[select]`` lines and writes
+``--out`` and ``--stats-json``; the ``done`` line adds ``world=``, every
+rank's peak device memory (``rank_peak_gib``), rank 0's collectives
+(``gathers=``, ``gather_bytes=``: all-gathers and the bytes it received)
+and its kernel launches (``launches=name:count,...``).  The reference
+path and the service mode (``--epochs``) have no process backend yet and
+refuse to run under torchrun; ``--dist-backend`` outside torchrun is
+refused too.
+
 ``--merge-tree B`` merges the round-1 blocks through the accumulation tree
 with B children a node (sharded and service modes; B = the shard count is
 the flat merge, bit for bit); the ``done`` line then says ``merge=treeB``.
@@ -87,6 +113,30 @@ def _query_batch_cycle(svc, b: int, k: int, stage: str, sync, emit) -> None:
        batch_calls=svc.store.query_batch_calls)
 
 
+def _rank_stats(mesh, dev, sel) -> dict:
+  """Every rank's peak device memory (GiB, comma-separated in rank order;
+  "not measured" on the CPU), this rank's collectives and kernel launches,
+  for the ``done`` line.  Raises unless every rank selected the same
+  ids."""
+  import torch
+  import torch.distributed as dist
+
+  from repro_torch.kernels import ops
+  peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+          if dev.type == "cuda" else None)
+  got = [None] * mesh.world
+  dist.all_gather_object(got, (peak, sel.tolist()), group=mesh.group)
+  if any(ids != got[0][1] for _, ids in got):
+    raise RuntimeError(f"[select] the ranks selected different ids: "
+                       f"{[ids for _, ids in got]}")
+  launches = ",".join(f"{k}:{v}" for k, v in ops.launch_counts().items()
+                      if v)
+  return dict(rank_peak_gib=(",".join(f"{p:.6f}" for p, _ in got)
+                             if peak is not None else "not measured"),
+              gathers=mesh.gathers, gather_bytes=mesh.gather_bytes,
+              launches=launches or "none")
+
+
 def _service(args, feats, kappa, dev, sync, emit, serve):
   """The service mode: append, run the epochs, append the held-back rows
   after the first; returns (last epoch's ids, the features selected
@@ -142,8 +192,9 @@ def _service(args, feats, kappa, dev, sync, emit, serve):
 
 def main(argv=None) -> None:
   ap = argparse.ArgumentParser()
-  ap.add_argument("--n", type=int, default=65536)
-  ap.add_argument("--d", type=int, default=64)
+  # --n-docs / --dim: the spellings torchrun's own parser leaves alone
+  ap.add_argument("--n", "--n-docs", dest="n", type=int, default=65536)
+  ap.add_argument("--d", "--dim", dest="d", type=int, default=64)
   ap.add_argument("--k", type=int, default=64)
   ap.add_argument("--kappa", type=int, default=None)
   ap.add_argument("--m", type=int, default=8,
@@ -193,6 +244,9 @@ def main(argv=None) -> None:
                   help="seed of the corpus and of the partition")
   ap.add_argument("--device", default="cuda",
                   help="cuda (default) or cpu (the plain versions)")
+  ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                  help="under torchrun: the process group's backend "
+                  "(default nccl on CUDA, gloo on the CPU)")
   ap.add_argument("--metrics-port", type=int, default=None,
                   help="serve the obs sidecar (/metrics Prometheus text, "
                   "/healthz liveness) on 127.0.0.1 at this port (0 = pick "
@@ -216,9 +270,30 @@ def main(argv=None) -> None:
   from repro_torch.data.selection import (coverage_ratio,
                                           greedi_select_indices,
                                           greedi_select_indices_sharded)
+  from repro_torch.launch.mesh import ProcessMesh, under_torchrun
 
   no_tf32()
-  dev = resolve_device(args.device)
+  mesh = None
+  if under_torchrun():
+    if args.epochs:
+      raise SystemExit("[select] --epochs under torchrun: the service's "
+                       "CorpusStore over processes is a later slice "
+                       "(ROADMAP.md, queue 1 item 7); run the service mode "
+                       "in one process")
+    if not args.mesh:
+      raise SystemExit("[select] under torchrun the sharded mode runs over "
+                       "the ranks: pass --mesh N (N a multiple of the "
+                       "ranks); the reference path has no process backend")
+    backend = args.dist_backend or (
+        "nccl" if torch.device(args.device).type == "cuda" else "gloo")
+    mesh = ProcessMesh.from_env(args.mesh, backend, args.device)
+    dev = mesh.device
+  elif args.dist_backend:
+    raise SystemExit("[select] --dist-backend needs the ranks of a "
+                     "torchrun launch (python -m torch.distributed.run)")
+  else:
+    dev = resolve_device(args.device)
+  lead = mesh is None or mesh.rank == 0
   kappa = args.kappa or args.k
   feats = EmbeddedCorpus(n_docs=args.n, feat_dim=args.d, seed=args.seed,
                          device=str(dev)).features()
@@ -228,21 +303,23 @@ def main(argv=None) -> None:
     if dev.type == "cuda":
       torch.cuda.synchronize(dev)
 
-  if args.trace_out or args.stats_json or args.metrics_port is not None:
+  if lead and (args.trace_out or args.stats_json or
+               args.metrics_port is not None):
     obs.enable(trace_out=args.trace_out)
   records: list = []
 
   def emit(event, **fields):
     """The one stats format of every mode: a stats line on stdout and a
     record for --stats-json."""
-    print("[select] " + obs.stats_line(event, **fields), flush=True)
+    if lead:
+      print("[select] " + obs.stats_line(event, **fields), flush=True)
     records.append(dict(event=event, **fields))
 
   sidecar = None
 
   def serve(board=None):
     nonlocal sidecar
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and lead:
       sidecar = obs.Sidecar(board=board, port=args.metrics_port)
       emit("sidecar", url=sidecar.url)
 
@@ -259,7 +336,7 @@ def main(argv=None) -> None:
         rng, feats, m=args.mesh, kappa=kappa, k_final=args.k,
         kernel=args.kernel, backend=args.backend, fast=not args.no_fast,
         merge="tree" if args.merge_tree else "flat",
-        tree_branch=args.merge_tree or None)
+        tree_branch=args.merge_tree or None, mesh=mesh)
     mode_fields = dict(mode="sharded", m=args.mesh,
                        engine="generic" if args.no_fast else "fast",
                        merge=merge)
@@ -271,7 +348,13 @@ def main(argv=None) -> None:
     mode_fields = dict(mode="reference", m=args.m)
   sync()
   t_sel = time.perf_counter() - t0
+  if mesh is not None:
+    mode_fields.update(world=mesh.world, backend=mesh.backend,
+                       **_rank_stats(mesh, dev, sel))
 
+  if not lead:
+    mesh.close()
+    return
   # persist the coreset BEFORE the (expensive) coverage baseline
   if args.out:
     np.save(args.out, sel)
@@ -295,6 +378,8 @@ def main(argv=None) -> None:
     if args.linger > 0:
       time.sleep(args.linger)
     sidecar.close()
+  if mesh is not None:
+    mesh.close()
 
 
 if __name__ == "__main__":

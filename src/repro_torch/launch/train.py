@@ -55,14 +55,17 @@ def main(argv=None) -> None:
   ap.add_argument("--select-coreset", action="store_true",
                   help="GreeDi-select training docs before training")
   ap.add_argument("--mesh", default="",
-                  help="not ported: waits for the torch.distributed backend")
+                  help="not ported: waits for the training half of the "
+                  "torch.distributed backend")
   ap.add_argument("--device", default="cuda",
                   help="cuda (default) or cpu (the plain versions)")
   args = ap.parse_args(argv)
   if args.mesh:
     raise NotImplementedError(
-        "--mesh: the data / model mesh waits for the torch.distributed "
-        "backend (ROADMAP.md queue 1 item 7); the port trains on one device")
+        "--mesh: the data / model mesh waits for the training half of the "
+        "torch.distributed backend (ROADMAP.md queue 1 item 7; selection "
+        "already runs over processes, launch/mesh.py); the port trains on "
+        "one device")
 
   import numpy as np
   import torch
