@@ -62,6 +62,19 @@ calls, counting each kernel's launches around each path:
     device-fed series, a ``/metrics`` scrape and a ``POST /healthz`` beat
     through the sidecar, host syncs each way), and the CLI's service mode
     with ``--trace-out`` / ``--stats-json`` in a process of its own;
+  * the selection service over processes (phase ``e2e service dist``):
+    the CLI's service mode under ``torch.distributed.run`` with 4 gloo
+    ranks on the card (4 of the 16 shards a rank, capacity 65536 doubling
+    twice, queries after appends, 64-request batches whose parity every
+    rank checks, 3 warm epochs), for facility location and saturated
+    coverage, against the same command in this process (ids, every
+    epoch's f(S), alive, warm and rescans and every query's value
+    estimate bit for bit; each rank's peak within a quarter of the
+    stacked peak plus 0.5 GiB; nccl with one rank a card where there are
+    4 cards), and a library run (this script's ``--dist-service DIR``
+    mode, one rank of it) of the service-queries schedule with rank 1's
+    shards failed through the heartbeat board before a last epoch, every
+    answer equal to the stacked service's;
   * the graph-cut path of Sec. 5 / 6.3 (non-monotone max-cut, RandomGreedy
     through ``greedi_reference`` with local evaluation, Alg. 3 under a
     partition matroid as ``examples/maxcut_constrained_torch.py`` runs it,
@@ -3486,6 +3499,282 @@ def sieve_kernel_phase(sz, state, launches: int):
   return rows
 
 
+# ---------------------------------------------------------------------------
+# the service over processes: CorpusStore / SelectionService on a mesh
+# ---------------------------------------------------------------------------
+
+SVC_DIST_DEADLINE = 30.0   # e2e service dist: beaten shards stay alive
+
+
+def service_schedule(svc, feats, sz) -> dict:
+  """The service-queries cell's schedule on ``svc`` (stacked, or one rank's
+  of a mesh): 16 appends of 16,384 rows with a ``query()`` after each, a
+  64-request ``query_batch``, epochs 0-2 (every shard beaten just before),
+  a ``query()`` and another 64-request batch after them, then rank 1's
+  shards failed through the board and one more epoch.  Returns host
+  arrays of every answer and, under ``timing/``, the walls."""
+  import numpy as np
+
+  def ids_of(results):
+    out = np.full((len(results), sz.k), -1, np.int64)
+    for i, r in enumerate(results):
+      out[i, :len(r.sel_gids)] = r.sel_gids
+    return out
+
+  rec, lat, ingest = {}, [], 0.0
+  step = sz.n // sz.query_appends
+  for a in range(sz.query_appends):
+    sync()
+    t0 = time.perf_counter()
+    svc.append(feats[a * step:(a + 1) * step])
+    sync()
+    ingest += time.perf_counter() - t0
+    q = svc.query()
+    lat.append(q.wall_s * 1e3)
+    rec[f"q{a}/ids"] = q.sel_gids
+    rec[f"q{a}/est"] = np.array(q.value_estimate)
+  base = q.sel_gids
+  walls, batch_ms = [], []
+  per = sz.m // DIST_RANKS
+  for stage in ("pre", "post", "dead"):
+    if stage == "post":
+      for t in range(3):
+        svc.board.beat()
+        e = svc.epoch()
+        walls.append(e.stats.wall_s)
+        for f, v in (("ids", e.sel_gids), ("value", e.stats.value),
+                     ("alive", e.stats.alive), ("warm", e.stats.warm),
+                     ("rescans", e.stats.rescans)):
+          rec[f"e{t}/{f}"] = np.asarray(v)
+      q = svc.query(seed=3)
+      rec["after/ids"], rec["after/est"] = q.sel_gids, np.array(
+          q.value_estimate)
+      base = e.sel_gids
+    if stage == "dead":
+      svc.board.beat()
+      for s in range(per, 2 * per):
+        if s in svc.board.shards:
+          svc.board.fail(s)
+      e = svc.epoch()
+      walls.append(e.stats.wall_s)
+      rec["e3/ids"], rec["e3/alive"] = e.sel_gids, e.stats.alive
+      rec["e3/value"] = np.array(e.stats.value)
+      break
+    reqs = query_requests(base, sz.query_b, sz.k, svc.store.query_mask_cap)
+    sync()
+    t0 = time.perf_counter()
+    res = svc.query_batch(reqs)
+    batch_ms.append((time.perf_counter() - t0) * 1e3)
+    rec[f"batch_{stage}/ids"] = ids_of(res)
+    rec[f"batch_{stage}/est"] = np.array([r.value_estimate for r in res])
+  rec["timing/ingest_rows_per_s"] = np.array(sz.n / ingest)
+  rec["timing/query_ms"] = np.array(lat)
+  rec["timing/batch_ms"] = np.array(batch_ms)
+  rec["timing/epoch_wall_s"] = np.array(walls)
+  rec["growths"] = np.array(svc.growths)
+  return rec
+
+
+def service_for(sz, mesh=None):
+  from repro_torch.service import SelectionService
+  return SelectionService(m=sz.m, d=sz.d, kappa=sz.k, k_final=sz.k,
+                          capacity=sz.svc_cap0, append_block=sz.append_block,
+                          seed=0, deadline=SVC_DIST_DEADLINE, device=DEVICE,
+                          mesh=mesh)
+
+
+def dist_service_rank(out_dir: str) -> None:
+  """One rank of e2e service dist's library run (``chip_smoke.py
+  --dist-service DIR`` under torchrun): the facility service over a gloo
+  mesh of 4 ranks on the card, ``service_schedule``; writes its answers,
+  walls, peak, collectives and launch counts to DIR."""
+  sys.path.insert(0, str(SRC))
+  import numpy as np
+  import torch
+
+  from repro_torch import no_tf32
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.kernels import ops
+  from repro_torch.launch.mesh import ProcessMesh
+  no_tf32()
+  sz = Sizes()
+  mesh = ProcessMesh.from_env(sz.m, "gloo", DEVICE)
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0,
+                         device=str(mesh.device)).features()
+  torch.cuda.reset_peak_memory_stats()
+  ops.reset_launch_counts()
+  rec = service_schedule(service_for(sz, mesh), feats, sz)
+  launches = ops.launch_counts()
+  np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **rec,
+           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+           collectives=[mesh.gathers, mesh.gather_bytes, mesh.exchanges,
+                        mesh.exchange_bytes],
+           launch_names=list(launches), launch_counts=list(launches.values()))
+  mesh.close()
+
+
+def e2e_service_dist(sz: Sizes):
+  """The selection service over processes at the service cells' size
+  (n = 262144, d = 64, m = 16 over 4 gloo ranks on this card, 4 shards a
+  rank, k = kappa = 64, append_block 1024, capacity 65536 doubling twice).
+
+  The CLI's service mode under ``torch.distributed.run`` (75 % ingested,
+  a 64-request ``query_batch`` whose parity every rank checks, epoch 0,
+  the rest in 4 appends of 16,384 with a ``query()`` after each, epochs 1
+  and 2, another batch), once for facility location and once for
+  saturated coverage, against the same command in this process: equal
+  ids, every epoch's f(S), alive, warm and rescans and every query's value
+  estimate bit for bit, each rank's peak within a quarter of the stacked
+  peak plus 0.5 GiB, and ``pairwise``, ``sieve_admit`` and the facility /
+  coverage gains launched in the ranks.  With 4 or more cards the same
+  over nccl, one rank a card.  Then the library run (``service_schedule``
+  on the facility service, rank 1's shards failed through the board before
+  a last epoch) against the stacked service: every answer bit for bit on
+  every rank.  Prints ingest rows/s, epoch walls, query latency, the
+  collectives and their bytes beside the stacked run's."""
+  import numpy as np
+  import torch
+
+  from repro_torch.data.pipeline import EmbeddedCorpus
+  from repro_torch.launch import select as cli
+  base = ["-m", "repro_torch.launch.select", "--n-docs", str(sz.n), "--dim",
+          str(sz.d), "--k", str(sz.k), "--mesh", str(sz.m), "--epochs", "3",
+          "--append-frac", str(sz.append_frac), "--capacity",
+          str(sz.svc_cap0), "--query-every", str(sz.n // sz.query_appends),
+          "--query-batch", str(sz.query_b), "--no-coverage"]
+  gains = {"facility": "facility_gain",
+           "saturated_coverage": "coverage_gain"}
+  cards = torch.cuda.device_count()
+  backends = ["gloo"] + (["nccl"] if cards >= DIST_RANKS else [])
+  rows = {}
+
+  def records(path):
+    with open(path) as f:
+      return json.load(f)["stats"]
+
+  (REPO / "build").mkdir(exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    for obj, gain in gains.items():
+      out, stats = (os.path.join(tmp, f"{obj}.{x}") for x in ("npy", "json"))
+      res = timed_run(lambda: cli.main([*base[2:], "--objective", obj,
+                                        "--out", out, "--stats-json",
+                                        stats]))
+      want_ids, want = np.load(out), records(stats)
+      for backend in backends:
+        out, stats = (os.path.join(tmp, f"{obj}_{backend}.{x}")
+                      for x in ("npy", "json"))
+        wall, _ = torchrun([*base, "--objective", obj, "--dist-backend",
+                            backend, "--out", out, "--stats-json", stats])
+        ids, got = np.load(out), records(stats)
+        what = f"e2e service dist {backend} {obj}"
+        check(np.array_equal(ids, want_ids), f"{what}: ids {ids.tolist()} "
+              f"differ from the stacked run's {want_ids.tolist()}")
+        for event, keys in (("epoch", ("f", "alive", "warm", "rescans",
+                                       "docs", "live", "cap")),
+                            ("query", ("est", "ids", "source")),
+                            ("query_batch", ("parity", "requests")),
+                            ("append", ("docs", "growths"))):
+          a = [{k: r[k] for k in keys} for r in got if r["event"] == event]
+          b = [{k: r[k] for k in keys} for r in want if r["event"] == event]
+          check(a == b and a, f"{what}: {event} records {a} against the "
+                f"stacked run's {b}")
+        done = [r for r in got if r["event"] == "done"]
+        check(len(done) == 1 and done[0]["world"] == DIST_RANKS,
+              f"{what}: done records {done}")
+        done = done[0]
+        peaks = [float(p) for p in done["rank_peak_gib"].split(",")]
+        limit = res["peak_gib"] / DIST_RANKS + 0.5
+        check(len(peaks) == DIST_RANKS and max(peaks) <= limit,
+              f"{what}: rank peaks {peaks} GiB over {limit} (stacked "
+              f"{res['peak_gib']})")
+        launched = dict(kv.split(":") for kv in done["launches"].split(",")
+                        if ":" in kv)
+        for kname in ("pairwise", "sieve_admit", gain):
+          check(int(launched.get(kname, 0)) > 0, f"{what}: rank 0 did not "
+                f"launch {kname} ({launched})")
+        check(done["exchanges"] > 0, f"{what}: no row moved between ranks")
+        pick = {e: [r for r in got if r["event"] == e]
+                for e in ("epoch", "query", "query_batch", "append")}
+        ref = {e: [r for r in want if r["event"] == e]
+               for e in ("epoch", "query", "query_batch", "append")}
+        rows[f"cli {backend} {obj}"] = dict(
+            ids_equal=True, launch_wall_s=wall, wall_s=done["wall_s"],
+            stacked_wall_s=[r for r in want if r["event"] == "done"][0][
+                "wall_s"],
+            epoch_wall_s=[r["wall_s"] for r in pick["epoch"]],
+            stacked_epoch_wall_s=[r["wall_s"] for r in ref["epoch"]],
+            ingest_rows_per_s=[r["rows_per_s"] for r in pick["append"]],
+            stacked_ingest_rows_per_s=[r["rows_per_s"]
+                                       for r in ref["append"]],
+            query_ms=[r["wall_ms"] for r in pick["query"]],
+            stacked_query_ms=[r["wall_ms"] for r in ref["query"]],
+            batch_ms=[r["batch_ms"] for r in pick["query_batch"]],
+            stacked_batch_ms=[r["batch_ms"] for r in ref["query_batch"]],
+            rank_peak_gib=peaks, stacked_peak_gib=res["peak_gib"],
+            limit_gib=limit, gathers=done["gathers"],
+            gather_bytes=done["gather_bytes"],
+            exchanges=done["exchanges"],
+            exchange_bytes=done["exchange_bytes"], launches=launched)
+    # the library run: every answer of the schedule, rank 1's shards dead
+    lib_dir = os.path.join(tmp, "library")
+    os.mkdir(lib_dir)
+    wall, _ = torchrun([str(REPO / "chip_smoke.py"), "--dist-service",
+                        lib_dir])
+    ranks = [dict(np.load(os.path.join(lib_dir, f"rank{r}.npz")))
+             for r in range(DIST_RANKS)]
+  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+  res = timed_run(lambda: service_schedule(service_for(sz), feats, sz))
+  want = res["result"]
+  per = sz.m // DIST_RANKS
+  alive = [not per <= s < 2 * per for s in range(sz.m)]
+  check(want["e3/alive"].tolist() == alive and want["e2/alive"].all(),
+        f"e2e service dist: stacked alive {want['e3/alive'].tolist()}")
+  check(int(want["growths"]) == 2, "e2e service dist: growths")
+  for r, got in enumerate(ranks):
+    for key, w in want.items():
+      if key.startswith("timing/"):
+        continue
+      g = got[key]
+      check(g.dtype == w.dtype and g.shape == w.shape and
+            np.array_equal(g, w), f"e2e service dist library: rank {r} "
+            f"{key} {g} differs from the stacked service's {w}")
+    counts = dict(zip(got["launch_names"].tolist(),
+                      got["launch_counts"].tolist()))
+    for kname in ("pairwise", "sieve_admit", "facility_gain"):
+      check(counts[kname] > 0, f"e2e service dist library: rank {r} did "
+            f"not launch {kname} ({counts})")
+  peaks = [float(g["peak_gib"]) for g in ranks]
+  limit = res["peak_gib"] / DIST_RANKS + 0.5
+  check(max(peaks) <= limit, f"e2e service dist library: rank peaks "
+        f"{peaks} over {limit}")
+  col = ranks[0]["collectives"].tolist()
+  rows["library gloo facility"] = dict(
+      answers_equal=len([k for k in want if not k.startswith("timing/")]),
+      launch_wall_s=wall, alive_last=int(sum(alive)),
+      ingest_rows_per_s=[float(g["timing/ingest_rows_per_s"])
+                         for g in ranks],
+      stacked_ingest_rows_per_s=float(want["timing/ingest_rows_per_s"]),
+      epoch_wall_s=ranks[0]["timing/epoch_wall_s"].tolist(),
+      stacked_epoch_wall_s=want["timing/epoch_wall_s"].tolist(),
+      query_ms_median=float(np.median(ranks[0]["timing/query_ms"])),
+      query_ms=ranks[0]["timing/query_ms"].tolist(),
+      stacked_query_ms_median=float(np.median(want["timing/query_ms"])),
+      batch_ms=ranks[0]["timing/batch_ms"].tolist(),
+      stacked_batch_ms=want["timing/batch_ms"].tolist(),
+      rank_peak_gib=peaks, stacked_peak_gib=res["peak_gib"],
+      limit_gib=limit, gathers=col[0], gather_bytes=col[1],
+      exchanges=col[2], exchange_bytes=col[3],
+      launches=dict(zip(ranks[0]["launch_names"].tolist(),
+                        ranks[0]["launch_counts"].tolist())))
+  nccl = ("run, one rank a card" if "nccl" in backends else
+          f"not run: {cards} card(s) here and nccl puts one rank on each "
+          f"of {DIST_RANKS} cards")
+  emit("e2e service dist", n=sz.n, d=sz.d, k=sz.k, m=sz.m,
+       ranks=DIST_RANKS, shards_a_rank=sz.m // DIST_RANKS,
+       append_block=sz.append_block, capacity0=sz.svc_cap0, nccl=nccl,
+       runs=rows)
+
+
 def e2e_query_exact(sz):
   """The exact tier on its own store of 16,384 rows (the size of
   benchmarks/query_serving.py), m = 16, k_cap = 64: 64 tenant requests
@@ -4931,6 +5220,8 @@ def main() -> int:
   profile_query(qsvc, sz)
   del qsvc
   torch.cuda.empty_cache()
+  e2e_service_dist(sz)
+  torch.cuda.empty_cache()
   e2e_obs(sz)
   torch.cuda.empty_cache()
   cli_obs_run(sz)
@@ -5028,6 +5319,9 @@ if __name__ == "__main__":
   try:
     if sys.argv[1:2] == ["--dist-liveness"]:
       dist_liveness_rank(sys.argv[2])
+      sys.exit(0)
+    if sys.argv[1:2] == ["--dist-service"]:
+      dist_service_rank(sys.argv[2])
       sys.exit(0)
     code = main()
   except SmokeFailure as e:

@@ -76,6 +76,7 @@ service's carried table (service/service.py).
 """
 from __future__ import annotations
 
+import functools
 import inspect
 from typing import Any, Callable, NamedTuple
 
@@ -86,7 +87,7 @@ from repro_torch.core.greedy import (_pad_last, _rows, draw_table, greedy,
                                      kernel_rows, where_state, with_backend)
 from repro_torch.core.objectives import NEG, _kernel_h, masked_top1
 from repro_torch.core.partition import random_partition, shard_live_counts
-from repro_torch.kernels import autotune, dispatch
+from repro_torch.kernels import autotune, dispatch, facility_gain
 
 # ---------------------------------------------------------------------------
 # shared helpers
@@ -192,22 +193,29 @@ class _Ranks:
     self.m, self.m_local = mesh.m, mesh.m_local
 
   def gather(self, x: torch.Tensor) -> torch.Tensor:
-    import torch.distributed as dist
-    mesh = self.mesh
     if x.shape[0] != self.m_local:
       raise ValueError(f"gather of a slab of {x.shape[0]} shards, this rank "
                        f"holds {self.m_local}")
-    flag = x.dtype == torch.bool
-    src = (x.to(torch.uint8) if flag else x).contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.world)]
-    dist.all_gather(parts, src, group=mesh.group)
-    mesh.gathers += 1
-    mesh.gather_bytes += (mesh.world - 1) * src.numel() * src.element_size()
-    out = torch.cat(parts)
-    return out.to(torch.bool) if flag else out
+    return self.mesh.all_gather(x)
 
   def mine(self, x: torch.Tensor) -> torch.Tensor:
     return x[self.mesh.shards]
+
+
+def _rank_plans(engine):
+  """Run an engine under its mesh's kernel plans: a rank's facility and
+  coverage calls carry m / world of the stacked call's partitions and take
+  the stacked call's work plan (``facility_gain.plan_for_parts``), so
+  every gain sums in the stacked order."""
+
+  @functools.wraps(engine)
+  def run(*args, mesh=None, **kwargs):
+    if mesh is None:
+      return engine(*args, **kwargs)
+    with facility_gain.plan_for_parts(mesh.world):
+      return engine(*args, mesh=mesh, **kwargs)
+
+  return run
 
 
 def _shard_axis(mesh, m: int):
@@ -768,6 +776,7 @@ def _finish(v_merged, merged, stage1_vals, children, k_final: int, alive,
                       rescans)
 
 
+@_rank_plans
 def greedi_sharded(feats: torch.Tensor, *, m: int, kappa: int, k_final: int,
                    objective, straggler_keep: torch.Tensor | None = None,
                    u_subset_eval: bool = False, backend: str | None = None,
@@ -1006,6 +1015,7 @@ def _cached_engine(s2: torch.Tensor, colsum, blocks, axis) -> _Engine:
       cands=blocks[0], cmask=blocks[1], cgids=blocks[2])
 
 
+@_rank_plans
 def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
                         k_final: int, kernel: str = "linear",
                         kernel_kwargs: tuple = (),
@@ -1130,6 +1140,7 @@ def greedi_sharded_fast(feats: torch.Tensor, *, m: int, kappa: int,
 # ---------------------------------------------------------------------------
 
 
+@_rank_plans
 def greedi_hierarchical(feats: torch.Tensor, *, pods: int, per_pod: int,
                         kappa: int, k_final: int, objective,
                         straggler_keep: torch.Tensor | None = None,

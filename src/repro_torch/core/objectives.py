@@ -82,6 +82,26 @@ def _check_sim(owner: str, kernel: str) -> None:
     raise ValueError(f"{owner} kernel {kernel!r} not in {sorted(KERNELS)}")
 
 
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+  """Sum over the last axis: ``torch.sum`` on the CPU; on CUDA by halving
+  (the row zero-padded to a power of two, then its two halves added until
+  one entry is left), an order that depends on the row's length alone.
+  ``torch.sum`` on CUDA splits a row among threads by the whole tensor's
+  shape (fewer than 16 rows take wider blocks), so a partition's sum would
+  part in its last bits between the m / world partitions a rank of a
+  process mesh holds and the stacked batch of m."""
+  if not x.is_cuda:
+    return torch.sum(x, dim=-1)
+  n = x.shape[-1]
+  width = 1 << max(n - 1, 0).bit_length()
+  if width != n:
+    x = torch.nn.functional.pad(x, (0, width - n))
+  while x.shape[-1] > 1:
+    half = x.shape[-1] // 2
+    x = x[..., :half] + x[..., half:]
+  return x[..., 0]
+
+
 def _sim_column(eval_feats: torch.Tensor, feat: torch.Tensor, kernel: str,
                 h: float) -> torch.Tensor:
   """sim(e_i, feat) for every eval row: eval_feats ((P,) ne, d) against
@@ -288,7 +308,7 @@ class FacilityLocation:
   def update(self, state: FLState, feat: torch.Tensor) -> FLState:
     sim = _sim_column(state.eval_feats, feat, self.kernel, self.h)
     new_cov = torch.maximum(state.cov, sim)
-    gain = torch.sum((new_cov - state.cov) * state.eval_mask, dim=-1)
+    gain = _row_sum((new_cov - state.cov) * state.eval_mask)
     return FLState(new_cov, state.eval_feats, state.eval_mask,
                    state.value + gain / self._denom(state))
 
@@ -535,7 +555,7 @@ class SaturatedCoverage:
     new_cover = state.cover + sim
     inc = (torch.minimum(new_cover, state.cap)
            - torch.minimum(state.cover, state.cap))
-    gain = torch.sum(inc * state.eval_mask, dim=-1) / self._denom(state)
+    gain = _row_sum(inc * state.eval_mask) / self._denom(state)
     return SatCovState(new_cover, state.cap, state.eval_feats,
                        state.eval_mask, state.value + gain)
 

@@ -20,6 +20,8 @@ itself.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 from typing import NamedTuple
 
@@ -28,6 +30,25 @@ import torch
 from repro_torch.kernels import build, ref, ring
 
 launches = 0  # launches of csrc/facility.cu's gains through this wrapper
+
+# how many times its partitions a call's work plan is made for (see
+# ``plan_for_parts``)
+_PLAN_PARTS = contextvars.ContextVar("facility_plan_parts", default=1)
+
+
+@contextlib.contextmanager
+def plan_for_parts(scale: int):
+  """Make every call's work plan inside the block for ``scale`` times the
+  partitions the call has.  A rank of a process mesh runs m / world of the
+  m partitions a stacked call would; the plan's eval-axis chunks follow
+  the count of candidate bands over all partitions, and with them the
+  order in which a candidate's gain is summed, so a rank takes the stacked
+  call's plan (``scale`` = world) to give the stacked bits."""
+  token = _PLAN_PARTS.set(int(scale))
+  try:
+    yield
+  finally:
+    _PLAN_PARTS.reset(token)
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,12 +107,13 @@ class Plan(NamedTuple):
   units: int      # work units: partitions x bands x chunks
 
 
-def plan(n_part: int, ne: int, nc: int, n_sm: int) -> Plan:
+def plan(n_part: int, ne: int, nc: int, n_sm: int, scale: int = 1) -> Plan:
   """The plan of a call with these shapes on a card of ``n_sm`` SMs, one
-  persistent block an SM; the same in both ring modes."""
+  persistent block an SM; the same in both ring modes.  The chunks are
+  those of a call with ``scale`` times the partitions."""
   bands = -(-nc // ring.BAND)
   tiles = -(-ne // build.TILE)
-  chunks = eval_chunks(bands * n_part, ne, n_sm)
+  chunks = eval_chunks(bands * n_part * scale, ne, n_sm)
   per = -(-tiles // chunks)
   return Plan(ring.BAND, bands, tiles, chunks, per, n_part * bands * chunks)
 
@@ -183,7 +205,7 @@ def operands(name: str, eval_feats, cand_feats, cov, eval_mask,
   return FLOperands(ring.features(name, eval_feats),
                     ring.features(name, cand_feats), vector(cov),
                     vector(eval_mask), ok, batch, n_part, ne, nc, d, rp,
-                    plan(n_part, ne, nc, sm_count(dev)),
+                    plan(n_part, ne, nc, sm_count(dev), _PLAN_PARTS.get()),
                     None if cap is None else vector(cap))
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -84,12 +85,46 @@ def mesh_device(backend: str, device: str | torch.device, local_rank: int,
   return dev
 
 
+def pack_rows(tensors) -> torch.Tensor:
+  """The rows of tensors with one leading length as one (n, bytes) uint8
+  tensor (each tensor's row bytes side by side): one collective carries
+  rows of several dtypes, and ``unpack_rows`` gives back every bit."""
+  flat = []
+  for t in tensors:
+    f = t.reshape(t.shape[0], -1)
+    if f.numel() and f.stride(-1) != 1:  # an expanded size-1 axis
+      f = f.clone(memory_format=torch.contiguous_format)
+    flat.append(f.contiguous())
+  return torch.cat([f.view(torch.uint8) if f.dtype != torch.bool
+                    else f.to(torch.uint8) for f in flat], dim=1)
+
+
+def unpack_rows(packed: torch.Tensor, like) -> list:
+  """Inverse of ``pack_rows``: tensors shaped as ``like``'s (rows, then
+  their trailing shapes and dtypes) from an (n, bytes) uint8 tensor."""
+  out, off = [], 0
+  for t in like:
+    tail = tuple(t.shape[1:])
+    width = int(np.prod(tail, dtype=np.int64)) * t.element_size()
+    part = packed[:, off:off + width].clone(
+        memory_format=torch.contiguous_format)  # aligned for the view
+    off += width
+    if t.dtype == torch.bool:
+      out.append(part.to(torch.bool).reshape(-1, *tail))
+    else:
+      out.append(part.view(t.dtype).reshape(-1, *tail))
+  return out
+
+
 @dataclasses.dataclass
 class ProcessMesh:
   """One rank's view of m shards over a process group.
 
-  ``gathers`` and ``gather_bytes`` count the collectives the engines made
-  through this mesh and the bytes this rank received in them.
+  ``gathers`` and ``gather_bytes`` count the all-gathers made through this
+  mesh (the engines' shard-axis gathers, ``all_gather``, ``max``) and the
+  bytes this rank received in them; ``exchanges`` and ``exchange_bytes``
+  the all-to-alls of ``exchange`` / ``fetch_rows`` and the bytes this
+  rank received from the other ranks in them.
   """
   world: int
   rank: int
@@ -99,6 +134,8 @@ class ProcessMesh:
   group: object = None
   gathers: int = 0
   gather_bytes: int = 0
+  exchanges: int = 0
+  exchange_bytes: int = 0
 
   def __post_init__(self):
     self.first, self.m_local = shards_of(self.m, self.world, self.rank)
@@ -107,6 +144,79 @@ class ProcessMesh:
   def shards(self) -> slice:
     """This rank's shards as a slice of the shard axis."""
     return slice(self.first, self.first + self.m_local)
+
+  def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in rank order (the list
+    form of ``all_gather``, which gloo also carries for CUDA tensors; bool
+    goes over as uint8).  Every rank must call it with the same shape."""
+    flag = x.dtype == torch.bool
+    src = (x.to(torch.uint8) if flag else x).contiguous()
+    parts = [torch.empty_like(src) for _ in range(self.world)]
+    dist.all_gather(parts, src, group=self.group)
+    self.gathers += 1
+    self.gather_bytes += (self.world - 1) * src.numel() * src.element_size()
+    out = torch.cat(parts)
+    return out.to(torch.bool) if flag else out
+
+  def max(self, x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks (exact in any order)."""
+    return self.all_gather(x.reshape(1, *x.shape)).amax(dim=0)
+
+  def exchange(self, parts, sizes=None) -> list:
+    """All-to-all: ``parts[j]`` (rows of one dtype and trailing shape) goes
+    to rank j; returns the rows each rank sent this one, in rank order.
+    ``sizes`` (rows from each rank), when the caller knows them, saves the
+    all-to-all of the counts.  One ``all_to_all_single`` carries the rows
+    (gloo takes CUDA tensors in it, not in the list form); nothing is ever
+    gathered whole."""
+    if len(parts) != self.world:
+      raise ValueError(f"exchange of {len(parts)} parts over a world of "
+                       f"{self.world}")
+    send = [int(p.shape[0]) for p in parts]
+    src = torch.cat(parts).contiguous()
+    if sizes is None:
+      got = torch.empty((self.world,), dtype=torch.int64, device=src.device)
+      self._all_to_all(got, torch.tensor(send, dtype=torch.int64,
+                                         device=src.device), None, None)
+      sizes = got.tolist()
+    sizes = [int(s) for s in sizes]
+    out = torch.empty((sum(sizes), *src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    self._all_to_all(out, src, sizes, send)
+    return list(torch.split(out, sizes))
+
+  def _all_to_all(self, out, src, out_sizes, in_sizes) -> None:
+    dist.all_to_all_single(out, src, output_split_sizes=out_sizes,
+                           input_split_sizes=in_sizes, group=self.group)
+    self.exchanges += 1
+    row = out[0].numel() * out.element_size() if out.shape[0] else 0
+    mine = (out.shape[0] // self.world if out_sizes is None
+            else out_sizes[self.rank])
+    self.exchange_bytes += (out.shape[0] - mine) * row
+
+  def fetch_rows(self, local, want: torch.Tensor) -> list:
+    """Rows of shard-contiguous tensors by global row index: every rank
+    holds ``rows = local[0].shape[0]`` consecutive rows of each tensor in
+    ``local`` (rank r rows r * rows .. (r + 1) * rows - 1), and gets the
+    rows ``want`` (int64, any order, in range) names, every bit as its
+    owner holds it.  One exchange of the requested indices (after the
+    all-to-all of their counts), then one of the rows, every tensor's
+    packed into one payload; no rank holds more than it asked for."""
+    rows = int(local[0].shape[0])
+    want = want.reshape(-1).to(torch.int64)
+    owner = torch.div(want, rows, rounding_mode="floor")
+    order = torch.argsort(owner, stable=True)
+    asked = torch.bincount(owner, minlength=self.world).tolist()
+    if len(asked) != self.world:
+      raise ValueError(f"fetch_rows: an index past the {self.world * rows} "
+                       "rows of the mesh")
+    requests = self.exchange(list(torch.split(want[order], asked)))
+    packed = pack_rows(local)
+    served = [packed[r - self.rank * rows] for r in requests]
+    back = torch.cat(self.exchange(served, sizes=asked))
+    out = torch.empty_like(back)
+    out[order] = back
+    return unpack_rows(out, local)
 
   @classmethod
   def from_env(cls, m: int, backend: str,

@@ -16,23 +16,30 @@ the held-back rows are appended after the first; each epoch prints one
 the append one ``[select] append`` line.  ``--objective
 saturated_coverage`` selects over the absolute values of the features
 (nonnegative coverage mass, as the reference does); ``--cold`` turns the
-warm-started bounds off, ``--deadline`` sets the liveness deadline.  Every
+warm-started bounds off, ``--deadline`` sets the liveness deadline,
+``--capacity`` the store's initial capacity (it doubles as appends need).  Every
 mode returns global document indices, honors ``--out`` (npy, written
 before the coverage baseline), and reports coverage against the
 centralized greedy when n is small enough for its O(k n^2) work to be
 cheap (force with ``--coverage``, skip with ``--no-coverage``).  The run
 ends with one ``[select] done`` line.
 
-Under torchrun the sharded mode runs over the ranks of a process group
-(``launch.mesh.ProcessMesh``): ``--mesh N`` shards in all, N / P on each
-of the P ranks, every rank drawing the same corpus and partition from the
-seed and selecting the same ids::
+Under torchrun the sharded and service modes run over the ranks of a
+process group (``launch.mesh.ProcessMesh``): ``--mesh N`` shards in all,
+N / P on each of the P ranks, every rank drawing the same corpus and
+partition from the seed and selecting the same ids (in service mode every
+rank appends the same rows, holds its shards of the store and answers the
+queries from its replica of the sieves)::
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m repro_torch.launch.select --mesh 16 --n-docs 262144
     python -m torch.distributed.run --standalone --nproc-per-node 2 \
         -m repro_torch.launch.select --mesh 4 --dist-backend gloo \
         --device cpu --n-docs 4096 --dim 16 --k 8
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.select --mesh 4 --dist-backend gloo \
+        --device cpu --n-docs 1000 --dim 16 --k 8 --epochs 2 \
+        --append-frac 0.25
 
 (``--n-docs`` and ``--dim`` are ``--n`` and ``--d``: the short spellings
 are prefixes of torchrun's own options, which its parser takes for its own
@@ -43,10 +50,14 @@ under some Python 3.12 releases.)
 ``--device`` names).  Rank 0 prints the ``[select]`` lines and writes
 ``--out`` and ``--stats-json``; the ``done`` line adds ``world=``, every
 rank's peak device memory (``rank_peak_gib``), rank 0's collectives
-(``gathers=``, ``gather_bytes=``: all-gathers and the bytes it received)
-and its kernel launches (``launches=name:count,...``).  The reference
-path and the service mode (``--epochs``) have no process backend yet and
-refuse to run under torchrun; ``--dist-backend`` outside torchrun is
+(``gathers=``, ``gather_bytes=``: all-gathers and the bytes it received;
+``exchanges=``, ``exchange_bytes=``: the all-to-alls that move rows
+between ranks and the bytes it received) and its kernel launches
+(``launches=name:count,...``).  Every rank runs the ``--query-batch``
+parity check.  With ``--metrics-port`` rank 0 serves the sidecar on its
+own board: a ``POST /healthz`` beat for another rank's shard is refused
+(409, naming the rank).  The reference path has no process backend and
+refuses to run under torchrun; ``--dist-backend`` outside torchrun is
 refused too.
 
 ``--merge-tree B`` merges the round-1 blocks through the accumulation tree
@@ -134,20 +145,23 @@ def _rank_stats(mesh, dev, sel) -> dict:
   return dict(rank_peak_gib=(",".join(f"{p:.6f}" for p, _ in got)
                              if peak is not None else "not measured"),
               gathers=mesh.gathers, gather_bytes=mesh.gather_bytes,
+              exchanges=mesh.exchanges, exchange_bytes=mesh.exchange_bytes,
               launches=launches or "none")
 
 
-def _service(args, feats, kappa, dev, sync, emit, serve):
+def _service(args, feats, kappa, dev, sync, emit, serve, mesh=None):
   """The service mode: append, run the epochs, append the held-back rows
   after the first; returns (last epoch's ids, the features selected
-  over).  ``serve(board)`` starts the sidecar on the service's board."""
+  over).  ``serve(board)`` starts the sidecar on the service's board;
+  ``mesh`` runs the shards over the ranks."""
   from repro_torch.service import SelectionService
   svc = SelectionService(m=args.mesh, d=args.d, kappa=kappa, k_final=args.k,
-                         capacity=args.n, kernel=args.kernel,
+                         capacity=args.capacity or args.n, kernel=args.kernel,
                          backend=args.backend, warm_start=not args.cold,
                          deadline=args.deadline, objective=args.objective,
                          merge="tree" if args.merge_tree else "flat",
-                         tree_branch=args.merge_tree or None, device=dev)
+                         tree_branch=args.merge_tree or None, device=dev,
+                         mesh=mesh)
   # POST /healthz beats feed the same board as the in-process beats
   serve(svc.board)
   if args.objective == "saturated_coverage":
@@ -159,7 +173,7 @@ def _service(args, feats, kappa, dev, sync, emit, serve):
                        emit)
   res = None
   for e in range(args.epochs):
-    svc.board.beat()  # every stacked shard is alive by construction
+    svc.board.beat()  # every shard of this process is alive by construction
     res = svc.epoch()
     s = res.stats
     emit("epoch", epoch=s.epoch, docs=len(res.sel_gids), live=s.n_live,
@@ -220,6 +234,9 @@ def main(argv=None) -> None:
   ap.add_argument("--append-frac", type=float, default=0.0,
                   help="service mode: fraction of the corpus appended only "
                   "after the first epoch (streaming ingest)")
+  ap.add_argument("--capacity", type=int, default=0, metavar="C",
+                  help="service mode: the store's initial capacity (default "
+                  "--n); it doubles as the appends need")
   ap.add_argument("--query-every", type=int, default=0, metavar="R",
                   help="service mode: append the held-back rows R at a "
                   "time and run query() after each block")
@@ -275,15 +292,11 @@ def main(argv=None) -> None:
   no_tf32()
   mesh = None
   if under_torchrun():
-    if args.epochs:
-      raise SystemExit("[select] --epochs under torchrun: the service's "
-                       "CorpusStore over processes is a later slice "
-                       "(ROADMAP.md, queue 1 item 7); run the service mode "
-                       "in one process")
     if not args.mesh:
-      raise SystemExit("[select] under torchrun the sharded mode runs over "
-                       "the ranks: pass --mesh N (N a multiple of the "
-                       "ranks); the reference path has no process backend")
+      raise SystemExit("[select] under torchrun the sharded and service "
+                       "modes run over the ranks: pass --mesh N (N a "
+                       "multiple of the ranks); the reference path has no "
+                       "process backend")
     backend = args.dist_backend or (
         "nccl" if torch.device(args.device).type == "cuda" else "gloo")
     mesh = ProcessMesh.from_env(args.mesh, backend, args.device)
@@ -303,8 +316,9 @@ def main(argv=None) -> None:
     if dev.type == "cuda":
       torch.cuda.synchronize(dev)
 
-  if lead and (args.trace_out or args.stats_json or
-               args.metrics_port is not None):
+  obs_on = lead and (args.trace_out or args.stats_json or
+                     args.metrics_port is not None)
+  if obs_on:
     obs.enable(trace_out=args.trace_out)
   records: list = []
 
@@ -327,7 +341,7 @@ def main(argv=None) -> None:
   sync()
   t0 = time.perf_counter()
   if args.mesh and args.epochs:
-    sel, feats = _service(args, feats, kappa, dev, sync, emit, serve)
+    sel, feats = _service(args, feats, kappa, dev, sync, emit, serve, mesh)
     mode_fields = dict(mode="service", m=args.mesh, epochs=args.epochs,
                        objective=args.objective, merge=merge)
   elif args.mesh:
@@ -378,6 +392,8 @@ def main(argv=None) -> None:
     if args.linger > 0:
       time.sleep(args.linger)
     sidecar.close()
+  if obs_on:
+    obs.disable()  # closes the trace; an in-process caller gets obs back off
   if mesh is not None:
     mesh.close()
 

@@ -17,7 +17,10 @@ daemon thread:
     liveness collective sees sidecar beats and fetch acks identically and
     a shard whose pipeline stalls stays alive as long as something beats
     its ``/healthz``.  Without a board the beat is refused with 503, as
-    the reference does; a bad shard argument is a 400.
+    the reference does; a bad shard argument is a 400.  On a rank of a
+    process mesh the board holds that rank's shards (``first`` in the
+    health summary); a beat for another rank's shard is refused with 409,
+    the error naming the rank that holds it.
 
 It binds 127.0.0.1 by default, and ``port=0`` picks a free port
 (``Sidecar.port`` reports it), so tests and services on one host never
@@ -89,7 +92,11 @@ class Sidecar:
         except (ValueError, json.JSONDecodeError) as e:
           self._reply(400, json.dumps({"error": str(e)}), "application/json")
           return
-        sidecar._board.beat(shard, source="sidecar")
+        try:
+          sidecar._board.beat(shard, source="sidecar")
+        except ValueError as e:  # a rank's board: another rank's shard
+          self._reply(409, json.dumps({"error": str(e)}), "application/json")
+          return
         self._reply(200, json.dumps({"ok": True, "shard": shard}),
                     "application/json")
 
@@ -126,6 +133,8 @@ class Sidecar:
           # inf (a failed shard) is not JSON; report a sentinel string
           "ages_s": [float(a) if a != float("inf") else "inf" for a in ages],
       }
+      if ages.shape[0] != self._board.m:  # a rank's board: its shards
+        out["shards"]["first"] = self._board.first
     return out
 
   @property

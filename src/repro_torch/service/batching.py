@@ -13,7 +13,11 @@ through ONE ``query_batch`` call whenever
   knob: no request waits longer than the deadline plus one drain).
 
 Every request of a drained batch observes the same wall clock
-(``QueryResult.wall_s``).  Closing drains what is pending, it drops
+(``QueryResult.wall_s``).  On a rank of a process mesh the sieve tier
+answers from the rank's replica of the pooled sieves with no collective,
+so a batcher works on any rank alone; the exact tier is a collective
+(every rank calls it with the same batch), which a batcher's drains cannot
+line up, so it is refused there.  Closing drains what is pending, it drops
 nothing.  Each drain is a ``batcher.drain`` span (tier, occupancy) and
 feeds the ``repro_batcher_*`` series.
 """
@@ -54,7 +58,8 @@ class QueryBatcher:
       values work too: the store runs tile by tile).
     max_delay_s: the longest the oldest pending request waits before a
       (possibly partial) drain.
-    tier: forwarded to ``query_batch`` ("sieve" | "exact").
+    tier: forwarded to ``query_batch`` ("sieve" | "exact"; "sieve" only
+      on a rank of a process mesh).
   """
 
   def __init__(self, service, *, max_batch: int | None = None,
@@ -64,6 +69,10 @@ class QueryBatcher:
     if self._max_batch <= 0:
       raise ValueError(f"max_batch must be positive, got {self._max_batch}")
     self._max_delay = float(max_delay_s)
+    if tier == "exact" and getattr(service, "mesh", None) is not None:
+      raise ValueError("the exact tier is a collective over the mesh's "
+                       "ranks: call query_batch(tier='exact') on every rank "
+                       "together, not through a QueryBatcher")
     self._tier = tier
     self._cv = threading.Condition()
     self._pending: list[tuple[QueryRequest, Future]] = []

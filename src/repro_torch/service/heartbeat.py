@@ -11,6 +11,13 @@ same board, so HTTP beats and in-process fetch acks are the same to the
 liveness collective (``source`` only labels ``repro_heartbeats_total``).
 Tests inject a fake ``clock`` and call ``fail`` to kill shards
 deterministically.
+
+Over the ranks of a ``launch.mesh.ProcessMesh`` (``mesh=``) a rank's board
+holds its own shards only: ``ages`` gives theirs, in shard order, which is
+what the liveness collective takes from each rank.  A beat or a failure
+for a shard another rank holds (a sidecar's ``POST /healthz`` on rank 0
+naming rank 2's shard) is refused with a ``ValueError`` naming the owner,
+never dropped in silence.
 """
 from __future__ import annotations
 
@@ -24,13 +31,39 @@ from repro_torch.obs.metrics import REGISTRY
 class HeartbeatBoard:
   """Last-heartbeat timestamps for ``m`` shards, with an injectable clock."""
 
-  def __init__(self, m: int, clock=time.monotonic):
+  def __init__(self, m: int, clock=time.monotonic, *, mesh=None):
     self._clock = clock
-    self._last = np.full((m,), float(clock()), np.float64)
+    self._m = m
+    self._mesh = mesh
+    self.first, count = (0, m) if mesh is None else (mesh.first, mesh.m_local)
+    self._last = np.full((count,), float(clock()), np.float64)
 
   @property
   def m(self) -> int:
-    return self._last.shape[0]
+    """Shards of the whole service (a rank's board holds ``shards``)."""
+    return self._m
+
+  @property
+  def shards(self) -> range:
+    """The shards this board records."""
+    return range(self.first, self.first + self._last.shape[0])
+
+  def _slot(self, shard: int) -> int:
+    """The board's entry of ``shard`` (stacked: the shard itself, as the
+    reference indexes); a rank's board raises for a shard outside the
+    service, or one another rank holds (naming it)."""
+    if self._mesh is None:
+      return shard
+    shard = int(shard)
+    if not 0 <= shard < self._m:
+      raise ValueError(f"shard {shard} outside the service's {self._m}")
+    if shard not in self.shards:
+      per = self._last.shape[0]
+      raise ValueError(
+          f"shard {shard} is held by rank {shard // per}; this board is "
+          f"rank {self._mesh.rank}'s (shards {self.first}.."
+          f"{self.first + per - 1})")
+    return shard - self.first
 
   def beat(self, shard: int | None = None, source: str = "inproc") -> None:
     """Record a heartbeat for ``shard`` (None = all shards); ``source``
@@ -40,7 +73,7 @@ class HeartbeatBoard:
     if shard is None:
       self._last[:] = now
     else:
-      self._last[shard] = now
+      self._last[self._slot(shard)] = now
     REGISTRY.counter("repro_heartbeats_total",
                      "heartbeats recorded per source").inc(
                          source=source,
@@ -48,11 +81,12 @@ class HeartbeatBoard:
 
   def fail(self, shard: int) -> None:
     """Mark ``shard`` dead: its age is +inf until it beats again."""
-    self._last[shard] = -np.inf
+    self._last[self._slot(shard)] = -np.inf
     REGISTRY.counter("repro_heartbeat_failures_total",
                      "shards explicitly marked dead").inc(shard=shard)
 
   def ages(self, now: float | None = None) -> np.ndarray:
-    """(m,) seconds since each shard's last heartbeat (>= 0; inf = dead)."""
+    """Seconds since each shard's last heartbeat (>= 0; inf = dead): (m,),
+    or a rank's board its own shards'."""
     now = float(self._clock()) if now is None else float(now)
     return np.maximum(now - self._last, 0.0)

@@ -35,6 +35,19 @@ a restarted service that replays the same appends repeats its epochs.
 Epochs merge flat or through the accumulation tree (``merge="tree"``,
 ``tree_branch`` children a node; ``tree_branch = m`` is flat, bit for bit).
 
+Over the ranks of a ``launch.mesh.ProcessMesh`` (``mesh=``) each rank holds
+its ``m // world`` shards of the store and of the heartbeat board, every
+rank makes the same calls (SPMD), and every epoch, sieve answer and
+exact-tier answer is the stacked service's, bit for bit, on every rank.  An
+epoch fetches the rank's slab of the repartitioned block, gids and table
+entries from their owners in one ``ProcessMesh.fetch_rows``, runs
+``greedi_sharded(mesh=)`` on it (the rank's own heartbeat ages into the
+liveness collective) and returns the same ``EpochResult`` on every rank.
+The partition perm is drawn on each rank from the same seed (a device
+generator gives the same draw on every card of a kind); ``query`` and
+``query_batch`` answer from the rank's replica of the pooled sieves and
+make no collective, so any rank serves queries alone.
+
 Queries between epochs: with the standing sieves on (``sieve=True``, the
 default, for an objective whose maintainer supports them) ``query``
 answers "which k documents now?" after any append by merging the store's
@@ -75,8 +88,7 @@ from repro_torch import obs
 from repro_torch.core import greedi as GD
 from repro_torch.core import objectives as O
 from repro_torch.core.objectives import NEG
-from repro_torch.core.partition import (partition_gids, repartition,
-                                        shard_live_counts)
+from repro_torch.core.partition import partition_rows, shard_live_counts
 from repro_torch.kernels.dispatch import FUSED_SIMS
 from repro_torch.service.heartbeat import HeartbeatBoard
 from repro_torch.service.store import CorpusStore
@@ -181,7 +193,9 @@ class SelectionService:
       b * kappa rows instead of m * kappa (``merge_peak_rows``).  Checked
       here: m must factor into the tree's levels.
     device: ``cuda`` by default (raises when CUDA is missing unless ``cpu``
-      is asked for).
+      is asked for); with a mesh of the mesh device's type.
+    mesh: a ``launch.mesh.ProcessMesh`` of m shards to run them over its
+      ranks (the module docstring); None stacks all m on one device.
   """
 
   def __init__(self, *, m: int, d: int, kappa: int, k_final: int,
@@ -193,8 +207,9 @@ class SelectionService:
                objective: str | Any = "facility", sieve: bool = True,
                query_mask_cap: int = 16, query_batch_tile: int | None = None,
                merge: str = "flat", tree_branch: int | None = None,
-               device="cuda"):
+               device="cuda", mesh=None):
     self._m = m
+    self._mesh = mesh
     self._d = d
     self._kappa = kappa
     self._k_final = k_final
@@ -238,8 +253,8 @@ class SelectionService:
         kernel=kernel, kernel_kwargs=kernel_kwargs, backend=backend,
         maintainer=self._maintainer, sieve_k=k_final if sieve else 0,
         query_mask_cap=query_mask_cap, query_batch_tile=query_batch_tile,
-        feat_dtype=feat_dtype, device=device)
-    self.board = HeartbeatBoard(m)
+        feat_dtype=feat_dtype, device=device, mesh=mesh)
+    self.board = HeartbeatBoard(m, mesh=mesh)
 
   # ---- public surface ------------------------------------------------------
 
@@ -263,6 +278,11 @@ class SelectionService:
   @property
   def objective(self):
     return self._objective
+
+  @property
+  def mesh(self):
+    """The ``ProcessMesh`` the shards run over (None: stacked)."""
+    return self._mesh
 
   @property
   def sieve_enabled(self) -> bool:
@@ -370,7 +390,8 @@ class SelectionService:
     ``tier="exact"`` runs every request through the exact tier instead: a
     batched greedy facility-location pass over the resident block (one
     batched select a pick serves all tenants), values exact over each
-    tenant's visible rows.  Facility location with a fused similarity only.
+    tenant's visible rows.  Facility location with a fused similarity only;
+    under a mesh a collective (every rank calls it with the same requests).
     """
     if tier not in ("sieve", "exact"):
       raise ValueError(f"tier must be 'sieve' or 'exact', got {tier!r}")
@@ -439,7 +460,9 @@ class SelectionService:
 
   def epoch_perm(self, epoch: int | None = None) -> torch.Tensor:
     """The (capacity,) partition permutation this service draws for epoch
-    ``epoch`` (default: the next one) when ``epoch`` gets no ``perm``."""
+    ``epoch`` (default: the next one) when ``epoch`` gets no ``perm``; the
+    same on every rank of a mesh (each draws it from the same seed on its
+    own device, a generator of one device kind giving the same draw)."""
     t = self._epoch_idx if epoch is None else epoch
     dev = self.store.device
     g = torch.Generator(device=dev).manual_seed(
@@ -451,33 +474,37 @@ class SelectionService:
     """Re-partition the block, derive the warm bounds, run GreeDi.
     Returns the GreediResult and the device-fed diagnostics: each shard's
     live evaluation rows under this partition and its peak merged rows
-    ((m,) int64 each, on the device)."""
-    st = self.store
-    m, cap, d = self._m, st.capacity, self._d
-    npp = cap // m
+    ((m,) int64 each, on the device).  Under a mesh the rank's slab of the
+    partition (its m_local shards' rows, gids and table entries) comes in
+    one ``fetch_rows``; ``ages`` are its own shards'."""
+    st, mesh = self.store, self._mesh
+    m = self._m
+    npp = st.capacity // m
+    ml = m if mesh is None else mesh.m_local
     # cap is a multiple of m: the perm has no padding of its own, and the
     # only holes are the block's gid = -1 rows
-    parts, _, perm = repartition(None, st.feats, m, perm=perm)
-    feats_sh = parts.reshape(cap, d)
-    gids_sh = partition_gids(perm, st.gids)
+    slab = perm.reshape(m, npp)
+    if mesh is not None:
+      slab = slab[mesh.shards]
+    feats_sh, gids_sh, table_sh = partition_rows(
+        slab, [st.feats, st.gids, st.table], mesh)
     wb = None
     if self._warm:
       valid_sh = gids_sh >= 0
-      nv = shard_live_counts(valid_sh, m).to(torch.float64)
-      wb = torch.where(valid_sh, st.table[perm.reshape(cap).clamp_min(0)],
-                       NEG)
+      nv = shard_live_counts(valid_sh, ml).to(torch.float64)
+      wb = torch.where(valid_sh, table_sh, NEG)
       # sum-form table -> per-shard mean-form empty-set bounds, inflated by
       # the slack that covers f32 summation-order noise
       wb = self._maintainer.epoch_bounds(wb, nv.repeat_interleave(npp))
       wb = (wb * (1.0 + _BOUND_SLACK_REL) + _BOUND_SLACK_ABS).to(
           torch.float32)
     r = GD.greedi_sharded(
-        feats_sh, m=m, kappa=self._kappa, k_final=self._k_final,
-        objective=self._objective, backend=self._backend, gids=gids_sh,
-        mode=self._mode, warm_bounds=wb, liveness_age=ages,
-        liveness_deadline=deadline, merge=self._merge,
-        tree_branch=self._tree_branch)
-    eval_mass = shard_live_counts(gids_sh >= 0, m).to(torch.int64)
+        feats_sh, m=m, kappa=self._kappa,
+        k_final=self._k_final, objective=self._objective,
+        backend=self._backend, gids=gids_sh, mode=self._mode,
+        warm_bounds=wb, liveness_age=ages, liveness_deadline=deadline,
+        merge=self._merge, tree_branch=self._tree_branch, mesh=mesh)
+    eval_mass = shard_live_counts(gids_sh >= 0, m, mesh).to(torch.int64)
     merge_rows = torch.full((m,), self.merge_peak_rows, dtype=torch.int64,
                             device=st.device)
     return r, eval_mass, merge_rows

@@ -36,6 +36,34 @@ reference): two ``pairwise`` sweeps and one ``csrc/sieve.cu`` scan.
 Growth leaves the sieve state as it is (its shapes do not depend on the
 capacity).
 
+Over the ranks of a ``launch.mesh.ProcessMesh`` (``mesh=``) the layout is
+the same, and a rank allocates only its ``m // world`` contiguous shards'
+rows of the block, the gids and the table, and their standing sieves; the
+calls are SPMD (every rank calls ``append``, ``reserve``, ``reset_sieves``
+and ``query_exact_batch`` with the same arguments) and every result is the
+stacked store's, bit for bit:
+
+* an append chunk writes the rows its shards own; the bound pass runs over
+  them, and the per-shard partial ``sums`` are gathered and summed over the
+  shards in stacked order (never an ``all_reduce``, whose order follows
+  the ring), so Delta and the grid are the same on every rank and the
+  admission scan runs for the rank's shards among those the chunk lands
+  on;
+* growth remaps flat rows to shards, so rows change ranks: they move
+  through ``ProcessMesh.fetch_rows`` (block, gids and table in one
+  exchange), bit for bit;
+* every rank keeps a replica of the pooled sieve state (the query pool),
+  refreshed by one all-gather at the end of each ``append`` call and set
+  by ``reset_sieves`` / ``set_sieve_state``, so the sieve tier makes no
+  collective: any rank answers a query alone (a ``QueryBatcher``'s worker
+  thread included);
+* the exact tier gathers the block once a call and runs the stacked greedy
+  on it (bit for bit; its work is not split over the ranks, so it is a
+  collective every rank calls);
+* ``reset_sieves`` re-grids from the max over the ranks' tables and looks
+  the epoch's picks up with one all-gather of the ranks' (hit, entry)
+  pairs.
+
 The query surface merges the standing buckets into a coreset without
 touching the corpus block:
 
@@ -76,6 +104,7 @@ from repro_torch import obs, resolve_device
 from repro_torch.core.objectives import _kernel_h
 from repro_torch.kernels import autotune, dispatch
 from repro_torch.kernels.ref import NEG
+from repro_torch.launch.mesh import pack_rows, unpack_rows
 
 _JTOP_COLD = -(1 << 30)  # sieve grid sentinel: no positive gain seen yet
 # relative tie-break jitter of seeded queries: big enough to decorrelate
@@ -139,7 +168,10 @@ class CorpusStore:
       up to it, bigger ones run tile by tile.
     feat_dtype: storage dtype of the feature rows.
     device: where the block lives; ``cuda`` by default (raises when CUDA is
-      missing unless ``cpu`` is asked for).
+      missing unless ``cpu`` is asked for).  With a mesh it must be of the
+      mesh device's type, and the block lives on ``mesh.device``.
+    mesh: a ``launch.mesh.ProcessMesh`` of m shards to hold this rank's
+      shards only (the module docstring); None stacks all m here.
   """
 
   def __init__(self, *, m: int, d: int, capacity: int = 4096,
@@ -147,8 +179,18 @@ class CorpusStore:
                kernel_kwargs: tuple = (), backend: str | None = None,
                maintainer=None, sieve_k: int = 0, sieve_eps: float = 0.5,
                query_mask_cap: int = 16, query_batch_tile: int | None = None,
-               feat_dtype=torch.float32, device="cuda"):
+               feat_dtype=torch.float32, device="cuda", mesh=None):
     self._dev = resolve_device(device)
+    self._mesh = mesh
+    self._first, self._m_local = 0, m
+    if mesh is not None:
+      if mesh.m != m:
+        raise ValueError(f"m={m} but the mesh has {mesh.m} shards")
+      if mesh.device.type != self._dev.type:
+        raise ValueError(f"device {self._dev} but the mesh computes on "
+                         f"{mesh.device}")
+      self._dev = mesh.device
+      self._first, self._m_local = mesh.first, mesh.m_local
     self._m = m
     self._d = d
     self._append_block = append_block
@@ -167,6 +209,10 @@ class CorpusStore:
     self._explicit_gids: set[int] = set()
     self._growths = 0
     self._bounds_seen = False
+    # whether a bound pass has written a nonzero entry: the table holds
+    # sums of nonnegative terms, so it is nonzero exactly where some new
+    # row's (global) sum was, and every rank sees the same flag
+    self._nonzero = torch.zeros((), dtype=torch.bool, device=self._dev)
     self._sieve_k = 0
     self._sieve_eps = float(sieve_eps)
     if sieve_k and getattr(maintainer, "supports_sieve", False):
@@ -195,42 +241,89 @@ class CorpusStore:
     """Smallest multiple of m >= cap (the block splits into m shards)."""
     return -(-cap // self._m) * self._m
 
+  def _span(self, cap: int) -> tuple[int, int]:
+    """(first global row, rows) this process holds at capacity ``cap``."""
+    npp = cap // self._m
+    return self._first * npp, self._m_local * npp
+
+  def _overlap(self, n0: int, cb: int) -> tuple[int, int]:
+    """The global rows [g0, g1) of rows n0 .. n0 + cb - 1 this process
+    holds (g1 <= g0: none)."""
+    lo, rows = self._span(self._cap)
+    return max(n0, lo), min(n0 + cb, lo + rows)
+
   def _alloc(self, cap: int) -> None:
-    self._feats = torch.zeros((cap, self._d), dtype=self._feat_dtype,
+    rows = self._span(cap)[1]
+    self._feats = torch.zeros((rows, self._d), dtype=self._feat_dtype,
                               device=self._dev)
-    self._gids = torch.full((cap,), -1, dtype=torch.int64, device=self._dev)
-    self._table = torch.zeros((cap,), dtype=torch.float64, device=self._dev)
+    self._gids = torch.full((rows,), -1, dtype=torch.int64, device=self._dev)
+    self._table = torch.zeros((rows,), dtype=torch.float64, device=self._dev)
 
   def _alloc_sieve(self) -> None:
     """The empty standing sieves: shapes independent of the capacity, so
     growth leaves them as they are.  Features are float32 whatever the
     block's dtype, as in the reference."""
+    self._sieve = self._pool_state = None
     if not self._sieve_k:
-      self._sieve = None
       return
-    m, t, k, dev = self._m, self._sieve_T, self._sieve_k, self._dev
-    self._sieve = SieveState(
-        torch.full((m * t, k), -1, dtype=torch.int64, device=dev),
-        torch.zeros((m * t, k), dtype=torch.float32, device=dev),
-        torch.zeros((m * t, k, self._d), dtype=torch.float32, device=dev),
-        torch.zeros((m * t,), dtype=torch.int64, device=dev),
-        torch.zeros((m,), dtype=torch.float32, device=dev),
-        torch.full((m,), _JTOP_COLD, dtype=torch.int64, device=dev))
+    t, k, dev = self._sieve_T, self._sieve_k, self._dev
+
+    def empty(m):
+      return SieveState(
+          torch.full((m * t, k), -1, dtype=torch.int64, device=dev),
+          torch.zeros((m * t, k), dtype=torch.float32, device=dev),
+          torch.zeros((m * t, k, self._d), dtype=torch.float32, device=dev),
+          torch.zeros((m * t,), dtype=torch.int64, device=dev),
+          torch.zeros((m,), dtype=torch.float32, device=dev),
+          torch.full((m,), _JTOP_COLD, dtype=torch.int64, device=dev))
+
+    self._sieve = empty(self._m_local)
+    if self._mesh is not None:
+      self._pool_state = empty(self._m)
+
+  @property
+  def _pool(self) -> SieveState | None:
+    """The pooled sieve state of all m shards the query tiers merge: the
+    state itself when stacked, a rank's replica under a mesh."""
+    return self._sieve if self._mesh is None else self._pool_state
+
+  def _mine(self, state: SieveState) -> SieveState:
+    """This rank's shards of an all-shard sieve state."""
+    t, a, b = self._sieve_T, self._first, self._first + self._m_local
+    return SieveState(*(x[a * t:b * t] for x in state[:4]),
+                      *(x[a:b] for x in state[4:]))
+
+  def _refresh_pool(self) -> None:
+    """The query pool from every rank's sieves: one all-gather of each
+    shard's state packed as bytes, unpacked bit for bit."""
+    sv, ml, m = self._sieve, self._m_local, self._m
+    parts = [x.reshape(ml, -1) for x in sv]
+    full = unpack_rows(self._mesh.all_gather(pack_rows(parts)), parts)
+    self._pool_state = SieveState(*(
+        f.reshape(m * x.shape[0] // ml, *x.shape[1:])
+        for f, x in zip(full, sv)))
 
   def _grow(self) -> None:
     """Double the capacity on the device; every value, the table's
-    included, is copied as it is."""
+    included, is copied as it is.  Under a mesh the flat rows map to other
+    shards at the new capacity: a rank fetches the rows of its new span
+    from their old owners (one ``fetch_rows``)."""
     new_cap = self._round_capacity(self._cap * 2)
-    pad = new_cap - self._cap
+    lo, rows = self._span(new_cap)
+    have = max(min(lo + rows, self._cap) - lo, 0)
+    held = [self._feats, self._gids, self._table]
+    if self._mesh is not None:
+      want = torch.arange(lo, lo + have, device=self._dev)
+      held = self._mesh.fetch_rows(held, want)
 
     def _pad(x, fill):
-      tail = torch.full((pad, *x.shape[1:]), fill, dtype=x.dtype,
+      tail = torch.full((rows - have, *x.shape[1:]), fill, dtype=x.dtype,
                         device=x.device)
-      return torch.cat([x, tail])
+      return torch.cat([x[:have], tail])
 
-    self._feats = _pad(self._feats, 0)
-    self._gids = _pad(self._gids, -1)
-    self._table = _pad(self._table, 0)
+    self._feats = _pad(held[0], 0)
+    self._gids = _pad(held[1], -1)
+    self._table = _pad(held[2], 0)
     self._cap = new_cap
     self._growths += 1
 
@@ -254,23 +347,26 @@ class CorpusStore:
 
   @property
   def feats(self) -> torch.Tensor:
-    """(capacity, d) resident feature block."""
+    """(capacity, d) resident feature block (a rank's rows under a mesh:
+    (capacity / m * m_local, d), its shards')."""
     return self._feats
 
   @property
   def gids(self) -> torch.Tensor:
-    """(capacity,) int64 resident gids; -1 rows are holes."""
+    """(capacity,) int64 resident gids; -1 rows are holes (a rank's rows
+    under a mesh)."""
     return self._gids
 
   @property
   def table(self) -> torch.Tensor:
-    """(capacity,) float64 resident bound table: what an epoch reads."""
+    """(capacity,) float64 resident bound table: what an epoch reads (a
+    rank's rows under a mesh)."""
     return self._table
 
   @property
   def ubound(self) -> np.ndarray:
-    """(capacity,) float64 host copy of the bound table (tests and
-    diagnostics; an epoch reads ``table`` on the device)."""
+    """Host copy of ``table`` (tests and diagnostics; an epoch reads
+    ``table`` on the device)."""
     return self._table.cpu().numpy()
 
   @property
@@ -278,11 +374,11 @@ class CorpusStore:
     """True iff the table carries signal: a maintainer exists and some
     entry is nonzero.  A cold store reports False, so a cold epoch is not
     reported as warm.  The one-bit device read is cached once True (the
-    table only accumulates)."""
+    table only accumulates); every rank of a mesh reads the same bit."""
     if self._maintainer is None or self._n == 0:
       return False
     if not self._bounds_seen:
-      self._bounds_seen = bool((self._table != 0.0).any())
+      self._bounds_seen = bool(self._nonzero)
     return self._bounds_seen
 
   def reserve(self, n_total: int) -> None:
@@ -349,12 +445,15 @@ class CorpusStore:
     gids_dev = self._h2d(gids)
     self._h2d_bytes = 0  # the ids are fed with their chunk's rows below
     row_bytes = self._d * feats.element_size() if crossed else 0
+    lo = self._span(self._cap)[0]
     for off in range(0, b, ab):
       chunk = feats[off:off + ab]
       cb = chunk.shape[0]
       n0 = self._n
-      self._feats[n0:n0 + cb] = chunk
-      self._gids[n0:n0 + cb] = gids_dev[off:off + cb]
+      g0, g1 = self._overlap(n0, cb)
+      if g1 > g0:  # the chunk's rows this process holds
+        self._feats[g0 - lo:g1 - lo] = chunk[g0 - n0:g1 - n0]
+        self._gids[g0 - lo:g1 - lo] = gids_dev[off + g0 - n0:off + g1 - n0]
       diag = None
       if self._maintainer is not None:
         sums = self._bound_pass(chunk, n0)
@@ -363,6 +462,8 @@ class CorpusStore:
       self._n += cb
       self._feed_append_metrics(
           cb, diag, cb * (row_bytes + (8 if self._dev.type != "cpu" else 0)))
+    if self._mesh is not None and self._sieve is not None and b:
+      self._refresh_pool()
     # every chunk landed: commit the id bookkeeping
     if auto:
       self._next_gid = start + b
@@ -382,17 +483,23 @@ class CorpusStore:
     returned (float32, the sieve's admission gains).  The last chunk of an
     append is not padded to ``append_block`` (the reference's padding rows
     carry no mass)."""
-    cb, m = chunk.shape[0], self._m
+    cb, ml = chunk.shape[0], self._m_local
     rvalid = torch.ones((cb,), dtype=torch.float32, device=self._dev)
-    block = self._feats.view(m, self._cap // m, self._d)
-    bvalid = (self._gids >= 0).view(m, -1)
+    block = self._feats.view(ml, self._cap // self._m, self._d)
+    bvalid = (self._gids >= 0).view(ml, -1)
     add, sums = self._maintainer.append_update(
         chunk.contiguous(), block, rvalid, bvalid, kernel=self._kernel,
         h=self._h, backend=self._backend)
     if not getattr(self._maintainer, "sums_global", False):
+      if self._mesh is not None:
+        sums = self._mesh.all_gather(sums)  # (m, cb), in shard order
       sums = sums.sum(dim=0)  # the shards' partial sums (the psum)
     self._table += add.reshape(-1).to(torch.float64)
-    self._table[n0:n0 + cb] = sums.to(torch.float64)
+    g0, g1 = self._overlap(n0, cb)
+    if g1 > g0:
+      lo = self._span(self._cap)[0]
+      self._table[g0 - lo:g1 - lo] = sums[g0 - n0:g1 - n0].to(torch.float64)
+    self._nonzero |= (sums != 0.0).any()
     return sums
 
   def _sieve_pass(self, chunk: torch.Tensor, rgids: torch.Tensor,
@@ -403,11 +510,12 @@ class CorpusStore:
     buckets), then admit the chunk's rows into the shards they land on.
     Which shards those are follows from n0, the chunk's rows and the shard
     size alone, so the host knows them without a read-back; the other
-    shards' update is a no-op.  Returns the chunk's device-fed
-    diagnostics, (admissions, rows considered) summed over the shards:
-    the bucket counts' growth across the scan and the rows offered."""
-    sv, m, t, k = self._sieve, self._m, self._sieve_T, self._sieve_k
-    dev, cb, npp = self._dev, chunk.shape[0], self._cap // m
+    shards' update is a no-op (under a mesh: a rank scans its shards
+    among them, if any).  Returns the chunk's device-fed diagnostics,
+    (admissions, rows considered) summed over the process's shards: the
+    bucket counts' growth across the scan and the rows offered."""
+    sv, ml, t, k = self._sieve, self._m_local, self._sieve_T, self._sieve_k
+    dev, cb, npp = self._dev, chunk.shape[0], self._cap // self._m
     # Delta folds every row of the chunk (the reference's padding rows add
     # 0.0), the same on every shard, so the sieves stay mergeable
     delta = torch.maximum(sv.delta[0], sums.max().clamp_min(0.0))
@@ -424,31 +532,35 @@ class CorpusStore:
     cleared = ar >= t - shift
 
     def roll(x, fill):
-      x = x.view(m, t, *x.shape[1:])
+      x = x.view(ml, t, *x.shape[1:])
       mask = cleared.view(1, t, *(1,) * (x.dim() - 2))
-      return torch.where(mask, fill, x[:, src]).view(m * t, *x.shape[2:])
+      return torch.where(mask, fill, x[:, src]).view(ml * t, *x.shape[2:])
 
     gid, gain = roll(sv.gid, -1), roll(sv.gain, 0.0)
     feat, cnt = roll(sv.feat, 0.0), roll(sv.count, 0)
     expo = (jtop - (t - 1) + ar).to(torch.float32)
     tau = torch.exp(expo * self._log1pe)
-    s0, s1 = n0 // npp, (n0 + cb - 1) // npp + 1
-    pos = (n0 + torch.arange(cb, device=dev))[None, :] - (
-        torch.arange(s0, s1, device=dev)[:, None] * npp)
-    active = (pos >= 0) & (pos < npp) & has
-    lo, hi = s0 * t, s1 * t
-    update = dispatch.resolve("sieve_update", self._backend or "auto")
-    g2, w2, f2, c2 = update(
-        chunk, sums, rgids, active, tau, gid[lo:hi].view(-1, t, k),
-        gain[lo:hi].view(-1, t, k), feat[lo:hi].view(-1, t, k, self._d),
-        cnt[lo:hi].view(-1, t), kernel=self._kernel, h=self._h)
-    diag = torch.stack([c2.sum() - cnt[lo:hi].sum(), active.sum()])
-    gid[lo:hi] = g2.view(-1, k)
-    gain[lo:hi] = w2.view(-1, k)
-    feat[lo:hi] = f2.view(-1, k, self._d)
-    cnt[lo:hi] = c2.view(-1)
-    self._sieve = SieveState(gid, gain, feat, cnt, delta.expand(m).clone(),
-                             jtop.expand(m).clone())
+    # the shards the chunk lands on, and of those this process's
+    s0 = max(n0 // npp, self._first)
+    s1 = min((n0 + cb - 1) // npp + 1, self._first + ml)
+    diag = torch.zeros((2,), dtype=torch.int64, device=dev)
+    if s1 > s0:
+      pos = (n0 + torch.arange(cb, device=dev))[None, :] - (
+          torch.arange(s0, s1, device=dev)[:, None] * npp)
+      active = (pos >= 0) & (pos < npp) & has
+      lo, hi = (s0 - self._first) * t, (s1 - self._first) * t
+      update = dispatch.resolve("sieve_update", self._backend or "auto")
+      g2, w2, f2, c2 = update(
+          chunk, sums, rgids, active, tau, gid[lo:hi].view(-1, t, k),
+          gain[lo:hi].view(-1, t, k), feat[lo:hi].view(-1, t, k, self._d),
+          cnt[lo:hi].view(-1, t), kernel=self._kernel, h=self._h)
+      diag = torch.stack([c2.sum() - cnt[lo:hi].sum(), active.sum()])
+      gid[lo:hi] = g2.view(-1, k)
+      gain[lo:hi] = w2.view(-1, k)
+      feat[lo:hi] = f2.view(-1, k, self._d)
+      cnt[lo:hi] = c2.view(-1)
+    self._sieve = SieveState(gid, gain, feat, cnt, delta.expand(ml).clone(),
+                             jtop.expand(ml).clone())
     return diag
 
   # ---- metric feeds --------------------------------------------------------
@@ -512,15 +624,17 @@ class CorpusStore:
 
   @property
   def sieve_state_bytes(self) -> int:
-    """Device bytes held by the standing sieves of all shards."""
+    """Device bytes held by the standing sieves of the process's shards
+    (a rank's query pool not counted)."""
     if self._sieve is None:
       return 0
     return sum(x.numel() * x.element_size() for x in self._sieve)
 
   @property
   def sieve_state(self) -> SieveState | None:
-    """The standing sieves on the device (None when the sieve is off)."""
-    return self._sieve
+    """The standing sieves of all m shards on the device (a rank's query
+    pool under a mesh; None when the sieve is off)."""
+    return self._pool
 
   @property
   def query_mask_cap(self) -> int:
@@ -553,23 +667,34 @@ class CorpusStore:
     if self._sieve is None:
       raise RuntimeError("sieve disabled on this store")
     out = []
-    for x in self._sieve:
+    for x in self._pool:
       a = x.cpu().numpy()
       out.append(a.astype(np.int32) if a.dtype == np.int64 else a)
     return tuple(out)
 
   def set_sieve_state(self, state: SieveState) -> None:
-    """Replace the standing sieves (``interop.sieve_state`` carries a
-    reference store's across); shapes must be this store's."""
+    """Replace the standing sieves of all m shards (``interop.sieve_state``
+    carries a reference store's across); shapes must be this store's
+    ``sieve_state``'s.  Under a mesh every rank is given the whole state
+    and keeps its shards' part and the pool (no collective)."""
     if self._sieve is None:
       raise RuntimeError("sieve disabled on this store")
     new = []
-    for mine, x in zip(self._sieve, state):
+    for mine, x in zip(self._pool, state):
       if tuple(x.shape) != tuple(mine.shape):
         raise ValueError(f"sieve state of shape {tuple(x.shape)}, this "
                          f"store holds {tuple(mine.shape)}")
       new.append(x.to(device=self._dev, dtype=mine.dtype).clone())
-    self._sieve = SieveState(*new)
+    self._set_all(SieveState(*new))
+
+  def _set_all(self, state: SieveState) -> None:
+    """Install an all-shard sieve state: the process's shards' part, and
+    the pool under a mesh."""
+    if self._mesh is None:
+      self._sieve = state
+    else:
+      self._pool_state = state
+      self._sieve = SieveState(*(x.clone() for x in self._mine(state)))
 
   def _h2d(self, a) -> torch.Tensor:
     """A host array on the device, copied without a stream sync unless it
@@ -624,7 +749,7 @@ class CorpusStore:
     jitter (None: all seeds 0).  One ``pairwise`` call a pick for the
     whole tile; the (N, N) block is never formed.  Returns (B, k) ids and
     scores on the device."""
-    sv, k = self._sieve, self._sieve_k
+    sv, k = self._pool, self._sieve_k
     n = sv.gid.numel()
     b = kq.shape[0]
     gt = sv.gid.reshape(n)
@@ -682,7 +807,7 @@ class CorpusStore:
     self._h2d_bytes = self._d2h_bytes = 0
     kq = self._sieve_k if k is None else int(k)
     seeds = np.array([int(seed)], np.int64)
-    n = self._sieve.gid.numel()
+    n = self._pool.gid.numel()
     mult = self._jitter_mult(seeds, jitter, n) if seed else None
     g, s = self._merge(self._h2d(np.array([kq], np.int64)),
                        self._excl(exclude_gids, None)[None], mult)
@@ -711,7 +836,7 @@ class CorpusStore:
     if excl.shape != (b, self._mask_cap) or seeds.shape != (b,):
       raise ValueError(f"exclude {excl.shape} / seeds {seeds.shape} do not "
                        f"match {b} requests of mask cap {self._mask_cap}")
-    n = self._sieve.gid.numel()
+    n = self._pool.gid.numel()
     if jitter is not None:
       jitter = np.broadcast_to(np.asarray(jitter, np.float32), (b, n))
     bq = self._qb_tile
@@ -738,16 +863,16 @@ class CorpusStore:
       return np.zeros((0, k), np.int64), np.zeros((0, k), np.float32)
     return np.concatenate(out_g), np.concatenate(out_s)
 
-  def _exact_tile(self, kq: torch.Tensor, excl: torch.Tensor, k_cap: int):
+  def _exact_tile(self, feats: torch.Tensor, gids: torch.Tensor,
+                  kq: torch.Tensor, excl: torch.Tensor, k_cap: int):
     """The exact tier on one query tile: k_cap greedy facility-location
-    steps over the resident block, each ONE batched facility select (the
-    block shared, per-lane coverage, visibility and candidates on the
-    batch axis) and one ``pairwise`` call for the picks' columns."""
+    steps over the block (``feats``, ``gids``), each ONE batched facility
+    select (the block shared, per-lane coverage, visibility and candidates
+    on the batch axis) and one ``pairwise`` call for the picks' columns."""
     backend = self._backend or "auto"
     sel_b = dispatch.resolve_select_batched("facility_gain", backend)
     pair = dispatch.resolve("pairwise", backend)
-    f32 = self._feats.float()
-    gids = self._gids
+    f32 = feats.float()
     cap, b = f32.shape[0], kq.shape[0]
     hidden = (gids[None, :, None] == excl[:, None, :]).any(dim=-1)
     vis = ((gids >= 0)[None, :] & ~hidden).to(torch.float32)   # (b, cap)
@@ -775,7 +900,9 @@ class CorpusStore:
     seeds (the exact greedy is deterministic).  Returns host (B, k_cap)
     gids / scores (the greedy gains over each tenant's visible rows) and
     the (B,) visible-row counts ``nvis`` (the value normalizer); one
-    read-back a query tile."""
+    read-back a query tile.  Under a mesh a collective: the block is
+    gathered once a call (one all-gather of every rank's rows and gids)
+    and every rank runs the stacked greedy on it."""
     ks = np.asarray(ks, np.int64).reshape(-1)
     b = ks.shape[0]
     excl = np.asarray(exclude, np.int64).reshape(b, -1)
@@ -784,6 +911,9 @@ class CorpusStore:
                        f"of mask cap {self._mask_cap}")
     bq, k_cap = self._qb_tile, int(k_cap)
     self._h2d_bytes = self._d2h_bytes = 0
+    block = [self._feats, self._gids]
+    if self._mesh is not None:
+      block = unpack_rows(self._mesh.all_gather(pack_rows(block)), block)
     out_g, out_s, out_n = [], [], []
     for off in range(0, b, bq):
       nb = min(bq, b - off)
@@ -791,7 +921,8 @@ class CorpusStore:
       kc = np.pad(ks[off:off + nb], (0, pad))
       ec = np.pad(excl[off:off + nb], ((0, pad), (0, 0)),
                   constant_values=-1)
-      g, s, nv = self._exact_tile(self._h2d(kc), self._excl(ec, bq), k_cap)
+      g, s, nv = self._exact_tile(*block, self._h2d(kc), self._excl(ec, bq),
+                                  k_cap)
       both = torch.cat([g.to(torch.float64), s.to(torch.float64),
                         nv.to(torch.float64)[:, None]], dim=1).cpu().numpy()
       if self._dev.type != "cpu":
@@ -808,12 +939,21 @@ class CorpusStore:
 
   def _gather_bounds(self, gids_q: np.ndarray) -> np.ndarray:
     """Table entries of the given gids (0.0 for unknown ids) as float32,
-    the rounding of the reference's f32 ``hi`` word."""
+    the rounding of the reference's f32 ``hi`` word.  Under a mesh each
+    rank looks the ids up in its rows, and one all-gather of the ranks'
+    (hit, entry) pairs gives every rank the holder's entry."""
     q = self._h2d(np.asarray(gids_q, np.int64))
     eq = self._gids[None, :] == q[:, None]
     hit = eq.any(dim=1)
     at = eq.to(torch.uint8).argmax(dim=1)
     vals = torch.where(hit, self._table[at], 0.0)
+    if self._mesh is not None:
+      pairs = self._mesh.all_gather(torch.stack([hit.to(torch.float64),
+                                                 vals])[None])
+      hits = pairs[:, 0] > 0.0                       # (world, q)
+      owner = hits.to(torch.uint8).argmax(dim=0)
+      vals = torch.where(hits.any(dim=0), pairs[owner, 1, torch.arange(
+          q.shape[0], device=self._dev)], 0.0)
     return vals.to(torch.float32).cpu().numpy()
 
   def reset_sieves(self, sel_feats=None, sel_gids=None) -> None:
@@ -826,12 +966,18 @@ class CorpusStore:
     seeds the fresh buckets through the admission rule, replayed on the
     host on shard 0's buckets with the rows' table entries as gains: a
     query right after an epoch answers with at least the epoch's picks.
+    Under a mesh every rank takes the max over the ranks' tables and
+    replays the same seeding, so each holds the whole new state (its
+    shards' part and the pool) without a gather of the sieves.
     """
     if self._sieve is None:
       return
     m, t, k, d = self._m, self._sieve_T, self._sieve_k, self._d
     eps = self._sieve_eps
-    delta = float(np.float32(self._table.max().item()))
+    top = self._table.max()
+    if self._mesh is not None:
+      top = self._mesh.max(top)
+    delta = float(np.float32(top.item()))
     sgid = np.full((m * t, k), -1, np.int64)
     sgain = np.zeros((m * t, k), np.float32)
     sfeat = np.zeros((m * t, k, d), np.float32)
@@ -868,8 +1014,8 @@ class CorpusStore:
     else:
       jtop = _JTOP_COLD
     dev = self._dev
-    self._sieve = SieveState(
+    self._set_all(SieveState(
         torch.as_tensor(sgid, device=dev), torch.as_tensor(sgain, device=dev),
         torch.as_tensor(sfeat, device=dev), torch.as_tensor(scnt, device=dev),
         torch.full((m,), max(delta, 0.0), dtype=torch.float32, device=dev),
-        torch.full((m,), jtop, dtype=torch.int64, device=dev))
+        torch.full((m,), jtop, dtype=torch.int64, device=dev)))

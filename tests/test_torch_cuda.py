@@ -1426,3 +1426,128 @@ def test_cuda_eval_step_kernel_path_matches_plain(cuda_device, dtype):
     np.testing.assert_allclose(losses["auto"], losses["ref"], rtol=1e-5)
   else:
     assert abs(losses["auto"] - losses["ref"]) <= 2e-2
+
+
+# one rank of test_cuda_service_over_ranks_matches_stacked (under torchrun,
+# gloo, every rank on the current card); rank 0 also runs every call
+# stacked
+SERVICE_RANK = r'''
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch import no_tf32
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.service import QueryRequest, SelectionService
+
+no_tf32()
+mesh = ProcessMesh.from_env(4, "gloo", "cuda")
+r = np.random.default_rng(33)
+x = r.normal(size=(1500, 16))
+f = torch.tensor(x / np.linalg.norm(x, axis=1, keepdims=True),
+                 dtype=torch.float32, device=mesh.device)
+
+
+def run(svc, out):
+  for i, (lo, hi) in enumerate(((0, 300), (300, 1100), (1100, 1500))):
+    svc.append(f[lo:hi])
+    q = svc.query()
+    out[f"q{i}"] = q.sel_gids
+    out[f"v{i}"] = np.array(q.value_estimate)
+    reqs = [QueryRequest(k=1 + j % 8, seed=j % 3, exclude_gids=tuple(
+        int(g) for g in q.sel_gids[:j % 3])) for j in range(6)]
+    for j, a in enumerate(svc.query_batch(reqs)):
+      out[f"b{i}_{j}"] = a.sel_gids
+    for g, x in enumerate(svc.store.sieve_state):
+      out[f"s{i}_{g}"] = x.cpu().numpy()
+    if i:
+      svc.board.beat()
+      if i == 2:
+        for s in (2, 3):
+          if s in svc.board.shards:
+            svc.board.fail(s)
+      e = svc.epoch()
+      out[f"e{i}"], out[f"a{i}"] = e.sel_gids, e.stats.alive
+      out[f"f{i}"] = np.array(e.stats.value)
+  for j, a in enumerate(svc.query_batch([3, 8], tier="exact")):
+    out[f"x{j}"] = a.sel_gids
+    out[f"xv{j}"] = np.array(a.value_estimate)
+
+
+kw = dict(m=4, d=16, kappa=8, k_final=8, capacity=256, append_block=128,
+          seed=0, deadline=60.0)
+ops.reset_launch_counts()
+mine, stacked = {}, {}
+run(SelectionService(mesh=mesh, **kw), mine)
+mine["launches"] = np.array([ops.launch_counts()[k] for k in (
+    "pairwise", "sieve_admit", "facility_gain", "facility_select")])
+mine["exchanges"] = np.array(mesh.exchanges)
+if mesh.rank == 0:
+  run(SelectionService(**kw), stacked)
+  np.savez(f"{sys.argv[1]}/stacked.npz", **stacked)
+np.savez(f"{sys.argv[1]}/rank{mesh.rank}.npz", **mine)
+mesh.close()
+'''
+
+
+@pytest.mark.cuda
+def test_cuda_service_over_ranks_matches_stacked(cuda_device, tmp_path):
+  """The selection service over 2 gloo ranks on the card (2 shards a
+  rank): appends across growths, a query and a heterogeneous batch after
+  each, the sieve state, warm epochs with rank 1's shards failed before
+  the last, and the exact tier: every answer the stacked service's on
+  the card, bit for bit, with the kernels launched inside the ranks and
+  rows moved through the exchange."""
+  import os
+  import subprocess
+  import sys
+  script = tmp_path / "rank.py"
+  script.write_text(SERVICE_RANK)
+  repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+  run = subprocess.run(
+      [sys.executable, "-m", "torch.distributed.run", "--standalone",
+       "--nproc-per-node", "2", str(script), str(tmp_path)], env=env,
+      capture_output=True, text=True, timeout=600)
+  assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+  stacked = dict(np.load(tmp_path / "stacked.npz"))
+  assert stacked["a2"].tolist() == [True, True, False, False]
+  for rank in range(2):
+    got = dict(np.load(tmp_path / f"rank{rank}.npz"))
+    for k, want in stacked.items():
+      np.testing.assert_array_equal(got[k], want, err_msg=f"rank {rank} {k}")
+    assert (got["launches"][:3] > 0).all(), got["launches"]
+    assert got["exchanges"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_rank_sums_do_not_depend_on_the_batch(cuda_device):
+  """What a rank of a process mesh computes for its m / world partitions
+  is the stacked call's, bit for bit: the facility / coverage gains of 4
+  partitions under ``plan_for_parts(4)`` equal the first 4 of a 16
+  partition call (without it the eval-chunk plan, and the bits, differ),
+  and ``objectives._row_sum`` of 4 rows of 16384 equals theirs in a batch
+  of 16 (``torch.sum`` splits a row by the tensor's shape)."""
+  from repro_torch.core import objectives as O
+  from repro_torch.kernels import facility_gain as FG
+  g = torch.Generator(device=cuda_device).manual_seed(3)
+  ev = torch.randn((16, 16384, 64), generator=g, device=cuda_device) / 8
+  cov = torch.rand((16, 16384), generator=g, device=cuda_device) * 0.3
+  mask = torch.ones((16, 16384), device=cuda_device)
+  cand = torch.randn((16, 256, 64), generator=g, device=cuda_device) / 8
+  want = ops.facility_gain(ev, cand, cov, mask)[:4]
+  assert not torch.equal(ops.facility_gain(ev[:4], cand[:4], cov[:4],
+                                           mask[:4]), want)
+  with FG.plan_for_parts(4):
+    got = ops.facility_gain(ev[:4], cand[:4], cov[:4], mask[:4])
+    cover = ops.coverage_gain(ev[:4], cand[:4], cov[:4], 3 * cov[:4],
+                              mask[:4])
+  assert torch.equal(got, want)
+  assert torch.equal(cover, ops.coverage_gain(ev, cand, cov, 3 * cov,
+                                              mask)[:4])
+  x = torch.rand((16, 16384), generator=g, device=cuda_device)
+  assert torch.equal(O._row_sum(x[:4]), O._row_sum(x)[:4])
+  np.testing.assert_allclose(O._row_sum(x).cpu().numpy(),
+                             x.double().sum(-1).cpu().numpy(), rtol=1e-6)

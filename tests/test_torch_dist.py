@@ -397,16 +397,29 @@ def test_backend_and_device_are_never_switched(monkeypatch):
 
 def test_cli_refuses_epochs_and_the_reference_path_under_torchrun(
     monkeypatch):
-  """Under torchrun (RANK / WORLD_SIZE set) the service mode and the
-  reference path raise, naming why, before any group is joined; outside
-  torchrun ``--dist-backend`` raises instead of running stacked."""
+  """Under torchrun (RANK / WORLD_SIZE set) the reference path raises,
+  naming why, before any group is joined, and the service mode
+  (``--epochs``) is no longer refused: it goes on to join the group, as
+  the sharded mode does (the ranks' runs: tests/test_torch_dist_cli.py);
+  outside torchrun ``--dist-backend`` raises instead of running
+  stacked."""
+  from repro_torch.launch import mesh as M
   from repro_torch.launch import select as cli
   with pytest.raises(SystemExit, match="needs the ranks of a torchrun"):
     cli.main(["--device", "cpu", "--mesh", "4", "--dist-backend", "gloo"])
   monkeypatch.setenv("RANK", "0")
   monkeypatch.setenv("WORLD_SIZE", "2")
   base = ["--device", "cpu", "--n", "256", "--d", "8", "--k", "4"]
-  with pytest.raises(SystemExit, match="--epochs under torchrun.*later"):
+
+  class Joined(Exception):
+    pass
+
+  def join(cls, m, backend, device="cuda"):
+    raise Joined((m, backend, device))
+
+  monkeypatch.setattr(M.ProcessMesh, "from_env", classmethod(join))
+  with pytest.raises(Joined) as joined:
     cli.main([*base, "--mesh", "4", "--epochs", "2"])
+  assert joined.value.args[0] == (4, "gloo", "cpu")
   with pytest.raises(SystemExit, match="pass --mesh N"):
     cli.main(base)
