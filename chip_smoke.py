@@ -220,7 +220,8 @@ MAIN_PATH = {
 }
 # the training paths' launches, reported beside each kernel's main path
 TRAIN_PATHS = {"facility_select": ("train_coreset",),
-               "flash_attention": ("train_grad_step", "train_eval")}
+               "flash_attention": ("train_grad_step", "train_eval",
+                                   "train_dist_eval_1x4")}
 GP_KERNELS = ("info_gain_cond", "info_select")
 COV_KERNELS = ("coverage_gain", "coverage_select")
 CUT_KERNELS = ("graph_cut_gain", "graph_cut_select")
@@ -338,7 +339,13 @@ def check(cond: bool, msg: str) -> None:
     raise SmokeFailure(msg)
 
 
+STARTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
+  """A phase's line; ``at_s`` is the seconds since the script started, so
+  the gaps between lines say where the time limit goes."""
+  fields["at_s"] = time.perf_counter() - STARTED
   print(f"[smoke] {phase} " + json.dumps(fields, sort_keys=False),
         flush=True)
 
@@ -3637,13 +3644,18 @@ def e2e_service_dist(sz: Sizes):
 
   from repro_torch.data.pipeline import EmbeddedCorpus
   from repro_torch.launch import select as cli
-  base = ["-m", "repro_torch.launch.select", "--n-docs", str(sz.n), "--dim",
-          str(sz.d), "--k", str(sz.k), "--mesh", str(sz.m), "--epochs", "3",
-          "--append-frac", str(sz.append_frac), "--capacity",
-          str(sz.svc_cap0), "--query-every", str(sz.n // sz.query_appends),
-          "--query-batch", str(sz.query_b), "--no-coverage"]
-  gains = {"facility": "facility_gain",
-           "saturated_coverage": "coverage_gain"}
+  common = ["-m", "repro_torch.launch.select", "--n-docs", str(sz.n),
+            "--dim", str(sz.d), "--k", str(sz.k), "--mesh", str(sz.m),
+            "--epochs", "3", "--append-frac", str(sz.append_frac),
+            "--capacity", str(sz.svc_cap0), "--no-coverage"]
+  queries = ["--query-every", str(sz.n // sz.query_appends), "--query-batch",
+             str(sz.query_b)]
+  # the kernels a rank must launch; information gain keeps no standing
+  # sieve, so its runs ask no query and append the last 25 % at once
+  gains = {"facility": ("pairwise", "sieve_admit", "facility_gain"),
+           "saturated_coverage": ("pairwise", "sieve_admit",
+                                  "coverage_gain"),
+           "info_gain": ("info_gain_cond",)}
   cards = torch.cuda.device_count()
   backends = ["gloo"] + (["nccl"] if cards >= DIST_RANKS else [])
   rows = {}
@@ -3654,7 +3666,13 @@ def e2e_service_dist(sz: Sizes):
 
   (REPO / "build").mkdir(exist_ok=True)
   with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-    for obj, gain in gains.items():
+    for obj, kernels in gains.items():
+      base = common + (queries if obj != "info_gain" else [])
+      events = {"epoch": ("f", "alive", "warm", "rescans", "docs", "live",
+                          "cap"), "append": ("docs", "growths")}
+      if obj != "info_gain":
+        events.update(query=("est", "ids", "source"),
+                      query_batch=("parity", "requests"))
       out, stats = (os.path.join(tmp, f"{obj}.{x}") for x in ("npy", "json"))
       res = timed_run(lambda: cli.main([*base[2:], "--objective", obj,
                                         "--out", out, "--stats-json",
@@ -3669,11 +3687,7 @@ def e2e_service_dist(sz: Sizes):
         what = f"e2e service dist {backend} {obj}"
         check(np.array_equal(ids, want_ids), f"{what}: ids {ids.tolist()} "
               f"differ from the stacked run's {want_ids.tolist()}")
-        for event, keys in (("epoch", ("f", "alive", "warm", "rescans",
-                                       "docs", "live", "cap")),
-                            ("query", ("est", "ids", "source")),
-                            ("query_batch", ("parity", "requests")),
-                            ("append", ("docs", "growths"))):
+        for event, keys in events.items():
           a = [{k: r[k] for k in keys} for r in got if r["event"] == event]
           b = [{k: r[k] for k in keys} for r in want if r["event"] == event]
           check(a == b and a, f"{what}: {event} records {a} against the "
@@ -3689,7 +3703,7 @@ def e2e_service_dist(sz: Sizes):
               f"{res['peak_gib']})")
         launched = dict(kv.split(":") for kv in done["launches"].split(",")
                         if ":" in kv)
-        for kname in ("pairwise", "sieve_admit", gain):
+        for kname in kernels:
           check(int(launched.get(kname, 0)) > 0, f"{what}: rank 0 did not "
                 f"launch {kname} ({launched})")
         check(done["exchanges"] > 0, f"{what}: no row moved between ranks")
@@ -4508,6 +4522,8 @@ FLASH_CASES = (   # label, its e2e path, (B, H, Hkv, L, dh), dtype; causal
     ("long", "serve_long", (1, 32, 8, 6000, 128), "bf16"),  # set 2's
     ("serve f32", None, (8, 32, 8, 2048, 128), "f32"),    # FFMA either way
     ("train eval", "train_eval", (8, 32, 8, 256, 128), "bf16"),  # e2e train
+    # a rank's local heads in e2e train dist's 1x4 eval step
+    ("train dist eval", "train_dist_eval_1x4", (8, 8, 2, 256, 128), "bf16"),
 )
 
 
@@ -4927,7 +4943,8 @@ def e2e_train(sz):
       step's loss (the same parameters and batch);
   (c) the CLI: ``train_cli``.
   Returns (launch counts by path, the model and optimizer state and a
-  batch for ``profile_train``)."""
+  batch for ``profile_train``, the single-process run's numbers and the
+  coreset's ids for ``e2e_train_dist``)."""
   import statistics
 
   import torch
@@ -5005,7 +5022,9 @@ def e2e_train(sz):
            "flash_attention"], "eval step": counts["train_eval"][
                "flash_attention"]})
   emit("e2e train cli", **train_cli(sz))
-  return counts, (model, opt, step, batches[0])
+  single = dict(sel=sel, losses=losses, grad_norms=norms, eval_loss=eval_loss,
+                ms_per_step=ms, peak_gib=peak)
+  return counts, (model, opt, step, batches[0]), single
 
 
 def scope_of(events, scopes):
@@ -5143,6 +5162,598 @@ def profile_train(handles):
 
 
 # ---------------------------------------------------------------------------
+# training over processes: the training mesh, the compressed all-reduce, the
+# elastic reshard
+# ---------------------------------------------------------------------------
+
+TRAIN_DIST_RANKS = 4
+TRAIN_DIST_STEPS = 3   # steps a run (ms a step: the median after the first)
+# (label, (data, model), layers or None for the config's depth)
+# the 4x1 ranks each hold a whole replica: at 4 layers (1.18 B parameters)
+# AdamW's float32 temporaries of the 389 M-element embedding took four ranks
+# past 80 GB, so run b has 2 (0.98 B a replica)
+TRAIN_DIST_RUNS = (("a 1x4", (1, 4), None), ("b 2x2", (2, 2), 2),
+                   ("b 4x1", (4, 1), 2))
+TRAIN_DIST_CKPT_FROM = "b 2x2"         # the elastic save's layout ...
+TRAIN_DIST_RESTORE = ((1, 4), (4, 1))  # ... restored onto these and 1 process
+TOL_COMPRESS_BOUND = 1.001   # the mean's error over sum(scale) / D (fp slack)
+TOL_COMPRESS_EF = 0.02       # tests/test_train.py's error-feedback oracle
+COMPRESS_EF_ELEMS = 1 << 24  # the error-feedback steps' slice of a gradient
+COMPRESS_CHUNK = 1 << 24     # elements the host-side checks take at once
+
+
+def fingerprint(t):
+  """(2,) int64 on t's device: the sum of t's bits and their sum weighted
+  by position (mod 65521, plus 1), both wrapping; equal tensors give
+  equal fingerprints, and a flipped bit changes them."""
+  import torch
+  bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+  x = t.detach().contiguous().reshape(-1).view(bits[t.element_size()])
+  out = torch.zeros(2, dtype=torch.int64, device=t.device)
+  for s0 in range(0, x.numel(), COMPRESS_CHUNK):
+    c = x[s0:s0 + COMPRESS_CHUNK].to(torch.int64)
+    w = torch.arange(s0, s0 + c.numel(), device=t.device) % 65521 + 1
+    out[0] += c.sum()
+    out[1] += (c * w).sum()
+  return out
+
+
+def quantize_np(x, noise):
+  """The plain quantization (numpy float32 on the host): the reference's
+  ``_quantize`` formula."""
+  import numpy as np
+  xb = x.reshape(-1, 256)
+  scale = np.maximum(np.abs(xb).max(axis=1) / np.float32(127.0),
+                     np.float32(1e-12))
+  q = np.clip(np.round(xb / scale[:, None] + noise.reshape(-1, 256)), -127,
+              127).astype(np.int8)
+  return q.reshape(-1), scale
+
+
+def _note(base, what):
+  """A progress line of a train-dist rank on its standard error (the
+  launch's log): the step it reached and its device memory."""
+  import torch
+  print(f"[train dist rank {base.rank}] {what}: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} peak",
+        file=sys.stderr, flush=True)
+
+
+def _same_rows(parts, what):
+  """Every gathered fingerprint table equal to the first."""
+  for r, p in enumerate(parts[1:], 1):
+    check(bool((p == parts[0]).all()), f"{what}: member {r} differs from "
+          "member 0")
+
+
+class GatherClock:
+  """Times every ``ProcessMesh.gather_parts`` of the train steps it is on
+  for: a device sync, then the host's wall through the gather (the copy
+  to the host, gloo's collective with its wait for the other ranks, the
+  copies back queued), so the compute the gather would wait for is not
+  counted in it."""
+
+  def __init__(self):
+    from repro_torch.launch.mesh import ProcessMesh
+    self.cls, self.real, self.walls = ProcessMesh, None, []
+
+  def __enter__(self):
+    real = self.real = self.cls.gather_parts
+    walls = self.walls
+
+    def timed(mesh, x):
+      if mesh.world == 1:
+        return real(mesh, x)
+      sync()
+      t0 = time.perf_counter()
+      out = real(mesh, x)
+      walls.append(time.perf_counter() - t0)
+      return out
+
+    self.cls.gather_parts = timed
+    return self
+
+  def __exit__(self, *exc):
+    self.cls.gather_parts = self.real
+
+
+def train_dist_run(label, shape, layers, base, batches, opt_cfg, keep=False):
+  """One mesh run on this rank: the eval step, then the train steps on its
+  data shard; after each step every data replica's parameters and every
+  model group's replicated leaves equal bit for bit (fingerprints gathered
+  over the group).  Returns (fields, the model, optimizer state and mesh
+  when ``keep``)."""
+  import dataclasses as dc
+  import statistics
+
+  import torch
+
+  from repro_torch.configs import get_config
+  from repro_torch.kernels import flash_attention as fa
+  from repro_torch.kernels import ops
+  from repro_torch.launch.mesh import TrainMesh
+  from repro_torch.models import Model
+  from repro_torch.train import init_opt_state, make_eval_step, make_train_step
+  cfg = get_config(Sizes().train_arch)
+  if layers:
+    cfg = dc.replace(cfg, n_layers=layers)
+  dev = base.device
+  mesh = TrainMesh.over(*shape, base.rank, dev, base.backend)
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  model = Model(cfg, device=dev, mesh=mesh,
+                generator=torch.Generator(device=dev).manual_seed(42))
+  opt = init_opt_state(model)
+  sync()
+  state_gib = torch.cuda.memory_allocated() / 2**30
+  _note(base, f"{label} built")
+  step, ev = make_train_step(model, opt_cfg), make_eval_step(model)
+  d, rows = mesh.coords["data"], batches[0]["tokens"].shape[0] // mesh.data
+
+  def mine(b):
+    return {k: v[d * rows:(d + 1) * rows] for k, v in b.items()}
+
+  ops.reset_launch_counts()
+  tc0 = fa.tc_launches
+  eval_loss = float(ev(mine(batches[0]))["loss"])
+  sync()
+  eval_counts = ops.launch_counts()
+  check(eval_counts["flash_attention"] == cfg.n_layers and
+        fa.tc_launches - tc0 == cfg.n_layers, f"train dist {label}: eval "
+        f"step {eval_counts['flash_attention']} flash launches "
+        f"({fa.tc_launches - tc0} tensor-core), expected {cfg.n_layers}")
+  names = list(model.state_dict())
+  replicated = [i for i, n in enumerate(names) if n not in model.sharded]
+  walls, losses, norms, gathers, gbytes = [], [], [], 0, 0
+  gather_s = []
+  for i, b in enumerate(batches):
+    ops.reset_launch_counts()
+    g0, b0 = mesh.gathers, mesh.gather_bytes
+    sync()
+    with GatherClock() as clock:
+      t0 = time.perf_counter()
+      m = step(opt, mine(b))
+      sync()
+      walls.append(time.perf_counter() - t0)
+    gather_s.append(clock.walls)
+    gathers += mesh.gathers - g0
+    gbytes += mesh.gather_bytes - b0
+    check(ops.launch_counts()["flash_attention"] == 0, f"train dist "
+          f"{label} step {i}: flash launched under autograd")
+    losses.append(float(m["loss"]))
+    norms.append(float(m["grad_norm"]))
+    _note(base, f"{label} step {i} {walls[-1]:.3f} s")
+    fp = torch.stack([fingerprint(p) for p in model.state_dict().values()])
+    _same_rows(mesh.dp.gather_parts(fp), f"train dist {label} step {i}: "
+               "data replicas' parameters")
+    _same_rows(mesh.tp.gather_parts(fp[replicated]), f"train dist {label} "
+               f"step {i}: the model group's replicated leaves")
+  fields = dict(mesh=f"{shape[0]}x{shape[1]}", n_layers=cfg.n_layers,
+                params_a_rank=sum(p.numel() for p in model.parameters()),
+                state_gib=state_gib, eval_loss=eval_loss,
+                eval_flash_launches=eval_counts["flash_attention"],
+                loss=losses, grad_norm=norms, step_wall_s=walls,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                step_gathers=gathers, step_gather_bytes=gbytes,
+                step_gather_s=[sum(w) for w in gather_s],
+                gather_ms_median=1e3 * statistics.median(
+                    w for ws in gather_s[1:] for w in ws),
+                replicated_leaves=len(replicated), leaves=len(names))
+  if keep:
+    return fields, (model, opt, mesh)
+  del model, opt, step, ev
+  torch.cuda.empty_cache()
+  return fields, None
+
+
+def _restore_like(cfg, mesh, dtypes):
+  """A ``{"params", "opt"}`` tree of meta tensors with a rank's shapes
+  under ``mesh`` (None: one process) and the saved dtypes, and its specs:
+  a restore allocates only what it returns."""
+  import torch
+
+  from repro_torch.models.registry import (mesh_parallelism, param_shapes,
+                                           param_specs)
+  from repro_torch.train import OptState, tree_specs
+  specs = param_specs(cfg, mesh_parallelism(cfg, mesh))
+  meta = {}
+  for name, shape in param_shapes(cfg).items():
+    meta[name] = shape if mesh is None else mesh.local_shape(shape,
+                                                             specs[name])
+
+  def empty(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+  like = {"params": {n: empty(sh, dtypes[n]) for n, sh in meta.items()},
+          "opt": OptState(empty((), torch.int64),
+                          {n: empty(sh, torch.float32)
+                           for n, sh in meta.items()},
+                          {n: empty(sh, torch.float32)
+                           for n, sh in meta.items()})}
+  return like, ({} if mesh is None else tree_specs(specs))
+
+
+def train_dist_elastic(kept, base, ckpt_dir, batch):
+  """Save the kept run's state (gathered, rank 0 writes) and restore it
+  onto ``TRAIN_DIST_RESTORE`` and one process: every restored leaf's
+  whole equals the saved whole bit for bit (fingerprints).  Returns
+  (fields, this rank's flat float32 gradient of one more step, on its
+  data shard of ``batch``, for the compression check); ``kept`` holds the
+  run's (model, optimizer state, mesh) and is emptied, so they are freed
+  here."""
+  import torch
+
+  from repro_torch.launch.mesh import TrainMesh
+  from repro_torch.train import CheckpointManager, tree_specs
+  model, opt, mesh = kept.pop()
+  specs = tree_specs(model.specs)
+  dtypes = {n: p.dtype for n, p in model.state_dict().items()}
+  ck = CheckpointManager(ckpt_dir, keep_last=1)
+  tree = {"params": model.state_dict(), "opt": opt}
+
+  def prints(t, m, sp):
+    flat = {}
+
+    def walk(x, prefix):
+      if isinstance(x, dict):
+        for k, v in x.items():
+          walk(v, f"{prefix}{k}/")
+      elif hasattr(x, "_fields"):
+        for k, v in zip(x._fields, x):
+          walk(v, f"{prefix}{k}/")
+      else:
+        key = prefix.rstrip("/")
+        whole = x if m is None else m.whole(x, sp.get(key, ()))
+        flat[key] = fingerprint(whole).cpu()
+    walk(t, "")
+    return flat
+
+  want = prints(tree, mesh, specs)
+  sync()
+  t0 = time.perf_counter()
+  ck.save(1, tree, mesh=mesh, specs=specs)
+  save_s = time.perf_counter() - t0
+  path = ck._path(1)
+  size = os.path.getsize(os.path.join(path, "arrays.npz"))
+  # one more step's gradient, flattened, for the compression check
+  cfg = model.cfg
+  for p in model.parameters():
+    p.grad = None
+  d, rows = mesh.coords["data"], batch["tokens"].shape[0] // mesh.data
+  loss, _ = model.loss_fn({k: v[d * rows:(d + 1) * rows]
+                           for k, v in batch.items()})
+  loss.backward()
+  grad = torch.cat([p.grad.reshape(-1).float() for p in model.parameters()])
+  grad = torch.nn.functional.pad(grad, (0, (-grad.numel()) % 256))
+  del model, opt, tree, loss
+  torch.cuda.empty_cache()
+  restores = {}
+  for shape in TRAIN_DIST_RESTORE:
+    m2 = TrainMesh.over(*shape, base.rank, base.device, base.backend)
+    like, sp = _restore_like(cfg, m2, dtypes)
+    sync()
+    t0 = time.perf_counter()
+    got, meta = ck.restore(like, device=base.device, mesh=m2, specs=sp)
+    sync()
+    wall = time.perf_counter() - t0
+    have = prints(got, m2, sp)
+    bad = [k for k in want if not torch.equal(have.get(k, torch.zeros(2,
+                                                       dtype=torch.int64)),
+                                              want[k])]
+    check(not bad and sorted(have) == sorted(want), f"train dist elastic: "
+          f"{shape[0]}x{shape[1]} restored leaves differ: {bad[:5]}")
+    restores[f"{shape[0]}x{shape[1]}"] = wall
+    del got
+    torch.cuda.empty_cache()
+  if base.rank == 0:
+    like, _ = _restore_like(cfg, None, dtypes)
+    t0 = time.perf_counter()
+    got, _ = ck.restore(like, device=base.device)
+    sync()
+    restores["one process"] = time.perf_counter() - t0
+    have = prints(got, None, {})
+    bad = [k for k in want if not torch.equal(have[k], want[k])]
+    check(not bad, f"train dist elastic: one-process restore differs: "
+          f"{bad[:5]}")
+    del got
+    torch.cuda.empty_cache()
+  base.world.all_gather(torch.zeros(1, device=base.device))  # rank 0 done
+  return dict(saved_from=TRAIN_DIST_CKPT_FROM, leaves=len(want),
+              npz_bytes=size, save_s=save_s, restore_s=restores), grad
+
+
+def train_dist_compression(grad, base):
+  """The compressed all-reduce over the 4 ranks (a 4x1 mesh's data group)
+  on this rank's flat gradient: codes and scales against the plain
+  (numpy) quantization bit for bit, the mean within its quantization
+  bound of the rank-ordered float32 mean, error feedback over 10 steps on
+  the first COMPRESS_EF_ELEMS elements within TOL_COMPRESS_EF."""
+  import numpy as np
+  import torch
+
+  from repro_torch.launch.mesh import TrainMesh
+  from repro_torch.train import compression as C
+  from repro_torch.train import make_compressed_allreduce
+  mesh = TrainMesh.over(TRAIN_DIST_RANKS, 1, base.rank, base.device,
+                        base.backend)
+  group = mesh.dp
+  n = grad.numel()
+  gen = torch.Generator(device=base.device).manual_seed(100 + base.rank)
+  noise = C.draw_noise(n, gen, device=base.device)
+  fn = make_compressed_allreduce(mesh, ("data",), {"g": (None,)})
+  g0, b0 = mesh.gathers, mesh.gather_bytes
+  sync()
+  t0 = time.perf_counter()
+  mean, new_err = fn({"g": grad}, None, noise)
+  sync()
+  wall = time.perf_counter() - t0
+  wire = dict(gathers=mesh.gathers - g0, bytes=mesh.gather_bytes - b0)
+  worst, codes_equal = 0.0, 0
+  for s0 in range(0, n, COMPRESS_CHUNK):
+    part = slice(s0, s0 + COMPRESS_CHUNK)
+    q, sc = C.quantize(grad[part], noise[part])
+    qn, scn = quantize_np(grad[part].cpu().numpy(), noise[part].cpu().numpy())
+    check(np.array_equal(q.cpu().numpy(), qn) and np.array_equal(
+        sc.cpu().numpy(), scn), f"train dist compression: codes or scales "
+        f"differ from the plain quantization at {s0}")
+    codes_equal += qn.size
+    exact = group.sum(grad[part], div=group.world)
+    scales = torch.stack(group.gather_parts(sc))     # (D, blocks)
+    bound = (scales.sum(0) / group.world * TOL_COMPRESS_BOUND
+             ).repeat_interleave(C.BLOCK)
+    err = (mean["g"][part] - exact).abs()
+    check(bool((err <= bound).all()), f"train dist compression: the mean "
+          f"is off by {float((err - bound).max())} past its bound at {s0}")
+    worst = max(worst, float((err / bound.clamp_min(1e-30)).max()))
+    check(torch.equal(new_err["g"][part], grad[part] - C.dequantize(q, sc)),
+          f"train dist compression: the residual at {s0}")
+  del mean, new_err, noise
+  # the error-feedback oracle on a slice
+  g = grad[:COMPRESS_EF_ELEMS].clone()
+  del grad
+  torch.cuda.empty_cache()
+  err = None
+  acc, exact = torch.zeros_like(g), torch.zeros_like(g)
+  for t in range(10):
+    gt = g * (1.0 + 0.1 * t)
+    avg, err = C.compressed_psum([gt], err, C.draw_noise(g.numel(), gen,
+                                                         device=g.device),
+                                 group)
+    acc += avg[0]
+    exact += group.sum(gt, div=group.world)
+  rel = float((acc - exact).abs().max() / exact.abs().max())
+  check(rel < TOL_COMPRESS_EF, f"train dist compression: error feedback "
+        f"{rel} relative after 10 steps")
+  return dict(elements=n, wall_s=wall, wire_gathers=wire["gathers"],
+              wire_bytes=wire["bytes"], f32_bytes_each=4 * n,
+              codes_compared=codes_equal, worst_err_over_bound=worst,
+              ef_elements=g.numel(), ef_rel=rel, ef_tol=TOL_COMPRESS_EF)
+
+
+def train_dist_rank(out_dir: str) -> None:
+  """One rank of e2e train dist's library run (``chip_smoke.py
+  --train-dist DIR`` under torchrun, 4 gloo ranks on the card): the mesh
+  runs of ``TRAIN_DIST_RUNS`` on the coreset batches DIR/inputs.npz
+  names, the elastic save and restores, the compressed all-reduce; writes
+  DIR/rank<r>.json."""
+  sys.path.insert(0, str(SRC))
+  import numpy as np
+  import torch
+
+  from repro_torch import no_tf32
+  from repro_torch.configs import get_config
+  from repro_torch.data.pipeline import EmbeddedCorpus, batches_from_indices
+  from repro_torch.launch.mesh import TrainMesh
+  from repro_torch.launch.train import CORESET
+  from repro_torch.train import OptConfig
+  no_tf32()
+  sz = Sizes()
+  base = TrainMesh.from_env((TRAIN_DIST_RANKS, 1), "gloo", DEVICE)
+  cfg = get_config(sz.train_arch)
+  sel = np.load(os.path.join(out_dir, "coreset.npy"))
+  corpus = EmbeddedCorpus(n_docs=CORESET["n_docs"],
+                          feat_dim=CORESET["feat_dim"], vocab=cfg.vocab,
+                          seq_len=sz.train_seq, device=str(base.device))
+  batches = list(batches_from_indices(corpus, sel, sz.train_batch,
+                                      TRAIN_DIST_STEPS))
+  opt_cfg = OptConfig(lr=3e-4, total_steps=200, warmup_steps=10)
+  res = {"runs": {}}
+  for label, shape, layers in TRAIN_DIST_RUNS:
+    keep = label == TRAIN_DIST_CKPT_FROM
+    fields, handles = train_dist_run(label, shape, layers, base, batches,
+                                     opt_cfg, keep=keep)
+    res["runs"][label] = fields
+    if keep:
+      kept = [handles]
+      del handles
+      res["elastic"], grad = train_dist_elastic(
+          kept, base, os.path.join(out_dir, "ck"), batches[0])
+      res["compression"] = train_dist_compression(grad, base)
+      del grad
+      torch.cuda.empty_cache()
+  with open(os.path.join(out_dir, f"rank{base.rank}.json"), "w") as f:
+    json.dump(res, f)
+  base.close()
+
+
+def train_single(cfg, batches, opt_cfg):
+  """The one-process run of ``cfg`` from the same seed and batches: the
+  eval loss, then the steps' losses and walls."""
+  import torch
+
+  from repro_torch.models import Model
+  from repro_torch.train import init_opt_state, make_eval_step, make_train_step
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  model = Model(cfg, device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(42))
+  opt = init_opt_state(model)
+  step = make_train_step(model, opt_cfg)
+  eval_loss = float(make_eval_step(model)(batches[0])["loss"])
+  walls, losses = [], []
+  for b in batches:
+    sync()
+    t0 = time.perf_counter()
+    losses.append(float(step(opt, b)["loss"]))
+    sync()
+    walls.append(time.perf_counter() - t0)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  del model, opt, step
+  torch.cuda.empty_cache()
+  return dict(eval_loss=eval_loss, loss=losses, step_wall_s=walls,
+              peak_gib=peak)
+
+
+def train_dist_cli(sz):
+  """The launcher under torchrun, 4 gloo ranks on the card, ``--reduced``:
+  ``--mesh 2x2`` to step 4 (a checkpoint every 2), then ``--mesh 4x1`` to
+  step 6, which must resume from step 4; the 2x2 run's losses against the
+  one-process launcher's."""
+  first, last = 4, 6
+  (REPO / "build").mkdir(exist_ok=True)
+  outs, walls = [], []
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    ck = os.path.join(tmp, "ck")
+    common = ["-m", "repro_torch.launch.train", "--reduced", "--device",
+              DEVICE, "--ckpt-every", "2", "--ckpt-dir", ck]
+    for mesh, steps in (("2x2", first), ("4x1", last)):
+      wall, out = torchrun([*common, "--mesh", mesh, "--dist-backend",
+                            "gloo", "--steps", str(steps)])
+      walls.append(wall)
+      outs.append(out)
+    one = subprocess.run([sys.executable, *common[:-1],
+                          os.path.join(tmp, "one"), "--steps", str(first)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(SRC)))
+    check(one.returncode == 0, f"train dist CLI one process: "
+          f"{one.stderr[-2000:]}")
+    kept = sorted(os.listdir(ck))
+  check("resumed" not in outs[0] and f"[train] done: steps 0..{first}" in
+        outs[0] and "mesh 2x2 backend gloo" in outs[0], f"train dist CLI "
+        f"2x2: {outs[0][-1500:]}")
+  check(f"[train] resumed from step {first}" in outs[1] and
+        f"[train] done: steps {first}..{last}" in outs[1] and "mesh 4x1" in
+        outs[1], f"train dist CLI 4x1 did not resume from {first}: "
+        f"{outs[1][-1500:]}")
+
+  def losses(out):
+    return [float(line.split("loss")[1].split()[0])
+            for line in out.splitlines() if line.startswith("[train] step")]
+
+  got, want = losses(outs[0]), losses(one.stdout)
+  check(len(got) == len(want) == 2 and all(
+      abs(a - b) <= TOL_TRAIN_EVAL for a, b in zip(got, want)),
+      f"train dist CLI: 2x2 losses {got}, one process {want}")
+  done = [line for line in outs[0].splitlines() if "[train] done" in line]
+  return dict(meshes=["2x2", "4x1"], steps=[first, last], wall_s=walls,
+              losses_2x2=got, losses_one=want, resumed_from=first,
+              checkpoints=kept, done_2x2=done[0] if done else None)
+
+
+def e2e_train_dist(sz, single: dict):
+  """Training over processes: qwen3-4b at full width under
+  ``torch.distributed.run``, 4 gloo ranks on this card
+  (``chip_smoke.py --train-dist DIR``).
+
+  (a) ``--mesh 1x4`` at full depth (the model axis: heads, MLP columns
+      and the vocabulary split over 4 ranks), (b) 2x2 and 4x1 at 2 layers,
+      on the coreset batches of ``e2e train``: the eval step on the local
+      heads (the flash kernel, one launch a layer), then the train steps;
+      every data replica's parameters and every model group's replicated
+      leaves equal bit for bit after each step, every loss within
+      ``TOL_TRAIN_EVAL`` of the one-process run of the same depth, seed and
+      batches (``e2e train``'s for (a), ``train_single`` for (b)); ms a
+      step (the median after the first), tokens/s, each rank's peak, the
+      gathers and their bytes.  The 2x2 state is saved (the elastic
+      checkpoint) and restored onto 1x4, 4x1 and one process, bit for bit;
+      one more step's gradient, flattened, goes through the compressed
+      all-reduce (``train_dist_compression``).  Then the launcher:
+      ``train_dist_cli``.  Returns rank 0's launch counts of (a)'s eval
+      step for the kernels line."""
+  import dataclasses as dc
+  import statistics
+
+  import numpy as np
+
+  from repro_torch.configs import get_config
+  from repro_torch.data.pipeline import EmbeddedCorpus, batches_from_indices
+  from repro_torch.launch.train import CORESET
+  from repro_torch.train import OptConfig
+  cfg = get_config(sz.train_arch)
+  opt_cfg = OptConfig(lr=3e-4, total_steps=200, warmup_steps=10)
+  corpus = EmbeddedCorpus(n_docs=CORESET["n_docs"],
+                          feat_dim=CORESET["feat_dim"], vocab=cfg.vocab,
+                          seq_len=sz.train_seq, device=DEVICE)
+  batches = list(batches_from_indices(corpus, single["sel"], sz.train_batch,
+                                      TRAIN_DIST_STEPS))
+  singles = {None: dict(loss=single["losses"][:TRAIN_DIST_STEPS],
+                        eval_loss=single["eval_loss"],
+                        ms_per_step=single["ms_per_step"],
+                        peak_gib=single["peak_gib"])}
+  for layers in {lay for _, _, lay in TRAIN_DIST_RUNS if lay}:
+    r = train_single(dc.replace(cfg, n_layers=layers), batches, opt_cfg)
+    r["ms_per_step"] = statistics.median(r["step_wall_s"][1:]) * 1e3
+    singles[layers] = r
+  del batches
+  (REPO / "build").mkdir(exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    np.save(os.path.join(tmp, "coreset.npy"), np.asarray(single["sel"]))
+    wall, _ = torchrun([str(REPO / "chip_smoke.py"), "--train-dist", tmp],
+                       timeout=900)
+    ranks = []
+    for r in range(TRAIN_DIST_RANKS):
+      with open(os.path.join(tmp, f"rank{r}.json")) as f:
+        ranks.append(json.load(f))
+  tokens = sz.train_batch * sz.train_seq
+  runs = {}
+  for label, shape, layers in TRAIN_DIST_RUNS:
+    one = singles[layers]
+    per = [rk["runs"][label] for rk in ranks]
+    for r, got in enumerate(per):
+      vals = got["loss"] + got["grad_norm"] + [got["eval_loss"]]
+      check(all(x == x and abs(x) < 1e4 for x in vals), f"train dist "
+            f"{label} rank {r}: loss {got['loss']}, grad norm "
+            f"{got['grad_norm']}")
+      gap = max(abs(a - b) for a, b in zip(got["loss"], one["loss"]))
+      check(gap <= TOL_TRAIN_EVAL and abs(got["eval_loss"] - one[
+          "eval_loss"]) <= TOL_TRAIN_EVAL, f"train dist {label} rank {r}: "
+            f"losses {got['loss']} (eval {got['eval_loss']}) against one "
+            f"process's {one['loss']} (eval {one['eval_loss']})")
+    ms = statistics.median(max(p["step_wall_s"][i] for p in per)
+                           for i in range(1, len(per[0]["step_wall_s"])))
+    ms *= 1e3
+    runs[label] = dict(
+        per[0], rank_peak_gib=[p["peak_gib"] for p in per],
+        ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
+        one_process=dict(loss=one["loss"], eval_loss=one["eval_loss"],
+                         ms_per_step=one["ms_per_step"],
+                         peak_gib=one["peak_gib"]),
+        max_loss_gap=max(abs(a - b) for p in per
+                         for a, b in zip(p["loss"], one["loss"])),
+        reduced=[] if layers is None else [
+            f"n_layers {cfg.n_layers} -> {layers} (four ranks of the "
+            "replicated or half-split model in 80 GB)"])
+    # the host's wall inside the gathers (after a device sync each), the
+    # median step's after the first, and a gather's median, by rank
+    runs[label].update(
+        rank_gather_s_a_step=[statistics.median(p["step_gather_s"][1:])
+                              for p in per],
+        rank_gather_ms_median=[p["gather_ms_median"] for p in per])
+    del runs[label]["peak_gib"]
+  emit("e2e train dist", arch=cfg.name, d_model=cfg.d_model,
+       vocab=cfg.vocab, dtype=cfg.dtype, remat="dots", ranks=TRAIN_DIST_RANKS,
+       backend="gloo, one card", batch=sz.train_batch, seq=sz.train_seq,
+       tol=TOL_TRAIN_EVAL, launch_wall_s=wall, runs=runs,
+       elastic=ranks[0]["elastic"], compression=[rk["compression"]
+                                                 for rk in ranks])
+  emit("e2e train dist cli", **train_dist_cli(sz))
+  return {"train_dist_eval_1x4": {
+      "flash_attention": ranks[0]["runs"]["a 1x4"]["eval_flash_launches"]}}
+
+
+# ---------------------------------------------------------------------------
 
 
 def gpu_line() -> str:
@@ -5232,9 +5843,11 @@ def main() -> int:
   torch.cuda.empty_cache()
   cut_counts.update(e2e_cut_full(sz))
   torch.cuda.empty_cache()
-  train_counts, handles = e2e_train(sz)
+  train_counts, handles, single = e2e_train(sz)
   profile_train(handles)
   del handles
+  torch.cuda.empty_cache()
+  train_counts.update(e2e_train_dist(sz, single))
   torch.cuda.empty_cache()
   serve_counts = e2e_serve(sz)
   # kernel -> {path: launches} over the paths of its e2e phase; the train
@@ -5322,6 +5935,9 @@ if __name__ == "__main__":
       sys.exit(0)
     if sys.argv[1:2] == ["--dist-service"]:
       dist_service_rank(sys.argv[2])
+      sys.exit(0)
+    if sys.argv[1:2] == ["--train-dist"]:
+      train_dist_rank(sys.argv[2])
       sys.exit(0)
     code = main()
   except SmokeFailure as e:

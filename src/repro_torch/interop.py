@@ -10,7 +10,7 @@ chain (``rank_table``/``keep_table``), the selection service's host
 bound table (``bound_table``) and its standing sieves (``sieve_state``), and
 for the LM substrate the reference's parameters, gradients and optimizer
 state keyed by the port's parameter names (``lm_tree``, ``lm_params``,
-``opt_state``).  These helpers take the
+``opt_state``) and its parameter specs (``lm_specs``).  These helpers take the
 reference's numpy arrays to tensors on a given device, and a port result
 back to numpy with the reference's dtypes (int32 ids), so one test can run
 both sides on the same data, the same partition and the same state.
@@ -145,17 +145,12 @@ def tensor(a) -> torch.Tensor:
   return torch.from_numpy(a)
 
 
-def lm_tree(model: Model, tree: dict) -> dict[str, torch.Tensor]:
-  """A pytree shaped like the reference's ``Model.init`` parameters
-  (params, their gradients, an optimizer's moments; leaves as numpy arrays)
-  as a dict keyed by the port's parameter names, CPU tensors of the leaves'
-  dtypes.
-
-  Each stacked ``periods/b{j}/...`` leaf is split per layer (period t,
-  block j is layer t * len(pattern) + j) and ``rem/r{j}`` maps to the
-  layers after the periods.
-  """
-  cfg = model.cfg
+def _by_name(cfg, tree: dict, leaf_of) -> dict:
+  """The leaves of a pytree shaped like the reference's ``Model.init``
+  parameters keyed by the port's parameter names: ``leaf_of(leaf, index)``
+  with ``index`` the period of a stacked ``periods/b{j}/...`` leaf (period
+  t, block j is layer t * len(pattern) + j), None elsewhere; ``rem/r{j}``
+  maps to the layers after the periods."""
   width = len(cfg.pattern)
   out = {}
 
@@ -164,7 +159,7 @@ def lm_tree(model: Model, tree: dict) -> dict[str, torch.Tensor]:
       if isinstance(leaf, dict):
         walk(f"{prefix}{name}.", leaf, index)
       else:
-        out[prefix + name] = tensor(leaf if index is None else leaf[index])
+        out[prefix + name] = leaf_of(leaf, index)
 
   walk("", {n: tree[n] for n in ("embed", "ln_f", "head") if n in tree})
   periods, rem = tree.get("periods") or {}, tree.get("rem") or {}
@@ -178,17 +173,41 @@ def lm_tree(model: Model, tree: dict) -> dict[str, torch.Tensor]:
   return out
 
 
+def lm_tree(model: Model, tree: dict) -> dict[str, torch.Tensor]:
+  """A pytree shaped like the reference's ``Model.init`` parameters
+  (params, their gradients, an optimizer's moments; leaves as numpy arrays)
+  as a dict keyed by the port's parameter names, CPU tensors of the leaves'
+  dtypes (``_by_name``'s mapping)."""
+  return _by_name(model.cfg, tree, lambda leaf, index: tensor(
+      leaf if index is None else leaf[index]))
+
+
+def lm_specs(cfg, specs: dict) -> dict[str, tuple]:
+  """The reference's ``Model.param_specs`` tree (PartitionSpec leaves) of a
+  model with config ``cfg``, keyed by the port's parameter names
+  (``_by_name``) as the port's ``param_specs`` spells them: a tuple of
+  one entry a dim, a stacked leaf's period dim dropped.  ``cfg`` may be
+  the port's or the reference's config (only its pattern and depth are
+  read)."""
+  return _by_name(cfg, specs, lambda spec, index: tuple(
+      spec if index is None else tuple(spec)[1:]))
+
+
 @torch.no_grad()
 def lm_params(model: Model, params: dict) -> Model:
   """Fill ``model`` with the reference's ``Model.init`` pytree (leaves as
   numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``), mapped by
-  ``lm_tree``.  Shapes and dtypes must match the model's: nothing is cast.
-  Every parameter of the model must be filled.  Returns ``model``.
+  ``lm_tree``; a model over a training mesh takes its rank's slice of each
+  leaf (``TrainMesh.local`` by the model's specs).  Shapes and dtypes must
+  match the model's: nothing is cast.  Every parameter of the model must
+  be filled.  Returns ``model``.
   """
   state = model.state_dict()
   tree = lm_tree(model, params)
   for name, src in tree.items():
     dst = state[name]
+    if model.tp is not None:
+      src = model.mesh.local(src, model.specs[name])
     if src.shape != dst.shape or src.dtype != dst.dtype:
       raise ValueError(f"{name}: reference {tuple(src.shape)} {src.dtype}, "
                        f"port {tuple(dst.shape)} {dst.dtype}")
@@ -203,11 +222,15 @@ def lm_params(model: Model, params: dict) -> Model:
 def opt_state(model: Model, state) -> OptState:
   """The reference's ``OptState`` (step, mu, nu; leaves as numpy arrays) as
   the port's, on the model's device: the moments keyed by the port's
-  parameter names (``lm_tree``), float32; the int32 step as int64."""
+  parameter names (``lm_tree``; a rank's slices over a training mesh, as
+  ``lm_params``), float32; the int32 step as int64."""
   dev = model.device
 
+  def mine(name, t):
+    return t if model.tp is None else model.mesh.local(t, model.specs[name])
+
   def moments(tree):
-    return {n: t.to(device=dev, dtype=torch.float32).contiguous()
+    return {n: mine(n, t).to(device=dev, dtype=torch.float32).contiguous()
             for n, t in lm_tree(model, tree).items()}
 
   return OptState(torch.as_tensor(int(np.asarray(state.step)),

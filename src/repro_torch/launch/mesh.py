@@ -1,6 +1,6 @@
-"""The process mesh of the ``torch.distributed`` backend (the port's
-counterpart of ``src/repro/launch/mesh.py`` and ``repro.util.make_mesh``
-for the selection path).
+"""The process meshes of the ``torch.distributed`` backend (the port's
+counterpart of ``src/repro/launch/mesh.py`` and ``repro.util.make_mesh``):
+``ProcessMesh`` for the selection path and ``TrainMesh`` for training.
 
 The reference runs GreeDi's m shards over a device mesh under
 ``shard_map``.  The port runs them either stacked on one card (the
@@ -12,6 +12,11 @@ rank's view of that layout; ``core.greedi``'s engines take it as
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         -m repro_torch.launch.select --mesh 16 --n-docs 262144
+
+A ``TrainMesh`` is a rank's view of a D x M ("data", "model") mesh for
+``launch/train.py --mesh DxM``: its data and model groups are
+``ProcessMesh``es, whose ``sum`` / ``sum_`` (the list-form all-gather, then
+the float32 sum in rank order) give every member the same bits.
 
 The backend is explicit and nothing switches it, or the device, quietly:
 
@@ -33,6 +38,9 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 
 BACKENDS = ("nccl", "gloo")
+# the largest flat bucket a rank gathers at once in ``ProcessMesh.sum_`` (all
+# ranks' parts together): a whole gradient never goes over in one gather
+BUCKET_BYTES = 256 << 20
 
 
 def _env_int(name: str) -> int:
@@ -83,6 +91,15 @@ def mesh_device(backend: str, device: str | torch.device, local_rank: int,
   if dev.type == "cuda" and dev.index is None:
     dev = torch.device("cuda", torch.cuda.current_device())
   return dev
+
+
+def fold_sum(parts, div: int = 1) -> torch.Tensor:
+  """``parts[0] + parts[1] + ...`` in that order, accumulated in float32,
+  then ``/ div`` (the rank-ordered sum every rank of a group computes)."""
+  acc = parts[0].to(torch.float32, copy=True)
+  for p in parts[1:]:
+    acc.add_(p)
+  return acc.div_(div) if div != 1 else acc
 
 
 def pack_rows(tensors) -> torch.Tensor:
@@ -145,18 +162,75 @@ class ProcessMesh:
     """This rank's shards as a slice of the shard axis."""
     return slice(self.first, self.first + self.m_local)
 
-  def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along dim 0 in rank order (the list
-    form of ``all_gather``, which gloo also carries for CUDA tensors; bool
-    goes over as uint8).  Every rank must call it with the same shape."""
+  def gather_parts(self, x: torch.Tensor) -> list:
+    """Every rank's ``x`` in rank order, one tensor each (the list form of
+    ``all_gather``, which gloo also carries for CUDA tensors; bool goes
+    over as uint8, 16-bit types as their bytes: gloo has no bfloat16 or
+    int16).  Every rank must call it with the same shape."""
+    if self.world == 1:  # a group of one rank: no collective
+      return [x]
     flag = x.dtype == torch.bool
-    src = (x.to(torch.uint8) if flag else x).contiguous()
+    raw = x.element_size() == 2
+    src = x.contiguous()
+    src = (src.to(torch.uint8) if flag else
+           src.reshape(-1).view(torch.uint8) if raw else src)
     parts = [torch.empty_like(src) for _ in range(self.world)]
     dist.all_gather(parts, src, group=self.group)
     self.gathers += 1
     self.gather_bytes += (self.world - 1) * src.numel() * src.element_size()
-    out = torch.cat(parts)
-    return out.to(torch.bool) if flag else out
+    if flag:
+      return [p.to(torch.bool) for p in parts]
+    if raw:
+      return [p.view(x.dtype).reshape(x.shape) for p in parts]
+    return parts
+
+  def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    return torch.cat(self.gather_parts(x), dim=dim)
+
+  def sum(self, x: torch.Tensor, div: int = 1) -> torch.Tensor:
+    """The sum of ``x`` over the ranks in rank order (``fold_sum`` of the
+    gathered parts: float32 accumulation, ``/ div``), cast back to x's
+    dtype.  Every rank gets the same bits, and a one-process run that folds
+    the same tensors with ``fold_sum`` gets them too."""
+    if self.world == 1 and div == 1:
+      return x
+    return fold_sum(self.gather_parts(x), div).to(x.dtype)
+
+  def sum_(self, tensors, div: int = 1) -> None:
+    """``sum`` of every tensor of ``tensors`` (contiguous), written back in
+    place: the tensors of one dtype are packed into flat buckets of at most
+    ``BUCKET_BYTES`` (a tensor larger than a bucket is cut), so a whole
+    gradient goes over in a few gathers and no rank ever holds a world-size
+    copy of it.  The sums are elementwise, so the bucketing leaves every
+    bit as ``sum`` would give it."""
+    if self.world == 1 and div == 1:
+      return
+    by_dtype: dict = {}
+    for t in tensors:
+      by_dtype.setdefault(t.dtype, []).append(t)
+    for dtype, ts in by_dtype.items():
+      per = max(1, BUCKET_BYTES // (dtype.itemsize * self.world))
+      pieces, fill = [], 0
+      for t in ts:
+        flat = t.view(-1)
+        for s in range(0, flat.numel(), per):
+          piece = flat[s:s + per]
+          if fill + piece.numel() > per:
+            self._sum_pieces(pieces, div)
+            pieces, fill = [], 0
+          pieces.append(piece)
+          fill += piece.numel()
+      if pieces:
+        self._sum_pieces(pieces, div)
+
+  def _sum_pieces(self, pieces, div: int) -> None:
+    out = self.sum(torch.cat(pieces) if len(pieces) > 1 else pieces[0],
+                   div)
+    off = 0
+    for p in pieces:
+      p.copy_(out[off:off + p.numel()])
+      off += p.numel()
 
   def max(self, x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of ``x`` over the ranks (exact in any order)."""
@@ -240,3 +314,197 @@ class ProcessMesh:
     """Leave the process group (every rank calls it once, at the end)."""
     if dist.is_initialized():
       dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the training mesh: ("data", "model") over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+AXES = ("data", "model")
+
+
+def parse_mesh(spec: str) -> tuple[int, int]:
+  """``"DxM"`` or ``"D"`` (the reference's ``--mesh``; a 1-D mesh is
+  ("data",) alone) -> (D, M)."""
+  try:
+    dims = tuple(int(s) for s in spec.lower().split("x"))
+  except ValueError:
+    dims = ()
+  if len(dims) not in (1, 2) or min(dims) < 1:
+    raise ValueError(f"--mesh {spec!r}: expected D or DxM with positive "
+                     "sizes (e.g. 4x2)")
+  return (dims[0], dims[1] if len(dims) == 2 else 1)
+
+
+@dataclasses.dataclass
+class TrainMesh:
+  """One rank's view of a D x M training mesh over ("data", "model") (the
+  port's ``make_host_mesh((D, M), ("data", "model"))``).  Rank r sits at
+  (r // M, r % M), the reference's row-major device order.
+
+  ``dp`` is the rank's data group (the D ranks that hold the same model
+  shard, in data order) and ``tp`` its model group (the M ranks of one data
+  replica, in model order); ``world`` spans all of them.  Each is a
+  ``ProcessMesh`` (one "shard" a rank), whose ``sum`` / ``sum_`` are the
+  rank-ordered sums and ``all_gather`` / ``gather_parts`` the gathers;
+  ``dist.all_reduce`` is never used, so every member of a group ends with
+  the same bits.  Every rank creates every group, in the same order.
+  """
+  data: int
+  model: int
+  rank: int
+  device: torch.device
+  backend: str
+  dp: ProcessMesh
+  tp: ProcessMesh
+  world: ProcessMesh
+
+  axis_names = AXES
+
+  @property
+  def shape(self) -> dict:
+    return {"data": self.data, "model": self.model}
+
+  @property
+  def coords(self) -> dict:
+    """This rank's index on each axis."""
+    return {"data": self.rank // self.model, "model": self.rank % self.model}
+
+  def group(self, axes) -> ProcessMesh:
+    """The group of one axis (a name or a 1-tuple, as specs spell it)."""
+    axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+    if axes == ("data",):
+      return self.dp
+    if axes == ("model",):
+      return self.tp
+    raise ValueError(f"axes {axes}: the training mesh executes one of "
+                     f"{AXES} at a time")
+
+  @property
+  def gathers(self) -> int:
+    return self.dp.gathers + self.tp.gathers + self.world.gathers
+
+  @property
+  def gather_bytes(self) -> int:
+    return self.dp.gather_bytes + self.tp.gather_bytes + \
+        self.world.gather_bytes
+
+  # ---- leaves laid out by a spec (one entry per dim: None or an axis) ----
+  def _split(self, spec, ndim: int):
+    """(dim, axis) of the one dim ``spec`` splits over a mesh axis of size
+    > 1, or None; raises for a spec that uses two."""
+    hit = None
+    for dim, entry in enumerate(tuple(spec) + (None,) * (ndim - len(spec))):
+      if entry is None:
+        continue
+      axes = tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+      if len(axes) != 1 or axes[0] not in AXES:
+        raise NotImplementedError(f"spec {spec}: only one of {AXES} per dim "
+                                  "is executed (fsdp over several data "
+                                  "axes is spec-only)")
+      if self.shape[axes[0]] == 1:
+        continue
+      if hit is not None:
+        raise NotImplementedError(f"spec {spec}: one split dim a leaf")
+      hit = (dim, axes[0])
+    return hit
+
+  def local(self, full: torch.Tensor, spec) -> torch.Tensor:
+    """This rank's part of a whole leaf laid out by ``spec`` (a view)."""
+    hit = self._split(spec, full.dim())
+    if hit is None:
+      return full
+    dim, axis = hit
+    n, size = full.shape[dim], self.shape[axis]
+    if n % size:
+      raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split "
+                       f"over {axis} = {size}")
+    per = n // size
+    return full.narrow(dim, self.coords[axis] * per, per)
+
+  def local_shape(self, shape, spec) -> tuple:
+    shape = tuple(shape)
+    hit = self._split(spec, len(shape))
+    if hit is None:
+      return shape
+    dim, axis = hit
+    return shape[:dim] + (shape[dim] // self.shape[axis],) + shape[dim + 1:]
+
+  def whole(self, part: torch.Tensor, spec) -> torch.Tensor:
+    """The whole leaf from every rank's part (a gather over the split
+    axis's group; a collective of that group)."""
+    hit = self._split(spec, part.dim())
+    if hit is None:
+      return part
+    dim, axis = hit
+    return self.group(axis).all_gather(part, dim=dim)
+
+  # ---- set-up ----------------------------------------------------------
+  @classmethod
+  def from_env(cls, shape, backend: str,
+               device: str | torch.device = "cuda") -> "TrainMesh":
+    """The mesh of a rank torchrun started (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``; the group from ``MASTER_ADDR`` /
+    ``MASTER_PORT``).  D x M must be the world size; that, the backend and
+    the device are checked before the group is joined."""
+    data, model = shape
+    world, rank = _env_int("WORLD_SIZE"), _env_int("RANK")
+    if data * model != world:
+      raise ValueError(f"a {data}x{model} mesh needs {data * model} ranks, "
+                       f"this launch has {world}")
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    dev = mesh_device(backend, device, local_rank, local_world)
+    if dev.type == "cuda":
+      torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+      dist.init_process_group(backend, rank=rank, world_size=world)
+    return cls.over(data, model, rank, dev, backend)
+
+  @classmethod
+  def over(cls, data: int, model: int, rank: int, device, backend: str):
+    """The mesh over the joined default group (every rank calls it with
+    the same shape): the model groups (one a data index), then the data
+    groups (one a model index), each made by every rank in that order; a
+    group of one rank makes no collective and a group of the whole world
+    is the default group."""
+    world = data * model
+    d, mi = rank // model, rank % model
+
+    def groups(rows):
+      out = []
+      for ranks in rows:
+        if len(ranks) == world:
+          out.append(dist.group.WORLD)
+        elif len(ranks) == 1:
+          out.append(None)
+        else:
+          out.append(dist.new_group(ranks))
+      return out
+
+    tp = groups([[i * model + j for j in range(model)] for i in range(data)])
+    dp = groups([[i * model + j for i in range(data)] for j in range(model)])
+    return cls(data, model, rank, device, backend,
+               dp=ProcessMesh(data, d, data, device, backend, dp[mi]),
+               tp=ProcessMesh(model, mi, model, device, backend, tp[d]),
+               world=ProcessMesh(world, rank, world, device, backend,
+                                 dist.group.WORLD))
+
+  def close(self) -> None:
+    """Leave the process group (every rank calls it once, at the end)."""
+    if dist.is_initialized():
+      dist.destroy_process_group()
+
+
+def dp_axes_of(mesh) -> tuple:
+  """The data axes of a mesh (the reference's ``dp_axes_of``)."""
+  return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def dp_size_of(mesh) -> int:
+  """The product of the data axes' sizes (the reference's
+  ``dp_size_of``)."""
+  n = 1
+  for a in dp_axes_of(mesh):
+    n *= mesh.shape[a]
+  return n

@@ -3,14 +3,18 @@ loop with fault-tolerant checkpointing and auto-resume (the port of
 ``src/repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --select-coreset
-    PYTHONPATH=src python -m repro_torch.launch.train --reduced \
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --select-coreset --steps 6 --ckpt-every 3 --ckpt-dir DIR
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --reduced --mesh 2x2 \\
+        --dist-backend gloo --device cpu --steps 4 --ckpt-every 2
 
 Restart protocol:
   * every run begins with ``CheckpointManager.restore_latest_or_none``: a
     restarted job resumes from the newest complete checkpoint (the model's
     ``state_dict()`` and the optimizer state), printing ``[train] resumed
-    from step N``;
+    from step N``; under ``--mesh`` each rank restores its slices of every
+    leaf, so a run may resume on another mesh (the elastic reshard);
   * the data are a function of the step: ``SyntheticLM`` batches are pure
     functions of (seed, step), and with ``--select-coreset`` the selected
     document ids ride in each checkpoint's metadata, so a resumed run
@@ -24,9 +28,24 @@ reference's sizes (4096 documents of width 64, m = 8, kappa = 256,
 k_final = 1024; the facility-location select kernel on the card), then
 trains on ``batches_from_indices`` over the selection.  ``--device``
 defaults to ``cuda`` and fails when CUDA is missing; ``cpu`` runs the
-plain versions.  ``--mesh`` (the reference's data / model mesh) raises: it
-waits for the ``torch.distributed`` backend (ROADMAP.md queue 1 item 7);
-the reference's TPU flags have no counterpart.
+plain versions.
+
+``--mesh DxM`` (or ``D``, a data axis alone) runs under torchrun (``python
+-m torch.distributed.run``), D x M ranks, rank r at (r // M, r % M): the
+model is laid out by ``param_specs`` (the model axis as tensor
+parallelism, ``models.registry``), each rank takes its data shard of the
+global batch (``SyntheticLM.batch(step, shard=d, num_shards=D)``, or rows
+d * b .. (d + 1) * b of a coreset batch), and the gradients are averaged
+over the data axis in rank order (``train.train_step``).  With
+``--select-coreset`` rank 0 selects and the ids go to every rank over the
+mesh (one gather), so every rank trains on the same coreset.
+``--dist-backend`` is ``nccl`` (one rank a card, the default on CUDA) or
+``gloo`` (the CPU, or several ranks sharing one card); nothing switches
+either quietly.  Rank 0 prints the ``[train]`` lines; the ``done`` line
+carries every rank's peak memory and rank 0's collectives.  ``--mesh``
+outside torchrun, a mesh whose D x M is not the world size and heads that
+do not split over M are refused.  The reference's TPU flags have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -37,6 +56,31 @@ import time
 
 # the coreset selection of --select-coreset: the reference's sizes
 CORESET = dict(n_docs=4096, feat_dim=64, m=8, kappa=256, k_final=1024)
+
+
+def _coreset_ids(sel, mesh):
+  """Rank 0's coreset ids on every rank (one gather over the world)."""
+  import numpy as np
+  import torch
+  k = CORESET["k_final"]
+  mine = torch.zeros((k,), dtype=torch.int64, device=mesh.device)
+  if mesh.rank == 0:
+    mine.copy_(torch.as_tensor(np.asarray(sel), dtype=torch.int64))
+  return mesh.world.gather_parts(mine)[0].cpu().numpy()
+
+
+def _done_fields(mesh, dev) -> dict:
+  """Every rank's peak device memory (GiB, comma-separated in rank order;
+  "not measured" on the CPU) and this rank's collectives."""
+  import torch
+  import torch.distributed as dist
+  peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+          if dev.type == "cuda" else None)
+  got = [None] * mesh.data * mesh.model
+  dist.all_gather_object(got, peak)
+  return dict(rank_peak_gib=(",".join(f"{p:.6f}" for p in got)
+                             if peak is not None else "not measured"),
+              gathers=mesh.gathers, gather_bytes=mesh.gather_bytes)
 
 
 def main(argv=None) -> None:
@@ -55,17 +99,14 @@ def main(argv=None) -> None:
   ap.add_argument("--select-coreset", action="store_true",
                   help="GreeDi-select training docs before training")
   ap.add_argument("--mesh", default="",
-                  help="not ported: waits for the training half of the "
-                  "torch.distributed backend")
+                  help="DxM (data x model) or D, under torchrun: one rank "
+                  "a mesh position")
+  ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                  help="under torchrun: the process group's backend "
+                  "(default nccl on CUDA, gloo on the CPU)")
   ap.add_argument("--device", default="cuda",
                   help="cuda (default) or cpu (the plain versions)")
   args = ap.parse_args(argv)
-  if args.mesh:
-    raise NotImplementedError(
-        "--mesh: the data / model mesh waits for the training half of the "
-        "torch.distributed backend (ROADMAP.md queue 1 item 7; selection "
-        "already runs over processes, launch/mesh.py); the port trains on "
-        "one device")
 
   import numpy as np
   import torch
@@ -75,31 +116,59 @@ def main(argv=None) -> None:
   from repro_torch.data.pipeline import (EmbeddedCorpus, SyntheticLM,
                                          batches_from_indices)
   from repro_torch.data.selection import greedi_select_indices
+  from repro_torch.launch.mesh import TrainMesh, parse_mesh, under_torchrun
   from repro_torch.models import build_model
+  from repro_torch.models.registry import check_model_axis
   from repro_torch.train import (CheckpointManager, OptConfig,
-                                 init_opt_state, make_train_step)
+                                 init_opt_state, make_train_step, tree_specs)
 
   no_tf32()
-  dev = resolve_device(args.device)
   cfg = get_config(args.arch)
   if args.reduced:
     cfg = reduced(cfg)
+  mesh = None
+  if args.mesh:
+    if not under_torchrun():
+      raise SystemExit("[train] --mesh needs the ranks of a torchrun launch "
+                       "(python -m torch.distributed.run), one a mesh "
+                       "position")
+    shape = parse_mesh(args.mesh)
+    check_model_axis(cfg, shape[1])
+    backend = args.dist_backend or (
+        "nccl" if torch.device(args.device).type == "cuda" else "gloo")
+    mesh = TrainMesh.from_env(shape, backend, args.device)
+    dev = mesh.device
+  elif under_torchrun() or args.dist_backend:
+    raise SystemExit("[train] under torchrun pass --mesh DxM (D x M the "
+                     "ranks); --dist-backend needs --mesh")
+  else:
+    dev = resolve_device(args.device)
+  lead = mesh is None or mesh.rank == 0
+  shard, shards = (0, 1) if mesh is None else (mesh.coords["data"],
+                                               mesh.data)
+  if args.global_batch % shards:
+    raise SystemExit(f"[train] --global-batch {args.global_batch} does not "
+                     f"split over {shards} data ranks")
   model = build_model(cfg, device=dev,
-                      generator=torch.Generator(device=dev).manual_seed(42))
+                      generator=torch.Generator(device=dev).manual_seed(42),
+                      mesh=mesh)
   opt_state = init_opt_state(model)
   opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps,
                       warmup_steps=max(args.steps // 20, 10))
   ckpt = CheckpointManager(args.ckpt_dir, keep_last=3)
+  layout = {} if mesh is None else dict(mesh=mesh,
+                                         specs=tree_specs(model.specs))
 
   # ---- init or resume -----------------------------------------------------
   start_step, meta = 0, {}
   restored, found = ckpt.restore_latest_or_none(
-      {"params": model.state_dict(), "opt": opt_state}, device=dev)
+      {"params": model.state_dict(), "opt": opt_state}, device=dev, **layout)
   if restored is not None:
     model.load_state_dict(restored["params"])
     opt_state = restored["opt"]
     start_step, meta = found["step"], found
-    print(f"[train] resumed from step {start_step}", flush=True)
+    if lead:
+      print(f"[train] resumed from step {start_step}", flush=True)
 
   # ---- data (+ the paper's technique: GreeDi coreset selection) ----------
   extra = {}
@@ -110,27 +179,37 @@ def main(argv=None) -> None:
     if "coreset" in meta:
       sel = np.asarray(meta["coreset"], np.int64)
     else:
-      sel = greedi_select_indices(
-          torch.Generator().manual_seed(0), corpus.features(),
-          m=CORESET["m"], kappa=CORESET["kappa"],
-          k_final=CORESET["k_final"])
-      print(f"[train] GreeDi selected {len(sel)} / {corpus.n_docs} docs",
-            flush=True)
+      sel = None
+      if lead:
+        sel = greedi_select_indices(
+            torch.Generator().manual_seed(0), corpus.features(),
+            m=CORESET["m"], kappa=CORESET["kappa"],
+            k_final=CORESET["k_final"])
+        print(f"[train] GreeDi selected {len(sel)} / {corpus.n_docs} docs",
+              flush=True)
+      if mesh is not None:
+        sel = _coreset_ids(sel, mesh)
     extra = {"coreset": sel.tolist()}
     batches = batches_from_indices(corpus, sel, args.global_batch,
                                    args.steps, start=start_step)
-    batch_iter = lambda step: next(batches)  # noqa: E731
+    rows = args.global_batch // shards
+
+    def batch_iter(step):
+      return {k: v[shard * rows:(shard + 1) * rows]
+              for k, v in next(batches).items()}
   else:
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,
                        global_batch=args.global_batch, device=str(dev))
-    batch_iter = data.batch
+
+    def batch_iter(step):
+      return data.batch(step, shard=shard, num_shards=shards)
 
   step_fn = make_train_step(model, opt_cfg)
   t0 = time.time()
   saved = None
   for step in range(start_step, args.steps):
     metrics = step_fn(opt_state, batch_iter(step))
-    if step % 10 == 0 or step == args.steps - 1:
+    if lead and (step % 10 == 0 or step == args.steps - 1):
       print(f"[train] step {step:5d} loss {float(metrics['loss']):8.4f} "
             f"lr {float(metrics['lr']):.2e} "
             f"gnorm {float(metrics['grad_norm']):.3f} "
@@ -138,12 +217,20 @@ def main(argv=None) -> None:
     if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
       saved = step + 1
       ckpt.save(saved, {"params": model.state_dict(), "opt": opt_state},
-                extra=extra)
+                extra=extra, **layout)
   if saved != args.steps:
     ckpt.save(args.steps, {"params": model.state_dict(), "opt": opt_state},
-              extra=extra)
-  print(f"[train] done: steps {start_step}..{args.steps} on {dev} "
-        f"({time.time() - t0:.1f}s)", flush=True)
+              extra=extra, **layout)
+  tail = ""
+  if mesh is not None:
+    fields = _done_fields(mesh, dev)
+    tail = (f" mesh {mesh.data}x{mesh.model} backend {mesh.backend} " +
+            " ".join(f"{k}={v}" for k, v in fields.items()))
+  if lead:
+    print(f"[train] done: steps {start_step}..{args.steps} on {dev} "
+          f"({time.time() - t0:.1f}s){tail}", flush=True)
+  if mesh is not None:
+    mesh.close()
 
 
 if __name__ == "__main__":

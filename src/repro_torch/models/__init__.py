@@ -1,4 +1,6 @@
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.registry import Model, build_model
+from repro_torch.models.registry import (Model, Parallelism, build_model,
+                                         param_shapes, param_specs)
 
-__all__ = ["ModelConfig", "Model", "build_model"]
+__all__ = ["ModelConfig", "Model", "Parallelism", "build_model",
+           "param_shapes", "param_specs"]

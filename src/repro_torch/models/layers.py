@@ -6,6 +6,16 @@ Matmul weights are stored (in_dim, out_dim), the reference's layout, so
 cast sits where the reference has it: bf16 parity depends on it.
 ``gelu_mlp`` and ``causal_conv1d`` come with the families that use them
 (ROADMAP.md).
+
+The model axis's four communication ops are autograd functions over a
+group (a ``launch.mesh.ProcessMesh``): ``enter_group`` (identity forward,
+the group's sum backward: a replicated input entering a split region),
+``leave_group`` (the sum forward, identity backward: partial products
+leaving it), ``gather_group`` (the last dim gathered forward, the rank's
+slice backward) and ``split_group`` (the rank's slice of the last dim
+forward, gathered backward).  Each sum is the group's rank-ordered sum, so
+every rank gets the same bits, forward and backward; a group of one rank
+(or None) makes each op the identity.
 """
 from __future__ import annotations
 
@@ -84,3 +94,79 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
   and mask (B, S)."""
   nll = token_nll(logits, labels) * mask
   return nll.sum() / mask.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# the model axis's communication ops
+# ---------------------------------------------------------------------------
+
+
+class _Enter(torch.autograd.Function):
+  @staticmethod
+  def forward(ctx, x, group):
+    ctx.group = group
+    return x.view_as(x)
+
+  @staticmethod
+  def backward(ctx, g):
+    return ctx.group.sum(g), None
+
+
+class _Leave(torch.autograd.Function):
+  @staticmethod
+  def forward(ctx, x, group):
+    return group.sum(x)
+
+  @staticmethod
+  def backward(ctx, g):
+    return g, None
+
+
+class _Gather(torch.autograd.Function):
+  @staticmethod
+  def forward(ctx, x, group):
+    ctx.group, ctx.n = group, x.shape[-1]
+    return group.all_gather(x, dim=-1)
+
+  @staticmethod
+  def backward(ctx, g):
+    return g.narrow(-1, ctx.group.rank * ctx.n, ctx.n).contiguous(), None
+
+
+class _Split(torch.autograd.Function):
+  @staticmethod
+  def forward(ctx, x, group):
+    ctx.group = group
+    n = x.shape[-1] // group.world
+    return x.narrow(-1, group.rank * n, n).clone()
+
+  @staticmethod
+  def backward(ctx, g):
+    return ctx.group.all_gather(g, dim=-1), None
+
+
+def _alone(group) -> bool:
+  return group is None or group.world == 1
+
+
+def enter_group(x: torch.Tensor, group) -> torch.Tensor:
+  """Identity forward; the gradient summed over ``group`` backward."""
+  return x if _alone(group) else _Enter.apply(x, group)
+
+
+def leave_group(x: torch.Tensor, group) -> torch.Tensor:
+  """The sum over ``group`` forward (float32 accumulation, cast back);
+  identity backward."""
+  return x if _alone(group) else _Leave.apply(x, group)
+
+
+def gather_group(x: torch.Tensor, group) -> torch.Tensor:
+  """Every rank's last dim concatenated in rank order forward; the rank's
+  slice of the gradient backward."""
+  return x if _alone(group) else _Gather.apply(x, group)
+
+
+def split_group(x: torch.Tensor, group) -> torch.Tensor:
+  """The rank's slice of the last dim forward; the slices' gradients
+  gathered backward."""
+  return x if _alone(group) else _Split.apply(x, group)

@@ -1,5 +1,6 @@
 """Model: init / train forward and loss / prefill / decode for the dense
-decoder (the port of ``src/repro/models/registry.py``).
+decoder, and its layout over a training mesh (the port of
+``src/repro/models/registry.py``).
 
 ``Model`` wires the embedding -> one block module per layer -> final norm ->
 LM head.  It is an ``nn.Module`` whose parameters are drawn on ``device``
@@ -11,12 +12,30 @@ Training: ``loss_fn`` is the reference's sequence-chunked cross-entropy
 runs inside ``torch.utils.checkpoint`` by the ``remat`` policy ("dots"
 keeps the matmul outputs, "full" keeps nothing).  Attention under autograd
 takes ``chunked_attention`` (``attention.self_attention``'s rule); a
-forward under ``torch.no_grad()`` launches the flash kernel.  The
-reference's GSPMD layer (``Parallelism``, ``param_specs``, ``cache_specs``,
-``_act``) waits for the ``torch.distributed`` backend (ROADMAP.md).
+forward under ``torch.no_grad()`` launches the flash kernel.
+
+Layout: ``Parallelism`` and ``param_specs`` are the reference's, keyed by
+the port's parameter names (shapes from the config, ``param_shapes``).
+Given a ``launch.mesh.TrainMesh``, a ``Model`` holds only its rank's
+slices by those specs and runs the model axis as tensor parallelism:
+``wq`` / ``wk`` / ``wv`` / ``gate`` / ``up`` split by column (whole heads:
+``n_heads`` and ``n_kv_heads`` must be multiples of the axis), ``wo`` /
+``down`` by row with their products summed over the model group, the
+embedding by vocabulary row (a masked lookup summed over the group) and
+the head by vocabulary column (``_chunked_xent`` combines the max, the sum
+of exponentials and the target's logit over the group, so no rank holds a
+(B, chunk, V) block).  Every sum is the group's rank-ordered sum
+(``ProcessMesh.sum``), so the replicated activations, and the gradients
+of the replicated leaves, have the same bits on every rank of a group.
+The data axis is the train step's (``train.train_step``).  ``fsdp``,
+``seq_shard`` and ``ep`` are spec-only (``launch/dryrun.py`` and MoE use
+them); ``_act`` is a GSPMD layout constraint with no runtime counterpart:
+a rank's activations are already laid out by the data it is handed.
+``cache_specs`` belongs to ``launch/dryrun.py`` (ROADMAP.md).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -26,9 +45,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
+from repro_torch.models.layers import (dense_init, embed_init, enter_group,
+                                       gather_group, leave_group, rms_norm,
                                        token_nll)
-from repro_torch.models.transformer import (apply_block, init_block,
+from repro_torch.models.transformer import (TPShard, apply_block,
+                                            block_shapes, init_block,
                                             init_block_cache)
 
 
@@ -43,6 +64,149 @@ def check_supported(cfg: ModelConfig) -> None:
     raise NotImplementedError(
         f"{cfg.name}: sliding-window attention is not ported yet; "
         "ROADMAP.md lists it")
+
+
+# ---------------------------------------------------------------------------
+# the layout: Parallelism and param_specs (the reference's rules, by name)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Parallelism:
+  """The reference's ``Parallelism``, every field and default."""
+  dp_axes: tuple = ("data",)
+  model_axis: str = "model"
+  ep: bool = False      # shard MoE experts on model_axis (E % axis == 0)
+  fsdp: bool = False    # additionally shard params over dp_axes (ZeRO-3)
+  dp_size: int = 0      # product of dp axis sizes (fsdp divisibility)
+  min_fsdp_size: int = 1 << 20  # don't bother sharding small leaves
+  seq_shard: bool = False  # sequence parallelism of the residual stream
+  model_size: int = 0      # model axis size (divisibility checks)
+  ep_pod: bool = False     # expert parallelism over the pod axis
+  dp_axis_sizes: tuple = ()  # per-axis sizes matching dp_axes
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+  """Every parameter's shape by its ``state_dict`` name, from the config
+  alone (nothing is allocated), in the model's order."""
+  out = {"embed": (cfg.vocab, cfg.d_model), "ln_f": (cfg.d_model,)}
+  if not cfg.tie_embeddings:
+    out["head"] = (cfg.d_model, cfg.vocab)
+  block = block_shapes(cfg)
+  for i in range(cfg.n_layers):
+    out.update({f"layers.{i}.{n}": shape for n, shape in block.items()})
+  return out
+
+
+_COLUMN = ("wq", "wk", "wv", "gate", "up", "w_in", "w_x", "w_gate", "w_a",
+           "w_i")
+_ROW = ("wo", "down", "w_out")
+
+
+def _rule(name: str, ndim: int, mx: str) -> tuple:
+  """The reference's ``rule`` for a dense leaf (the stacked-expert branch
+  comes with MoE): a tuple of one entry a dim."""
+  if name.endswith("embed"):
+    base = (mx, None)
+  elif name.endswith("head"):
+    base = (None, mx)
+  elif name.endswith(_COLUMN):
+    base = (None, mx)
+  elif name.endswith(_ROW):
+    base = (mx, None)
+  else:
+    base = ()
+  return (None,) * (ndim - len(base)) + base
+
+
+def _add_fsdp(spec: tuple, shape, par: Parallelism) -> tuple:
+  """The reference's ``add_fsdp``: shard the largest not-yet-sharded dim
+  over the dp axes (ZeRO-3), dp axes the spec already uses excluded."""
+  size = 1
+  for s in shape:
+    size *= s
+  if not par.fsdp or par.dp_size <= 1 or size < par.min_fsdp_size:
+    return spec
+  used = {a for e in spec
+          for a in (e if isinstance(e, (tuple, list)) else (e,))
+          if a is not None}
+  sizes = (dict(zip(par.dp_axes, par.dp_axis_sizes)) if par.dp_axis_sizes
+           else {a: 0 for a in par.dp_axes})
+  avail = tuple(a for a in par.dp_axes if a not in used)
+  if not avail:
+    return spec
+  if len(avail) == len(par.dp_axes):
+    asz = par.dp_size
+  else:
+    asz = 1
+    for a in avail:
+      if not sizes.get(a):
+        return spec  # unknown partial size: skip rather than guess
+      asz *= sizes[a]
+  dims = list(spec) + [None] * (len(shape) - len(spec))
+  cands = [(shape[i], i) for i in range(len(shape))
+           if dims[i] is None and asz > 1 and shape[i] % asz == 0]
+  if not cands:
+    return spec
+  _, i = max(cands)
+  dims[i] = avail if len(avail) > 1 else avail[0]  # PartitionSpec's form
+  return tuple(dims)
+
+
+def _check_divisibility(spec: tuple, shape, par: Parallelism) -> tuple:
+  """The reference's ``_check_divisibility``: drop a split whose dim the
+  axis size does not divide (a vocab of 50280 on a 16-way axis stays
+  replicated)."""
+  def axis_size(entry) -> int:
+    if entry is None:
+      return 1
+    if isinstance(entry, (tuple, list)):
+      return max(par.dp_size, 1) if tuple(entry) == tuple(par.dp_axes) else 0
+    if entry == par.model_axis:
+      return max(par.model_size, 1)
+    if (entry,) == tuple(par.dp_axes):
+      return max(par.dp_size, 1)
+    return 0
+
+  dims = list(spec) + [None] * (len(shape) - len(spec))
+  out = []
+  for size, entry in zip(shape, dims):
+    asz = axis_size(entry)
+    if entry is not None and asz > 1 and size % asz != 0:
+      entry = None
+    out.append(entry)
+  return tuple(out)
+
+
+def param_specs(cfg: ModelConfig, par: Parallelism = Parallelism()) -> dict:
+  """The reference's ``Model.param_specs`` keyed by the port's parameter
+  names: a tuple a leaf, one entry a dim (None, an axis name, or a tuple
+  of dp axes), from ``param_shapes``."""
+  return {name: _check_divisibility(
+      _add_fsdp(_rule(name, len(shape), par.model_axis), shape, par),
+      shape, par) for name, shape in param_shapes(cfg).items()}
+
+
+def check_model_axis(cfg: ModelConfig, model: int) -> None:
+  """Raise unless attention splits over a model axis of ``model`` ranks by
+  whole heads (a head is never split)."""
+  if model > 1 and (cfg.n_heads % model or cfg.n_kv_heads % model):
+    raise ValueError(
+        f"{cfg.name}: the model axis splits attention by whole heads, so "
+        f"n_heads ({cfg.n_heads}) and n_kv_heads ({cfg.n_kv_heads}) must be "
+        f"multiples of the model axis ({model}); a head is never split")
+
+
+def mesh_parallelism(cfg: ModelConfig, mesh) -> Parallelism:
+  """The layout a ``Model`` runs over ``mesh`` (None: one device): the
+  launcher's ``Parallelism(dp_axes=("data",), dp_size=D)`` with
+  ``model_size=M``.  Raises for heads that do not split over the model
+  axis."""
+  if mesh is None:
+    return Parallelism()
+  check_model_axis(cfg, mesh.model)
+  return Parallelism(dp_axes=("data",), dp_size=mesh.data,
+                     model_size=mesh.model)
 
 
 # the matmuls the "dots" policy keeps (the reference's
@@ -62,14 +226,20 @@ REMATS = (None, "dots", "full")
 class Model(nn.Module):
   def __init__(self, cfg: ModelConfig, *, device="cuda",
                generator: torch.Generator | None = None,
-               backend: str = "auto", remat: str | None = "dots"):
+               backend: str = "auto", remat: str | None = "dots",
+               mesh=None):
     """``device`` defaults to the card and raises without one unless
     "cpu" is asked for; ``generator`` (on ``device``; seed 0 when None)
     draws the weights; ``backend`` ("auto" | "cuda" | "ref") picks the
     attention kernel or its plain version, as for every kernel; ``remat``
     (None | "dots" | "full") is the activation checkpointing of a layer
     under autograd ("dots" keeps the matmul outputs, "full" recomputes
-    everything in the backward pass)."""
+    everything in the backward pass).
+
+    ``mesh`` (a ``launch.mesh.TrainMesh``) lays the parameters out by
+    ``param_specs`` of the mesh's layout (``mesh_parallelism``): each leaf is drawn whole,
+    as on one device, and the rank keeps its slice, so the model's values
+    are the one-device model's whatever the mesh."""
     super().__init__()
     check_supported(cfg)
     if remat not in REMATS:
@@ -78,31 +248,88 @@ class Model(nn.Module):
     self.cfg = cfg
     self.backend = backend
     self.remat = remat
+    self.mesh = mesh
+    self.par = mesh_parallelism(cfg, mesh)
+    self.specs = param_specs(cfg, self.par)
     self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    split = mesh is not None and mesh.model > 1
+    self.tp = mesh.tp if split else None
+    mlp = split and self.specs["layers.0.mlp.gate"][1] is not None
+    self.vocab_split = split and self.specs["embed"][0] is not None
+    self.shard = TPShard(self.tp, mlp) if split else None
+    # the block config a rank runs: its heads (and MLP columns)
+    self.lcfg = cfg if not split else dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // mesh.model,
+        n_kv_heads=cfg.n_kv_heads // mesh.model,
+        d_ff=cfg.d_ff // mesh.model if mlp else cfg.d_ff)
     if generator is None:
       generator = torch.Generator(device=dev).manual_seed(0)
     kw = dict(generator=generator, device=dev)
     dt = self.dtype
-    self.embed = nn.Parameter(embed_init((cfg.vocab, cfg.d_model), dt, **kw))
+    self.embed = nn.Parameter(self._keep("embed", embed_init(
+        (cfg.vocab, cfg.d_model), dt, **kw)))
     self.ln_f = nn.Parameter(torch.zeros((cfg.d_model,), device=dev))
     if not cfg.tie_embeddings:
-      self.head = nn.Parameter(dense_init((cfg.d_model, cfg.vocab), dt, **kw))
-    self.layers = nn.ModuleList(init_block(bt, cfg, dt, **kw)
-                                for bt in cfg.full_pattern)
+      self.head = nn.Parameter(self._keep("head", dense_init(
+          (cfg.d_model, cfg.vocab), dt, **kw)))
+    self.layers = nn.ModuleList()
+    for i, bt in enumerate(cfg.full_pattern):
+      layer = init_block(bt, cfg, dt, **kw)
+      for name, p in layer.named_parameters():
+        p.data = self._keep(f"layers.{i}.{name}", p.data)
+      self.layers.append(layer)
+    # leaves split over the model axis, and the replicated leaves used
+    # inside a split region, whose gradients are partial on each rank: the
+    # qk-norm gains (the qkv biases enter through split_group, whose
+    # backward already gathers their whole gradient)
+    self.sharded = frozenset(n for n, spec in self.specs.items()
+                             if split and "model" in spec)
+    self.partial_leaves = tuple(
+        n for n in self.specs
+        if split and n.endswith((".attn.q_norm", ".attn.k_norm")))
+
+  def _keep(self, name: str, full: torch.Tensor) -> torch.Tensor:
+    """The rank's slice of a whole leaf (a copy; the leaf itself without a
+    model axis)."""
+    if self.tp is None:
+      return full
+    return self.mesh.local(full, self.specs[name]).clone(
+        memory_format=torch.contiguous_format)
+
+  def param_specs(self, par: Parallelism | None = None) -> dict:
+    """``param_specs(cfg, par)``; the model's own layout by default."""
+    return param_specs(self.cfg, self.par if par is None else par)
 
   @property
   def device(self) -> torch.device:
     return self.embed.device
 
+  def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding lookup; over a vocabulary split each rank looks up
+    the tokens in its rows (zeros elsewhere) and the group sums them."""
+    if not self.vocab_split:
+      return self.embed[tokens]
+    rows = self.embed.shape[0]
+    local = tokens - self.tp.rank * rows
+    ok = (local >= 0) & (local < rows)
+    h = self.embed[local.clamp(0, rows - 1)].masked_fill(~ok[..., None], 0)
+    return leave_group(h, self.tp)
+
+  def _head(self) -> torch.Tensor:
+    return self.embed.T if self.cfg.tie_embeddings else self.head
+
   def _logits(self, h: torch.Tensor) -> torch.Tensor:
+    """Final norm and head: the whole (..., V) logits on every rank (over a
+    vocabulary split, the rank's columns gathered)."""
     cfg = self.cfg
     h = rms_norm(h, self.ln_f, cfg.rmsnorm_eps)
-    head = self.embed.T if cfg.tie_embeddings else self.head
-    return h @ head
+    if not self.vocab_split:
+      return h @ self._head()
+    return gather_group(enter_group(h, self.tp) @ self._head(), self.tp)
 
   def _train_block(self, btype: str, h: torch.Tensor, layer) -> torch.Tensor:
-    return apply_block(btype, h, layer, self.cfg, mode="train",
-                       backend=self.backend)[0]
+    return apply_block(btype, h, layer, self.lcfg, mode="train",
+                       backend=self.backend, tp=self.shard)[0]
 
   def _stack(self, h, *, mode, caches=None, pos=None):
     remat = (mode == "train" and self.remat is not None
@@ -114,15 +341,30 @@ class Model(nn.Module):
                            create_selective_checkpoint_contexts, _keep_dots)}
                           if self.remat == "dots" else {}))
       else:
-        h, _ = apply_block(bt, h, layer, self.cfg, mode=mode,
+        h, _ = apply_block(bt, h, layer, self.lcfg, mode=mode,
                            cache=None if caches is None else caches[i],
-                           pos=pos, backend=self.backend)
+                           pos=pos, backend=self.backend, tp=self.shard)
     return h
 
   def _xent_chunk(self, h, labels, mask) -> torch.Tensor:
     """Summed masked NLL of one sequence chunk: the final norm, the head
-    and the logsumexp, the (B, chunk, V) logits in float32."""
-    return (token_nll(self._logits(h), labels) * mask).sum()
+    and the logsumexp, the (B, chunk, V) logits in float32.  Over a
+    vocabulary split the rank projects its columns only and the max, the
+    sum of exponentials and the target's logit are combined over the
+    group."""
+    if not self.vocab_split:
+      return (token_nll(self._logits(h), labels) * mask).sum()
+    tp = self.tp
+    h = enter_group(rms_norm(h, self.ln_f, self.cfg.rmsnorm_eps), tp)
+    logits = (h @ self._head()).float()
+    cols = logits.shape[-1]
+    top = tp.max(logits.detach().amax(dim=-1))
+    z = leave_group(torch.exp(logits - top[..., None]).sum(dim=-1), tp)
+    local = labels - tp.rank * cols
+    ok = (local >= 0) & (local < cols)
+    gold = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None].long())
+    gold = leave_group(gold[..., 0].masked_fill(~ok, 0.0), tp)
+    return ((torch.log(z) + top - gold) * mask).sum()
 
   def _chunked_xent(self, h, labels, mask, chunk: int) -> torch.Tensor:
     """Sequence-chunked cross-entropy: each (B, chunk, V) slice of the
@@ -150,14 +392,14 @@ class Model(nn.Module):
     """tokens (B, S) -> logits (B, S, V), teacher forcing.  Under autograd
     the layers follow ``remat`` and attention runs ``chunked_attention``;
     under ``torch.no_grad()`` attention launches the kernel."""
-    h = self.embed[batch["tokens"]]
+    h = self._embed(batch["tokens"])
     return self._logits(self._stack(h, mode="train"))
 
   def loss_fn(self, batch: dict, *, loss_chunk: int = 512):
     """batch: tokens, labels (B, S) [+ mask (B, S) float32] -> (loss,
     {"xent", "aux"}): the mean masked token cross-entropy through
     ``_chunked_xent``, plus the auxiliary loss (0 for the dense family)."""
-    h = self.embed[batch["tokens"]]
+    h = self._embed(batch["tokens"])
     h = self._stack(h, mode="train")
     xent = self._chunked_xent(h, batch["labels"], batch.get("mask"),
                               loss_chunk)
@@ -165,15 +407,16 @@ class Model(nn.Module):
     return xent + aux, {"xent": xent, "aux": aux}
 
   def init_cache(self, batch_size: int, max_len: int) -> list[dict]:
-    """One cache dict per layer (k, v, kpos), on the model's device."""
-    return [init_block_cache(bt, self.cfg, batch_size, max_len, self.dtype,
+    """One cache dict per layer (k, v, kpos; the rank's KV heads), on the
+    model's device."""
+    return [init_block_cache(bt, self.lcfg, batch_size, max_len, self.dtype,
                              self.device) for bt in self.cfg.full_pattern]
 
   @torch.no_grad()
   def prefill(self, batch: dict, caches: list[dict]):
     """Fill ``caches`` (in place) from the prompt ``batch["tokens"]``
     (B, S); returns (last-token logits (B, V), caches)."""
-    h = self.embed[batch["tokens"]]
+    h = self._embed(batch["tokens"])
     h = self._stack(h, mode="prefill", caches=caches)
     return self._logits(h[:, -1:])[:, 0], caches
 
@@ -181,13 +424,14 @@ class Model(nn.Module):
   def decode_step(self, token: torch.Tensor, pos: int, caches: list[dict]):
     """token (B, 1) at position ``pos`` (a Python int) against the caches,
     written in place; returns (logits (B, V), caches)."""
-    h = self.embed[token]
+    h = self._embed(token)
     h = self._stack(h, mode="decode", caches=caches, pos=int(pos))
     return self._logits(h)[:, 0], caches
 
 
 def build_model(cfg: ModelConfig, *, device="cuda",
                 generator: torch.Generator | None = None,
-                backend: str = "auto", remat: str | None = "dots") -> Model:
+                backend: str = "auto", remat: str | None = "dots",
+                mesh=None) -> Model:
   return Model(cfg, device=device, generator=generator, backend=backend,
-               remat=remat)
+               remat=remat, mesh=mesh)

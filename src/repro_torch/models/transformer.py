@@ -13,8 +13,18 @@ the reference is functional and returns new caches; the port writes the
 given ones and returns them.  The MoE, RG-LRU, Mamba and cross-attention
 blocks and the reference's GSPMD ``_cache_spec`` come with their families
 (ROADMAP.md).
+
+Over a model axis (``tp``, a ``TPShard``) a block holds its rank's heads
+and MLP columns and ``cfg`` is the rank's local config (``n_heads`` and
+``n_kv_heads`` divided by the axis; ``d_ff`` too when the MLP is split):
+the normed input enters the split region through ``enter_group``, the qkv
+biases (replicated leaves) through ``split_group``, and the ``wo`` /
+``down`` products leave it through ``leave_group``.  Without ``tp`` the
+block runs exactly as on one device.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -22,7 +32,8 @@ from torch import nn
 from repro_torch.kernels.ref import NEG
 from repro_torch.models import attention as A
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
+from repro_torch.models.layers import (apply_rope, dense_init, enter_group,
+                                       leave_group, rms_norm, split_group,
                                        swiglu)
 
 NOT_PORTED = ("the MoE, RG-LRU, Mamba and cross-attention blocks are not "
@@ -43,9 +54,34 @@ class Params(nn.Module):
         self.register_parameter(name, nn.Parameter(x))
 
 
+@dataclasses.dataclass(frozen=True)
+class TPShard:
+  """A rank's place on the model axis: ``group`` (a
+  ``launch.mesh.ProcessMesh`` of the model group) and whether the MLP is
+  split (``d_ff`` a multiple of the axis; else it runs replicated).
+  Attention is always split, by whole heads."""
+  group: object
+  mlp: bool
+
+
 # ---------------------------------------------------------------------------
 # block parameter init
 # ---------------------------------------------------------------------------
+
+
+def block_shapes(cfg: ModelConfig) -> dict:
+  """The shapes of one dense block's leaves, by name, in its
+  ``state_dict`` order (no tensor is allocated)."""
+  d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
+  hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+  out = {"ln1": (d,), "ln2": (d,), "attn.wq": (d, hq), "attn.wk": (d, hkv),
+         "attn.wv": (d, hkv), "attn.wo": (hq, d)}
+  if cfg.qkv_bias:
+    out.update({"attn.bq": (hq,), "attn.bk": (hkv,), "attn.bv": (hkv,)})
+  if cfg.qk_norm:
+    out.update({"attn.q_norm": (dh,), "attn.k_norm": (dh,)})
+  out.update({"mlp.gate": (d, f), "mlp.up": (d, f), "mlp.down": (f, d)})
+  return out
 
 
 def _init_mlp(cfg: ModelConfig, dtype, generator, device) -> dict:
@@ -111,18 +147,20 @@ def init_block_cache(btype: str, cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 
-def _project_qkv(x, p, cfg: ModelConfig, positions):
+def _project_qkv(x, p, cfg: ModelConfig, positions, tp=None):
   """q (B, H, S, dh), k and v (B, Hkv, S, dh): the projections, the qk-norm
-  and rope; v is the transposed view (the kernel takes strides)."""
+  and rope; v is the transposed view (the kernel takes strides).  Over a
+  model axis the heads are the rank's and so are the biases' slices."""
   b, s, _ = x.shape
   dh = cfg.head_dim
   q = x @ p.wq
   k = x @ p.wk
   v = x @ p.wv
   if cfg.qkv_bias:
-    q = q + p.bq
-    k = k + p.bk
-    v = v + p.bv
+    group = None if tp is None else tp.group
+    q = q + split_group(p.bq, group)
+    k = k + split_group(p.bk, group)
+    v = v + split_group(p.bv, group)
   q = q.reshape(b, s, cfg.n_heads, dh)
   k = k.reshape(b, s, cfg.n_kv_heads, dh)
   v = v.reshape(b, s, cfg.n_kv_heads, dh)
@@ -138,9 +176,12 @@ def _attn_out(attn, p, b, s):
   return attn.transpose(1, 2).reshape(b, s, -1) @ p.wo
 
 
-def _ffn(h, p, cfg: ModelConfig):
+def _ffn(h, p, cfg: ModelConfig, tp=None):
   x = rms_norm(h, p.ln2, cfg.rmsnorm_eps)
-  return h + swiglu(x, p.mlp.gate, p.mlp.up, p.mlp.down)
+  if tp is None or not tp.mlp:
+    return h + swiglu(x, p.mlp.gate, p.mlp.up, p.mlp.down)
+  y = swiglu(enter_group(x, tp.group), p.mlp.gate, p.mlp.up, p.mlp.down)
+  return h + leave_group(y, tp.group)
 
 
 def _decode_attention(q, cache, pos: int, cfg: ModelConfig, dtype):
@@ -160,10 +201,11 @@ def _decode_attention(q, cache, pos: int, cfg: ModelConfig, dtype):
 
 def apply_block(btype: str, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
                 mode: str, cache: dict | None = None, pos: int | None = None,
-                backend: str = "auto"):
+                backend: str = "auto", tp: TPShard | None = None):
   """Returns (h, cache); ``cache`` is written in place in the prefill and
   decode modes.  ``pos`` (decode) is the new token's position, a Python
-  int; ``backend`` picks the attention kernel or its plain version.  The
+  int; ``backend`` picks the attention kernel or its plain version; ``tp``
+  the rank's place on the model axis (``cfg`` then the local config).  The
   reference's ``window`` (sliding-window blocks, ring-buffer decode) comes
   with the hybrid family."""
   if btype != "attn":
@@ -176,7 +218,9 @@ def apply_block(btype: str, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
     positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
   else:
     positions = torch.arange(s, device=h.device)
-  q, k, v = _project_qkv(x, p.attn, cfg, positions)
+  if tp is not None:
+    x = enter_group(x, tp.group)
+  q, k, v = _project_qkv(x, p.attn, cfg, positions, tp)
 
   if mode == "decode":
     slot = min(pos, cache["k"].shape[2] - 1)
@@ -198,5 +242,6 @@ def apply_block(btype: str, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
         cache["v"].copy_(v[:, :, -s_cache:])
         cache["kpos"].copy_(torch.arange(s - s_cache, s, dtype=torch.int32,
                                          device=h.device))
-  h = h + _attn_out(attn, p.attn, b, s)
-  return _ffn(h, p, cfg), cache
+  out = _attn_out(attn, p.attn, b, s)
+  h = h + (out if tp is None else leave_group(out, tp.group))
+  return _ffn(h, p, cfg, tp), cache

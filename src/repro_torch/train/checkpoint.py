@@ -16,9 +16,17 @@ of ``src/repro/train/checkpoint.py``).
   * ``restore_latest_or_none`` is the restart protocol: the newest
     complete checkpoint, or None.
 
-The reference's elastic reshard onto another mesh waits for the
-``torch.distributed`` backend (ROADMAP.md); ``restore`` places every leaf
-on one ``device``.
+Elastic reshard (the reference's ``shardings=``): ``save`` and
+``restore`` take a ``launch.mesh.TrainMesh`` and the leaves' specs
+(``specs``: leaf path -> spec, a tuple of one entry a dim; ``tree_specs``
+builds them for ``{"params", "opt"}`` from a model's ``param_specs``, the
+moments following their parameter).  A save under a mesh writes whole
+leaves, each gathered over the axis its spec splits it on; one rank (rank
+0) writes, and every rank waits for the atomic publish, so a mesh
+checkpoint and a one-device checkpoint are the same files.  A restore
+under a mesh maps each stored leaf into memory and each rank reads and
+keeps its own slice of every leaf, so a checkpoint saved on any layout
+(one device, D x M) restores onto any other.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ import json
 import os
 import re
 import shutil
+import struct
+import zipfile
 from typing import Any, Mapping
 
 import numpy as np
@@ -45,20 +55,11 @@ def _items(tree):
   return None
 
 
-def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
-  items = _items(tree)
-  if items is None:
-    arr = torch.as_tensor(tree).detach().cpu()
-    if arr.dtype == torch.bfloat16:
-      arr = arr.float()  # npz cannot hold bfloat16; restore casts back
-    return {prefix.rstrip("/"): arr.numpy()}
-  out = {}
-  for key, child in items:
-    out.update(_flatten(child, f"{prefix}{key}/"))
-  return out
+def _flatten(tree) -> dict[str, np.ndarray]:
+  return {k: _to_numpy(v) for k, v in _flatten_tensors(tree).items()}
 
 
-def _unflatten(like, data: dict[str, np.ndarray], device, prefix: str = ""):
+def _unflatten(like, data, device, prefix: str = "", mesh=None, specs=None):
   items = _items(like)
   if items is None:
     key = prefix.rstrip("/")
@@ -66,18 +67,109 @@ def _unflatten(like, data: dict[str, np.ndarray], device, prefix: str = ""):
       raise KeyError(f"checkpoint missing leaf {key!r}")
     arr = data[key]
     leaf = torch.as_tensor(like)
-    if tuple(arr.shape) != tuple(leaf.shape):
-      raise ValueError(f"shape mismatch for {key}: {arr.shape} vs "
-                       f"{tuple(leaf.shape)}")
-    return torch.from_numpy(arr).to(
-        dtype=leaf.dtype, device=leaf.device if device is None else device)
-  kids = [_unflatten(child, data, device, f"{prefix}{key}/")
+    spec = None if mesh is None else (specs or {}).get(key)
+    shape = tuple(arr.shape if spec is None else
+                  mesh.local_shape(arr.shape, spec))
+    if shape != tuple(leaf.shape):
+      raise ValueError(f"shape mismatch for {key}: {arr.shape} (a rank's "
+                       f"{shape}) vs {tuple(leaf.shape)}")
+    full = torch.from_numpy(arr)
+    if spec is not None:
+      full = mesh.local(full, spec)
+    return full.to(dtype=leaf.dtype, device=leaf.device if device is None
+                   else device, copy=True).contiguous()
+  kids = [_unflatten(child, data, device, f"{prefix}{key}/", mesh, specs)
           for key, child in items]
   if isinstance(like, Mapping):
     return dict(zip(like.keys(), kids))
   if hasattr(like, "_fields"):
     return type(like)(*kids)
   return type(like)(kids)
+
+
+def tree_specs(param_specs: Mapping[str, tuple]) -> dict:
+  """Specs of a ``{"params": state_dict, "opt": OptState}`` tree by leaf
+  path: each parameter's, its moments the same, the step replicated."""
+  out = {}
+  for name, spec in param_specs.items():
+    for prefix in ("params/", "opt/mu/", "opt/nu/"):
+      out[prefix + name] = tuple(spec)
+  return out
+
+
+def _whole(tree, mesh, specs) -> dict:
+  """``_flatten(tree)`` on rank 0, each leaf whole: gathered over the axis
+  its spec splits it on (every rank takes part in its groups' gathers, one
+  leaf at a time; only rank 0 keeps them)."""
+  out = {}
+  for key, arr in _flatten_tensors(tree).items():
+    spec = specs.get(key)
+    if spec is not None:
+      arr = mesh.whole(arr, spec)
+    if mesh.rank == 0:
+      out[key] = _to_numpy(arr)
+  return out
+
+
+def _flatten_tensors(tree, prefix: str = "") -> dict:
+  items = _items(tree)
+  if items is None:
+    return {prefix.rstrip("/"): torch.as_tensor(tree).detach()}
+  out = {}
+  for key, child in items:
+    out.update(_flatten_tensors(child, f"{prefix}{key}/"))
+  return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+  t = t.detach().cpu()
+  if t.dtype == torch.bfloat16:
+    t = t.float()  # npz cannot hold bfloat16; restore casts back
+  return t.numpy()
+
+
+class _Leaves(Mapping):
+  """The leaves of an ``arrays.npz`` by key, each a copy-on-write memory
+  map of its stored member (``np.savez`` stores without compression), so a
+  restore reads only the parts of a leaf it keeps."""
+
+  def __init__(self, path: str):
+    self.path = path
+    with zipfile.ZipFile(path) as zf:
+      self.info = {i.filename[:-len(".npy")]: i for i in zf.infolist()
+                   if i.filename.endswith(".npy")}
+
+  def __getitem__(self, key):
+    info = self.info[key]
+    if info.compress_type != zipfile.ZIP_STORED:
+      raise ValueError(f"{self.path}: member {info.filename} is compressed; "
+                       "a checkpoint stores its leaves uncompressed "
+                       "(np.savez)")
+    with open(self.path, "rb") as f:
+      f.seek(info.header_offset)
+      local = f.read(30)  # the member's local header; then name and extra
+      name, extra = struct.unpack("<HH", local[26:30])
+      f.seek(info.header_offset + 30 + name + extra)
+      version = np.lib.format.read_magic(f)
+      shape, fortran, dtype = (
+          np.lib.format.read_array_header_1_0(f) if version == (1, 0)
+          else np.lib.format.read_array_header_2_0(f))
+      offset = f.tell()
+      if not shape:  # a scalar leaf
+        return np.fromfile(f, dtype=dtype, count=1).reshape(())
+    if 0 in shape:
+      return np.zeros(shape, dtype)
+    return np.memmap(self.path, dtype=dtype, mode="c", offset=offset,
+                     shape=shape, order="F" if fortran else "C")
+
+  def __iter__(self):
+    return iter(self.info)
+
+  def __len__(self):
+    return len(self.info)
+
+  def __contains__(self, key):
+    return key in self.info
 
 
 class CheckpointManager:
@@ -90,15 +182,44 @@ class CheckpointManager:
     return os.path.join(self.dir, f"step_{step:08d}")
 
   # ------------------------------------------------------------------ save
-  def save(self, step: int, tree, extra: dict | None = None) -> str:
+  def save(self, step: int, tree, extra: dict | None = None, *, mesh=None,
+           specs: Mapping[str, tuple] | None = None) -> str:
     """Write ``tree`` as checkpoint ``step`` (atomically), with ``extra``
-    merged into its metadata; prune to ``keep_last``.  Returns its path."""
+    merged into its metadata; prune to ``keep_last``.  Returns its path.
+    Under ``mesh`` every rank calls it: the leaves ``specs`` split are
+    gathered whole, rank 0 writes, and every rank returns once it is
+    published (raising if rank 0 failed)."""
+    final = self._path(step)
+    if mesh is None:
+      return self._write(step, _flatten(tree), extra)
+    data = _whole(tree, mesh, specs or {})
+    if mesh.rank != 0:
+      if not self._published(mesh, True):
+        raise RuntimeError(f"checkpoint step {step}: rank 0 failed to "
+                           "write it")
+      return final
+    ok = False
+    try:
+      self._write(step, data, extra)
+      ok = True
+    finally:
+      del data
+      self._published(mesh, ok)
+    return final
+
+  @staticmethod
+  def _published(mesh, ok: bool) -> bool:
+    """Every rank's flag gathered (the barrier after the publish); True
+    when rank 0's save succeeded."""
+    flags = mesh.world.all_gather(torch.tensor([ok], device=mesh.device))
+    return bool(flags[0])
+
+  def _write(self, step: int, data: dict, extra: dict | None) -> str:
     tmp = os.path.join(self.dir, f"tmp.{step}")
     final = self._path(step)
     if os.path.exists(tmp):
       shutil.rmtree(tmp)
     os.makedirs(tmp)
-    data = _flatten(tree)
     np.savez(os.path.join(tmp, "arrays.npz"), **data)
     meta = {"step": int(step), "num_leaves": len(data)}
     if extra:
@@ -131,11 +252,14 @@ class CheckpointManager:
     steps = self.all_steps()
     return steps[-1] if steps else None
 
-  def restore(self, like, step: int | None = None,
-              device=None) -> tuple[Any, dict]:
+  def restore(self, like, step: int | None = None, device=None, *,
+              mesh=None, specs: Mapping[str, tuple] | None = None
+              ) -> tuple[Any, dict]:
     """Returns (tree, meta).  ``like`` gives the structure, shapes and
     dtypes; every leaf lands on ``device`` (default: the matching leaf of
-    ``like``'s)."""
+    ``like``'s).  Under ``mesh`` (the elastic reshard) ``like`` holds this
+    rank's slices and each leaf ``specs`` names is cut to the rank's slice
+    of the saved whole leaf."""
     if step is None:
       step = self.latest_step()
     if step is None:
@@ -143,13 +267,13 @@ class CheckpointManager:
     path = self._path(step)
     with open(os.path.join(path, "meta.json")) as f:
       meta = json.load(f)
-    with np.load(os.path.join(path, "arrays.npz")) as z:
-      data = {k: z[k] for k in z.files}
-    return _unflatten(like, data, device), meta
+    leaves = _Leaves(os.path.join(path, "arrays.npz"))
+    return _unflatten(like, leaves, device, mesh=mesh, specs=specs), meta
 
-  def restore_latest_or_none(self, like, device=None):
+  def restore_latest_or_none(self, like, device=None, *, mesh=None,
+                             specs=None):
     """The restart protocol: (tree, meta) of the newest complete
     checkpoint, or (None, None) when there is none."""
     if self.latest_step() is None:
       return None, None
-    return self.restore(like, device=device)
+    return self.restore(like, device=device, mesh=mesh, specs=specs)

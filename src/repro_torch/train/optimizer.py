@@ -15,6 +15,12 @@ clip runs leaf by leaf inside the update loop, after one pass for the
 global norm: the reference first builds a whole float32 tree of clipped
 gradients (+16.4 GiB at qwen3-4b), and the result is the same because the
 scale is one scalar.
+
+Over a model axis (``group=`` the model group, ``sharded=`` the names of
+the leaves split over it) the global norm sums the squares of the sharded
+leaves over the group, in rank order, and counts the replicated leaves
+once, so every rank clips by the one-device scale.  The moments are
+allocated like their parameter, so they are sharded with it.
 """
 from __future__ import annotations
 
@@ -75,12 +81,23 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
   return cfg.lr * warm * frac
 
 
-def global_norm(tree) -> torch.Tensor:
+def _squares(leaves) -> torch.Tensor:
+  return torch.stack([torch.sum(torch.square(x.float())) for x in leaves])
+
+
+def global_norm(tree, *, group=None, sharded=frozenset()) -> torch.Tensor:
   """sqrt of the sum of squares of every leaf (a mapping's values or an
-  iterable of tensors), in float32."""
-  leaves = tree.values() if isinstance(tree, Mapping) else tree
-  return torch.sqrt(torch.stack([torch.sum(torch.square(x.float()))
-                                 for x in leaves]).sum())
+  iterable of tensors), in float32.  With ``group`` (a model group) the
+  mapping's leaves named in ``sharded`` are the rank's slices: their
+  squares are summed over the group in rank order, the others counted
+  once."""
+  if group is None or group.world == 1 or not sharded:
+    leaves = tree.values() if isinstance(tree, Mapping) else tree
+    return torch.sqrt(_squares(leaves).sum())
+  split = _squares([x for n, x in tree.items() if n in sharded]).sum()
+  rest = [x for n, x in tree.items() if n not in sharded]
+  total = group.sum(split)
+  return torch.sqrt(total + _squares(rest).sum() if rest else total)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -105,13 +122,16 @@ def _decay_mask(path: str) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, params, grads: Mapping[str, torch.Tensor],
-                 state: OptState) -> dict:
+                 state: OptState, *, group=None,
+                 sharded=frozenset()) -> dict:
   """One AdamW step, in place: ``params`` (a module or a name -> tensor
   mapping) and ``state`` are written; ``grads`` maps every parameter name
-  to its gradient (any float dtype).  Returns {"grad_norm" (before
-  clipping), "lr"} as float32 tensors on the device."""
+  to its gradient (any float dtype).  ``group`` / ``sharded``: the model
+  axis, for the global norm (module docstring).  Returns {"grad_norm"
+  (before clipping), "lr"} as float32 tensors on the device."""
   params = _named(params)
-  gnorm = global_norm(grads[n] for n in params)
+  gnorm = global_norm({n: grads[n] for n in params}, group=group,
+                      sharded=sharded)
   scale = _clip_scale(gnorm, cfg.clip_norm)
   state.step.add_(1)
   lr = schedule(cfg, state.step)

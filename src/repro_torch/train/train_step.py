@@ -9,20 +9,63 @@ divided by ``microbatches``, as the reference's scan does.  The eval step
 runs the same loss under ``torch.no_grad()``: on the card its attention
 launches the flash kernel (one launch a layer), where a train step's
 attention runs ``chunked_attention`` (``models.attention``'s rule).
+
+Over a training mesh (the model's ``launch.mesh.TrainMesh``) each rank
+runs the loss on its data shard of the batch and its model shard of the
+parameters.  After the backward pass (and the microbatches) the gradients
+of the model's ``partial_leaves`` (the qk-norm gains: replicated leaves
+used inside a split region; the qkv biases' come whole out of
+``split_group``'s backward) are summed over the model group, and then
+every gradient is averaged over the data group: the rank-ordered sum in
+float32 divided by D (``ProcessMesh.sum_``, in buckets), written back in
+the gradient's dtype (a bf16 gradient rounds to nearest once).  Every
+replica then makes the same update, bit for bit.  The reported loss, xent
+and aux are the same mean over the data group.  The reference's
+``compression`` is a separate collective (``train.compression``): its
+``train_step.py`` names it in a docstring and wires it nowhere, and
+neither does the port.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import Model, Parallelism
 from repro_torch.train.optimizer import OptConfig, OptState, adamw_update
 
 
-def make_train_step(model: Model, opt_cfg: OptConfig, *,
+def _layout(model: Model, par, mesh):
+  """The model's mesh.  ``par`` / ``mesh`` are the reference's arguments
+  and only assert: they must restate the model's own layout, which its
+  parameters were laid out by when it was built."""
+  if mesh is not None and mesh is not model.mesh:
+    raise ValueError("mesh= differs from the model's: build the Model with "
+                     "the mesh it trains over")
+  if par is not None and par != model.par:
+    raise ValueError(f"par={par} differs from the model's {model.par}")
+  return model.mesh
+
+
+def _data_mean(mesh, metrics: dict) -> dict:
+  """The metrics' mean over the data group (one gather), or as they are
+  without a data axis."""
+  if mesh is None or mesh.data == 1:
+    return metrics
+  names = list(metrics)
+  mean = mesh.dp.sum(torch.stack([metrics[n].float() for n in names]),
+                     div=mesh.data)
+  return {n: mean[i] for i, n in enumerate(names)}
+
+
+def make_train_step(model: Model, opt_cfg: OptConfig,
+                    par: Parallelism | None = None, *, mesh=None,
                     microbatches: int = 1):
   """Returns ``step(opt_state, batch) -> metrics``: {"loss", "xent", "aux",
   "grad_norm", "lr"} as float32 tensors on the device (the loss the mean
-  over microbatches, xent and aux the last microbatch's)."""
+  over microbatches, xent and aux the last microbatch's; over a data axis
+  each the mean over the data group).  ``par`` and ``mesh`` only assert
+  that they are the model's layout (``_layout``); ``batch`` is this rank's
+  data shard."""
+  mesh = _layout(model, par, mesh)
   params = dict(model.named_parameters())
 
   def grads_of(batch):
@@ -46,7 +89,14 @@ def make_train_step(model: Model, opt_cfg: OptConfig, *,
         for n, p in params.items():
           grads[n].add_(p.grad.float() / microbatches)
         loss = loss + l / microbatches
-    om = adamw_update(opt_cfg, params, grads, opt_state)
+    if mesh is not None:
+      if model.partial_leaves:
+        mesh.tp.sum_([grads[n] for n in model.partial_leaves])
+      mesh.dp.sum_(list(grads.values()), div=mesh.data)
+      metrics = _data_mean(mesh, dict(metrics, loss=loss))
+      loss = metrics.pop("loss")
+    om = adamw_update(opt_cfg, params, grads, opt_state, group=model.tp,
+                      sharded=model.sharded)
     del grads
     for p in params.values():
       p.grad = None
@@ -55,13 +105,16 @@ def make_train_step(model: Model, opt_cfg: OptConfig, *,
   return step
 
 
-def make_eval_step(model: Model):
+def make_eval_step(model: Model, par: Parallelism | None = None, *,
+                   mesh=None):
   """Returns ``step(batch) -> {"loss", "xent", "aux"}`` under
-  ``torch.no_grad()``."""
+  ``torch.no_grad()`` (over a data axis, each the mean over the data
+  group); ``par`` and ``mesh`` only assert, as in ``make_train_step``."""
+  mesh = _layout(model, par, mesh)
 
   @torch.no_grad()
   def step(batch: dict) -> dict:
     loss, metrics = model.loss_fn(batch)
-    return dict(metrics, loss=loss)
+    return _data_mean(mesh, dict(metrics, loss=loss))
 
   return step

@@ -395,7 +395,7 @@ def test_backend_and_device_are_never_switched(monkeypatch):
     M.mesh_device("nccl", "cuda", 1, 2)
 
 
-def test_cli_refuses_epochs_and_the_reference_path_under_torchrun(
+def test_cli_refuses_the_reference_path_and_joins_for_epochs_under_torchrun(
     monkeypatch):
   """Under torchrun (RANK / WORLD_SIZE set) the reference path raises,
   naming why, before any group is joined, and the service mode

@@ -362,8 +362,9 @@ def test_bound_update_matches_reference(kernel):
 def test_port_imports_neither_jax_nor_reference():
   """In a fresh interpreter, importing every module of the port (the
   selection service's with its query path, the graph-cut path's, the LM
-  serving path's, the training path's, ``obs`` and the process mesh of
-  the ``torch.distributed`` backend among them) and the
+  serving path's, the training path's with its compressed all-reduce,
+  ``obs`` and the process and training meshes of the
+  ``torch.distributed`` backend among them) and the
   port's examples, examples/active_set_gp_torch.py,
   examples/maxcut_constrained_torch.py, examples/quickstart_torch.py,
   examples/train_with_selection_torch.py and
@@ -394,7 +395,7 @@ for name in ("repro_torch.service.service", "repro_torch.service.store",
              "repro_torch.obs.sidecar", "repro_torch.train",
              "repro_torch.train.optimizer", "repro_torch.train.train_step",
              "repro_torch.train.checkpoint", "repro_torch.launch.train",
-             "repro_torch.launch.mesh"):
+             "repro_torch.launch.mesh", "repro_torch.train.compression"):
   assert name in sys.modules, name
 """
   env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
