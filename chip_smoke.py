@@ -90,6 +90,17 @@ calls, counting each kernel's launches around each path:
     serving of 8 prompts of 2048 tokens (64 new each) and one of 6000 (16
     new), greedy, with and without the kernel, and decode against teacher
     forcing;
+  * the other model families through the same ``generate`` (phase ``e2e
+    families``), one at a time in bf16 from a seed: deepseek-moe-16b (28
+    layers, 4 x 2048 -> 16 tokens), grok-1-314b (2 of its 64 layers at
+    full width, 4 x 2048 -> 16), mamba2-2.7b (64 layers, 8 x 2048 -> 16),
+    recurrentgemma-2b (26 layers, 1 x 4096 -> 16: past its 2048 window, so
+    the ring buffer wraps), llama-3.2-vision-90b (10 of its 100 layers, 2
+    x 2048 -> 16 over 1601 image tokens) and whisper-tiny (4 + 4 layers, 8
+    x 432 -> 16 over 1500 frames): time to first token, ms a token, peak
+    memory, the flash launches a prefill (28, 2, 0, 0, 10, 4), greedy
+    tokens against the plain version at 2 x 512 -> 8, and decode against
+    teacher forcing at the reduced size in float32;
   * the training path (``repro_torch.train``, ``launch/train.py
     --select-coreset``): the launcher's coreset step (4096 documents of
     width 64, m = 8, kappa = 256, k_final = 1024) on the facility-select
@@ -151,6 +162,7 @@ wall times end in ``torch.cuda.synchronize()``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -4524,6 +4536,15 @@ FLASH_CASES = (   # label, its e2e path, (B, H, Hkv, L, dh), dtype; causal
     ("train eval", "train_eval", (8, 32, 8, 256, 128), "bf16"),  # e2e train
     # a rank's local heads in e2e train dist's 1x4 eval step
     ("train dist eval", "train_dist_eval_1x4", (8, 8, 2, 256, 128), "bf16"),
+    # e2e families' prefills: deepseek-moe-16b (MHA), grok-1-314b (48 / 8
+    # heads), llama-3.2-vision-90b (64 / 8: its self and cross blocks'
+    # self-attention) and whisper's decoder (dh 64)
+    ("family moe", "family_deepseek-moe-16b", (4, 16, 16, 2048, 128),
+     "bf16"),
+    ("family grok", "family_grok-1-314b", (4, 48, 8, 2048, 128), "bf16"),
+    ("family vlm", "family_llama-3.2-vision-90b", (2, 64, 8, 2048, 128),
+     "bf16"),
+    ("family whisper", "family_whisper-tiny", (8, 6, 6, 432, 64), "bf16"),
 )
 
 
@@ -4615,8 +4636,10 @@ def greedy_trace(model, batch, steps):
   tokens = batch["tokens"]
   b, s = tokens.shape
   prefill_fn, decode_fn = make_serve_fns(model)
-  caches = model.init_cache(b, s + steps)
-  logits, caches = prefill_fn(batch, caches)
+  with torch.no_grad():
+    memory = model.memory(batch)
+  caches = model.init_cache(b, s + steps, memory=memory)
+  logits, caches = prefill_fn(batch, caches, memory)
   toks, all_logits = [], []
   for t in range(steps):
     all_logits.append(logits.float())
@@ -4630,6 +4653,166 @@ def greedy_trace(model, batch, steps):
 def top2_gap(logits):
   top = logits.float().topk(2, dim=-1).values
   return top[..., 0] - top[..., 1]
+
+
+class PinnedRouting:
+  """The MoE routing of one run replayed in the next: in ``record`` every
+  ``models.moe.route`` call keeps its experts; in ``replay`` each call
+  takes the experts the recorded run chose at the same call (their gates
+  from its own router probabilities, through ``moe.assign``), so two runs
+  differ only by what else differs between them.  A bf16 model's routing
+  is discontinuous: an ulp in a hidden state can swap a token's k-th
+  expert for the (k+1)-th when their probabilities nearly tie, and 28
+  MoE layers amplify that to other logits.  ``flips`` counts the replayed
+  calls' tokens whose own choice of experts differed from the pinned one,
+  out of ``routed``; ``margin`` is the largest router probability mass
+  the pinned experts gave up against the free choice at a flip."""
+
+  def __init__(self):
+    self.calls, self.i = [], 0
+    self.flips = self.routed = 0
+    self.margin = 0.0
+
+  @contextlib.contextmanager
+  def record(self):
+    from repro_torch.models import moe
+    real = moe.route
+
+    def rec(xg, valid, router, cfg):
+      r = real(xg, valid, router, cfg)
+      self.calls.append(r.top_e)
+      return r
+
+    moe.route = rec
+    try:
+      yield self
+    finally:
+      moe.route = real
+
+  @contextlib.contextmanager
+  def replay(self):
+    import torch
+
+    from repro_torch.models import moe
+    real = moe.route
+
+    def rep(xg, valid, router, cfg):
+      free = real(xg, valid, router, cfg)
+      check(self.i < len(self.calls), "pinned routing: more MoE calls "
+            "than the recorded run made")
+      top_e = self.calls[self.i]
+      self.i += 1
+      check(top_e.shape == free.top_e.shape, "pinned routing: a call of "
+            "another shape")
+      diff = (torch.sort(free.top_e, -1).values
+              != torch.sort(top_e, -1).values).any(-1) & valid
+      self.flips += int(diff.sum())
+      self.routed += int(valid.sum())
+      if bool(diff.any()):
+        gave = (torch.gather(free.probs, -1, free.top_e).sum(-1)
+                - torch.gather(free.probs, -1, top_e).sum(-1))
+        self.margin = max(self.margin, float(gave[diff].max()))
+      return moe.assign(free.probs, top_e, valid, cfg)
+
+    moe.route = rep
+    try:
+      yield self
+    finally:
+      moe.route = real
+
+
+class LayerAttention:
+  """Every ``ops.flash_attention`` call of a run held against ``mha_ref``
+  on the call's own inputs (the model's activations at that layer): the
+  largest error over the plain output's scale, checked against the
+  kernel phases' tolerance (3e-2 in bf16, 1e-4 in f32, rtol and atol)."""
+
+  def __init__(self):
+    self.calls, self.worst = 0, 0.0
+
+  @contextlib.contextmanager
+  def watch(self):
+    from repro_torch.kernels import ops, ref
+    real = ops.flash_attention
+
+    def held(q, k, v, **kw):
+      out = real(q, k, v, **kw)
+      want = ref.mha_ref(q, k, v, causal=kw.get("causal", True),
+                         scale=kw.get("scale"))
+      tol = 3e-2 if q.dtype.itemsize == 2 else 1e-4
+      err = (out.float() - want.float()).abs()
+      check(not bool((err > tol * (1 + want.float().abs())).any()),
+            f"flash_attention at a model layer {tuple(q.shape)}: error "
+            f"{float(err.max())}")
+      self.calls += 1
+      self.worst = max(self.worst, float(err.max()) /
+                       max(float(want.float().abs().max()), 1e-30))
+      return out
+
+    ops.flash_attention = held
+    try:
+      yield self
+    finally:
+      ops.flash_attention = real
+
+
+def route_agreement(model, batch, steps, label, pin=None, logits=True):
+  """The greedy loop with the kernel (``backend="auto"``) and with the
+  plain version (``"ref"``) on the same weights, through ``generate``'s
+  own serve fns (``greedy_trace``): logits within ``TOL_SERVE_BF16`` of
+  their scale at every step whose token history the two runs share, and
+  every row's greedy tokens equal up to the first step whose top-2 gap in
+  the plain run is below ``TOL_SERVE_GAP`` (a bf16 near-tie; the rule of
+  ROADMAP.md section 3), valid after it.  Each kernel launch of the
+  kernel run is also held against the plain version on its own inputs
+  (``LayerAttention``).  With ``pin`` (a ``PinnedRouting``) the plain run
+  replays the kernel run's MoE routing.  ``logits=False`` records the
+  logits' error without holding it to the tolerance (a model whose depth
+  amplifies bf16 rounding past it; its caller holds the same comparison in
+  float32).  Returns (fields, the kernel run's tokens and logits)."""
+  import torch
+  model.backend = "auto"
+  layers = LayerAttention()
+  with pin.record() if pin else contextlib.nullcontext(), layers.watch():
+    k_toks, k_logits = greedy_trace(model, batch, steps)
+  model.backend = "ref"
+  with pin.replay() if pin else contextlib.nullcontext():
+    r_toks, r_logits = greedy_trace(model, batch, steps)
+  model.backend = "auto"
+  sync()
+  bsz = k_toks.shape[0]
+  r_scale = float(r_logits[:, 0].abs().max())
+  same = k_toks == r_toks
+  history = torch.cat([torch.ones_like(same[:, :1]),
+                       same[:, :-1].int().cumprod(1).bool()], dim=1)
+  diff = (k_logits - r_logits).abs().amax(-1)        # (bsz, steps)
+  shared_err = float(diff[history].max())
+  check(bool(torch.isfinite(k_logits).all()) and (not logits or (
+        shared_err <= TOL_SERVE_BF16 * r_scale and
+        shared_err <= TOL_SERVE_GAP / 2)), f"{label}: logits kernel vs "
+        f"plain {shared_err} at scale {r_scale} over shared histories")
+  gaps = top2_gap(r_logits)                          # (bsz, steps)
+  near = gaps < TOL_SERVE_GAP
+  first_tie = torch.where(near.any(1), near.float().argmax(1),
+                          torch.full((bsz,), steps, device=DEVICE))
+  upto = torch.arange(steps, device=DEVICE)[None, :] < first_tie[:, None]
+  check(bool((same | ~upto).all()), f"{label}: greedy tokens differ "
+        "before the first near-tie")
+  fields = dict(prefill_max_abs_err=float(diff[:, 0].max()),
+                logit_scale=r_scale,
+                shared_history_steps=int(history.sum()),
+                shared_history_max_abs_err=shared_err,
+                steps_before_near_tie=first_tie.tolist(),
+                tokens_equal=int(same.sum()), tokens_total=same.numel(),
+                logits_held=logits, layer_attention_calls=layers.calls,
+                layer_attention_max_err_over_scale=layers.worst)
+  if pin:
+    check(pin.i == len(pin.calls), f"{label}: the plain run made {pin.i} "
+          f"MoE calls, the kernel run {len(pin.calls)}")
+    fields.update(pinned_moe_calls=pin.i, routing_flips=pin.flips,
+                  routed_tokens=pin.routed, flip_margin_max=pin.margin)
+  del r_logits
+  return fields, k_toks, k_logits
 
 
 def e2e_serve(sz):
@@ -4730,46 +4913,21 @@ def e2e_serve(sz):
           int(out.max()) < cfg.vocab and torch.equal(out[:, :1], first),
           f"{name}: bad tokens")
     # (c) the plain version through the same serve fns
-    k_toks, k_logits = greedy_trace(m16, batch, steps)
+    agree, k_toks, k_logits = route_agreement(m16, batch, steps, name)
     check(torch.equal(k_toks, out), f"{name}: generate and its serve fns "
           "disagree on the kernel path")
-    m16.backend = "ref"
-    r_toks, r_logits = greedy_trace(m16, batch, steps)
-    m16.backend = "auto"
-    sync()
-    r_scale = float(r_logits[:, 0].abs().max())
-    same = k_toks == r_toks
-    history = torch.cat([torch.ones_like(same[:, :1]),
-                         same[:, :-1].int().cumprod(1).bool()], dim=1)
-    diff = (k_logits - r_logits).abs().amax(-1)      # (bsz, steps)
-    shared_err = float(diff[history].max())
-    check(shared_err <= TOL_SERVE_BF16 * r_scale and
-          shared_err <= TOL_SERVE_GAP / 2, f"{name}: logits kernel vs plain "
-          f"{shared_err} at scale {r_scale} over shared histories")
-    gaps = top2_gap(r_logits)                        # (bsz, steps)
-    near = gaps < TOL_SERVE_GAP
-    first_tie = torch.where(near.any(1), near.float().argmax(1),
-                            torch.full((bsz,), steps, device=DEVICE))
-    upto = torch.arange(steps, device=DEVICE)[None, :] < first_tie[:, None]
-    check(bool((same | ~upto).all()), f"{name}: greedy tokens differ "
-          "before the first near-tie")
     sets[name] = dict(
         batch=bsz, prompt=plen, new_tokens=steps, ttft_s=ttft,
         decode_ms_per_token=(wall - ttft) / (steps - 1) * 1e3,
         tokens_per_s=bsz * steps / wall, wall_s=wall, peak_gib=peak,
         flash_launches=counts[path]["flash_attention"],
-        tensor_core_flash_launches=tc,
-        prefill_max_abs_err=float(diff[:, 0].max()), logit_scale=r_scale,
-        shared_history_steps=int(history.sum()),
-        shared_history_max_abs_err=shared_err,
-        steps_before_near_tie=first_tie.tolist(),
-        tokens_equal=int(same.sum()), tokens_total=out.numel())
+        tensor_core_flash_launches=tc, **agree)
     if name == "set1":
       # (d) teacher forcing over the prompt and the first decoded tokens
       tf = sz.serve_tf_steps
       full = torch.cat([prompt, k_toks[:, :tf]], dim=1)
       with torch.no_grad():   # the forward alone: attention on the kernel
-        train = m16.apply_train({"tokens": full})[:, plen - 1:]
+        train = m16.apply_train({"tokens": full})[0][:, plen - 1:]
       tf_err = float((train.float() - k_logits[:, :tf + 1]).abs().max())
       tf_scale = float(train.float().abs().max())
       check(tf_err <= TOL_SERVE_BF16 * tf_scale, f"teacher forcing: decode "
@@ -4777,12 +4935,306 @@ def e2e_serve(sz):
       sets[name].update(teacher_forcing_max_abs_err=tf_err,
                         teacher_forcing_positions=train.shape[1])
       del train, full
-    del k_logits, r_logits
+    del k_logits
     torch.cuda.empty_cache()
   emit("e2e serve", arch=cfg.name, dtype="bf16", sets=sets,
        tol=dict(bf16=TOL_SERVE_BF16, gap=TOL_SERVE_GAP))
   del m16
   torch.cuda.empty_cache()
+  return counts
+
+
+# the other model families through the serving path: (arch, layers kept or
+# None for the config's depth, (batch, prompt, new tokens)), bf16 random
+# weights from a seed; the flash launches a prefill makes (every causal,
+# unwindowed attention layer: MoE and VLM layers, whisper's decoder)
+FAMILY_RUNS = (
+    ("deepseek-moe-16b", None, (4, 2048, 16)),
+    ("grok-1-314b", 2, (4, 2048, 16)),
+    ("mamba2-2.7b", None, (8, 2048, 16)),
+    ("recurrentgemma-2b", None, (1, 4096, 16)),   # past the 2048 window
+    ("llama-3.2-vision-90b", 10, (2, 2048, 16)),  # two periods of 5
+    ("whisper-tiny", None, (8, 432, 16)),         # 448: whisper's limit
+)
+FAMILY_REF = (2, 512, 8)   # the kernel-vs-plain greedy check's requests
+# archs whose bf16 logits the depth takes past TOL_SERVE_BF16 whatever the
+# attention route: 28 MoE layers with the reference's expert scale (E^-0.5
+# at fan-in d) amplify bf16 rounding (measured: the kernel against the
+# plain route 0.547 at a logit scale of 4.59 with the routing pinned; 2
+# layers of grok-1 stay at 1 %).  Their bf16 routes are each held against
+# one float32 reference of the same weights (``family_f32_agreement``):
+# the kernel route may be no further from it than TOL_F32_RATIO times the
+# plain route; the bf16 run's kernel-vs-plain error is recorded, its tokens
+# still held by the near-tie rule.
+FAMILY_F32 = ("deepseek-moe-16b",)
+TOL_F32_RATIO = 1.5
+FAMILY_TF = (2, 32, 4)     # decode vs teacher forcing at the reduced size
+TOL_FAMILY_TF = 2e-3       # tests/test_models.py's tolerance
+
+
+def family_inputs(cfg, g, bsz, plen):
+  """Prompt tokens (B, plen) and the family's memory input on the card:
+  whisper's frames (B, n_frames, d) or the VLM's image embeddings (B,
+  n_img_tokens, d), N(0, 1)."""
+  import torch
+  batch = {"tokens": torch.randint(0, cfg.vocab, (bsz, plen), generator=g,
+                                   device=DEVICE)}
+  if cfg.family == "encdec":
+    batch["frames"] = torch.randn(bsz, cfg.encoder.n_frames, cfg.d_model,
+                                  generator=g, device=DEVICE)
+  if cfg.family == "vlm":
+    batch["img_embeds"] = torch.randn(bsz, cfg.n_img_tokens, cfg.d_model,
+                                      generator=g, device=DEVICE)
+  return batch
+
+
+def flash_layers(cfg) -> int:
+  """Flash launches a prefill makes: one a causal, unwindowed attention
+  layer (an "attn" or "cross" block's self-attention)."""
+  if cfg.sliding_window:
+    return 0
+  return sum(bt in ("attn", "cross") for bt in cfg.full_pattern)
+
+
+def family_teacher_forcing(arch, seed):
+  """The reduced config in float32 on the card: prefill + decode logits
+  against a teacher-forcing ``apply_train`` (no_grad: the kernel route)
+  position by position, within ``TOL_FAMILY_TF`` (rtol, and atol times the
+  largest |want|).  Returns the largest error over the scale."""
+  import torch
+
+  from repro_torch.configs import get_config, reduced
+  from repro_torch.models import Model
+  cfg = reduced(get_config(arch))
+  model = Model(cfg, device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(seed))
+  bsz, plen, steps = FAMILY_TF
+  g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+  batch = family_inputs(cfg, g, bsz, plen + steps)
+  prompt = dict(batch, tokens=batch["tokens"][:, :plen])
+  with torch.no_grad():
+    train, _ = model.apply_train(batch)
+    memory = model.memory(prompt)
+  caches = model.init_cache(bsz, plen + steps, memory=memory)
+  got, caches = model.prefill(prompt, caches, memory)
+  worst = 0.0
+  for t in range(plen - 1, plen + steps):
+    if t >= plen:
+      got, caches = model.decode_step(batch["tokens"][:, t:t + 1], t, caches)
+    want = train[:, t]
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    check(bool((err <= TOL_FAMILY_TF * (want.abs() + scale)).all()),
+          f"{arch} reduced: decode vs teacher forcing at {t}: "
+          f"{float(err.max())} at scale {scale}")
+    worst = max(worst, float(err.max()) / scale)
+  del model
+  return worst
+
+
+def family_bf16_prefills(model, batch):
+  """The bf16 model's prefill of ``batch`` with the kernel (its MoE
+  routing recorded) and with the plain version (the routing replayed):
+  the last-token logits in float32, the recorded routing, and each leaf's
+  dtype and float64 sum (``family_f32_agreement`` holds its float32 model
+  to the same weights by them)."""
+  import torch
+  pin = PinnedRouting()
+  logits = {}
+  for backend, ctx in (("auto", pin.record), ("ref", pin.replay)):
+    model.backend = backend
+    memory = model.memory(batch)
+    with ctx():
+      last, _ = model.prefill(batch, model.init_cache(
+          *batch["tokens"].shape, memory=memory), memory)
+    logits[backend] = last.float()
+  model.backend = "auto"
+  check(pin.i == len(pin.calls), f"{model.cfg.name} bf16 prefill: the "
+        f"plain run made {pin.i} MoE calls, the kernel run {len(pin.calls)}")
+  with torch.no_grad():
+    leaves = {n: (p.dtype, float(p.double().sum()))
+              for n, p in model.named_parameters()}
+  return dict(logits=logits, calls=pin.calls, leaves=leaves)
+
+
+def family_f32_agreement(cfg, seed, batch, bf16):
+  """The float32 model of ``cfg`` holding the bf16 model's weights (drawn
+  from its seed, each bf16 leaf rounded as the bf16 model rounds it; every
+  leaf's float64 sum equal to the bf16 model's): the prefill of ``batch``
+  with the FFMA flash kernel and with the plain version, both replaying the
+  bf16 kernel run's MoE routing.  Held: the float32 kernel against the
+  plain version within ``TOL_SERVE_F32`` of the scale, each of its
+  launches against the plain version on its own inputs
+  (``LayerAttention``, 1e-4), and the bf16 kernel route no further from
+  the float32 plain logits than ``TOL_F32_RATIO`` times the bf16 plain
+  route (``family_bf16_prefills``)."""
+  import dataclasses as dc
+
+  import torch
+
+  from repro_torch.kernels import flash_attention as fa
+  from repro_torch.kernels import ops
+  from repro_torch.models import Model
+  cfg32 = dc.replace(cfg, dtype="float32")
+  torch.cuda.reset_peak_memory_stats()
+  model = Model(cfg32, device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(seed))
+  with torch.no_grad():
+    for n, p in model.named_parameters():
+      dtype, total = bf16["leaves"][n]
+      if dtype != p.dtype:
+        p.copy_(p.to(dtype))
+      check(float(p.double().sum()) == total, f"{cfg.name}: the float32 "
+            f"model's {n} does not hold the bf16 model's values")
+  rb, rp = batch["tokens"].shape
+  last, flips, routed = {}, 0, 0
+  layers = LayerAttention()
+  for backend in ("auto", "ref"):
+    pin = PinnedRouting()
+    pin.calls = list(bf16["calls"])
+    model.backend = backend
+    ops.reset_launch_counts()
+    tc0 = fa.tc_launches
+    memory = model.memory(batch)
+    with pin.replay(), (layers.watch() if backend == "auto"
+                        else contextlib.nullcontext()):
+      last[backend], _ = model.prefill(batch, model.init_cache(
+          rb, rp, memory=memory), memory)
+    sync()
+    launched = ops.launch_counts()["flash_attention"]
+    check(launched == (flash_layers(cfg32) if backend == "auto" else 0)
+          and fa.tc_launches == tc0, f"{cfg.name} f32: {launched} flash "
+          f"launches, {fa.tc_launches - tc0} of the bf16 kernel")
+    check(pin.i == len(pin.calls), f"{cfg.name} f32: {pin.i} MoE calls, "
+          f"the bf16 prefill made {len(pin.calls)}")
+    flips, routed = flips + pin.flips, routed + pin.routed
+  scale = float(last["ref"].abs().max())
+  err = float((last["auto"] - last["ref"]).abs().max())
+  check(bool(torch.isfinite(last["auto"]).all()) and
+        err <= TOL_SERVE_F32 * scale, f"{cfg.name} f32 prefill: kernel vs "
+        f"plain {err} at logit scale {scale}")
+  kern = float((bf16["logits"]["auto"] - last["ref"]).abs().max())
+  plain = float((bf16["logits"]["ref"] - last["ref"]).abs().max())
+  check(kern <= TOL_F32_RATIO * plain, f"{cfg.name}: the bf16 kernel route "
+        f"is {kern} from the float32 logits, the plain route {plain}")
+  out = dict(batch=rb, prompt=rp, max_abs_err=err, logit_scale=scale,
+             err_over_scale=err / scale, tol=TOL_SERVE_F32,
+             layer_attention_calls=layers.calls,
+             layer_attention_max_err_over_scale=layers.worst,
+             bf16_kernel_vs_f32=kern, bf16_plain_vs_f32=plain,
+             bf16_kernel_over_plain=kern / max(plain, 1e-30),
+             ratio_tol=TOL_F32_RATIO,
+             bf16_kernel_vs_plain=float((bf16["logits"]["auto"]
+                                         - bf16["logits"]["ref"]).abs().max()),
+             routing_flips=flips, routed_tokens=routed,
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+  del model
+  return out
+
+
+def e2e_families(sz):
+  """The other model families through ``generate`` (``FAMILY_RUNS``), one
+  architecture at a time: bf16 random weights from a seed (freed before
+  the next), the memory built from frames or image embeddings where the
+  family has one.  For each: the kernel-vs-plain greedy check
+  (``route_agreement`` at ``FAMILY_REF``'s requests), the time to first
+  token (``generate`` with one step),
+  ms a further token, tokens/s and peak memory of the full requests, the
+  flash launches of that run (``flash_layers``: one a causal, unwindowed
+  attention layer, every one on the tensor-core kernel), and decode
+  against teacher forcing at the reduced size in float32
+  (``family_teacher_forcing``).  In the greedy check every kernel launch
+  is also held against the plain version on its own inputs, and the MoE
+  families' plain run replays the kernel run's routing
+  (``PinnedRouting``); ``FAMILY_F32``'s archs hold both bf16 routes'
+  logits against one float32 reference (``family_f32_agreement``).  The
+  timed runs follow an untimed one-token ``generate`` at their own size.
+  Returns the launch counts by path."""
+  import dataclasses as dc
+
+  import torch
+
+  from repro_torch.configs import get_config
+  from repro_torch.kernels import flash_attention as fa
+  from repro_torch.kernels import ops
+  from repro_torch.models import Model
+  from repro_torch.serve import generate
+  counts = {}
+  for i, (arch, layers, (bsz, plen, steps)) in enumerate(FAMILY_RUNS):
+    full = get_config(arch)
+    cfg = full if layers is None else dc.replace(full, n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(sz.serve_seed + i))
+    sync()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device=DEVICE).manual_seed(sz.serve_seed + 100 + i)
+    rb, rp, rs = FAMILY_REF
+    ref_batch = family_inputs(cfg, g, min(rb, bsz), min(rp, plen))
+    agree, _, _ = route_agreement(
+        model, ref_batch, rs, arch,
+        pin=PinnedRouting() if cfg.moe.num_experts else None,
+        logits=arch not in FAMILY_F32)
+    bf16 = (family_bf16_prefills(model, ref_batch) if arch in FAMILY_F32
+            else None)
+    batch = family_inputs(cfg, g, bsz, plen)
+    generate(model, batch, steps=1)   # warm-up: allocator, cuBLAS plans
+    sync()
+    t0 = time.perf_counter()
+    first = generate(model, batch, steps=1)
+    sync()
+    ttft = time.perf_counter() - t0
+    path = f"family_{arch}"
+    ops.reset_launch_counts()
+    tc0 = fa.tc_launches
+    sync()
+    t0 = time.perf_counter()
+    out = generate(model, batch, steps=steps)
+    sync()
+    wall = time.perf_counter() - t0
+    counts[path] = ops.launch_counts()
+    tc = fa.tc_launches - tc0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = flash_layers(cfg)
+    check(counts[path]["flash_attention"] == want and tc == want,
+          f"{arch}: {counts[path]['flash_attention']} flash launches in one "
+          f"generate, {tc} of the tensor-core kernel, expected {want}")
+    check(out.shape == (bsz, steps) and int(out.min()) >= 0 and
+          int(out.max()) < cfg.vocab and torch.equal(out[:, :1], first),
+          f"{arch}: bad tokens")
+    check(peak < 80, f"{arch}: peak {peak} GiB")
+    del model, batch
+    torch.cuda.empty_cache()
+    if arch in FAMILY_F32:
+      agree["float32"] = family_f32_agreement(cfg, sz.serve_seed + i,
+                                              ref_batch, bf16)
+      torch.cuda.empty_cache()
+    del ref_batch, bf16
+    tf_err = family_teacher_forcing(arch, sz.serve_seed + 200 + i)
+    torch.cuda.empty_cache()
+    memory = ({"frames": cfg.encoder.n_frames} if cfg.family == "encdec"
+              else {"img_embeds": cfg.n_img_tokens}
+              if cfg.family == "vlm" else {})
+    emit(f"e2e families {arch}", arch=arch, family=cfg.family,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, dtype=cfg.dtype,
+         params=params, init_s=init_s, batch=bsz, prompt=plen,
+         new_tokens=steps, memory_tokens=memory, ttft_s=ttft,
+         decode_ms_per_token=(wall - ttft) / (steps - 1) * 1e3,
+         tokens_per_s=bsz * steps / wall, wall_s=wall, peak_gib=peak,
+         flash_launches=counts[path]["flash_attention"],
+         tensor_core_flash_launches=tc,
+         kernel_vs_plain=dict(batch=min(rb, bsz), prompt=min(rp, plen),
+                              new_tokens=rs, **agree),
+         teacher_forcing_reduced_f32=dict(
+             batch=FAMILY_TF[0], prompt=FAMILY_TF[1], steps=FAMILY_TF[2],
+             max_err_over_scale=tf_err, tol=TOL_FAMILY_TF),
+         tol=dict(bf16=TOL_SERVE_BF16, gap=TOL_SERVE_GAP),
+         reduced=[] if layers is None else [
+             f"n_layers {full.n_layers} -> {layers} (one card's 80 GB: "
+             f"{full.param_count() / 1e9:.1f} B parameters in all)"])
   return counts
 
 
@@ -5168,11 +5620,13 @@ def profile_train(handles):
 
 TRAIN_DIST_RANKS = 4
 TRAIN_DIST_STEPS = 3   # steps a run (ms a step: the median after the first)
-# (label, (data, model), layers or None for the config's depth)
+# (label, (data, model), layers)
 # the 4x1 ranks each hold a whole replica: at 4 layers (1.18 B parameters)
 # AdamW's float32 temporaries of the 389 M-element embedding took four ranks
-# past 80 GB, so run b has 2 (0.98 B a replica)
-TRAIN_DIST_RUNS = (("a 1x4", (1, 4), None), ("b 2x2", (2, 2), 2),
+# past 80 GB, so run b has 2 (0.98 B a replica); run a fitted at full depth
+# (14.13 GiB a rank) and runs 8 of the 36 layers to leave the time limit
+# room for the other model families
+TRAIN_DIST_RUNS = (("a 1x4", (1, 4), 8), ("b 2x2", (2, 2), 2),
                    ("b 4x1", (4, 1), 2))
 TRAIN_DIST_CKPT_FROM = "b 2x2"         # the elastic save's layout ...
 TRAIN_DIST_RESTORE = ((1, 4), (4, 1))  # ... restored onto these and 1 process
@@ -5657,14 +6111,14 @@ def e2e_train_dist(sz, single: dict):
   ``torch.distributed.run``, 4 gloo ranks on this card
   (``chip_smoke.py --train-dist DIR``).
 
-  (a) ``--mesh 1x4`` at full depth (the model axis: heads, MLP columns
+  (a) ``--mesh 1x4`` at 8 layers (the model axis: heads, MLP columns
       and the vocabulary split over 4 ranks), (b) 2x2 and 4x1 at 2 layers,
       on the coreset batches of ``e2e train``: the eval step on the local
       heads (the flash kernel, one launch a layer), then the train steps;
       every data replica's parameters and every model group's replicated
       leaves equal bit for bit after each step, every loss within
       ``TOL_TRAIN_EVAL`` of the one-process run of the same depth, seed and
-      batches (``e2e train``'s for (a), ``train_single`` for (b)); ms a
+      batches (``train_single``); ms a
       step (the median after the first), tokens/s, each rank's peak, the
       gathers and their bytes.  The 2x2 state is saved (the elastic
       checkpoint) and restored onto 1x4, 4x1 and one process, bit for bit;
@@ -5688,11 +6142,8 @@ def e2e_train_dist(sz, single: dict):
                           seq_len=sz.train_seq, device=DEVICE)
   batches = list(batches_from_indices(corpus, single["sel"], sz.train_batch,
                                       TRAIN_DIST_STEPS))
-  singles = {None: dict(loss=single["losses"][:TRAIN_DIST_STEPS],
-                        eval_loss=single["eval_loss"],
-                        ms_per_step=single["ms_per_step"],
-                        peak_gib=single["peak_gib"])}
-  for layers in {lay for _, _, lay in TRAIN_DIST_RUNS if lay}:
+  singles = {}
+  for layers in {lay for _, _, lay in TRAIN_DIST_RUNS}:
     r = train_single(dc.replace(cfg, n_layers=layers), batches, opt_cfg)
     r["ms_per_step"] = statistics.median(r["step_wall_s"][1:]) * 1e3
     singles[layers] = r
@@ -5732,9 +6183,10 @@ def e2e_train_dist(sz, single: dict):
                          peak_gib=one["peak_gib"]),
         max_loss_gap=max(abs(a - b) for p in per
                          for a, b in zip(p["loss"], one["loss"])),
-        reduced=[] if layers is None else [
-            f"n_layers {cfg.n_layers} -> {layers} (four ranks of the "
-            "replicated or half-split model in 80 GB)"])
+        reduced=[f"n_layers {cfg.n_layers} -> {layers} (" + (
+            "the time limit: 36 layers fitted at 14.13 GiB a rank"
+            if shape == (1, 4) else "four ranks of the replicated or "
+            "half-split model in 80 GB") + ")"])
     # the host's wall inside the gathers (after a device sync each), the
     # median step's after the first, and a gather's median, by rank
     runs[label].update(
@@ -5850,6 +6302,8 @@ def main() -> int:
   train_counts.update(e2e_train_dist(sz, single))
   torch.cuda.empty_cache()
   serve_counts = e2e_serve(sz)
+  torch.cuda.empty_cache()
+  serve_counts.update(e2e_families(sz))
   # kernel -> {path: launches} over the paths of its e2e phase; the train
   # paths ride along for the two kernels they launch
   by_path = {name: {p: c[name] for p, c in (

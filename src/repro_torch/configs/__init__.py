@@ -1,20 +1,25 @@
 """Architecture configs of the port (``get_config("<id>")``) and reduced
-smoke variants: the port's own copy of ``src/repro/configs``.
+smoke variants: the port's own copy of ``src/repro/configs``, all ten of
+its architectures (dense, MoE, SSM, hybrid, VLM, enc-dec).
 
-Only the dense family is ported so far (qwen3-4b, qwen3-8b, qwen1.5-4b,
-deepseek-67b).  The reference's other six configs (MoE, SSM, hybrid, VLM,
-enc-dec) come with their families; ``get_config`` names ROADMAP.md for
-them.  ``reduced(cfg)`` shrinks a config to a CPU-runnable smoke size of the
-same family, exactly as the reference's ``reduced`` does.
+``reduced(cfg)`` shrinks a config to a CPU-runnable smoke size of the same
+family, exactly as the reference's ``reduced`` does.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.deepseek_67b import CONFIG as deepseek_67b
+from repro_torch.configs.deepseek_moe_16b import CONFIG as deepseek_moe_16b
+from repro_torch.configs.grok1_314b import CONFIG as grok1_314b
+from repro_torch.configs.llama3_2_vision_90b import \
+    CONFIG as llama3_2_vision_90b
+from repro_torch.configs.mamba2_2_7b import CONFIG as mamba2_2_7b
 from repro_torch.configs.qwen1_5_4b import CONFIG as qwen1_5_4b
 from repro_torch.configs.qwen3_4b import CONFIG as qwen3_4b
 from repro_torch.configs.qwen3_8b import CONFIG as qwen3_8b
+from repro_torch.configs.recurrentgemma_2b import CONFIG as recurrentgemma_2b
+from repro_torch.configs.whisper_tiny import CONFIG as whisper_tiny
 from repro_torch.models.config import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
@@ -22,19 +27,19 @@ ARCHS: dict[str, ModelConfig] = {
     "qwen3-8b": qwen3_8b,
     "deepseek-67b": deepseek_67b,
     "qwen1.5-4b": qwen1_5_4b,
+    "recurrentgemma-2b": recurrentgemma_2b,
+    "llama-3.2-vision-90b": llama3_2_vision_90b,
+    "deepseek-moe-16b": deepseek_moe_16b,
+    "grok-1-314b": grok1_314b,
+    "mamba2-2.7b": mamba2_2_7b,
+    "whisper-tiny": whisper_tiny,
 }
-
-# the reference's configs whose families the port does not run yet
-NOT_PORTED = ("recurrentgemma-2b", "llama-3.2-vision-90b", "deepseek-moe-16b",
-              "grok-1-314b", "mamba2-2.7b", "whisper-tiny")
 
 
 def get_config(name: str) -> ModelConfig:
   if name not in ARCHS:
-    why = ("its family (MoE, SSM, hybrid, VLM or enc-dec) is not ported "
-           "yet; ROADMAP.md lists it" if name in NOT_PORTED
-           else "no such architecture")
-    raise KeyError(f"{name!r}: {why}; the port has {sorted(ARCHS)}")
+    raise KeyError(f"{name!r}: no such architecture; the port has "
+                   f"{sorted(ARCHS)}")
   return ARCHS[name]
 
 

@@ -150,7 +150,11 @@ def _by_name(cfg, tree: dict, leaf_of) -> dict:
   parameters keyed by the port's parameter names: ``leaf_of(leaf, index)``
   with ``index`` the period of a stacked ``periods/b{j}/...`` leaf (period
   t, block j is layer t * len(pattern) + j), None elsewhere; ``rem/r{j}``
-  maps to the layers after the periods."""
+  maps to the layers after the periods, ``encoder/layers/e{j}/...`` and
+  ``encoder/ln_f`` to ``encoder.layers.e{j}....`` and ``encoder.ln_f``.
+  Every block's leaves keep their names (the stacked experts ``moe.gate``
+  (E, d, f), ``moe.shared.*``, ``moe.router``, ``rec.*``, ``mamba.*``,
+  ``lnx``, ``xattn.*``)."""
   width = len(cfg.pattern)
   out = {}
 
@@ -161,7 +165,8 @@ def _by_name(cfg, tree: dict, leaf_of) -> dict:
       else:
         out[prefix + name] = leaf_of(leaf, index)
 
-  walk("", {n: tree[n] for n in ("embed", "ln_f", "head") if n in tree})
+  walk("", {n: tree[n] for n in ("embed", "ln_f", "head", "encoder")
+            if n in tree})
   periods, rem = tree.get("periods") or {}, tree.get("rem") or {}
   for t in range(cfg.n_periods):
     for j in range(width):

@@ -36,7 +36,17 @@ model is laid out by ``param_specs`` (the model axis as tensor
 parallelism, ``models.registry``), each rank takes its data shard of the
 global batch (``SyntheticLM.batch(step, shard=d, num_shards=D)``, or rows
 d * b .. (d + 1) * b of a coreset batch), and the gradients are averaged
-over the data axis in rank order (``train.train_step``).  With
+over the data axis in rank order (``train.train_step``).  ``--arch`` takes
+every family on one process and on a data axis (``--mesh Dx1``); a model
+axis (M > 1) runs only the dense stack and is refused for the others
+(``models.registry.check_supported``, naming ROADMAP.md).  Over a data
+axis an MoE family routes its groups as one process does on the whole
+batch, so a rank's tokens (its rows x ``--seq-len``) must be a multiple of
+the config's ``group_size``; other sizes are refused before any group is
+joined.  The enc-dec and VLM families read their stubbed frontends' input
+beside the tokens: ``frames`` / ``img_embeds`` (B, F, d) drawn N(0, 1) for
+the global batch from the step (``modality``), each rank taking its rows,
+so a data axis and a resumed run see what one process sees.  With
 ``--select-coreset`` rank 0 selects and the ids go to every rank over the
 mesh (one gather), so every rank trains on the same coreset.
 ``--dist-backend`` is ``nccl`` (one rank a card, the default on CUDA) or
@@ -67,6 +77,33 @@ def _coreset_ids(sel, mesh):
   if mesh.rank == 0:
     mine.copy_(torch.as_tensor(np.asarray(sel), dtype=torch.int64))
   return mesh.world.gather_parts(mine)[0].cpu().numpy()
+
+
+def modality(cfg, rows: int, step: int, dev) -> dict:
+  """The stubbed modality frontend's embeddings a global batch of
+  ``rows`` needs: ``frames`` (rows, n_frames, d) for the enc-dec family,
+  ``img_embeds`` (rows, n_img_tokens, d) for the VLM, none otherwise;
+  N(0, 1) in float32 from a generator seeded by the step."""
+  import torch
+  name, n = {"encdec": ("frames", cfg.encoder.n_frames),
+             "vlm": ("img_embeds", cfg.n_img_tokens)}.get(cfg.family,
+                                                          (None, 0))
+  if name is None:
+    return {}
+  g = torch.Generator(device=dev).manual_seed(1_000_003 * step)
+  return {name: torch.randn((rows, n, cfg.d_model), generator=g,
+                            device=dev)}
+
+
+def _check_moe_groups(cfg, global_batch: int, seq_len: int, ranks: int):
+  """Refuse MoE groups that a rank's shard of the global batch would cut
+  (``moe.data_group_len``)."""
+  from repro_torch.models.moe import data_group_len
+  if cfg.moe.num_experts and global_batch % ranks == 0:
+    try:
+      data_group_len(cfg, global_batch // ranks * seq_len, ranks)
+    except ValueError as e:
+      raise SystemExit(f"[train] {e}") from None
 
 
 def _done_fields(mesh, dev) -> dict:
@@ -128,12 +165,13 @@ def main(argv=None) -> None:
     cfg = reduced(cfg)
   mesh = None
   if args.mesh:
+    shape = parse_mesh(args.mesh)
+    check_model_axis(cfg, shape[1])
+    _check_moe_groups(cfg, args.global_batch, args.seq_len, shape[0])
     if not under_torchrun():
       raise SystemExit("[train] --mesh needs the ranks of a torchrun launch "
                        "(python -m torch.distributed.run), one a mesh "
                        "position")
-    shape = parse_mesh(args.mesh)
-    check_model_axis(cfg, shape[1])
     backend = args.dist_backend or (
         "nccl" if torch.device(args.device).type == "cuda" else "gloo")
     mesh = TrainMesh.from_env(shape, backend, args.device)
@@ -192,17 +230,23 @@ def main(argv=None) -> None:
     extra = {"coreset": sel.tolist()}
     batches = batches_from_indices(corpus, sel, args.global_batch,
                                    args.steps, start=start_step)
-    rows = args.global_batch // shards
 
-    def batch_iter(step):
+    def tokens_of(step):
       return {k: v[shard * rows:(shard + 1) * rows]
               for k, v in next(batches).items()}
   else:
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,
                        global_batch=args.global_batch, device=str(dev))
 
-    def batch_iter(step):
+    def tokens_of(step):
       return data.batch(step, shard=shard, num_shards=shards)
+
+  rows = args.global_batch // shards
+
+  def batch_iter(step):
+    mods = modality(cfg, args.global_batch, step, dev)
+    return dict(tokens_of(step), **{k: v[shard * rows:(shard + 1) * rows]
+                                    for k, v in mods.items()})
 
   step_fn = make_train_step(model, opt_cfg)
   t0 = time.time()

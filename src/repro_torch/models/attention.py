@@ -1,22 +1,28 @@
-"""Self-attention of the dense decoder (the port of
-``src/repro/models/attention.py``).
+"""Attention (the port of ``src/repro/models/attention.py``).
 
-Two lowerings, one rule (``self_attention``): a call that autograd must
-differentiate goes to ``chunked_attention``, the reference's own training
-route (it trains through ``chunked_attention`` everywhere but on the TPU,
-and its Pallas kernel has no backward either); every other call goes to the
-flash-attention kernel through ``ops.flash_attention``.  The rule reads
-only grad mode and ``requires_grad``, never whether the kernel builds: a
-kernel that fails still raises.
+Four lowerings and one rule (``self_attention``):
 
-The reference sends only causal calls whose length is a multiple of 128 to
-its kernel, because the Pallas BlockSpec needs whole tiles; the CUDA kernel
+  * ``chunked_attention`` -- online-softmax attention over query and key
+    chunks, the reference's own training route (it trains through
+    ``chunked_attention`` everywhere but on the TPU, and its Pallas kernel
+    has no backward either), and the encoder's bidirectional attention;
+  * the flash-attention kernel through ``ops.flash_attention``: every
+    causal, unwindowed call outside autograd;
+  * ``local_attention`` -- causal sliding-window attention, each query
+    chunk against a key span of ``window + q_chunk`` (RecurrentGemma's
+    local-attention layers; they stay off the kernel, as in the reference:
+    windowed, and their head width of 256 is not the kernel's);
+  * ``cross_attention`` -- full attention over an encoder or image memory.
+
+The rule reads only the window, grad mode and ``requires_grad``, never
+whether the kernel builds: a kernel that fails still raises.  The
+reference sends only causal calls whose length is a multiple of 128 to its
+kernel, because the Pallas BlockSpec needs whole tiles; the CUDA kernel
 masks ragged lengths itself, so the port launches it at any length.
 Decode attention (one token against the cache) is not a kernel in the
 reference either: it stays inline in ``transformer.apply_block``.
-``local_attention``, ``cross_attention`` and ``decode_attention`` come with
-the families that use them (ROADMAP.md); ``_full_attention`` belongs to the
-reference's dry-run cost pass and has no counterpart.
+``_full_attention`` belongs to the reference's dry-run cost pass and has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -81,8 +87,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
   keys masked, blocks above the diagonal skipped.  Under autograd each
   query chunk is recomputed in the backward pass
   (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does,
-  so no (qc, Lk) probability block outlives its chunk's forward.  The
-  reference's sliding window comes with ``local_attention`` (ROADMAP.md).
+  so no (qc, Lk) probability block outlives its chunk's forward.  Windows
+  take ``local_attention``.
   """
   b, h, lq, dh = q.shape
   hkv, lk = k.shape[1], k.shape[2]
@@ -110,20 +116,86 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
   return out[:, :, :lq_true]
 
 
+def _local_chunk(q5, k, v, q0: int, *, window: int, span: int):
+  """One query chunk (B, Hkv, G, qc, dh) of ``local_attention`` against its
+  key span; the softmax in float32, the output in q's dtype."""
+  qc, dh = q5.shape[3], q5.shape[4]
+  lk = k.shape[2]
+  start = min(max(q0 + qc - span, 0), lk - span)
+  kc = k[:, :, start:start + span].float()
+  vc = v[:, :, start:start + span].float()
+  s = torch.einsum("bkgqd,bkcd->bkgqc", q5.float() * dh ** -0.5, kc)
+  qpos = q0 + torch.arange(qc, device=q5.device)
+  kpos = start + torch.arange(span, device=q5.device)
+  diff = qpos[:, None] - kpos[None, :]
+  s = torch.where((diff >= 0) & (diff < window), s, NEG)
+  p = torch.softmax(s, dim=-1)
+  return torch.einsum("bkgqc,bkcd->bkgqd", p, vc).to(q5.dtype)
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int, q_chunk: int = 1024) -> torch.Tensor:
+  """Causal sliding-window attention: a query at position i sees the keys
+  at i - window + 1 .. i.  q (B, H, L, dh); k, v (B, Hkv, L, dh) -> (B, H,
+  L, dh) in q's dtype.
+
+  Each chunk of ``q_chunk`` queries attends to a key span of static length
+  ``window + q_chunk`` (clipped to the sequence), so the work is O(L *
+  (window + q_chunk)) and no O(L^2) logits exist.  The reference's
+  precondition holds: L a multiple of ``min(q_chunk, L)``.  Under autograd
+  each chunk is recomputed in the backward pass."""
+  b, h, lq, dh = q.shape
+  hkv, lk = k.shape[1], k.shape[2]
+  q_chunk = min(q_chunk, lq)
+  if lq % q_chunk:
+    raise ValueError(f"local_attention: length {lq} is not a multiple of "
+                     f"the query chunk {q_chunk}")
+  span = min(window + q_chunk, lk)
+  q5 = _gqa_split(q, hkv)
+  recompute = needs_grad(q, k, v)
+  outs = []
+  for q0 in range(0, lq, q_chunk):
+    qc = q5[:, :, :, q0:q0 + q_chunk]
+    if recompute:
+      outs.append(checkpoint(_local_chunk, qc, k, v, q0, window=window,
+                             span=span, use_reentrant=False))
+    else:
+      outs.append(_local_chunk(qc, k, v, q0, window=window, span=span))
+  return torch.cat(outs, dim=3).reshape(b, h, lq, dh)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_chunk: int = 256) -> torch.Tensor:
+  """Full (non-causal) attention over an encoder or image memory.  q (B, H,
+  Lq, dh); k, v (B, Hkv, Lk, dh) -> (B, H, Lq, dh) in q's dtype, the
+  softmax in float32.  Every query row is independent, so the queries go
+  in chunks of ``q_chunk`` (the reference's argument, which it leaves
+  unused) and no (Lq, Lk) block of all the queries exists at once."""
+  b, h, lq, dh = q.shape
+  hkv = k.shape[1]
+  q5 = _gqa_split(q, hkv).float() * dh ** -0.5
+  kf, vf = k.float(), v.float()
+  outs = []
+  for q0 in range(0, lq, q_chunk):
+    s = torch.einsum("bkgqd,bkcd->bkgqc", q5[:, :, :, q0:q0 + q_chunk], kf)
+    outs.append(torch.einsum("bkgqc,bkcd->bkgqd", torch.softmax(s, dim=-1),
+                             vf))
+  return torch.cat(outs, dim=3).reshape(b, h, lq, dh).to(q.dtype)
+
+
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
                    backend: str = "auto") -> torch.Tensor:
   """q: (B, H, L, dh); k, v: (B, Hkv, L, dh) -> (B, H, L, dh).
 
-  The rule: under autograd (grad enabled and q, k or v requiring grad) the
-  call goes to ``chunked_attention``; every other call goes to the kernel
-  (``backend`` as for every kernel: "cuda" launches it and raises on CPU
-  tensors, "ref" runs the plain version, "auto" picks by device).
+  The rule: a window takes ``local_attention``; otherwise, under autograd
+  (grad enabled and q, k or v requiring grad) the call goes to
+  ``chunked_attention``, and every other call to the kernel (``backend``
+  as for every kernel: "cuda" launches it and raises on CPU tensors, "ref"
+  runs the plain version, "auto" picks by device).
   """
   if window:
-    raise NotImplementedError(
-        "sliding-window attention (local_attention) is not ported yet; "
-        "ROADMAP.md lists it with the hybrid family")
+    return local_attention(q, k, v, window=window)
   if needs_grad(q, k, v):
     return chunked_attention(q, k, v, causal=causal)
   return ops.flash_attention(q, k, v, causal=causal, backend=backend)

@@ -4,8 +4,9 @@ port of ``src/repro/models/layers.py``).
 Matmul weights are stored (in_dim, out_dim), the reference's layout, so
 ``x @ w`` is the same product and carrying weights across is a copy.  Every
 cast sits where the reference has it: bf16 parity depends on it.
-``gelu_mlp`` and ``causal_conv1d`` come with the families that use them
-(ROADMAP.md).
+``jax.nn.gelu`` is the tanh approximation by default, so ``gelu`` is
+``F.gelu(approximate="tanh")``; ``softplus`` is ``jax.nn.softplus``'s
+``logaddexp(x, 0)``.
 
 The model axis's four communication ops are autograd functions over a
 group (a ``launch.mesh.ProcessMesh``): ``enter_group`` (identity forward,
@@ -72,6 +73,41 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
   g = x @ w_gate
   u = x @ w_up
   return (torch.nn.functional.silu(g.float()).to(x.dtype) * u) @ w_down
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+  """``jax.nn.gelu``'s default: the tanh approximation."""
+  return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+  """``jax.nn.softplus``: log(1 + exp(x)) as ``logaddexp(x, 0)``."""
+  return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+  """gelu(x @ w_up) @ w_down, the GeLU in float32 and cast back."""
+  return gelu((x @ w_up).float()).to(x.dtype) @ w_down
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor | None = None):
+  """Depthwise causal convolution.  x (B, L, C); w (W, C); ``state`` the
+  (B, W-1, C) inputs before x (zeros when None).  Returns (y (B, L, C),
+  new_state (B, W-1, C)): the last W-1 inputs, which a decode step carries
+  into the next.  The taps accumulate in x's dtype in the reference's
+  order (tap 0, the oldest input, first)."""
+  width = w.shape[0]
+  if state is None:
+    state = torch.zeros(x.shape[:-2] + (width - 1, x.shape[-1]),
+                        dtype=x.dtype, device=x.device)
+  xp = torch.cat([state.to(x.dtype), x], dim=-2)            # (B, L+W-1, C)
+  length = x.shape[-2]
+  y = torch.zeros_like(x)
+  for i in range(width):
+    y = y + xp[..., i:i + length, :] * w[i]
+  return y, xp[..., xp.shape[-2] - (width - 1):, :]
 
 
 def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

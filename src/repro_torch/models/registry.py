@@ -1,37 +1,50 @@
-"""Model: init / train forward and loss / prefill / decode for the dense
-decoder, and its layout over a training mesh (the port of
+"""Model: init / train forward and loss / prefill / decode for every
+architecture, and its layout over a training mesh (the port of
 ``src/repro/models/registry.py``).
 
-``Model`` wires the embedding -> one block module per layer -> final norm ->
-LM head.  It is an ``nn.Module`` whose parameters are drawn on ``device``
-from a ``torch.Generator`` with the reference's distributions (its own
-draws; ``interop.lm_params`` carries the reference's across).
+``Model`` wires the embedding -> one block module per layer (the config's
+pattern repeated, remainder layers included) -> final norm -> LM head, and
+for the enc-dec family a bidirectional encoder whose output is the cross
+blocks' memory (``Encoder``, the reference's ``_encode``; the VLM's memory
+is the batch's ``img_embeds``). It is an ``nn.Module`` whose parameters
+are drawn on ``device`` from a ``torch.Generator`` with the reference's
+distributions (its own draws; ``interop.lm_params`` carries the
+reference's across).
 
-Training: ``loss_fn`` is the reference's sequence-chunked cross-entropy
-(the (B, S, V) logits never exist at once), and under autograd every layer
-runs inside ``torch.utils.checkpoint`` by the ``remat`` policy ("dots"
-keeps the matmul outputs, "full" keeps nothing).  Attention under autograd
-takes ``chunked_attention`` (``attention.self_attention``'s rule); a
-forward under ``torch.no_grad()`` launches the flash kernel.
+Training: ``apply_train`` returns (logits, aux) and ``loss_fn`` (xent +
+aux, {"xent", "aux"}), aux the MoE load-balance terms summed over layers
+(0 without MoE).  ``loss_fn`` is the reference's sequence-chunked
+cross-entropy (the (B, S, V) logits never exist at once), and under
+autograd every layer runs inside ``torch.utils.checkpoint`` by the
+``remat`` policy ("dots" keeps the matmul outputs, "full" keeps nothing).
+Attention under autograd takes ``chunked_attention``
+(``attention.self_attention``'s rule); a forward under ``torch.no_grad()``
+launches the flash kernel for every causal, unwindowed layer.
 
 Layout: ``Parallelism`` and ``param_specs`` are the reference's, keyed by
-the port's parameter names (shapes from the config, ``param_shapes``).
-Given a ``launch.mesh.TrainMesh``, a ``Model`` holds only its rank's
-slices by those specs and runs the model axis as tensor parallelism:
+the port's parameter names (shapes from the config, ``param_shapes``; the
+stacked experts by the reference's ``ep`` / ``ep_pod`` rule).  Given a
+``launch.mesh.TrainMesh``, a ``Model`` holds only its rank's slices by
+those specs and runs the model axis as tensor parallelism:
 ``wq`` / ``wk`` / ``wv`` / ``gate`` / ``up`` split by column (whole heads:
 ``n_heads`` and ``n_kv_heads`` must be multiples of the axis), ``wo`` /
 ``down`` by row with their products summed over the model group, the
 embedding by vocabulary row (a masked lookup summed over the group) and
 the head by vocabulary column (``_chunked_xent`` combines the max, the sum
 of exponentials and the target's logit over the group, so no rank holds a
-(B, chunk, V) block).  Every sum is the group's rank-ordered sum
-(``ProcessMesh.sum``), so the replicated activations, and the gradients
-of the replicated leaves, have the same bits on every rank of a group.
-The data axis is the train step's (``train.train_step``).  ``fsdp``,
-``seq_shard`` and ``ep`` are spec-only (``launch/dryrun.py`` and MoE use
-them); ``_act`` is a GSPMD layout constraint with no runtime counterpart:
-a rank's activations are already laid out by the data it is handed.
-``cache_specs`` belongs to ``launch/dryrun.py`` (ROADMAP.md).
+(B, chunk, V) block).  The model axis runs the dense ("attn",) stack only
+(``check_supported``); every family runs on a data axis.  Every sum is
+the group's rank-ordered sum (``ProcessMesh.sum``), so the replicated
+activations, and the gradients of the replicated leaves, have the same
+bits on every rank of a group.  The data axis is the train step's
+(``train.train_step``); in training each rank routes its MoE groups as
+the whole batch's (``moe.moe_ffn``'s ``dp``: the groups cut from the
+global token count, f_e meaned over the group), so the data axis trains
+what one process does on the whole batch.  ``fsdp``, ``seq_shard``,
+``ep`` and ``ep_pod`` are spec-only (``launch/dryrun.py`` uses them);
+``_act`` is a GSPMD layout constraint with no runtime counterpart: a
+rank's activations are already laid out by the data it is handed.  ``cache_specs`` belongs to
+``launch/dryrun.py`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -48,22 +61,24 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, embed_init, enter_group,
                                        gather_group, leave_group, rms_norm,
                                        token_nll)
-from repro_torch.models.transformer import (TPShard, apply_block,
+from repro_torch.models.attention import chunked_attention
+from repro_torch.models.transformer import (TPShard, _attn_out, _ffn,
+                                            _project_qkv, apply_block,
                                             block_shapes, init_block,
                                             init_block_cache)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-  """Raise for what the port's decoder does not run yet."""
-  if cfg.family != "dense" or tuple(cfg.pattern) != ("attn",):
+def check_supported(cfg: ModelConfig, model: int = 1) -> None:
+  """Raise for what the port does not run yet: a model axis of more than
+  one rank on anything but the dense ("attn",) stack (the tensor-parallel
+  layout of experts, SSM, RG-LRU and cross-attention blocks)."""
+  if model > 1 and (cfg.family != "dense" or tuple(cfg.pattern) != ("attn",)
+                    or cfg.sliding_window):
     raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} with pattern {cfg.pattern} is "
-        "not ported yet (only dense ('attn',) stacks); ROADMAP.md lists the "
-        "other families")
-  if cfg.sliding_window:
-    raise NotImplementedError(
-        f"{cfg.name}: sliding-window attention is not ported yet; "
-        "ROADMAP.md lists it")
+        f"{cfg.name}: a model axis of {model} ranks runs only the dense "
+        f"('attn',) stack; the tensor-parallel layout of family "
+        f"{cfg.family!r} (pattern {cfg.pattern}) is not ported yet; "
+        "ROADMAP.md lists it.  Every family runs on a data axis (--mesh Dx1)")
 
 
 # ---------------------------------------------------------------------------
@@ -92,9 +107,15 @@ def param_shapes(cfg: ModelConfig) -> dict:
   out = {"embed": (cfg.vocab, cfg.d_model), "ln_f": (cfg.d_model,)}
   if not cfg.tie_embeddings:
     out["head"] = (cfg.d_model, cfg.vocab)
-  block = block_shapes(cfg)
-  for i in range(cfg.n_layers):
-    out.update({f"layers.{i}.{n}": shape for n, shape in block.items()})
+  blocks = {bt: block_shapes(bt, cfg) for bt in set(cfg.pattern)}
+  for i, bt in enumerate(cfg.full_pattern):
+    out.update({f"layers.{i}.{n}": shape for n, shape in blocks[bt].items()})
+  if cfg.encoder.n_layers:
+    out["encoder.ln_f"] = (cfg.d_model,)
+    enc = block_shapes("attn", cfg)
+    for j in range(cfg.encoder.n_layers):
+      out.update({f"encoder.layers.e{j}.{n}": shape
+                  for n, shape in enc.items()})
   return out
 
 
@@ -103,9 +124,12 @@ _COLUMN = ("wq", "wk", "wv", "gate", "up", "w_in", "w_x", "w_gate", "w_a",
 _ROW = ("wo", "down", "w_out")
 
 
-def _rule(name: str, ndim: int, mx: str) -> tuple:
-  """The reference's ``rule`` for a dense leaf (the stacked-expert branch
-  comes with MoE): a tuple of one entry a dim."""
+def _rule(name: str, ndim: int, par: Parallelism) -> tuple:
+  """The reference's ``rule``: a tuple of one entry a dim.  The stacked
+  experts (E, d, f) / (E, f, d) go on E over the model axis under ``ep``,
+  on E over the pod axis and f over the model axis under ``ep_pod``, and
+  on f over the model axis otherwise."""
+  mx = par.model_axis
   if name.endswith("embed"):
     base = (mx, None)
   elif name.endswith("head"):
@@ -116,6 +140,15 @@ def _rule(name: str, ndim: int, mx: str) -> tuple:
     base = (mx, None)
   else:
     base = ()
+  if (base and ".moe." in f".{name}" and ".shared." not in name
+      and name.endswith(("gate", "up", "down"))):
+    column = name.endswith(("gate", "up"))
+    if par.ep:
+      base = (mx, None, None)
+    elif par.ep_pod:
+      base = ("pod", None, mx) if column else ("pod", mx, None)
+    else:
+      base = (None, None, mx) if column else (None, mx, None)
   return (None,) * (ndim - len(base)) + base
 
 
@@ -178,18 +211,37 @@ def _check_divisibility(spec: tuple, shape, par: Parallelism) -> tuple:
   return tuple(out)
 
 
+def _stacked(cfg: ModelConfig, name: str) -> bool:
+  """Whether the reference stacks this leaf over the periods (a layer of
+  the periodic part; the remainder layers, the encoder and the embedding
+  are leaves of their own)."""
+  if not name.startswith("layers."):
+    return False
+  return int(name.split(".")[1]) < cfg.n_periods * len(cfg.pattern)
+
+
 def param_specs(cfg: ModelConfig, par: Parallelism = Parallelism()) -> dict:
   """The reference's ``Model.param_specs`` keyed by the port's parameter
   names: a tuple a leaf, one entry a dim (None, an axis name, or a tuple
-  of dp axes), from ``param_shapes``."""
-  return {name: _check_divisibility(
-      _add_fsdp(_rule(name, len(shape), par.model_axis), shape, par),
-      shape, par) for name, shape in param_shapes(cfg).items()}
+  of dp axes), from ``param_shapes``.  A layer of the periodic part is
+  ruled as the reference rules its stacked (n_periods, ...) leaf (fsdp's
+  size threshold and its choice of dim see the period dim too), then the
+  period dim's entry is dropped."""
+  out = {}
+  for name, shape in param_shapes(cfg).items():
+    lead = (cfg.n_periods,) if _stacked(cfg, name) else ()
+    full = lead + tuple(shape)
+    spec = _check_divisibility(
+        _add_fsdp(_rule(name, len(full), par), full, par), full, par)
+    out[name] = spec[len(lead):]
+  return out
 
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
-  """Raise unless attention splits over a model axis of ``model`` ranks by
-  whole heads (a head is never split)."""
+  """Raise unless the port runs ``cfg`` over a model axis of ``model``
+  ranks (``check_supported``) and attention splits over it by whole heads
+  (a head is never split)."""
+  check_supported(cfg, model)
   if model > 1 and (cfg.n_heads % model or cfg.n_kv_heads % model):
     raise ValueError(
         f"{cfg.name}: the model axis splits attention by whole heads, so "
@@ -241,7 +293,7 @@ class Model(nn.Module):
     as on one device, and the rank keeps its slice, so the model's values
     are the one-device model's whatever the mesh."""
     super().__init__()
-    check_supported(cfg)
+    check_supported(cfg, 1 if mesh is None else mesh.model)
     if remat not in REMATS:
       raise ValueError(f"remat {remat!r} not in {REMATS}")
     dev = resolve_device(device)
@@ -254,6 +306,8 @@ class Model(nn.Module):
     self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     split = mesh is not None and mesh.model > 1
     self.tp = mesh.tp if split else None
+    # the data group a training forward's MoE routes over (None: one rank)
+    self.dp = mesh.dp if mesh is not None and mesh.data > 1 else None
     mlp = split and self.specs["layers.0.mlp.gate"][1] is not None
     self.vocab_split = split and self.specs["embed"][0] is not None
     self.shard = TPShard(self.tp, mlp) if split else None
@@ -278,6 +332,8 @@ class Model(nn.Module):
       for name, p in layer.named_parameters():
         p.data = self._keep(f"layers.{i}.{name}", p.data)
       self.layers.append(layer)
+    if cfg.encoder.n_layers:
+      self.encoder = Encoder(cfg, dt, **kw)
     # leaves split over the model axis, and the replicated leaves used
     # inside a split region, whose gradients are partial on each rank: the
     # qk-norm gains (the qkv biases enter through split_group, whose
@@ -327,24 +383,51 @@ class Model(nn.Module):
       return h @ self._head()
     return gather_group(enter_group(h, self.tp) @ self._head(), self.tp)
 
-  def _train_block(self, btype: str, h: torch.Tensor, layer) -> torch.Tensor:
-    return apply_block(btype, h, layer, self.lcfg, mode="train",
-                       backend=self.backend, tp=self.shard)[0]
+  def _train_block(self, btype: str, h: torch.Tensor, layer, window: int,
+                   memory):
+    h, aux, _ = apply_block(btype, h, layer, self.lcfg, mode="train",
+                            window=window, memory=memory,
+                            backend=self.backend, tp=self.shard, dp=self.dp)
+    # checkpoint hands back tensors: an MLP block's aux (None) as a zero
+    return h, (torch.zeros((), device=h.device) if aux is None else aux)
 
-  def _stack(self, h, *, mode, caches=None, pos=None):
+  def _window(self, btype: str) -> int:
+    """The reference's ``win``: the sliding window of an "attn" block."""
+    cfg = self.cfg
+    return cfg.sliding_window if btype == "attn" and cfg.sliding_window else 0
+
+  def _stack(self, h, *, mode, caches=None, pos=None, memory=None):
+    """Every layer in order; returns (h, aux summed over the layers)."""
     remat = (mode == "train" and self.remat is not None
              and torch.is_grad_enabled())
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, (bt, layer) in enumerate(zip(self.cfg.full_pattern, self.layers)):
+      win = self._window(bt)
       if remat:  # "full": checkpoint's default keeps only the inputs
-        h = checkpoint(self._train_block, bt, h, layer, use_reentrant=False,
-                       **({"context_fn": functools.partial(
-                           create_selective_checkpoint_contexts, _keep_dots)}
-                          if self.remat == "dots" else {}))
+        h, a = checkpoint(self._train_block, bt, h, layer, win, memory,
+                          use_reentrant=False,
+                          **({"context_fn": functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _keep_dots)} if self.remat == "dots" else {}))
       else:
-        h, _ = apply_block(bt, h, layer, self.lcfg, mode=mode,
-                           cache=None if caches is None else caches[i],
-                           pos=pos, backend=self.backend, tp=self.shard)
-    return h
+        h, a, _ = apply_block(bt, h, layer, self.lcfg, mode=mode, window=win,
+                              memory=memory,
+                              cache=None if caches is None else caches[i],
+                              pos=pos, backend=self.backend, tp=self.shard,
+                              dp=self.dp if mode == "train" else None)
+      if a is not None:
+        aux = aux + a
+    return h, aux
+
+  def memory(self, batch: dict) -> torch.Tensor | None:
+    """The cross blocks' memory (the reference's ``_memory``): the encoder
+    over ``batch["frames"]`` (B, F, d) for the enc-dec family, the VLM's
+    ``batch["img_embeds"]`` (B, M, d) in the model dtype, None otherwise."""
+    if self.cfg.family == "encdec":
+      return self.encoder(batch["frames"])
+    if self.cfg.family == "vlm":
+      return batch["img_embeds"].to(self.dtype)
+    return None
 
   def _xent_chunk(self, h, labels, mask) -> torch.Tensor:
     """Summed masked NLL of one sequence chunk: the final norm, the head
@@ -388,36 +471,49 @@ class Model(nn.Module):
     return nll_sum / mask.sum().clamp_min(1.0)
 
   # --------------------------------------------------------------- public
-  def apply_train(self, batch: dict) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V), teacher forcing.  Under autograd
-    the layers follow ``remat`` and attention runs ``chunked_attention``;
-    under ``torch.no_grad()`` attention launches the kernel."""
+  def apply_train(self, batch: dict):
+    """tokens (B, S) [+ frames / img_embeds] -> (logits (B, S, V), aux),
+    teacher forcing; aux the MoE load-balance terms summed over layers
+    (a float32 zero without MoE).  Under autograd the layers follow
+    ``remat`` and attention runs ``chunked_attention``; under
+    ``torch.no_grad()`` attention launches the kernel."""
+    memory = self.memory(batch)
     h = self._embed(batch["tokens"])
-    return self._logits(self._stack(h, mode="train"))
+    h, aux = self._stack(h, mode="train", memory=memory)
+    return self._logits(h), aux
 
   def loss_fn(self, batch: dict, *, loss_chunk: int = 512):
-    """batch: tokens, labels (B, S) [+ mask (B, S) float32] -> (loss,
-    {"xent", "aux"}): the mean masked token cross-entropy through
-    ``_chunked_xent``, plus the auxiliary loss (0 for the dense family)."""
+    """batch: tokens, labels (B, S) [+ mask (B, S) float32, frames,
+    img_embeds] -> (xent + aux, {"xent", "aux"}): the mean masked token
+    cross-entropy through ``_chunked_xent`` and the MoE load-balance terms
+    summed over layers (0 without MoE)."""
+    memory = self.memory(batch)
     h = self._embed(batch["tokens"])
-    h = self._stack(h, mode="train")
+    h, aux = self._stack(h, mode="train", memory=memory)
     xent = self._chunked_xent(h, batch["labels"], batch.get("mask"),
                               loss_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return xent + aux, {"xent": xent, "aux": aux}
 
-  def init_cache(self, batch_size: int, max_len: int) -> list[dict]:
-    """One cache dict per layer (k, v, kpos; the rank's KV heads), on the
-    model's device."""
+  def init_cache(self, batch_size: int, max_len: int,
+                 memory: torch.Tensor | None = None) -> list[dict]:
+    """One cache dict per layer, on the model's device: an attention
+    layer's k, v, kpos (the rank's KV heads; the window's rows as a ring
+    in the hybrid family), a cross layer's memory K/V too (``memory``'s
+    length), a recurrent layer's conv and h."""
     return [init_block_cache(bt, self.lcfg, batch_size, max_len, self.dtype,
-                             self.device) for bt in self.cfg.full_pattern]
+                             self.device, memory)
+            for bt in self.cfg.full_pattern]
 
   @torch.no_grad()
-  def prefill(self, batch: dict, caches: list[dict]):
+  def prefill(self, batch: dict, caches: list[dict],
+              memory: torch.Tensor | None = None):
     """Fill ``caches`` (in place) from the prompt ``batch["tokens"]``
-    (B, S); returns (last-token logits (B, V), caches)."""
+    (B, S) (and the memory: ``memory`` if given, else ``self.memory
+    (batch)``); returns (last-token logits (B, V), caches)."""
+    if memory is None:
+      memory = self.memory(batch)
     h = self._embed(batch["tokens"])
-    h = self._stack(h, mode="prefill", caches=caches)
+    h, _ = self._stack(h, mode="prefill", caches=caches, memory=memory)
     return self._logits(h[:, -1:])[:, 0], caches
 
   @torch.no_grad()
@@ -425,8 +521,39 @@ class Model(nn.Module):
     """token (B, 1) at position ``pos`` (a Python int) against the caches,
     written in place; returns (logits (B, V), caches)."""
     h = self._embed(token)
-    h = self._stack(h, mode="decode", caches=caches, pos=int(pos))
+    h, _ = self._stack(h, mode="decode", caches=caches, pos=int(pos))
     return self._logits(h)[:, 0], caches
+
+
+class Encoder(nn.Module):
+  """The enc-dec family's bidirectional encoder (the reference's
+  ``_encode``): ``layers`` e0 .. e{n-1}, each an "attn" block's parameters
+  run with ``chunked_attention(causal=False)`` (never the kernel, as in
+  the reference), then the final norm ``ln_f``.  Frames (B, F, d) are the
+  stubbed modality frontend's embeddings."""
+
+  def __init__(self, cfg: ModelConfig, dtype, *, generator, device):
+    super().__init__()
+    self.cfg = cfg
+    self.dtype = dtype
+    self.layers = nn.ModuleDict({
+        f"e{j}": init_block("attn", cfg, dtype, generator=generator,
+                            device=device)
+        for j in range(cfg.encoder.n_layers)})
+    self.ln_f = nn.Parameter(torch.zeros((cfg.d_model,), device=device))
+
+  def forward(self, frames: torch.Tensor) -> torch.Tensor:
+    cfg = self.cfg
+    h = frames.to(self.dtype)
+    for p in self.layers.values():
+      x = rms_norm(h, p.ln1, cfg.rmsnorm_eps)
+      b, s, _ = x.shape
+      q, k, v = _project_qkv(x, p.attn, cfg,
+                             torch.arange(s, device=x.device))
+      h = h + _attn_out(chunked_attention(q, k, v, causal=False), p.attn, b,
+                        s)
+      h, _ = _ffn(h, p, cfg)
+    return rms_norm(h, self.ln_f, cfg.rmsnorm_eps)
 
 
 def build_model(cfg: ModelConfig, *, device="cuda",

@@ -1,26 +1,46 @@
-"""The dense decoder block (the port of ``src/repro/models/transformer.py``).
+"""The decoder blocks of every family (the port of
+``src/repro/models/transformer.py``).
 
-Three modes share one block implementation:
+Four block types (``config.py``): "attn" (self-attention, optionally
+windowed, + SwiGLU MLP or MoE), "cross" (an "attn" block plus
+cross-attention over an encoder or image memory before the FFN), "rec"
+(the RG-LRU recurrent block + MLP) and "mamba" (the Mamba-2 SSD block
+alone).  Three modes share one block implementation:
 
   train    (B, S) hidden states through the block, teacher forcing
-  prefill  the same, and the block's KV cache filled from slot 0
+  prefill  the same, and the block's cache filled
   decode   one token against the cache
 
 Parameters live in ``Params`` modules whose names follow the reference's
-pytree (``attn.wq``, ``mlp.gate``), one module per layer where the
-reference stacks periods.  Caches are dicts of tensors updated IN PLACE:
-the reference is functional and returns new caches; the port writes the
-given ones and returns them.  The MoE, RG-LRU, Mamba and cross-attention
-blocks and the reference's GSPMD ``_cache_spec`` come with their families
-(ROADMAP.md).
+pytree (``attn.wq``, ``mlp.gate``, ``moe.router``, ``rec.lam``,
+``mamba.a_log``, ``xattn.wq``), one module per layer where the reference
+stacks periods.  Caches are dicts of tensors updated IN PLACE: the
+reference is functional and returns new caches; the port writes the given
+ones and returns them.
 
-Over a model axis (``tp``, a ``TPShard``) a block holds its rank's heads
-and MLP columns and ``cfg`` is the rank's local config (``n_heads`` and
+Caches: an attention block's k, v (B, Hkv, S, dh) and kpos (S,) (-1 an
+empty slot).  In the hybrid family a windowed cache holds ``min(max_len,
+window)`` rows as a ring: decode writes position p at slot ``p % S`` and
+masks the keys outside the window by kpos; a prefill longer than the cache
+keeps the prompt's tail, position p at slot ``p % S`` too (the reference
+stores the tail in order from slot 0, which puts it at ``p % S`` only when
+the prompt length is a multiple of S; decoding past such a prompt then
+overwrites a key the window still needs, so the port's layout is the
+reference's where the reference is exact, and exact where it is not).  A
+cross block also holds xk, xv (B, Hkv, M, dh): the memory's keys and
+values, filled by the prefill and read by every decode step.  The "rec"
+and "mamba" blocks hold conv (B, W-1, C) in the model dtype and h (their
+float32 recurrent state).
+
+Over a model axis (``tp``, a ``TPShard``; dense "attn" stacks only, as
+``registry.check_supported`` rules) a block holds its rank's heads and MLP
+columns and ``cfg`` is the rank's local config (``n_heads`` and
 ``n_kv_heads`` divided by the axis; ``d_ff`` too when the MLP is split):
 the normed input enters the split region through ``enter_group``, the qkv
 biases (replicated leaves) through ``split_group``, and the ``wo`` /
 ``down`` products leave it through ``leave_group``.  Without ``tp`` the
-block runs exactly as on one device.
+block runs exactly as on one device.  The reference's GSPMD
+``_cache_spec`` has no runtime counterpart.
 """
 from __future__ import annotations
 
@@ -31,13 +51,15 @@ from torch import nn
 
 from repro_torch.kernels.ref import NEG
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, enter_group,
                                        leave_group, rms_norm, split_group,
                                        swiglu)
 
-NOT_PORTED = ("the MoE, RG-LRU, Mamba and cross-attention blocks are not "
-              "ported yet; ROADMAP.md lists them")
+BLOCKS = ("attn", "cross", "rec", "mamba")
 
 
 class Params(nn.Module):
@@ -69,19 +91,45 @@ class TPShard:
 # ---------------------------------------------------------------------------
 
 
-def block_shapes(cfg: ModelConfig) -> dict:
-  """The shapes of one dense block's leaves, by name, in its
-  ``state_dict`` order (no tensor is allocated)."""
-  d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
+def _attn_shapes(cfg: ModelConfig) -> dict:
+  d, dh = cfg.d_model, cfg.head_dim
   hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
-  out = {"ln1": (d,), "ln2": (d,), "attn.wq": (d, hq), "attn.wk": (d, hkv),
-         "attn.wv": (d, hkv), "attn.wo": (hq, d)}
+  out = {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv), "wo": (hq, d)}
   if cfg.qkv_bias:
-    out.update({"attn.bq": (hq,), "attn.bk": (hkv,), "attn.bv": (hkv,)})
+    out.update({"bq": (hq,), "bk": (hkv,), "bv": (hkv,)})
   if cfg.qk_norm:
-    out.update({"attn.q_norm": (dh,), "attn.k_norm": (dh,)})
-  out.update({"mlp.gate": (d, f), "mlp.up": (d, f), "mlp.down": (f, d)})
+    out.update({"q_norm": (dh,), "k_norm": (dh,)})
   return out
+
+
+def _under(prefix: str, shapes: dict) -> dict:
+  return {f"{prefix}.{n}": shape for n, shape in shapes.items()}
+
+
+def _ffn_shapes(cfg: ModelConfig) -> dict:
+  if cfg.moe.num_experts:
+    return _under("moe", MOE.moe_shapes(cfg))
+  d, f = cfg.d_model, cfg.d_ff
+  return {"mlp.gate": (d, f), "mlp.up": (d, f), "mlp.down": (f, d)}
+
+
+def block_shapes(btype: str, cfg: ModelConfig) -> dict:
+  """The shapes of one block's leaves, by name, in its ``state_dict``
+  order (no tensor is allocated)."""
+  d = cfg.d_model
+  if btype == "attn":
+    return {"ln1": (d,), "ln2": (d,), **_under("attn", _attn_shapes(cfg)),
+            **_ffn_shapes(cfg)}
+  if btype == "cross":   # a module's own leaves come before its children's
+    return {"ln1": (d,), "ln2": (d,), "lnx": (d,),
+            **_under("attn", _attn_shapes(cfg)), **_ffn_shapes(cfg),
+            **_under("xattn", _attn_shapes(cfg))}
+  if btype == "rec":
+    return {"ln1": (d,), "ln2": (d,), **_under("rec", RG.rglru_shapes(cfg)),
+            **_ffn_shapes(cfg)}
+  if btype == "mamba":
+    return {"ln1": (d,), **_under("mamba", SSM.mamba_shapes(cfg))}
+  raise ValueError(f"block {btype!r} not in {BLOCKS}")
 
 
 def _init_mlp(cfg: ModelConfig, dtype, generator, device) -> dict:
@@ -111,17 +159,39 @@ def _init_attn(cfg: ModelConfig, dtype, generator, device) -> dict:
   return p
 
 
+def _init_ffn(cfg: ModelConfig, dtype, generator, device) -> dict:
+  if cfg.moe.num_experts:
+    return {"moe": MOE.init_moe(cfg, dtype, generator=generator,
+                                device=device)}
+  return {"mlp": _init_mlp(cfg, dtype, generator, device)}
+
+
 def init_block(btype: str, cfg: ModelConfig, dtype, *, generator,
                device) -> Params:
   """One block's parameters, drawn from ``generator`` with the reference's
   distributions (norm gains float32 zeros, biases zeros)."""
-  if btype != "attn" or cfg.moe.num_experts:
-    raise NotImplementedError(f"block {btype!r}: {NOT_PORTED}")
   d = cfg.d_model
-  return Params({"ln1": torch.zeros((d,), device=device),
-                 "attn": _init_attn(cfg, dtype, generator, device),
-                 "ln2": torch.zeros((d,), device=device),
-                 "mlp": _init_mlp(cfg, dtype, generator, device)})
+  kw = dict(generator=generator, device=device)
+
+  def zeros():
+    return torch.zeros((d,), device=device)
+
+  if btype == "attn":
+    tree = {"ln1": zeros(), "attn": _init_attn(cfg, dtype, generator, device),
+            "ln2": zeros(), **_init_ffn(cfg, dtype, generator, device)}
+  elif btype == "cross":
+    tree = {"ln1": zeros(), "attn": _init_attn(cfg, dtype, generator, device),
+            "ln2": zeros(), **_init_ffn(cfg, dtype, generator, device),
+            "lnx": zeros(),
+            "xattn": _init_attn(cfg, dtype, generator, device)}
+  elif btype == "rec":
+    tree = {"ln1": zeros(), "rec": RG.init_rglru(cfg, dtype, **kw),
+            "ln2": zeros(), **_init_ffn(cfg, dtype, generator, device)}
+  elif btype == "mamba":
+    tree = {"ln1": zeros(), "mamba": SSM.init_mamba(cfg, dtype, **kw)}
+  else:
+    raise ValueError(f"block {btype!r} not in {BLOCKS}")
+  return Params(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -129,22 +199,61 @@ def init_block(btype: str, cfg: ModelConfig, dtype, *, generator,
 # ---------------------------------------------------------------------------
 
 
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+  """An attention cache's rows: the window's in the hybrid family (a
+  ring), else ``max_len``."""
+  if cfg.sliding_window and cfg.family == "hybrid":
+    return min(max_len, cfg.sliding_window)
+  return max_len
+
+
 def init_block_cache(btype: str, cfg: ModelConfig, batch: int, max_len: int,
-                     dtype, device) -> dict:
-  """k, v (B, Hkv, max_len, dh) zeros in the model dtype; kpos (max_len,)
-  int32 -1 (an empty slot)."""
-  if btype != "attn":
-    raise NotImplementedError(f"block {btype!r}: {NOT_PORTED}")
-  shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-  return {"k": torch.zeros(shape, dtype=dtype, device=device),
-          "v": torch.zeros(shape, dtype=dtype, device=device),
-          "kpos": torch.full((max_len,), -1, dtype=torch.int32,
+                     dtype, device, memory: torch.Tensor | None = None
+                     ) -> dict:
+  """Zeros in the model dtype (the recurrent states float32); kpos int32
+  -1 (an empty slot).  A cross block's memory K/V take ``memory``'s length
+  (``n_img_tokens`` without one)."""
+  zeros = dict(dtype=dtype, device=device)
+  if btype in ("attn", "cross"):
+    shape = (batch, cfg.n_kv_heads, cache_len(cfg, max_len), cfg.head_dim)
+    c = {"k": torch.zeros(shape, **zeros), "v": torch.zeros(shape, **zeros),
+         "kpos": torch.full((shape[2],), -1, dtype=torch.int32,
+                            device=device)}
+    if btype == "cross":
+      n_mem = memory.shape[1] if memory is not None else cfg.n_img_tokens
+      mshape = (batch, cfg.n_kv_heads, n_mem, cfg.head_dim)
+      c["xk"] = torch.zeros(mshape, **zeros)
+      c["xv"] = torch.zeros(mshape, **zeros)
+    return c
+  if btype == "rec":
+    w = RG.lru_width(cfg)
+    return {"conv": torch.zeros((batch, cfg.rec.conv_width - 1, w), **zeros),
+            "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}
+  if btype == "mamba":
+    s = cfg.ssm
+    return {"conv": torch.zeros((batch, s.conv_width - 1, SSM.conv_dim(cfg)),
+                                **zeros),
+            "h": torch.zeros((batch, SSM.n_heads(cfg), s.head_dim,
+                              s.d_state), dtype=torch.float32,
                              device=device)}
+  raise ValueError(f"block {btype!r} not in {BLOCKS}")
 
 
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
+
+
+def _project_q(x, p, cfg: ModelConfig, positions, tp=None):
+  """q (B, H, S, dh): the projection, its bias, the qk-norm and rope."""
+  b, s, _ = x.shape
+  q = x @ p.wq
+  if cfg.qkv_bias:
+    q = q + split_group(p.bq, None if tp is None else tp.group)
+  q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+  if cfg.qk_norm:
+    q = rms_norm(q, p.q_norm, cfg.rmsnorm_eps)
+  return apply_rope(q.transpose(1, 2), positions, cfg.rope_theta)
 
 
 def _project_qkv(x, p, cfg: ModelConfig, positions, tp=None):
@@ -153,43 +262,59 @@ def _project_qkv(x, p, cfg: ModelConfig, positions, tp=None):
   model axis the heads are the rank's and so are the biases' slices."""
   b, s, _ = x.shape
   dh = cfg.head_dim
-  q = x @ p.wq
   k = x @ p.wk
   v = x @ p.wv
   if cfg.qkv_bias:
     group = None if tp is None else tp.group
-    q = q + split_group(p.bq, group)
     k = k + split_group(p.bk, group)
     v = v + split_group(p.bv, group)
-  q = q.reshape(b, s, cfg.n_heads, dh)
   k = k.reshape(b, s, cfg.n_kv_heads, dh)
   v = v.reshape(b, s, cfg.n_kv_heads, dh)
   if cfg.qk_norm:
-    q = rms_norm(q, p.q_norm, cfg.rmsnorm_eps)
     k = rms_norm(k, p.k_norm, cfg.rmsnorm_eps)
-  q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta)
   k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta)
-  return q, k, v.transpose(1, 2)
+  return _project_q(x, p, cfg, positions, tp), k, v.transpose(1, 2)
+
+
+def _memory_kv(memory, p, cfg: ModelConfig):
+  """The memory's keys and values (B, Hkv, M, dh): plain projections (no
+  bias, norm or rope, as in the reference)."""
+  mb, ms, _ = memory.shape
+
+  def heads(w):
+    return (memory @ w).reshape(mb, ms, cfg.n_kv_heads,
+                                cfg.head_dim).transpose(1, 2)
+  return heads(p.wk), heads(p.wv)
 
 
 def _attn_out(attn, p, b, s):
   return attn.transpose(1, 2).reshape(b, s, -1) @ p.wo
 
 
-def _ffn(h, p, cfg: ModelConfig, tp=None):
+def _ffn(h, p, cfg: ModelConfig, tp=None, dp=None):
+  """The FFN sub-block: (h + FFN(norm(h)), aux).  aux is the MoE
+  load-balance term, None for an MLP; ``dp`` the data group h is a shard
+  of (``moe.moe_ffn``)."""
   x = rms_norm(h, p.ln2, cfg.rmsnorm_eps)
+  if cfg.moe.num_experts:
+    y, aux = MOE.moe_ffn(x, p.moe, cfg, dp=dp)
+    return h + y, aux
   if tp is None or not tp.mlp:
-    return h + swiglu(x, p.mlp.gate, p.mlp.up, p.mlp.down)
+    return h + swiglu(x, p.mlp.gate, p.mlp.up, p.mlp.down), None
   y = swiglu(enter_group(x, tp.group), p.mlp.gate, p.mlp.up, p.mlp.down)
-  return h + leave_group(y, tp.group)
+  return h + leave_group(y, tp.group), None
 
 
-def _decode_attention(q, cache, pos: int, cfg: ModelConfig, dtype):
+def _decode_attention(q, cache, pos: int, window: int, cfg: ModelConfig,
+                      dtype):
   """One token against the cache, masked to slots written at positions
-  <= pos: the reference's inline einsum / softmax, in float32."""
+  <= pos (and within the window): the reference's inline einsum / softmax,
+  in float32."""
   kc, vc, kpos = cache["k"], cache["v"], cache["kpos"]
   b = q.shape[0]
   valid = (kpos >= 0) & (kpos <= pos)
+  if window:
+    valid = valid & (kpos > pos - window)
   qd = A._gqa_split(q, cfg.n_kv_heads)[..., 0, :]           # (B, Hkv, G, dh)
   sc = torch.einsum("bkgd,bksd->bkgs", qd.float() * cfg.head_dim ** -0.5,
                     kc.float())
@@ -199,49 +324,112 @@ def _decode_attention(q, cache, pos: int, cfg: ModelConfig, dtype):
   return attn.reshape(b, cfg.n_heads, 1, cfg.head_dim).to(dtype)
 
 
-def apply_block(btype: str, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
-                mode: str, cache: dict | None = None, pos: int | None = None,
-                backend: str = "auto", tp: TPShard | None = None):
-  """Returns (h, cache); ``cache`` is written in place in the prefill and
-  decode modes.  ``pos`` (decode) is the new token's position, a Python
-  int; ``backend`` picks the attention kernel or its plain version; ``tp``
-  the rank's place on the model axis (``cfg`` then the local config).  The
-  reference's ``window`` (sliding-window blocks, ring-buffer decode) comes
-  with the hybrid family."""
-  if btype != "attn":
-    raise NotImplementedError(f"block {btype!r}: {NOT_PORTED}")
-  if mode not in ("train", "prefill", "decode"):
-    raise ValueError(f"mode {mode!r}")
+def _fill_cache(cache, k, v, s: int, window: int):
+  """A prefill's keys and values into the cache: from slot 0 when the
+  prompt fits, else its tail, position p at slot p % S when windowed (the
+  ring decode reads) and in order otherwise (a full cache shorter than
+  the prompt)."""
+  s_cache = cache["k"].shape[2]
+  dev = k.device
+  if s <= s_cache:
+    cache["k"][:, :, :s] = k
+    cache["v"][:, :, :s] = v
+    cache["kpos"][:s] = torch.arange(s, dtype=torch.int32, device=dev)
+    return
+  pos = torch.arange(s - s_cache, s, dtype=torch.int32, device=dev)
+  slots = pos.long() % s_cache if window else torch.arange(s_cache,
+                                                           device=dev)
+  cache["k"][:, :, slots] = k[:, :, -s_cache:]
+  cache["v"][:, :, slots] = v[:, :, -s_cache:]
+  cache["kpos"][slots] = pos
+
+
+def _attention(h, p, cfg, *, mode, window, cache, pos, positions, backend,
+               tp):
+  """The self-attention sub-block: h + attention(norm(h))."""
   b, s, _ = h.shape
   x = rms_norm(h, p.ln1, cfg.rmsnorm_eps)
-  if mode == "decode":
-    positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
-  else:
-    positions = torch.arange(s, device=h.device)
   if tp is not None:
     x = enter_group(x, tp.group)
   q, k, v = _project_qkv(x, p.attn, cfg, positions, tp)
-
   if mode == "decode":
-    slot = min(pos, cache["k"].shape[2] - 1)
+    s_cache = cache["k"].shape[2]
+    slot = pos % s_cache if window else min(pos, s_cache - 1)
     cache["k"][:, :, slot] = k[:, :, 0]
     cache["v"][:, :, slot] = v[:, :, 0]
     cache["kpos"][slot] = pos
-    attn = _decode_attention(q, cache, pos, cfg, h.dtype)
+    attn = _decode_attention(q, cache, pos, window, cfg, h.dtype)
   else:
-    attn = A.self_attention(q, k, v, causal=True, backend=backend)
+    attn = A.self_attention(q, k, v, causal=True, window=window,
+                            backend=backend)
     if mode == "prefill":
-      s_cache = cache["k"].shape[2]
-      if s <= s_cache:
-        cache["k"][:, :, :s] = k
-        cache["v"][:, :, :s] = v
-        cache["kpos"][:s] = torch.arange(s, dtype=torch.int32,
-                                         device=h.device)
-      else:  # a cache shorter than the prompt keeps the prompt's tail
-        cache["k"].copy_(k[:, :, -s_cache:])
-        cache["v"].copy_(v[:, :, -s_cache:])
-        cache["kpos"].copy_(torch.arange(s - s_cache, s, dtype=torch.int32,
-                                         device=h.device))
+      _fill_cache(cache, k, v, s, window)
   out = _attn_out(attn, p.attn, b, s)
-  h = h + (out if tp is None else leave_group(out, tp.group))
-  return _ffn(h, p, cfg, tp), cache
+  return h + (out if tp is None else leave_group(out, tp.group))
+
+
+def _cross(h, p, cfg, *, mode, memory, cache, positions):
+  """The cross-attention sub-block: h + cross_attention(norm(h), memory).
+  The memory's K/V are computed from ``memory`` (train), computed and
+  stored (prefill) or read from the cache (decode)."""
+  b, s, _ = h.shape
+  q = _project_q(rms_norm(h, p.lnx, cfg.rmsnorm_eps), p.xattn, cfg,
+                 positions)
+  if mode == "decode":
+    xk, xv = cache["xk"], cache["xv"]
+  else:
+    xk, xv = _memory_kv(memory, p.xattn, cfg)
+    if mode == "prefill":
+      cache["xk"].copy_(xk)
+      cache["xv"].copy_(xv)
+  return h + _attn_out(A.cross_attention(q, xk, xv), p.xattn, b, s)
+
+
+def _recurrent(h, p, cfg, *, mode, cache, block, sub):
+  """The "rec" / "mamba" sub-block: h + block(norm(h)) over the block's
+  parameters ``sub``, the decode state read from and the final state
+  written to the cache."""
+  x = rms_norm(h, p.ln1, cfg.rmsnorm_eps)
+  state = (cache["conv"], cache["h"]) if mode == "decode" else None
+  y, (conv_new, h_new) = block(x, sub, cfg, decode_state=state)
+  if mode != "train":
+    cache["conv"].copy_(conv_new)
+    cache["h"].copy_(h_new)
+  return h + y
+
+
+def apply_block(btype: str, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
+                mode: str, window: int = 0,
+                memory: torch.Tensor | None = None,
+                cache: dict | None = None, pos: int | None = None,
+                backend: str = "auto", tp: TPShard | None = None,
+                dp=None):
+  """Returns (h, aux, cache): aux the block's MoE load-balance term (a
+  float32 scalar) or None; ``cache`` is written in place in the prefill
+  and decode modes.  ``window`` the attention's sliding window (0: none);
+  ``memory`` (B, M, d) the encoder or image memory of a cross block (train
+  and prefill); ``pos`` (decode) the new token's position, a Python int;
+  ``backend`` picks the attention kernel or its plain version; ``tp`` the
+  rank's place on the model axis (``cfg`` then the local config); ``dp``
+  the data group h is a shard of, for the MoE routing (train mode)."""
+  if mode not in ("train", "prefill", "decode"):
+    raise ValueError(f"mode {mode!r}")
+  if btype not in BLOCKS:
+    raise ValueError(f"block {btype!r} not in {BLOCKS}")
+  if btype == "mamba":   # no FFN
+    return _recurrent(h, p, cfg, mode=mode, cache=cache,
+                      block=SSM.mamba_block, sub=p.mamba), None, cache
+  if btype == "rec":
+    h = _recurrent(h, p, cfg, mode=mode, cache=cache,
+                   block=RG.recurrent_block, sub=p.rec)
+  else:
+    positions = (torch.full((1,), pos, dtype=torch.int32, device=h.device)
+                 if mode == "decode" else
+                 torch.arange(h.shape[1], device=h.device))
+    h = _attention(h, p, cfg, mode=mode, window=window, cache=cache,
+                   pos=pos, positions=positions, backend=backend, tp=tp)
+    if btype == "cross":
+      h = _cross(h, p, cfg, mode=mode, memory=memory, cache=cache,
+                 positions=positions)
+  h, aux = _ffn(h, p, cfg, tp, dp)
+  return h, aux, cache

@@ -4,7 +4,10 @@ port of ``src/repro/serve/serve_step.py``).
 PyTorch runs eagerly, so nothing is compiled per call: the reference's jit
 cache (``_SERVE_FN_CACHE``) has no counterpart, and ``make_serve_fns``
 returns the model's own steps.  Every prefill launches the flash-attention
-kernel once per layer (``backend`` "auto" on the card).
+kernel once per causal, unwindowed attention layer (``backend`` "auto" on
+the card): every layer of a dense or MoE stack, each self-attention of the
+VLM's and the enc-dec decoder's layers; none in Mamba-2 or RecurrentGemma
+(windowed attention, ``models.attention.local_attention``).
 """
 from __future__ import annotations
 
@@ -14,11 +17,12 @@ from repro_torch.models.registry import Model
 
 
 def make_serve_fns(model: Model):
-  """Returns (prefill_fn, decode_fn): ``prefill_fn(batch, caches)`` and
-  ``decode_fn(token, pos, caches)``, each returning (logits, caches)."""
+  """Returns (prefill_fn, decode_fn): ``prefill_fn(batch, caches,
+  memory=None)`` and ``decode_fn(token, pos, caches)``, each returning
+  (logits, caches)."""
 
-  def prefill_fn(batch, caches):
-    return model.prefill(batch, caches)
+  def prefill_fn(batch, caches, memory=None):
+    return model.prefill(batch, caches, memory)
 
   def decode_fn(token, pos, caches):
     return model.decode_step(token, pos, caches)
@@ -30,8 +34,11 @@ def make_serve_fns(model: Model):
 def generate(model: Model, batch: dict, *, steps: int,
              max_len: int | None = None, temperature: float = 0.0,
              generator: torch.Generator | None = None) -> torch.Tensor:
-  """Greedy / temperature sampling: prompt ``batch["tokens"]`` (B, S) ->
-  (B, steps) generated ids (int64), on the model's device.
+  """Greedy / temperature sampling: prompt ``batch["tokens"]`` (B, S)
+  [+ ``frames`` / ``img_embeds``] -> (B, steps) generated ids (int64), on
+  the model's device.  The memory (the encoder's output, or the image
+  embeddings) is built once and sizes the cross blocks' caches, as in the
+  reference.
 
   Greedy picks the argmax, ties to the lowest index as ``jnp.argmax`` does.
   Temperature sampling draws Gumbel noise from ``generator`` (on the
@@ -42,9 +49,10 @@ def generate(model: Model, batch: dict, *, steps: int,
   tokens = batch["tokens"]
   b, s = tokens.shape
   max_len = max_len or (s + steps)
-  caches = model.init_cache(b, max_len)
+  memory = model.memory(batch)
+  caches = model.init_cache(b, max_len, memory=memory)
   prefill_fn, decode_fn = make_serve_fns(model)
-  logits, caches = prefill_fn(batch, caches)
+  logits, caches = prefill_fn(batch, caches, memory)
   if temperature > 0.0 and generator is None:
     generator = torch.Generator(device=model.device).manual_seed(0)
   out = []

@@ -1428,6 +1428,76 @@ def test_cuda_eval_step_kernel_path_matches_plain(cuda_device, dtype):
     assert abs(losses["auto"] - losses["ref"]) <= 2e-2
 
 
+FAMILIES = ("deepseek-moe-16b", "grok-1-314b", "mamba2-2.7b",
+            "recurrentgemma-2b", "llama-3.2-vision-90b", "whisper-tiny")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cuda_families_kernel_route_matches_plain(cuda_device, arch, dtype):
+  """Every other family at the reduced size on the card: the prefill with
+  the flash kernel (one launch a causal, unwindowed attention layer: the
+  MoE, VLM and whisper decoder layers; none for Mamba-2 or the windowed
+  RecurrentGemma) against ``backend="ref"`` (no launch) on the same
+  weights, last-token logits within 1e-4 (f32) or 3e-2 (bf16) of their
+  scale; greedy tokens through ``generate`` equal in float32; decode
+  against teacher forcing within 2e-3 in float32."""
+  import dataclasses
+
+  from repro_torch import configs
+  from repro_torch.kernels import flash_attention as fa
+  from repro_torch.models import Model
+  from repro_torch.serve import generate
+  cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)),
+                            dtype=dtype)
+  model = Model(cfg, device=cuda_device,
+                generator=torch.Generator(device=cuda_device).manual_seed(3))
+  g = torch.Generator(device=cuda_device).manual_seed(4)
+  b, s, steps = 2, 40, 4
+  batch = {"tokens": torch.randint(0, cfg.vocab, (b, s + steps), generator=g,
+                                   device=cuda_device)}
+  if cfg.family == "encdec":
+    batch["frames"] = torch.randn(b, cfg.encoder.n_frames, cfg.d_model,
+                                  generator=g, device=cuda_device)
+  if cfg.family == "vlm":
+    batch["img_embeds"] = torch.randn(b, cfg.n_img_tokens, cfg.d_model,
+                                      generator=g, device=cuda_device)
+  prompt = dict(batch, tokens=batch["tokens"][:, :s])
+  flash_layers = 0 if cfg.sliding_window else sum(
+      bt in ("attn", "cross") for bt in cfg.full_pattern)
+  last, toks = {}, {}
+  for backend in ("auto", "ref"):
+    model.backend = backend
+    ops.reset_launch_counts()
+    tc0 = fa.tc_launches
+    mem = model.memory(prompt)
+    last[backend], _ = model.prefill(prompt, model.init_cache(
+        b, s + steps, memory=mem))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == (
+        flash_layers if backend == "auto" else 0), backend
+    assert fa.tc_launches - tc0 == (
+        flash_layers if backend == "auto" and dtype == "bfloat16" else 0)
+    toks[backend] = generate(model, prompt, steps=steps)
+  tol = 1e-4 if dtype == "float32" else 3e-2
+  scale = float(last["ref"].float().abs().max())
+  assert float((last["auto"].float() - last["ref"].float()).abs().max()) \
+      <= tol * scale
+  if dtype == "bfloat16":
+    return
+  assert torch.equal(toks["auto"], toks["ref"])
+  model.backend = "auto"
+  with torch.no_grad():
+    train, _ = model.apply_train(batch)
+  caches = model.init_cache(b, s + steps, memory=model.memory(prompt))
+  got, caches = model.prefill(prompt, caches)
+  _close(got, train[:, s - 1], 2e-3)
+  for t in range(s, s + steps):
+    got, caches = model.decode_step(batch["tokens"][:, t:t + 1], t, caches)
+    _close(got, train[:, t], 2e-3)
+
+
 # one rank of test_cuda_service_over_ranks_matches_stacked (under torchrun,
 # gloo, every rank on the current card); rank 0 also runs every call
 # stacked

@@ -36,7 +36,6 @@ from repro.serve import generate as j_generate  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import interop, no_tf32  # noqa: E402
 from repro_torch.models import Model, ModelConfig  # noqa: E402
-from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.serve import generate  # noqa: E402
 
@@ -111,19 +110,19 @@ def _reference_run(arch: str):
 
 
 def test_configs_match_reference():
-  """The port's dense configs, their parameter counts and their reduced
-  variants equal the reference's; the other families name ROADMAP.md."""
+  """The port's configs, their parameter counts and their reduced
+  variants equal the reference's, and the port has every architecture
+  the reference has."""
   for name, cfg in tconfigs.ARCHS.items():
     ref = jconfigs.get_config(name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref), name
     assert cfg.param_count() == ref.param_count()
     assert (dataclasses.asdict(tconfigs.reduced(cfg))
             == dataclasses.asdict(jconfigs.reduced(ref)))
-  assert set(tconfigs.ARCHS) | set(tconfigs.NOT_PORTED) == set(jconfigs.ARCHS)
+  assert set(tconfigs.ARCHS) == set(jconfigs.ARCHS)
   assert tconfigs.get_config("qwen3-4b").param_count() == 4_411_228_160
-  for name in tconfigs.NOT_PORTED:
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-      tconfigs.get_config(name)
+  with pytest.raises(KeyError, match="no such architecture"):
+    tconfigs.get_config("qwen3-0b")
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -159,9 +158,10 @@ def test_layers_match_reference(dtype):
 def test_apply_train_matches_reference(arch):
   _, _, tm = _models(arch)
   toks, train, *_ = _reference_run(arch)
-  got = tm.apply_train({"tokens": torch.tensor(toks)})
+  got, aux = tm.apply_train({"tokens": torch.tensor(toks)})
   assert got.shape == (B, S + STEPS, tm.cfg.vocab)
   _close(_np(got), train, TOL)
+  assert float(aux) == 0.0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -241,7 +241,7 @@ def test_decode_matches_teacher_forcing(arch):
   forward position by position (tests/test_models.py's check)."""
   _, _, tm = _models(arch)
   toks = torch.tensor(_tokens(tm.cfg, seed=12))
-  train = tm.apply_train({"tokens": toks})
+  train, _ = tm.apply_train({"tokens": toks})
   caches = tm.init_cache(B, S + STEPS)
   last, caches = tm.prefill({"tokens": toks[:, :S]}, caches)
   _close(_np(last), _np(train[:, S - 1]), TOL)
@@ -258,7 +258,7 @@ def test_bf16_model_matches_reference():
   assert tm.layers[0].attn.q_norm.dtype == torch.float32
   toks = _tokens(tm.cfg, seed=13)
   train, _ = jm.apply_train(params, {"tokens": jnp.asarray(toks)}, PAR)
-  got = tm.apply_train({"tokens": torch.tensor(toks)})
+  got, _ = tm.apply_train({"tokens": torch.tensor(toks)})
   assert got.dtype == torch.bfloat16
   _close(_np(got), train, TOL_BF16)
   jc = jm.init_cache(B, S + STEPS)
@@ -296,18 +296,34 @@ def test_interop_bf16_pytree_is_bit_exact():
 
 
 def test_model_refuses_what_is_not_ported():
+  """What stays refused: a model axis of more than one rank on anything but
+  the dense ("attn",) stack, through ``check_supported`` and the
+  launcher's check (before it looks for torchrun); every family builds on
+  one device and passes a data-only axis."""
+  from repro_torch.launch import train as launch_train
+  from repro_torch.models.registry import check_model_axis, check_supported
   base = tconfigs.reduced(tconfigs.get_config("qwen3-4b"))
-  for cfg in (dataclasses.replace(base, family="moe"),
-              dataclasses.replace(base, pattern=("attn", "rec")),
-              dataclasses.replace(base, sliding_window=32),
-              ModelConfig(name="ssm", family="ssm", n_layers=2, d_model=64,
-                          n_heads=2, n_kv_heads=2, d_ff=0, vocab=32,
-                          pattern=("mamba",))):
+  refused = [tconfigs.reduced(tconfigs.get_config(a)) for a in (
+      "deepseek-moe-16b", "mamba2-2.7b", "recurrentgemma-2b",
+      "llama-3.2-vision-90b", "whisper-tiny")]
+  refused += [dataclasses.replace(base, sliding_window=32),
+              dataclasses.replace(base, pattern=("attn", "rec"))]
+  for cfg in refused:
+    check_supported(cfg)
+    check_model_axis(cfg, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-      Model(cfg, device="cpu")
-  q = torch.zeros(1, 4, 8, 32)
+      check_supported(cfg, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+      check_model_axis(cfg, 2)
+  check_supported(base, 2)
   with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-    TA.self_attention(q, q[:, :2], q[:, :2], window=4)
+    launch_train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "1x2",
+                       "--device", "cpu", "--steps", "1"])
+  with pytest.raises(SystemExit, match="torchrun"):
+    launch_train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "2x1",
+                       "--device", "cpu", "--steps", "1"])
+  for cfg in refused[:5]:
+    assert isinstance(Model(cfg, device="cpu"), Model)
 
 
 def test_temperature_sampling_is_valid_and_reproducible():

@@ -185,7 +185,7 @@ def model_case(rank, res, twins):
     b = BATCHES[0]
     out["model/eval_loss"] = make_eval_step(m)(b)["loss"].numpy()
     with torch.no_grad():
-      out["model/logits"] = m.apply_train(b).numpy()
+      out["model/logits"] = m.apply_train(b)[0].numpy()
     caches = m.init_cache(b["tokens"].shape[0], 12)
     first, caches = m.prefill({"tokens": b["tokens"][:, :8]}, caches)
     out["model/prefill"] = first.numpy()
