@@ -74,7 +74,8 @@ calls, counting each kernel's launches around each path:
     4 cards), and a library run (this script's ``--dist-service DIR``
     mode, one rank of it) of the service-queries schedule with rank 1's
     shards failed through the heartbeat board before a last epoch, every
-    answer equal to the stacked service's;
+    answer equal to the stacked service's (the launches of this phase,
+    and the CLI runs and library run of ``e2e dist``, side by side);
   * the graph-cut path of Sec. 5 / 6.3 (non-monotone max-cut, RandomGreedy
     through ``greedi_reference`` with local evaluation, Alg. 3 under a
     partition matroid as ``examples/maxcut_constrained_torch.py`` runs it,
@@ -101,6 +102,23 @@ calls, counting each kernel's launches around each path:
     memory, the flash launches a prefill (28, 2, 0, 0, 10, 4), greedy
     tokens against the plain version at 2 x 512 -> 8, and decode against
     teacher forcing at the reduced size in float32;
+  * the model axis of every family (phase ``e2e families tp``): 4 gloo
+    ranks on the card in one torchrun launch (this script's
+    ``--families-tp DIR`` mode, one rank of it) serve and train each
+    family at full width over a ``--mesh``, beside one-process runs of
+    the same depths, seeds and inputs, 4 new tokens a request:
+    deepseek-moe-16b over 1x4 with its experts split by width (TP) and
+    dealt whole (ep; 28 layers, 2 x 512; trains 4 layers), grok-1-314b
+    over 1x4 under ep (2 layers, 2 x 1024; trains at the reduced width),
+    mamba2-2.7b over 1x4 (64 layers, 1 x 1024; trains 8),
+    llama-3.2-vision-90b over 1x4 (10 layers, 1 x 1024; trains 3),
+    recurrentgemma-2b over 2x2 (26 layers, 2 x 3072, past its window;
+    trains 3) and whisper-tiny over 2x2 (4 + 4 layers, 8 x 432): greedy
+    tokens against one process's up to a bf16 near-tie (the MoE routing
+    replayed), every flash launch at the rank's heads against the plain
+    version, deepseek's TP and ep logits against each other, the
+    replicated leaves bit for bit after each train step and the losses
+    within 2e-2 of one process's;
   * the training path (``repro_torch.train``, ``launch/train.py
     --select-coreset``): the launcher's coreset step (4096 documents of
     width 64, m = 8, kappa = 256, k_final = 1024) on the facility-select
@@ -165,6 +183,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1259,6 +1278,22 @@ def torchrun(args, timeout: int = 600):
   return time.perf_counter() - t0, out
 
 
+_LAUNCHES = None
+
+
+def torchrun_async(args, timeout: int = 600):
+  """``torchrun(args)`` in a thread of its own: a future of its (wall
+  seconds, stdout).  A phase starts the launches that share no state and
+  fit on the card together side by side, so their ranks' start-up
+  overlaps; each wall then includes the host and the card shared with
+  the others."""
+  global _LAUNCHES
+  if _LAUNCHES is None:
+    from concurrent.futures import ThreadPoolExecutor
+    _LAUNCHES = ThreadPoolExecutor(max_workers=8)
+  return _LAUNCHES.submit(torchrun, args, timeout)
+
+
 def dist_liveness_rank(out_dir: str) -> None:
   """One rank of e2e dist's library run (``chip_smoke.py --dist-liveness
   DIR`` under torchrun): the fast engine over a gloo mesh of 4 ranks on the
@@ -1313,9 +1348,11 @@ def e2e_dist(sz: Sizes, stacked: dict):
   bit (``stacked``: e2e full-size's and e2e tree's CLI runs; the generic
   engine's flat run here) and each rank's peak must stay within a quarter
   of the stacked peak plus 0.5 GiB; a failed rank fails the smoke.  With
-  4 or more cards the same runs go over nccl, one rank a card.  Then one
-  library run, ``greedi_sharded_fast(mesh=)`` with rank 1's shards past
-  the liveness deadline, against the stacked run with the same ages.
+  4 or more cards the same runs go over nccl, one rank a card.  Beside
+  them one library run, ``greedi_sharded_fast(mesh=)`` with rank 1's
+  shards past the liveness deadline, against the stacked run with the
+  same ages.  The gloo launches run side by side (``torchrun_async``), so
+  each wall includes the host and the card shared with the others.
   Prints each run's wall time, its collectives and their bytes."""
   import numpy as np
   import torch
@@ -1342,12 +1379,25 @@ def e2e_dist(sz: Sizes, stacked: dict):
     stacked["generic"] = (np.load(path), res["peak_gib"])
     rows["stacked generic"] = dict(wall_s=res["wall_s"],
                                    peak_gib=res["peak_gib"])
+    torch.cuda.empty_cache()
+    # each backend's runs side by side (the gloo ones with the library
+    # run): their rank peaks sum to about 52 GiB on the card
+    live_dir = os.path.join(tmp, "liveness")
+    os.mkdir(live_dir)
+    live = None
     for backend in backends:
+      started = {}
       for name, flags in runs.items():
-        out, stats = (os.path.join(tmp, f"{backend}{len(rows)}.{ext}")
+        out, stats = (os.path.join(tmp, f"{backend}{len(started)}.{ext}")
                       for ext in ("npy", "json"))
-        wall, _ = torchrun([*base, *flags, "--dist-backend", backend,
-                            "--out", out, "--stats-json", stats])
+        started[name] = (out, stats, torchrun_async(
+            [*base, *flags, "--dist-backend", backend, "--out", out,
+             "--stats-json", stats]))
+      if live is None:
+        live = torchrun_async([str(REPO / "chip_smoke.py"),
+                               "--dist-liveness", live_dir])
+      for name, (out, stats, launch) in started.items():
+        wall, _ = launch.result()
         ids = np.load(out)
         with open(stats) as f:
           done = [r for r in json.load(f)["stats"] if r["event"] == "done"]
@@ -1374,10 +1424,7 @@ def e2e_dist(sz: Sizes, stacked: dict):
             gathers=done["gathers"], gather_bytes=done["gather_bytes"],
             launches=launched, ids_equal=True)
     # the library run: rank 1's shards dead through liveness
-    live_dir = os.path.join(tmp, "liveness")
-    os.mkdir(live_dir)
-    wall, _ = torchrun([str(REPO / "chip_smoke.py"), "--dist-liveness",
-                        live_dir])
+    wall, _ = live.result()
     ranks = [dict(np.load(os.path.join(live_dir, f"rank{r}.npz")))
              for r in range(DIST_RANKS)]
   feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
@@ -1424,7 +1471,8 @@ def e2e_dist(sz: Sizes, stacked: dict):
           f"not run: {cards} card(s) here and nccl puts one rank on each "
           f"of {DIST_RANKS} cards")
   emit("e2e dist", n=sz.n, d=sz.d, k=sz.k, m=sz.m, ranks=DIST_RANKS,
-       shards_a_rank=sz.m // DIST_RANKS, nccl=nccl, runs=rows)
+       shards_a_rank=sz.m // DIST_RANKS, nccl=nccl,
+       launches_side_by_side=len(runs) + 1, runs=rows)
 
 
 def e2e_pre(sz: Sizes, ref_sel, fast_sel):
@@ -1725,7 +1773,7 @@ def cli_obs_run(sz: Sizes):
   """``python -m repro_torch.launch.select`` in service mode at the CLI
   size with ``--trace-out``, ``--stats-json`` and ``--metrics-port 0``:
   its files parsed (a span an epoch, a record a stats line, the registry
-  snapshot)."""
+  snapshot).  Returns the phase's fields."""
   import json
   (REPO / "build").mkdir(exist_ok=True)
   with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
@@ -1750,9 +1798,9 @@ def cli_obs_run(sz: Sizes):
             "series"][0]["value"] == 2 and len(payload["metrics"][
                 "repro_epoch_eval_mass"]["series"]) == sz.m_cli,
         f"CLI obs run: spans {len(epochs)}, events {events}")
-  emit("cli obs", n=sz.n_cli, m=sz.m_cli, wall_s=wall, spans=len(recs),
-       events=events, metrics=len(payload["metrics"]),
-       epoch_wall_s=[r["dur_s"] for r in epochs])
+  return dict(n=sz.n_cli, m=sz.m_cli, wall_s=wall, spans=len(recs),
+              events=events, metrics=len(payload["metrics"]),
+              epoch_wall_s=[r["dur_s"] for r in epochs])
 
 
 def colsum_phase(label, s, cov, cols, launches, full=None):
@@ -1928,14 +1976,16 @@ def profiled(label: str, run, groups: dict | None = None) -> None:
   profiled wall time, which the profiler itself lengthens, so the share is
   a lower bound).  ``groups`` (name ->
   substrings of kernel names) adds the device time of each group and of
-  the rest."""
+  the rest.  Only the CUDA activity is recorded (the kernels and the
+  runtime calls that launch them): the host's operator events, several a
+  kernel, made the profiler's own processing the larger part of a
+  profile's time."""
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.empty_cache()
   sync()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     run()
     sync()
@@ -3649,8 +3699,11 @@ def e2e_service_dist(sz: Sizes):
   over nccl, one rank a card.  Then the library run (``service_schedule``
   on the facility service, rank 1's shards failed through the board before
   a last epoch) against the stacked service: every answer bit for bit on
-  every rank.  Prints ingest rows/s, epoch walls, query latency, the
-  collectives and their bytes beside the stacked run's."""
+  every rank.  The gloo launches and the library run go side by side
+  while this process makes the stacked answers, so every wall, stacked
+  or not, includes the host and the card shared with the others.  Prints
+  ingest rows/s, epoch walls, query latency, the collectives and their
+  bytes beside the stacked run's."""
   import numpy as np
   import torch
 
@@ -3676,25 +3729,53 @@ def e2e_service_dist(sz: Sizes):
     with open(path) as f:
       return json.load(f)["stats"]
 
+  def base_of(obj):
+    return common + (queries if obj != "info_gain" else [])
+
+  def start(backend):
+    """Every objective's CLI run over ``backend``, side by side."""
+    started = {}
+    for obj in gains:
+      out, stats = (os.path.join(tmp, f"{obj}_{backend}.{x}")
+                    for x in ("npy", "json"))
+      started[obj] = (out, stats, torchrun_async(
+          [*base_of(obj), "--objective", obj, "--dist-backend", backend,
+           "--out", out, "--stats-json", stats]))
+    return started
+
   (REPO / "build").mkdir(exist_ok=True)
   with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    # the gloo runs and the library run side by side (a rank's peak is
+    # under 0.6 GiB), while this process makes the stacked answers
+    by_backend = {"gloo": start("gloo")}
+    lib_dir = os.path.join(tmp, "library")
+    os.mkdir(lib_dir)
+    lib_launch = torchrun_async([str(REPO / "chip_smoke.py"),
+                                 "--dist-service", lib_dir])
+    stacked = {}
+    for obj in gains:
+      out, stats = (os.path.join(tmp, f"{obj}.{x}") for x in ("npy", "json"))
+      res = timed_run(lambda: cli.main([*base_of(obj)[2:], "--objective",
+                                        obj, "--out", out, "--stats-json",
+                                        stats]))
+      stacked[obj] = (res, np.load(out), records(stats))
+    feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
+    lib_res = timed_run(lambda: service_schedule(service_for(sz), feats, sz))
+    del feats
+    torch.cuda.empty_cache()
+    for backend in backends:
+      if backend not in by_backend:
+        by_backend[backend] = start(backend)
     for obj, kernels in gains.items():
-      base = common + (queries if obj != "info_gain" else [])
       events = {"epoch": ("f", "alive", "warm", "rescans", "docs", "live",
                           "cap"), "append": ("docs", "growths")}
       if obj != "info_gain":
         events.update(query=("est", "ids", "source"),
                       query_batch=("parity", "requests"))
-      out, stats = (os.path.join(tmp, f"{obj}.{x}") for x in ("npy", "json"))
-      res = timed_run(lambda: cli.main([*base[2:], "--objective", obj,
-                                        "--out", out, "--stats-json",
-                                        stats]))
-      want_ids, want = np.load(out), records(stats)
+      res, want_ids, want = stacked[obj]
       for backend in backends:
-        out, stats = (os.path.join(tmp, f"{obj}_{backend}.{x}")
-                      for x in ("npy", "json"))
-        wall, _ = torchrun([*base, "--objective", obj, "--dist-backend",
-                            backend, "--out", out, "--stats-json", stats])
+        out, stats, launch = by_backend[backend][obj]
+        wall, _ = launch.result()
         ids, got = np.load(out), records(stats)
         what = f"e2e service dist {backend} {obj}"
         check(np.array_equal(ids, want_ids), f"{what}: ids {ids.tolist()} "
@@ -3742,14 +3823,10 @@ def e2e_service_dist(sz: Sizes):
             exchanges=done["exchanges"],
             exchange_bytes=done["exchange_bytes"], launches=launched)
     # the library run: every answer of the schedule, rank 1's shards dead
-    lib_dir = os.path.join(tmp, "library")
-    os.mkdir(lib_dir)
-    wall, _ = torchrun([str(REPO / "chip_smoke.py"), "--dist-service",
-                        lib_dir])
+    wall, _ = lib_launch.result()
     ranks = [dict(np.load(os.path.join(lib_dir, f"rank{r}.npz")))
              for r in range(DIST_RANKS)]
-  feats = EmbeddedCorpus(n_docs=sz.n, feat_dim=sz.d, seed=0).features()
-  res = timed_run(lambda: service_schedule(service_for(sz), feats, sz))
+  res = lib_res
   want = res["result"]
   per = sz.m // DIST_RANKS
   alive = [not per <= s < 2 * per for s in range(sz.m)]
@@ -3797,6 +3874,8 @@ def e2e_service_dist(sz: Sizes):
           f"of {DIST_RANKS} cards")
   emit("e2e service dist", n=sz.n, d=sz.d, k=sz.k, m=sz.m,
        ranks=DIST_RANKS, shards_a_rank=sz.m // DIST_RANKS,
+       launches_side_by_side=len(gains) + 1,
+       stacked_beside_launches=True,
        append_block=sz.append_block, capacity0=sz.svc_cap0, nccl=nccl,
        runs=rows)
 
@@ -4545,6 +4624,17 @@ FLASH_CASES = (   # label, its e2e path, (B, H, Hkv, L, dh), dtype; causal
     ("family vlm", "family_llama-3.2-vision-90b", (2, 64, 8, 2048, 128),
      "bf16"),
     ("family whisper", "family_whisper-tiny", (8, 6, 6, 432, 64), "bf16"),
+    # e2e families tp's prefills at a rank's heads: deepseek-moe-16b and
+    # grok-1-314b (ep) and the VLM over 1x4, whisper's decoder over 2x2
+    # (half the rows a data replica)
+    ("family tp moe", "families_tp_deepseek-moe-16b_tp",
+     (2, 4, 4, 512, 128), "bf16"),
+    ("family tp grok", "families_tp_grok-1-314b_ep", (2, 12, 2, 1024, 128),
+     "bf16"),
+    ("family tp vlm", "families_tp_llama-3.2-vision-90b_tp",
+     (1, 16, 2, 1024, 128), "bf16"),
+    ("family tp whisper", "families_tp_whisper-tiny_tp", (4, 3, 3, 432, 64),
+     "bf16"),
 )
 
 
@@ -5393,7 +5483,7 @@ def e2e_train(sz):
       first), tokens/s, peak memory, loss and grad norm each step (all
       finite), and the eval loss within ``TOL_TRAIN_EVAL`` of the first
       step's loss (the same parameters and batch);
-  (c) the CLI: ``train_cli``.
+  (c) the CLI, ``train_cli``, runs later in ``e2e_launchers``.
   Returns (launch counts by path, the model and optimizer state and a
   batch for ``profile_train``, the single-process run's numbers and the
   coreset's ids for ``e2e_train_dist``)."""
@@ -5473,7 +5563,6 @@ def e2e_train(sz):
        flash_launches={"grad step": counts["train_grad_step"][
            "flash_attention"], "eval step": counts["train_eval"][
                "flash_attention"]})
-  emit("e2e train cli", **train_cli(sz))
   single = dict(sel=sel, losses=losses, grad_norms=norms, eval_loss=eval_loss,
                 ms_per_step=ms, peak_gib=peak)
   return counts, (model, opt, step, batches[0]), single
@@ -5619,15 +5708,17 @@ def profile_train(handles):
 # ---------------------------------------------------------------------------
 
 TRAIN_DIST_RANKS = 4
-TRAIN_DIST_STEPS = 3   # steps a run (ms a step: the median after the first)
-# (label, (data, model), layers)
+TRAIN_DIST_STEPS = 2   # batches drawn (ms a step: the one after the first)
+# (label, (data, model), layers, steps)
 # the 4x1 ranks each hold a whole replica: at 4 layers (1.18 B parameters)
 # AdamW's float32 temporaries of the 389 M-element embedding took four ranks
 # past 80 GB, so run b has 2 (0.98 B a replica); run a fitted at full depth
-# (14.13 GiB a rank) and runs 8 of the 36 layers to leave the time limit
-# room for the other model families
-TRAIN_DIST_RUNS = (("a 1x4", (1, 4), 8), ("b 2x2", (2, 2), 2),
-                   ("b 4x1", (4, 1), 2))
+# (14.13 GiB a rank) and runs 2 of the 36 layers to leave the time limit
+# room for the other model families and their model axis; the 4x1 run
+# takes one step (its ms a step is that step's), a step being 12-15 s of
+# the whole replica's gradient crossing gloo
+TRAIN_DIST_RUNS = (("a 1x4", (1, 4), 2, 2), ("b 2x2", (2, 2), 2, 2),
+                   ("b 4x1", (4, 1), 2, 1))
 TRAIN_DIST_CKPT_FROM = "b 2x2"         # the elastic save's layout ...
 TRAIN_DIST_RESTORE = ((1, 4), (4, 1))  # ... restored onto these and 1 process
 TOL_COMPRESS_BOUND = 1.001   # the mean's error over sum(scale) / D (fp slack)
@@ -5665,10 +5756,11 @@ def quantize_np(x, noise):
 
 
 def _note(base, what):
-  """A progress line of a train-dist rank on its standard error (the
-  launch's log): the step it reached and its device memory."""
+  """A progress line of a torchrun rank of this script on its standard
+  error (the launch's log): the step it reached and its device memory."""
   import torch
-  print(f"[train dist rank {base.rank}] {what}: "
+  print(f"[smoke rank {base.rank}] {what} at "
+        f"{time.perf_counter() - STARTED:.1f} s: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} peak",
         file=sys.stderr, flush=True)
@@ -5792,7 +5884,8 @@ def train_dist_run(label, shape, layers, base, batches, opt_cfg, keep=False):
                 step_gathers=gathers, step_gather_bytes=gbytes,
                 step_gather_s=[sum(w) for w in gather_s],
                 gather_ms_median=1e3 * statistics.median(
-                    w for ws in gather_s[1:] for w in ws),
+                    w for ws in gather_s[1 if len(gather_s) > 1 else 0:]
+                    for w in ws),
                 replicated_leaves=len(replicated), leaves=len(names))
   if keep:
     return fields, (model, opt, mesh)
@@ -6013,17 +6106,21 @@ def train_dist_rank(out_dir: str) -> None:
                                       TRAIN_DIST_STEPS))
   opt_cfg = OptConfig(lr=3e-4, total_steps=200, warmup_steps=10)
   res = {"runs": {}}
-  for label, shape, layers in TRAIN_DIST_RUNS:
+  for label, shape, layers, steps in TRAIN_DIST_RUNS:
     keep = label == TRAIN_DIST_CKPT_FROM
-    fields, handles = train_dist_run(label, shape, layers, base, batches,
-                                     opt_cfg, keep=keep)
+    fields, handles = train_dist_run(label, shape, layers, base,
+                                     batches[:steps], opt_cfg, keep=keep)
     res["runs"][label] = fields
     if keep:
       kept = [handles]
       del handles
+      t0 = time.perf_counter()
       res["elastic"], grad = train_dist_elastic(
           kept, base, os.path.join(out_dir, "ck"), batches[0])
+      res["elastic"]["phase_s"] = time.perf_counter() - t0
+      t0 = time.perf_counter()
       res["compression"] = train_dist_compression(grad, base)
+      res["compression"]["phase_s"] = time.perf_counter() - t0
       del grad
       torch.cuda.empty_cache()
   with open(os.path.join(out_dir, f"rank{base.rank}.json"), "w") as f:
@@ -6061,28 +6158,35 @@ def train_single(cfg, batches, opt_cfg):
 
 def train_dist_cli(sz):
   """The launcher under torchrun, 4 gloo ranks on the card, ``--reduced``:
-  ``--mesh 2x2`` to step 4 (a checkpoint every 2), then ``--mesh 4x1`` to
-  step 6, which must resume from step 4; the 2x2 run's losses against the
-  one-process launcher's."""
-  first, last = 4, 6
+  ``--mesh 2x2`` to step 2 (a checkpoint every 2), then ``--mesh 4x1`` to
+  step 4, which must resume from step 2; the 2x2 run's losses against the
+  one-process launcher's, which runs beside the 2x2 launch."""
+  first, last = 2, 4
   (REPO / "build").mkdir(exist_ok=True)
   outs, walls = [], []
   with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
     ck = os.path.join(tmp, "ck")
     common = ["-m", "repro_torch.launch.train", "--reduced", "--device",
               DEVICE, "--ckpt-every", "2", "--ckpt-dir", ck]
-    for mesh, steps in (("2x2", first), ("4x1", last)):
-      wall, out = torchrun([*common, "--mesh", mesh, "--dist-backend",
-                            "gloo", "--steps", str(steps)])
-      walls.append(wall)
-      outs.append(out)
-    one = subprocess.run([sys.executable, *common[:-1],
-                          os.path.join(tmp, "one"), "--steps", str(first)],
-                         cwd=REPO, capture_output=True, text=True,
-                         timeout=600, env=dict(os.environ,
-                                               PYTHONPATH=str(SRC)))
+    # the one-process run beside the 2x2 launch
+    one = subprocess.Popen([sys.executable, *common[:-1],
+                            os.path.join(tmp, "one"), "--steps", str(first)],
+                           cwd=REPO, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True,
+                           env=dict(os.environ, PYTHONPATH=str(SRC)))
+    try:
+      for mesh, steps in (("2x2", first), ("4x1", last)):
+        wall, out = torchrun([*common, "--mesh", mesh, "--dist-backend",
+                              "gloo", "--steps", str(steps)])
+        walls.append(wall)
+        outs.append(out)
+      one_out, one_err = one.communicate(timeout=600)
+    finally:
+      if one.poll() is None:
+        one.kill()
+        one.wait()
     check(one.returncode == 0, f"train dist CLI one process: "
-          f"{one.stderr[-2000:]}")
+          f"{one_err[-2000:]}")
     kept = sorted(os.listdir(ck))
   check("resumed" not in outs[0] and f"[train] done: steps 0..{first}" in
         outs[0] and "mesh 2x2 backend gloo" in outs[0], f"train dist CLI "
@@ -6096,14 +6200,30 @@ def train_dist_cli(sz):
     return [float(line.split("loss")[1].split()[0])
             for line in out.splitlines() if line.startswith("[train] step")]
 
-  got, want = losses(outs[0]), losses(one.stdout)
+  got, want = losses(outs[0]), losses(one_out)
   check(len(got) == len(want) == 2 and all(
       abs(a - b) <= TOL_TRAIN_EVAL for a, b in zip(got, want)),
       f"train dist CLI: 2x2 losses {got}, one process {want}")
   done = [line for line in outs[0].splitlines() if "[train] done" in line]
   return dict(meshes=["2x2", "4x1"], steps=[first, last], wall_s=walls,
+              one_process_beside_2x2=True,
               losses_2x2=got, losses_one=want, resumed_from=first,
               checkpoints=kept, done_2x2=done[0] if done else None)
+
+
+def e2e_launchers(sz):
+  """The phases that run a launcher in processes of its own, side by
+  side (each in a thread of this process, which waits): ``train_cli``,
+  ``train_dist_cli`` and ``cli_obs_run``.  Their checks are as when each
+  ran alone; each wall includes the host and the card shared with the
+  others."""
+  from concurrent.futures import ThreadPoolExecutor
+  phases = {"e2e train cli": train_cli, "e2e train dist cli": train_dist_cli,
+            "cli obs": cli_obs_run}
+  with ThreadPoolExecutor(max_workers=len(phases)) as pool:
+    running = {name: pool.submit(fn, sz) for name, fn in phases.items()}
+    for name, fut in running.items():
+      emit(name, side_by_side=list(phases), **fut.result())
 
 
 def e2e_train_dist(sz, single: dict):
@@ -6111,7 +6231,7 @@ def e2e_train_dist(sz, single: dict):
   ``torch.distributed.run``, 4 gloo ranks on this card
   (``chip_smoke.py --train-dist DIR``).
 
-  (a) ``--mesh 1x4`` at 8 layers (the model axis: heads, MLP columns
+  (a) ``--mesh 1x4`` at 2 layers (the model axis: heads, MLP columns
       and the vocabulary split over 4 ranks), (b) 2x2 and 4x1 at 2 layers,
       on the coreset batches of ``e2e train``: the eval step on the local
       heads (the flash kernel, one launch a layer), then the train steps;
@@ -6119,17 +6239,19 @@ def e2e_train_dist(sz, single: dict):
       leaves equal bit for bit after each step, every loss within
       ``TOL_TRAIN_EVAL`` of the one-process run of the same depth, seed and
       batches (``train_single``); ms a
-      step (the median after the first), tokens/s, each rank's peak, the
+      step (the median after the first; the 4x1 run takes one step, and
+      its ms a step is that step's), tokens/s, each rank's peak, the
       gathers and their bytes.  The 2x2 state is saved (the elastic
       checkpoint) and restored onto 1x4, 4x1 and one process, bit for bit;
       one more step's gradient, flattened, goes through the compressed
-      all-reduce (``train_dist_compression``).  Then the launcher:
-      ``train_dist_cli``.  Returns rank 0's launch counts of (a)'s eval
-      step for the kernels line."""
+      all-reduce (``train_dist_compression``).  The launcher,
+      ``train_dist_cli``, runs in ``e2e_launchers``.  Returns rank 0's
+      launch counts of (a)'s eval step for the kernels line."""
   import dataclasses as dc
   import statistics
 
   import numpy as np
+  import torch
 
   from repro_torch.configs import get_config
   from repro_torch.data.pipeline import EmbeddedCorpus, batches_from_indices
@@ -6142,24 +6264,28 @@ def e2e_train_dist(sz, single: dict):
                           seq_len=sz.train_seq, device=DEVICE)
   batches = list(batches_from_indices(corpus, single["sel"], sz.train_batch,
                                       TRAIN_DIST_STEPS))
-  singles = {}
-  for layers in {lay for _, _, lay in TRAIN_DIST_RUNS}:
-    r = train_single(dc.replace(cfg, n_layers=layers), batches, opt_cfg)
-    r["ms_per_step"] = statistics.median(r["step_wall_s"][1:]) * 1e3
-    singles[layers] = r
-  del batches
   (REPO / "build").mkdir(exist_ok=True)
   with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
     np.save(os.path.join(tmp, "coreset.npy"), np.asarray(single["sel"]))
-    wall, _ = torchrun([str(REPO / "chip_smoke.py"), "--train-dist", tmp],
-                       timeout=900)
+    launch = torchrun_async([str(REPO / "chip_smoke.py"), "--train-dist",
+                             tmp], timeout=900)
+    # the one-process runs while the ranks start (a few seconds of the
+    # card, before the ranks' first step)
+    singles = {}
+    for layers in {lay for _, _, lay, _ in TRAIN_DIST_RUNS}:
+      r = train_single(dc.replace(cfg, n_layers=layers), batches, opt_cfg)
+      r["ms_per_step"] = statistics.median(r["step_wall_s"][1:]) * 1e3
+      singles[layers] = r
+    del batches
+    torch.cuda.empty_cache()
+    wall, _ = launch.result()
     ranks = []
     for r in range(TRAIN_DIST_RANKS):
       with open(os.path.join(tmp, f"rank{r}.json")) as f:
         ranks.append(json.load(f))
   tokens = sz.train_batch * sz.train_seq
   runs = {}
-  for label, shape, layers in TRAIN_DIST_RUNS:
+  for label, shape, layers, _ in TRAIN_DIST_RUNS:
     one = singles[layers]
     per = [rk["runs"][label] for rk in ranks]
     for r, got in enumerate(per):
@@ -6172,8 +6298,9 @@ def e2e_train_dist(sz, single: dict):
           "eval_loss"]) <= TOL_TRAIN_EVAL, f"train dist {label} rank {r}: "
             f"losses {got['loss']} (eval {got['eval_loss']}) against one "
             f"process's {one['loss']} (eval {one['eval_loss']})")
+    after = 1 if len(per[0]["step_wall_s"]) > 1 else 0  # the first's wall
     ms = statistics.median(max(p["step_wall_s"][i] for p in per)
-                           for i in range(1, len(per[0]["step_wall_s"])))
+                           for i in range(after, len(per[0]["step_wall_s"])))
     ms *= 1e3
     runs[label] = dict(
         per[0], rank_peak_gib=[p["peak_gib"] for p in per],
@@ -6190,7 +6317,7 @@ def e2e_train_dist(sz, single: dict):
     # the host's wall inside the gathers (after a device sync each), the
     # median step's after the first, and a gather's median, by rank
     runs[label].update(
-        rank_gather_s_a_step=[statistics.median(p["step_gather_s"][1:])
+        rank_gather_s_a_step=[statistics.median(p["step_gather_s"][after:])
                               for p in per],
         rank_gather_ms_median=[p["gather_ms_median"] for p in per])
     del runs[label]["peak_gib"]
@@ -6200,9 +6327,529 @@ def e2e_train_dist(sz, single: dict):
        tol=TOL_TRAIN_EVAL, launch_wall_s=wall, runs=runs,
        elastic=ranks[0]["elastic"], compression=[rk["compression"]
                                                  for rk in ranks])
-  emit("e2e train dist cli", **train_dist_cli(sz))
   return {"train_dist_eval_1x4": {
       "flash_attention": ranks[0]["runs"]["a 1x4"]["eval_flash_launches"]}}
+
+
+# ---------------------------------------------------------------------------
+# the model axis of every family: e2e families tp
+# ---------------------------------------------------------------------------
+
+FAMILY_TP_RANKS = 4
+# (arch, (data, model), serve layers (None: the config's depth), (batch,
+# prompt, new tokens), the MoE layouts ("tp": each expert's width split;
+# "ep": whole experts dealt), train layers (None: the config's depth;
+# "reduced": the reduced width, grok-1's AdamW state exceeds the card at
+# full width even at one layer; the VLM's 2.1 B embedding and head and
+# 0.88 B a layer take 12 bytes a parameter in training, in one process as
+# over the four ranks, so it trains 3 layers, no cross block: whisper's
+# decoder trains those)); a 2x2 mesh serves half the rows a replica
+# The requests are smaller than e2e families' (a rank's activations cross
+# gloo on the host in every layer: 8.6 GB a rank for a 4 x 2048 deepseek
+# prefill; mamba's 194 gathers a decode step, about 1 s) so that the
+# phase keeps to its 150 s
+FAMILY_TP_RUNS = (
+    ("deepseek-moe-16b", (1, 4), None, (2, 512, 4), ("tp", "ep"), 4),
+    ("grok-1-314b", (1, 4), 2, (2, 1024, 4), ("ep",), "reduced"),
+    ("mamba2-2.7b", (1, 4), None, (1, 1024, 4), ("tp",), 8),
+    ("llama-3.2-vision-90b", (1, 4), 10, (1, 1024, 4), ("tp",), 3),
+    ("recurrentgemma-2b", (2, 2), None, (2, 3072, 4), ("tp",), 3),
+    ("whisper-tiny", (2, 2), None, (8, 432, 4), ("tp",), None),
+)
+FAMILY_TP_TRAIN = (2, 256, 1)   # rows, sequence, steps of a train run
+FAMILY_TP_SEED = 900
+# deepseek-moe-16b's TP and ep prefills are held within TOL_SERVE_BF16 at
+# this depth; at 28 layers the depth amplifies any bf16 rounding past it
+# (the kernel and plain routes 12 % apart, routing pinned: FAMILY_F32), so
+# there the layouts may be no further apart than TOL_F32_RATIO times one
+# process's kernel and plain routes on the same request
+FAMILY_TP_SHALLOW = 2
+
+
+def family_tp_cfgs(arch, serve_layers, train_layers):
+  """(serve config, train config) of a ``FAMILY_TP_RUNS`` row."""
+  import dataclasses as dc
+
+  from repro_torch.configs import get_config, reduced
+  full = get_config(arch)
+  serve = full if serve_layers is None else dc.replace(
+      full, n_layers=serve_layers)
+  train = (reduced(full) if train_layers == "reduced" else full
+           if train_layers is None else dc.replace(full,
+                                                   n_layers=train_layers))
+  return serve, train
+
+
+def family_tp_batches(cfg, seed):
+  """The train run's batches on the card (tokens, labels, mask and the
+  family's memory input), drawn from ``seed``: every process draws the
+  same."""
+  import torch
+  g = torch.Generator(device=DEVICE).manual_seed(seed)
+  rows, seq, steps = FAMILY_TP_TRAIN
+  out = []
+  for _ in range(steps):
+    b = family_inputs(cfg, g, rows, seq + 1)
+    toks = b.pop("tokens")
+    out.append(dict(b, tokens=toks[:, :-1], labels=toks[:, 1:],
+                    mask=torch.ones(rows, seq, device=DEVICE)))
+  return out
+
+
+def family_tp_serve_batch(cfg, seed, req):
+  import torch
+  bsz, plen, _ = req
+  return family_inputs(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                       bsz, plen)
+
+
+def family_tp_one(out_dir, i, row):
+  """The one-process runs of a ``FAMILY_TP_RUNS`` row at the same depths,
+  seeds and inputs: the greedy trace of the serve request (tokens, every
+  step's top-2 gap, the prefill's logits; the MoE routing recorded), and
+  the train run's losses.  Written to OUT_DIR/one<i>.npz."""
+  import numpy as np
+  import torch
+
+  from repro_torch.models import Model
+  from repro_torch.train import OptConfig, init_opt_state, make_train_step
+  arch, _, sl, req, _, tl = row
+  scfg, tcfg = family_tp_cfgs(arch, sl, tl)
+  seed = FAMILY_TP_SEED + 10 * i
+  out = {}
+  model = Model(scfg, device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(seed))
+  pin = PinnedRouting() if scfg.moe.num_experts else None
+  with pin.record() if pin else contextlib.nullcontext():
+    toks, logits = greedy_trace(model, family_tp_serve_batch(
+        scfg, seed + 1, req), req[2])
+  out.update(tokens=toks.cpu().numpy(), gaps=top2_gap(logits).cpu().numpy(),
+             prefill=logits[:, 0].cpu().numpy())
+  for j, t in enumerate(pin.calls if pin else ()):
+    out[f"route{j}"] = t.cpu().numpy()
+  if len(row[4]) == 2:   # the two routes' spread: the plain version's prefill
+    plain = PinnedRouting()
+    plain.calls = pin.calls[:scfg.n_layers]
+    batch = family_tp_serve_batch(scfg, seed + 1, req)
+    memory = model.memory(batch)
+    model.backend = "ref"
+    with plain.replay():
+      last, _ = model.prefill(batch, model.init_cache(
+          req[0], req[1], memory=memory), memory)
+    model.backend = "auto"
+    out["prefill_plain"] = last.float().cpu().numpy()
+    del batch, memory, last
+  del model, logits, pin
+  torch.cuda.empty_cache()
+  model = Model(tcfg, device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(seed + 2))
+  opt = init_opt_state(model)
+  step = make_train_step(model, OptConfig(lr=3e-4, total_steps=200,
+                                          warmup_steps=10))
+  pin = PinnedRouting() if tcfg.moe.num_experts else None
+  with pin.record() if pin else contextlib.nullcontext():
+    out["loss"] = np.array([float(step(opt, b)["loss"]) for b in
+                            family_tp_batches(tcfg, seed + 3)])
+  for j, t in enumerate(pin.calls if pin else ()):
+    out[f"train_route{j}"] = t.cpu().numpy()
+  del model, opt, step, pin
+  torch.cuda.empty_cache()
+  np.savez(os.path.join(out_dir, f"one{i}.npz"), **out)
+
+
+def family_tp_shallow(mesh, scfg, seed, req, layouts):
+  """The two MoE layouts' prefills at ``FAMILY_TP_SHALLOW`` layers, the
+  second replaying the first's routing: (max abs error, error over the
+  scale) of their last-token logits."""
+  import dataclasses as dc
+
+  import torch
+
+  from repro_torch.models import Model, Parallelism
+  cfg = dc.replace(scfg, n_layers=FAMILY_TP_SHALLOW)
+  pin, last = PinnedRouting(), []
+  for j, layout in enumerate(layouts):
+    par = Parallelism(dp_axes=("data",), dp_size=mesh.data,
+                      model_size=mesh.model, ep=layout == "ep")
+    model = built(mesh, cfg, lambda: Model(
+        cfg, device=mesh.device, mesh=mesh, par=par,
+        generator=torch.Generator(device=DEVICE).manual_seed(seed)))
+    batch = family_tp_serve_batch(cfg, seed + 1, req)
+    with pin.record() if j == 0 else pin.replay():
+      got, _ = model.prefill(batch, model.init_cache(req[0], req[1]))
+    last.append(got.float())
+    del model, batch
+  check(pin.i == len(pin.calls), f"families tp {scfg.name} shallow: "
+        f"{pin.i} MoE calls replayed of {len(pin.calls)}")
+  torch.cuda.empty_cache()
+  return errors(last[1], last[0])
+
+
+TURNS_LEAF_BYTES = 1 << 31   # float32 draws past this: build in turns
+
+
+def built(mesh, cfg, build):
+  """``build()`` of a model of ``cfg`` on every rank of ``mesh``, its
+  allocator's free blocks released after.  Every rank draws each leaf
+  whole before it keeps its slice, and four ranks' transient float32
+  leaves at once (grok-1's experts: 6 GiB each) would not fit the card
+  beside the kept weights: where a leaf's draw passes
+  ``TURNS_LEAF_BYTES`` the ranks build in turn (the others wait at a
+  barrier)."""
+  import torch
+  import torch.distributed as dist
+
+  from repro_torch.models.registry import param_shapes
+  largest = max(4 * math.prod(s) for s in param_shapes(cfg).values())
+  turns = range(mesh.world.world) if largest > TURNS_LEAF_BYTES else [None]
+  out = None
+  for r in turns:
+    if r in (None, mesh.rank):
+      out = build()
+      sync()
+      torch.cuda.empty_cache()
+    dist.barrier()
+  return out
+
+
+def family_tp_serve(mesh, scfg, layout, seed, req, one):
+  """One rank's serving of a ``FAMILY_TP_RUNS`` row over ``mesh``: where
+  the family has flash launches or MoE layers, a greedy trace first, the
+  one-process run's MoE routing replayed and every flash launch held
+  against the plain version on its own inputs (``LayerAttention``); then
+  one timed ``generate`` (the time to its prefill's end is the first
+  token's, the rest a decode step's; its flash launches counted), whose
+  tokens are the trace's where no routing was pinned.  Returns (fields,
+  the prefill's logits: the trace's, else the timed run's)."""
+  import torch
+
+  from repro_torch.kernels import flash_attention as fa
+  from repro_torch.kernels import ops
+  from repro_torch.models import Model, Parallelism
+  from repro_torch.serve import generate
+  par = Parallelism(dp_axes=("data",), dp_size=mesh.data,
+                    model_size=mesh.model, ep=layout == "ep")
+  model = built(mesh, scfg, lambda: Model(
+      scfg, device=mesh.device, mesh=mesh, par=par,
+      generator=torch.Generator(device=DEVICE).manual_seed(seed)))
+  d = mesh.coords["data"]
+  rows = req[0] // mesh.data
+  batch = {k: v[d * rows:(d + 1) * rows] for k, v in
+           family_tp_serve_batch(scfg, seed + 1, req).items()}
+  pin = pinned(one, "route")
+  layers = LayerAttention()
+  trace = None
+  if pin or flash_layers(scfg):
+    with pin.replay() if pin else contextlib.nullcontext(), layers.watch():
+      trace = greedy_trace(model, batch, req[2])
+    if pin:
+      check(pin.i == len(pin.calls), f"families tp {scfg.name}: {pin.i} "
+            f"MoE calls, the one-process run {len(pin.calls)}")
+  # the timed run: one generate, its prefill's end marked (a device sync,
+  # then the host clock and the gather counts) by a hook on the model
+  marks, real = [], model.prefill
+
+  def marked(*args, **kw):
+    got = real(*args, **kw)
+    sync()
+    marks.append((time.perf_counter(), mesh.gathers, mesh.gather_bytes,
+                  got[0]))
+    return got
+
+  model.prefill = marked
+  ops.reset_launch_counts()
+  tc0 = fa.tc_launches
+  g0, b0 = mesh.gathers, mesh.gather_bytes
+  sync()
+  t0 = time.perf_counter()
+  out = generate(model, batch, steps=req[2])
+  sync()
+  wall = time.perf_counter() - t0
+  del model.prefill
+  flash, tc = ops.launch_counts()["flash_attention"], fa.tc_launches - tc0
+  check(flash == flash_layers(scfg) and tc == flash, f"families tp "
+        f"{scfg.name} {layout}: {flash} flash launches a prefill ({tc} on "
+        f"tensor cores), expected {flash_layers(scfg)}")
+  (t1, g1, b1, prefill), steps = marks[0], req[2] - 1
+  toks = out if trace is None else trace[0]
+  if trace is not None:
+    prefill = trace[1][:, 0]
+    # a trace with the one-process routing pinned may pick other tokens
+    check(pin is not None or torch.equal(out, toks), f"families tp "
+          f"{scfg.name} {layout}: the timed run's tokens are not the "
+          "trace's")
+  check(bool(torch.isfinite(prefill).all()), f"families tp {scfg.name}: "
+        "logits not finite")
+  fields = dict(
+      layout=layout, ttft_s=t1 - t0,
+      decode_ms_per_token=(t0 + wall - t1) / steps * 1e3,
+      tokens_per_s=req[0] * req[2] / wall, wall_s=wall,
+      flash_launches_a_prefill=flash, layer_attention_calls=layers.calls,
+      layer_attention_max_err_over_scale=layers.worst,
+      prefill_gathers=g1 - g0, prefill_gather_bytes=b1 - b0,
+      decode_step_gathers=(mesh.gathers - g1) / steps,
+      decode_step_gather_bytes=(mesh.gather_bytes - b1) / steps,
+      tokens=toks.cpu().tolist(),
+      params_a_rank=sum(p.numel() for p in model.parameters()))
+  if pin:
+    fields.update(routing_flips=pin.flips, routed_tokens=pin.routed,
+                  free_routing_tokens_equal=int((out == toks).sum()))
+  prefill = prefill.float().clone()
+  del model, out, trace, marks
+  torch.cuda.empty_cache()
+  return fields, prefill
+
+
+def pinned(one, prefix):
+  """A ``PinnedRouting`` replaying the calls ``one`` recorded under
+  ``prefix`` (None where there are none: no MoE)."""
+  import torch
+  n = sum(k.startswith(prefix) and k[len(prefix):].isdigit() for k in one)
+  if not n:
+    return None
+  pin = PinnedRouting()
+  pin.calls = [torch.as_tensor(one[f"{prefix}{j}"], device=DEVICE)
+               for j in range(n)]
+  return pin
+
+
+def family_tp_train(mesh, tcfg, seed, one):
+  """One rank's train run over ``mesh`` on its data shard of the
+  batches (an MoE replaying the one-process run's routing, its forward
+  and its recomputed forward alike): after each step every data
+  replica's parameters and every model group's replicated leaves equal
+  bit for bit (fingerprints gathered over the groups)."""
+  import statistics
+
+  import torch
+
+  from repro_torch.models import Model
+  from repro_torch.train import OptConfig, init_opt_state, make_train_step
+  model = built(mesh, tcfg, lambda: Model(
+      tcfg, device=mesh.device, mesh=mesh,
+      generator=torch.Generator(device=DEVICE).manual_seed(seed)))
+  opt = init_opt_state(model)
+  step = make_train_step(model, OptConfig(lr=3e-4, total_steps=200,
+                                          warmup_steps=10))
+  d = mesh.coords["data"]
+  names = list(model.state_dict())
+  replicated = [i for i, n in enumerate(names) if n not in model.sharded]
+  losses, walls, gathers, gbytes = [], [], [], []
+  pin = pinned(one, "train_route")
+  for i, b in enumerate(family_tp_batches(tcfg, seed + 1)):
+    rows = b["tokens"].shape[0] // mesh.data
+    g0, b0 = mesh.gathers, mesh.gather_bytes
+    sync()
+    t0 = time.perf_counter()
+    with pin.replay() if pin else contextlib.nullcontext():
+      m = step(opt, {k: v[d * rows:(d + 1) * rows] for k, v in b.items()})
+    sync()
+    walls.append(time.perf_counter() - t0)
+    gathers.append(mesh.gathers - g0)
+    gbytes.append(mesh.gather_bytes - b0)
+    losses.append(float(m["loss"]))
+    fp = torch.stack([fingerprint(p) for p in model.state_dict().values()])
+    _same_rows(mesh.dp.gather_parts(fp), f"families tp {tcfg.name} step "
+               f"{i}: data replicas' parameters")
+    _same_rows(mesh.tp.gather_parts(fp[replicated]), f"families tp "
+               f"{tcfg.name} step {i}: the model group's replicated leaves")
+  if pin:
+    check(pin.i == len(pin.calls), f"families tp {tcfg.name} train: "
+          f"{pin.i} MoE calls, the one-process run {len(pin.calls)}")
+  fields = dict(n_layers=tcfg.n_layers, d_model=tcfg.d_model,
+                dtype=tcfg.dtype, loss=losses, step_wall_s=walls,
+                ms_per_step=statistics.median(walls) * 1e3,
+                step_gathers=gathers, step_gather_bytes=gbytes,
+                params_a_rank=sum(p.numel() for p in model.parameters()),
+                replicated_leaves=len(replicated), leaves=len(names),
+                **(dict(routing_flips=pin.flips, routed_tokens=pin.routed)
+                   if pin else {}))
+  del model, opt, step
+  torch.cuda.empty_cache()
+  return fields
+
+
+def families_tp_rank(out_dir: str) -> None:
+  """One rank of e2e families tp (``chip_smoke.py --families-tp DIR``
+  under torchrun, 4 gloo ranks on the card): every ``FAMILY_TP_RUNS`` row
+  over its mesh, serving then training, against the one-process runs in
+  DIR/one<i>.npz; writes DIR/rank<r>.json."""
+  sys.path.insert(0, str(SRC))
+  import numpy as np
+  import torch
+
+  from repro_torch import no_tf32
+  from repro_torch.launch.mesh import TrainMesh
+  no_tf32()
+  base = TrainMesh.from_env((FAMILY_TP_RANKS, 1), "gloo", DEVICE)
+  res = {}
+  for i, row in enumerate(FAMILY_TP_RUNS):
+    arch, shape, sl, req, layouts, tl = row
+    scfg, tcfg = family_tp_cfgs(arch, sl, tl)
+    seed = FAMILY_TP_SEED + 10 * i
+    one = dict(np.load(os.path.join(out_dir, f"one{i}.npz")))
+    mesh = TrainMesh.over(*shape, base.rank, base.device, "gloo")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    serve, prefills, t1 = [], {}, time.perf_counter()
+    for layout in layouts:
+      fields, prefills[layout] = family_tp_serve(mesh, scfg, layout, seed,
+                                                 req, one)
+      _note(base, f"{arch} {layout} served")
+      d, rows = mesh.coords["data"], req[0] // mesh.data
+      want = torch.as_tensor(one["prefill"][d * rows:(d + 1) * rows],
+                             device=DEVICE)
+      fields.update(errors=dict(zip(("prefill_vs_one_max_abs_err",
+                                     "prefill_vs_one_err_over_scale"),
+                                    errors(prefills[layout], want))))
+      serve.append(fields)
+    if len(layouts) == 2:
+      layout_err = errors(prefills[layouts[1]], prefills[layouts[0]])
+      shallow_err = family_tp_shallow(mesh, scfg, seed, req, layouts)
+      serve[0]["layouts"] = dict(zip((
+          "prefill_max_abs_err", "prefill_err_over_scale",
+          "shallow_prefill_max_abs_err", "shallow_prefill_err_over_scale"),
+          layout_err + shallow_err), shallow_layers=FAMILY_TP_SHALLOW)
+    del prefills
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    serve_s, t1 = time.perf_counter() - t1, time.perf_counter()
+    train = family_tp_train(mesh, tcfg, seed + 2, one)
+    _note(base, f"{arch} trained")
+    res[arch] = dict(mesh=f"{shape[0]}x{shape[1]}", serve=serve, train=train,
+                     serve_s=serve_s, train_s=time.perf_counter() - t1,
+                     serve_peak_gib=serve_peak,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     wall_s=time.perf_counter() - t0)
+    print(f"[families tp rank {base.rank}] {arch} done "
+          f"{res[arch]['wall_s']:.1f} s, peak {res[arch]['peak_gib']:.2f} "
+          "GiB", file=sys.stderr, flush=True)
+  with open(os.path.join(out_dir, f"rank{base.rank}.json"), "w") as f:
+    json.dump(res, f)
+  base.close()
+
+
+def e2e_families_tp(sz):
+  """The model axis of every family (``FAMILY_TP_RUNS``) at full width
+  over 4 gloo ranks on this card, in one torchrun launch
+  (``chip_smoke.py --families-tp DIR``), beside one-process runs of the
+  same depths, seeds and inputs made here first (``family_tp_one``).
+
+  Serving, each layout: greedy tokens equal the one-process run's up to
+  the first bf16 near-tie (a top-2 gap below ``TOL_SERVE_GAP`` in the
+  one-process run; the MoE routing replayed from it), every flash launch
+  within 3e-2 of its plain version on its own inputs at the rank's heads,
+  one launch a causal, unwindowed layer a prefill; deepseek-moe-16b's TP
+  and ep prefill logits within ``TOL_SERVE_BF16`` of their scale at
+  ``FAMILY_TP_SHALLOW`` layers, and at 28 no further apart than
+  ``TOL_F32_RATIO`` times one process's kernel and plain routes.
+  Training (an MoE replaying the one-process run's routing): after each
+  step every data replica's parameters and every model group's replicated
+  leaves equal bit for bit, each loss within ``TOL_TRAIN_EVAL`` of the
+  one-process run's.  One line an arch: first
+  token, ms a token, ms a step, each rank's peak, the all-gathers and
+  their bytes (a prefill, a decode step, a train step), the flash
+  launches a prefill.  Returns rank 0's flash launches by path."""
+  import statistics
+
+  import numpy as np
+  import torch
+  (REPO / "build").mkdir(exist_ok=True)
+  t_phase = time.perf_counter()
+  with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    one_s = []
+    for i, row in enumerate(FAMILY_TP_RUNS):
+      t0 = time.perf_counter()
+      family_tp_one(tmp, i, row)
+      one_s.append(time.perf_counter() - t0)
+      print(f"[smoke] families tp one process {row[0]}: {one_s[-1]:.1f} s",
+            file=sys.stderr, flush=True)
+    wall, _ = torchrun([str(REPO / "chip_smoke.py"), "--families-tp", tmp],
+                       timeout=600)
+    ones = [dict(np.load(os.path.join(tmp, f"one{i}.npz")))
+            for i in range(len(FAMILY_TP_RUNS))]
+    ranks = []
+    for r in range(FAMILY_TP_RANKS):
+      with open(os.path.join(tmp, f"rank{r}.json")) as f:
+        ranks.append(json.load(f))
+  counts = {}
+  for i, (arch, shape, sl, req, layouts, tl) in enumerate(FAMILY_TP_RUNS):
+    one = ones[i]
+    scfg, tcfg = family_tp_cfgs(arch, sl, tl)
+    per = [rk[arch] for rk in ranks]
+    rows = req[0] // shape[0]
+    agree = []
+    for j, layout in enumerate(layouts):
+      equal, first = 0, []
+      for r, p in enumerate(per):
+        mine = slice(r // shape[1] * rows, (r // shape[1] + 1) * rows)
+        got, want = np.asarray(p["serve"][j]["tokens"]), one["tokens"][mine]
+        near = one["gaps"][mine] < TOL_SERVE_GAP
+        tie = np.where(near.any(1), near.argmax(1), req[2])
+        upto = np.arange(req[2])[None, :] < tie[:, None]
+        check(got.shape == want.shape and bool(((got == want) | ~upto).all()),
+              f"families tp {arch} {layout} rank {r}: greedy tokens differ "
+              "from one process's before the first near-tie")
+        check(int(got.min()) >= 0 and int(got.max()) < scfg.vocab,
+              f"families tp {arch} {layout} rank {r}: bad tokens")
+        equal += int((got == want).sum())
+        first.append(tie.tolist())
+      agree.append(dict(rank_steps_before_near_tie=first,
+                        tokens_equal=equal,
+                        tokens_total=int(one["tokens"].size * shape[1])))
+      counts[f"families_tp_{arch}_{layout}"] = {
+          "flash_attention": per[0]["serve"][j]["flash_launches_a_prefill"]}
+    if len(layouts) == 2:   # the layouts against the two routes' spread
+      spread = errors(*(torch.as_tensor(one[k]) for k in (
+          "prefill", "prefill_plain")))[1]
+      for r, p in enumerate(per):
+        lay = p["serve"][0]["layouts"]
+        check(lay["shallow_prefill_err_over_scale"] <= TOL_SERVE_BF16,
+              f"families tp {arch} rank {r}: the {layouts} prefill logits at "
+              f"{FAMILY_TP_SHALLOW} layers {lay} apart")
+        check(lay["prefill_err_over_scale"] <= TOL_F32_RATIO * spread,
+              f"families tp {arch} rank {r}: the {layouts} prefill logits "
+              f"{lay['prefill_err_over_scale']} of their scale apart, one "
+              f"process's kernel and plain routes {spread}")
+      per[0]["serve"][0]["layouts"]["one_process_routes_err_over_scale"] = \
+          spread
+    for r, p in enumerate(per):
+      gap = max(abs(a - b) for a, b in zip(p["train"]["loss"], one["loss"]))
+      check(all(x == x for x in p["train"]["loss"]) and
+            gap <= TOL_TRAIN_EVAL, f"families tp {arch} train rank {r}: "
+            f"losses {p['train']['loss']}, one process {one['loss'].tolist()}")
+    serve = [dict({k: v for k, v in per[0]["serve"][j].items()
+                   if k != "tokens"},
+                  ttft_s=max(p["serve"][j]["ttft_s"] for p in per),
+                  decode_ms_per_token=max(p["serve"][j]["decode_ms_per_token"]
+                                          for p in per),
+                  **agree[j]) for j in range(len(layouts))]
+    train = dict(per[0]["train"], ms_per_step=statistics.median(
+        max(p["train"]["step_wall_s"][s] for p in per)
+        for s in range(FAMILY_TP_TRAIN[2])) * 1e3, one_process_loss=one[
+            "loss"].tolist(), max_loss_gap=max(
+                abs(a - b) for p in per for a, b in zip(p["train"]["loss"],
+                                                        one["loss"])))
+    emit(f"e2e families tp {arch}", arch=arch, mesh=per[0]["mesh"],
+         ranks=FAMILY_TP_RANKS, backend="gloo, one card",
+         d_model=scfg.d_model, serve_layers=scfg.n_layers, dtype=scfg.dtype,
+         batch=req[0], prompt=req[1], new_tokens=req[2], serve=serve,
+         train=dict(train, batch=FAMILY_TP_TRAIN[0], seq=FAMILY_TP_TRAIN[1]),
+         rank_peak_gib=[p["peak_gib"] for p in per],
+         rank_serve_peak_gib=[p["serve_peak_gib"] for p in per],
+         rank_wall_s=[p["wall_s"] for p in per],
+         rank_serve_s=[p["serve_s"] for p in per],
+         rank_train_s=[p["train_s"] for p in per], one_process_s=one_s[i],
+         tol=dict(bf16=TOL_SERVE_BF16, gap=TOL_SERVE_GAP,
+                  loss=TOL_TRAIN_EVAL),
+         reduced=[r for r in (
+             None if sl is None else f"serve n_layers {scfg.n_layers} of "
+             f"{family_tp_cfgs(arch, None, None)[0].n_layers}",
+             "train at the reduced width" if tl == "reduced" else None
+             if tl is None else f"train n_layers {tl}") if r])
+  emit("e2e families tp", one_process_s=sum(one_s), launch_wall_s=wall,
+       phase_s=time.perf_counter() - t_phase)
+  return counts
 
 
 # ---------------------------------------------------------------------------
@@ -6287,8 +6934,6 @@ def main() -> int:
   torch.cuda.empty_cache()
   e2e_obs(sz)
   torch.cuda.empty_cache()
-  cli_obs_run(sz)
-  torch.cuda.empty_cache()
   e2e_query_exact(sz)
   torch.cuda.empty_cache()
   cut_counts = {"paper": e2e_cut_paper(sz)}
@@ -6301,9 +6946,12 @@ def main() -> int:
   torch.cuda.empty_cache()
   train_counts.update(e2e_train_dist(sz, single))
   torch.cuda.empty_cache()
+  e2e_launchers(sz)
   serve_counts = e2e_serve(sz)
   torch.cuda.empty_cache()
   serve_counts.update(e2e_families(sz))
+  torch.cuda.empty_cache()
+  serve_counts.update(e2e_families_tp(sz))
   # kernel -> {path: launches} over the paths of its e2e phase; the train
   # paths ride along for the two kernels they launch
   by_path = {name: {p: c[name] for p, c in (
@@ -6392,6 +7040,9 @@ if __name__ == "__main__":
       sys.exit(0)
     if sys.argv[1:2] == ["--train-dist"]:
       train_dist_rank(sys.argv[2])
+      sys.exit(0)
+    if sys.argv[1:2] == ["--families-tp"]:
+      families_tp_rank(sys.argv[2])
       sys.exit(0)
     code = main()
   except SmokeFailure as e:

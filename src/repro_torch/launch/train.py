@@ -37,9 +37,9 @@ parallelism, ``models.registry``), each rank takes its data shard of the
 global batch (``SyntheticLM.batch(step, shard=d, num_shards=D)``, or rows
 d * b .. (d + 1) * b of a coreset batch), and the gradients are averaged
 over the data axis in rank order (``train.train_step``).  ``--arch`` takes
-every family on one process and on a data axis (``--mesh Dx1``); a model
-axis (M > 1) runs only the dense stack and is refused for the others
-(``models.registry.check_supported``, naming ROADMAP.md).  Over a data
+every family on one process and on any mesh whose model axis divides its
+query heads (``models.registry.check_model_axis``; the MoE experts split
+by width, the reference launcher's ``ep=False``).  Over a data
 axis an MoE family routes its groups as one process does on the whole
 batch, so a rank's tokens (its rows x ``--seq-len``) must be a multiple of
 the config's ``group_size``; other sizes are refused before any group is
@@ -53,8 +53,8 @@ mesh (one gather), so every rank trains on the same coreset.
 ``gloo`` (the CPU, or several ranks sharing one card); nothing switches
 either quietly.  Rank 0 prints the ``[train]`` lines; the ``done`` line
 carries every rank's peak memory and rank 0's collectives.  ``--mesh``
-outside torchrun, a mesh whose D x M is not the world size and heads that
-do not split over M are refused.  The reference's TPU flags have no
+outside torchrun, a mesh whose D x M is not the world size and a model
+axis that does not divide the architecture are refused.  The reference's TPU flags have no
 counterpart.
 """
 from __future__ import annotations

@@ -14,9 +14,14 @@ the group's sum backward: a replicated input entering a split region),
 ``leave_group`` (the sum forward, identity backward: partial products
 leaving it), ``gather_group`` (the last dim gathered forward, the rank's
 slice backward) and ``split_group`` (the rank's slice of the last dim
-forward, gathered backward).  Each sum is the group's rank-ordered sum, so
-every rank gets the same bits, forward and backward; a group of one rank
-(or None) makes each op the identity.
+forward, gathered backward).  Two compositions: ``gather_summed`` gathers
+an activation that each rank then reads a different part of (its
+gradient summed over the group, then the rank's slice: a reduce-scatter),
+and ``rms_norm(group=)`` normalizes over a last dim split over the group
+(the sum of squares summed forward and its gradient summed backward).
+Each sum is the group's rank-ordered sum, so every rank gets the same
+bits, forward and backward; a group of one rank (or None) makes each op
+the identity.
 """
 from __future__ import annotations
 
@@ -29,22 +34,30 @@ def dense_init(shape, dtype, *, generator: torch.Generator, device,
   cast to ``dtype``."""
   if scale is None:
     scale = shape[0] ** -0.5
-  return (torch.randn(shape, generator=generator, device=device)
-          * scale).to(dtype)
+  return torch.randn(shape, generator=generator, device=device).mul_(
+      scale).to(dtype)
 
 
 def embed_init(shape, dtype, *, generator: torch.Generator,
                device) -> torch.Tensor:
-  return (torch.randn(shape, generator=generator, device=device)
-          * 0.02).to(dtype)
+  return torch.randn(shape, generator=generator, device=device).mul_(
+      0.02).to(dtype)
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-  """x * rsqrt(mean(x^2) + eps) * (1 + gamma), in float32, cast back."""
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
+             group=None) -> torch.Tensor:
+  """x * rsqrt(mean(x^2) + eps) * (1 + gamma), in float32, cast back.
+  With ``group`` the last dim is one of the group's equal slices of the
+  normalized dim (``gamma`` the rank's slice too): the mean is the sum of
+  squares summed over the group (forward and, for the shared mean's
+  gradient, backward) over the whole width."""
   dt = x.dtype
   x = x.float()
-  var = torch.mean(x * x, dim=-1, keepdim=True)
+  if _alone(group):
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+  else:
+    ss = leave_group((x * x).sum(dim=-1, keepdim=True), group)
+    var = enter_group(ss, group) / (x.shape[-1] * group.world)
   return ((x * torch.rsqrt(var + eps)) * (1.0 + gamma.float())).to(dt)
 
 
@@ -200,6 +213,14 @@ def gather_group(x: torch.Tensor, group) -> torch.Tensor:
   """Every rank's last dim concatenated in rank order forward; the rank's
   slice of the gradient backward."""
   return x if _alone(group) else _Gather.apply(x, group)
+
+
+def gather_summed(x: torch.Tensor, group) -> torch.Tensor:
+  """``gather_group`` for an activation whose consumers differ by rank
+  (each reads another part of the whole): the last dim gathered forward;
+  backward, every rank's gradient of the whole summed over the group, then
+  the rank's slice (``enter_group`` after ``gather_group``)."""
+  return enter_group(gather_group(x, group), group)
 
 
 def split_group(x: torch.Tensor, group) -> torch.Tensor:

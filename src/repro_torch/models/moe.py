@@ -32,6 +32,21 @@ count, so a rank's tokens must be a whole number of groups
 routed share f_e (summed over the ranks in rank order) against its own
 P_e.  The mean of the ranks' terms is then the global aux, and so is the
 mean of their gradients (f_e carries none).
+
+Over a model group (``tp``: ``tp.group``, ``tp.experts`` and
+``tp.shared``, a ``transformer.TPShard``) the router is replicated, so
+the routing, the drops and the aux term are computed whole on every rank
+from the same bits.  The experts are split as ``tp.experts`` says: "tp"
+(each expert's ``d_expert`` columns of gate / up and rows of down), "ep"
+(a rank holds E / M whole experts, contiguous, and serves the kept pairs
+routed to them), or None (replicated, run whole).  The dispatch and the
+gates enter the group (``enter_group``: their gradients summed over it),
+and each rank's combine, its partial products or its experts' pairs,
+leaves it in float32 (``leave_group``), so the pairs of a token are summed
+in another order than one process's choice order (a tolerance, not bits).
+The shared experts split as the dense MLP does (``tp.shared``); where the
+routed experts are split too, their partial product joins the combine's
+before the one sum.
 """
 from __future__ import annotations
 
@@ -41,7 +56,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, swiglu
+from repro_torch.models.layers import (dense_init, enter_group, leave_group,
+                                       swiglu)
 
 
 def moe_shapes(cfg: ModelConfig) -> dict:
@@ -164,7 +180,7 @@ def route(xg: torch.Tensor, valid: torch.Tensor, router: torch.Tensor,
 
 
 def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig, *,
-            group_size: int | None = None, dp=None):
+            group_size: int | None = None, dp=None, tp=None):
   """x (B, S, d) -> (y (B, S, d) in x's dtype, aux float32 scalar).
 
   ``p`` is the block's ``moe`` parameters (``init_moe``'s names).  The aux
@@ -172,7 +188,8 @@ def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig, *,
   ``router_aux_weight`` (f_e the share of group slots routed to e, P_e the
   mean router probability, both over every slot of the groups, padding
   included, as the reference takes them).  ``dp`` is the data group x is
-  a shard of (None: x is the whole batch); see the module docstring."""
+  a shard of (None: x is the whole batch); ``tp`` the rank's place on the
+  model axis (None: every expert whole); see the module docstring."""
   b, s, d = x.shape
   e = cfg.moe
   n_exp = e.num_experts
@@ -183,30 +200,50 @@ def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig, *,
   r = route(xg, valid, p.router, cfg)
   cap = r.cap
 
+  group = tp.group if tp is not None and tp.experts else None
+  # the experts this rank holds: e0 .. e0 + n_loc - 1 (all but under "ep")
+  n_loc = p.gate.shape[0]
+  e0 = group.rank * n_loc if group is not None and tp.experts == "ep" else 0
+  mine = r.keep
+  if n_loc != n_exp:
+    mine = mine & (r.top_e >= e0) & (r.top_e < e0 + n_loc)
+
   # dispatch: each kept pair's token into row e * cap + rank of its group
-  slot = r.top_e * cap + r.rank.clamp_max(cap - 1)           # (G, Sg, k)
+  slot = ((r.top_e - e0).clamp(0, n_loc - 1) * cap
+          + r.rank.clamp_max(cap - 1))                       # (G, Sg, k)
   gi = torch.arange(g, device=x.device)[:, None, None].expand_as(slot)
   si = torch.arange(sg, device=x.device)[None, :, None].expand_as(slot)
-  gk, sk, rows = gi[r.keep], si[r.keep], slot[r.keep]
-  buf = xg.new_zeros((g, n_exp * cap, d))
-  buf[gk, rows] = xg[gk, sk]
-  buf = buf.reshape(g, n_exp, cap, d).transpose(0, 1).reshape(
-      n_exp, g * cap, d)                                     # (E, G*C, d)
+  gk, sk, rows = gi[mine], si[mine], slot[mine]
+  xin = enter_group(xg, group)
+  buf = xg.new_zeros((g, n_loc * cap, d))
+  buf[gk, rows] = xin[gk, sk]
+  buf = buf.reshape(g, n_loc, cap, d).transpose(0, 1).reshape(
+      n_loc, g * cap, d)                                     # (E, G*C, d)
   h = (F.silu(torch.bmm(buf, p.gate).float()).to(x.dtype)
        * torch.bmm(buf, p.up))
   out = torch.bmm(h, p.down)                                 # (E, G*C, d)
-  out = out.reshape(n_exp, g, cap, d).transpose(0, 1).reshape(
-      g, n_exp * cap, d)
+  out = out.reshape(n_loc, g, cap, d).transpose(0, 1).reshape(
+      g, n_loc * cap, d)
 
   # combine: each token's kept outputs in float32, weighted by its gates
   picked = out[gi, slot].float()                             # (G, Sg, k, d)
-  w = torch.where(r.keep, r.top_p, torch.zeros_like(r.top_p))
-  y = (picked * w[..., None]).sum(dim=2)
-  y = y.to(x.dtype).reshape(g * sg, d)[:b * s].reshape(b, s, d)
+  w = torch.where(mine, enter_group(r.top_p, group),
+                  torch.zeros_like(r.top_p))
+  y = (picked * w[..., None]).sum(dim=2).reshape(g * sg, d)[:b * s]
+  y = y.reshape(b, s, d)
 
+  shared = None
   if e.num_shared:
     sh = p.shared
-    y = y + swiglu(x, sh.gate, sh.up, sh.down)
+    split = tp.group if tp is not None and tp.shared else None
+    shared = swiglu(enter_group(x, split), sh.gate, sh.up, sh.down)
+    if split is not None and group is not None:   # both partial: one sum
+      y, shared = y + shared.float(), None
+    else:
+      shared = leave_group(shared, split)
+  y = leave_group(y, group).to(x.dtype)
+  if shared is not None:
+    y = y + shared
 
   routed = F.one_hot(r.top_e, n_exp).float() * valid[..., None, None]
   f_e = routed.amax(dim=2).mean(dim=(0, 1))                  # (E,)

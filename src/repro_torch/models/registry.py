@@ -25,25 +25,29 @@ Layout: ``Parallelism`` and ``param_specs`` are the reference's, keyed by
 the port's parameter names (shapes from the config, ``param_shapes``; the
 stacked experts by the reference's ``ep`` / ``ep_pod`` rule).  Given a
 ``launch.mesh.TrainMesh``, a ``Model`` holds only its rank's slices by
-those specs and runs the model axis as tensor parallelism:
-``wq`` / ``wk`` / ``wv`` / ``gate`` / ``up`` split by column (whole heads:
-``n_heads`` and ``n_kv_heads`` must be multiples of the axis), ``wo`` /
-``down`` by row with their products summed over the model group, the
-embedding by vocabulary row (a masked lookup summed over the group) and
-the head by vocabulary column (``_chunked_xent`` combines the max, the sum
-of exponentials and the target's logit over the group, so no rank holds a
-(B, chunk, V) block).  The model axis runs the dense ("attn",) stack only
-(``check_supported``); every family runs on a data axis.  Every sum is
-the group's rank-ordered sum (``ProcessMesh.sum``), so the replicated
-activations, and the gradients of the replicated leaves, have the same
-bits on every rank of a group.  The data axis is the train step's
-(``train.train_step``); in training each rank routes its MoE groups as
-the whole batch's (``moe.moe_ffn``'s ``dp``: the groups cut from the
-global token count, f_e meaned over the group), so the data axis trains
-what one process does on the whole batch.  ``fsdp``, ``seq_shard``,
-``ep`` and ``ep_pod`` are spec-only (``launch/dryrun.py`` uses them);
-``_act`` is a GSPMD layout constraint with no runtime counterpart: a
-rank's activations are already laid out by the data it is handed.  ``cache_specs`` belongs to
+those specs and runs the model axis as tensor parallelism for every
+family: ``wq`` / ``wk`` / ``wv`` / ``gate`` / ``up`` split by column (whole
+query heads: ``n_heads`` must be a multiple of the axis; KV heads whole
+too, or gathered inside a head where they are fewer than the ranks),
+``wo`` / ``down`` by row with their products summed over the model group;
+the MoE experts by ``d_expert`` or, under ``ep`` (``Model(par=)``), dealt
+whole; the Mamba-2 and RG-LRU blocks by heads and channels
+(``transformer``'s docstring and its blocks' say how); the embedding by
+vocabulary row (a masked lookup summed over the group) and the head by
+vocabulary column (``_chunked_xent`` combines the max, the sum of
+exponentials and the target's logit over the group, so no rank holds a
+(B, chunk, V) block), both replicated where the axis does not divide the
+vocabulary.  Every sum is the group's rank-ordered sum
+(``ProcessMesh.sum``), so the replicated activations, and the gradients of
+the replicated leaves, have the same bits on every rank of a group.  The
+data axis is the train step's (``train.train_step``); in training each
+rank routes its MoE groups as the whole batch's (``moe.moe_ffn``'s ``dp``:
+the groups cut from the global token count, f_e meaned over the group),
+so the data axis trains what one process does on the whole batch.
+``fsdp``, ``seq_shard`` and ``ep_pod`` are spec-only (``check_supported``
+refuses them; ``launch/dryrun.py`` is to use them); ``_act`` is a GSPMD
+layout constraint with no runtime counterpart: a rank's activations are
+already laid out by the data it is handed.  ``cache_specs`` belongs to
 ``launch/dryrun.py`` (ROADMAP.md).
 """
 from __future__ import annotations
@@ -62,23 +66,32 @@ from repro_torch.models.layers import (dense_init, embed_init, enter_group,
                                        gather_group, leave_group, rms_norm,
                                        token_nll)
 from repro_torch.models.attention import chunked_attention
+from repro_torch.models.rglru import lru_width
+from repro_torch.models.ssm import mamba_shapes
+from repro_torch.models.ssm import n_heads as ssm_heads
 from repro_torch.models.transformer import (TPShard, _attn_out, _ffn,
                                             _project_qkv, apply_block,
                                             block_shapes, init_block,
                                             init_block_cache)
 
 
-def check_supported(cfg: ModelConfig, model: int = 1) -> None:
-  """Raise for what the port does not run yet: a model axis of more than
-  one rank on anything but the dense ("attn",) stack (the tensor-parallel
-  layout of experts, SSM, RG-LRU and cross-attention blocks)."""
-  if model > 1 and (cfg.family != "dense" or tuple(cfg.pattern) != ("attn",)
-                    or cfg.sliding_window):
-    raise NotImplementedError(
-        f"{cfg.name}: a model axis of {model} ranks runs only the dense "
-        f"('attn',) stack; the tensor-parallel layout of family "
-        f"{cfg.family!r} (pattern {cfg.pattern}) is not ported yet; "
-        "ROADMAP.md lists it.  Every family runs on a data axis (--mesh Dx1)")
+def check_supported(cfg: ModelConfig, model: int = 1, par=None) -> None:
+  """Raise for what the port does not run: the layouts that stay
+  spec-only (``fsdp``, ``seq_shard``, ``ep_pod``, a pod axis; ROADMAP.md
+  names the slice that runs them) as NotImplementedError, and a model
+  axis of ``model`` ranks that does not divide the architecture
+  (``check_model_axis``)."""
+  if par is not None:
+    spec_only = [f for f in ("fsdp", "seq_shard", "ep_pod") if getattr(
+        par, f)]
+    if (spec_only or par.model_axis != "model"
+        or tuple(par.dp_axes) not in ((), ("data",))):
+      raise NotImplementedError(
+          f"{cfg.name}: {', '.join(spec_only) or 'a pod axis'} is "
+          f"spec-only in the port (par {par}); it runs the ('data', "
+          "'model') mesh with tensor parallelism and, for MoE, ep.  "
+          "ROADMAP.md lists the slice that runs the rest")
+  check_model_axis(cfg, model)
 
 
 # ---------------------------------------------------------------------------
@@ -238,27 +251,54 @@ def param_specs(cfg: ModelConfig, par: Parallelism = Parallelism()) -> dict:
 
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
-  """Raise unless the port runs ``cfg`` over a model axis of ``model``
-  ranks (``check_supported``) and attention splits over it by whole heads
-  (a head is never split)."""
-  check_supported(cfg, model)
-  if model > 1 and (cfg.n_heads % model or cfg.n_kv_heads % model):
+  """Raise unless a model axis of ``model`` ranks divides what it splits:
+  the query heads, by whole heads (a query head is never split); the KV
+  heads, by whole heads or (fewer KV heads than ranks) with each rank's
+  query heads inside one KV head's group; the SSM heads and ``w_in``'s
+  columns; the RG-LRU width."""
+  if model <= 1:
+    return
+  hq, hkv = cfg.n_heads, cfg.n_kv_heads
+  if hq % model or (hkv % model and (model % hkv or hkv * cfg.head_dim
+                                     % model)):
     raise ValueError(
-        f"{cfg.name}: the model axis splits attention by whole heads, so "
-        f"n_heads ({cfg.n_heads}) and n_kv_heads ({cfg.n_kv_heads}) must be "
-        f"multiples of the model axis ({model}); a head is never split")
+        f"{cfg.name}: the model axis splits attention by whole query "
+        f"heads, so n_heads ({hq}) must be a multiple of the model axis "
+        f"({model}), and n_kv_heads ({hkv}) a multiple or a divisor of it; "
+        "a query head is never split")
+  blocks = set(cfg.full_pattern)
+  if "mamba" in blocks:
+    width = mamba_shapes(cfg)["w_in"][1]
+    if ssm_heads(cfg) % model or width % model:
+      raise ValueError(
+          f"{cfg.name}: the model axis splits the SSM heads "
+          f"({ssm_heads(cfg)}) and w_in's {width} columns; both must be "
+          f"multiples of the model axis ({model})")
+  if "rec" in blocks and lru_width(cfg) % model:
+    raise ValueError(
+        f"{cfg.name}: the model axis splits the RG-LRU width "
+        f"({lru_width(cfg)}); it must be a multiple of {model}")
 
 
-def mesh_parallelism(cfg: ModelConfig, mesh) -> Parallelism:
+def mesh_parallelism(cfg: ModelConfig, mesh, ep: bool = False
+                     ) -> Parallelism:
   """The layout a ``Model`` runs over ``mesh`` (None: one device): the
   launcher's ``Parallelism(dp_axes=("data",), dp_size=D)`` with
-  ``model_size=M``.  Raises for heads that do not split over the model
-  axis."""
+  ``model_size=M`` (and ``ep``, the MoE experts dealt whole over the model
+  axis).  Raises for a model axis that does not divide the architecture
+  (``check_model_axis``)."""
   if mesh is None:
-    return Parallelism()
+    return Parallelism(ep=ep)
   check_model_axis(cfg, mesh.model)
   return Parallelism(dp_axes=("data",), dp_size=mesh.data,
-                     model_size=mesh.model)
+                     model_size=mesh.model, ep=ep)
+
+
+def _splits(specs: dict, suffix: str) -> bool:
+  """Whether the leaves named ``*suffix`` are split over the model axis
+  (False where the model has none)."""
+  return any("model" in spec for n, spec in specs.items()
+             if n.endswith(suffix))
 
 
 # the matmuls the "dots" policy keeps (the reference's
@@ -279,7 +319,7 @@ class Model(nn.Module):
   def __init__(self, cfg: ModelConfig, *, device="cuda",
                generator: torch.Generator | None = None,
                backend: str = "auto", remat: str | None = "dots",
-               mesh=None):
+               mesh=None, par: Parallelism | None = None):
     """``device`` defaults to the card and raises without one unless
     "cpu" is asked for; ``generator`` (on ``device``; seed 0 when None)
     draws the weights; ``backend`` ("auto" | "cuda" | "ref") picks the
@@ -289,11 +329,18 @@ class Model(nn.Module):
     everything in the backward pass).
 
     ``mesh`` (a ``launch.mesh.TrainMesh``) lays the parameters out by
-    ``param_specs`` of the mesh's layout (``mesh_parallelism``): each leaf is drawn whole,
-    as on one device, and the rank keeps its slice, so the model's values
-    are the one-device model's whatever the mesh."""
+    ``param_specs`` of the layout ``par`` (by default
+    ``mesh_parallelism(cfg, mesh)``; a caller may set ``ep``, the
+    reference's expert parallelism, and nothing else of the mesh's
+    layout): each leaf is drawn whole, as on one device, and the rank
+    keeps its slice, so the model's values are the one-device model's
+    whatever the mesh."""
     super().__init__()
-    check_supported(cfg, 1 if mesh is None else mesh.model)
+    base = mesh_parallelism(cfg, mesh, ep=bool(par is not None and par.ep))
+    check_supported(cfg, 1 if mesh is None else mesh.model, par)
+    if par is not None and par != base:
+      raise ValueError(f"par={par}: over this mesh the model runs {base} "
+                       "(only ep is the caller's to set)")
     if remat not in REMATS:
       raise ValueError(f"remat {remat!r} not in {REMATS}")
     dev = resolve_device(device)
@@ -301,21 +348,32 @@ class Model(nn.Module):
     self.backend = backend
     self.remat = remat
     self.mesh = mesh
-    self.par = mesh_parallelism(cfg, mesh)
+    self.par = base
     self.specs = param_specs(cfg, self.par)
     self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     split = mesh is not None and mesh.model > 1
     self.tp = mesh.tp if split else None
     # the data group a training forward's MoE routes over (None: one rank)
     self.dp = mesh.dp if mesh is not None and mesh.data > 1 else None
-    mlp = split and self.specs["layers.0.mlp.gate"][1] is not None
     self.vocab_split = split and self.specs["embed"][0] is not None
-    self.shard = TPShard(self.tp, mlp) if split else None
-    # the block config a rank runs: its heads (and MLP columns)
-    self.lcfg = cfg if not split else dataclasses.replace(
-        cfg, n_heads=cfg.n_heads // mesh.model,
-        n_kv_heads=cfg.n_kv_heads // mesh.model,
-        d_ff=cfg.d_ff // mesh.model if mlp else cfg.d_ff)
+    self.shard = None
+    self.lcfg = cfg
+    if split:
+      m = mesh.model
+      mlp = _splits(self.specs, ".mlp.gate")
+      kv_gather = bool(cfg.n_kv_heads % m)
+      experts = (("ep" if self.par.ep else "tp")
+                 if _splits(self.specs, ".moe.gate") else None)
+      self.shard = TPShard(self.tp, mlp,
+                           shared=_splits(self.specs, ".moe.shared.gate"),
+                           experts=experts, kv_gather=kv_gather,
+                           kv_head=self.tp.rank * cfg.n_kv_heads // m)
+      # the block config a rank runs: its query heads, the KV heads it
+      # reads (and MLP columns)
+      self.lcfg = dataclasses.replace(
+          cfg, n_heads=cfg.n_heads // m,
+          n_kv_heads=1 if kv_gather else cfg.n_kv_heads // m,
+          d_ff=cfg.d_ff // m if mlp else cfg.d_ff)
     if generator is None:
       generator = torch.Generator(device=dev).manual_seed(0)
     kw = dict(generator=generator, device=dev)
@@ -334,15 +392,19 @@ class Model(nn.Module):
       self.layers.append(layer)
     if cfg.encoder.n_layers:
       self.encoder = Encoder(cfg, dt, **kw)
+      for name, p in self.encoder.named_parameters():
+        p.data = self._keep(f"encoder.{name}", p.data)
     # leaves split over the model axis, and the replicated leaves used
     # inside a split region, whose gradients are partial on each rank: the
-    # qk-norm gains (the qkv biases enter through split_group, whose
-    # backward already gathers their whole gradient)
+    # qk-norm gains (the replicated leaves a rank reads by slice enter
+    # through split_group, whose backward already gathers their whole
+    # gradient, and those every rank reads whole inside a split block
+    # through enter_group, whose backward sums it)
     self.sharded = frozenset(n for n, spec in self.specs.items()
                              if split and "model" in spec)
     self.partial_leaves = tuple(
         n for n in self.specs
-        if split and n.endswith((".attn.q_norm", ".attn.k_norm")))
+        if split and n.endswith(("attn.q_norm", "attn.k_norm")))
 
   def _keep(self, name: str, full: torch.Tensor) -> torch.Tensor:
     """The rank's slice of a whole leaf (a copy; the leaf itself without a
@@ -424,7 +486,7 @@ class Model(nn.Module):
     over ``batch["frames"]`` (B, F, d) for the enc-dec family, the VLM's
     ``batch["img_embeds"]`` (B, M, d) in the model dtype, None otherwise."""
     if self.cfg.family == "encdec":
-      return self.encoder(batch["frames"])
+      return self.encoder(batch["frames"], self.lcfg, self.shard)
     if self.cfg.family == "vlm":
       return batch["img_embeds"].to(self.dtype)
     return None
@@ -500,8 +562,9 @@ class Model(nn.Module):
     layer's k, v, kpos (the rank's KV heads; the window's rows as a ring
     in the hybrid family), a cross layer's memory K/V too (``memory``'s
     length), a recurrent layer's conv and h."""
+    ranks = 1 if self.tp is None else self.tp.world
     return [init_block_cache(bt, self.lcfg, batch_size, max_len, self.dtype,
-                             self.device, memory)
+                             self.device, memory, ranks)
             for bt in self.cfg.full_pattern]
 
   @torch.no_grad()
@@ -530,7 +593,9 @@ class Encoder(nn.Module):
   ``_encode``): ``layers`` e0 .. e{n-1}, each an "attn" block's parameters
   run with ``chunked_attention(causal=False)`` (never the kernel, as in
   the reference), then the final norm ``ln_f``.  Frames (B, F, d) are the
-  stubbed modality frontend's embeddings."""
+  stubbed modality frontend's embeddings.  Over a model axis the layers
+  hold their rank's heads and MLP columns (``forward``'s ``tp``, the
+  rank's local config ``lcfg``) as the decoder's "attn" blocks do."""
 
   def __init__(self, cfg: ModelConfig, dtype, *, generator, device):
     super().__init__()
@@ -542,23 +607,25 @@ class Encoder(nn.Module):
         for j in range(cfg.encoder.n_layers)})
     self.ln_f = nn.Parameter(torch.zeros((cfg.d_model,), device=device))
 
-  def forward(self, frames: torch.Tensor) -> torch.Tensor:
-    cfg = self.cfg
+  def forward(self, frames: torch.Tensor, lcfg: ModelConfig | None = None,
+              tp: TPShard | None = None) -> torch.Tensor:
+    cfg = self.cfg if lcfg is None else lcfg
+    group = None if tp is None else tp.group
     h = frames.to(self.dtype)
     for p in self.layers.values():
-      x = rms_norm(h, p.ln1, cfg.rmsnorm_eps)
+      x = enter_group(rms_norm(h, p.ln1, cfg.rmsnorm_eps), group)
       b, s, _ = x.shape
       q, k, v = _project_qkv(x, p.attn, cfg,
-                             torch.arange(s, device=x.device))
-      h = h + _attn_out(chunked_attention(q, k, v, causal=False), p.attn, b,
-                        s)
-      h, _ = _ffn(h, p, cfg)
+                             torch.arange(s, device=x.device), tp)
+      out = _attn_out(chunked_attention(q, k, v, causal=False), p.attn, b, s)
+      h = h + leave_group(out, group)
+      h, _ = _ffn(h, p, cfg, tp)
     return rms_norm(h, self.ln_f, cfg.rmsnorm_eps)
 
 
 def build_model(cfg: ModelConfig, *, device="cuda",
                 generator: torch.Generator | None = None,
                 backend: str = "auto", remat: str | None = "dots",
-                mesh=None) -> Model:
+                mesh=None, par: Parallelism | None = None) -> Model:
   return Model(cfg, device=device, generator=generator, backend=backend,
-               remat=remat, mesh=mesh)
+               remat=remat, mesh=mesh, par=par)

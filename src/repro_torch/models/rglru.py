@@ -14,14 +14,25 @@ L) elementwise steps over the whole sequence (the reference's
 ``jax.lax.associative_scan`` combines in another order, so the two agree
 to rounding, not to bits).  Decode is one step.  The surrounding Griffin
 block is conv1d + RG-LRU on one branch and a GeLU gate on the other.
+
+Over a model group (``tp``, a ``transformer.TPShard``) a rank runs W / M
+channels of the recurrence (contiguous): ``w_x`` and ``w_gate``'s columns,
+and the slices of ``conv_w``, ``lam``, ``b_a`` and ``b_i`` (through
+``split_group``, backward gathered), line up with them.  ``w_a`` and
+``w_i`` are (W, W) with their columns split, so each rank reads the whole
+conv output: it is gathered (``layers.gather_summed``, its gradient summed
+over the group before the rank's slice).  ``w_out``'s rows are the rank's
+channels, its product summed over the group.  A decode cache holds the
+rank's conv channels and its (B, W / M) state.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (causal_conv1d, dense_init, gelu,
-                                       softplus)
+from repro_torch.models.layers import (causal_conv1d, dense_init,
+                                       enter_group, gather_summed, gelu,
+                                       leave_group, softplus, split_group)
 
 
 def lru_width(cfg: ModelConfig) -> int:
@@ -93,21 +104,28 @@ def rglru_decode_step(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
 
 
 def recurrent_block(x: torch.Tensor, p, cfg: ModelConfig, *,
-                    decode_state: tuple | None = None):
+                    decode_state: tuple | None = None, tp=None):
   """The Griffin recurrent block.  x (B, L, d); ``decode_state`` =
   (conv_state (B, W-1, lru_w), h (B, lru_w)) for decode (L == 1), None for
-  training / prefill.  Returns (y (B, L, d), (conv_state, h_last))."""
-  xr = x @ p.w_x                                             # (B, L, W)
-  gate = gelu((x @ p.w_gate).float()).to(x.dtype)
+  training / prefill; a rank's channels over a model axis (``tp``).
+  Returns (y (B, L, d), (conv_state, h_last))."""
+  group = None if tp is None else tp.group
+  x_in = enter_group(x, group)
+  xr = x_in @ p.w_x                                          # (B, L, W)
+  gate = gelu((x_in @ p.w_gate).float()).to(x.dtype)
+  conv_w, lam, b_a, b_i = (split_group(t, group) for t in (
+      p.conv_w, p.lam, p.b_a, p.b_i))
   conv_state = None if decode_state is None else decode_state[0]
-  xr, conv_new = causal_conv1d(xr, p.conv_w, conv_state)
+  xr, conv_new = causal_conv1d(xr, conv_w, conv_state)
   xr32 = xr.float()
-  r = torch.sigmoid(xr32 @ p.w_a.float() + p.b_a)
-  i = torch.sigmoid(xr32 @ p.w_i.float() + p.b_i)
+  xa = xr32 if group is None else gather_summed(xr, group).float()
+  r = torch.sigmoid(xa @ p.w_a.float() + b_a)
+  i = torch.sigmoid(xa @ p.w_i.float() + b_i)
   if decode_state is None:
-    h, h_last = rglru_scan(xr32, r, i, p.lam, cfg.rec.c)
+    h, h_last = rglru_scan(xr32, r, i, lam, cfg.rec.c)
   else:
-    h1, h_last = rglru_decode_step(xr32[:, 0], r[:, 0], i[:, 0], p.lam,
+    h1, h_last = rglru_decode_step(xr32[:, 0], r[:, 0], i[:, 0], lam,
                                    cfg.rec.c, decode_state[1])
     h = h1[:, None]
-  return (h.to(x.dtype) * gate) @ p.w_out, (conv_new, h_last)
+  return (leave_group((h.to(x.dtype) * gate) @ p.w_out, group),
+          (conv_new, h_last))

@@ -8,6 +8,22 @@ time.  Under autograd each chunk runs inside ``torch.utils.checkpoint``, as
 the reference's ``jax.checkpoint`` does, and is recomputed in the backward
 pass.  Decode is the exact recurrence h <- exp(dt A) h + dt B x, one step.
 Everything past the input projection runs in float32, as in the reference.
+
+Over a model group (``tp``, a ``transformer.TPShard``) a rank runs its
+nh / M heads (contiguous).  ``w_in``'s columns are split contiguously
+over [z | xBC | dt], so they do not line up with heads: the projection is
+gathered whole on every rank (``layers.gather_summed``, whose backward
+sums the ranks' gradients before taking the slice), and each rank takes
+its heads' z, x and dt and the whole B and C (``n_groups`` = 1 is shared
+by every head).  The replicated leaves a rank reads by its heads'
+slice (``a_log``, ``dt_bias``, ``d_skip``, ``norm``, ``conv_w``'s x
+columns) enter through ``split_group`` (backward gathered); ``conv_w``'s B
+and C columns, which every rank reads whole, through ``enter_group``
+(backward summed).  The gated RMSNorm normalizes over the whole
+``d_inner`` (its sum of squares summed over the group), and ``w_out``'s
+rows are the rank's heads' channels, its product summed over the group.
+A decode cache holds the rank's conv channels (its x channels, then B and
+C) and its heads' (B, nh / M, P, N) state.
 """
 from __future__ import annotations
 
@@ -16,8 +32,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (causal_conv1d, dense_init, rms_norm,
-                                       softplus)
+from repro_torch.models.layers import (causal_conv1d, dense_init,
+                                       enter_group, gather_summed,
+                                       leave_group, rms_norm, softplus,
+                                       split_group)
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -147,22 +165,39 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def mamba_block(x: torch.Tensor, p, cfg: ModelConfig, *,
-                decode_state: tuple | None = None):
+                decode_state: tuple | None = None, tp=None):
   """x (B, L, d).  Training / prefill when ``decode_state`` is None;
   otherwise ``decode_state = (conv_state (B, W-1, conv_dim), ssm_state
-  (B, H, P, N))`` and L == 1.  Returns (y (B, L, d), (conv_state,
-  ssm_state)) after the call."""
+  (B, H, P, N))`` (a rank's channels and heads over a model axis) and L ==
+  1.  Returns (y (B, L, d), (conv_state, ssm_state)) after the call."""
   bdim, l, _ = x.shape
   s = cfg.ssm
   di = d_inner(cfg)
   nh = n_heads(cfg)
   gn = s.n_groups * s.d_state
+  group = None if tp is None else tp.group
 
-  zxbcdt = x @ p.w_in
-  z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * gn, nh], dim=-1)
-  dt = softplus(dt_raw.float() + p.dt_bias)                  # (B, L, H)
+  if group is None:
+    zxbcdt = x @ p.w_in
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * gn, nh], dim=-1)
+    conv_w, a_log, dt_bias, d_skip, norm = (p.conv_w, p.a_log, p.dt_bias,
+                                            p.d_skip, p.norm)
+  else:   # the rank's heads h0 .. h0 + nh / M - 1 of the whole projection
+    m, r = group.world, group.rank
+    zxbcdt = gather_summed(enter_group(x, group) @ p.w_in, group)
+    dl, hl = di // m, nh // m        # the rank's x channels and heads
+    z = zxbcdt.narrow(-1, r * dl, dl)
+    xbc = torch.cat([zxbcdt.narrow(-1, di + r * dl, dl),
+                     zxbcdt.narrow(-1, 2 * di, 2 * gn)], dim=-1)
+    dt_raw = zxbcdt.narrow(-1, 2 * (di + gn) + r * hl, hl)
+    conv_w = torch.cat([split_group(p.conv_w[:, :di], group),
+                        enter_group(p.conv_w[:, di:], group)], dim=-1)
+    a_log, dt_bias, d_skip, norm = (split_group(t, group) for t in (
+        p.a_log, p.dt_bias, p.d_skip, p.norm))
+    di, nh = dl, hl
+  dt = softplus(dt_raw.float() + dt_bias)                    # (B, L, H)
   conv_state = None if decode_state is None else decode_state[0]
-  xbc, conv_new = causal_conv1d(xbc, p.conv_w, conv_state)
+  xbc, conv_new = causal_conv1d(xbc, conv_w, conv_state)
   xbc = F.silu(xbc.float()).to(x.dtype)
   xin, b, c = torch.split(xbc, [di, gn, gn], dim=-1)
   xh = xin.reshape(bdim, l, nh, s.head_dim)
@@ -170,14 +205,14 @@ def mamba_block(x: torch.Tensor, p, cfg: ModelConfig, *,
   ch = c.reshape(bdim, l, s.n_groups, s.d_state)
 
   if decode_state is None:
-    y, h_last = ssd_chunked(xh, dt, p.a_log, bh, ch, s.chunk)
+    y, h_last = ssd_chunked(xh, dt, a_log, bh, ch, s.chunk)
   else:
-    y1, h_last = ssd_decode_step(xh[:, 0], dt[:, 0], p.a_log, bh[:, 0],
+    y1, h_last = ssd_decode_step(xh[:, 0], dt[:, 0], a_log, bh[:, 0],
                                  ch[:, 0], decode_state[1])
     y = y1[:, None]
-  y = y + p.d_skip[None, None, :, None] * xh.float()
+  y = y + d_skip[None, None, :, None] * xh.float()
   y = y.reshape(bdim, l, di)
-  # gated RMSNorm (Mamba-2): norm(y * silu(z))
+  # gated RMSNorm (Mamba-2): norm(y * silu(z)), over the whole d_inner
   y = y * F.silu(z.float())
-  y = rms_norm(y.to(x.dtype), p.norm, cfg.rmsnorm_eps)
-  return y @ p.w_out, (conv_new, h_last)
+  y = rms_norm(y.to(x.dtype), norm, cfg.rmsnorm_eps, group)
+  return leave_group(y @ p.w_out, group), (conv_new, h_last)

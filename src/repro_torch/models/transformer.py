@@ -32,14 +32,21 @@ values, filled by the prefill and read by every decode step.  The "rec"
 and "mamba" blocks hold conv (B, W-1, C) in the model dtype and h (their
 float32 recurrent state).
 
-Over a model axis (``tp``, a ``TPShard``; dense "attn" stacks only, as
-``registry.check_supported`` rules) a block holds its rank's heads and MLP
-columns and ``cfg`` is the rank's local config (``n_heads`` and
-``n_kv_heads`` divided by the axis; ``d_ff`` too when the MLP is split):
-the normed input enters the split region through ``enter_group``, the qkv
-biases (replicated leaves) through ``split_group``, and the ``wo`` /
-``down`` products leave it through ``leave_group``.  Without ``tp`` the
-block runs exactly as on one device.  The reference's GSPMD
+Over a model axis (``tp``, a ``TPShard``) a block holds its rank's slices
+by ``registry.param_specs`` and ``cfg`` is the rank's local config
+(``n_heads`` divided by the axis, ``n_kv_heads`` the KV heads the rank
+reads, ``d_ff`` divided when the MLP is split): the normed input (and a
+cross block's memory) enters the split region through ``enter_group``,
+the qkv biases (replicated leaves) through ``split_group``, and the
+``wo`` / ``down`` products leave it through ``leave_group``.  Query heads
+split by whole heads; KV heads too where the axis divides them, and
+otherwise (``TPShard.kv_gather``: fewer KV heads than ranks, as in
+multi-query attention) ``wk`` / ``wv`` split inside a head, the K / V
+projection is gathered whole (``layers.gather_summed``) and each rank
+keeps the one KV head its query heads read, in its cache too.  The MoE
+FFN (``moe.moe_ffn``), the Mamba-2 block (``ssm.mamba_block``) and the
+RG-LRU block (``rglru.recurrent_block``) take ``tp`` themselves.  Without
+``tp`` the block runs exactly as on one device.  The reference's GSPMD
 ``_cache_spec`` has no runtime counterpart.
 """
 from __future__ import annotations
@@ -56,8 +63,8 @@ from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, enter_group,
-                                       leave_group, rms_norm, split_group,
-                                       swiglu)
+                                       gather_summed, leave_group, rms_norm,
+                                       split_group, swiglu)
 
 BLOCKS = ("attn", "cross", "rec", "mamba")
 
@@ -79,11 +86,19 @@ class Params(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class TPShard:
   """A rank's place on the model axis: ``group`` (a
-  ``launch.mesh.ProcessMesh`` of the model group) and whether the MLP is
-  split (``d_ff`` a multiple of the axis; else it runs replicated).
-  Attention is always split, by whole heads."""
+  ``launch.mesh.ProcessMesh`` of the model group); whether the MLP is
+  split (``d_ff`` a multiple of the axis; else it runs replicated), and
+  the MoE's shared experts likewise (``shared``); the routed experts'
+  layout (``experts``: "tp" splits each expert's width, "ep" deals whole
+  experts, None keeps them replicated); and, where the KV heads are fewer
+  than the ranks, ``kv_gather`` with the one KV head the rank's query
+  heads read (``kv_head``).  Query heads always split, by whole heads."""
   group: object
   mlp: bool
+  shared: bool = False
+  experts: str | None = None
+  kv_gather: bool = False
+  kv_head: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -208,11 +223,13 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_block_cache(btype: str, cfg: ModelConfig, batch: int, max_len: int,
-                     dtype, device, memory: torch.Tensor | None = None
-                     ) -> dict:
+                     dtype, device, memory: torch.Tensor | None = None,
+                     ranks: int = 1) -> dict:
   """Zeros in the model dtype (the recurrent states float32); kpos int32
   -1 (an empty slot).  A cross block's memory K/V take ``memory``'s length
-  (``n_img_tokens`` without one)."""
+  (``n_img_tokens`` without one).  ``cfg`` is the rank's local config and
+  ``ranks`` the model axis, whose share of the recurrent channels and SSM
+  heads a rank holds."""
   zeros = dict(dtype=dtype, device=device)
   if btype in ("attn", "cross"):
     shape = (batch, cfg.n_kv_heads, cache_len(cfg, max_len), cfg.head_dim)
@@ -226,14 +243,14 @@ def init_block_cache(btype: str, cfg: ModelConfig, batch: int, max_len: int,
       c["xv"] = torch.zeros(mshape, **zeros)
     return c
   if btype == "rec":
-    w = RG.lru_width(cfg)
+    w = RG.lru_width(cfg) // ranks
     return {"conv": torch.zeros((batch, cfg.rec.conv_width - 1, w), **zeros),
             "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}
   if btype == "mamba":
     s = cfg.ssm
-    return {"conv": torch.zeros((batch, s.conv_width - 1, SSM.conv_dim(cfg)),
-                                **zeros),
-            "h": torch.zeros((batch, SSM.n_heads(cfg), s.head_dim,
+    conv = SSM.conv_dim(cfg) - SSM.d_inner(cfg) * (ranks - 1) // ranks
+    return {"conv": torch.zeros((batch, s.conv_width - 1, conv), **zeros),
+            "h": torch.zeros((batch, SSM.n_heads(cfg) // ranks, s.head_dim,
                               s.d_state), dtype=torch.float32,
                              device=device)}
   raise ValueError(f"block {btype!r} not in {BLOCKS}")
@@ -256,18 +273,30 @@ def _project_q(x, p, cfg: ModelConfig, positions, tp=None):
   return apply_rope(q.transpose(1, 2), positions, cfg.rope_theta)
 
 
+def _kv_heads(x, p, cfg: ModelConfig, tp, bias: bool):
+  """x @ wk and x @ wv (+ their biases): the rank's KV heads' columns, or
+  under ``tp.kv_gather`` the projection gathered whole and the one head
+  the rank's query heads read."""
+  k = x @ p.wk
+  v = x @ p.wv
+  group = None if tp is None else tp.group
+  if bias:
+    k = k + split_group(p.bk, group)
+    v = v + split_group(p.bv, group)
+  if tp is not None and tp.kv_gather:
+    dh = cfg.head_dim
+    k = gather_summed(k, group).narrow(-1, tp.kv_head * dh, dh)
+    v = gather_summed(v, group).narrow(-1, tp.kv_head * dh, dh)
+  return k, v
+
+
 def _project_qkv(x, p, cfg: ModelConfig, positions, tp=None):
   """q (B, H, S, dh), k and v (B, Hkv, S, dh): the projections, the qk-norm
   and rope; v is the transposed view (the kernel takes strides).  Over a
   model axis the heads are the rank's and so are the biases' slices."""
   b, s, _ = x.shape
   dh = cfg.head_dim
-  k = x @ p.wk
-  v = x @ p.wv
-  if cfg.qkv_bias:
-    group = None if tp is None else tp.group
-    k = k + split_group(p.bk, group)
-    v = v + split_group(p.bv, group)
+  k, v = _kv_heads(x, p, cfg, tp, cfg.qkv_bias)
   k = k.reshape(b, s, cfg.n_kv_heads, dh)
   v = v.reshape(b, s, cfg.n_kv_heads, dh)
   if cfg.qk_norm:
@@ -276,15 +305,16 @@ def _project_qkv(x, p, cfg: ModelConfig, positions, tp=None):
   return _project_q(x, p, cfg, positions, tp), k, v.transpose(1, 2)
 
 
-def _memory_kv(memory, p, cfg: ModelConfig):
+def _memory_kv(memory, p, cfg: ModelConfig, tp=None):
   """The memory's keys and values (B, Hkv, M, dh): plain projections (no
-  bias, norm or rope, as in the reference)."""
+  bias, norm or rope, as in the reference); the rank's KV heads over a
+  model axis, the memory entering the group."""
   mb, ms, _ = memory.shape
-
-  def heads(w):
-    return (memory @ w).reshape(mb, ms, cfg.n_kv_heads,
-                                cfg.head_dim).transpose(1, 2)
-  return heads(p.wk), heads(p.wv)
+  if tp is not None:
+    memory = enter_group(memory, tp.group)
+  k, v = _kv_heads(memory, p, cfg, tp, False)
+  return (k.reshape(mb, ms, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2),
+          v.reshape(mb, ms, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2))
 
 
 def _attn_out(attn, p, b, s):
@@ -297,7 +327,7 @@ def _ffn(h, p, cfg: ModelConfig, tp=None, dp=None):
   of (``moe.moe_ffn``)."""
   x = rms_norm(h, p.ln2, cfg.rmsnorm_eps)
   if cfg.moe.num_experts:
-    y, aux = MOE.moe_ffn(x, p.moe, cfg, dp=dp)
+    y, aux = MOE.moe_ffn(x, p.moe, cfg, dp=dp, tp=tp)
     return h + y, aux
   if tp is None or not tp.mlp:
     return h + swiglu(x, p.mlp.gate, p.mlp.up, p.mlp.down), None
@@ -368,30 +398,32 @@ def _attention(h, p, cfg, *, mode, window, cache, pos, positions, backend,
   return h + (out if tp is None else leave_group(out, tp.group))
 
 
-def _cross(h, p, cfg, *, mode, memory, cache, positions):
+def _cross(h, p, cfg, *, mode, memory, cache, positions, tp):
   """The cross-attention sub-block: h + cross_attention(norm(h), memory).
   The memory's K/V are computed from ``memory`` (train), computed and
   stored (prefill) or read from the cache (decode)."""
   b, s, _ = h.shape
-  q = _project_q(rms_norm(h, p.lnx, cfg.rmsnorm_eps), p.xattn, cfg,
-                 positions)
+  group = None if tp is None else tp.group
+  x = enter_group(rms_norm(h, p.lnx, cfg.rmsnorm_eps), group)
+  q = _project_q(x, p.xattn, cfg, positions, tp)
   if mode == "decode":
     xk, xv = cache["xk"], cache["xv"]
   else:
-    xk, xv = _memory_kv(memory, p.xattn, cfg)
+    xk, xv = _memory_kv(memory, p.xattn, cfg, tp)
     if mode == "prefill":
       cache["xk"].copy_(xk)
       cache["xv"].copy_(xv)
-  return h + _attn_out(A.cross_attention(q, xk, xv), p.xattn, b, s)
+  out = _attn_out(A.cross_attention(q, xk, xv), p.xattn, b, s)
+  return h + leave_group(out, group)
 
 
-def _recurrent(h, p, cfg, *, mode, cache, block, sub):
+def _recurrent(h, p, cfg, *, mode, cache, block, sub, tp):
   """The "rec" / "mamba" sub-block: h + block(norm(h)) over the block's
   parameters ``sub``, the decode state read from and the final state
   written to the cache."""
   x = rms_norm(h, p.ln1, cfg.rmsnorm_eps)
   state = (cache["conv"], cache["h"]) if mode == "decode" else None
-  y, (conv_new, h_new) = block(x, sub, cfg, decode_state=state)
+  y, (conv_new, h_new) = block(x, sub, cfg, decode_state=state, tp=tp)
   if mode != "train":
     cache["conv"].copy_(conv_new)
     cache["h"].copy_(h_new)
@@ -418,10 +450,10 @@ def apply_block(btype: str, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
     raise ValueError(f"block {btype!r} not in {BLOCKS}")
   if btype == "mamba":   # no FFN
     return _recurrent(h, p, cfg, mode=mode, cache=cache,
-                      block=SSM.mamba_block, sub=p.mamba), None, cache
+                      block=SSM.mamba_block, sub=p.mamba, tp=tp), None, cache
   if btype == "rec":
     h = _recurrent(h, p, cfg, mode=mode, cache=cache,
-                   block=RG.recurrent_block, sub=p.rec)
+                   block=RG.recurrent_block, sub=p.rec, tp=tp)
   else:
     positions = (torch.full((1,), pos, dtype=torch.int32, device=h.device)
                  if mode == "decode" else
@@ -430,6 +462,6 @@ def apply_block(btype: str, h: torch.Tensor, p: Params, cfg: ModelConfig, *,
                    pos=pos, positions=positions, backend=backend, tp=tp)
     if btype == "cross":
       h = _cross(h, p, cfg, mode=mode, memory=memory, cache=cache,
-                 positions=positions)
+                 positions=positions, tp=tp)
   h, aux = _ffn(h, p, cfg, tp, dp)
   return h, aux, cache

@@ -7,7 +7,12 @@ returns the model's own steps.  Every prefill launches the flash-attention
 kernel once per causal, unwindowed attention layer (``backend`` "auto" on
 the card): every layer of a dense or MoE stack, each self-attention of the
 VLM's and the enc-dec decoder's layers; none in Mamba-2 or RecurrentGemma
-(windowed attention, ``models.attention.local_attention``).
+(windowed attention, ``models.attention.local_attention``).  A model
+built over a training mesh (``Model(mesh=)``) serves at its rank's heads
+and widths, with caches of its rank's KV heads, SSM heads and recurrent
+channels (``Model.init_cache``): every rank of the model group calls
+``generate`` on the same request and gets the same tokens, the logits
+whole on every rank (the vocabulary gathered where it is split).
 """
 from __future__ import annotations
 

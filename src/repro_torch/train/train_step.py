@@ -14,8 +14,9 @@ Over a training mesh (the model's ``launch.mesh.TrainMesh``) each rank
 runs the loss on its data shard of the batch and its model shard of the
 parameters.  After the backward pass (and the microbatches) the gradients
 of the model's ``partial_leaves`` (the qk-norm gains: replicated leaves
-used inside a split region; the qkv biases' come whole out of
-``split_group``'s backward) are summed over the model group, and then
+used inside a split region; those read by slice come whole out of
+``split_group``'s backward, those every rank reads whole inside a split
+block out of ``enter_group``'s) are summed over the model group, and then
 every gradient is averaged over the data group: the rank-ordered sum in
 float32 divided by D (``ProcessMesh.sum_``, in buckets), written back in
 the gradient's dtype (a bf16 gradient rounds to nearest once).  Every

@@ -1621,3 +1621,98 @@ def test_cuda_rank_sums_do_not_depend_on_the_batch(cuda_device):
   assert torch.equal(O._row_sum(x[:4]), O._row_sum(x)[:4])
   np.testing.assert_allclose(O._row_sum(x).cpu().numpy(),
                              x.double().sum(-1).cpu().numpy(), rtol=1e-6)
+
+
+# one rank of test_cuda_family_model_axis_step (under torchrun, gloo, both
+# ranks on the current card); rank 0 also runs one process
+FAMILY_TP_RANK = r'''
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch import no_tf32
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import TrainMesh
+from repro_torch.models import Model, Parallelism
+from repro_torch.train import OptConfig, init_opt_state, make_train_step
+
+no_tf32()
+arch, ep = sys.argv[2], sys.argv[3] == "ep"
+mesh = TrainMesh.from_env((1, 2), "gloo", "cuda")
+dev = mesh.device
+cfg = reduced(get_config(arch))
+g = torch.Generator(device=dev).manual_seed(4)
+toks = torch.randint(0, cfg.vocab, (2, 33), generator=g, device=dev)
+batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+         "mask": torch.ones(2, 32, device=dev)}
+if cfg.family == "encdec":
+  batch["frames"] = torch.randn(2, cfg.encoder.n_frames, cfg.d_model,
+                                generator=g, device=dev)
+if cfg.family == "vlm":
+  batch["img_embeds"] = torch.randn(2, cfg.n_img_tokens, cfg.d_model,
+                                    generator=g, device=dev)
+out = {}
+for tag, m in (("mesh", mesh), ("one", None)):
+  if tag == "one" and mesh.rank:
+    break
+  par = None if not ep else Parallelism(ep=True) if m is None else \
+      Parallelism(dp_axes=("data",), dp_size=1, model_size=2, ep=True)
+  model = Model(cfg, device=dev, mesh=m, par=par,
+                generator=torch.Generator(device=dev).manual_seed(3))
+  ops.reset_launch_counts()
+  mem = model.memory(batch)
+  last, _ = model.prefill(batch, model.init_cache(2, 32, memory=mem), mem)
+  out[f"{tag}/flash"] = np.array(ops.launch_counts()["flash_attention"])
+  out[f"{tag}/prefill"] = last.cpu().numpy()
+  met = make_train_step(model, OptConfig(lr=1e-3, warmup_steps=2,
+                                         total_steps=10))(
+      init_opt_state(model), batch)
+  out[f"{tag}/loss"] = met["loss"].cpu().numpy()
+  out[f"{tag}/grad_norm"] = met["grad_norm"].cpu().numpy()
+  params = {n: (p if m is None else m.whole(p, model.specs[n]))
+            for n, p in model.state_dict().items()}
+  for n, p in params.items():
+    out[f"{tag}/param/{n}"] = p.cpu().numpy()
+np.savez(f"{sys.argv[1]}/rank{mesh.rank}.npz", **out)
+mesh.close()
+'''
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layout", [("mamba2-2.7b", "tp"),
+                                         ("deepseek-moe-16b", "ep"),
+                                         ("whisper-tiny", "tp")])
+def test_cuda_family_model_axis_step(cuda_device, tmp_path, arch, layout):
+  """A family at the reduced size in float32 over ``--mesh 1x2`` (2 gloo
+  ranks on the card): the prefill at the rank's heads (the flash kernel
+  once a causal, unwindowed layer) and one train step against one process
+  on the card: logits, loss and grad norm within 1e-5 of their scale,
+  every parameter after the step within 2 x lr, both ranks' whole leaves
+  the same bits."""
+  import os
+  import subprocess
+  import sys
+  script = tmp_path / "rank.py"
+  script.write_text(FAMILY_TP_RANK)
+  repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+  run = subprocess.run(
+      [sys.executable, "-m", "torch.distributed.run", "--standalone",
+       "--nproc-per-node", "2", str(script), str(tmp_path), arch, layout],
+      env=env, capture_output=True, text=True, timeout=600)
+  assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+  got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+  one = {k[len("one/"):]: v for k, v in got[0].items()
+         if k.startswith("one/")}
+  layers = {"mamba2-2.7b": 0, "deepseek-moe-16b": 2, "whisper-tiny": 2}
+  assert int(got[0]["mesh/flash"]) == int(one["flash"]) == layers[arch]
+  for k in ("prefill", "loss", "grad_norm"):
+    _close(torch.tensor(got[0][f"mesh/{k}"]), torch.tensor(one[k]), 1e-5)
+  for k, want in one.items():
+    if k.startswith("param/"):
+      np.testing.assert_allclose(got[0][f"mesh/{k}"], want, rtol=0,
+                                 atol=2e-3, err_msg=k)
+      np.testing.assert_array_equal(got[0][f"mesh/{k}"],
+                                    got[1][f"mesh/{k}"], err_msg=k)

@@ -295,35 +295,77 @@ def test_interop_bf16_pytree_is_bit_exact():
                       {"embed": np.asarray(params["embed"])})
 
 
+def _stand_in_mesh(data: int, model: int, rank: int = 0):
+  """A ``TrainMesh`` of ``rank``'s groups with no process group behind
+  them: enough to lay a model out (no collective runs while one is
+  built)."""
+  from repro_torch.launch.mesh import ProcessMesh, TrainMesh
+  cpu = torch.device("cpu")
+  d, m = rank // model, rank % model
+  return TrainMesh(data, model, rank, cpu, "gloo",
+                   dp=ProcessMesh(data, d, data, cpu, "gloo"),
+                   tp=ProcessMesh(model, m, model, cpu, "gloo"),
+                   world=ProcessMesh(data * model, rank, data * model, cpu,
+                                     "gloo"))
+
+
 def test_model_refuses_what_is_not_ported():
-  """What stays refused: a model axis of more than one rank on anything but
-  the dense ("attn",) stack, through ``check_supported`` and the
-  launcher's check (before it looks for torchrun); every family builds on
-  one device and passes a data-only axis."""
+  """What stays refused: a model axis that does not divide the query heads
+  (whisper-tiny's 6 and recurrentgemma-2b's 10 at M = 4), through
+  ``check_supported``, ``check_model_axis``, ``Model`` and the launcher
+  (before it looks for torchrun); the spec-only layouts (``fsdp``,
+  ``seq_shard``, ``ep_pod``, a pod axis), naming ROADMAP.md.  Every family
+  lays out at M = 2 (full and reduced; reduced, each rank's leaves are
+  its slices by ``param_specs``, the experts dealt whole under ``ep``),
+  builds on one device and passes a data-only axis."""
   from repro_torch.launch import train as launch_train
-  from repro_torch.models.registry import check_model_axis, check_supported
+  from repro_torch.models import Parallelism
+  from repro_torch.models.registry import (check_model_axis, check_supported,
+                                           mesh_parallelism, param_shapes)
+  archs = ("deepseek-moe-16b", "grok-1-314b", "mamba2-2.7b",
+           "recurrentgemma-2b", "llama-3.2-vision-90b", "whisper-tiny")
+  for arch in ("whisper-tiny", "recurrentgemma-2b"):
+    cfg = tconfigs.get_config(arch)
+    check_supported(cfg, 2)
+    for check in (check_supported, check_model_axis):
+      with pytest.raises(ValueError, match="whole query heads"):
+        check(cfg, 4)
+    with pytest.raises(ValueError, match="whole query heads"):
+      launch_train.main(["--arch", arch, "--mesh", "1x4", "--device", "cpu",
+                         "--steps", "1"])
   base = tconfigs.reduced(tconfigs.get_config("qwen3-4b"))
-  refused = [tconfigs.reduced(tconfigs.get_config(a)) for a in (
-      "deepseek-moe-16b", "mamba2-2.7b", "recurrentgemma-2b",
-      "llama-3.2-vision-90b", "whisper-tiny")]
-  refused += [dataclasses.replace(base, sliding_window=32),
-              dataclasses.replace(base, pattern=("attn", "rec"))]
-  for cfg in refused:
-    check_supported(cfg)
-    check_model_axis(cfg, 1)
+  for kw in (dict(fsdp=True), dict(seq_shard=True), dict(ep_pod=True),
+             dict(dp_axes=("pod", "data"))):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-      check_supported(cfg, 2)
+      check_supported(base, 2, Parallelism(**kw))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-      check_model_axis(cfg, 2)
-  check_supported(base, 2)
-  with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+      Model(base, device="cpu", par=Parallelism(**kw))
+  with pytest.raises(ValueError, match="only ep"):
+    Model(base, device="cpu", mesh=_stand_in_mesh(1, 2),
+          par=Parallelism(dp_axes=("data",), dp_size=4, model_size=2))
+  with pytest.raises(SystemExit, match="torchrun"):
     launch_train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "1x2",
                        "--device", "cpu", "--steps", "1"])
-  with pytest.raises(SystemExit, match="torchrun"):
-    launch_train.main(["--arch", "grok-1-314b", "--reduced", "--mesh", "2x1",
-                       "--device", "cpu", "--steps", "1"])
-  for cfg in refused[:5]:
+  for arch in archs:
+    full = tconfigs.get_config(arch)
+    check_supported(full, 2)
+    cfg = tconfigs.reduced(full)
+    check_supported(cfg)
+    check_model_axis(cfg, 1)
     assert isinstance(Model(cfg, device="cpu"), Model)
+    for ep in (False, True):
+      mesh = _stand_in_mesh(1, 2, rank=1)
+      par = mesh_parallelism(cfg, mesh, ep=ep)
+      m = Model(cfg, device="cpu", mesh=mesh, par=par)
+      shapes = param_shapes(cfg)
+      for n, p in m.state_dict().items():
+        assert tuple(p.shape) == mesh.local_shape(shapes[n], m.specs[n]), n
+      assert m.sharded and m.shard is not None
+      if cfg.moe.num_experts:
+        assert m.shard.experts == ("ep" if ep else "tp")
+        assert m.state_dict()["layers.0.moe.gate"].shape[0] == (
+            cfg.moe.num_experts // 2 if ep else cfg.moe.num_experts)
+    check_supported(cfg, 1, mesh_parallelism(cfg, _stand_in_mesh(2, 1)))
 
 
 def test_temperature_sampling_is_valid_and_reproducible():

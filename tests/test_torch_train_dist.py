@@ -964,8 +964,8 @@ def test_launcher_refusals(monkeypatch):
   monkeypatch.setenv("WORLD_SIZE", "4")
   with pytest.raises(ValueError, match="a 3x1 mesh needs 3 ranks"):
     launch_train.main([*base, "--mesh", "3x1", "--dist-backend", "gloo"])
-  with pytest.raises(ValueError, match="whole heads"):
-    launch_train.main([*base, "--mesh", "1x4", "--dist-backend", "gloo"])
+  with pytest.raises(ValueError, match="whole query heads"):
+    launch_train.main([*base, "--mesh", "1x3", "--dist-backend", "gloo"])
   with pytest.raises(SystemExit, match="pass --mesh"):
     launch_train.main(base)
   with pytest.raises(ValueError, match="DxM"):
