@@ -119,6 +119,17 @@ calls, counting each kernel's launches around each path:
     version, deepseek's TP and ep logits against each other, the
     replicated leaves bit for bit after each train step and the losses
     within 2e-2 of one process's;
+  * the layouts of the reference's dry run (phase ``e2e layouts``, its
+    runs inside the ranks of ``e2e train dist`` and ``e2e families tp``):
+    qwen3-4b at full width (2 layers) over 2x2 with FSDP and sequence
+    sharding for two steps against ``e2e train dist``'s 2x2 run, each FSDP
+    leaf's parameter and moments half of that rank's, and the reckoning
+    of a 4x1 FSDP rank at full depth; deepseek-moe-16b's 2 layers over pod
+    2 x data 1 x model 2 with its experts dealt over the pods (ep_pod),
+    and recurrentgemma-2b at batch 1 with its cache split by length over
+    2 data ranks, past its window, each against one process; and the dry
+    run (``python -m repro_torch.launch.dryrun --mesh both``, 68 records)
+    on the host from the build's end, stopped while a phase runs ranks;
   * the training path (``repro_torch.train``, ``launch/train.py
     --select-coreset``): the launcher's coreset step (4096 documents of
     width 64, m = 8, kappa = 256, k_final = 1024) on the facility-select
@@ -1273,12 +1284,26 @@ def torchrun(args, timeout: int = 600):
       os.killpg(proc.pid, 9)
       proc.wait()
     raise SmokeFailure(f"torchrun {' '.join(args)}: no end in {timeout} s")
-  check(proc.returncode == 0, f"torchrun {' '.join(args)} exited "
-        f"{proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+  if proc.returncode != 0:   # the ranks' tracebacks come before the summary
+    tb = [i for i, line in enumerate(err.splitlines())
+          if line.startswith(("Traceback", "[rank"))]
+    first = "\n".join(err.splitlines()[tb[0]:tb[0] + 40]) if tb else ""
+    raise SmokeFailure(f"torchrun {' '.join(args)} exited "
+                       f"{proc.returncode}:\n{out[-3000:]}\n{first}\n"
+                       f"{err[-3000:]}")
   return time.perf_counter() - t0, out
 
 
 _LAUNCHES = None
+
+
+def wait_for(path: str, timeout: float) -> None:
+  """Poll until ``path`` exists (a torchrun rank waiting for the smoke's
+  process); a SmokeFailure past ``timeout`` seconds."""
+  t0 = time.perf_counter()
+  while not os.path.exists(path):
+    check(time.perf_counter() - t0 < timeout, f"no {path} in {timeout} s")
+    time.sleep(0.2)
 
 
 def torchrun_async(args, timeout: int = 600):
@@ -5743,6 +5768,87 @@ def fingerprint(t):
   return out
 
 
+def part_fingerprint(x, full, offsets):
+  """``fingerprint`` of the part ``x`` of a leaf of shape ``full`` that
+  starts at ``offsets``, each element weighted by its position in the
+  whole leaf: the parts' fingerprints add up (int64, wrapping) to the
+  whole leaf's, so a split leaf needs no gather of its whole."""
+  import torch
+  bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+  x = x.detach().contiguous()
+  if x.dim() == 0:
+    x, full, offsets = x.reshape(1), (1,), (0,)
+  full = tuple(full)
+  strides = [math.prod(full[d + 1:]) for d in range(len(full))]
+  rest = math.prod(x.shape[1:])
+  per = max(1, COMPRESS_CHUNK // max(rest, 1))
+  out = torch.zeros(2, dtype=torch.int64, device=x.device)
+  inner = torch.zeros((), dtype=torch.int64, device=x.device)
+  for d in range(1, x.dim()):
+    shape = [1] * (x.dim() - 1)
+    shape[d - 1] = x.shape[d]
+    inner = inner + ((offsets[d] + torch.arange(
+        x.shape[d], device=x.device)) * strides[d]).reshape(shape)
+  flat = x.view(bits[x.element_size()])
+  for r0 in range(0, x.shape[0], per):
+    c = flat[r0:r0 + per].to(torch.int64)
+    rows = (offsets[0] + r0 + torch.arange(c.shape[0], device=x.device)
+            ) * strides[0]
+    w = (rows.reshape(-1, *[1] * (x.dim() - 1)) + inner) % 65521 + 1
+    out[0] += c.sum()
+    out[1] += (c * w).sum()
+  return out
+
+
+def _tree_leaves(tree, prefix: str = "", out=None) -> dict:
+  """The tensors of a tree of dicts and NamedTuples by their path (a
+  module-level recursion: a nested one is a reference cycle, and would
+  keep the tensors it collects alive until the garbage collector runs)."""
+  out = {} if out is None else out
+  if isinstance(tree, dict):
+    for k, v in tree.items():
+      _tree_leaves(v, f"{prefix}{k}/", out)
+  elif hasattr(tree, "_fields"):
+    for k, v in zip(tree._fields, tree):
+      _tree_leaves(v, f"{prefix}{k}/", out)
+  else:
+    out[prefix.rstrip("/")] = tree
+  return out
+
+
+def whole_prints(tree, mesh, specs):
+  """Every leaf of ``tree`` (dicts and NamedTuples of tensors, this rank's
+  parts under ``mesh`` by ``specs``; None: one process, whole leaves) ->
+  its whole leaf's ``fingerprint``, on the host: each rank's
+  ``part_fingerprint`` summed over the groups of the axes the leaf is
+  split on (a few gathers of (n, 2) int64 tables, no leaf gathered)."""
+  import torch
+  leaves = _tree_leaves(tree)
+  by = {}
+  for key, x in leaves.items():
+    splits = [] if mesh is None else mesh.splits(specs.get(key, ()), x.dim())
+    full, offsets = list(x.shape), [0] * x.dim()
+    for dim, axes in splits:
+      size = math.prod(mesh.shape[a] for a in axes)
+      index = 0
+      for a in axes:
+        index = index * mesh.shape[a] + mesh.coords[a]
+      full[dim], offsets[dim] = x.shape[dim] * size, x.shape[dim] * index
+    names, fps = by.setdefault(tuple(a for _, a in splits), ([], []))
+    names.append(key)
+    fps.append(part_fingerprint(x, full, offsets))
+  out = {}
+  for axes, (names, fps) in by.items():
+    table = torch.stack(fps)
+    for a in axes:
+      parts = mesh.group(a).gather_parts(table)
+      table = parts[0].clone()
+      for p in parts[1:]:
+        table += p
+    out.update(zip(names, table.cpu()))
+  return out
+
+
 def quantize_np(x, noise):
   """The plain quantization (numpy float32 on the host): the reference's
   ``_quantize`` formula."""
@@ -5924,7 +6030,8 @@ def _restore_like(cfg, mesh, dtypes):
 def train_dist_elastic(kept, base, ckpt_dir, batch):
   """Save the kept run's state (gathered, rank 0 writes) and restore it
   onto ``TRAIN_DIST_RESTORE`` and one process: every restored leaf's
-  whole equals the saved whole bit for bit (fingerprints).  Returns
+  whole equals the saved whole bit for bit (``whole_prints``: each
+  whole leaf's fingerprint from its parts, no leaf gathered).  Returns
   (fields, this rank's flat float32 gradient of one more step, on its
   data shard of ``batch``, for the compression check); ``kept`` holds the
   run's (model, optimizer state, mesh) and is emptied, so they are freed
@@ -5938,24 +6045,7 @@ def train_dist_elastic(kept, base, ckpt_dir, batch):
   dtypes = {n: p.dtype for n, p in model.state_dict().items()}
   ck = CheckpointManager(ckpt_dir, keep_last=1)
   tree = {"params": model.state_dict(), "opt": opt}
-
-  def prints(t, m, sp):
-    flat = {}
-
-    def walk(x, prefix):
-      if isinstance(x, dict):
-        for k, v in x.items():
-          walk(v, f"{prefix}{k}/")
-      elif hasattr(x, "_fields"):
-        for k, v in zip(x._fields, x):
-          walk(v, f"{prefix}{k}/")
-      else:
-        key = prefix.rstrip("/")
-        whole = x if m is None else m.whole(x, sp.get(key, ()))
-        flat[key] = fingerprint(whole).cpu()
-    walk(t, "")
-    return flat
-
+  prints = whole_prints
   want = prints(tree, mesh, specs)
   sync()
   t0 = time.perf_counter()
@@ -6012,10 +6102,13 @@ def train_dist_elastic(kept, base, ckpt_dir, batch):
 
 def train_dist_compression(grad, base):
   """The compressed all-reduce over the 4 ranks (a 4x1 mesh's data group)
-  on this rank's flat gradient: codes and scales against the plain
-  (numpy) quantization bit for bit, the mean within its quantization
-  bound of the rank-ordered float32 mean, error feedback over 10 steps on
-  the first COMPRESS_EF_ELEMS elements within TOL_COMPRESS_EF."""
+  on this rank's flat gradient, the whole of it; on its first and its
+  last ``COMPRESS_CHUNK`` (the host-side checks of every chunk took 31 s:
+  tests/test_torch_train_dist.py holds every code on the CPU): codes and
+  scales against the plain (numpy) quantization bit for bit, the mean
+  within its quantization bound of the rank-ordered float32 mean; error
+  feedback over 10 steps on the first COMPRESS_EF_ELEMS elements within
+  TOL_COMPRESS_EF."""
   import numpy as np
   import torch
 
@@ -6037,7 +6130,7 @@ def train_dist_compression(grad, base):
   wall = time.perf_counter() - t0
   wire = dict(gathers=mesh.gathers - g0, bytes=mesh.gather_bytes - b0)
   worst, codes_equal = 0.0, 0
-  for s0 in range(0, n, COMPRESS_CHUNK):
+  for s0 in sorted({0, (n - 1) // COMPRESS_CHUNK * COMPRESS_CHUNK}):
     part = slice(s0, s0 + COMPRESS_CHUNK)
     q, sc = C.quantize(grad[part], noise[part])
     qn, scn = quantize_np(grad[part].cpu().numpy(), noise[part].cpu().numpy())
@@ -6074,7 +6167,8 @@ def train_dist_compression(grad, base):
         f"{rel} relative after 10 steps")
   return dict(elements=n, wall_s=wall, wire_gathers=wire["gathers"],
               wire_bytes=wire["bytes"], f32_bytes_each=4 * n,
-              codes_compared=codes_equal, worst_err_over_bound=worst,
+              codes_compared=codes_equal, checked="first and last chunk",
+              worst_err_over_bound=worst,
               ef_elements=g.numel(), ef_rel=rel, ef_tol=TOL_COMPRESS_EF)
 
 
@@ -6085,6 +6179,7 @@ def train_dist_rank(out_dir: str) -> None:
   names, the elastic save and restores, the compressed all-reduce; writes
   DIR/rank<r>.json."""
   sys.path.insert(0, str(SRC))
+  import repro_torch.models  # noqa: F401  (torch._dynamo, off model frames)
   import numpy as np
   import torch
 
@@ -6112,6 +6207,10 @@ def train_dist_rank(out_dir: str) -> None:
                                      batches[:steps], opt_cfg, keep=keep)
     res["runs"][label] = fields
     if keep:
+      t0 = time.perf_counter()
+      res["layouts"] = layouts_train(base, handles, fields, batches[:steps],
+                                     opt_cfg)
+      res["layouts"]["phase_s"] = time.perf_counter() - t0
       kept = [handles]
       del handles
       t0 = time.perf_counter()
@@ -6321,6 +6420,7 @@ def e2e_train_dist(sz, single: dict):
                               for p in per],
         rank_gather_ms_median=[p["gather_ms_median"] for p in per])
     del runs[label]["peak_gib"]
+  single["layouts_train"] = [rk["layouts"] for rk in ranks]
   emit("e2e train dist", arch=cfg.name, d_model=cfg.d_model,
        vocab=cfg.vocab, dtype=cfg.dtype, remat="dots", ranks=TRAIN_DIST_RANKS,
        backend="gloo, one card", batch=sz.train_batch, seq=sz.train_seq,
@@ -6516,10 +6616,12 @@ def family_tp_serve(mesh, scfg, layout, seed, req, one):
   """One rank's serving of a ``FAMILY_TP_RUNS`` row over ``mesh``: where
   the family has flash launches or MoE layers, a greedy trace first, the
   one-process run's MoE routing replayed and every flash launch held
-  against the plain version on its own inputs (``LayerAttention``); then
-  one timed ``generate`` (the time to its prefill's end is the first
-  token's, the rest a decode step's; its flash launches counted), whose
-  tokens are the trace's where no routing was pinned.  Returns (fields,
+  against the plain version on its own inputs (``LayerAttention``), on
+  the rank's rows; then one timed ``generate`` of the whole request, which
+  splits its rows over the data axis (the time to its prefill's end is the
+  first token's, the rest a decode step's; its flash launches counted),
+  whose tokens for the rank's rows are the trace's where no routing was
+  pinned.  Returns (fields,
   the prefill's logits: the trace's, else the timed run's)."""
   import torch
 
@@ -6534,8 +6636,8 @@ def family_tp_serve(mesh, scfg, layout, seed, req, one):
       generator=torch.Generator(device=DEVICE).manual_seed(seed)))
   d = mesh.coords["data"]
   rows = req[0] // mesh.data
-  batch = {k: v[d * rows:(d + 1) * rows] for k, v in
-           family_tp_serve_batch(scfg, seed + 1, req).items()}
+  whole = family_tp_serve_batch(scfg, seed + 1, req)
+  batch = {k: v[d * rows:(d + 1) * rows] for k, v in whole.items()}
   pin = pinned(one, "route")
   layers = LayerAttention()
   trace = None
@@ -6562,7 +6664,8 @@ def family_tp_serve(mesh, scfg, layout, seed, req, one):
   g0, b0 = mesh.gathers, mesh.gather_bytes
   sync()
   t0 = time.perf_counter()
-  out = generate(model, batch, steps=req[2])
+  # generate splits the request's rows over the data axis itself
+  out = generate(model, whole, steps=req[2])[d * rows:(d + 1) * rows]
   sync()
   wall = time.perf_counter() - t0
   del model.prefill
@@ -6675,6 +6778,7 @@ def families_tp_rank(out_dir: str) -> None:
   over its mesh, serving then training, against the one-process runs in
   DIR/one<i>.npz; writes DIR/rank<r>.json."""
   sys.path.insert(0, str(SRC))
+  import repro_torch.models  # noqa: F401  (torch._dynamo, off model frames)
   import numpy as np
   import torch
 
@@ -6682,6 +6786,7 @@ def families_tp_rank(out_dir: str) -> None:
   from repro_torch.launch.mesh import TrainMesh
   no_tf32()
   base = TrainMesh.from_env((FAMILY_TP_RANKS, 1), "gloo", DEVICE)
+  wait_for(os.path.join(out_dir, "one.ready"), 900)
   res = {}
   for i, row in enumerate(FAMILY_TP_RUNS):
     arch, shape, sl, req, layouts, tl = row
@@ -6724,6 +6829,15 @@ def families_tp_rank(out_dir: str) -> None:
     print(f"[families tp rank {base.rank}] {arch} done "
           f"{res[arch]['wall_s']:.1f} s, peak {res[arch]['peak_gib']:.2f} "
           "GiB", file=sys.stderr, flush=True)
+  # (b) of e2e layouts: the data axes' serving layouts
+  t0 = time.perf_counter()
+  arch, shape, layers, req = LAYOUTS_MOE
+  moe = layouts_serve(base, arch, shape, layers, req, LAYOUTS_SEED,
+                      ep_pod=True)
+  arch, shape, req = LAYOUTS_LONG
+  long = layouts_serve(base, arch, shape, None, req, LAYOUTS_SEED + 10)
+  res["layouts"] = dict(moe=moe, long=long,
+                        serve_s=time.perf_counter() - t0)
   with open(os.path.join(out_dir, f"rank{base.rank}.json"), "w") as f:
     json.dump(res, f)
   base.close()
@@ -6757,6 +6871,10 @@ def e2e_families_tp(sz):
   (REPO / "build").mkdir(exist_ok=True)
   t_phase = time.perf_counter()
   with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+    # the ranks start up (processes, CUDA, the group) while the
+    # one-process runs go; they wait for DIR/one.ready before a model
+    launch = torchrun_async([str(REPO / "chip_smoke.py"), "--families-tp",
+                             tmp], timeout=900)
     one_s = []
     for i, row in enumerate(FAMILY_TP_RUNS):
       t0 = time.perf_counter()
@@ -6764,8 +6882,8 @@ def e2e_families_tp(sz):
       one_s.append(time.perf_counter() - t0)
       print(f"[smoke] families tp one process {row[0]}: {one_s[-1]:.1f} s",
             file=sys.stderr, flush=True)
-    wall, _ = torchrun([str(REPO / "chip_smoke.py"), "--families-tp", tmp],
-                       timeout=600)
+    Path(tmp, "one.ready").touch()
+    wall, _ = launch.result()
     ones = [dict(np.load(os.path.join(tmp, f"one{i}.npz")))
             for i in range(len(FAMILY_TP_RUNS))]
     ranks = []
@@ -6848,8 +6966,477 @@ def e2e_families_tp(sz):
              "train at the reduced width" if tl == "reduced" else None
              if tl is None else f"train n_layers {tl}") if r])
   emit("e2e families tp", one_process_s=sum(one_s), launch_wall_s=wall,
+       phase_s=time.perf_counter() - t_phase,
+       layouts_serve_s=[rk["layouts"]["serve_s"] for rk in ranks])
+  return counts, [rk["layouts"] for rk in ranks]
+
+
+# ---------------------------------------------------------------------------
+# the layouts of the dry run: e2e layouts
+# ---------------------------------------------------------------------------
+
+# (a) rides in e2e train dist's ranks, (b) in e2e families tp's
+LAYOUTS_RANKS = 4
+# (b): deepseek-moe-16b's 2 layers over pod 2 x data 1 x model 2 under
+# ep_pod, a row a pod; the prompt a whole MoE group a row (group_size 512),
+# so a pod routes its row's groups as one process routes the batch's
+LAYOUTS_MOE = ("deepseek-moe-16b", (2, 1, 2), 2, (2, 512, 8))
+# recurrentgemma-2b at batch 1 over 2x2, its cache split by length over
+# the 2 data ranks: a prompt of 2048 (its local attention takes whole
+# 1024-query chunks) filling the 2048-row window, then 16 new tokens past it
+LAYOUTS_LONG = ("recurrentgemma-2b", (2, 2), (1, 2048, 16))
+LAYOUTS_SEED = 1300
+DRYRUN_JOBS = 5        # the dry run's processes, beside the smoke's phases
+_DRYRUN = {}
+
+
+def dryrun_start() -> None:
+  """``python -m repro_torch.launch.dryrun --mesh both`` in the background
+  (the host only, ``DRYRUN_JOBS`` processes in the idle scheduling class)
+  from the build's end;
+  it is stopped while a phase runs ranks of its own, and while the
+  one-process training and serving phases are timed (``dryrun_paused``),
+  and ``e2e layouts`` collects it."""
+  (REPO / "build").mkdir(exist_ok=True)
+  out = REPO / "build" / "smoke_dryrun.jsonl"
+  if out.exists():
+    out.unlink()
+  log = open(REPO / "build" / "smoke_dryrun.log", "w")
+  _DRYRUN.update(out=out, log=log, t0=time.perf_counter(), paused=0.0,
+                 t0_wall=time.time(), at_s=time.perf_counter() - STARTED,
+                 proc=subprocess.Popen(
+      [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "both",
+       "--jobs", str(DRYRUN_JOBS), "--out", str(out)], cwd=REPO,
+      env=dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES=""),
+      stdout=log, stderr=subprocess.STDOUT, preexec_fn=_idle,
+      process_group=0))
+
+
+def _idle() -> None:
+  """The dry run's scheduling: the idle class (its processes run only on
+  cores nothing else wants), the lowest priority where that is refused."""
+  os.nice(19)
+  try:
+    os.sched_setscheduler(0, os.SCHED_IDLE, os.sched_param(0))
+  except (AttributeError, OSError):
+    pass
+
+
+@contextlib.contextmanager
+def dryrun_paused():
+  """The dry run's processes stopped (SIGSTOP to its process group) for
+  the span of a phase whose ranks need the host's cores, then continued."""
+  import signal
+  proc = _DRYRUN.get("proc")
+  live = proc is not None and proc.poll() is None
+  if live:
+    os.killpg(proc.pid, signal.SIGSTOP)
+  t0 = time.perf_counter()
+  try:
+    yield
+  finally:
+    if live and proc.poll() is None:
+      os.killpg(proc.pid, signal.SIGCONT)
+      _DRYRUN["paused"] += time.perf_counter() - t0
+
+
+def dryrun_stop() -> None:
+  """Stop the dry run's process group if it is still running (a failed
+  smoke)."""
+  proc = _DRYRUN.get("proc")
+  if proc is not None and proc.poll() is None:
+    os.killpg(proc.pid, 9)
+    proc.wait()
+
+
+def dryrun_collect(timeout: float = 600) -> dict:
+  """Wait for the dry run; every record written, none failed."""
+  proc = _DRYRUN["proc"]
+  try:
+    proc.wait(timeout=timeout)
+  except subprocess.TimeoutExpired:
+    dryrun_stop()
+    raise SmokeFailure(f"dryrun: no end in {timeout} s more")
+  _DRYRUN["log"].close()
+  wall = time.perf_counter() - _DRYRUN["t0"]
+  # when its last record was written, on the smoke's clock (at_s)
+  ended = _DRYRUN["at_s"] + os.path.getmtime(_DRYRUN["out"]) - _DRYRUN[
+      "t0_wall"]
+  text = (REPO / "build" / "smoke_dryrun.log").read_text()
+  check(proc.returncode == 0 and "records OK" in text,
+        f"dryrun exited {proc.returncode}: {text[-3000:]}")
+  recs = [json.loads(line) for line in
+          _DRYRUN["out"].read_text().splitlines()]
+  check(len(recs) == 68, f"dryrun: {len(recs)} records, expected 68")
+  fields = ("arch", "shape", "mesh", "chips", "flops_per_device",
+            "bytes_per_device", "collective_bytes_per_device", "mem")
+  for r in recs:
+    check(all(f in r for f in fields) and r["flops_per_device"] > 0,
+          f"dryrun record {r.get('arch')} {r.get('shape')}: {r}")
+  grok = [r for r in recs if r["arch"] == "grok-1-314b" and
+          r["shape"] == "train_4k" and r["mesh"] == "2x16x16"]
+  check(len(grok) == 1, "dryrun: no grok-1-314b train_4k 2x16x16 record")
+  return dict(records=len(recs), wall_s=wall, paused_s=_DRYRUN["paused"],
+              started_at_s=_DRYRUN["at_s"], ended_at_s=ended,
+              jobs=DRYRUN_JOBS, summary=text.strip().splitlines()[-1],
+              grok=grok[0])
+
+
+def layouts_reckoning() -> dict:
+  """Per-rank bytes of qwen3-4b at full depth on a 4x1 mesh, FSDP against
+  none: parameters (bf16) and AdamW's two float32 moments, from the leaf
+  shapes and specs alone (nothing runs: a gloo gather moves about 200
+  MB/s, so a deep FSDP step would take the phase's budget)."""
+  import torch
+
+  from repro_torch.configs import get_config
+  from repro_torch.launch.mesh import ProcessMesh, TrainMesh
+  from repro_torch.models.registry import (mesh_parallelism, param_shapes,
+                                           param_specs)
+  cfg = get_config("qwen3-4b")
+  cpu = torch.device("cpu")
+  one = ProcessMesh(1, 0, 1, cpu, "gloo")
+  mesh = TrainMesh(4, 1, 0, cpu, "gloo", one, one, one)
+  out = {}
+  for tag, kw in (("plain", {}), ("fsdp", dict(fsdp=True))):
+    specs = param_specs(cfg, mesh_parallelism(cfg, mesh, **kw))
+    n = sum(math.prod(mesh.local_shape(sh, specs[k]))
+            for k, sh in param_shapes(cfg).items())
+    out[tag] = dict(params_a_rank=n, param_gib=n * 2 / 2**30,
+                    opt_gib=n * 8 / 2**30, total_gib=n * 10 / 2**30)
+  out["ratio"] = out["fsdp"]["total_gib"] / out["plain"]["total_gib"]
+  return dict(arch=cfg.name, n_layers=cfg.n_layers, mesh="4x1", **out)
+
+
+def layouts_train(base, plain, twin, batches, opt_cfg):
+  """(a) of e2e layouts, in a train dist rank beside the 2x2 run
+  (``TRAIN_DIST_CKPT_FROM``: ``plain`` its (model, optimizer state, mesh)
+  after its steps, ``twin`` its fields): qwen3-4b at full width, the same
+  depth over 2x2 with fsdp and seq_shard, the same steps on the same
+  batches from the same seed.  Each leaf's shard, and its shard of both
+  AdamW moments (float32: what carries the gradient, where a bf16 update
+  below half an ulp leaves the weight as it was), against the same part
+  of the 2x2 run's, and each step's loss and grad norm against its; the
+  parameter and optimizer bytes of every FSDP leaf, which must be half
+  the 2x2 rank's."""
+  import torch
+
+  from repro_torch.launch.mesh import TrainMesh
+  from repro_torch.models import Model
+  from repro_torch.models.registry import (mesh_parallelism, param_shapes,
+                                           param_specs)
+  from repro_torch.train import init_opt_state, make_train_step
+  pmodel, popt, _ = plain
+  cfg = pmodel.cfg
+  dev = base.device
+  mesh = TrainMesh.over(2, 2, base.rank, dev, base.backend)
+  par = mesh_parallelism(cfg, mesh, fsdp=True, seq_shard=True)
+  model = Model(cfg, device=dev, mesh=mesh, par=par,
+                generator=torch.Generator(device=dev).manual_seed(42))
+  opt = init_opt_state(model)
+  step = make_train_step(model, opt_cfg)
+  d, rows = mesh.coords["data"], batches[0]["tokens"].shape[0] // mesh.data
+  losses, norms, walls, gathers = [], [], [], []
+  for b in batches:
+    g0 = mesh.gathers
+    sync()
+    t0 = time.perf_counter()
+    m = step(opt, {k: v[d * rows:(d + 1) * rows] for k, v in b.items()})
+    sync()
+    walls.append(time.perf_counter() - t0)
+    losses.append(float(m["loss"]))
+    norms.append(float(m["grad_norm"]))
+    gathers.append(mesh.gathers - g0)
+  want_leaves = pmodel.state_dict()
+  differ = {"params": [], "mu": [], "nu": []}
+  worst = dict.fromkeys(differ, 0.0)
+  for n, p in model.state_dict().items():
+    spec = tuple(e if any(dd == i for dd, _ in model.fsdp.get(n, ()))
+                 else None for i, e in enumerate(model.specs[n]))
+    for what, got, want in (("params", p, want_leaves[n]),
+                            ("mu", opt.mu[n], popt.mu[n]),
+                            ("nu", opt.nu[n], popt.nu[n])):
+      want = mesh.local(want, spec)
+      if not torch.equal(got, want):
+        differ[what].append(n)
+        worst[what] = max(worst[what], float(
+            (got.float() - want.float()).abs().max()))
+  plain_specs = param_specs(cfg, mesh_parallelism(cfg, mesh))
+  shapes = param_shapes(cfg)
+  halves = [2 * p.numel() == math.prod(mesh.local_shape(
+      shapes[n], plain_specs[n])) and opt.mu[n].numel() == p.numel()
+            for n, p in model.named_parameters() if n in model.fsdp]
+  res = dict(mesh="2x2", n_layers=cfg.n_layers, fsdp_leaves=len(model.fsdp),
+             leaves=len(model.specs), loss=losses, grad_norm=norms,
+             plain_loss=twin["loss"], plain_grad_norm=twin["grad_norm"],
+             step_wall_s=walls, step_gathers=gathers,
+             leaves_differing=differ, max_abs_diff=worst,
+             fsdp_leaves_halved=bool(halves) and all(halves),
+             fsdp_leaf_bytes_a_rank=sum(
+                 p.numel() * (p.element_size() + 8)
+                 for n, p in model.named_parameters() if n in model.fsdp))
+  del model, opt, step, want_leaves
+  torch.cuda.empty_cache()
+  return res
+
+
+def layouts_serve(base, arch, shape, layers, req, seed, **chosen):
+  """One layout's greedy run over a mesh of ``shape`` through
+  ``generate`` (a batch of rows split by rows over the data axes, a batch
+  of one by cache length), every flash launch held against its plain
+  version on its own inputs; rank 0 also runs one process on the same
+  seed and request (its tokens and top-2 gaps).  Returns the fields."""
+  import dataclasses as dc
+
+  import torch
+
+  from repro_torch.configs import get_config
+  from repro_torch.kernels import ops
+  from repro_torch.launch.mesh import TrainMesh
+  from repro_torch.models import Model
+  from repro_torch.models.registry import mesh_parallelism
+  from repro_torch.models.transformer import KVSplit, cache_len
+  from repro_torch.serve import generate
+  cfg = get_config(arch)
+  if layers:
+    cfg = dc.replace(cfg, n_layers=layers)
+  *pod, data, model_ax = shape
+  mesh = TrainMesh.over(data, model_ax, base.rank, base.device, "gloo",
+                        pod=pod[0] if pod else None)
+  par = mesh_parallelism(cfg, mesh, **chosen)
+  model = built(mesh, cfg, lambda: Model(
+      cfg, device=mesh.device, mesh=mesh, par=par,
+      generator=torch.Generator(device=DEVICE).manual_seed(seed)))
+  batch = family_tp_serve_batch(cfg, seed + 1, req)
+  layers_att = LayerAttention()
+  # the logits of each step generate takes, the rank's rows
+  logits, real = [], (model.prefill, model.decode_step)
+
+  def kept(fn):
+    def call(*args, **kw):
+      out = fn(*args, **kw)
+      logits.append(out[0].float())
+      return out
+    return call
+
+  model.prefill, model.decode_step = kept(real[0]), kept(real[1])
+  ops.reset_launch_counts()
+  g0, b0 = mesh.gathers, mesh.gather_bytes
+  sync()
+  t0 = time.perf_counter()
+  with layers_att.watch():
+    toks = generate(model, batch, steps=req[2])
+  sync()
+  wall = time.perf_counter() - t0
+  del model.prefill, model.decode_step
+  mine = torch.stack(logits, dim=1)   # (rows, steps, V)
+  split = None
+  if req[0] == 1 and mesh.dp_size > 1:   # the length split's slots
+    c = model.init_cache(1, req[1] + req[2], kv_split=KVSplit(mesh.dp))
+    split = dict(rank_rows=next(x["k"].shape[2] for x in c if "k" in x),
+                 rows=cache_len(cfg, req[1] + req[2]))
+    del c
+    # the same mesh with every data rank holding the whole cache: the
+    # length split's own effect on the logits, apart from the model axis's
+    with torch.no_grad():
+      wtoks, wlogits = greedy_trace(model, batch, req[2])
+    split["logits_err_over_scale"] = _errs_while_same(mine, toks, wlogits,
+                                                      wtoks)
+    del wlogits
+  flash = ops.launch_counts()["flash_attention"]
+  res = dict(arch=arch, mesh="x".join(map(str, shape)), layers=cfg.n_layers,
+             layout=sorted(k for k, v in chosen.items() if v),
+             batch=req[0], prompt=req[1], new_tokens=req[2], wall_s=wall,
+             tokens=toks.cpu().tolist(), flash_launches=flash,
+             layer_attention_calls=layers_att.calls,
+             layer_attention_max_err_over_scale=layers_att.worst,
+             gathers=mesh.gathers - g0, gather_bytes=mesh.gather_bytes - b0,
+             cache_split=split, moe_pod_exchange=model.pod is not None)
+  del model
+  torch.cuda.empty_cache()
+  if base.rank == 0:
+    one = Model(cfg, device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    with torch.no_grad():
+      otoks, ologits = greedy_trace(one, batch, req[2])
+    res["one"] = dict(tokens=otoks.cpu().tolist(),
+                      gaps=top2_gap(ologits).cpu().tolist(),
+                      logits_err_over_scale=_errs_while_same(
+                          mine, toks, ologits, otoks))
+    if split is not None:
+      res["one"]["f32"] = layouts_f32_witness(one, batch, mine[:, 0],
+                                              ologits[:, 0])
+    del one, ologits
+    torch.cuda.empty_cache()
+  return res
+
+
+def layouts_f32_witness(one, batch, mesh_first, one_first) -> dict:
+  """The prefill of ``batch`` by a float32 model holding the bf16
+  one-process model ``one``'s values: the mesh's bf16 prefill logits
+  (``mesh_first``) against it, and one process's (``one_first``).  The
+  mesh's distance from one process is then bf16 rounding, not the
+  layout, if the mesh is no further from the float32 logits than
+  ``TOL_F32_RATIO`` times one process is (measured at the reduced size on
+  the CPU: 0.70-1.15 over 8 draws)."""
+  import dataclasses as dc
+
+  import torch
+
+  from repro_torch.models import Model
+  m32 = Model(dc.replace(one.cfg, dtype="float32"), device=DEVICE,
+              generator=torch.Generator(device=DEVICE).manual_seed(0))
+  with torch.no_grad():
+    for (n, p), (n1, q) in zip(m32.named_parameters(),
+                               one.named_parameters()):
+      check(n == n1 and p.shape == q.shape, f"f32 witness: {n} / {n1}")
+      p.copy_(q)
+    _, ref = greedy_trace(m32, batch, 1)
+  del m32
+  torch.cuda.empty_cache()
+  mesh_err = errors(mesh_first, ref[:, 0])[1]
+  one_err = errors(one_first, ref[:, 0])[1]
+  return dict(mesh_vs_f32=mesh_err, one_vs_f32=one_err,
+              ratio=mesh_err / max(one_err, 1e-30), ratio_tol=TOL_F32_RATIO)
+
+
+def _errs_while_same(mine, toks, ref, ref_toks):
+  """Each step's logits of ``mine`` (a rank's first rows, (rows, steps,
+  V)) against ``ref``'s same rows, error over their scale, for the steps
+  whose tokens fed so far are the same in both runs (the prefill's
+  always)."""
+  rows = mine.shape[0]
+  same = (toks[:rows].to(ref_toks.device) == ref_toks[:rows]).all(0).tolist()
+  upto = same.index(False) + 1 if False in same else len(same)
+  return [errors(mine[:, t], ref[:rows, t])[1] for t in range(upto)]
+
+
+def _agree_upto_tie(got, one, what):
+  """Greedy tokens equal one process's up to each row's first bf16
+  near-tie (a top-2 gap below ``TOL_SERVE_GAP`` in the one-process run);
+  returns each row's steps before it."""
+  import numpy as np
+  got, want = np.asarray(got), np.asarray(one["tokens"])
+  gaps = np.asarray(one["gaps"])
+  near = gaps < TOL_SERVE_GAP
+  tie = np.where(near.any(1), near.argmax(1), want.shape[1])
+  upto = np.arange(want.shape[1])[None, :] < tie[:, None]
+  check(got.shape == want.shape and bool(((got == want) | ~upto).all()),
+        f"{what}: greedy tokens differ from one process's before the first "
+        "near-tie")
+  return tie.tolist()
+
+
+def e2e_layouts(train: list, serve_ranks: list):
+  """The layouts of the dry run on the card, 4 gloo ranks, bf16, flash at
+  the rank's heads; their runs ride in the launches of ``e2e train dist``
+  ((a), ``train``: each rank's ``layouts_train``) and ``e2e families tp``
+  ((b), ``serve_ranks``: each rank's ``layouts_serve`` results), which
+  saves a launch's start-up; the dry run ran on the host beside the
+  smoke.
+
+  (a) qwen3-4b at full width, 2 layers, 2x2 with fsdp and seq_shard, two
+      steps: every leaf's shard and its shards of both float32 AdamW
+      moments equal the same part of e2e train dist's 2x2 run from the
+      same seed and batches bit for bit, and so do each step's loss and
+      grad norm (the FSDP reduce-scatter folds in the sum's rank order;
+      sequence sharding reduce-scatters the same sums, and in bf16
+      autograd adds each activation's gradient contributions in the same
+      order in both runs: ``tests/test_torch_layouts.py`` holds the same
+      check on the CPU, and a gradient from half the batch fails it);
+      every FSDP leaf's parameter and moments half of the 2x2 rank's; and
+      the reckoning of a 4x1 FSDP rank at full depth (printed, not run).
+  (b) deepseek-moe-16b's 2 layers over pod 2 x data 1 x model 2 with
+      ep_pod (set, not chosen: at M = 2 the reference picks ep), a row a
+      pod; recurrentgemma-2b at batch 1 over 2x2, its cache split by length
+      over the 2 data ranks and decoding past its window: greedy tokens
+      equal one process's up to the first bf16 near-tie; the logits of
+      every step whose tokens so far agree (the prefill's always) within
+      ``TOL_SERVE_BF16`` of their scale: the MoE's (rank 0's rows) of one
+      process's, the length split's (every rank) of the same mesh's with
+      the whole cache on every data rank; the length split's prefill no
+      further from a float32 model of the same weights than
+      ``TOL_F32_RATIO`` times one process's (``layouts_f32_witness``);
+      every flash launch within 3e-2 of its plain version on its own
+      inputs.
+  (c) ``launch/dryrun.py --mesh both``: 68 records, no failure; its wall
+      and grok-1-314b's train_4k 2x16x16 record on an earlier line.
+
+  Returns rank 0's flash launches of (b)'s MoE run (its prefill's; the
+  decode steps' none)."""
+  t_phase = time.perf_counter()
+  reckon = layouts_reckoning()
+  print("[smoke] e2e layouts reckoning " + json.dumps(reckon), flush=True)
+  dry = dryrun_collect()
+  print("[smoke] e2e layouts dryrun " + json.dumps(dry), flush=True)
+  for r, t in enumerate(train):
+    for what, names in t["leaves_differing"].items():
+      check(not names, f"layouts train rank {r}: {what} of {len(names)} "
+            f"leaves differ from the 2x2 run's (max abs "
+            f"{t['max_abs_diff'][what]}): {names[:5]}")
+    check(t["loss"] == t["plain_loss"] and
+          t["grad_norm"] == t["plain_grad_norm"], f"layouts train rank {r}: "
+          f"losses {t['loss']} and norms {t['grad_norm']} against the 2x2 "
+          f"run's {t['plain_loss']} and {t['plain_grad_norm']}")
+    check(t["fsdp_leaves_halved"] and t["fsdp_leaves"] > 0, f"layouts "
+          f"train rank {r}: an FSDP leaf is not half the 2x2 rank's")
+  serve = {}
+  for key in ("moe", "long"):
+    per = [rk[key] for rk in serve_ranks]
+    one = per[0]["one"]
+    ties = [_agree_upto_tie(p["tokens"], one, f"layouts {key} rank {r}")
+            for r, p in enumerate(per)]
+    for r, p in enumerate(per):
+      check(p["flash_launches"] == p["layer_attention_calls"],
+            f"layouts {key} rank {r}: {p['flash_launches']} flash launches, "
+            f"{p['layer_attention_calls']} held against the plain version")
+    if per[0]["cache_split"]:
+      sp = per[0]["cache_split"]
+      check(sp["rank_rows"] * 2 == sp["rows"], f"layouts {key}: a rank "
+            f"holds {sp['rank_rows']} of {sp['rows']} cache rows")
+    # the rows split against one process; the length split against the
+    # same mesh holding the whole cache on every data rank, and the mesh
+    # against one process through a float32 witness (the model axis's
+    # bf16 partial sums move recurrentgemma-2b's 26 layers' logits a few
+    # % of their scale from one process's)
+    if per[0]["cache_split"]:
+      errs = [p["cache_split"]["logits_err_over_scale"] for p in per]
+      against = "the mesh without the length split, every rank"
+      f32 = one["f32"]
+      check(f32["ratio"] <= TOL_F32_RATIO, f"layouts {key}: the mesh's "
+            f"prefill is {f32['mesh_vs_f32']} of the scale from a float32 "
+            f"model of the same weights, one process {f32['one_vs_f32']} "
+            f"(ratio tol {TOL_F32_RATIO})")
+    else:
+      errs = [one["logits_err_over_scale"]]
+      against = "one process, rank 0"
+    check(all(e and max(e) <= TOL_SERVE_BF16 for e in errs), f"layouts "
+          f"{key}: logits {errs} of their scale from {against}'s (tol "
+          f"{TOL_SERVE_BF16})")
+    serve[key] = dict({k: v for k, v in per[0].items()
+                       if k not in ("tokens", "one")},
+                      rank_steps_before_near_tie=ties,
+                      logits_err_over_scale=errs, logits_against=against,
+                      one_process_logits_err_over_scale=one[
+                          "logits_err_over_scale"],
+                      f32_witness=one.get("f32"),
+                      rank_wall_s=[p["wall_s"] for p in per])
+  check(serve["moe"]["moe_pod_exchange"], "layouts moe: no pod exchange")
+  check(serve["moe"]["flash_launches"] == LAYOUTS_MOE[2], f"layouts moe: "
+        f"{serve['moe']['flash_launches']} flash launches, expected "
+        f"{LAYOUTS_MOE[2]} (a prefill)")
+  emit("e2e layouts", ranks=LAYOUTS_RANKS, backend="gloo, one card",
+       train=dict(train[0], rank_loss=[t["loss"] for t in train],
+                  rank_leaves_differing=[
+                      {k: len(v) for k, v in t["leaves_differing"].items()}
+                      for t in train],
+                  rank_phase_s=[t["phase_s"] for t in train]),
+       serve=serve, rank_serve_s=[rk["serve_s"] for rk in serve_ranks],
+       dryrun={k: dry[k] for k in ("records", "wall_s", "paused_s",
+                                   "started_at_s", "ended_at_s")},
        phase_s=time.perf_counter() - t_phase)
-  return counts
+  return {"layouts_ep_pod": {"flash_attention": serve["moe"][
+      "flash_launches"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -6875,6 +7462,9 @@ def main() -> int:
     return 2
   t_start = time.perf_counter()
   sys.path.insert(0, str(SRC))
+  # first here: it imports torch._dynamo, whose import keeps the frames on
+  # the stack alive (models/registry.py); no phase's frame is on it now
+  import repro_torch.models  # noqa: F401
   from repro_torch import no_tf32
   from repro_torch.kernels import build
   no_tf32()
@@ -6888,6 +7478,7 @@ def main() -> int:
   build.build()
   emit("build", seconds=time.perf_counter() - t0,
        nvcc_seconds=build.build_seconds)
+  dryrun_start()
   for line in build.ptxas_report().splitlines():
     print(f"[smoke] ptxas {line}", flush=True)
 
@@ -6907,7 +7498,8 @@ def main() -> int:
   fl_counts.update(e2e_tree(sz, flat, stacked))
   del flat
   torch.cuda.empty_cache()
-  e2e_dist(sz, stacked)
+  with dryrun_paused():
+    e2e_dist(sz, stacked)
   torch.cuda.empty_cache()
   fl_counts.update(e2e_pre(sz, ref_sel, fast_sel))
   torch.cuda.empty_cache()
@@ -6930,7 +7522,8 @@ def main() -> int:
   profile_query(qsvc, sz)
   del qsvc
   torch.cuda.empty_cache()
-  e2e_service_dist(sz)
+  with dryrun_paused():
+    e2e_service_dist(sz)
   torch.cuda.empty_cache()
   e2e_obs(sz)
   torch.cuda.empty_cache()
@@ -6940,18 +7533,24 @@ def main() -> int:
   torch.cuda.empty_cache()
   cut_counts.update(e2e_cut_full(sz))
   torch.cuda.empty_cache()
-  train_counts, handles, single = e2e_train(sz)
-  profile_train(handles)
+  with dryrun_paused():
+    train_counts, handles, single = e2e_train(sz)
+    profile_train(handles)
   del handles
   torch.cuda.empty_cache()
-  train_counts.update(e2e_train_dist(sz, single))
+  with dryrun_paused():
+    train_counts.update(e2e_train_dist(sz, single))
+    torch.cuda.empty_cache()
+    e2e_launchers(sz)
+  with dryrun_paused():
+    serve_counts = e2e_serve(sz)
+    torch.cuda.empty_cache()
+    serve_counts.update(e2e_families(sz))
   torch.cuda.empty_cache()
-  e2e_launchers(sz)
-  serve_counts = e2e_serve(sz)
-  torch.cuda.empty_cache()
-  serve_counts.update(e2e_families(sz))
-  torch.cuda.empty_cache()
-  serve_counts.update(e2e_families_tp(sz))
+  with dryrun_paused():
+    ftp_counts, layouts_serve = e2e_families_tp(sz)
+  serve_counts.update(ftp_counts)
+  serve_counts.update(e2e_layouts(single["layouts_train"], layouts_serve))
   # kernel -> {path: launches} over the paths of its e2e phase; the train
   # paths ride along for the two kernels they launch
   by_path = {name: {p: c[name] for p, c in (
@@ -7048,4 +7647,6 @@ if __name__ == "__main__":
   except SmokeFailure as e:
     print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
     code = 1
+  finally:
+    dryrun_stop()
   sys.exit(code)

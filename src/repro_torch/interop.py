@@ -211,7 +211,7 @@ def lm_params(model: Model, params: dict) -> Model:
   tree = lm_tree(model, params)
   for name, src in tree.items():
     dst = state[name]
-    if model.tp is not None:
+    if model.mesh is not None:
       src = model.mesh.local(src, model.specs[name])
     if src.shape != dst.shape or src.dtype != dst.dtype:
       raise ValueError(f"{name}: reference {tuple(src.shape)} {src.dtype}, "
@@ -232,7 +232,8 @@ def opt_state(model: Model, state) -> OptState:
   dev = model.device
 
   def mine(name, t):
-    return t if model.tp is None else model.mesh.local(t, model.specs[name])
+    return (t if model.mesh is None
+            else model.mesh.local(t, model.specs[name]))
 
   def moments(tree):
     return {n: mine(n, t).to(device=dev, dtype=torch.float32).contiguous()

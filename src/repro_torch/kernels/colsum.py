@@ -42,6 +42,9 @@ def relu_colsum(s: torch.Tensor, cov: torch.Tensor,
   nl); column ids lie in [0, nc) (one outside gives NaN in its sum).  Tensors on the CPU take the plain version; CUDA tensors
   launch the kernel or raise.
   """
+  if s.is_meta:  # the dry run: kernels.meta
+    from repro_torch.kernels import meta
+    return meta.relu_colsum(s, cov, cols)
   if not s.is_cuda:
     return ref.relu_colsum_ref(s, cov, cols)
   global launches

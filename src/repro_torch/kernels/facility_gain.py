@@ -217,6 +217,9 @@ def facility_gain(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   Tensors on the CPU take the plain version; CUDA tensors launch the
   kernel or raise.
   """
+  if eval_feats.is_meta or cand_feats.is_meta:  # the dry run
+    from repro_torch.kernels import meta
+    return meta.gain_pass(cand_feats, eval_feats, kernel == "rbf", False)[0]
   if not (eval_feats.is_cuda or cand_feats.is_cuda):
     return ref.facility_gain_ref(eval_feats, cand_feats, cov, eval_mask,
                                  kernel=kernel, h=h)

@@ -9,7 +9,8 @@ there for its bound and design); its plain version is ``ref.mha_ref``.
 The reference's ``ops.flash_attention`` pads L to its tile and passes the
 true length as ``lk_valid``; the CUDA kernels mask ragged lengths
 themselves, so this wrapper passes the tensors as they are, strided views
-included (dh must be contiguous).  bfloat16 operands go to the tensor-core
+included (dh must be contiguous).  Meta tensors (the dry run) take the
+meta route, ``kernels.meta``.  bfloat16 operands go to the tensor-core
 kernel ``csrc/flash_attention_tc.cu`` (wgmma, TMA loads through tensor maps
 built from the operands' strides); float32 operands to the FFMA kernel
 ``csrc/flash_attention.cu``, which keeps float32 arithmetic throughout.
@@ -83,6 +84,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
   again.  Tensors on the CPU take the plain version; CUDA tensors launch a
   kernel or raise.
   """
+  if q.is_meta:
+    from repro_torch.kernels import meta
+    return meta.flash_attention(q, k, v, causal)
   if not q.is_cuda:
     return ref.mha_ref(q, k, v, causal=causal, scale=scale)
   global launches, tc_launches

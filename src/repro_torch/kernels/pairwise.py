@@ -65,6 +65,9 @@ def pairwise(x: torch.Tensor, y: torch.Tensor, *, kernel: str = "rbf",
   (B, nx, ny).  Tensors on the CPU take the plain version; CUDA tensors
   launch the kernel (bf16 or f32 inputs, f32 out) or raise.
   """
+  if x.is_meta or y.is_meta:  # the dry run: kernels.meta
+    from repro_torch.kernels import meta
+    return meta.pairwise(x, y, kernel == "rbf")
   if not (x.is_cuda or y.is_cuda):
     return ref.pairwise_ref(x, y, kernel=kernel, h=h)
   global launches

@@ -87,6 +87,10 @@ def facility_select(eval_feats: torch.Tensor, cand_feats: torch.Tensor,
   Tensors on the CPU take the plain version; CUDA tensors launch the
   kernel or raise.
   """
+  if eval_feats.is_meta or cand_feats.is_meta:  # the dry run
+    from repro_torch.kernels import meta
+    best, idx = meta.gain_pass(cand_feats, eval_feats, kernel == "rbf", True)
+    return best, idx
   if not (eval_feats.is_cuda or cand_feats.is_cuda):
     return ref.facility_select_ref(eval_feats, cand_feats, cov, eval_mask,
                                    cand_ok, kernel=kernel, h=h)

@@ -14,9 +14,13 @@ rank's view of that layout; ``core.greedi``'s engines take it as
         -m repro_torch.launch.select --mesh 16 --n-docs 262144
 
 A ``TrainMesh`` is a rank's view of a D x M ("data", "model") mesh for
-``launch/train.py --mesh DxM``: its data and model groups are
-``ProcessMesh``es, whose ``sum`` / ``sum_`` (the list-form all-gather, then
-the float32 sum in rank order) give every member the same bits.
+``launch/train.py --mesh DxM``, or of a P x D x M ("pod", "data",
+"model") one (``make_host_mesh``; the dry run's ``make_production_mesh``
+is one with no processes behind it): its groups are ``ProcessMesh``es,
+whose ``sum`` / ``sum_`` (the list-form all-gather, then the float32 sum
+in rank order) give every member the same bits, and whose
+``reduce_scatter`` (an all-to-all, then the same fold) gives a member the
+same bits of its slice.
 
 The backend is explicit and nothing switches it, or the device, quietly:
 
@@ -94,9 +98,11 @@ def mesh_device(backend: str, device: str | torch.device, local_rank: int,
 
 
 def fold_sum(parts, div: int = 1) -> torch.Tensor:
-  """``parts[0] + parts[1] + ...`` in that order, accumulated in float32,
-  then ``/ div`` (the rank-ordered sum every rank of a group computes)."""
-  acc = parts[0].to(torch.float32, copy=True)
+  """``parts[0] + parts[1] + ...`` in that order, accumulated in float32
+  (float64 parts in float64), then ``/ div`` (the rank-ordered sum every
+  rank of a group computes)."""
+  acc = parts[0].to(torch.promote_types(parts[0].dtype, torch.float32),
+                    copy=True)
   for p in parts[1:]:
     acc.add_(p)
   return acc.div_(div) if div != 1 else acc
@@ -232,6 +238,48 @@ class ProcessMesh:
       p.copy_(out[off:off + p.numel()])
       off += p.numel()
 
+  def _swap(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """(world, *rest): chunk i of ``x`` along ``dim`` comes from rank i,
+    every rank sending its chunk j to rank j (one ``all_to_all_single`` of
+    equal splits; 16-bit types and bool go over as bytes)."""
+    n = x.shape[dim]
+    if n % self.world:
+      raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over "
+                       f"{self.world} ranks")
+    src = x.movedim(dim, 0).reshape(self.world, n // self.world,
+                                    *x.movedim(dim, 0).shape[1:])
+    shape = src.shape
+    flag = x.dtype == torch.bool
+    src = src.contiguous().reshape(self.world, -1)
+    src = (src.to(torch.uint8) if flag else
+           src.view(torch.uint8) if x.element_size() == 2 else src)
+    out = torch.empty_like(src)
+    self._all_to_all(out, src, None, None)
+    out = (out.to(torch.bool) if flag else
+           out.view(x.dtype) if x.element_size() == 2 else out)
+    return out.reshape(shape)
+
+  def reduce_scatter(self, x: torch.Tensor, dim: int = 0,
+                     div: int = 1) -> torch.Tensor:
+    """This rank's chunk (its index along ``dim``, of ``world`` equal ones)
+    of ``sum(x, div)``: every rank's chunk ``rank`` folded in rank order
+    (``fold_sum``: float32 accumulation, ``/ div``), cast back to x's
+    dtype.  The same bits as ``sum`` then the slice, for 1 / world of the
+    bytes.  Gloo has no reduce-scatter: it is an all-to-all."""
+    if self.world == 1:
+      return x if div == 1 else fold_sum([x], div).to(x.dtype)
+    parts = self._swap(x, dim)
+    return fold_sum(list(parts), div).to(x.dtype).movedim(0, dim)
+
+  def all_to_all(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Chunk j of ``x`` along ``dim`` (``world`` equal ones) to rank j; the
+    chunks this rank receives, in rank order along ``dim`` (every bit
+    moved as it is; the inverse is the same call)."""
+    if self.world == 1:
+      return x
+    parts = self._swap(x, dim)
+    return parts.reshape(-1, *parts.shape[2:]).movedim(0, dim)
+
   def max(self, x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of ``x`` over the ranks (exact in any order)."""
     return self.all_gather(x.reshape(1, *x.shape)).amax(dim=0)
@@ -317,10 +365,11 @@ class ProcessMesh:
 
 
 # ---------------------------------------------------------------------------
-# the training mesh: ("data", "model") over the ranks of a process group
+# the training mesh: ([pod,] data, model) over the ranks of a process group
 # ---------------------------------------------------------------------------
 
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 
 
 def parse_mesh(spec: str) -> tuple[int, int]:
@@ -336,19 +385,41 @@ def parse_mesh(spec: str) -> tuple[int, int]:
   return (dims[0], dims[1] if len(dims) == 2 else 1)
 
 
+def _axes(entry) -> tuple:
+  """A spec entry (None, an axis name or a tuple of them) as a tuple."""
+  if entry is None:
+    return ()
+  return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _subsets(names: tuple) -> list[tuple]:
+  """Every non-empty tuple of ``names`` in mesh order, the one-axis ones
+  first (model, data, pod), then the wider ones: the order every rank
+  makes the groups in."""
+  one = [(a,) for a in reversed(names)]
+  wide = [tuple(a for i, a in enumerate(names) if bits >> i & 1)
+          for bits in range(1, 1 << len(names))]
+  return one + [t for t in wide if len(t) > 1]
+
+
 @dataclasses.dataclass
 class TrainMesh:
-  """One rank's view of a D x M training mesh over ("data", "model") (the
-  port's ``make_host_mesh((D, M), ("data", "model"))``).  Rank r sits at
-  (r // M, r % M), the reference's row-major device order.
+  """One rank's view of a D x M training mesh over ("data", "model"), or of
+  a P x D x M one over ("pod", "data", "model") (the port's
+  ``make_host_mesh(shape, axes)``).  Rank r sits at (r // M, r % M), or
+  (r // (D M), r // M % D, r % M): the reference's row-major device order.
 
-  ``dp`` is the rank's data group (the D ranks that hold the same model
-  shard, in data order) and ``tp`` its model group (the M ranks of one data
-  replica, in model order); ``world`` spans all of them.  Each is a
-  ``ProcessMesh`` (one "shard" a rank), whose ``sum`` / ``sum_`` are the
-  rank-ordered sums and ``all_gather`` / ``gather_parts`` the gathers;
-  ``dist.all_reduce`` is never used, so every member of a group ends with
-  the same bits.  Every rank creates every group, in the same order.
+  ``dp`` is the rank's data group over every data axis (("pod", "data"):
+  the P x D ranks that hold the same model shard, pod-major), ``tp`` its
+  model group (the M ranks of one data replica, in model order), ``world``
+  spans all of them, and ``group(axes)`` any other tuple of axes a spec
+  holds (the pod group, the data group inside a pod, ...), its ranks in
+  row-major order over those axes.  Each is a ``ProcessMesh`` (one "shard"
+  a rank), whose ``sum`` / ``sum_`` are the rank-ordered sums,
+  ``reduce_scatter`` the rank-ordered sum's slice and ``all_gather`` /
+  ``gather_parts`` the gathers; ``dist.all_reduce`` is never used, so
+  every member of a group ends with the same bits.  Every rank creates
+  every group, in the same order.
   """
   data: int
   model: int
@@ -358,86 +429,114 @@ class TrainMesh:
   dp: ProcessMesh
   tp: ProcessMesh
   world: ProcessMesh
+  pod: int | None = None   # None: no pod axis
+  groups: dict = dataclasses.field(default_factory=dict)
 
-  axis_names = AXES
+  @property
+  def axis_names(self) -> tuple:
+    return AXES if self.pod is None else POD_AXES
 
   @property
   def shape(self) -> dict:
-    return {"data": self.data, "model": self.model}
+    sizes = {"data": self.data, "model": self.model}
+    return sizes if self.pod is None else {"pod": self.pod, **sizes}
+
+  @property
+  def dp_size(self) -> int:
+    """The data ranks a model shard is replicated over (P x D)."""
+    return self.data * (self.pod or 1)
 
   @property
   def coords(self) -> dict:
     """This rank's index on each axis."""
-    return {"data": self.rank // self.model, "model": self.rank % self.model}
+    out, r = {}, self.rank
+    for a in reversed(self.axis_names):
+      out[a] = r % self.shape[a]
+      r //= self.shape[a]
+    return {a: out[a] for a in self.axis_names}
 
   def group(self, axes) -> ProcessMesh:
-    """The group of one axis (a name or a 1-tuple, as specs spell it)."""
-    axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
-    if axes == ("data",):
-      return self.dp
+    """The group of a tuple of axes (a name or a tuple, as specs spell
+    it; in mesh order)."""
+    axes = _axes(axes)
     if axes == ("model",):
       return self.tp
-    raise ValueError(f"axes {axes}: the training mesh executes one of "
-                     f"{AXES} at a time")
+    if axes == tuple(a for a in self.axis_names if a in ("pod", "data")):
+      return self.dp
+    if axes == self.axis_names:
+      return self.world
+    if axes in self.groups:
+      return self.groups[axes]
+    raise ValueError(f"axes {axes}: not a tuple of {self.axis_names} in "
+                     "mesh order")
 
   @property
   def gathers(self) -> int:
-    return self.dp.gathers + self.tp.gathers + self.world.gathers
+    return sum(g.gathers for g in self._all_groups())
 
   @property
   def gather_bytes(self) -> int:
-    return self.dp.gather_bytes + self.tp.gather_bytes + \
-        self.world.gather_bytes
+    return sum(g.gather_bytes for g in self._all_groups())
 
-  # ---- leaves laid out by a spec (one entry per dim: None or an axis) ----
-  def _split(self, spec, ndim: int):
-    """(dim, axis) of the one dim ``spec`` splits over a mesh axis of size
-    > 1, or None; raises for a spec that uses two."""
-    hit = None
+  def _all_groups(self) -> list:
+    seen, out = set(), []
+    for g in (self.dp, self.tp, self.world, *self.groups.values()):
+      if g is not None and id(g) not in seen:
+        seen.add(id(g))
+        out.append(g)
+    return out
+
+  # ---- leaves laid out by a spec (one entry per dim: None or axes) -----
+  def splits(self, spec, ndim: int) -> list[tuple[int, tuple]]:
+    """(dim, axes) of every dim ``spec`` splits over mesh axes whose sizes
+    multiply past 1, in dim order; raises for an axis the mesh lacks."""
+    hits = []
     for dim, entry in enumerate(tuple(spec) + (None,) * (ndim - len(spec))):
-      if entry is None:
-        continue
-      axes = tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
-      if len(axes) != 1 or axes[0] not in AXES:
-        raise NotImplementedError(f"spec {spec}: only one of {AXES} per dim "
-                                  "is executed (fsdp over several data "
-                                  "axes is spec-only)")
-      if self.shape[axes[0]] == 1:
-        continue
-      if hit is not None:
-        raise NotImplementedError(f"spec {spec}: one split dim a leaf")
-      hit = (dim, axes[0])
-    return hit
+      axes = _axes(entry)
+      for a in axes:
+        if a not in self.axis_names:
+          raise ValueError(f"spec {spec}: axis {a!r} not in "
+                           f"{self.axis_names}")
+      if axes and self._size(axes) > 1:
+        hits.append((dim, axes))
+    return hits
+
+  def _size(self, axes) -> int:
+    n = 1
+    for a in axes:
+      n *= self.shape[a]
+    return n
+
+  def _index(self, axes) -> int:
+    """This rank's row-major index over ``axes``."""
+    i = 0
+    for a in axes:
+      i = i * self.shape[a] + self.coords[a]
+    return i
 
   def local(self, full: torch.Tensor, spec) -> torch.Tensor:
     """This rank's part of a whole leaf laid out by ``spec`` (a view)."""
-    hit = self._split(spec, full.dim())
-    if hit is None:
-      return full
-    dim, axis = hit
-    n, size = full.shape[dim], self.shape[axis]
-    if n % size:
-      raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split "
-                       f"over {axis} = {size}")
-    per = n // size
-    return full.narrow(dim, self.coords[axis] * per, per)
+    for dim, axes in self.splits(spec, full.dim()):
+      n, size = full.shape[dim], self._size(axes)
+      if n % size:
+        raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split "
+                         f"over {axes} = {size}")
+      per = n // size
+      full = full.narrow(dim, self._index(axes) * per, per)
+    return full
 
   def local_shape(self, shape, spec) -> tuple:
-    shape = tuple(shape)
-    hit = self._split(spec, len(shape))
-    if hit is None:
-      return shape
-    dim, axis = hit
-    return shape[:dim] + (shape[dim] // self.shape[axis],) + shape[dim + 1:]
+    shape = list(shape)
+    for dim, axes in self.splits(spec, len(shape)):
+      shape[dim] //= self._size(axes)
+    return tuple(shape)
 
   def whole(self, part: torch.Tensor, spec) -> torch.Tensor:
-    """The whole leaf from every rank's part (a gather over the split
-    axis's group; a collective of that group)."""
-    hit = self._split(spec, part.dim())
-    if hit is None:
-      return part
-    dim, axis = hit
-    return self.group(axis).all_gather(part, dim=dim)
+    """The whole leaf from every rank's part (a gather over each split
+    dim's group; a collective of those groups)."""
+    for dim, axes in self.splits(spec, part.dim()):
+      part = self.group(axes).all_gather(part, dim=dim)
+    return part
 
   # ---- set-up ----------------------------------------------------------
   @classmethod
@@ -445,13 +544,14 @@ class TrainMesh:
                device: str | torch.device = "cuda") -> "TrainMesh":
     """The mesh of a rank torchrun started (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``; the group from ``MASTER_ADDR`` /
-    ``MASTER_PORT``).  D x M must be the world size; that, the backend and
-    the device are checked before the group is joined."""
-    data, model = shape
+    ``MASTER_PORT``).  ``shape`` is (D, M) or (P, D, M), whose product must
+    be the world size; that, the backend and the device are checked before
+    the group is joined."""
+    dims = tuple(shape)
     world, rank = _env_int("WORLD_SIZE"), _env_int("RANK")
-    if data * model != world:
-      raise ValueError(f"a {data}x{model} mesh needs {data * model} ranks, "
-                       f"this launch has {world}")
+    if int(np.prod(dims)) != world:
+      raise ValueError(f"a {'x'.join(map(str, dims))} mesh needs "
+                       f"{int(np.prod(dims))} ranks, this launch has {world}")
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     dev = mesh_device(backend, device, local_rank, local_world)
@@ -459,41 +559,105 @@ class TrainMesh:
       torch.cuda.set_device(dev)
     if not dist.is_initialized():
       dist.init_process_group(backend, rank=rank, world_size=world)
-    return cls.over(data, model, rank, dev, backend)
+    *pod, data, model = dims
+    return cls.over(data, model, rank, dev, backend,
+                    pod=pod[0] if pod else None)
 
   @classmethod
-  def over(cls, data: int, model: int, rank: int, device, backend: str):
+  def over(cls, data: int, model: int, rank: int, device, backend: str,
+           pod: int | None = None):
     """The mesh over the joined default group (every rank calls it with
-    the same shape): the model groups (one a data index), then the data
-    groups (one a model index), each made by every rank in that order; a
-    group of one rank makes no collective and a group of the whole world
-    is the default group."""
-    world = data * model
-    d, mi = rank // model, rank % model
-
-    def groups(rows):
-      out = []
-      for ranks in rows:
+    the same shape): the groups of every tuple of axes (``_subsets``'
+    order: the model groups, the data groups, the pod groups, then the
+    wider ones), each made by every rank in that order; a group of one
+    rank makes no collective and a group of the whole world is the
+    default group."""
+    mesh = cls(data, model, rank, device, backend, None, None, None, pod)
+    names, world = mesh.axis_names, mesh._size(mesh.axis_names)
+    groups = {}
+    for axes in _subsets(names):
+      rest = [a for a in names if a not in axes]
+      mine = None
+      for outer in np.ndindex(*[mesh.shape[a] for a in rest]):
+        fixed = dict(zip(rest, outer))
+        ranks = []
+        for inner in np.ndindex(*[mesh.shape[a] for a in axes]):
+          c = {**fixed, **dict(zip(axes, inner))}
+          r = 0
+          for a in names:
+            r = r * mesh.shape[a] + c[a]
+          ranks.append(r)
         if len(ranks) == world:
-          out.append(dist.group.WORLD)
+          handle = dist.group.WORLD
         elif len(ranks) == 1:
-          out.append(None)
+          handle = None
         else:
-          out.append(dist.new_group(ranks))
-      return out
-
-    tp = groups([[i * model + j for j in range(model)] for i in range(data)])
-    dp = groups([[i * model + j for i in range(data)] for j in range(model)])
-    return cls(data, model, rank, device, backend,
-               dp=ProcessMesh(data, d, data, device, backend, dp[mi]),
-               tp=ProcessMesh(model, mi, model, device, backend, tp[d]),
-               world=ProcessMesh(world, rank, world, device, backend,
-                                 dist.group.WORLD))
+          handle = dist.new_group(ranks)
+        if rank in ranks:
+          mine = ProcessMesh(len(ranks), ranks.index(rank), len(ranks),
+                             device, backend, handle)
+      groups[axes] = mine
+    mesh.groups = groups
+    mesh.tp = groups[("model",)]
+    mesh.dp = groups[tuple(a for a in names if a in ("pod", "data"))]
+    mesh.world = groups[names]
+    return mesh
 
   def close(self) -> None:
     """Leave the process group (every rank calls it once, at the end)."""
     if dist.is_initialized():
       dist.destroy_process_group()
+
+
+def make_host_mesh(shape=(4, 2), axes=AXES, *, rank: int | None = None,
+                   backend: str = "gloo", device="cpu") -> TrainMesh:
+  """The reference's ``make_host_mesh(shape, axes)`` over the joined
+  default group: ("data", "model") or ("pod", "data", "model") with the
+  reference's shapes (``rank`` defaults to this process's)."""
+  shape, axes = tuple(shape), tuple(axes)
+  if axes not in (AXES, POD_AXES) or len(shape) != len(axes):
+    raise ValueError(f"axes {axes} with shape {shape}: the port's meshes "
+                     f"are {AXES} and {POD_AXES}")
+  if rank is None:
+    rank = dist.get_rank()
+  *pod, data, model = shape
+  return TrainMesh.over(data, model, rank, torch.device(device), backend,
+                        pod=pod[0] if pod else None)
+
+
+def production_shape(*, multi_pod: bool = False) -> tuple[tuple, tuple]:
+  """The reference's ``make_production_mesh`` (shape, axes): 16 x 16 over
+  ("data", "model"), or 2 x 16 x 16 over ("pod", "data", "model")."""
+  return ((2, 16, 16), POD_AXES) if multi_pod else ((16, 16), AXES)
+
+
+def virtual_mesh(shape, group_factory, rank: int = 0) -> TrainMesh:
+  """Rank ``rank``'s view of a (D, M) or (P, D, M) mesh with no processes
+  behind it: ``group_factory(world, rank, axes)`` builds each group (the
+  dry run's counting groups)."""
+  *pod, data, model = tuple(shape)
+  mesh = TrainMesh(data, model, rank, torch.device("meta"), "counting",
+                   None, None, None, pod[0] if pod else None)
+  axes = mesh.axis_names
+  for sub in _subsets(axes):
+    mesh.groups[sub] = group_factory(mesh._size(sub), mesh._index(sub), sub)
+  mesh.tp = mesh.groups[("model",)]
+  mesh.dp = mesh.groups[tuple(a for a in axes if a != "model")]
+  mesh.world = mesh.groups[axes]
+  return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0,
+                         group_factory=None) -> TrainMesh:
+  """Rank ``rank``'s view of the reference's production mesh.  Its 256 or
+  512 ranks exist only in the dry run, so ``group_factory(world, rank,
+  axes)`` builds each group (``launch.dryrun``'s counting groups); there
+  is no process group behind it."""
+  if group_factory is None:
+    raise ValueError("the production mesh has no processes behind it: "
+                     "pass group_factory (launch.dryrun.CountingGroup)")
+  return virtual_mesh(production_shape(multi_pod=multi_pod)[0],
+                      group_factory, rank)
 
 
 def dp_axes_of(mesh) -> tuple:

@@ -8,13 +8,17 @@ cast sits where the reference has it: bf16 parity depends on it.
 ``F.gelu(approximate="tanh")``; ``softplus`` is ``jax.nn.softplus``'s
 ``logaddexp(x, 0)``.
 
-The model axis's four communication ops are autograd functions over a
-group (a ``launch.mesh.ProcessMesh``): ``enter_group`` (identity forward,
-the group's sum backward: a replicated input entering a split region),
+The model axis's communication ops are autograd functions over a group
+(a ``launch.mesh.ProcessMesh``): ``enter_group`` (identity forward, the
+group's sum backward: a replicated input entering a split region),
 ``leave_group`` (the sum forward, identity backward: partial products
-leaving it), ``gather_group`` (the last dim gathered forward, the rank's
-slice backward) and ``split_group`` (the rank's slice of the last dim
-forward, gathered backward).  Two compositions: ``gather_summed`` gathers
+leaving it), ``gather_group`` (a dim, the last by default, gathered
+forward, the rank's slice backward), ``split_group`` (the rank's slice
+forward, gathered backward), ``scatter_sum`` (the sum's slice forward,
+gathered backward: sequence sharding's reduce-scatter) and ``all_to_all``
+(expert parallelism's exchange, its own inverse).  ``leave`` is the exit
+onto the residual stream, summed or, under sequence sharding,
+reduce-scattered by sequence.  Two compositions: ``gather_summed`` gathers
 an activation that each rank then reads a different part of (its
 gradient summed over the group, then the rank's slice: a reduce-scatter),
 and ``rms_norm(group=)`` normalizes over a last dim split over the group
@@ -173,25 +177,48 @@ class _Leave(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
   @staticmethod
-  def forward(ctx, x, group):
-    ctx.group, ctx.n = group, x.shape[-1]
-    return group.all_gather(x, dim=-1)
+  def forward(ctx, x, group, dim):
+    ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+    return group.all_gather(x, dim=dim)
 
   @staticmethod
   def backward(ctx, g):
-    return g.narrow(-1, ctx.group.rank * ctx.n, ctx.n).contiguous(), None
+    return (g.narrow(ctx.dim, ctx.group.rank * ctx.n, ctx.n).contiguous(),
+            None, None)
 
 
 class _Split(torch.autograd.Function):
   @staticmethod
-  def forward(ctx, x, group):
-    ctx.group = group
-    n = x.shape[-1] // group.world
-    return x.narrow(-1, group.rank * n, n).clone()
+  def forward(ctx, x, group, dim):
+    ctx.group, ctx.dim = group, dim
+    n = x.shape[dim] // group.world
+    return x.narrow(dim, group.rank * n, n).clone()
 
   @staticmethod
   def backward(ctx, g):
-    return ctx.group.all_gather(g, dim=-1), None
+    return ctx.group.all_gather(g, dim=ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+  @staticmethod
+  def forward(ctx, x, group, dim):
+    ctx.group, ctx.dim = group, dim
+    return group.reduce_scatter(x, dim=dim)
+
+  @staticmethod
+  def backward(ctx, g):
+    return ctx.group.all_gather(g, dim=ctx.dim), None, None
+
+
+class _Swap(torch.autograd.Function):
+  @staticmethod
+  def forward(ctx, x, group):
+    ctx.group = group
+    return group.all_to_all(x, dim=0)
+
+  @staticmethod
+  def backward(ctx, g):
+    return ctx.group.all_to_all(g.contiguous(), dim=0), None
 
 
 def _alone(group) -> bool:
@@ -209,10 +236,10 @@ def leave_group(x: torch.Tensor, group) -> torch.Tensor:
   return x if _alone(group) else _Leave.apply(x, group)
 
 
-def gather_group(x: torch.Tensor, group) -> torch.Tensor:
-  """Every rank's last dim concatenated in rank order forward; the rank's
-  slice of the gradient backward."""
-  return x if _alone(group) else _Gather.apply(x, group)
+def gather_group(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+  """Every rank's ``dim`` (the last by default) concatenated in rank order
+  forward; the rank's slice of the gradient backward."""
+  return x if _alone(group) else _Gather.apply(x, group, dim)
 
 
 def gather_summed(x: torch.Tensor, group) -> torch.Tensor:
@@ -223,7 +250,32 @@ def gather_summed(x: torch.Tensor, group) -> torch.Tensor:
   return enter_group(gather_group(x, group), group)
 
 
-def split_group(x: torch.Tensor, group) -> torch.Tensor:
-  """The rank's slice of the last dim forward; the slices' gradients
-  gathered backward."""
-  return x if _alone(group) else _Split.apply(x, group)
+def split_group(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+  """The rank's slice of ``dim`` (the last by default) forward; the
+  slices' gradients gathered backward."""
+  return x if _alone(group) else _Split.apply(x, group, dim)
+
+
+def scatter_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+  """The rank's slice along ``dim`` of the sum over ``group`` forward
+  (``ProcessMesh.reduce_scatter``: the bits of ``leave_group`` then the
+  slice); the slices' gradients gathered backward."""
+  return x if _alone(group) else _Scatter.apply(x, group, dim)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+  """Chunk j of dim 0 to rank j, the chunks received in rank order
+  forward (``ProcessMesh.all_to_all``); the same exchange of the gradient
+  backward."""
+  return x if _alone(group) else _Swap.apply(x, group)
+
+
+def leave(x: torch.Tensor, group, seq=None) -> torch.Tensor:
+  """A sub-block's output onto the residual stream: partial products
+  (``group`` the model group) summed over it, or a whole value (``group``
+  None) as it is; under sequence sharding (``seq`` the model group) the
+  sum reduce-scattered along the sequence (dim 1) and a whole value
+  sliced to the rank's part of it."""
+  if seq is None:
+    return leave_group(x, group)
+  return split_group(x, seq, 1) if _alone(group) else scatter_sum(x, group, 1)

@@ -47,6 +47,16 @@ in another order than one process's choice order (a tolerance, not bits).
 The shared experts split as the dense MLP does (``tp.shared``); where the
 routed experts are split too, their partial product joins the combine's
 before the one sum.
+
+Over pods (``pod``, the reference's ``ep_pod``: ``P("pod", None, mx)`` /
+``P("pod", mx, None)``) a rank holds E / P experts of its pod (and their
+width split over the model axis as "tp"); it routes its own token
+groups, fills the dispatch rows of every expert, and an all-to-all over
+the pod group (``layers.all_to_all``, its own inverse in the backward
+pass) carries each pod's rows to it and the outputs back, pod-major, for
+the combine in float32.  The dispatch writes every (token, choice) pair,
+a dropped one into a spare row cut off after, so its shapes are fixed:
+no host read, and the dry run on meta runs the same path.
 """
 from __future__ import annotations
 
@@ -56,8 +66,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (dense_init, enter_group, leave_group,
-                                       swiglu)
+from repro_torch.models.layers import (all_to_all, dense_init, enter_group,
+                                       leave, swiglu)
 
 
 def moe_shapes(cfg: ModelConfig) -> dict:
@@ -180,7 +190,7 @@ def route(xg: torch.Tensor, valid: torch.Tensor, router: torch.Tensor,
 
 
 def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig, *,
-            group_size: int | None = None, dp=None, tp=None):
+            group_size: int | None = None, dp=None, tp=None, pod=None):
   """x (B, S, d) -> (y (B, S, d) in x's dtype, aux float32 scalar).
 
   ``p`` is the block's ``moe`` parameters (``init_moe``'s names).  The aux
@@ -189,7 +199,9 @@ def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig, *,
   mean router probability, both over every slot of the groups, padding
   included, as the reference takes them).  ``dp`` is the data group x is
   a shard of (None: x is the whole batch); ``tp`` the rank's place on the
-  model axis (None: every expert whole); see the module docstring."""
+  model axis (None: every expert whole); ``pod`` the pod group the
+  experts are dealt over (``ep_pod``; None: no pod axis); see the module
+  docstring."""
   b, s, d = x.shape
   e = cfg.moe
   n_exp = e.num_experts
@@ -201,29 +213,41 @@ def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig, *,
   cap = r.cap
 
   group = tp.group if tp is not None and tp.experts else None
-  # the experts this rank holds: e0 .. e0 + n_loc - 1 (all but under "ep")
+  seq = tp.group if tp is not None and tp.seq else None
+  # the experts this rank holds: e0 .. e0 + n_loc - 1 (all but under "ep"
+  # and, over pods, its pod's), and those it dispatches to (n_disp: every
+  # expert over pods, whose rows are exchanged with the owning pod)
   n_loc = p.gate.shape[0]
+  pods = 1 if pod is None else pod.world
+  n_disp = n_loc * pods
   e0 = group.rank * n_loc if group is not None and tp.experts == "ep" else 0
   mine = r.keep
-  if n_loc != n_exp:
-    mine = mine & (r.top_e >= e0) & (r.top_e < e0 + n_loc)
+  if n_disp != n_exp:
+    mine = mine & (r.top_e >= e0) & (r.top_e < e0 + n_disp)
 
   # dispatch: each kept pair's token into row e * cap + rank of its group
-  slot = ((r.top_e - e0).clamp(0, n_loc - 1) * cap
+  slot = ((r.top_e - e0).clamp(0, n_disp - 1) * cap
           + r.rank.clamp_max(cap - 1))                       # (G, Sg, k)
   gi = torch.arange(g, device=x.device)[:, None, None].expand_as(slot)
   si = torch.arange(sg, device=x.device)[None, :, None].expand_as(slot)
-  gk, sk, rows = gi[mine], si[mine], slot[mine]
   xin = enter_group(xg, group)
-  buf = xg.new_zeros((g, n_loc * cap, d))
-  buf[gk, rows] = xin[gk, sk]
-  buf = buf.reshape(g, n_loc, cap, d).transpose(0, 1).reshape(
-      n_loc, g * cap, d)                                     # (E, G*C, d)
+  # every pair is written (fixed shapes, no host read): a dropped pair or
+  # another rank's into a spare last row, which is cut off
+  rows = n_disp * cap
+  buf = xg.new_zeros((g, rows + 1, d))
+  buf[gi, torch.where(mine, slot, rows)] = xin[gi, si]
+  buf = buf[:, :rows]
+  # (G, P, E_loc, C, d): each pod's experts' rows to that pod, every pod's
+  # rows for this rank's experts back, pod-major
+  buf = all_to_all(buf.reshape(g, pods, n_loc, cap, d).transpose(0, 1),
+                   pod)
+  buf = buf.permute(2, 0, 1, 3, 4).reshape(n_loc, pods * g * cap, d)
   h = (F.silu(torch.bmm(buf, p.gate).float()).to(x.dtype)
        * torch.bmm(buf, p.up))
-  out = torch.bmm(h, p.down)                                 # (E, G*C, d)
-  out = out.reshape(n_loc, g, cap, d).transpose(0, 1).reshape(
-      g, n_loc * cap, d)
+  out = torch.bmm(h, p.down)                         # (E_loc, P*G*C, d)
+  out = all_to_all(out.reshape(n_loc, pods, g, cap, d).permute(
+      1, 2, 0, 3, 4).contiguous(), pod)
+  out = out.transpose(0, 1).reshape(g, n_disp * cap, d)
 
   # combine: each token's kept outputs in float32, weighted by its gates
   picked = out[gi, slot].float()                             # (G, Sg, k, d)
@@ -240,8 +264,8 @@ def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig, *,
     if split is not None and group is not None:   # both partial: one sum
       y, shared = y + shared.float(), None
     else:
-      shared = leave_group(shared, split)
-  y = leave_group(y, group).to(x.dtype)
+      shared = leave(shared, split, seq)
+  y = leave(y, group, seq).to(x.dtype)
   if shared is not None:
     y = y + shared
 

@@ -32,7 +32,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (causal_conv1d, dense_init,
                                        enter_group, gather_summed, gelu,
-                                       leave_group, softplus, split_group)
+                                       leave, softplus, split_group)
 
 
 def lru_width(cfg: ModelConfig) -> int:
@@ -127,5 +127,6 @@ def recurrent_block(x: torch.Tensor, p, cfg: ModelConfig, *,
     h1, h_last = rglru_decode_step(xr32[:, 0], r[:, 0], i[:, 0], lam,
                                    cfg.rec.c, decode_state[1])
     h = h1[:, None]
-  return (leave_group((h.to(x.dtype) * gate) @ p.w_out, group),
+  seq = group if tp is not None and tp.seq else None
+  return (leave((h.to(x.dtype) * gate) @ p.w_out, group, seq),
           (conv_new, h_last))

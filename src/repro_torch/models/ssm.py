@@ -33,9 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (causal_conv1d, dense_init,
-                                       enter_group, gather_summed,
-                                       leave_group, rms_norm, softplus,
-                                       split_group)
+                                       enter_group, gather_summed, leave,
+                                       rms_norm, softplus, split_group)
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -215,4 +214,5 @@ def mamba_block(x: torch.Tensor, p, cfg: ModelConfig, *,
   # gated RMSNorm (Mamba-2): norm(y * silu(z)), over the whole d_inner
   y = y * F.silu(z.float())
   y = rms_norm(y.to(x.dtype), norm, cfg.rmsnorm_eps, group)
-  return leave_group(y @ p.w_out, group), (conv_new, h_last)
+  seq = group if tp is not None and tp.seq else None
+  return leave(y @ p.w_out, group, seq), (conv_new, h_last)

@@ -13,12 +13,22 @@ and widths, with caches of its rank's KV heads, SSM heads and recurrent
 channels (``Model.init_cache``): every rank of the model group calls
 ``generate`` on the same request and gets the same tokens, the logits
 whole on every rank (the vocabulary gathered where it is split).
+
+Over data axes (the model's ``dp``, every data axis of its mesh) serving
+follows the reference's ``cache_specs``: a batch of more than one row
+splits by rows, each data rank serving its rows with its own cache (the
+tokens gathered in rank order at the end); a batch of one row splits
+every attention cache by length (``transformer.KVSplit``: a rank keeps
+its slots, the windowed ring's too, and each decode step combines the
+ranks' partial softmax statistics), every rank computing the same
+tokens.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.registry import Model
+from repro_torch.models.transformer import KVSplit
 
 
 def make_serve_fns(model: Model):
@@ -54,8 +64,26 @@ def generate(model: Model, batch: dict, *, steps: int,
   tokens = batch["tokens"]
   b, s = tokens.shape
   max_len = max_len or (s + steps)
+  dp = model.dp
+  if dp is not None and b > 1:   # each data rank its rows, its own cache
+    if b % dp.world:
+      raise ValueError(f"a batch of {b} rows does not split over "
+                       f"{dp.world} data ranks")
+    rows = b // dp.world
+    mine = {k: v[dp.rank * rows:(dp.rank + 1) * rows] for k, v in
+            batch.items()}
+    return dp.all_gather(_generate(model, mine, None, steps, max_len,
+                                   temperature, generator))
+  return _generate(model, batch, None if dp is None else KVSplit(dp), steps,
+                   max_len, temperature, generator)
+
+
+def _generate(model: Model, batch: dict, kv_split, steps: int, max_len: int,
+              temperature: float, generator) -> torch.Tensor:
+  s = batch["tokens"].shape[1]
   memory = model.memory(batch)
-  caches = model.init_cache(b, max_len, memory=memory)
+  caches = model.init_cache(batch["tokens"].shape[0], max_len,
+                            memory=memory, kv_split=kv_split)
   prefill_fn, decode_fn = make_serve_fns(model)
   logits, caches = prefill_fn(batch, caches, memory)
   if temperature > 0.0 and generator is None:

@@ -18,10 +18,11 @@ of ``src/repro/train/checkpoint.py``).
 
 Elastic reshard (the reference's ``shardings=``): ``save`` and
 ``restore`` take a ``launch.mesh.TrainMesh`` and the leaves' specs
-(``specs``: leaf path -> spec, a tuple of one entry a dim; ``tree_specs``
-builds them for ``{"params", "opt"}`` from a model's ``param_specs``, the
-moments following their parameter).  A save under a mesh writes whole
-leaves, each gathered over the axis its spec splits it on; one rank (rank
+(``specs``: leaf path -> spec, a tuple of one entry a dim, FSDP's data
+axes and the pod among them; ``tree_specs`` builds them for ``{"params",
+"opt"}`` from a model's ``param_specs``, the moments following their
+parameter).  A save under a mesh writes whole
+leaves, each gathered over every axis its spec splits it on; one rank (rank
 0) writes, and every rank waits for the atomic publish, so a mesh
 checkpoint and a one-device checkpoint are the same files.  A restore
 under a mesh maps each stored leaf into memory and each rank reads and

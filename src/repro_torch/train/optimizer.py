@@ -16,11 +16,16 @@ global norm: the reference first builds a whole float32 tree of clipped
 gradients (+16.4 GiB at qwen3-4b), and the result is the same because the
 scale is one scalar.
 
-Over a model axis (``group=`` the model group, ``sharded=`` the names of
-the leaves split over it) the global norm sums the squares of the sharded
-leaves over the group, in rank order, and counts the replicated leaves
-once, so every rank clips by the one-device scale.  The moments are
-allocated like their parameter, so they are sharded with it.
+Over a mesh (``mesh=`` a ``launch.mesh.TrainMesh`` and ``axes=`` each
+leaf's split axes, ``Model.norm_axes``: the model axis, FSDP's data axes,
+the pod of ``ep_pod``) the global norm sums each leaf's squares over the
+groups of its split axes, one group after another in the leaf's dim
+order, each in rank order, and counts the replicated leaves once, so
+every rank clips by the same scale.  Over a mesh the squares are
+summed in float64 and the norm cast to float32 once, so how a leaf is
+split does not show in the norm's bits (an FSDP run clips by the scale
+of the run without it); one process keeps the float32 sums.  The moments are allocated like their parameter,
+so they are sharded with it: an FSDP rank steps only its shard.
 """
 from __future__ import annotations
 
@@ -81,23 +86,48 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
   return cfg.lr * warm * frac
 
 
+_SQUARE_CHUNK = 1 << 24   # elements a leaf's float64 squares take at once
+
+
 def _squares(leaves) -> torch.Tensor:
+  """Each leaf's float32 sum of squares, stacked."""
   return torch.stack([torch.sum(torch.square(x.float())) for x in leaves])
 
 
-def global_norm(tree, *, group=None, sharded=frozenset()) -> torch.Tensor:
+def _squares64(leaves) -> torch.Tensor:
+  """The float64 sum of every leaf's float64 sum of squares (a leaf in
+  chunks of ``_SQUARE_CHUNK`` elements, so the float64 copy stays small)."""
+  sums = []
+  for x in leaves:
+    flat = x.reshape(-1)
+    sums.append(torch.stack([torch.sum(torch.square(
+        flat[i:i + _SQUARE_CHUNK].double()))
+        for i in range(0, max(flat.numel(), 1), _SQUARE_CHUNK)]).sum())
+  return torch.stack(sums).sum()
+
+
+def global_norm(tree, *, mesh=None, axes=None) -> torch.Tensor:
   """sqrt of the sum of squares of every leaf (a mapping's values or an
-  iterable of tensors), in float32.  With ``group`` (a model group) the
-  mapping's leaves named in ``sharded`` are the rank's slices: their
-  squares are summed over the group in rank order, the others counted
-  once."""
-  if group is None or group.world == 1 or not sharded:
+  iterable of tensors) in float32.  With ``mesh`` and ``axes`` (leaf
+  name -> the tuple of axes tuples it is split over) the squares are
+  summed in float64, a leaf's over each of its axes' groups in turn, the
+  rest counted once, and the norm cast to float32."""
+  if mesh is None:
     leaves = tree.values() if isinstance(tree, Mapping) else tree
     return torch.sqrt(_squares(leaves).sum())
-  split = _squares([x for n, x in tree.items() if n in sharded]).sum()
-  rest = [x for n, x in tree.items() if n not in sharded]
-  total = group.sum(split)
-  return torch.sqrt(total + _squares(rest).sum() if rest else total)
+  items = (list(tree.items()) if isinstance(tree, Mapping)
+           else list(enumerate(tree)))
+  axes = axes or {}
+  by: dict = {}   # leaves by the axes they cross, in first-seen order
+  for n, x in items:
+    by.setdefault(axes.get(n, ()), []).append(x)
+  total = None
+  for split, leaves in by.items():
+    part = _squares64(leaves)
+    for a in split:
+      part = mesh.group(a).sum(part)
+    total = part if total is None else total + part
+  return torch.sqrt(total).float()
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -122,16 +152,14 @@ def _decay_mask(path: str) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, params, grads: Mapping[str, torch.Tensor],
-                 state: OptState, *, group=None,
-                 sharded=frozenset()) -> dict:
+                 state: OptState, *, mesh=None, axes=None) -> dict:
   """One AdamW step, in place: ``params`` (a module or a name -> tensor
   mapping) and ``state`` are written; ``grads`` maps every parameter name
-  to its gradient (any float dtype).  ``group`` / ``sharded``: the model
-  axis, for the global norm (module docstring).  Returns {"grad_norm"
+  to its gradient (any float dtype).  ``mesh`` / ``axes``: the split
+  leaves, for the global norm (module docstring).  Returns {"grad_norm"
   (before clipping), "lr"} as float32 tensors on the device."""
   params = _named(params)
-  gnorm = global_norm({n: grads[n] for n in params}, group=group,
-                      sharded=sharded)
+  gnorm = global_norm({n: grads[n] for n in params}, mesh=mesh, axes=axes)
   scale = _clip_scale(gnorm, cfg.clip_norm)
   state.step.add_(1)
   lr = schedule(cfg, state.step)

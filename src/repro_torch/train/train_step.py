@@ -19,8 +19,17 @@ used inside a split region; those read by slice come whole out of
 block out of ``enter_group``'s) are summed over the model group, and then
 every gradient is averaged over the data group: the rank-ordered sum in
 float32 divided by D (``ProcessMesh.sum_``, in buckets), written back in
-the gradient's dtype (a bf16 gradient rounds to nearest once).  Every
-replica then makes the same update, bit for bit.  The reported loss, xent
+the gradient's dtype (a bf16 gradient rounds to nearest once).  Over a
+pod axis D is P x D and the mean runs over the data axes a leaf is
+replicated on (``Model.mean_axes``: under ``ep_pod`` the experts' over
+the data group of their pod).  An FSDP leaf's gradient is that mean
+already: the backward pass reduce-scatters each whole leaf gradient to
+the rank's shard as soon as it is done (``Model.fsdp_grad``, the same
+fold: the shard gets the bits the sum would have given it), once a
+microbatch, and the microbatches accumulate shards (rounded to the
+gradient's dtype once a microbatch, so with microbatches their bits are
+not the run without FSDP's).  Every replica then makes the same update,
+bit for bit.  The reported loss, xent
 and aux are the same mean over the data group.  The reference's
 ``compression`` is a separate collective (``train.compression``): its
 ``train_step.py`` names it in a docstring and wires it nowhere, and
@@ -49,12 +58,28 @@ def _layout(model: Model, par, mesh):
 def _data_mean(mesh, metrics: dict) -> dict:
   """The metrics' mean over the data group (one gather), or as they are
   without a data axis."""
-  if mesh is None or mesh.data == 1:
+  if mesh is None or mesh.dp_size == 1:
     return metrics
   names = list(metrics)
   mean = mesh.dp.sum(torch.stack([metrics[n].float() for n in names]),
-                     div=mesh.data)
+                     div=mesh.dp_size)
   return {n: mean[i] for i, n in enumerate(names)}
+
+
+def _data_reduce(model: Model, mesh, grads: dict) -> None:
+  """Every gradient's mean over the data ranks (the rank-ordered float32
+  sum / P x D), over the data axes each leaf is replicated on
+  (``model.mean_axes``), summed in place in buckets
+  (``ProcessMesh.sum_``); an FSDP leaf's shard is that mean already."""
+  div = mesh.dp_size
+  if div == 1:
+    return
+  buckets: dict = {}
+  for n, g in grads.items():
+    if n not in model.fsdp:
+      buckets.setdefault(model.mean_axes[n], []).append(g)
+  for axes, gs in buckets.items():
+    mesh.group(axes).sum_(gs, div=div)
 
 
 def make_train_step(model: Model, opt_cfg: OptConfig,
@@ -74,30 +99,35 @@ def make_train_step(model: Model, opt_cfg: OptConfig,
       p.grad = None
     loss, metrics = model.loss_fn(batch)
     loss.backward()
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+    grads = {n: p.grad for n, p in params.items()}
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
 
   def step(opt_state: OptState, batch: dict) -> dict:
     if microbatches == 1:
-      loss, metrics = grads_of(batch)
-      grads = {n: p.grad for n, p in params.items()}
+      loss, metrics, grads = grads_of(batch)
     else:
-      grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for n, p in params.items()}
-      loss = torch.zeros((), dtype=torch.float32,
-                         device=next(iter(params.values())).device)
+      grads, loss = None, None
       for i in range(microbatches):
-        l, metrics = grads_of({k: v[i] for k, v in batch.items()})
-        for n, p in params.items():
-          grads[n].add_(p.grad.float() / microbatches)
+        l, metrics, g = grads_of({k: v[i] for k, v in batch.items()})
+        if grads is None:
+          grads = {n: torch.zeros(t.shape, dtype=torch.float32,
+                                  device=t.device) for n, t in g.items()}
+          loss = torch.zeros((), dtype=torch.float32, device=l.device)
+        for n, t in g.items():
+          grads[n].add_(t.float() / microbatches)
+        del g
         loss = loss + l / microbatches
     if mesh is not None:
-      if model.partial_leaves:
-        mesh.tp.sum_([grads[n] for n in model.partial_leaves])
-      mesh.dp.sum_(list(grads.values()), div=mesh.data)
+      partial = [grads[n] for n in model.partial_leaves
+                 if n not in model.fsdp]   # (FSDP's are summed already)
+      if partial:
+        mesh.tp.sum_(partial)
+      _data_reduce(model, mesh, grads)
       metrics = _data_mean(mesh, dict(metrics, loss=loss))
       loss = metrics.pop("loss")
-    om = adamw_update(opt_cfg, params, grads, opt_state, group=model.tp,
-                      sharded=model.sharded)
+    om = adamw_update(opt_cfg, params, grads, opt_state, mesh=mesh,
+                      axes=None if mesh is None else model.norm_axes)
     del grads
     for p in params.values():
       p.grad = None

@@ -1716,3 +1716,102 @@ def test_cuda_family_model_axis_step(cuda_device, tmp_path, arch, layout):
                                  atol=2e-3, err_msg=k)
       np.testing.assert_array_equal(got[0][f"mesh/{k}"],
                                     got[1][f"mesh/{k}"], err_msg=k)
+
+
+LAYOUTS_RANK = r'''
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch import no_tf32
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch.mesh import TrainMesh
+from repro_torch.models import Model
+from repro_torch.models.registry import mesh_parallelism
+from repro_torch.models.transformer import KVSplit
+from repro_torch.train import OptConfig, init_opt_state, make_train_step
+
+no_tf32()
+out = sys.argv[1]
+base = TrainMesh.from_env((2, 1), "gloo", "cuda")
+rank = base.rank
+res = {}
+for dev in ("cuda", "cpu"):
+  mesh = TrainMesh.over(2, 1, rank, torch.device(dev), "gloo")
+  g = torch.Generator().manual_seed(4)
+  x = (torch.randn(6, 10, generator=g) + rank).to(dev)
+  for dt in (torch.float32, torch.bfloat16):
+    t = x.to(dt)
+    res[f"{dev}/rs/{dt}"] = mesh.dp.reduce_scatter(t, dim=0, div=2).float(
+        ).cpu().numpy()
+    res[f"{dev}/ag/{dt}"] = mesh.dp.all_gather(t, dim=1).float().cpu().numpy()
+    res[f"{dev}/a2a/{dt}"] = mesh.dp.all_to_all(t).float().cpu().numpy()
+cfg = reduced(get_config("qwen3-4b"))
+oc = OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+toks = torch.tensor(np.random.default_rng(2).integers(
+    0, cfg.vocab, size=(4, 17)), device="cuda")
+batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+         "mask": torch.ones(4, 16, device="cuda")}
+mine = {k: v[rank * 2:(rank + 1) * 2] for k, v in batch.items()}
+mesh = TrainMesh.over(2, 1, rank, torch.device("cuda"), "gloo")
+for tag, kw in (("plain", {}), ("fsdp", dict(fsdp=True, min_fsdp_size=1))):
+  m = Model(cfg, device="cuda", mesh=mesh,
+            par=mesh_parallelism(cfg, mesh, **kw))
+  opt = init_opt_state(m)
+  met = make_train_step(m, oc)(opt, mine)
+  res[f"{tag}/loss"] = met["loss"].cpu().numpy()
+  for n, p in m.state_dict().items():
+    res[f"{tag}/param/{n}"] = mesh.whole(p, m.specs[n]).clone().cpu().numpy()
+for arch, s, steps in (("qwen3-4b", 12, 6), ("recurrentgemma-2b", 20, 24)):
+  cfg = reduced(get_config(arch))
+  t = torch.tensor(np.random.default_rng(1).integers(
+      0, cfg.vocab, size=(1, s + steps)), device="cuda")
+  for who, msh in (("one", None), ("split", mesh)):
+    m = Model(cfg, device="cuda", mesh=msh)
+    caches = m.init_cache(1, s + steps, kv_split=None if msh is None
+                          else KVSplit(msh.dp))
+    lg, caches = m.prefill({"tokens": t[:, :s]}, caches)
+    got = [lg]
+    for j in range(steps):
+      lg, caches = m.decode_step(t[:, s + j:s + j + 1], s + j, caches)
+      got.append(lg)
+    res[f"decode/{arch}/{who}"] = torch.stack(got).cpu().numpy()
+np.savez(f"{out}/rank{rank}.npz", **res)
+base.close()
+'''
+
+
+@pytest.mark.cuda
+def test_cuda_layouts_split_decode_and_fsdp(cuda_device, tmp_path):
+  """2 gloo ranks on the card: the mesh's reduce-scatter, gather and
+  all-to-all on CUDA tensors equal their CPU results bit for bit (float32
+  and bf16); a 2x1 FSDP train step on the card equals the 2x1 step
+  without it bit for bit (reduced qwen3-4b, float32); the batch-1 decode
+  with the cache split by length over the 2 data ranks within 1e-5 of one
+  process on the card (reduced qwen3-4b, recurrentgemma-2b past its
+  window)."""
+  import os
+  import subprocess
+  import sys
+  script = tmp_path / "rank.py"
+  script.write_text(LAYOUTS_RANK)
+  repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+  run = subprocess.run(
+      [sys.executable, "-m", "torch.distributed.run", "--standalone",
+       "--nproc-per-node", "2", str(script), str(tmp_path)], env=env,
+      capture_output=True, text=True, timeout=600)
+  assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+  for r in range(2):
+    got = dict(np.load(tmp_path / f"rank{r}.npz"))
+    for k, v in got.items():
+      if k.startswith("cuda/"):
+        np.testing.assert_array_equal(v, got["cpu/" + k[len("cuda/"):]],
+                                      err_msg=k)
+      if k.startswith("plain/"):
+        np.testing.assert_array_equal(got["fsdp/" + k[len("plain/"):]], v,
+                                      err_msg=k)
+      if k.startswith("decode/") and k.endswith("/split"):
+        _close(torch.tensor(v), torch.tensor(got[k[:-len("split")] + "one"]),
+               1e-5)

@@ -363,8 +363,8 @@ def test_port_imports_neither_jax_nor_reference():
   """In a fresh interpreter, importing every module of the port (the
   selection service's with its query path, the graph-cut path's, the LM
   serving path's, the training path's with its compressed all-reduce,
-  ``obs`` and the process and training meshes of the
-  ``torch.distributed`` backend among them) and the
+  ``obs``, the process and training meshes of the ``torch.distributed``
+  backend, the dry run and the kernels' meta routes among them) and the
   port's examples, examples/active_set_gp_torch.py,
   examples/maxcut_constrained_torch.py, examples/quickstart_torch.py,
   examples/train_with_selection_torch.py and
@@ -395,7 +395,8 @@ for name in ("repro_torch.service.service", "repro_torch.service.store",
              "repro_torch.obs.sidecar", "repro_torch.train",
              "repro_torch.train.optimizer", "repro_torch.train.train_step",
              "repro_torch.train.checkpoint", "repro_torch.launch.train",
-             "repro_torch.launch.mesh", "repro_torch.train.compression"):
+             "repro_torch.launch.mesh", "repro_torch.train.compression",
+             "repro_torch.launch.dryrun", "repro_torch.kernels.meta"):
   assert name in sys.modules, name
 """
   env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

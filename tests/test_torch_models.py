@@ -310,37 +310,50 @@ def _stand_in_mesh(data: int, model: int, rank: int = 0):
 
 
 def test_model_refuses_what_is_not_ported():
-  """What stays refused: a model axis that does not divide the query heads
-  (whisper-tiny's 6 and recurrentgemma-2b's 10 at M = 4), through
-  ``check_supported``, ``check_model_axis``, ``Model`` and the launcher
-  (before it looks for torchrun); the spec-only layouts (``fsdp``,
-  ``seq_shard``, ``ep_pod``, a pod axis), naming ROADMAP.md.  Every family
-  lays out at M = 2 (full and reduced; reduced, each rank's leaves are
-  its slices by ``param_specs``, the experts dealt whole under ``ep``),
-  builds on one device and passes a data-only axis."""
+  """What stays refused: a model axis that divides neither the query heads
+  nor the projections' columns (whisper-tiny's 6 x 64 at M = 5,
+  recurrentgemma-2b's 10 x 256 at M = 3), through ``check_supported``,
+  ``check_model_axis``, ``Model`` and the launcher (before it looks for
+  torchrun); axes the port's meshes lack (a model axis not named "model",
+  data axes other than ("data",) or ("pod", "data")); and a caller's
+  ``Parallelism`` whose mesh-given fields differ from the mesh's.  The
+  layouts that were spec-only (``fsdp``, ``seq_shard``, ``ep_pod``, a pod
+  axis) now pass ``check_supported``; ``ep_pod`` over a mesh without a pod
+  axis raises naming the axis.  Every family lays out at M = 2 (full and
+  reduced; reduced, each rank's leaves are its slices by ``param_specs``,
+  the experts dealt whole under ``ep``), builds on one device and passes a
+  data-only axis."""
   from repro_torch.launch import train as launch_train
   from repro_torch.models import Parallelism
   from repro_torch.models.registry import (check_model_axis, check_supported,
                                            mesh_parallelism, param_shapes)
   archs = ("deepseek-moe-16b", "grok-1-314b", "mamba2-2.7b",
            "recurrentgemma-2b", "llama-3.2-vision-90b", "whisper-tiny")
-  for arch in ("whisper-tiny", "recurrentgemma-2b"):
+  for arch, bad in (("whisper-tiny", 5), ("recurrentgemma-2b", 3)):
     cfg = tconfigs.get_config(arch)
     check_supported(cfg, 2)
+    check_supported(cfg, 4)   # inside the heads: the columns divide
     for check in (check_supported, check_model_axis):
       with pytest.raises(ValueError, match="whole query heads"):
-        check(cfg, 4)
+        check(cfg, bad)
     with pytest.raises(ValueError, match="whole query heads"):
-      launch_train.main(["--arch", arch, "--mesh", "1x4", "--device", "cpu",
-                         "--steps", "1"])
+      launch_train.main(["--arch", arch, "--mesh", f"1x{bad}", "--device",
+                         "cpu", "--steps", "1"])
   base = tconfigs.reduced(tconfigs.get_config("qwen3-4b"))
   for kw in (dict(fsdp=True), dict(seq_shard=True), dict(ep_pod=True),
              dict(dp_axes=("pod", "data"))):
+    check_supported(base, 2, Parallelism(**kw))
+  for kw in (dict(model_axis="tensor"), dict(dp_axes=("replica",))):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
       check_supported(base, 2, Parallelism(**kw))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
       Model(base, device="cpu", par=Parallelism(**kw))
-  with pytest.raises(ValueError, match="only ep"):
+  moe = tconfigs.reduced(tconfigs.get_config("deepseek-moe-16b"))
+  with pytest.raises(ValueError, match="'pod'"):
+    Model(moe, device="cpu", mesh=_stand_in_mesh(1, 2),
+          par=Parallelism(dp_axes=("data",), dp_size=1, model_size=2,
+                          ep_pod=True))
+  with pytest.raises(ValueError, match="caller's to set"):
     Model(base, device="cpu", mesh=_stand_in_mesh(1, 2),
           par=Parallelism(dp_axes=("data",), dp_size=4, model_size=2))
   with pytest.raises(SystemExit, match="torchrun"):

@@ -12,7 +12,8 @@ tests/test_torch_train.py), three steps on batches of 4 x 16.
 
   * data axis (2x1, 4x1): every rank's parameters, losses and grad norms
     equal the stacked twin's bit for bit (each shard's gradient, then
-    ``fold_sum`` in rank order / D, then ``adamw_update``), and the
+    ``fold_sum`` in rank order / D, then ``adamw_update`` with the mesh's
+    float64 norm), and the
     parameters are within tolerance of the reference's full-batch
     ``make_train_step``: 2 x lr per element, 99.9 % within 1e-5, as
     tests/test_torch_train.py holds one process;
@@ -169,7 +170,8 @@ def data_case(rank, world, res, twins):
       grads.append({n: p.grad.clone() for n, p in params.items()})
       stats.append(torch.stack([met["xent"], met["aux"], loss]).detach())
     mean = {n: fold_sum([g[n] for g in grads], D) for n in params}
-    om = adamw_update(OCFG, params, mean, opt)
+    # the norm as a mesh sums it (float64; no leaf is split over D x 1)
+    om = adamw_update(OCFG, params, mean, opt, mesh=mesh)
     twins[f"data/step{t}/loss"] = fold_sum(stats, D)[2].numpy()
     twins[f"data/step{t}/grad_norm"] = om["grad_norm"].numpy()
     params_of(tm, f"data/step{t}", twins)
@@ -668,8 +670,8 @@ def test_mesh_layout_helpers():
   assert mesh.local_shape((4, 6), ("model", None)) == (2, 6)
   one = M.TrainMesh(2, 1, 1, torch.device("cpu"), "gloo", None, None, None)
   assert torch.equal(one.local(full, (None, "model")), full)  # axis of 1
-  with pytest.raises(NotImplementedError, match="one split dim"):
-    mesh.local(full, ("data", "model"))
+  assert torch.equal(mesh.local(full, ("data", "model")), full[2:, 3:])
+  assert mesh.local_shape((4, 6), ("data", "model")) == (2, 3)
   with pytest.raises(ValueError, match="does not split"):
     mesh.local(torch.zeros(3, 2), ("model", None))
 
