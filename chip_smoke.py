@@ -140,7 +140,17 @@ calls, counting each kernel's launches around each path:
     within 2e-2 of the first step's), a profile of one step (GEMMs,
     chunked attention, the xent chunks, the optimizer), and the launcher
     at ``--reduced`` run to step 6 and resumed to 9 in processes of its
-    own.
+    own;
+  * the port's hazard analyzer (phase ``analysis``,
+    ``python -m repro_torch.analysis --ranks 2`` in a process of its own
+    from the build's end, beside the edge phases): every
+    registered entry point (the 16 oracle entries, the GreeDi engines and
+    the service's append / epoch / query calls) run on the CUDA routes
+    under its dispatch mode, host syncs counted by dispatch and by the
+    card's sync debug mode against each entry's budget (T1), no build in
+    a warm call (T4), no float32 matmul under TF32 (T6), the two rank
+    entries over 2 gloo ranks on the card (T2, T7), and the AST layer over
+    the tree: no new finding.
 
 It holds every kernel against its plain version at the shapes those paths
 launch (the flash kernel also at its edges: ragged lengths, every head
@@ -6990,6 +7000,65 @@ DRYRUN_JOBS = 5        # the dry run's processes, beside the smoke's phases
 _DRYRUN = {}
 
 
+_ANALYSIS = {}
+
+
+def analysis_start() -> None:
+  """``python -m repro_torch.analysis --ranks 2`` in a process group of its
+  own from the build's end, beside the edge phases (which time nothing):
+  its sync debug mode and its two gloo ranks stay apart from this
+  process's."""
+  out = REPO / "build" / "smoke_analysis.json"
+  if out.exists():
+    out.unlink()
+  log = open(REPO / "build" / "smoke_analysis.log", "w")
+  _ANALYSIS.update(out=out, log=log, t0=time.perf_counter(),
+                   at_s=time.perf_counter() - STARTED, proc=subprocess.Popen(
+      [sys.executable, "-m", "repro_torch.analysis", str(SRC / "repro_torch"),
+       "--repo-root", str(REPO), "--baseline",
+       str(REPO / "analysis_baseline_torch.json"), "--ranks", "2", "--json",
+       str(out)], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(SRC)),
+      stdout=log, stderr=subprocess.STDOUT, process_group=0))
+
+
+def analysis_stop() -> None:
+  """Stop the analyzer's process group if it still runs (a failed smoke)."""
+  proc = _ANALYSIS.get("proc")
+  if proc is not None and proc.poll() is None:
+    os.killpg(proc.pid, 9)
+    proc.wait()
+
+
+def analysis_phase(timeout: float = 300) -> None:
+  """Wait for the analyzer (phase ``analysis``): every registered entry
+  on the CUDA routes, no new finding; one line with the entries run, the
+  findings, the analyzer's seconds (beside the edge phases, from
+  ``at_s``) and each entry's host syncs a call ([dispatch count, sync
+  debug mode, budget])."""
+  proc = _ANALYSIS["proc"]
+  try:
+    proc.wait(timeout=timeout)
+  except subprocess.TimeoutExpired:
+    analysis_stop()
+    raise SmokeFailure(f"analysis: no end in {timeout} s more")
+  _ANALYSIS["log"].close()
+  wall = time.perf_counter() - _ANALYSIS["t0"]
+  text = (REPO / "build" / "smoke_analysis.log").read_text()
+  check(proc.returncode == 0,
+        f"analysis: exit {proc.returncode}:\n{text[-4000:]}")
+  report = json.loads(_ANALYSIS["out"].read_text())
+  check(not report["new"] and not report["skipped"],
+        f"analysis: {report['new']} {report['skipped']}")
+  entries = report["entries"]
+  check(len(entries) == 31, f"analysis: {len(entries)} entries run")
+  emit("analysis", entries=len(entries), findings=len(report["new"]),
+       suppressed=report["suppressed"], seconds=report["seconds"],
+       wall_s=wall, started_at_s=_ANALYSIS["at_s"],
+       syncs={name: [e["syncs"], e["debug_syncs"], e["budget"]]
+              for name, e in entries.items()},
+       summary=[ln for ln in text.splitlines() if "new finding" in ln][-1])
+
+
 def dryrun_start() -> None:
   """``python -m repro_torch.launch.dryrun --mesh both`` in the background
   (the host only, ``DRYRUN_JOBS`` processes in the idle scheduling class)
@@ -7479,6 +7548,7 @@ def main() -> int:
   emit("build", seconds=time.perf_counter() - t0,
        nvcc_seconds=build.build_seconds)
   dryrun_start()
+  analysis_start()
   for line in build.ptxas_report().splitlines():
     print(f"[smoke] ptxas {line}", flush=True)
 
@@ -7488,6 +7558,7 @@ def main() -> int:
   cov_edge_phase()
   cut_edge_phase()
   flash_edge_phase()
+  analysis_phase()
   e2e_cli_size(sz)
   torch.cuda.empty_cache()
   fl_counts, ref_sel, fast_sel, stacked = e2e_full(sz)
@@ -7649,4 +7720,5 @@ if __name__ == "__main__":
     code = 1
   finally:
     dryrun_stop()
+    analysis_stop()
   sys.exit(code)

@@ -233,16 +233,23 @@ def _prep_liveness(liveness_age, liveness_deadline, m: int, device):
 
   ``liveness_age=None`` means no detection: ages 0 against an infinite
   deadline, so every machine passes and ``straggler_keep`` alone decides.
+  A number deadline is filled in on the device: a tensor made from it on
+  the host would be a blocking copy, one host sync a call.
   """
   if liveness_age is None:
     return (torch.zeros((m,), dtype=torch.float32, device=device),
-            torch.tensor(float("inf"), device=device))
+            torch.full((), float("inf"), dtype=torch.float32, device=device))
   age = torch.as_tensor(liveness_age, device=device).to(torch.float32)
   if age.shape != (m,):
     raise ValueError(f"liveness_age of shape {tuple(age.shape)}, "
                      f"expected ({m},)")
   deadline = float("inf") if liveness_deadline is None else liveness_deadline
-  return age, torch.as_tensor(deadline, device=device).to(torch.float32)
+  if isinstance(deadline, torch.Tensor):
+    return age, deadline.to(device=device, dtype=torch.float32)
+  # filled in float64, then rounded as a float32 tensor made from it would
+  # be (a deadline past the float32 range is +inf)
+  return age, torch.full((), float(deadline), dtype=torch.float64,
+                         device=device).to(torch.float32)
 
 
 def _liveness_collective(age: torch.Tensor, deadline: torch.Tensor,
@@ -445,6 +452,7 @@ def _objective_engine(objective, local_feats: torch.Tensor,
   if eval_mask is None:
     eval_mask = local_feats.new_ones(local_feats.shape[:-1])
   # count in f32: a low-precision mask dtype would round counts past 256
+  # repro: allow(T8): a count of 0/1 mask entries, exact in float32 in any order
   n_live = torch.sum(eval_mask.to(torch.float32), dim=-1)     # (m_local,)
 
   def partial_gains(state):
@@ -976,6 +984,7 @@ def _fast_r1_lazy(s11: torch.Tensor, local_valid: torch.Tensor, kappa: int,
                           (p * tile).clamp_max(npad - 1)[:, None])[:, 0]
       go = (p < nt) & (head >= best)
       _greedy.lazy_syncs += 1
+      # repro: allow(T5): one read-back a rescan pass is the lazy greedy's contract (greedy.lazy_syncs; the entries' sync budgets)
       if not bool(go.any()):
         break
       ids = torch.gather(order, 1, p.clamp_max(nt - 1)[:, None] * tile + ar)

@@ -437,6 +437,7 @@ def _greedy_lazy(objective, state0, cand_feats: torch.Tensor, k_steps: int,
                           (p * tile).clamp_max(npad - 1).unsqueeze(-1))[..., 0]
       go = (p < nt) & (head >= best)
       lazy_syncs += 1
+      # repro: allow(T5): one read-back a rescan pass is the lazy greedy's contract (greedy.lazy_syncs; the entries' sync budgets)
       if not bool(go.any()):
         break
       pos = (p.clamp_max(nt - 1) * tile).unsqueeze(-1) + ar

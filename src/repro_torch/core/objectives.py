@@ -50,6 +50,13 @@ def _kernel_h(kernel_kwargs: tuple) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _sq_norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+  """sum(x * x) over the last axis: each row's squared norm over its
+  features (or over a Cholesky column's k entries)."""
+  # repro: allow(T8): one output per row, never a shard's row sum: the bits do not depend on how many shards one tensor holds (test_cuda_row_norms_layout_independent)
+  return torch.sum(x * x, dim=-1, keepdim=keepdim)
+
+
 def linear_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
   """Dot-product similarity: (..., n, d) x (..., m, d) -> (..., n, m)."""
   return x @ y.transpose(-1, -2)
@@ -58,8 +65,8 @@ def linear_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def rbf_kernel(x: torch.Tensor, y: torch.Tensor,
                h: float = 0.75) -> torch.Tensor:
   """Squared-exponential kernel exp(-|x - y|^2 / h^2) (paper Sec. 3.4.1)."""
-  x2 = torch.sum(x * x, dim=-1, keepdim=True)
-  y2 = torch.sum(y * y, dim=-1, keepdim=True)
+  x2 = _sq_norm(x, keepdim=True)
+  y2 = _sq_norm(y, keepdim=True)
   d2 = torch.clamp_min(x2 - 2.0 * (x @ y.transpose(-1, -2))
                        + y2.transpose(-1, -2), 0.0)
   return torch.exp(-d2 / (h * h))
@@ -68,8 +75,8 @@ def rbf_kernel(x: torch.Tensor, y: torch.Tensor,
 def neg_sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
   """-|x - y|^2, the negated k-means dissimilarity l = d^2 of Sec. 6.1
   (no clamp): (..., n, d) x (..., m, d) -> (..., n, m)."""
-  x2 = torch.sum(x * x, dim=-1, keepdim=True)
-  y2 = torch.sum(y * y, dim=-1, keepdim=True)
+  x2 = _sq_norm(x, keepdim=True)
+  y2 = _sq_norm(y, keepdim=True)
   return -(x2 - 2.0 * (x @ y.transpose(-1, -2)) + y2.transpose(-1, -2))
 
 
@@ -112,8 +119,8 @@ def _sim_column(eval_feats: torch.Tensor, feat: torch.Tensor, kernel: str,
     dot = (eval_feats @ feat.unsqueeze(-1)).squeeze(-1)
   if kernel == "linear":
     return dot
-  x2 = torch.sum(eval_feats * eval_feats, dim=-1)
-  y2 = torch.sum(feat * feat, dim=-1, keepdim=True)
+  x2 = _sq_norm(eval_feats)
+  y2 = _sq_norm(feat, keepdim=True)
   if kernel == "neg_sq_dist":
     return -(x2 - 2.0 * dot + y2)
   d2 = torch.clamp_min(x2 - 2.0 * dot + y2, 0.0)
@@ -140,8 +147,8 @@ def _sim_block(x: torch.Tensor, y: torch.Tensor, kernel: str,
   s = x @ y.transpose(-1, -2)
   if kernel == "linear":
     return s
-  x2 = torch.sum(x * x, dim=-1, keepdim=True)
-  y2 = torch.sum(y * y, dim=-1, keepdim=True).transpose(-1, -2)
+  x2 = _sq_norm(x, keepdim=True)
+  y2 = _sq_norm(y, keepdim=True).transpose(-1, -2)
   if kernel == "neg_sq_dist":
     # -((x2 - 2 s) + y2) is (2 s - x2) - y2 exactly: three passes, not four
     return s.mul_(2.0).sub_(x2).sub_(y2)
@@ -280,6 +287,7 @@ class FacilityLocation:
                    state.eval_mask, state.value.expand(n_part).clone())
 
   def _denom(self, state: FLState) -> torch.Tensor:
+    # repro: allow(T8): a count of 0/1 mask entries, exact in float32 in any order
     return torch.clamp_min(torch.sum(state.eval_mask, dim=-1), 1.0)
 
   def _partial(self, state: FLState, cand_feats: torch.Tensor):
@@ -319,6 +327,7 @@ class FacilityLocation:
     """(sum-of-gains ((P,) nc), live count ((P,))): summing both over shards
     reproduces the global objective exactly."""
     return (self._partial(state, cand_feats),
+            # repro: allow(T8): a count of 0/1 mask entries, exact in float32 in any order
             torch.sum(state.eval_mask, dim=-1))
 
 
@@ -388,6 +397,7 @@ class FacilityLocationPre:
                       state.value.expand(n_part).clone())
 
   def _denom(self, state: FLPreState) -> torch.Tensor:
+    # repro: allow(T8): a count of 0/1 mask entries, exact in float32 in any order
     return torch.clamp_min(torch.sum(state.eval_mask, dim=-1), 1.0)
 
   def gains(self, state: FLPreState, cand_feats: torch.Tensor):
@@ -403,6 +413,7 @@ class FacilityLocationPre:
   def update(self, state: FLPreState, feat: torch.Tensor) -> FLPreState:
     sim = _sim_column(state.eval_feats, feat, self.kernel, self.h)
     new_cov = torch.maximum(state.cov, sim)
+    # repro: allow(T8): FacilityLocationPre has no partial_stats, so no process-mesh engine runs it and no stacked-vs-ranks comparison reaches this sum
     gain = torch.sum((new_cov - state.cov) * state.eval_mask, dim=-1)
     return FLPreState(new_cov, state.sim, state.eval_feats, state.eval_mask,
                       state.value + gain / self._denom(state))
@@ -524,6 +535,7 @@ class SaturatedCoverage:
                        state.value.expand(n_part).clone())
 
   def _denom(self, state: SatCovState) -> torch.Tensor:
+    # repro: allow(T8): a count of 0/1 mask entries, exact in float32 in any order
     return torch.clamp_min(torch.sum(state.eval_mask.float(), dim=-1), 1.0)
 
   def _partial(self, state: SatCovState, cand_feats: torch.Tensor):
@@ -566,6 +578,7 @@ class SaturatedCoverage:
     """(sum-of-gains ((P,) nc), live count ((P,))): summing both over shards
     reproduces the global objective (the round-2 engine's contract)."""
     return (self._partial(state, cand_feats),
+            # repro: allow(T8): a count of 0/1 mask entries, exact in float32 in any order
             torch.sum(state.eval_mask.float(), dim=-1))
 
 
@@ -717,7 +730,7 @@ class _IncrementalCholesky:
                                       upper=False)[..., 0]
     k_vv = self._k(f1, f1)[..., 0, 0]
     diag = torch.sqrt(torch.clamp_min(
-        k_vv + self._ridge - torch.sum(c * c, dim=-1), 1e-12))
+        k_vv + self._ridge - _sq_norm(c), 1e-12))
     row = torch.where(live, c, 0.0)
     row = torch.where(ar == i.unsqueeze(-1), diag.unsqueeze(-1), row)
     at = i.clamp_max(k_max - 1)[..., None, None]
@@ -768,6 +781,7 @@ class InformationGain(_IncrementalCholesky):
       n_live = torch.full(batch, float(ne), dtype=torch.float32,
                           device=eval_feats.device)
     else:
+      # repro: allow(T8): a count of 0/1 mask entries, exact in float32 in any order
       n_live = torch.sum(eval_mask.to(torch.float32), dim=-1)
     return IGShardState(self.init_d(d, device=eval_feats.device,
                                     batch=batch), n_live)
@@ -929,6 +943,7 @@ class GraphCut:
 
   def update(self, state: CutState, feat: torch.Tensor) -> CutState:
     f = feat.to(torch.float32)
+    # repro: allow(T8): graph cut runs stacked only (greedi_reference, greedy), never over a process mesh
     gain = torch.sum(f * self.node_gains(state), dim=-1)
     return CutState(state.w, torch.maximum(state.in_s, f),
                     state.value + gain, state.ind)
@@ -1073,6 +1088,7 @@ class InfoGainPriorBoundMaintainer:
       k_vv = torch.ones(new_rows.shape[:1], dtype=torch.float32,
                         device=new_rows.device)
     else:
+      # repro: allow(T8): a norm over each new row's d features, one output per row (test_cuda_row_norms_layout_independent)
       k_vv = torch.sum(new_rows.float() ** 2, dim=-1)
     sums = 0.5 * torch.log1p(k_vv / self.sigma ** 2) * new_valid.float()
     add = torch.zeros(block_feats.shape[:-1], dtype=torch.float32,

@@ -272,7 +272,7 @@ def _rounds(parent: Path | None, reading, calls: list) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _library(name: str, edits: dict[str, str]):
+def _compile_variant(name: str, edits: dict[str, str]):
   """``csrc/pairwise.cu`` with this checkout's headers (any file named in
   ``edits`` replaced by its text there), built into
   build/kernels/diagnose/<name>; its ``sm90_pairwise``."""
@@ -326,7 +326,7 @@ def split(d: int = 64) -> None:
       "quarter_ffma": {"ring.cuh": loop.replace(
           fma, "acc[i][e] = fmaf(a[e], b[e][e] + b[e + 4][e], acc[i][e]);")},
   }
-  fns = {k: _library(k, v) for k, v in variants.items()}
+  fns = {k: _compile_variant(k, v) for k, v in variants.items()}
   n = shard_rows(d)
   x = unit_rows(0, M, n, d)
   out = torch.empty((M, n, n), device="cuda")

@@ -143,3 +143,78 @@ def resolve_select(name: str, backend: str = "auto") -> Callable:
 def resolve_select_batched(name: str, backend: str = "auto") -> Callable:
   """Map (batched select-oracle name, backend) to the implementation."""
   return _pick(get_select_batched(name), backend)
+
+
+# ---------------------------------------------------------------------------
+# Entry points the hazard analyzer runs (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+#
+# Every production surface -- each oracle family above at representative
+# shapes, the GreeDi engines, the service's append / epoch / query calls --
+# registers a builder here, so ``python -m repro_torch.analysis`` can list
+# and run them without knowing their call conventions.  Builders run
+# lazily (the operands are made only when the analyzer asks), so
+# registration is free at import time.
+
+
+class TraceSpec(NamedTuple):
+  """One call the analyzer runs: ``fn(*args)`` plus its annotations.
+
+  ``args``         concrete tensors (and host values), made from a numpy
+                   seed on the device the analyzer asks for;
+  ``mask_args``    positions of the gid-validity / mask inputs -- the taint
+                   roots of the T3 mask-discipline rule (a position may
+                   hold a tensor the call reads through an object, such as
+                   a store's resident gid column: the taint follows the
+                   storage);
+  ``row_sizes``    padded row-axis sizes of the pad-and-mask blocks in play
+                   (distinct from feature widths, so a size match really
+                   means "a row axis");
+  ``sync_budget``  host syncs one call may make (T1): 0 for every oracle and
+                   append chunk, 1 a query tile, the measured and explained
+                   count for the greedy engines (analysis/entries.py).
+  """
+
+  fn: Callable
+  args: tuple
+  mask_args: tuple[int, ...] = ()
+  row_sizes: tuple[int, ...] = ()
+  sync_budget: int = 0
+
+
+class EntryPoint(NamedTuple):
+  name: str
+  # build(device) -> TraceSpec; build(device, mesh) when needs_ranks > 1
+  build: Callable[..., TraceSpec]
+  needs_ranks: int = 1  # processes of a ProcessMesh the call runs over
+  roots: tuple[str, ...] = ()  # module roots of the code the call runs, for
+                               # the analyzer's --diff reachability pruning
+
+
+_ENTRY_POINTS: dict[str, EntryPoint] = {}
+
+
+def register_entry_point(name: str, build: Callable[..., TraceSpec], *,
+                         needs_ranks: int = 1,
+                         roots: tuple[str, ...] | None = None) -> None:
+  """Register (or replace) an entry point for the analyzer.
+
+  ``build(device)`` returns the entry's ``TraceSpec`` with its operands on
+  ``device``; an entry with ``needs_ranks > 1`` is built on every rank as
+  ``build(device, mesh)`` with that rank's ``launch.mesh.ProcessMesh``.
+  ``roots`` names the modules whose import closure covers the code the
+  entry runs (``repro_torch.analysis.modgraph`` expands it); it defaults
+  to the builder's own module, which is correct whenever the builder lives
+  next to the code it runs.
+  """
+  if roots is None:
+    roots = (getattr(build, "__module__", "") or "",)
+  _ENTRY_POINTS[name] = EntryPoint(name, build, needs_ranks, tuple(roots))
+
+
+def entry_points() -> tuple[EntryPoint, ...]:
+  """All registered entry points (the oracle families register on ops
+  import; the protocol and service entries on
+  ``repro_torch.analysis.entries`` import)."""
+  _ensure_registered()
+  return tuple(sorted(_ENTRY_POINTS.values(), key=lambda e: e.name))

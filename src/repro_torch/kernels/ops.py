@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import colsum as _cs
@@ -191,3 +192,158 @@ dispatch.register_select_batched(
 dispatch.register_select_batched(
     "graph_cut_gain", cuda=_cuda_only(graph_cut_select_batched),
     ref=ref.graph_cut_select_ref, auto=graph_cut_select_batched)
+
+
+# ---------------------------------------------------------------------------
+# entry points of the hazard analyzer (repro_torch.analysis): every oracle
+# family above at the reference's representative shapes and names, with the
+# T3 mask annotations.  Row sizes are distinct from d and from each other so
+# a reduced-axis size match really means "a pad-and-mask row axis".  Each
+# builder resolves "auto", so the card runs the CUDA routes (every kernel of
+# the ten, plus the sieve scan) and the CPU their plain versions.  No oracle
+# reads anything back: every budget is 0 host syncs.
+# ---------------------------------------------------------------------------
+
+_NE, _NC, _AB, _D = 384, 96, 48, 16  # eval rows, candidates, append chunk, d
+# the query-batched select family: a leading batch axis of _B queries,
+# distinct from every row size
+_B = 3
+
+
+class _Operands:
+  """Operands of one entry from a numpy seed, on ``device``."""
+
+  def __init__(self, device, seed: int):
+    self.g = np.random.default_rng(seed)
+    self.dev = torch.device(device)
+
+  def t(self, a, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), device=self.dev).to(dtype)
+
+  def feats(self, *shape) -> torch.Tensor:
+    return self.t(self.g.standard_normal(shape) / np.sqrt(shape[-1]))
+
+  def pos(self, *shape) -> torch.Tensor:
+    return self.t(self.g.uniform(0.0, 0.5, shape))
+
+  def mask(self, *shape, p: float = 0.8) -> torch.Tensor:
+    return self.t(self.g.uniform(size=shape) < p)
+
+  def linv(self, *lead, k: int = 8) -> torch.Tensor:
+    """(..., k, k) inverse Cholesky factors of k x k SPD matrices."""
+    a = self.g.standard_normal((*lead, k, k))
+    spd = a @ np.swapaxes(a, -1, -2) / k + np.eye(k)
+    return self.t(np.linalg.inv(np.linalg.cholesky(spd)))
+
+
+def _ep(name, builder):
+  dispatch.register_entry_point(name, builder)
+
+
+def _spec(fn, args, mask_args=(), row_sizes=()):
+  return dispatch.TraceSpec(fn=fn, args=tuple(args), mask_args=mask_args,
+                            row_sizes=row_sizes, sync_budget=0)
+
+
+def _fl_args(o, batch=None):
+  lead = () if batch is None else (batch,)
+  return (o.feats(_NE, _D), o.feats(_NC, _D), o.pos(*lead, _NE),
+          o.mask(*lead, _NE))
+
+
+_ep("oracle:facility_gain", lambda dev: _spec(
+    dispatch.resolve("facility_gain", "auto"), _fl_args(_Operands(dev, 1)),
+    (3,), (_NE,)))
+
+_ep("select:facility_gain", lambda dev: (lambda o: _spec(
+    dispatch.resolve_select("facility_gain", "auto"),
+    (*_fl_args(o), o.mask(_NC)), (3, 4), (_NE, _NC)))(_Operands(dev, 2)))
+
+_ep("oracle:coverage_gain", lambda dev: (lambda o: _spec(
+    dispatch.resolve("coverage_gain", "auto"),
+    (o.feats(_NE, _D), o.feats(_NC, _D), o.pos(_NE), o.pos(_NE) + 0.5,
+     o.mask(_NE)), (4,), (_NE,)))(_Operands(dev, 3)))
+
+_ep("select:coverage_gain", lambda dev: (lambda o: _spec(
+    dispatch.resolve_select("coverage_gain", "auto"),
+    (o.feats(_NE, _D), o.feats(_NC, _D), o.pos(_NE), o.pos(_NE) + 0.5,
+     o.mask(_NE), o.mask(_NC)), (4, 5), (_NE, _NC)))(_Operands(dev, 4)))
+
+# info-gain's eval-set independence means no row mask on the gain side; the
+# select side masks the candidate axis through cand_ok
+_ep("oracle:info_gain_cond", lambda dev: (lambda o: _spec(
+    dispatch.resolve("info_gain_cond", "auto"),
+    (o.feats(8, _D), o.linv(), o.feats(_NC, _D))))(_Operands(dev, 5)))
+
+_ep("select:info_gain_cond", lambda dev: (lambda o: _spec(
+    dispatch.resolve_select("info_gain_cond", "auto"),
+    (o.feats(8, _D), o.linv(), o.feats(_NC, _D), o.mask(_NC)), (3,),
+    (_NC,)))(_Operands(dev, 6)))
+
+# graph-cut contracts the full adjacency (no pad-and-mask rows at this
+# surface; node_ok only gates the top-1), so T3 has nothing to audit here
+_ep("oracle:graph_cut_gain", lambda dev: (lambda o: _spec(
+    dispatch.resolve("graph_cut_gain", "auto"),
+    (o.pos(_NC, _NC), o.mask(_NC, p=0.3))))(_Operands(dev, 7)))
+
+_ep("select:graph_cut_gain", lambda dev: (lambda o: _spec(
+    dispatch.resolve_select("graph_cut_gain", "auto"),
+    (o.pos(_NC, _NC), o.mask(_NC, p=0.3), o.mask(_NC))))(_Operands(dev, 8)))
+
+# the query-batched select family: per-query state carries a leading batch
+# axis; the row-axis reductions and mask roots are the unbatched oracles'
+_ep("select_batched:facility_gain", lambda dev: (lambda o: _spec(
+    dispatch.resolve_select_batched("facility_gain", "auto"),
+    (*_fl_args(o, _B), o.mask(_B, _NC)), (3, 4), (_NE, _NC)))(
+        _Operands(dev, 9)))
+
+_ep("select_batched:coverage_gain", lambda dev: (lambda o: _spec(
+    dispatch.resolve_select_batched("coverage_gain", "auto"),
+    (o.feats(_NE, _D), o.feats(_NC, _D), o.pos(_B, _NE), o.pos(_NE) + 0.5,
+     o.mask(_B, _NE), o.mask(_B, _NC)), (4, 5), (_NE, _NC)))(
+         _Operands(dev, 10)))
+
+_ep("select_batched:info_gain_cond", lambda dev: (lambda o: _spec(
+    dispatch.resolve_select_batched("info_gain_cond", "auto"),
+    (o.feats(_B, 8, _D), o.linv(_B), o.feats(_NC, _D), o.mask(_B, _NC)),
+    (3,), (_NC,)))(_Operands(dev, 11)))
+
+_ep("select_batched:graph_cut_gain", lambda dev: (lambda o: _spec(
+    dispatch.resolve_select_batched("graph_cut_gain", "auto"),
+    (o.pos(_NC, _NC), o.mask(_B, _NC, p=0.3), o.mask(_B, _NC))))(
+        _Operands(dev, 12)))
+
+_ep("oracle:pairwise", lambda dev: (lambda o: _spec(
+    dispatch.resolve("pairwise", "auto"),
+    (o.feats(_AB, _D), o.feats(_NC, _D))))(_Operands(dev, 13)))
+
+_ep("oracle:bound_update", lambda dev: (lambda o: _spec(
+    dispatch.resolve("bound_update", "auto"),
+    (o.feats(_AB, _D), o.feats(_NE, _D), o.mask(_AB), o.mask(_NE)), (2, 3),
+    (_AB, _NE)))(_Operands(dev, 14)))
+
+
+def _sieve_spec(dev) -> dispatch.TraceSpec:
+  """Admission of one chunk into 4 buckets of 8 slots, half of them
+  filled; sieve admission is per row (a scan over the chunk), its row-axis
+  work is gather / scatter bookkeeping, so only the taint roots matter."""
+  o = _Operands(dev, 15)
+  t, k = 4, 8
+  cnt = np.array([0, 3, 5, 8])
+  sgid = np.where(np.arange(k)[None] < cnt[:, None],
+                  1000 + np.arange(t * k).reshape(t, k), -1)
+  rgids = np.where(o.g.uniform(size=_AB) < 0.9, np.arange(_AB), -1)
+  return _spec(
+      dispatch.resolve("sieve_update", "auto"),
+      (o.feats(_AB, _D), o.pos(_AB) + 0.5, o.t(rgids, torch.int64),
+       o.t(rgids >= 0, torch.bool), o.t(0.25 * 2.0 ** np.arange(t)),
+       o.t(sgid, torch.int64), o.pos(t, k) * o.t(sgid >= 0),
+       o.feats(t, k, _D), o.t(cnt, torch.int64)), (2, 3))
+
+
+_ep("oracle:sieve_update", _sieve_spec)
+
+# head width 32: the smallest the kernel is built for (HEAD_DIMS)
+_ep("oracle:flash_attention", lambda dev: (lambda o: _spec(
+    flash_attention, (o.feats(1, 2, 64, 32), o.feats(1, 2, 64, 32),
+                      o.feats(1, 2, 64, 32))))(_Operands(dev, 16)))

@@ -125,8 +125,8 @@ def _np_sim(a: np.ndarray, b: np.ndarray, kernel: str, h: float) -> np.ndarray:
   b = b.astype(np.float32)
   if kernel == "linear":
     return a @ b.T
-  d2 = np.maximum((a * a).sum(-1)[:, None] - 2.0 * (a @ b.T)
-                  + (b * b).sum(-1)[None, :], 0.0)
+  d2 = np.maximum(np.sum(a * a, axis=-1)[:, None] - 2.0 * (a @ b.T)
+                  + np.sum(b * b, axis=-1)[None, :], 0.0)
   return np.exp(-d2 / (h * h))
 
 
@@ -668,6 +668,7 @@ class CorpusStore:
       raise RuntimeError("sieve disabled on this store")
     out = []
     for x in self._pool:
+      # repro: allow(T5): tests only, a host copy of the six sieve arrays; no serving path calls it
       a = x.cpu().numpy()
       out.append(a.astype(np.int32) if a.dtype == np.int64 else a)
     return tuple(out)
@@ -757,6 +758,7 @@ class CorpusStore:
     ft = sv.feat.reshape(n, self._d)
     linear = self._kernel == "linear"
     if linear:
+      # repro: allow(T8): the pooled sieves have one shape on every rank and in the stacked store
       nsq = torch.clamp_min(torch.sum(ft * ft, dim=-1), 1e-12)
     # masked out: holes, excluded ids, and (growing) the ids picked so far
     blocked = (gt < 0)[None, :] | (gt[None, :, None] == excl[:, None, :]).any(
@@ -923,6 +925,7 @@ class CorpusStore:
                   constant_values=-1)
       g, s, nv = self._exact_tile(*block, self._h2d(kc), self._excl(ec, bq),
                                   k_cap)
+      # repro: allow(T5): one read-back a query tile is the exact tier's contract
       both = torch.cat([g.to(torch.float64), s.to(torch.float64),
                         nv.to(torch.float64)[:, None]], dim=1).cpu().numpy()
       if self._dev.type != "cpu":
@@ -1000,8 +1003,8 @@ class CorpusStore:
               sim = _np_sim(v[None], sfeat[p, :c], self._kernel, self._h)[0]
               if self._kernel == "linear":
                 vsq = max((v.astype(np.float32) ** 2).sum(), 1e-12)
-                msq = np.maximum(
-                    (sfeat[p, :c].astype(np.float32) ** 2).sum(-1), 1e-12)
+                msq = np.maximum(np.sum(
+                    sfeat[p, :c].astype(np.float32) ** 2, axis=-1), 1e-12)
                 sim = np.maximum(sim, 0.0) / np.sqrt(vsq * msq)
               red[p] = max(float(np.max(sim)), 0.0)
           score = float(g) * np.maximum(1.0 - red, 0.0)

@@ -396,7 +396,12 @@ for name in ("repro_torch.service.service", "repro_torch.service.store",
              "repro_torch.train.optimizer", "repro_torch.train.train_step",
              "repro_torch.train.checkpoint", "repro_torch.launch.train",
              "repro_torch.launch.mesh", "repro_torch.train.compression",
-             "repro_torch.launch.dryrun", "repro_torch.kernels.meta"):
+             "repro_torch.launch.dryrun", "repro_torch.kernels.meta",
+             "repro_torch.analysis", "repro_torch.analysis.findings",
+             "repro_torch.analysis.ast_lint",
+             "repro_torch.analysis.trace_check",
+             "repro_torch.analysis.entries", "repro_torch.analysis.modgraph",
+             "repro_torch.analysis.__main__"):
   assert name in sys.modules, name
 """
   env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
